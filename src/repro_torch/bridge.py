@@ -1,0 +1,40 @@
+"""Bridge from a JAX param tree (as numpy arrays) to the port's tree.
+
+The caller converts the JAX tree to numpy first (``jax.tree.map(np.asarray,
+params)``), so this module never imports JAX. Layer-stacked ``[L, ...]``
+leaves under ``layers`` (``repro.models.transformer.init_params``) are
+unstacked into the port's per-layer list; quantized leaf dicts unstack
+field by field (``w_int8 [L,K,N]``, ``scale [L,1,N]``, ``act_scale [L]``).
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models.config import ModelConfig, check_supported
+from repro_torch.tree import map_with_path
+
+
+def to_torch(a, device) -> torch.Tensor:
+    """numpy (incl. ml_dtypes bfloat16) -> torch tensor on ``device``."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(np.ascontiguousarray(a).view(np.uint16).copy())
+        return t.view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.ascontiguousarray(a).copy()).to(device)
+
+
+def params_from_jax(tree, cfg: ModelConfig, device: DeviceLike = None) -> Any:
+    """JAX param tree of numpy arrays -> port param tree on ``device``."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+    out = {k: map_with_path(lambda _, a: to_torch(a, dev), v)
+           for k, v in tree.items() if k != "layers"}
+    out["layers"] = [
+        map_with_path(lambda _, a, i=i: to_torch(np.asarray(a)[i], dev),
+                      tree["layers"])
+        for i in range(cfg.n_layers)]
+    return out

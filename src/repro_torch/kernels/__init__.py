@@ -1,0 +1,6 @@
+"""Hopper kernels of the port and their plain PyTorch versions.
+
+Each wrapper takes its plain version for CPU tensors and launches its CUDA
+kernel for CUDA tensors (``csrc/*.cu``, built by ``_build`` at first use);
+``<wrapper>.launches`` counts kernel launches.
+"""

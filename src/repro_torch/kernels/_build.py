@@ -1,0 +1,109 @@
+"""Builds the port's CUDA sources and binds them with ctypes.
+
+Each ``csrc/<name>.cu`` exposes a plain C interface and compiles on its own
+(``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared``) into
+``<repo>/build/repro_torch/lib<name>-<hash>.so`` at first use; the hash
+covers the source and the flags, so an edited source rebuilds. All sources
+compile at once, one ``nvcc`` each. No ``--use_fast_math``: the quantizers
+need IEEE division. Nothing here runs at import time.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict
+
+import torch
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+SOURCES = ("qmatmul", "flash_prefill")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_LOCK = threading.Lock()
+_LIBS: Dict[str, ctypes.CDLL] = {}
+#: compiler output (ptxas registers / shared memory / spills) per source
+BUILD_LOG: Dict[str, str] = {}
+
+P = ctypes.c_void_p
+I = ctypes.c_int
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels build on a host "
+                           "with the CUDA toolkit")
+    return path
+
+
+def _target(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
+
+
+def build_all() -> None:
+    """Compile every source that has no current library, all in parallel."""
+    with _LOCK:
+        todo = [n for n in SOURCES if not _target(n).exists()]
+        if not todo:
+            return
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        nvcc = _nvcc()
+        procs = []
+        for name in todo:
+            tmp = _target(name).with_suffix(f".{os.getpid()}.tmp")
+            procs.append((name, tmp, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        failed = []
+        for name, tmp, proc in procs:       # wait for all before raising
+            BUILD_LOG[name] = proc.communicate()[0]
+            if proc.returncode:
+                failed.append(name)
+            else:
+                os.replace(tmp, _target(name))
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(
+                f"--- {n}.cu ---\n{BUILD_LOG[n]}" for n in failed))
+
+
+def library(name: str) -> ctypes.CDLL:
+    lib = _LIBS.get(name)
+    if lib is None:
+        build_all()
+        with _LOCK:
+            lib = _LIBS.get(name)
+            if lib is None:
+                lib = ctypes.CDLL(str(_target(name)))
+                lib.repro_error_string.argtypes = [I]
+                lib.repro_error_string.restype = ctypes.c_char_p
+                _LIBS[name] = lib
+    return lib
+
+
+def function(lib_name: str, fn_name: str, argtypes) -> ctypes._CFuncPtr:
+    """The C function with its signature declared (pointers and the stream
+    as ``c_void_p`` so 64-bit addresses are never cut)."""
+    fn = getattr(library(lib_name), fn_name)
+    if fn.argtypes is None:
+        fn.argtypes = list(argtypes)
+        fn.restype = I
+    return fn
+
+
+def check(lib_name: str, rc: int, what: str) -> None:
+    if rc:
+        msg = library(lib_name).repro_error_string(rc).decode()
+        raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")
+
+
+def stream_of(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream

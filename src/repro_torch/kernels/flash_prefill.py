@@ -1,0 +1,70 @@
+"""Causal flash prefill: port of
+``repro/kernels/flash_prefill.py::flash_prefill_attention``.
+
+Source note. The TPU kernel walks (batch, kv head, q tile, k tile) in grid
+order, carrying the online-softmax state in VMEM scratch across the
+sequential k axis and skipping tiles above the diagonal. On the H100
+(``csrc/flash_prefill.cu``) blocks run in no order, so each block owns 64
+group-flattened query rows (``r = s * G + g``) of one (batch, kv head) and
+loops over the KV tiles itself up to its last query position, keeping the
+running max, normalizer and accumulator in registers. It computes in f32 on
+the CUDA cores: bound by the causal f32 work (``2 * (hd + dv)`` flops per
+visible (row, key) pair), it stays within rounding of the f32 reference.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.ref import flash_prefill_ref
+
+MAX_HEAD_DIM = 128
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_LIB = "flash_prefill"
+
+
+def _check(q, k, v):
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError("q, k, v must be [B,S,H,D]")
+    b, s, hq, hd = q.shape
+    hkv, dv = k.shape[2], v.shape[3]
+    if k.shape != (b, s, hkv, hd) or v.shape[:3] != (b, s, hkv):
+        raise ValueError(f"shapes q {tuple(q.shape)} k {tuple(k.shape)} "
+                         f"v {tuple(v.shape)} do not match")
+    if hq % hkv:
+        raise ValueError(f"Hq={hq} is not a multiple of Hkv={hkv}")
+    if not (1 <= hd <= MAX_HEAD_DIM and 1 <= dv <= MAX_HEAD_DIM):
+        raise ValueError(f"hd={hd}, dv={dv}: each must be in 1..{MAX_HEAD_DIM}")
+    if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"q/k/v dtypes {q.dtype}/{k.dtype}/{v.dtype}: one of "
+                        "float32, bfloat16 for all three")
+    for name, t in (("k", k), ("v", v)):
+        if t.device != q.device:
+            raise ValueError(f"{name} on {t.device}, q on {q.device}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def flash_prefill(q, k, v):
+    """q [B,S,Hq,hd]; k [B,S,Hkv,hd]; v [B,S,Hkv,dv] -> [B,S,Hq,dv] f32.
+    CPU tensors take the plain version; CUDA tensors launch the kernel."""
+    _check(q, k, v)
+    if q.device.type == "cpu":
+        return flash_prefill_ref(q, k, v)
+    if q.device.type != "cuda":
+        raise ValueError(f"no flash_prefill kernel for {q.device}")
+    b, s, hq, hd = q.shape
+    hkv, dv = k.shape[2], v.shape[3]
+    out = torch.empty((b, s, hq, dv), dtype=torch.float32, device=q.device)
+    fn = _build.function(_LIB, "flash_prefill_fwd", [_build.P, _build.P,
+                         _build.P, _build.I, _build.P, _build.I, _build.I,
+                         _build.I, _build.I, _build.I, _build.I, _build.P])
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _DTYPE_CODE[q.dtype],
+            out.data_ptr(), b, s, hq, hkv, hd, dv, _build.stream_of(q))
+    _build.check(_LIB, rc, "flash_prefill_fwd")
+    flash_prefill.launches += 1
+    return out
+
+
+flash_prefill.launches = 0

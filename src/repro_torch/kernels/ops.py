@@ -1,0 +1,37 @@
+"""Public entry points for the quantized and attention primitives.
+
+``repro_torch.models`` calls these; each dispatches by the device of its
+tensors (plain version on the CPU, hand-written kernel on CUDA). Scales are
+flattened and broadcast to ``[1, N]`` as ``repro/kernels/ops.py`` does.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import dynquant
+from repro_torch.kernels import flash_prefill as _flash
+from repro_torch.kernels import qmatmul
+
+
+def _flatten_scale(w_scale, n: int) -> torch.Tensor:
+    ws = w_scale.to(torch.float32).reshape(1, -1)
+    if ws.shape[1] == 1:
+        ws = ws.expand(1, n)
+    return ws.contiguous()
+
+
+def qmatmul_static(x, w_int8, w_scale, act_scale):
+    ws = _flatten_scale(w_scale, w_int8.shape[1])
+    return qmatmul.qmatmul_static(x, w_int8, ws, act_scale)
+
+
+def qmatmul_dynamic(x, w_int8, w_scale):
+    ws = _flatten_scale(w_scale, w_int8.shape[1])
+    return dynquant.qmatmul_dynamic(x, w_int8, ws)
+
+
+def flash_prefill(q, k, v):
+    """Fused online-softmax causal prefill attention.
+
+    q [B,S,Hq,hd]; k [B,S,Hkv,hd]; v [B,S,Hkv,dv]. Returns [B,S,Hq,dv] f32."""
+    return _flash.flash_prefill(q, k, v)

@@ -1,0 +1,88 @@
+"""Plain PyTorch versions of the ported kernels (same names and positional
+arity as the JAX oracles in ``repro.kernels.ref``).
+
+They run on any device. The kernel wrappers take them for CPU tensors, the
+CPU tests hold them against the JAX kernels, and ``chip_smoke.py`` holds
+the CUDA kernels against them on the card.
+
+Rounding is part of the contract. Codes round half to even
+(``torch.round``), and every constant divides as a same-device tensor:
+``127.0 / t`` in PyTorch is ``t.reciprocal() * 127`` and ``t / 127.0`` on
+CUDA multiplies by the reciprocal, and either can move a .5 quotient to
+the other int8 code.
+"""
+from __future__ import annotations
+
+import torch
+
+NEG_INF = -2.0e38
+
+
+def _const(value: float, like: torch.Tensor) -> torch.Tensor:
+    return torch.full((), value, dtype=torch.float32, device=like.device)
+
+
+def _int8_dot(a_codes: torch.Tensor, b_codes: torch.Tensor) -> torch.Tensor:
+    """Exact int8 x int8 -> integer product, returned as f32 (as the JAX
+    ``int32 -> f32`` cast rounds). float64 holds every partial sum exactly
+    below 2**53, i.e. for any K < 5.5e11, on every device."""
+    return torch.matmul(a_codes.to(torch.float64),
+                        b_codes.to(torch.float64)).to(torch.float32)
+
+
+def quantize_rows_ref(x):
+    """Dynamic per-row activation quantization: (codes int8 [M,K],
+    a_scale f32 [M,1]) with ``round(x * (127 / absmax))`` clipped to
+    +-127 and ``a_scale = absmax / 127``."""
+    xf = x.to(torch.float32)
+    absmax = torch.clamp(xf.abs().amax(dim=1, keepdim=True), min=1e-12)
+    inv = _const(127.0, xf) / absmax
+    codes = torch.clamp(torch.round(xf * inv), -127, 127).to(torch.int8)
+    return codes, absmax / _const(127.0, xf)
+
+
+def quantize_static_ref(x, act_scale):
+    """Static activation quantization: ``round(x * (1 / act_scale))``
+    clipped to +-127 (``repro.kernels.qmatmul`` multiplies by the
+    reciprocal, so this does too)."""
+    xf = x.to(torch.float32)
+    a = torch.as_tensor(act_scale, dtype=torch.float32, device=xf.device)
+    inv = _const(1.0, xf) / a
+    return torch.clamp(torch.round(xf * inv), -127, 127).to(torch.int8)
+
+
+def qmatmul_static_ref(x, w_int8, w_scale, act_scale):
+    """Static w8a8: x [M,K] float; w_int8 [K,N]; w_scale [1,N]; act_scale
+    scalar. Epilogue ``acc * (act_scale * w_scale)``."""
+    codes = quantize_static_ref(x, act_scale)
+    a = torch.as_tensor(act_scale, dtype=torch.float32, device=x.device)
+    return _int8_dot(codes, w_int8) * (a * w_scale.to(torch.float32))
+
+
+def qmatmul_dynamic_ref(x, w_int8, w_scale):
+    """Dynamic w8a8: per-row activation scale computed at run time.
+    Epilogue ``(acc * a_scale) * w_scale``, the order of the TPU kernel
+    (``repro.kernels.dynquant._kernel``)."""
+    codes, a_scale = quantize_rows_ref(x)
+    return _int8_dot(codes, w_int8) * a_scale * w_scale.to(torch.float32)
+
+
+def flash_prefill_ref(q, k, v):
+    """Causal softmax attention from position 0, in f32.
+
+    q [B,S,Hq,hd]; k [B,S,Hkv,hd]; v [B,S,Hkv,dv] -> [B,S,Hq,dv] f32. GQA
+    query head ``h * G + g`` reads kv head ``h``. Scores are
+    ``qk / sqrt(hd)`` masked with ``NEG_INF``, as in the TPU kernel."""
+    b, s, hq, hd = q.shape
+    hkv, dv = k.shape[2], v.shape[3]
+    g = hq // hkv
+    qg = q.to(torch.float32).reshape(b, s, hkv, g, hd)
+    scores = torch.einsum("bskgh,btkh->bkgst", qg, k.to(torch.float32))
+    scores = scores / torch.sqrt(_const(float(hd), scores))
+    pos = torch.arange(s, device=q.device)
+    causal = pos[:, None] >= pos[None, :]
+    scores = torch.where(causal, scores, _const(NEG_INF, scores))
+    p = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
+    p = p / p.sum(dim=-1, keepdim=True)
+    out = torch.einsum("bkgst,btkh->bskgh", p, v.to(torch.float32))
+    return out.reshape(b, s, hq, dv)

@@ -1,0 +1,123 @@
+"""Dense GQA attention: the port of ``repro.models.attention`` for the
+full-attention, fp-KV path.
+
+Prefill goes through the flash-prefill kernel (``kernels.ops.flash_prefill``)
+as ``cfg.opt_flash_prefill`` does by default in the JAX package. Decode over
+the fp cache is a plain masked softmax einsum there, and a plain
+``torch.einsum`` here. The decode cache is updated in place (one
+``[B, 1]`` slot per step) instead of copied, which saves a full cache copy
+per layer per step; callers own the cache they pass in.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import apply_rope, dense_init, linear
+
+NEG_INF = -2.0e38
+
+
+def init_gqa_params(gen: torch.Generator, cfg: ModelConfig) -> dict:
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    dt = cfg.activation_dtype
+    return {
+        "wq": dense_init(gen, (d, cfg.n_heads * hd), dtype=dt),
+        "wk": dense_init(gen, (d, cfg.n_kv_heads * hd), dtype=dt),
+        "wv": dense_init(gen, (d, cfg.n_kv_heads * hd), dtype=dt),
+        "wo": dense_init(gen, (cfg.n_heads * hd, d), dtype=dt),
+    }
+
+
+def _ring_or_pad(t: torch.Tensor, s: int, window: int, pad_to: int):
+    """Prefill K/V [B, S, ...] -> decode cache layout, padded to ``pad_to``
+    slots so decode can append (the ring-buffer branch is not ported)."""
+    if window:
+        raise NotImplementedError(
+            "sliding-window ring caches are ROADMAP Queue 1 item 9")
+    if pad_to > s:
+        pad = torch.zeros((t.shape[0], pad_to - s) + tuple(t.shape[2:]),
+                          dtype=t.dtype, device=t.device)
+        return torch.cat([t, pad], dim=1)
+    return t
+
+
+def gqa_prefill(p, x, positions, cfg: ModelConfig, window: int = 0,
+                pad_to: int = 0):
+    """Returns (out [B,S,d], (k, v) cache [B, max(S, pad_to), Hkv, hd])."""
+    if window or cfg.kv_precision != "fp" or not cfg.opt_flash_prefill:
+        raise NotImplementedError(
+            "only the flash, fp-KV, full-attention prefill is ported "
+            "(ROADMAP Queue 1 items 3 and 9)")
+    from repro_torch.kernels import ops
+
+    b, s, _ = x.shape
+    hd = cfg.resolved_head_dim
+    q = linear(p["wq"], x).reshape(b, s, cfg.n_heads, hd)
+    k = linear(p["wk"], x).reshape(b, s, cfg.n_kv_heads, hd)
+    v = linear(p["wv"], x).reshape(b, s, cfg.n_kv_heads, hd)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    out = ops.flash_prefill(q, k, v).to(x.dtype)
+    out = linear(p["wo"], out.reshape(b, s, cfg.n_heads * hd))
+    return out, (_ring_or_pad(k, s, window, pad_to),
+                 _ring_or_pad(v, s, window, pad_to))
+
+
+def _batched_update(cache: torch.Tensor, update: torch.Tensor, slots):
+    """In-place per-sequence write: cache [B,S,...], update [B,1,...],
+    slots [B]. Slots clamp to the cache as ``dynamic_update_slice`` does."""
+    b, s_cache = cache.shape[:2]
+    rows = torch.arange(b, device=cache.device)
+    cache[rows, slots.clamp(0, s_cache - 1)] = update[:, 0].to(cache.dtype)
+    return cache
+
+
+def decode_positions(pos, b: int, s_cache: int, window: int, device=None):
+    """pos (int or [B] tensor) -> (pos_vec [B], slots_vec [B], k_pos [B,S],
+    valid [B,S]) for a full-attention cache. An int position is filled on
+    ``device`` (no host-to-device copy, so no stream sync)."""
+    if window:
+        raise NotImplementedError(
+            "sliding-window decode is ROADMAP Queue 1 item 9")
+    if isinstance(pos, torch.Tensor):
+        pos_vec = pos.to(torch.int64).expand(b)
+    else:
+        pos_vec = torch.full((b,), int(pos), dtype=torch.int64, device=device)
+    slots = torch.arange(s_cache, device=pos_vec.device)
+    k_pos = slots[None].expand(b, s_cache)
+    valid = (k_pos >= 0) & (k_pos <= pos_vec[:, None])
+    return pos_vec, pos_vec, k_pos, valid
+
+
+def gqa_decode(p, x, cache_kv, pos, cfg: ModelConfig, window: int = 0):
+    """x [B,1,d]; cache_kv (k, v) as returned by gqa_prefill (updated in
+    place); pos: int or per-sequence [B] tensor of positions."""
+    if cfg.kv_precision != "fp":
+        raise NotImplementedError(
+            "int8/int4 KV decode is ROADMAP Queue 1 item 3 (Queue 2 item 8)")
+    b = x.shape[0]
+    hd = cfg.resolved_head_dim
+    k_cache, v_cache = cache_kv
+    s_cache = k_cache.shape[1]
+    pos_vec, slot_vec, _, valid = decode_positions(pos, b, s_cache, window,
+                                                   device=x.device)
+    pos_b = pos_vec[:, None]
+    q = linear(p["wq"], x).reshape(b, 1, cfg.n_heads, hd)
+    k = linear(p["wk"], x).reshape(b, 1, cfg.n_kv_heads, hd)
+    v = linear(p["wv"], x).reshape(b, 1, cfg.n_kv_heads, hd)
+    q = apply_rope(q, pos_b, cfg.rope_theta)
+    k = apply_rope(k, pos_b, cfg.rope_theta)
+    k_cache = _batched_update(k_cache, k, slot_vec)
+    v_cache = _batched_update(v_cache, v, slot_vec)
+
+    hq, hkv = cfg.n_heads, cfg.n_kv_heads
+    qg = q.reshape(b, hkv, hq // hkv, hd)
+    scores = torch.einsum("bkgh,btkh->bkgt", qg, k_cache).to(torch.float32)
+    # constants are filled on the device: a host tensor copy would sync
+    scores = scores / torch.full((), hd, dtype=torch.float32,
+                                 device=x.device).sqrt()
+    scores = scores.masked_fill(~valid[:, None, None, :], NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(v_cache.dtype)
+    out = torch.einsum("bkgt,btkh->bkgh", probs, v_cache)
+    return linear(p["wo"], out.reshape(b, 1, hq * hd)), (k_cache, v_cache)

@@ -1,0 +1,95 @@
+"""Primitive layers: the port of ``repro.models.layers`` (dense path).
+
+``linear`` is quantization-aware: a weight leaf is a tensor, a quantized
+dict from ``repro_torch.core.quant.quantize_tree``
+
+    {"w_int8": int8[K, N], "scale": f32[1, N] or f32[1, 1]}          # dynamic
+    {"w_int8", "scale", "act_scale": f32[]}                          # static
+
+or a calibration observer ``{"w", "obs_id", "obs"}``.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+
+def is_quantized(p) -> bool:
+    return isinstance(p, dict) and ("w_int8" in p or "w_int4" in p)
+
+
+def linear(p, x: torch.Tensor) -> torch.Tensor:
+    """x: [..., K] @ weight [K, N] -> [..., N]; dispatches on quant state."""
+    if isinstance(p, dict) and "obs_id" in p:
+        p["obs"].observe(p["obs_id"], x)            # calibration pass
+        return torch.matmul(x, p["w"].to(x.dtype))
+    if is_quantized(p):
+        grouped = p["scale"].dim() == p.get("w_int8", p.get("w_int4")).dim() + 1
+        if "w_int4" in p or grouped or "zero" in p:
+            raise NotImplementedError(
+                "int4 / per-group / asymmetric weight leaves are ROADMAP "
+                "Queue 1 item 4 (weight-only dequant path)")
+        from repro_torch.kernels import ops
+
+        lead = x.shape[:-1]
+        x2 = x.reshape(-1, x.shape[-1]).contiguous()
+        if "act_scale" in p:
+            y = ops.qmatmul_static(x2, p["w_int8"], p["scale"], p["act_scale"])
+        else:
+            y = ops.qmatmul_dynamic(x2, p["w_int8"], p["scale"])
+        return y.reshape(*lead, -1).to(x.dtype)
+    return torch.matmul(x, p.to(x.dtype))
+
+
+def rms_norm(w: torch.Tensor, x: torch.Tensor, eps: float = 1e-6):
+    dt = x.dtype
+    x = x.to(torch.float32)
+    x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
+    return (x * (1.0 + w.to(torch.float32))).to(dt)
+
+
+def swiglu(wi, wo, x: torch.Tensor) -> torch.Tensor:
+    """Fused gate+up projection: wi [d, 2*ff], wo [ff, d]. ``row_combine``
+    of the JAX package is plain ``linear`` without tensor parallelism."""
+    gu = linear(wi, x)
+    g, u = torch.chunk(gu, 2, dim=-1)
+    return linear(wo, F.silu(g) * u)
+
+
+# ----------------------------------------------------------------------- #
+# RoPE (half-split, computed in f32, cast back)
+# ----------------------------------------------------------------------- #
+def rope_frequencies(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    exponent = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                            device=device) / head_dim
+    return 1.0 / (theta ** exponent)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float):
+    """x: [B, S, H, hd]; positions: [B, S] (or [S])."""
+    hd = x.shape[-1]
+    freqs = rope_frequencies(hd, theta, device=x.device)
+    angles = positions[..., None].to(torch.float32) * freqs
+    cos = torch.cos(angles)[..., None, :]
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ----------------------------------------------------------------------- #
+# Initializers (torch.Generator draws; not the JAX package's numbers)
+# ----------------------------------------------------------------------- #
+def dense_init(gen: torch.Generator, shape, in_axis: int = 0,
+               dtype=torch.bfloat16) -> torch.Tensor:
+    w = torch.randn(shape, generator=gen, dtype=torch.float32,
+                    device=gen.device)
+    return (w / math.sqrt(shape[in_axis])).to(dtype)
+
+
+def embed_init(gen: torch.Generator, shape, dtype=torch.bfloat16):
+    w = torch.randn(shape, generator=gen, dtype=torch.float32,
+                    device=gen.device)
+    return (w * 0.02).to(dtype)

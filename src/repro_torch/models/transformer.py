@@ -1,0 +1,165 @@
+"""Dense decoder: the port of ``repro.models.transformer`` (dense stack).
+
+Param tree (per-layer, not stacked; leaf paths match the JAX tree's with a
+layer index, e.g. ``layers/3/attn/wq``, so quantization and calibration
+regexes select the same leaves)::
+
+    embed [V, d], final_norm [d], unembed [d, V]
+    layers: [ {ln1 [d], attn {wq, wk, wv, wo}, ln2 [d], mlp {wi, wo}} ] * L
+
+Entry points:
+    forward(params, batch, cfg)                  -> (logits, aux)
+    prefill(params, batch, cfg, pad_to, n_valid) -> (logits, cache)
+    decode_step(params, cache, tokens, pos, cfg) -> (logits, cache)
+
+A Python loop over the layers stands in for the JAX ``scan``.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import torch
+
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models import attention as attn
+from repro_torch.models.config import ModelConfig, check_supported
+from repro_torch.models.layers import (dense_init, embed_init, linear,
+                                       rms_norm, swiglu)
+
+
+def _zero_aux(device) -> Dict[str, torch.Tensor]:
+    z = torch.zeros((), dtype=torch.float32, device=device)
+    return {"lb_loss": z, "z_loss": z, "fraction_dropped": z}
+
+
+# ===================================================================== #
+# Init
+# ===================================================================== #
+def _init_block(gen: torch.Generator, cfg: ModelConfig) -> dict:
+    d, dt = cfg.d_model, cfg.activation_dtype
+    return {
+        "ln1": torch.zeros((d,), dtype=dt, device=gen.device),
+        "attn": attn.init_gqa_params(gen, cfg),
+        "ln2": torch.zeros((d,), dtype=dt, device=gen.device),
+        "mlp": {"wi": dense_init(gen, (d, 2 * cfg.d_ff), dtype=dt),
+                "wo": dense_init(gen, (cfg.d_ff, d), dtype=dt)},
+    }
+
+
+def init_params(cfg: ModelConfig, seed: int = 0,
+                device: DeviceLike = None) -> Dict[str, Any]:
+    """Random weights drawn on ``device`` (default: the card) from a
+    ``torch.Generator`` seeded with ``seed``."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    dt = cfg.activation_dtype
+    return {
+        "embed": embed_init(gen, (cfg.vocab_size, cfg.d_model), dt),
+        "final_norm": torch.zeros((cfg.d_model,), dtype=dt, device=dev),
+        "unembed": dense_init(gen, (cfg.d_model, cfg.vocab_size), dtype=dt),
+        "layers": [_init_block(gen, cfg) for _ in range(cfg.n_layers)],
+    }
+
+
+# ===================================================================== #
+# Embedding / head
+# ===================================================================== #
+def _take_embed(leaf, tokens, dtype):
+    """Embedding gather, aware of quantized and observer leaves. int8 rows
+    dequantize after the gather (per-channel scale [1, d])."""
+    if isinstance(leaf, dict) and ("w_int8" in leaf or "w_int4" in leaf):
+        if "w_int4" in leaf or "zero" in leaf \
+                or leaf["scale"].dim() == leaf["w_int8"].dim() + 1:
+            raise NotImplementedError(
+                "int4 / grouped / asymmetric embeddings are ROADMAP Queue 1 "
+                "item 4")
+        rows = leaf["w_int8"][tokens].to(torch.float32)
+        return (rows * leaf["scale"][0]).to(dtype)
+    if isinstance(leaf, dict) and "w" in leaf:
+        leaf = leaf["w"]
+    return leaf[tokens].to(dtype)
+
+
+def embed_inputs(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig):
+    return _take_embed(params["embed"], batch["tokens"], cfg.activation_dtype)
+
+
+def lm_head(params, x, cfg: ModelConfig):
+    x = rms_norm(params["final_norm"], x, cfg.norm_eps)
+    return linear(params["unembed"], x).to(torch.float32)
+
+
+# ===================================================================== #
+# Passes
+# ===================================================================== #
+def _block(lp, x, cfg: ModelConfig, *, mode: str, cache=None,
+           positions=None, pos=None, pad_to: int = 0):
+    h = rms_norm(lp["ln1"], x, cfg.norm_eps)
+    if mode == "decode":
+        a_out, new_cache = attn.gqa_decode(lp["attn"], h, cache, pos, cfg)
+    else:
+        a_out, new_cache = attn.gqa_prefill(lp["attn"], h, positions, cfg,
+                                            pad_to=pad_to)
+    x = x + a_out
+    h2 = rms_norm(lp["ln2"], x, cfg.norm_eps)
+    return x + swiglu(lp["mlp"]["wi"], lp["mlp"]["wo"], h2), new_cache
+
+
+def _backbone(params, x, cfg: ModelConfig, *, mode: str, caches=None,
+              pos=None, pad_to: int = 0):
+    check_supported(cfg)
+    positions = torch.arange(x.shape[1], device=x.device)
+    new = []
+    for i, lp in enumerate(params["layers"]):
+        cache = None if caches is None else caches["layers"][i]
+        x, c = _block(lp, x, cfg, mode=mode, cache=cache, positions=positions,
+                      pos=pos, pad_to=pad_to)
+        new.append(c)
+    return x, {"layers": new}
+
+
+def forward(params, batch, cfg: ModelConfig):
+    """Teacher-forced pass: (logits [B,S,V] f32, aux)."""
+    x = embed_inputs(params, batch, cfg)
+    x, _ = _backbone(params, x, cfg, mode="train")
+    return lm_head(params, x, cfg), _zero_aux(x.device)
+
+
+def prefill(params, batch, cfg: ModelConfig, pad_to: int = 0, n_valid=None):
+    """(logits at the last real position [B,1,V], cache). ``pad_to``
+    reserves cache slots for decode (default: seq + 64). ``n_valid`` marks
+    the real token count when the token axis is bucket-padded: logits come
+    from position ``n_valid - 1`` (clamped into the sequence, as
+    ``dynamic_slice`` does); causal attention keeps the trailing pads out
+    of every real position's context."""
+    x = embed_inputs(params, batch, cfg)
+    if not pad_to:
+        pad_to = x.shape[1] + 64
+    x, caches = _backbone(params, x, cfg, mode="prefill", pad_to=pad_to)
+    if n_valid is None:
+        last = x[:, -1:]
+    else:
+        i = min(max(int(n_valid) - 1, 0), x.shape[1] - 1)
+        last = x[:, i:i + 1]
+    return lm_head(params, last, cfg), caches
+
+
+def decode_step(params, caches, tokens, pos, cfg: ModelConfig):
+    """tokens [B,1]; pos: int or [B] position of this token. The cache is
+    updated in place and returned."""
+    x = embed_inputs(params, {"tokens": tokens}, cfg)
+    x, caches = _backbone(params, x, cfg, mode="decode", caches=caches, pos=pos)
+    return lm_head(params, x, cfg), caches
+
+
+def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
+               device: DeviceLike = None) -> Dict[str, Any]:
+    check_supported(cfg)
+    dev = resolve_device(device)
+    shape = (batch, seq_len, cfg.n_kv_heads, cfg.resolved_head_dim)
+    dt = cfg.activation_dtype
+    return {"layers": [(torch.zeros(shape, dtype=dt, device=dev),
+                        torch.zeros(shape, dtype=dt, device=dev))
+                       for _ in range(cfg.n_layers)]}
