@@ -1,7 +1,8 @@
 """PyTorch/CUDA port of the ``repro`` serving stack for NVIDIA Hopper.
 
-The dense-GQA, fp-KV inference path (config -> params -> int8 variants ->
-``InferenceSession``) runs here with hand-written CUDA kernels for flash
-prefill and the static/dynamic w8a8 GEMMs (``repro_torch.kernels``). The
+The dense-GQA, fp-KV serving path (config -> params -> int8 variants ->
+``InferenceSession`` or the dense / paged ``ContinuousBatchingEngine``)
+runs here with hand-written CUDA kernels for flash prefill, paged decode
+attention and the static/dynamic w8a8 GEMMs (``repro_torch.kernels``). The
 package imports torch and numpy only; it never imports JAX or ``repro``.
 """

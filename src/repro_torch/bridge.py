@@ -5,6 +5,11 @@ params)``), so this module never imports JAX. Layer-stacked ``[L, ...]``
 leaves under ``layers`` (``repro.models.transformer.init_params``) are
 unstacked into the port's per-layer list; quantized leaf dicts unstack
 field by field (``w_int8 [L,K,N]``, ``scale [L,1,N]``, ``act_scale [L]``).
+
+Caches and block pools convert in both directions: the JAX package keeps
+one ``[L, ...]`` leaf per cache field (``{"layers": (k, v)}`` with ``k``
+``[L, B, S, Hkv, hd]`` dense or ``[L, N, bs, Hkv, hd]`` pooled), the port
+one ``(k, v)`` tuple per layer.
 """
 from __future__ import annotations
 
@@ -38,3 +43,31 @@ def params_from_jax(tree, cfg: ModelConfig, device: DeviceLike = None) -> Any:
                       tree["layers"])
         for i in range(cfg.n_layers)]
     return out
+
+
+def to_numpy(t: torch.Tensor) -> np.ndarray:
+    """torch tensor -> numpy on the host; bfloat16 comes back as
+    ``ml_dtypes.bfloat16`` (the dtype JAX arrays convert to)."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes
+
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy()
+
+
+def cache_from_jax(tree, device: DeviceLike = None) -> Any:
+    """JAX cache or pools as numpy (``{"layers": (k, v)}``, leaves
+    ``[L, ...]``) -> the port's ``{"layers": [(k, v), ...]}``."""
+    dev = resolve_device(device)
+    k, v = (np.asarray(a) for a in tree["layers"])
+    return {"layers": [(to_torch(k[i], dev), to_torch(v[i], dev))
+                       for i in range(k.shape[0])]}
+
+
+def cache_to_jax(cache) -> Any:
+    """The port's ``{"layers": [(k, v), ...]}`` -> numpy leaves stacked
+    as the JAX package holds them: ``{"layers": (k [L, ...], v [L, ...])}``."""
+    pairs = cache["layers"]
+    return {"layers": (np.stack([to_numpy(k) for k, _ in pairs]),
+                       np.stack([to_numpy(v) for _, v in pairs]))}

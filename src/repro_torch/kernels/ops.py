@@ -10,6 +10,7 @@ import torch
 
 from repro_torch.kernels import dynquant
 from repro_torch.kernels import flash_prefill as _flash
+from repro_torch.kernels import paged_attn
 from repro_torch.kernels import qmatmul
 
 
@@ -35,3 +36,11 @@ def flash_prefill(q, k, v):
 
     q [B,S,Hq,hd]; k [B,S,Hkv,hd]; v [B,S,Hkv,dv]. Returns [B,S,Hq,dv] f32."""
     return _flash.flash_prefill(q, k, v)
+
+
+def paged_decode(q, k_pool, v_pool, tables, pos):
+    """Paged decode attention over fp block pools.
+
+    q [B,Hkv,G,hd]; pools [N,bs,Hkv,hd]; tables [B,M] int32 (-1 =
+    unallocated); pos [B] int32. Returns [B,Hkv,G,hd] f32."""
+    return paged_attn.paged_decode(q, k_pool, v_pool, tables, pos)

@@ -86,3 +86,62 @@ def flash_prefill_ref(q, k, v):
     p = p / p.sum(dim=-1, keepdim=True)
     out = torch.einsum("bkgst,btkh->bskgh", p, v.to(torch.float32))
     return out.reshape(b, s, hq, dv)
+
+
+RUN_INIT = -1.0e30      # running-max seed of the online-softmax kernels
+
+
+def paged_gather(pool, tables):
+    """pool [N, bs, ...] + tables [B, M] -> contiguous view [B, M*bs, ...].
+    Entries of -1 read block 0 (the reserved trash block) and must be
+    masked by the caller (``paged_valid``)."""
+    g = pool[tables.clamp(min=0).to(torch.int64)]
+    b, m, bs = g.shape[:3]
+    return g.reshape((b, m * bs) + tuple(g.shape[3:]))
+
+
+def paged_valid(tables, pos, block_size: int):
+    """[B, M*bs] mask: slot index <= pos AND the covering block is mapped."""
+    b, m = tables.shape
+    slots = torch.arange(m * block_size, device=tables.device)
+    allocated = (tables >= 0).repeat_interleave(block_size, dim=1)
+    return (slots[None] <= pos.to(torch.int64)[:, None]) & allocated
+
+
+def _paged_bias(tables, pos, block_size: int):
+    """[B, M*bs] additive mask: 0 where valid, NEG_INF elsewhere."""
+    valid = paged_valid(tables, pos, block_size)
+    return torch.where(valid, _const(0.0, valid), _const(NEG_INF, valid))
+
+
+def paged_decode_ref(q, k_pool, v_pool, tables, pos):
+    """Paged decode attention over fp pools, in f32.
+
+    q [B,Hkv,G,hd]; k_pool/v_pool [N,bs,Hkv,hd]; tables [B,M] int32 (-1 =
+    unallocated); pos [B] (the write slot, included) -> [B,Hkv,G,hd] f32.
+    Gathers the blocks into a contiguous view and runs masked softmax
+    attention with scores ``qk / sqrt(hd)``, as the JAX oracle does. Two
+    choices make it the kernel's twin on every row:
+
+    * the row max is floored at ``RUN_INIT``, the kernel's running-max
+      seed: a row with no valid slot (an idle engine slot: all -1, pos 0)
+      then sums to 0 and gives 0/0 = NaN, as the TPU and CUDA kernels do,
+      where the JAX oracle would average the trash block;
+    * masked slots are selected away (scores to ``NEG_INF``, values to 0)
+      instead of biased, so whatever the trash block holds, even NaN
+      written there by an idle row, never reaches a live row.
+
+    On every row with a valid slot and finite pools the result is the JAX
+    oracle's."""
+    hd = q.shape[-1]
+    valid = paged_valid(tables, pos, k_pool.shape[1])[:, None, None, :]
+    kf = paged_gather(k_pool, tables).to(torch.float32)
+    vf = paged_gather(v_pool, tables).to(torch.float32)
+    vf = torch.where(valid[:, 0, 0, :, None, None], vf, _const(0.0, vf))
+    scores = torch.einsum("bkgh,bskh->bkgs", q.to(torch.float32), kf)
+    scores = scores / torch.sqrt(_const(float(hd), scores))
+    scores = torch.where(valid, scores, _const(NEG_INF, scores))
+    m = torch.clamp(scores.amax(dim=-1, keepdim=True), min=RUN_INIT)
+    p = torch.exp(scores - m)
+    p = p / p.sum(dim=-1, keepdim=True)
+    return torch.einsum("bkgs,bskh->bkgh", p, vf)

@@ -1,10 +1,12 @@
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import (
     decode_step,
+    decode_step_paged,
     forward,
     init_cache,
     init_params,
     prefill,
+    prefill_paged,
 )
 
 __all__ = [
@@ -12,6 +14,8 @@ __all__ = [
     "forward",
     "prefill",
     "decode_step",
+    "prefill_paged",
+    "decode_step_paged",
     "init_cache",
     "init_params",
 ]

@@ -121,3 +121,104 @@ def gqa_decode(p, x, cache_kv, pos, cfg: ModelConfig, window: int = 0):
     probs = torch.softmax(scores, dim=-1).to(v_cache.dtype)
     out = torch.einsum("bkgt,btkh->bkgh", probs, v_cache)
     return linear(p["wo"], out.reshape(b, 1, hq * hd)), (k_cache, v_cache)
+
+
+# ----------------------------------------------------------------------- #
+# Paged prefill / decode (block-table cache, fp tier)
+# ----------------------------------------------------------------------- #
+def _count_vec(pos, b: int, device) -> torch.Tensor:
+    """int or [B] tensor -> int64 [B] on ``device``, filled there (no
+    host-to-device copy)."""
+    if isinstance(pos, torch.Tensor):
+        return pos.to(device=device, dtype=torch.int64).expand(b)
+    return torch.full((b,), int(pos), dtype=torch.int64, device=device)
+
+
+def _paged_prefill_slots(tables, n_valid, s: int, block_size: int):
+    """(block ids [B,S], offsets [B,S]) for scattering S prefill positions
+    per sequence through the block table. Positions >= n_valid (bucket
+    padding) and unallocated table entries route to the reserved trash
+    block 0."""
+    b = tables.shape[0]
+    pos_ids = torch.arange(s, device=tables.device)
+    idx = torch.clamp(pos_ids // block_size, max=tables.shape[1] - 1)
+    blk = tables.to(torch.int64)[:, idx]
+    blk = torch.where(pos_ids[None] < n_valid[:, None], blk.clamp(min=0),
+                      torch.zeros_like(blk))
+    off = (pos_ids % block_size)[None].expand(b, s)
+    return blk, off
+
+
+def gqa_prefill_paged(p, x, positions, cache, pos, tables, cfg: ModelConfig):
+    """Cold-path paged prefill: compute the prompt's K/V, attend with the
+    flash kernel, and write the K/V straight into the block pools through
+    the slot's table (in place; the dense cache never materializes).
+    ``pos`` is the valid-token count (int or [B]); padded positions land
+    in the trash block."""
+    if cfg.kv_precision != "fp" or not cfg.opt_flash_prefill:
+        raise NotImplementedError(
+            "only the flash, fp-KV paged prefill is ported (ROADMAP Queue 1 "
+            "item 3, Queue 2 items 6-10)")
+    from repro_torch.kernels import ops
+
+    b, s, _ = x.shape
+    hd = cfg.resolved_head_dim
+    k_pool, v_pool = cache
+    n_valid = _count_vec(pos, b, x.device)
+    q = linear(p["wq"], x).reshape(b, s, cfg.n_heads, hd)
+    k = linear(p["wk"], x).reshape(b, s, cfg.n_kv_heads, hd)
+    v = linear(p["wv"], x).reshape(b, s, cfg.n_kv_heads, hd)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    blk, off = _paged_prefill_slots(tables, n_valid, s, k_pool.shape[1])
+    out = ops.flash_prefill(q, k, v).to(x.dtype)
+    # duplicate (block 0, offset) pairs only ever come from padding
+    k_pool[blk, off] = k.to(k_pool.dtype)
+    v_pool[blk, off] = v.to(v_pool.dtype)
+    out = linear(p["wo"], out.reshape(b, s, cfg.n_heads * hd))
+    return out, (k_pool, v_pool)
+
+
+def paged_write_slots(tables, pos_vec, block_size: int):
+    """(block_id [B], offset [B]) for writing position ``pos`` per sequence.
+    Unallocated entries clamp to the reserved trash block 0 (idle slots
+    write there; block 0 is masked on every read)."""
+    m = tables.shape[1]
+    idx = pos_vec // block_size
+    blk = torch.gather(tables.to(torch.int64), 1,
+                       idx.clamp(max=m - 1)[:, None])[:, 0]
+    # past the table (an idle slot's position keeps counting): the trash
+    # block, as the JAX gather's out-of-range fill gives
+    blk = torch.where(idx < m, blk, torch.zeros_like(blk))
+    return blk.clamp(min=0), pos_vec % block_size
+
+
+def gqa_decode_paged(p, x, cache, pos, tables, cfg: ModelConfig):
+    """x [B,1,d]; cache (k_pool, v_pool) [N,bs,Hkv,hd], updated in place;
+    tables [B,M] int32; pos int or [B]. Writes this token's K/V into its
+    table's block, then reads the whole sequence through the table with
+    the paged-attention kernel."""
+    if cfg.kv_precision != "fp":
+        raise NotImplementedError(
+            "int8/int4 paged decode is ROADMAP Queue 2 items 6 and 9")
+    from repro_torch.kernels import ops
+
+    b = x.shape[0]
+    hd = cfg.resolved_head_dim
+    k_pool, v_pool = cache
+    pos_vec = _count_vec(pos, b, x.device)
+    pos_b = pos_vec[:, None]
+    q = linear(p["wq"], x).reshape(b, 1, cfg.n_heads, hd)
+    k = linear(p["wk"], x).reshape(b, 1, cfg.n_kv_heads, hd)
+    v = linear(p["wv"], x).reshape(b, 1, cfg.n_kv_heads, hd)
+    q = apply_rope(q, pos_b, cfg.rope_theta)
+    k = apply_rope(k, pos_b, cfg.rope_theta)
+    blk, off = paged_write_slots(tables, pos_vec, k_pool.shape[1])
+    k_pool[blk, off] = k[:, 0].to(k_pool.dtype)
+    v_pool[blk, off] = v[:, 0].to(v_pool.dtype)
+    hq, hkv = cfg.n_heads, cfg.n_kv_heads
+    qg = q.reshape(b, hkv, hq // hkv, hd)
+    out = ops.paged_decode(qg, k_pool, v_pool, tables.to(torch.int32),
+                           pos_vec.to(torch.int32))
+    out = out.to(x.dtype).reshape(b, 1, hq * hd)
+    return linear(p["wo"], out), (k_pool, v_pool)

@@ -11,6 +11,8 @@ Entry points:
     forward(params, batch, cfg)                  -> (logits, aux)
     prefill(params, batch, cfg, pad_to, n_valid) -> (logits, cache)
     decode_step(params, cache, tokens, pos, cfg) -> (logits, cache)
+    prefill_paged(params, pools, batch, pos, tables, cfg)    -> (logits, pools)
+    decode_step_paged(params, pools, tokens, pos, tables, cfg) -> (logits, pools)
 
 A Python loop over the layers stands in for the JAX ``scan``.
 """
@@ -95,10 +97,18 @@ def lm_head(params, x, cfg: ModelConfig):
 # Passes
 # ===================================================================== #
 def _block(lp, x, cfg: ModelConfig, *, mode: str, cache=None,
-           positions=None, pos=None, pad_to: int = 0):
+           positions=None, pos=None, pad_to: int = 0, tables=None):
     h = rms_norm(lp["ln1"], x, cfg.norm_eps)
-    if mode == "decode":
+    if mode == "decode" and tables is not None:
+        # paged decode: pooled cache leaves read through block tables
+        a_out, new_cache = attn.gqa_decode_paged(lp["attn"], h, cache, pos,
+                                                 tables, cfg)
+    elif mode == "decode":
         a_out, new_cache = attn.gqa_decode(lp["attn"], h, cache, pos, cfg)
+    elif tables is not None:
+        # paged cold prefill: K/V go straight into the block pools
+        a_out, new_cache = attn.gqa_prefill_paged(lp["attn"], h, positions,
+                                                  cache, pos, tables, cfg)
     else:
         a_out, new_cache = attn.gqa_prefill(lp["attn"], h, positions, cfg,
                                             pad_to=pad_to)
@@ -108,14 +118,16 @@ def _block(lp, x, cfg: ModelConfig, *, mode: str, cache=None,
 
 
 def _backbone(params, x, cfg: ModelConfig, *, mode: str, caches=None,
-              pos=None, pad_to: int = 0):
+              pos=None, pad_to: int = 0, tables=None):
+    """``tables`` (paged prefill / decode) is shared by every layer: block
+    ids are per sequence, not per layer."""
     check_supported(cfg)
     positions = torch.arange(x.shape[1], device=x.device)
     new = []
     for i, lp in enumerate(params["layers"]):
         cache = None if caches is None else caches["layers"][i]
         x, c = _block(lp, x, cfg, mode=mode, cache=cache, positions=positions,
-                      pos=pos, pad_to=pad_to)
+                      pos=pos, pad_to=pad_to, tables=tables)
         new.append(c)
     return x, {"layers": new}
 
@@ -151,6 +163,32 @@ def decode_step(params, caches, tokens, pos, cfg: ModelConfig):
     updated in place and returned."""
     x = embed_inputs(params, {"tokens": tokens}, cfg)
     x, caches = _backbone(params, x, cfg, mode="decode", caches=caches, pos=pos)
+    return lm_head(params, x, cfg), caches
+
+
+def prefill_paged(params, caches, batch, pos, tables, cfg: ModelConfig):
+    """Paged cold prefill: run the prompt once and write every layer's K/V
+    straight into the pools through the per-sequence block table.
+    ``caches`` are the pools (``{"layers": [(k_pool, v_pool), ...]}``,
+    updated in place), ``tables`` [B, max_blocks] int32 (the scheduler
+    allocates the prompt's blocks first) and ``pos`` the valid-token count:
+    the token axis may be bucket-padded, and pad positions write to the
+    trash block. Returns (logits at ``pos - 1`` [B,1,V], pools)."""
+    x = embed_inputs(params, batch, cfg)
+    x, caches = _backbone(params, x, cfg, mode="prefill", caches=caches,
+                          pos=pos, tables=tables)
+    i = min(max(int(pos) - 1, 0), x.shape[1] - 1)
+    return lm_head(params, x[:, i:i + 1], cfg), caches
+
+
+def decode_step_paged(params, caches, tokens, pos, tables, cfg: ModelConfig):
+    """Paged decode step: ``caches`` are the pools (updated in place),
+    ``tables`` the per-sequence block table [B, max_blocks] and ``pos`` the
+    per-sequence positions [B]. Same contract as ``decode_step``
+    otherwise."""
+    x = embed_inputs(params, {"tokens": tokens}, cfg)
+    x, caches = _backbone(params, x, cfg, mode="decode", caches=caches,
+                          pos=pos, tables=tables)
     return lm_head(params, x, cfg), caches
 
 

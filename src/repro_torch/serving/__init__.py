@@ -5,6 +5,25 @@ from repro_torch.serving.engine import (
     RequestQueue,
     interpolated_percentile,
 )
+from repro_torch.serving.kvcache import (
+    BlockAllocator,
+    PagedKVCache,
+    SharedKVPool,
+    blocks_for_budget,
+    hash_prompt_blocks,
+    kv_bytes_per_block,
+    kv_bytes_per_token,
+    paged_supported,
+    pow2_bucket,
+)
+from repro_torch.serving.loadgen import ArrivalTrace, TracedRequest, replay
+from repro_torch.serving.sampling import SamplingParams, sample
+from repro_torch.serving.scheduler import (
+    METRIC_KEYS,
+    ContinuousBatchingEngine,
+    EngineConfig,
+    GenRequest,
+)
 
 __all__ = [
     "InferenceSession",
@@ -12,4 +31,22 @@ __all__ = [
     "Pipeline",
     "RequestQueue",
     "interpolated_percentile",
+    "BlockAllocator",
+    "PagedKVCache",
+    "SharedKVPool",
+    "blocks_for_budget",
+    "hash_prompt_blocks",
+    "kv_bytes_per_block",
+    "kv_bytes_per_token",
+    "paged_supported",
+    "pow2_bucket",
+    "ArrivalTrace",
+    "TracedRequest",
+    "replay",
+    "SamplingParams",
+    "sample",
+    "METRIC_KEYS",
+    "ContinuousBatchingEngine",
+    "EngineConfig",
+    "GenRequest",
 ]

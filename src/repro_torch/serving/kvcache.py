@@ -1,10 +1,52 @@
-"""Prefill bucketing helpers: copies of ``repro.serving.kvcache``'s
-``pow2_bucket`` and ``bucketed_prefill_ok``. The paged KV cache
-(``BlockAllocator``, ``PagedKVCache``) is ROADMAP Queue 1 item 6.
+"""Paged KV cache: the port of ``repro.serving.kvcache`` for the fp tier.
+
+* ``BlockAllocator`` — host-side metadata for a pool of fixed-size token
+  blocks: refcounted sharing (copy-on-write via ``ensure_writable``), a
+  hash-based prefix registry over full prompt blocks, and an LRU
+  "cached-free" list so freed-but-registered blocks survive until memory
+  pressure evicts them. Pure Python, the same as the JAX package's.
+* ``PagedKVCache`` — the device pools plus the block tables. The pools keep
+  the port's per-layer layout, ``{"layers": [(k_pool, v_pool), ...]}`` with
+  each pool ``[N, block_size, Hkv, hd]``, and are written in place (the JAX
+  package replaces them functionally). ``tables`` is rebuilt only when a
+  slot's blocks change, with one host-to-device copy.
+
+The int8/int4 block pools are ROADMAP Queue 2 items 6-10; attaching a
+second engine to one store (``shared=``) and the block export/import of
+the handoff between prefill and decode workers are ROADMAP Queue 1 item
+11; the speculative-decoding rollback (``truncate``) is item 8. Also here:
+copies of ``pow2_bucket`` and ``bucketed_prefill_ok``.
 """
 from __future__ import annotations
 
+import dataclasses
+from collections import OrderedDict, deque
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+import torch
+
+from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.config import ModelConfig
+
+#: table entries below 0 mean "no block allocated"; gathers clamp to the
+#: reserved trash block 0 and mask by position validity.
+NO_BLOCK = -1
+#: block id 0 is reserved: padded scatter writes land there harmlessly and
+#: clamped gathers of unallocated table entries read from it (masked out).
+TRASH_BLOCK = 0
+
+_KV_GROUP = 32      # int4 KV tier: head_dim elements per f16 scale
+
+
+def paged_supported(cfg: ModelConfig) -> Optional[str]:
+    """Why ``cfg`` cannot use the paged cache, or None if it can."""
+    if cfg.arch_type not in ("dense", "moe"):
+        return f"arch_type {cfg.arch_type!r} has non-attention caches"
+    if cfg.window:
+        return "sliding-window attention keeps the dense ring-buffer cache"
+    if cfg.n_codebooks > 1:
+        return "multi-codebook models keep the dense cache"
+    return None
 
 
 def bucketed_prefill_ok(cfg: ModelConfig) -> bool:
@@ -19,3 +61,405 @@ def pow2_bucket(n: int, floor: int = 16) -> int:
     """Next power-of-two >= n (min ``floor``): the shared padding bucket."""
     n = max(int(n), 1)
     return max(floor, 1 << (n - 1).bit_length())
+
+
+def hash_prompt_blocks(tokens: Sequence[int], block_size: int,
+                       salt: Any = None) -> List[int]:
+    """Chained content hashes, one per FULL block of ``tokens``: block i's
+    hash covers tokens[0 : (i+1)*block_size], so equal hashes imply equal
+    prefixes (up to collisions of Python's tuple hash)."""
+    out: List[int] = []
+    h = hash(("kv-prefix", salt))
+    for i in range(len(tokens) // block_size):
+        h = hash((h, tuple(tokens[i * block_size:(i + 1) * block_size])))
+        out.append(h)
+    return out
+
+
+@dataclasses.dataclass
+class AllocatorStats:
+    allocated: int = 0            # total successful alloc() calls
+    evictions: int = 0            # cached blocks dropped for reuse
+    cow_copies: int = 0           # copy-on-write block duplications
+    peak_in_use: int = 0          # high-water mark of referenced blocks
+
+    def reset(self) -> None:
+        self.allocated = self.evictions = self.cow_copies = 0
+        self.peak_in_use = 0
+
+
+class BlockAllocator:
+    """Host-side metadata for ``n_blocks`` fixed-size KV blocks.
+
+    Invariants:
+      * a block is in exactly one of: free list, cached LRU (refcount 0 but
+        hash-registered), or in use (refcount >= 1);
+      * ``lookup`` revives cached blocks (refcount 0 -> 1);
+      * eviction only touches the cached LRU — referenced blocks are never
+        reclaimed (callers preempt requests to create free blocks).
+    """
+
+    def __init__(self, n_blocks: int, block_size: int):
+        if n_blocks < 2:
+            raise ValueError("need >= 2 blocks (block 0 is reserved)")
+        self.n_blocks = n_blocks
+        self.block_size = block_size
+        # block 0 is the reserved trash block — never handed out
+        self._free: deque = deque(range(1, n_blocks))
+        self._ref: List[int] = [0] * n_blocks
+        self._hash: List[Optional[int]] = [None] * n_blocks
+        self._by_hash: Dict[int, int] = {}            # live hash -> block
+        self._cached: "OrderedDict[int, int]" = OrderedDict()  # hash -> block (LRU)
+        self.stats = AllocatorStats()
+
+    # ------------------------------------------------------------- #
+    @property
+    def usable_blocks(self) -> int:
+        return self.n_blocks - 1
+
+    @property
+    def n_free(self) -> int:
+        return len(self._free)
+
+    @property
+    def n_cached(self) -> int:
+        return len(self._cached)
+
+    @property
+    def in_use(self) -> int:
+        return self.usable_blocks - self.n_free - self.n_cached
+
+    def available(self) -> int:
+        """Blocks obtainable without preempting anyone (free + evictable)."""
+        return self.n_free + self.n_cached
+
+    def refcount(self, bid: int) -> int:
+        return self._ref[bid]
+
+    # ------------------------------------------------------------- #
+    def alloc(self) -> Optional[int]:
+        """One fresh block (refcount 1, no hash), or None when exhausted.
+        Prefers truly-free blocks; otherwise evicts the LRU cached block."""
+        if self._free:
+            bid = self._free.popleft()
+        elif self._cached:
+            h, bid = self._cached.popitem(last=False)      # LRU eviction
+            del self._by_hash[h]
+            self._hash[bid] = None
+            self.stats.evictions += 1
+        else:
+            return None
+        self._ref[bid] = 1
+        self.stats.allocated += 1
+        self.stats.peak_in_use = max(self.stats.peak_in_use, self.in_use)
+        return bid
+
+    def retain(self, bid: int) -> int:
+        """refcount++ (sharing an existing block)."""
+        assert self._ref[bid] >= 1, f"retain of unreferenced block {bid}"
+        self._ref[bid] += 1
+        return bid
+
+    def free(self, bid: int) -> None:
+        """refcount--; at zero the block returns to the cached LRU when it
+        carries a registered hash (reusable prefix), else to the free list."""
+        assert self._ref[bid] >= 1, f"double free of block {bid}"
+        self._ref[bid] -= 1
+        if self._ref[bid]:
+            return
+        h = self._hash[bid]
+        if h is not None and self._by_hash.get(h) == bid:
+            self._cached[h] = bid
+        else:
+            if h is not None:
+                self._hash[bid] = None
+            self._free.append(bid)
+
+    # ------------------------------------------------------------- #
+    def register(self, bid: int, h: int) -> None:
+        """Publish ``bid`` as the cached block for prefix hash ``h``. An
+        existing mapping for ``h`` wins (first writer keeps serving the
+        prefix). A block carries at most ONE hash: re-registering a block
+        under a new hash retires its old mapping, so ``lookup(old)`` never
+        attaches content that no longer matches it."""
+        old = self._hash[bid]
+        if old is not None and old != h and self._by_hash.get(old) == bid:
+            del self._by_hash[old]
+            self._hash[bid] = None
+        if h in self._by_hash:
+            return
+        self._by_hash[h] = bid
+        self._hash[bid] = h
+
+    def peek(self, h: int) -> Optional[int]:
+        """Non-mutating prefix probe: the block registered for ``h`` (no
+        refcount bump, no LRU reordering, no stats). Admission sizes a
+        request with it, so a failed probe leaves the allocator unchanged."""
+        return self._by_hash.get(h)
+
+    def lookup(self, h: int) -> Optional[int]:
+        """Prefix hit: returns the block for ``h`` with refcount bumped
+        (reviving it from the cached LRU if needed), else None."""
+        bid = self._by_hash.get(h)
+        if bid is None:
+            return None
+        if self._ref[bid] == 0:
+            self._cached.pop(h, None)                      # revive
+            self._ref[bid] = 1
+            self.stats.peak_in_use = max(self.stats.peak_in_use, self.in_use)
+        else:
+            self._ref[bid] += 1
+        return bid
+
+    def ensure_writable(self, bid: int) -> Tuple[int, bool]:
+        """Copy-on-write: a block shared with other tables (refcount > 1) or
+        published in the prefix registry must not be mutated in place.
+        Returns ``(writable_bid, needs_copy)``; when ``needs_copy`` the
+        caller copies the pool contents from ``bid`` to the new id. The
+        scheduler only shares FULL blocks and decode writes into freshly
+        grown private blocks, so it never needs this today."""
+        if self._ref[bid] == 1 and self._hash[bid] is None:
+            return bid, False
+        new = self.alloc()
+        if new is None:
+            raise MemoryError("no block available for copy-on-write")
+        self.free(bid)
+        self.stats.cow_copies += 1
+        return new, True
+
+    def reset(self) -> None:
+        """Drop every table, hash and cached block (engine warmup uses this
+        so measurement runs start cold)."""
+        self._free = deque(range(1, self.n_blocks))
+        self._ref = [0] * self.n_blocks
+        self._hash = [None] * self.n_blocks
+        self._by_hash.clear()
+        self._cached.clear()
+        self.stats.reset()
+
+
+# ------------------------------------------------------------------ #
+# Device-side pools
+# ------------------------------------------------------------------ #
+def _check_fp_tier(cfg: ModelConfig) -> None:
+    why = paged_supported(cfg)
+    if why is not None:
+        raise ValueError(f"paged KV cache unsupported for {cfg.name}: {why}")
+    if cfg.kv_precision != "fp":
+        raise NotImplementedError(
+            f"KV tier {cfg.kv_precision!r}: int8/int4 block pools are ROADMAP "
+            "Queue 2 items 6-10")
+    if cfg.attention == "mla" or cfg.n_experts:
+        raise NotImplementedError(
+            "MLA and MoE block pools are ROADMAP Queue 1 item 9")
+
+
+def init_paged_pools(cfg: ModelConfig, n_blocks: int, block_size: int,
+                     device: DeviceLike = None) -> Dict[str, Any]:
+    """Zeroed block pools, one ``(k_pool, v_pool)`` pair per layer, each
+    ``[n_blocks, block_size, Hkv, hd]`` in the activation dtype: the dense
+    cache's ``[B, S, Hkv, hd]`` with one shared pool in place of per-slot
+    reservations."""
+    _check_fp_tier(cfg)
+    dev = resolve_device(device)
+    shape = (n_blocks, block_size, cfg.n_kv_heads, cfg.resolved_head_dim)
+    dt = cfg.activation_dtype
+    return {"layers": [(torch.zeros(shape, dtype=dt, device=dev),
+                        torch.zeros(shape, dtype=dt, device=dev))
+                       for _ in range(cfg.n_layers)]}
+
+
+def _pool_tensors(pools) -> List[torch.Tensor]:
+    return [t for pair in pools["layers"] for t in pair]
+
+
+class SharedKVPool:
+    """One allocator plus one set of device pools: the single store of an
+    engine. Several engines sharing one store is ROADMAP Queue 1 item 11."""
+
+    def __init__(self, cfg: ModelConfig, n_blocks: int, block_size: int,
+                 device: DeviceLike = None):
+        self.cfg = cfg
+        self.block_size = block_size
+        self.alloc = BlockAllocator(n_blocks, block_size)
+        self.pools = init_paged_pools(cfg, n_blocks, block_size, device)
+
+    def reset(self) -> None:
+        """Drop all allocator state (the engine must be idle)."""
+        self.alloc.reset()
+
+
+class PagedKVCache:
+    """Pools + allocator + block tables for ``n_slots`` decode slots.
+
+    ``tables`` is ``[n_slots, max_blocks]`` int32 on the pools' device
+    (NO_BLOCK where unallocated); the host-side ``slot_blocks`` lists are
+    authoritative and the tensor is rebuilt only after they change, so the
+    decode loop copies nothing to the device on a step that grows no slot."""
+
+    def __init__(self, cfg: ModelConfig, n_slots: int, n_blocks: int,
+                 block_size: int, max_blocks_per_seq: int, *,
+                 shared: Optional[SharedKVPool] = None,
+                 device: DeviceLike = None):
+        if shared is not None:
+            raise NotImplementedError(
+                "attaching a second engine to one KV store is ROADMAP "
+                "Queue 1 item 11")
+        self.cfg = cfg
+        self.n_slots = n_slots
+        self.max_blocks = max_blocks_per_seq
+        self.device = resolve_device(device)
+        self.store = SharedKVPool(cfg, n_blocks, block_size, self.device)
+        self.block_size = self.store.block_size
+        self.alloc = self.store.alloc
+        self.slot_blocks: List[List[int]] = [[] for _ in range(n_slots)]
+        self._tables: Optional[torch.Tensor] = None
+        if self.bytes_per_block * self.alloc.usable_blocks <= 0:
+            raise ValueError("empty paged pool")
+
+    # ------------------------------------------------------------- #
+    @property
+    def pools(self):
+        return self.store.pools
+
+    @pools.setter
+    def pools(self, new) -> None:
+        self.store.pools = new
+
+    @property
+    def bytes_per_block(self) -> int:
+        n = self.alloc.n_blocks
+        return sum(t.numel() * t.element_size() // n
+                   for t in _pool_tensors(self.pools))
+
+    @property
+    def bytes_per_token(self) -> int:
+        return self.bytes_per_block // self.block_size
+
+    def kv_bytes_in_use(self, blocks: Optional[int] = None) -> int:
+        n = self.alloc.in_use if blocks is None else blocks
+        return n * self.bytes_per_block
+
+    @property
+    def tables(self) -> torch.Tensor:
+        if self._tables is None:
+            rows = [blocks + [NO_BLOCK] * (self.max_blocks - len(blocks))
+                    for blocks in self.slot_blocks]
+            t = torch.tensor(rows, dtype=torch.int32)
+            if self.device.type == "cuda":
+                # pinned source: the copy is queued on the stream without
+                # waiting for the card
+                t = t.pin_memory().to(self.device, non_blocking=True)
+            self._tables = t
+        return self._tables
+
+    def _dirty(self) -> None:
+        self._tables = None
+
+    # ------------------------------------------------------------- #
+    def blocks_for_tokens(self, n_tokens: int) -> int:
+        return -(-n_tokens // self.block_size)
+
+    def attach(self, slot: int, bid: int) -> None:
+        blocks = self.slot_blocks[slot]
+        if len(blocks) >= self.max_blocks:
+            raise MemoryError(f"slot {slot} exceeds max_blocks {self.max_blocks}")
+        blocks.append(bid)
+        self._dirty()
+
+    def grow(self, slot: int) -> bool:
+        """Allocate + attach one block; False when the pool is exhausted
+        (caller preempts a victim and retries)."""
+        bid = self.alloc.alloc()
+        if bid is None:
+            return False
+        self.attach(slot, bid)
+        return True
+
+    def release_slot(self, slot: int) -> None:
+        for bid in self.slot_blocks[slot]:
+            self.alloc.free(bid)
+        self.slot_blocks[slot] = []
+        self._dirty()
+
+    def make_writable(self, slot: int, idx: int) -> None:
+        """Copy-on-write the ``idx``-th block of ``slot`` if it is shared
+        or published; pool contents are copied block to block."""
+        bid = self.slot_blocks[slot][idx]
+        new, copied = self.alloc.ensure_writable(bid)
+        if copied:
+            for t in _pool_tensors(self.pools):
+                t[new].copy_(t[bid])
+            self.slot_blocks[slot][idx] = new
+            self._dirty()
+
+    # ------------------------------------------------------------- #
+    def scatter_prefill(self, slot: int, dense_cache: Any,
+                        n_tokens: int) -> List[int]:
+        """Move a dense batch-1 prefill cache (per-layer ``(k, v)`` of
+        ``[1, S_pad, Hkv, hd]``) into freshly allocated blocks for
+        ``slot``."""
+        need = self.blocks_for_tokens(n_tokens)
+        ids = []
+        for _ in range(need):
+            bid = self.alloc.alloc()
+            if bid is None:
+                for b in ids:
+                    self.alloc.free(b)
+                raise MemoryError("pool exhausted during prefill scatter")
+            ids.append(bid)
+        bs = self.block_size
+        idx = torch.tensor(ids, dtype=torch.int64, device=self.device)
+        for pair, dense in zip(self.pools["layers"], dense_cache["layers"]):
+            for pool, d in zip(pair, dense):
+                rows = d[0, :need * bs]
+                if rows.shape[0] < need * bs:
+                    pad = need * bs - rows.shape[0]
+                    rows = torch.cat([rows, rows.new_zeros(
+                        (pad,) + tuple(rows.shape[1:]))])
+                pool[idx] = rows.reshape((need, bs) + tuple(
+                    rows.shape[1:])).to(pool.dtype)
+        for bid in ids:
+            self.attach(slot, bid)
+        return ids
+
+    def reset(self) -> None:
+        """Engine warmup / teardown: drop every slot, hash and cached
+        block."""
+        self.alloc.reset()
+        self.slot_blocks = [[] for _ in range(self.n_slots)]
+        self._dirty()
+
+
+# ------------------------------------------------------------------ #
+# Sizing helpers (memory accounting)
+# ------------------------------------------------------------------ #
+def kv_bytes_per_token(cfg: ModelConfig) -> int:
+    """Per-token, per-layer KV bytes for ``cfg``'s resolved precision tier:
+    the accounting rule shared by ``kv_bytes_per_block`` and the engine's
+    ``kv_hbm_bytes_per_req``.
+
+        fp     2 * Hkv * hd * itemsize
+        int8   2 * Hkv * (hd + 4)                 payload + per-head f32 scale
+        int4   2 * Hkv * (hd/2 + 2 * n_groups)    nibbles + f16 group scales
+    """
+    hd, hkv = cfg.resolved_head_dim, cfg.n_kv_heads
+    prec = cfg.kv_precision
+    if prec == "int4":
+        return int(2 * hkv * (hd // 2 + 2 * (hd // min(_KV_GROUP, hd))))
+    if prec == "int8":
+        return int(2 * hkv * (hd + 4))
+    itemsize = torch.empty((), dtype=cfg.activation_dtype).element_size()
+    return int(2 * hkv * hd * itemsize)
+
+
+def kv_bytes_per_block(cfg: ModelConfig, block_size: int) -> int:
+    """Per-block bytes across all layers."""
+    return int(cfg.n_layers * block_size * kv_bytes_per_token(cfg))
+
+
+def blocks_for_budget(cfg: ModelConfig, block_size: int,
+                      budget_bytes: int, floor: int = 2) -> int:
+    """How many pool blocks fit a byte budget (>= ``floor`` usable)."""
+    per = kv_bytes_per_block(cfg, block_size)
+    return max(floor + 1, budget_bytes // max(per, 1))

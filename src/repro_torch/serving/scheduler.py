@@ -1,0 +1,687 @@
+"""Continuous batching decode scheduler: the port of
+``repro.serving.scheduler`` in its dense and paged modes.
+
+A fixed pool of ``n_slots`` decode slots shares one batched KV cache; every
+``step()`` decodes ALL occupied slots in one batched decode step with
+per-slot positions. Finished sequences free their slot at once, so new
+requests join mid-flight.
+
+* Chunked prefill: only the first ``prefill_chunk`` prompt tokens run
+  through the batch-1 prefill; the rest of the prompt rides the batched
+  decode step, one token per tick. ``prefill_chunk=0`` prefills whole
+  prompts in one shot.
+* Per-request ``SamplingParams``, seeded per token index; per-slot EOS;
+  streaming through ``on_token``; priority admission and
+  ``max_queue_depth`` rejection, all visible in ``metrics()``.
+* ``paged=True``: K/V live in a block pool behind a ``BlockAllocator``
+  (``repro_torch.serving.kvcache``). Admission is by free blocks; full
+  prompt blocks found in the prefix registry are attached without
+  recompute; cold prompts prefill their full-block prefix straight into
+  fresh blocks and register its hashes; when the pool runs dry the
+  youngest lowest-priority request is preempted and later resumes by
+  re-prefilling prompt + generated tokens.
+
+On the hot loop ``positions`` and ``last_tokens`` are device tensors
+updated in place, and each step takes one ``.tolist()`` of the batched
+argmax (one stream sync per step, not one per slot).
+
+Not ported here: speculative decoding (ROADMAP Queue 1 item 8), tensor
+parallelism (item 10), prefill/decode workers sharing one KV store
+(``submit_prefill``, ``submit_handoff``, ``shared_kv``: item 11), and
+frontend / multi-codebook requests (item 9). Each raises and names its
+item.
+"""
+from __future__ import annotations
+
+import dataclasses
+import heapq
+import time
+from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
+
+import torch
+
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models import (decode_step, decode_step_paged, init_cache,
+                                prefill, prefill_paged)
+from repro_torch.models.config import ModelConfig, check_supported
+from repro_torch.serving.engine import InferenceSession, interpolated_percentile
+from repro_torch.serving.kvcache import (PagedKVCache, blocks_for_budget,
+                                         bucketed_prefill_ok,
+                                         hash_prompt_blocks, paged_supported,
+                                         pow2_bucket)
+from repro_torch.serving.sampling import SamplingParams, sample
+from repro_torch.tree import map_with_path
+
+#: every metrics() call returns exactly these keys (the JAX package's
+#: schema, so reports built on either engine line up)
+METRIC_KEYS = (
+    "completed", "rejected", "queued", "active", "submitted",
+    "decode_steps", "generated_tokens", "prefill_tokens",
+    "mean_ttft_s", "p50_ttft_s", "p90_ttft_s", "p99_ttft_s",
+    "mean_latency_s", "throughput_tok_s",
+    # paged KV cache (zero for dense engines unless noted)
+    "preempted",                 # requests evicted back to the queue
+    "cancelled",                 # requests withdrawn via cancel()
+    "prefix_hit_tokens",         # prompt tokens served from cached blocks
+    "prefix_hit_rate",           # hit tokens / submitted prompt tokens
+    "prompt_tokens_computed",    # prompt tokens actually recomputed
+    "kv_blocks_peak",            # allocator high-water mark (paged)
+    "kv_hbm_bytes_per_req",      # peak cache bytes / n_slots (dense + paged)
+    # tensor-parallel serving (1 and == kv_hbm_bytes_per_req here)
+    "tp",
+    "kv_hbm_bytes_per_req_per_shard",
+    # speculative decoding (always zero here: ROADMAP Queue 1 item 8)
+    "spec_events",
+    "spec_draft_tokens",
+    "spec_accepted_tokens",
+    "acceptance_rate",
+    "accepted_tokens_per_step",
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class EngineConfig:
+    """Engine-level knobs that travel as one value. Only ``tp=1`` is
+    ported (tensor parallelism is ROADMAP Queue 1 item 10); the port
+    dispatches kernels by device, so ``backend`` must stay None."""
+    tp: int = 1
+    tp_combine: str = "exact"
+    backend: Optional[str] = None
+
+
+@dataclasses.dataclass
+class GenRequest:
+    rid: int
+    tokens: torch.Tensor               # [1, S_prompt] on the engine device
+    max_new_tokens: int
+    eos_id: Union[int, Sequence[int]] = -1   # -1: no EOS; tuple: per-codebook
+    out_tokens: Optional[List[int]] = None
+    done: bool = False
+    submitted_at: float = 0.0
+    first_token_at: float = 0.0
+    finished_at: float = 0.0
+    sampling: SamplingParams = dataclasses.field(default_factory=SamplingParams)
+    priority: int = 0
+    on_token: Optional[Callable[["GenRequest", int], None]] = None
+    status: str = "queued"   # queued|rejected|cancelled|prefill|decode|done
+    n_consumed: int = 0                # feed tokens already in the cache
+    # paged engines
+    prefix_hit: int = 0                # prompt tokens attached from cache
+    preemptions: int = 0
+    cache_pos: int = 0                 # next cache write position (host int)
+    _admit_tokens: Optional[torch.Tensor] = None   # resume feed (prompt + gen)
+    _resume_last: Optional[int] = None  # last generated token pre-preemption
+    _block_hashes: Optional[List[int]] = None      # feed hash chain (cached)
+
+    @property
+    def prompt_len(self) -> int:
+        return self.tokens.shape[1]
+
+    @property
+    def feed_tokens(self) -> torch.Tensor:
+        """Tokens driving prefill / decode-tail: the original prompt, or
+        prompt + already-generated tokens after a preemption resume."""
+        return (self._admit_tokens if self._admit_tokens is not None
+                else self.tokens)
+
+    @property
+    def feed_len(self) -> int:
+        return self.feed_tokens.shape[1]
+
+    @property
+    def rejected(self) -> bool:
+        return self.status == "rejected"
+
+
+def _hits_eos(token, eos_id) -> bool:
+    """token: int or [K] list; eos_id: -1 (never), int (codebook 0), or a
+    per-codebook sequence (all codebooks must match)."""
+    if isinstance(eos_id, (list, tuple)):
+        toks = token if isinstance(token, list) else [token]
+        return len(toks) == len(eos_id) and all(
+            t == e for t, e in zip(toks, eos_id))
+    if eos_id < 0:
+        return False
+    first = token[0] if isinstance(token, list) else token
+    return first == eos_id
+
+
+def _unported(what: str, item: int) -> NotImplementedError:
+    return NotImplementedError(f"{what} is ROADMAP Queue 1 item {item}")
+
+
+class ContinuousBatchingEngine:
+    """``model`` is a port ``InferenceSession`` (its device is inherited
+    unless ``device`` is given) or a params tree with ``cfg`` passed
+    separately. ``device=None`` means the card: with no card the engine
+    raises unless ``device='cpu'`` is passed."""
+
+    def __init__(self, model, cfg: Optional[ModelConfig] = None,
+                 n_slots: int = 4, max_len: int = 512, *,
+                 prefill_chunk: int = 0, max_queue_depth: int = 0,
+                 paged: bool = False, block_size: int = 16,
+                 n_blocks: Optional[int] = None,
+                 kv_budget_bytes: Optional[int] = None,
+                 spec=None, tp: int = 1, shared_kv=None,
+                 config: Optional[EngineConfig] = None,
+                 device: DeviceLike = None):
+        if config is not None:
+            if config.backend is not None:
+                raise ValueError(
+                    "the port dispatches kernels by device; it has no "
+                    "backend registry (EngineConfig.backend must be None)")
+            tp = config.tp if tp == 1 else tp
+        if spec is not None:
+            raise _unported("speculative decoding (spec=)", 8)
+        if tp != 1:
+            raise _unported(f"tensor-parallel serving (tp={tp})", 10)
+        if shared_kv is not None:
+            raise _unported("a KV store shared between engines (shared_kv=)",
+                            11)
+        if isinstance(model, InferenceSession):
+            params, cfg = model.params, model.cfg
+            if device is None:
+                device = model.device
+        elif cfg is None:
+            raise TypeError("ContinuousBatchingEngine(params, cfg) requires a "
+                            "ModelConfig when given a raw params tree")
+        else:
+            params = model
+        check_supported(cfg)
+        self.device = resolve_device(device)
+        self.params = map_with_path(
+            lambda _, t: t.to(self.device) if isinstance(t, torch.Tensor)
+            else t, params)
+        self.cfg = cfg
+        self.tp = 1
+        self.n_slots = n_slots
+        self.max_len = max_len
+        self.prefill_chunk = prefill_chunk
+        self.max_queue_depth = max_queue_depth
+        self.paged = paged
+        self._pad_len = max_len
+        dev = self.device
+        self.positions = torch.zeros((n_slots,), dtype=torch.int64, device=dev)
+        self.last_tokens = torch.zeros((n_slots, 1), dtype=torch.int64,
+                                       device=dev)
+        self.active: List[Optional[GenRequest]] = [None] * n_slots
+        self._pending: List[Tuple[int, int, GenRequest]] = []  # heap
+        self.all_requests: List[GenRequest] = []
+        self._next_rid = 0
+        self.steps = 0
+        self.rejected_total = 0
+        self.prefill_tokens = 0        # prompt tokens processed by prefill
+        self.preempted_total = 0
+        self.cancelled_total = 0
+        self.prefix_hit_tokens = 0
+        self.prompt_tokens_computed = 0
+        self.prompt_tokens_submitted = 0
+        if paged:
+            why = paged_supported(cfg)
+            if why is not None:
+                raise ValueError(
+                    f"paged=True unsupported for {cfg.name}: {why} "
+                    "(use the dense compat path)")
+            max_blocks = -(-self._pad_len // block_size)
+            if n_blocks is None:
+                if kv_budget_bytes is not None:
+                    # budget-sized pool, capped at what n_slots max-length
+                    # sequences could ever touch
+                    n_blocks = min(blocks_for_budget(cfg, block_size,
+                                                     kv_budget_bytes),
+                                   n_slots * max_blocks + 1)
+                else:
+                    n_blocks = n_slots * max_blocks + 1
+            self.kv: Optional[PagedKVCache] = PagedKVCache(
+                cfg, n_slots, n_blocks, block_size, max_blocks, device=dev)
+            self.cache = self.kv.pools          # alias: pools ARE the cache
+        else:
+            self.kv = None
+            self.cache = init_cache(cfg, n_slots, self._pad_len, device=dev)
+
+    # ---------------------------------------------------------------- #
+    @property
+    def queue_depth(self) -> int:
+        # cancelled requests stay heap entries until _admit drops them
+        return sum(1 for _, _, r in self._pending if r.status != "cancelled")
+
+    @property
+    def has_work(self) -> bool:
+        return (any(r.status != "cancelled" for _, _, r in self._pending)
+                or any(r is not None for r in self.active))
+
+    def warmup(self, prompt_len: int = 0, max_new_tokens: int = 2) -> None:
+        """Serve one throwaway request, then reset every counter (and, when
+        paged, the allocator), so measurements start cold. ``prompt_len``
+        defaults to the prefill chunk size."""
+        s = prompt_len or self.prefill_chunk or 8
+        self.submit(torch.zeros((1, s), dtype=torch.int64), max_new_tokens)
+        self.run()
+        self.all_requests.clear()
+        self.steps = 0
+        self.prefill_tokens = 0
+        self.rejected_total = 0
+        self.preempted_total = 0
+        self.cancelled_total = 0
+        self.prefix_hit_tokens = 0
+        self.prompt_tokens_computed = 0
+        self.prompt_tokens_submitted = 0
+        if self.paged:
+            self.kv.reset()
+
+    # ---------------------------------------------------------------- #
+    def submit(self, tokens, max_new_tokens: int = 16, frontend_embeds=None,
+               eos_id: Union[int, Sequence[int]] = -1,
+               sampling: Optional[SamplingParams] = None, priority: int = 0,
+               on_token: Optional[Callable] = None) -> GenRequest:
+        """Queue a request (``tokens`` [1, S], any int tensor or array).
+        Higher ``priority`` admits first (FIFO within a level). When the
+        queue already holds ``max_queue_depth`` requests the submission is
+        REJECTED: ``req.status == "rejected"``, never scheduled, counted in
+        ``metrics()["rejected"]``."""
+        if frontend_embeds is not None:
+            raise _unported("frontend (vision/audio) requests", 9)
+        tokens = torch.as_tensor(tokens).to(device=self.device,
+                                            dtype=torch.int64)
+        if tokens.dim() != 2 or tokens.shape[0] != 1:
+            raise ValueError(f"tokens must be [1, S], got {tuple(tokens.shape)}")
+        req = GenRequest(self._next_rid, tokens, max_new_tokens, eos_id,
+                         out_tokens=[],
+                         # repro: allow-wallclock -- TTFT/e2e measure real compute
+                         submitted_at=time.perf_counter(),
+                         sampling=sampling or SamplingParams(),
+                         priority=priority, on_token=on_token)
+        self._next_rid += 1
+        self.all_requests.append(req)
+        if self.max_queue_depth and len(self._pending) >= self.max_queue_depth:
+            req.status = "rejected"
+            self.rejected_total += 1
+            return req
+        if self.paged:
+            # memory-based admission: a request that could NEVER fit the
+            # pool (even alone, every cached block evicted) is rejected now
+            total = req.prompt_len + max_new_tokens
+            if (total > self.max_len
+                    or self.kv.blocks_for_tokens(total) + 1
+                    > self.kv.alloc.usable_blocks):
+                req.status = "rejected"
+                self.rejected_total += 1
+                return req
+        self.prompt_tokens_submitted += req.prompt_len
+        heapq.heappush(self._pending, (-priority, req.rid, req))
+        return req
+
+    def submit_prefill(self, *args, **kwargs):
+        raise _unported("prefill workers (submit_prefill)", 11)
+
+    def submit_handoff(self, *args, **kwargs):
+        raise _unported("decode workers fed by a KV handoff (submit_handoff)",
+                        11)
+
+    def cancel(self, req: GenRequest) -> bool:
+        """Withdraw an unfinished request. Queued entries are marked and
+        lazily dropped from the heap; active ones release their slot (and
+        blocks, in paged mode)."""
+        if req.done or req.status in ("rejected", "cancelled"):
+            return False
+        req.status = "cancelled"
+        slot = next((i for i, r in enumerate(self.active) if r is req), None)
+        if slot is not None:
+            self._release(slot)
+        self.cancelled_total += 1
+        return True
+
+    # ---------------------------------------------------------------- #
+    def _admit(self) -> None:
+        """Prefill the first chunk of pending requests into free slots."""
+        for slot in range(self.n_slots):
+            if self.active[slot] is not None:
+                continue
+            while self._pending and self._pending[0][2].status == "cancelled":
+                heapq.heappop(self._pending)     # lazily drop cancellations
+            if not self._pending:
+                continue
+            if self.paged:
+                if not self._admit_paged(slot):
+                    break        # pool cannot take the head request yet
+            else:
+                _, _, req = heapq.heappop(self._pending)
+                self._admit_dense(slot, req)
+
+    def _pad_tokens(self, batch: dict, cfg: ModelConfig, total: int) -> dict:
+        """Bucket-pad the token axis to a power of two (capped at the cache
+        length), as the JAX engine does to share compiled prefills."""
+        if not bucketed_prefill_ok(cfg):
+            return batch
+        tb = min(pow2_bucket(total), self._pad_len) - cfg.n_frontend_tokens
+        t = batch["tokens"]
+        if t.shape[1] < tb:
+            batch = dict(batch)
+            batch["tokens"] = torch.nn.functional.pad(t, (0, tb - t.shape[1]))
+        return batch
+
+    def _admit_dense(self, slot: int, req: GenRequest) -> None:
+        s = req.prompt_len
+        chunk = min(self.prefill_chunk, s) if self.prefill_chunk else s
+        batch = self._pad_tokens({"tokens": req.tokens[:, :chunk]}, self.cfg,
+                                 chunk)
+        last, single = prefill(self.params, batch, self.cfg,
+                               pad_to=self._pad_len, n_valid=chunk)
+        for (kc, vc), (k1, v1) in zip(self.cache["layers"], single["layers"]):
+            kc[slot:slot + 1].copy_(k1)
+            vc[slot:slot + 1].copy_(v1)
+        self.positions[slot] = chunk
+        req.n_consumed = chunk
+        self.prefill_tokens += chunk
+        self.prompt_tokens_computed += chunk
+        self.active[slot] = req
+        if chunk == s:
+            # whole prompt in cache: prefill logits give the first token
+            nxt = sample(last[0, -1], req.sampling, 0)
+            req.status = "decode"
+            self._record(req, nxt)
+            self._set_last(slot, nxt)
+            if req.done:        # max_new_tokens=1 / EOS on the first token
+                self._release(slot)
+        else:
+            # chunked: the rest of the prompt rides the batched decode step
+            req.status = "prefill"
+            self._set_last(slot, self._prompt_token(req, chunk))
+
+    def _admit_paged(self, slot: int) -> bool:
+        """Admission by free blocks (head of the priority queue only).
+
+        Prefix hits attach the cached full prompt blocks (refcount bump, no
+        recompute) and the tail rides the batched decode step. Cold prompts
+        prefill their full-block prefix straight into fresh blocks and
+        register the hashes; the sub-block tail rides decode, so a later
+        hit replays the cold run's numerics. A *partial* hit whose uncached
+        remainder is longer than 2 blocks is demoted to the cold path (one
+        batched prefill, and the longer chain gets registered). Returns
+        False (head stays queued) when the pool cannot supply the blocks;
+        that probe leaves the allocator unchanged."""
+        kv = self.kv
+        bs = kv.block_size
+        req = self._pending[0][2]
+        tokens = req.feed_tokens
+        s = tokens.shape[1]
+        if req._block_hashes is None:          # one host sync per admission
+            req._block_hashes = hash_prompt_blocks(tokens[0].tolist(), bs)
+        hashes = req._block_hashes
+        n_hit = cached_hits = 0
+        for h in hashes[:(s - 1) // bs]:       # always recompute >= 1 token
+            bid = kv.alloc.peek(h)
+            if bid is None:
+                break
+            n_hit += 1
+            if kv.alloc.refcount(bid) == 0:
+                cached_hits += 1               # revival consumes a cached slot
+        if n_hit and s - n_hit * bs > 2 * bs:
+            n_hit = cached_hits = 0            # long remainder: go cold
+        hit = n_hit * bs
+        if hit:
+            chunk = 0                          # tail rides decode from `hit`
+            cache_tokens = hit
+        else:
+            chunk = ((s - 1) // bs) * bs or s  # full-block prefix (or tiny)
+            cache_tokens = chunk
+        needed = kv.blocks_for_tokens(cache_tokens) - n_hit
+        if kv.alloc.available() - cached_hits < needed + 1:  # +1: decode block
+            return False
+        heapq.heappop(self._pending)
+        for h in hashes[:n_hit]:
+            kv.attach(slot, kv.alloc.lookup(h))
+        req.prefix_hit += hit
+        self.prefix_hit_tokens += hit
+        last = None
+        if chunk:
+            # allocate the prompt's blocks first (the check above guarantees
+            # them), then prefill writes K/V straight into the pools
+            while (len(kv.slot_blocks[slot])
+                   < kv.blocks_for_tokens(cache_tokens)):
+                kv.grow(slot)
+            batch = self._pad_tokens({"tokens": tokens[:, :chunk]}, self.cfg,
+                                     cache_tokens)
+            last, _ = prefill_paged(self.params, kv.pools, batch,
+                                    cache_tokens, kv.tables[slot:slot + 1],
+                                    self.cfg)
+            for i in range(chunk // bs):
+                kv.alloc.register(kv.slot_blocks[slot][i], hashes[i])
+            self.prefill_tokens += chunk
+            # a resume feed appends generated tokens: only the true prompt
+            # portion counts as prompt recompute
+            self.prompt_tokens_computed += min(chunk, req.prompt_len)
+        self.positions[slot] = cache_tokens
+        req.cache_pos = cache_tokens
+        req.n_consumed = hit or chunk
+        self.active[slot] = req
+        if req.n_consumed == s:
+            # whole feed in cache (tiny cold prompt): prefill logits give
+            # the next token, or the pre-preemption token on resume
+            req.status = "decode"
+            if req._resume_last is not None:
+                self._set_last(slot, req._resume_last)
+                req._resume_last = None
+            else:
+                nxt = sample(last[0, -1], req.sampling, 0)
+                self._record(req, nxt)
+                self._set_last(slot, nxt)
+                if req.done:    # max_new_tokens=1 / EOS on the first token
+                    self._release(slot)
+        else:
+            req.status = "prefill"
+            self._set_last(slot, self._prompt_token(req, req.n_consumed))
+        return True
+
+    def _release(self, slot: int) -> None:
+        """Free a slot whose request finished or was cancelled (its blocks
+        drop in paged mode)."""
+        self.active[slot] = None
+        self.positions[slot] = 0
+        if self.paged:
+            self.kv.release_slot(slot)
+
+    # ---------------------------------------------------------------- #
+    def _pick_victim(self) -> Optional[int]:
+        """Slot to preempt under block exhaustion: lowest priority first,
+        youngest (highest rid) within a priority level."""
+        best, best_key = None, None
+        for slot, req in enumerate(self.active):
+            if req is None:
+                continue
+            key = (req.priority, -req.rid)
+            if best_key is None or key < best_key:
+                best, best_key = slot, key
+        return best
+
+    def _preempt(self, slot: int) -> None:
+        """Evict ``slot`` back to the queue, freeing its blocks. On
+        re-admission it re-prefills prompt + generated-so-far and resumes
+        decoding from the pre-preemption token, token-identical to an
+        uninterrupted run (greedy is exact argmax; sampling is seeded per
+        token index)."""
+        req = self.active[slot]
+        gen = req.out_tokens or []
+        if gen:
+            if len(gen) > 1:
+                tail = torch.tensor(gen[:-1], dtype=req.tokens.dtype,
+                                    device=req.tokens.device)[None]
+                req._admit_tokens = torch.cat([req.tokens, tail], dim=1)
+            else:
+                req._admit_tokens = req.tokens
+            req._resume_last = gen[-1]
+        else:
+            req._admit_tokens = None
+            req._resume_last = None
+        req._block_hashes = None               # feed changed: re-hash on admit
+        self.kv.release_slot(slot)
+        self.active[slot] = None
+        self.positions[slot] = 0
+        req.status = "queued"
+        req.n_consumed = 0
+        req.cache_pos = 0
+        req.preemptions += 1
+        self.preempted_total += 1
+        heapq.heappush(self._pending, (-req.priority, req.rid, req))
+
+    def _ensure_blocks(self) -> None:
+        """Grow every active slot's table to cover its next write position,
+        preempting victims when the pool is exhausted."""
+        kv = self.kv
+        bs = kv.block_size
+        for slot in range(self.n_slots):
+            req = self.active[slot]
+            if req is None:
+                continue
+            while req.cache_pos // bs >= len(kv.slot_blocks[slot]):
+                if kv.grow(slot):
+                    continue
+                victim = self._pick_victim()
+                if victim is None:      # unreachable: submit() guards size
+                    raise MemoryError("paged KV pool exhausted with no "
+                                      "preemptible request")
+                self._preempt(victim)
+                if victim == slot:
+                    break               # this slot itself was evicted
+
+    def _prompt_token(self, req: GenRequest, i: int) -> torch.Tensor:
+        return req.feed_tokens[0, i]
+
+    def _set_last(self, slot: int, token) -> None:
+        # an int fills in place; a device scalar copies on the device
+        self.last_tokens[slot, 0] = token
+
+    def _record(self, req: GenRequest, token) -> None:
+        tok = token.tolist() if hasattr(token, "tolist") else token
+        if not req.out_tokens:
+            # repro: allow-wallclock -- TTFT interval vs submitted_at
+            req.first_token_at = time.perf_counter()
+        req.out_tokens.append(tok)
+        if req.on_token is not None:
+            req.on_token(req, tok)
+        if len(req.out_tokens) >= req.max_new_tokens or _hits_eos(tok, req.eos_id):
+            req.done = True
+            req.status = "done"
+            # repro: allow-wallclock -- e2e-latency interval vs submitted_at
+            req.finished_at = time.perf_counter()
+
+    # ---------------------------------------------------------------- #
+    @torch.no_grad()
+    def step(self) -> int:
+        """Admit -> one batched decode step -> harvest. Returns #occupied."""
+        self._admit()
+        if self.paged:
+            self._ensure_blocks()                # may preempt under pressure
+        if not any(r is not None for r in self.active):
+            return 0
+        if self.paged:
+            logits, _ = decode_step_paged(self.params, self.kv.pools,
+                                          self.last_tokens, self.positions,
+                                          self.kv.tables, self.cfg)
+        else:
+            logits, _ = decode_step(self.params, self.cache, self.last_tokens,
+                                    self.positions, self.cfg)
+        self.positions += 1
+        last = logits[:, -1]                     # [B, V]
+        # one batched argmax serves every greedy slot, with one host sync
+        # per step; only non-greedy requests sample per slot
+        greedy = (torch.argmax(last, dim=-1).tolist()
+                  if any(r is not None and r.sampling.is_greedy
+                         for r in self.active) else None)
+        self.steps += 1
+        n_occupied = 0
+        for slot, req in enumerate(self.active):
+            if req is None:
+                continue
+            req.cache_pos += 1                   # host mirror of positions
+            if req.n_consumed < req.feed_len:
+                # this tick consumed one feed token (chunked-prefill tail,
+                # prefix-hit tail, or preemption-resume replay)
+                req.n_consumed += 1
+                if req.n_consumed <= req.prompt_len:
+                    # replayed generated tokens (resume) are not prompt work
+                    self.prompt_tokens_computed += 1
+                if req.n_consumed < req.feed_len:
+                    self._set_last(slot, self._prompt_token(req, req.n_consumed))
+                    n_occupied += 1
+                    continue
+                req.status = "decode"   # logits now predict the next token
+                if req._resume_last is not None:
+                    # resume: the "next token" was generated before the
+                    # preemption — feed it, don't re-record it
+                    self._set_last(slot, req._resume_last)
+                    req._resume_last = None
+                    n_occupied += 1
+                    continue
+            nxt = (greedy[slot] if req.sampling.is_greedy
+                   else sample(last[slot], req.sampling, len(req.out_tokens)))
+            self._record(req, nxt)
+            self._set_last(slot, nxt)
+            if req.done:
+                self._release(slot)              # slot frees mid-flight
+            else:
+                n_occupied += 1
+        return n_occupied
+
+    def run(self, max_steps: int = 10_000) -> None:
+        for _ in range(max_steps):
+            if not self.has_work:
+                break
+            self.step()
+
+    # ---------------------------------------------------------------- #
+    def metrics(self, reqs: Optional[List[GenRequest]] = None
+                ) -> Dict[str, float]:
+        """Aggregate serving metrics over ``reqs`` (default: every request
+        ever submitted). Always returns the full ``METRIC_KEYS`` set, zeroed
+        where nothing finished."""
+        if reqs is None:
+            reqs = self.all_requests
+        done = [r for r in reqs if r.done]
+        m = dict.fromkeys(METRIC_KEYS, 0.0)
+        m.update(
+            completed=len(done),
+            rejected=sum(1 for r in reqs if r.rejected),
+            queued=self.queue_depth,
+            active=sum(1 for r in self.active if r is not None),
+            submitted=len(reqs),
+            decode_steps=self.steps,
+            generated_tokens=sum(len(r.out_tokens or []) for r in reqs),
+            prefill_tokens=self.prefill_tokens,
+            preempted=self.preempted_total,
+            cancelled=sum(1 for r in reqs if r.status == "cancelled"),
+            prefix_hit_tokens=self.prefix_hit_tokens,
+            prompt_tokens_computed=self.prompt_tokens_computed,
+            prefix_hit_rate=(self.prefix_hit_tokens
+                             / self.prompt_tokens_submitted
+                             if self.prompt_tokens_submitted else 0.0),
+            kv_blocks_peak=(self.kv.alloc.stats.peak_in_use
+                            if self.paged else 0),
+            tp=self.tp,
+        )
+        if not done:
+            return m
+        # peak cache bytes per concurrent request: dense reserves the whole
+        # (n_slots, max_len) cache up front; paged holds only the blocks
+        # actually touched (high-water mark), shared prefixes counted once
+        if self.paged:
+            kv_bytes = self.kv.kv_bytes_in_use(self.kv.alloc.stats.peak_in_use)
+        else:
+            kv_bytes = sum(t.numel() * t.element_size()
+                           for pair in self.cache["layers"] for t in pair)
+        m["kv_hbm_bytes_per_req"] = kv_bytes / self.n_slots
+        m["kv_hbm_bytes_per_req_per_shard"] = kv_bytes / self.n_slots
+        ttft = [r.first_token_at - r.submitted_at for r in done]
+        total = [r.finished_at - r.submitted_at for r in done]
+        toks = sum(len(r.out_tokens) for r in done)
+        wall = max(r.finished_at for r in done) - min(r.submitted_at
+                                                      for r in done)
+        m.update(
+            mean_ttft_s=sum(ttft) / len(ttft),
+            p50_ttft_s=interpolated_percentile(ttft, 0.5),
+            p90_ttft_s=interpolated_percentile(ttft, 0.9),
+            p99_ttft_s=interpolated_percentile(ttft, 0.99),
+            mean_latency_s=sum(total) / len(total),
+            throughput_tok_s=toks / max(wall, 1e-9),
+        )
+        return m

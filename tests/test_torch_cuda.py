@@ -9,7 +9,8 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
-from repro_torch.kernels import dynquant, flash_prefill, qmatmul  # noqa: E402
+from repro_torch.kernels import (dynquant, flash_prefill,  # noqa: E402
+                                 paged_attn, qmatmul)
 from repro_torch.kernels import ref  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -73,3 +74,64 @@ def test_flash_prefill_kernel_matches_plain(dev, b, s, hq, hkv, hd, dv, dtype):
     # f32 on both sides (bf16 inputs are read as f32); summation order differs
     torch.testing.assert_close(got, ref.flash_prefill_ref(q, k, v),
                                rtol=0, atol=1e-4)
+
+
+def _paged_case(dev, b, hkv, g, hd, bs, m, n, dtype, pos, seed, holes=()):
+    """Random q and pools; each live sequence (pos >= 0) gets shuffled block
+    ids for the entries its position reaches and -1 past its end; an idle
+    row (pos < 0) gets an all -1 table at position 0, as an idle engine
+    slot has; ``holes`` are (row, entry) pairs set to -1."""
+    gen = torch.Generator().manual_seed(seed)
+    q = torch.randn((b, hkv, g, hd), generator=gen).to(dtype)
+    k_pool = torch.randn((n, bs, hkv, hd), generator=gen).to(dtype)
+    v_pool = torch.randn((n, bs, hkv, hd), generator=gen).to(dtype)
+    ids = (torch.randperm(n - 1, generator=gen) + 1).tolist()
+    tables = torch.full((b, m), -1, dtype=torch.int32)
+    for i, p in enumerate(pos):
+        for j in range(p // bs + 1 if p >= 0 else 0):
+            tables[i, j] = ids.pop()
+    for i, j in holes:
+        tables[i, j] = -1
+    pos_t = torch.tensor([max(p, 0) for p in pos], dtype=torch.int32)
+    return tuple(t.to(dev) for t in (q, k_pool, v_pool, tables, pos_t))
+
+
+def _positions(b, seed):
+    gen = torch.Generator().manual_seed(seed)
+    return torch.randint(36, 512, (b,), generator=gen).tolist()
+
+
+# (b, hkv, g, hd, bs, m, n, pos): stablelm-1.6b engine shape; mistral-nemo
+# width; one sequence at the last slot; small blocks; an idle row
+PAGED_CASES = {
+    "stablelm": (8, 32, 1, 64, 16, 32, 257, _positions(8, 0)),
+    "nemo": (8, 8, 4, 128, 16, 32, 257, _positions(8, 1)),
+    "b1": (1, 32, 1, 64, 16, 32, 33, [511]),
+    "bs8": (3, 4, 8, 32, 8, 8, 25, [63, 7, 30]),
+    "idle": (4, 8, 2, 64, 32, 4, 17, [100, -1, 31, 127]),
+}
+
+
+@pytest.mark.parametrize("case", sorted(PAGED_CASES))
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_paged_decode_kernel_matches_plain(dev, case, dtype):
+    b, hkv, g, hd, bs, m, n, pos = PAGED_CASES[case]
+    q, k_pool, v_pool, tables, pos_t = _paged_case(
+        dev, b, hkv, g, hd, bs, m, n, dtype, pos, seed=b * hd + bs,
+        holes=[(0, 1)] if case == "idle" else ())
+    before = paged_attn.paged_decode.launches
+    got = paged_attn.paged_decode(q, k_pool, v_pool, tables, pos_t)
+    assert paged_attn.paged_decode.launches == before + 1
+    want = ref.paged_decode_ref(q, k_pool, v_pool, tables, pos_t)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == q.shape
+    idle = torch.tensor([p < 0 for p in pos], device=dev)
+    # an idle row is 0/0 on both sides and nothing else is
+    assert torch.equal(got.isnan().all(-1).all(-1).all(-1), idle)
+    assert torch.equal(want.isnan().all(-1).all(-1).all(-1), idle)
+    # f32 on both sides (bf16 read as f32); summation order differs
+    torch.testing.assert_close(got[~idle], want[~idle], rtol=0, atol=1e-4)
+    # masked slots are never read: NaN in the trash block changes nothing
+    k_pool[0], v_pool[0] = float("nan"), float("nan")
+    again = paged_attn.paged_decode(q, k_pool, v_pool, tables, pos_t)
+    assert torch.equal(again[~idle], got[~idle])
