@@ -11,23 +11,28 @@ prints one JSON line per phase:
    at the main paths' shapes, with its time (a CUDA-graph replay: device
    time; and the eager call, launch gaps included), the plain version's
    time, its bound and a library yardstick's time (timed here only, never
-   used by the port);
+   used by the port): the GEMMs, flash prefill and paged decode, then the
+   int8-KV kernels qdecode, paged_qdecode (with NaN scales and -128 codes
+   in the trash block) and flash_qprefill;
 3. e2e: stablelm-1.6b at full width in bf16 with random seeded weights, the
    three default variants (fp32 passthrough, dynamic int8, static int8
-   calibrated on 2 batches of 2 x 128 tokens), 4 requests served through a
-   RequestQueue -> InferenceSession.generate, with every kernel's launch
-   counter zeroed before and read after;
+   calibrated on 2 batches of 2 x 128 tokens) and dynamic int8 over an
+   int8 KV cache, 4 requests served through a RequestQueue ->
+   InferenceSession.generate, with every kernel's launch counter zeroed
+   before and read after;
 4. engine: stablelm-1.6b at full width in bf16 behind the paged
    ContinuousBatchingEngine (8 slots, 16-token blocks, a 65-block pool
    small enough to preempt) and then the dense one, replaying a seeded
    trace of 16 greedy requests (4 share a 128-token prefix) through
-   ``loadgen.replay``, for the fp32-passthrough and dynamic-int8 variants,
-   with every kernel's launch counter zeroed before each replay and read
-   after it, plus a timed and profiled window of batched decode steps;
+   ``loadgen.replay``, for the fp32-passthrough and dynamic-int8 variants
+   and dynamic int8 over an int8 KV cache (paged, dense, and paged with
+   the bf16 pool's bytes), with every kernel's launch counter zeroed
+   before each replay and read after it, plus a timed and profiled window
+   of batched decode steps;
 5. card vs CPU: the same fp32 weights at full width and 2 layers, the CPU's
    plain path against the card's kernel path on one prompt plus 8
    teacher-forced decode steps, dense and then paged (a block table with
-   scattered ids and a -1 tail);
+   scattered ids and a -1 tail), over an fp and an int8 KV cache;
 6. a ``kernels`` line, the ``nvidia-smi`` line, and last the device line.
 
 Any failed check raises and the exit code is non-zero. Without a CUDA
@@ -35,6 +40,7 @@ device, or outside the repository, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -72,6 +78,18 @@ PAGED_SHAPES = {
 }
 HEADLINE_PAGED = "a"
 PAGED_ATOL = 1e-4     # f32 on both sides; online vs one-pass softmax
+# int8-KV dense decode: (B, S, Hkv, G, hd, q dtype, positions: None = drawn
+# in 36..511; the bias is 0 up to each position and -2e38 after it)
+QDECODE_SHAPES = {
+    "a": (8, 512, 32, 1, 64, torch.bfloat16, None),     # stablelm engine
+    "b": (8, 512, 8, 4, 128, torch.bfloat16, None),     # nemo width
+    "c": (1, 512, 32, 1, 64, torch.bfloat16, (511,)),
+    "d": (8, 512, 32, 1, 64, torch.float32, None),
+}
+HEADLINE_QDECODE = "a"
+# int8 kernels against plain versions: f32 on both sides; the kernels scale
+# after the dot, the plain versions dequantize first
+INT8KV_ATOL = 1e-4
 # the engine phase: a pool of 64 usable 16-token blocks (1024 tokens) for
 # 8 slots whose requests average ~146 + 32 tokens, so preemption happens
 ENGINE = {"n_slots": 8, "max_len": 512}
@@ -87,7 +105,12 @@ N_NEW = 32
 # by max 0.105 / mean 0.018 (relative nudge of 1e-7 to every normalized
 # activation), against an int8-vs-fp32 quantization error of 0.33 / 0.051.
 # The bound is twice the nudge, below the quantization error.
-CPU_TOL = {"fp32": (2e-3, 2e-4), "dynamic_int8": (0.2, 0.03)}
+# fp32_int8kv (fp32 weights over the int8 KV cache): the same nudge flips
+# K/V codes at .5 quotients and so moves the CPU's own logits by max
+# 0.00405 / mean 0.00076 (dense and paged alike); the bound is 2.5 times
+# that. card_vs_cpu prints the nudge of every run beside its error.
+CPU_TOL = {"fp32": (2e-3, 2e-4), "dynamic_int8": (0.2, 0.03),
+           "fp32_int8kv": (1e-2, 2e-3)}
 
 
 def emit(phase: str, **fields) -> None:
@@ -148,17 +171,23 @@ class Timer:
         return t
 
 
+def _wrappers(k):
+    return {"flash_prefill": k.flash_prefill.flash_prefill,
+            "qmatmul_dynamic": k.dynquant.qmatmul_dynamic,
+            "qmatmul_static": k.qmatmul.qmatmul_static,
+            "paged_decode": k.paged_attn.paged_decode,
+            "qdecode": k.qdecode.qdecode,
+            "paged_qdecode": k.paged_attn.paged_qdecode,
+            "flash_qprefill": k.flash_prefill.flash_qprefill}
+
+
 def reset_counters(k):
-    for fn in (k.flash_prefill.flash_prefill, k.dynquant.qmatmul_dynamic,
-               k.qmatmul.qmatmul_static, k.paged_attn.paged_decode):
+    for fn in _wrappers(k).values():
         fn.launches = 0
 
 
 def read_counters(k):
-    return {"flash_prefill": k.flash_prefill.flash_prefill.launches,
-            "qmatmul_dynamic": k.dynquant.qmatmul_dynamic.launches,
-            "qmatmul_static": k.qmatmul.qmatmul_static.launches,
-            "paged_decode": k.paged_attn.paged_decode.launches}
+    return {name: fn.launches for name, fn in _wrappers(k).items()}
 
 
 # ------------------------------------------------------------------ #
@@ -356,6 +385,220 @@ def paged_phase(k, dev, timer):
     return headline
 
 
+def int8_codes(gen, shape, dev):
+    """Random int8 codes in +-127 and positive f32 scales [*shape[:-1]] of
+    order 1/127 (dequantized values of order 1, as quantized K/V are)."""
+    codes = torch.randint(-127, 128, shape, generator=gen, dtype=torch.int8)
+    scales = (torch.rand(shape[:-1], generator=gen) + 0.5) / 127
+    return codes.to(dev), scales.to(dev)
+
+
+def dequant(codes, scales, dtype):
+    return (codes.float() * scales[..., None]).to(dtype)
+
+
+def qdecode_phase(k, dev, timer):
+    ref, qd = k.ref, k.qdecode
+    gen = torch.Generator().manual_seed(SEED + 9)
+    worst, headline = 0.0, None
+    for label, shape in QDECODE_SHAPES.items():
+        b, s, hkv, g, hd, dt, pos = shape
+        if pos is None:
+            pos = torch.randint(36, s, (b,), generator=gen).tolist()
+        q = torch.randn((b, hkv, g, hd), generator=gen).to(dev, dt)
+        kq, ks = int8_codes(gen, (b, s, hkv, hd), dev)
+        vq, vs = int8_codes(gen, (b, s, hkv, hd), dev)
+        valid = torch.arange(s, device=dev)[None] <= torch.tensor(
+            pos, device=dev)[:, None]
+        bias = torch.where(valid, torch.zeros((), device=dev),
+                           torch.full((), -2.0e38, device=dev))
+        run = lambda: qd.qdecode(q, kq, ks, vq, vs, bias)  # noqa: E731
+        plain = lambda: ref.qdecode_ref(q, kq, ks, vq, vs, bias)  # noqa: E731
+        got, want = run(), plain()
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        if not torch.isfinite(got).all() or err > INT8KV_ATOL:
+            raise AssertionError(f"qdecode ({label}): max |err| {err} > "
+                                 f"{INT8KV_ATOL}")
+        worst = max(worst, err)
+        t_k = timer.graph_ms(run)
+        t_eager = timer.eager_ms(run)
+        t_p = timer.graph_ms(plain, iters=3)
+        # yardstick, two calls: dequantize the cache into [B, Hkv, S, hd]
+        # in q's dtype, then one SDPA call with the bias as its mask (the G
+        # query heads of a kv head are its G query rows)
+        def deq():
+            return (dequant(kq, ks, dt).transpose(1, 2).contiguous(),
+                    dequant(vq, vs, dt).transpose(1, 2).contiguous())
+        kf, vf = deq()
+        mask = bias[:, None, None, :].to(dt)
+        sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+            q, kf, vf, attn_mask=mask)
+        lib_err = float((sdpa().float() - want).abs().max())
+        t_deq = timer.graph_ms(deq)
+        t_lib = timer.graph_ms(sdpa)
+        nbytes = (2 * b * s * hkv * hd + 2 * 4 * b * s * hkv + 4 * b * s
+                  + q.numel() * q.element_size() + got.numel() * 4)
+        flops = 4.0 * g * hd * s * hkv * b
+        b_ms, b_by = bound(nbytes, flops, str(dt).split(".")[-1])
+        row = dict(kernel="qdecode", case=label, B=b, S=s, Hkv=hkv, G=g,
+                   hd=hd, dtype=str(dt).split(".")[-1], positions=pos,
+                   max_abs_err=err, atol=INT8KV_ATOL, ms=t_k,
+                   eager_ms=t_eager, plain_ms=t_p, library_ms=t_lib,
+                   library_dequant_ms=t_deq, library_max_abs_err=lib_err,
+                   mbytes=nbytes / 1e6, bound_ms=b_ms, bound_by=b_by)
+        emit("kernel", **row)
+        if label == HEADLINE_QDECODE:
+            headline = row
+        del q, kq, vq, kf, vf
+    headline["max_abs_err"] = worst
+    return headline
+
+
+def paged_qdecode_phase(k, dev, timer):
+    """PAGED_SHAPES over int8 pools with f32 scale pools. Case (e) then
+    writes what an idle slot leaves in the trash block (NaN scales, -128
+    codes) and the live rows must not change."""
+    ref, pa = k.ref, k.paged_attn
+    gen = torch.Generator().manual_seed(SEED + 7)
+    cgen = torch.Generator().manual_seed(SEED + 10)
+    worst, headline = 0.0, None
+    for label, shape in PAGED_SHAPES.items():
+        b, hkv, g, hd, bs, m, n, dt, _ = shape
+        q, kp, vp, tables, pos, live = paged_case(dev, gen, shape)
+        q = q.to(dt)
+        k_pool, k_scale = int8_codes(cgen, tuple(kp.shape), dev)
+        v_pool, v_scale = int8_codes(cgen, tuple(vp.shape), dev)
+        del kp, vp
+        pools = (k_pool, k_scale, v_pool, v_scale)
+        run = lambda: pa.paged_qdecode(q, *pools, tables, pos)  # noqa: E731
+        plain = lambda: ref.paged_qdecode_ref(q, *pools, tables, pos)  # noqa: E731
+        got, want = run(), plain()
+        torch.cuda.synchronize()
+        idle_nan = bool(got[~live].isnan().all()) and bool(
+            want[~live].isnan().all())
+        err = float((got[live] - want[live]).abs().max())
+        if not torch.isfinite(got[live]).all() or err > INT8KV_ATOL \
+                or not idle_nan:
+            raise AssertionError(f"paged_qdecode ({label}): max |err| {err} "
+                                 f"> {INT8KV_ATOL} or idle rows not 0/0")
+        worst = max(worst, err)
+        t_k = timer.graph_ms(run)
+        t_eager = timer.eager_ms(run)
+        t_p = timer.graph_ms(plain, iters=3)
+        # yardstick, three calls: gather codes and scales into contiguous
+        # [B, S, ...] views, dequantize to [B, Hkv, S, hd] in q's dtype,
+        # then one SDPA call over the masked view
+        valid = ref.paged_valid(tables, pos, bs)
+
+        def gather():
+            return tuple(ref.paged_gather(t, tables) for t in pools)
+        gathered = gather()
+
+        def deq():
+            kg, ksg, vg, vsg = gathered
+            return (dequant(kg, ksg, dt).transpose(1, 2).contiguous(),
+                    dequant(vg, vsg, dt).transpose(1, 2).contiguous())
+        kf, vf = deq()
+        mask = valid[:, None, None, :]
+        sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+            q, kf, vf, attn_mask=mask)
+        lib_out = sdpa().float()
+        lib_err = float((lib_out[live] - want[live]).abs().max())
+        t_gather = timer.graph_ms(gather)
+        t_deq = timer.graph_ms(deq)
+        t_lib = timer.graph_ms(sdpa)
+        # what an idle slot leaves in the trash block reaches no live row
+        trash = None
+        if not bool(live.all()):
+            k_pool[0], v_pool[0] = -128, -128
+            k_scale[0], v_scale[0] = float("nan"), float("nan")
+            again, again_plain = run(), plain()
+            torch.cuda.synchronize()
+            trash = bool(torch.isfinite(again[live]).all()) and bool(
+                torch.equal(again[live], got[live])) and bool(
+                torch.equal(again_plain[live], want[live]))
+            if not trash:
+                raise AssertionError(f"paged_qdecode ({label}): NaN in the "
+                                     "trash block reached a live row")
+        n_valid = int(valid.sum())            # this run's valid slots
+        nbytes = (2 * n_valid * hkv * (hd + 4) + q.numel() * q.element_size()
+                  + tables.numel() * 4 + pos.numel() * 4 + got.numel() * 4)
+        flops = 4.0 * g * hd * n_valid * hkv
+        b_ms, b_by = bound(nbytes, flops, str(dt).split(".")[-1])
+        row = dict(kernel="paged_qdecode", case=label, B=b, Hkv=hkv, G=g,
+                   hd=hd, bs=bs, M=m, N=n, dtype=str(dt).split(".")[-1],
+                   pools="int8", positions=pos.tolist(),
+                   valid_slots=n_valid, idle_rows=int((~live).sum()),
+                   trash_nan_isolated=trash, max_abs_err=err,
+                   atol=INT8KV_ATOL, ms=t_k, eager_ms=t_eager, plain_ms=t_p,
+                   library_ms=t_lib, library_gather_ms=t_gather,
+                   library_dequant_ms=t_deq, library_max_abs_err=lib_err,
+                   mbytes=nbytes / 1e6, bound_ms=b_ms, bound_by=b_by)
+        emit("kernel", **row)
+        if label == HEADLINE_PAGED:
+            headline = row
+        del q, pools, k_pool, v_pool, gathered, kf, vf
+    headline["max_abs_err"] = worst
+    return headline
+
+
+def flash_qprefill_phase(k, dev, timer):
+    ref, fp = k.ref, k.flash_prefill
+    gen = torch.Generator().manual_seed(SEED + 11)
+    worst, headline = 0.0, None
+    for shape in FLASH_SHAPES:
+        b, s, hq, hkv, hd, dv, dt = shape
+        q = torch.randn((b, s, hq, hd), generator=gen).to(dev, dt)
+        kq, ks = int8_codes(gen, (b, s, hkv, hd), dev)
+        vq, vs = int8_codes(gen, (b, s, hkv, dv), dev)
+        run = lambda: fp.flash_qprefill(q, kq, ks, vq, vs)  # noqa: E731
+        plain = lambda: ref.flash_qprefill_ref(q, kq, ks, vq, vs)  # noqa: E731
+        got, want = run(), plain()
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        if not torch.isfinite(got).all() or err > INT8KV_ATOL:
+            raise AssertionError(f"flash_qprefill {shape}: max |err| {err} > "
+                                 f"{INT8KV_ATOL}")
+        worst = max(worst, err)
+        t_k = timer.graph_ms(run)
+        t_eager = timer.eager_ms(run)
+        t_p = timer.graph_ms(plain, iters=3)
+        # yardstick, two calls: dequantize K/V to q's dtype in the
+        # [B, Hq, S, D] layout SDPA takes, then one causal SDPA call
+        g = hq // hkv
+        qt = q.transpose(1, 2).contiguous()
+
+        def deq():
+            return tuple(dequant(c, sc, dt).repeat_interleave(g, dim=2)
+                         .transpose(1, 2).contiguous()
+                         for c, sc in ((kq, ks), (vq, vs)))
+        kt, vt = deq()
+        sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+            qt, kt, vt, is_causal=True)
+        t_deq = timer.graph_ms(deq)
+        t_lib = timer.graph_ms(sdpa)
+        visible = s * (s + 1) // 2                 # causal (query, key) pairs
+        flops = 2.0 * (hd + dv) * visible * b * hq
+        nbytes = (q.numel() * q.element_size() + kq.numel() + vq.numel()
+                  + 4 * (ks.numel() + vs.numel()) + 4 * b * s * hq * dv)
+        b_ms, b_by = bound(nbytes, flops, str(dt).split(".")[-1])
+        row = dict(kernel="flash_qprefill", B=b, S=s, Hq=hq, Hkv=hkv, hd=hd,
+                   dv=dv, dtype=str(dt).split(".")[-1], kv="int8",
+                   max_abs_err=err, atol=INT8KV_ATOL, gflop=flops / 1e9,
+                   ms=t_k, eager_ms=t_eager, plain_ms=t_p, library_ms=t_lib,
+                   library_dequant_ms=t_deq, mbytes=nbytes / 1e6,
+                   bound_ms=b_ms, bound_by=b_by,
+                   bound_ms_by_operations=flops / PEAK_OPS_S[
+                       str(dt).split(".")[-1]] * 1e3)
+        emit("kernel", **row)
+        if shape == HEADLINE_FLASH:
+            headline = row
+        del q, kq, vq, kt, vt, qt
+    headline["max_abs_err"] = worst
+    return headline
+
+
 def profile_decode(step_fn, n_steps: int, step_ms: float):
     """Device time inside ``n_steps`` decode steps from a torch.profiler
     trace: busy ms per step, the idle share against the unprofiled step
@@ -394,7 +637,7 @@ def profile_decode(step_fn, n_steps: int, step_ms: float):
 # ------------------------------------------------------------------ #
 def e2e_phase(k, dev):
     from repro_torch import configs
-    from repro_torch.api.variants import DEFAULT_VARIANTS
+    from repro_torch.api.variants import DEFAULT_VARIANTS, VariantSpec
     from repro_torch.models import decode_step, init_params, prefill
     from repro_torch.serving import InferenceSession, Pipeline, RequestQueue
 
@@ -412,8 +655,12 @@ def e2e_phase(k, dev):
          d_model=cfg.d_model, heads=cfg.n_heads, head_dim=cfg.head_dim,
          d_ff=cfg.d_ff, vocab=cfg.vocab_size,
          init_s=time.perf_counter() - t0)
-    totals = {"flash_prefill": 0, "qmatmul_dynamic": 0, "qmatmul_static": 0}
-    for spec in DEFAULT_VARIANTS:
+    totals = {"flash_prefill": 0, "qmatmul_dynamic": 0, "qmatmul_static": 0,
+              "qdecode": 0, "flash_qprefill": 0}
+    runs = [(spec.variant, spec, cfg) for spec in DEFAULT_VARIANTS]
+    runs.append(("dynamic_int8_kv8", VariantSpec.dynamic_int8(),
+                 cfg.with_overrides(kv_cache_int8=True)))
+    for label, spec, cfg in runs:
         t0 = time.perf_counter()
         qparams, info = spec.build(params, cfg, calib_data=calib)
         session = InferenceSession(qparams, cfg)
@@ -438,14 +685,18 @@ def e2e_phase(k, dev):
             out = r.result
             if not r.done or out.shape != (1, N_NEW) \
                     or int(out.min()) < 0 or int(out.max()) >= cfg.vocab_size:
-                raise AssertionError(f"{spec.variant}: bad result {out}")
-        need = ["flash_prefill"] + {"dynamic_int8": ["qmatmul_dynamic"],
-                                    "static_int8": ["qmatmul_static"]}.get(
-                                        spec.variant, [])
+                raise AssertionError(f"{label}: bad result {out}")
+        kv8 = cfg.kv_precision == "int8"
+        need = (["flash_qprefill", "qdecode"] if kv8 else ["flash_prefill"]) \
+            + {"dynamic_int8": ["qmatmul_dynamic"],
+               "static_int8": ["qmatmul_static"]}.get(spec.variant, [])
         for name in need:
             if launches[name] <= 0:
-                raise AssertionError(f"{spec.variant}: {name} never launched "
+                raise AssertionError(f"{label}: {name} never launched "
                                      f"on the main path ({launches})")
+        if kv8 and launches["flash_prefill"]:
+            raise AssertionError(f"{label}: flash_prefill launched over an "
+                                 f"int8 KV cache ({launches})")
         for name in totals:
             totals[name] += launches[name]
 
@@ -462,7 +713,7 @@ def e2e_phase(k, dev):
             prefill_ms = (time.perf_counter() - t0) * 1e3
             per_prefill = read_counters(k)
             if not torch.isfinite(last).all():
-                raise AssertionError(f"{spec.variant}: non-finite logits")
+                raise AssertionError(f"{label}: non-finite logits")
             nxt = torch.argmax(last[:, -1], dim=-1).reshape(1, 1)
             reset_counters(k)
             logits, cache = decode_step(session.params, cache, nxt,
@@ -486,7 +737,8 @@ def e2e_phase(k, dev):
                     session.params, state["cache"], nxt, state["pos"], cfg)
                 state["pos"] += 1
             trace = profile_decode(one_step, 4, decode_ms)
-        emit("e2e", variant=spec.variant, quantized_leaves=len(info["quantized_paths"]),
+        emit("e2e", variant=label, kv_cache=cfg.kv_precision,
+             quantized_leaves=len(info["quantized_paths"]),
              calibration_batches=info.get("calibration_batches", 0),
              build_s=build_s, requests=len(reqs), prompt_lens=PROMPT_LENS,
              new_tokens_each=N_NEW, serve_s=elapsed,
@@ -552,13 +804,19 @@ def decode_window(k, engine, cfg, gen):
 
 
 def engine_phase(k, dev):
+    """Replays of the trace: fp32 and dynamic int8 (paged, then dense), then
+    dynamic int8 over an int8 KV cache (paged with the same 65 blocks, dense,
+    and paged with the bf16 pool's bytes: about twice the blocks). Returns
+    the launch totals of the paged replays and of every replay."""
     from repro_torch import configs
     from repro_torch.api.variants import VariantSpec
     from repro_torch.models import init_params
     from repro_torch.serving import (ContinuousBatchingEngine,
                                      InferenceSession, replay)
+    from repro_torch.serving.kvcache import kv_bytes_per_block
 
     cfg = configs.get_config("stablelm-1.6b")
+    cfg8 = cfg.with_overrides(kv_cache_int8=True)
     params = init_params(cfg, seed=SEED)
     trace = engine_trace(cfg)
     prompt_tokens = sum(r.tokens.shape[1] for r in trace.requests)
@@ -568,13 +826,23 @@ def engine_phase(k, dev):
          arrival_ticks=[r.arrival_step for r in trace.requests],
          prompt_tokens=prompt_tokens, new_tokens_each=N_NEW,
          shared_prefix_requests=list(SHARED), **ENGINE, **PAGED)
-    totals = {}
-    for spec in (VariantSpec.fp32(), VariantSpec.dynamic_int8()):
-        qparams, _ = spec.build(params, cfg)
-        session = InferenceSession(qparams, cfg)
-        streams = {}
-        for mode in ("paged", "dense"):
-            kw = dict(ENGINE, **(PAGED if mode == "paged" else {}))
+    # the int8-KV pool at the bf16 pool's bytes (65 blocks incl. the trash)
+    budget = PAGED["n_blocks"] * kv_bytes_per_block(cfg, PAGED["block_size"])
+    budget_kw = {"paged": True, "block_size": PAGED["block_size"],
+                 "kv_budget_bytes": budget}
+    runs = (("fp32", VariantSpec.fp32(), cfg, ("paged", "dense")),
+            ("dynamic_int8", VariantSpec.dynamic_int8(), cfg,
+             ("paged", "dense")),
+            ("dynamic_int8_kv8", VariantSpec.dynamic_int8(), cfg8,
+             ("paged", "dense", "paged_budget")))
+    paged_totals, all_totals, streams = {}, {}, {}
+    for label, spec, vcfg, modes in runs:
+        qparams, _ = spec.build(params, vcfg)
+        session = InferenceSession(qparams, vcfg)
+        kv8 = vcfg.kv_precision == "int8"
+        for mode in modes:
+            kw = dict(ENGINE, **{"paged": PAGED, "dense": {},
+                                 "paged_budget": budget_kw}[mode])
             engine = ContinuousBatchingEngine(session, **kw)
             engine.warmup(prompt_len=64, max_new_tokens=4)
             torch.cuda.synchronize()
@@ -589,32 +857,52 @@ def engine_phase(k, dev):
             for r in reqs:
                 if not r.done or len(r.out_tokens) != N_NEW or not all(
                         0 <= t < cfg.vocab_size for t in r.out_tokens):
-                    raise AssertionError(f"{spec.variant}/{mode}: request "
+                    raise AssertionError(f"{label}/{mode}: request "
                                          f"{r.rid} ended {r.status} with "
                                          f"{r.out_tokens}")
-            streams[mode] = [r.out_tokens for r in reqs]
-            need = ["flash_prefill"] + (["paged_decode"] if mode == "paged"
-                                        else []) + (
+            streams[label, mode] = [r.out_tokens for r in reqs]
+            paged = mode != "dense"
+            attend = ("paged_qdecode" if paged else "qdecode") if kv8 else (
+                "paged_decode" if paged else None)
+            prefill_k = "flash_qprefill" if kv8 else "flash_prefill"
+            need = [prefill_k] + ([attend] if attend else []) + (
                 ["qmatmul_dynamic"] if spec.variant == "dynamic_int8" else [])
             for name in need:
                 if launches[name] <= 0:
-                    raise AssertionError(f"{spec.variant}/{mode}: {name} "
+                    raise AssertionError(f"{label}/{mode}: {name} "
                                          f"never launched ({launches})")
+            if kv8:
+                for name in ("flash_prefill", "paged_decode"):
+                    if launches[name]:
+                        raise AssertionError(f"{label}/{mode}: {name} "
+                                             f"launched over an int8 KV "
+                                             f"cache ({launches})")
             if mode == "paged" and (report["preempted"] < 1
                                     or report["prefix_hit_tokens"] <= 0):
                 raise AssertionError(
-                    f"{spec.variant}: the paged replay must preempt and hit "
+                    f"{label}: the paged replay must preempt and hit "
                     f"the prefix cache ({report['preempted']}, "
                     f"{report['prefix_hit_tokens']})")
             peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
             gen = torch.Generator().manual_seed(SEED + 8)
             per_step, step_ms, dtrace = decode_window(k, engine, cfg, gen)
-            if mode == "paged" and per_step["paged_decode"] != cfg.n_layers:
-                raise AssertionError(f"paged_decode launched "
-                                     f"{per_step['paged_decode']} times in "
-                                     f"one decode step, not {cfg.n_layers}")
+            if mode == "paged" and per_step[attend] != cfg.n_layers:
+                raise AssertionError(f"{attend} launched {per_step[attend]} "
+                                     f"times in one decode step, not "
+                                     f"{cfg.n_layers}")
             tokens = report["generated_tokens"]
-            emit("engine", variant=spec.variant, mode=mode,
+            extra = {}
+            if paged:
+                extra = {"pool_blocks": engine.kv.alloc.n_blocks,
+                         "pool_bytes": engine.kv.kv_bytes_in_use(
+                             engine.kv.alloc.n_blocks)}
+            if kv8:
+                same = sum(a == b for a, b in zip(
+                    streams[label, mode],
+                    streams["dynamic_int8", mode.replace("_budget", "")]))
+                extra["streams_equal_to_bf16_kv"] = same
+            emit("engine", variant=label, mode=mode,
+                 kv_cache=vcfg.kv_precision,
                  requests=report["completed"], generated_tokens=tokens,
                  serve_s=serve_s, tokens_per_s=tokens / serve_s,
                  p50_ttft_s=report["p50_ttft_s"],
@@ -626,123 +914,138 @@ def engine_phase(k, dev):
                  **{key: report[key] for key in (
                      "preempted", "prefix_hit_tokens", "kv_blocks_peak",
                      "kv_hbm_bytes_per_req", "prefill_tokens",
-                     "prompt_tokens_computed")},
+                     "prompt_tokens_computed")}, **extra,
                  launches=launches, launches_per_decode_step=per_step,
                  decode_trace=dtrace, peak_mem_gb=peak_gb)
-            if mode == "paged":
-                for name, n in launches.items():
-                    totals[name] = totals.get(name, 0) + n
+            for name, n in launches.items():
+                all_totals[name] = all_totals.get(name, 0) + n
+                if paged:
+                    paged_totals[name] = paged_totals.get(name, 0) + n
             del engine
             torch.cuda.empty_cache()
-        same = sum(a == b for a, b in zip(streams["paged"], streams["dense"]))
-        emit("engine_agreement", variant=spec.variant,
+        same = sum(a == b for a, b in zip(streams[label, "paged"],
+                                          streams[label, "dense"]))
+        emit("engine_agreement", variant=label,
              paged_equals_dense_streams=same, of=len(trace))
         del session, qparams
         torch.cuda.empty_cache()
-    return totals
+    return paged_totals, all_totals
 
 
 # ------------------------------------------------------------------ #
 # Phase 5: card against CPU
 # ------------------------------------------------------------------ #
-def cpu_phase(dev):
-    from repro_torch import configs
-    from repro_torch.api.variants import VariantSpec
-    from repro_torch.models import decode_step, init_params, prefill
-    from repro_torch.serving import InferenceSession
-
-    cfg = configs.get_config("stablelm-1.6b").with_overrides(
-        n_layers=2, dtype="float32")
-    params = init_params(cfg, seed=SEED + 3, device="cpu")
-    tokens = torch.randint(0, cfg.vocab_size, (1, 48),
-                           generator=torch.Generator().manual_seed(SEED + 4))
-    for spec in (VariantSpec.fp32(), VariantSpec.dynamic_int8()):
-        qparams, _ = spec.build(params, cfg)
-        card = InferenceSession(qparams, cfg)          # moves to the card
-        with torch.no_grad():
-            c_last, c_cache = prefill(qparams, {"tokens": tokens}, cfg,
-                                      pad_to=64)
-            g_last, g_cache = prefill(card.params,
-                                      {"tokens": tokens.to(dev)}, cfg,
-                                      pad_to=64)
-            steps = [(c_last, g_last)]
-            for i in range(8):
-                nxt = torch.argmax(c_last[:, -1], dim=-1).reshape(1, 1)
-                c_last, c_cache = decode_step(qparams, c_cache, nxt, 48 + i,
-                                              cfg)
-                g_last, g_cache = decode_step(card.params, g_cache,
-                                              nxt.to(dev), 48 + i, cfg)
-                steps.append((c_last, g_last))
-        worst_max = max(float((c - g.cpu()).abs().max()) for c, g in steps)
-        worst_mean = max(float((c - g.cpu()).abs().mean()) for c, g in steps)
-        tol_max, tol_mean = CPU_TOL[spec.variant]
-        ok = worst_max <= tol_max and worst_mean <= tol_mean
-        emit("card_vs_cpu", variant=spec.variant, layers=cfg.n_layers,
-             d_model=cfg.d_model, vocab=cfg.vocab_size, prompt=48,
-             decode_steps=8, max_abs_err=worst_max, mean_abs_err=worst_mean,
-             tol_max=tol_max, tol_mean=tol_mean,
-             logit_scale=float(steps[0][0].abs().max()), ok=ok)
-        if not ok:
-            raise AssertionError(f"card vs CPU logits differ by max "
-                                 f"{worst_max} / mean {worst_mean} "
-                                 f"({spec.variant})")
-        del card
+def cpu_runs(cfg, VariantSpec):
+    """(CPU_TOL key, variant, config) of the card-vs-CPU runs: fp32 and
+    dynamic-int8 weights over the fp KV cache, fp32 weights over int8."""
+    return (("fp32", VariantSpec.fp32(), cfg),
+            ("dynamic_int8", VariantSpec.dynamic_int8(), cfg),
+            ("fp32_int8kv", VariantSpec.fp32(),
+             cfg.with_overrides(kv_cache_int8=True)))
 
 
-def cpu_paged_phase(dev):
-    """The paged path, card against CPU: prefill_paged of a 48-token prompt
-    (token axis padded to 64, pads written to the trash block) through a
-    table of scattered block ids with a -1 tail, then 8 teacher-forced
-    decode_step_paged calls."""
-    from repro_torch import configs
-    from repro_torch.api.variants import VariantSpec
-    from repro_torch.models import decode_step_paged, init_params, prefill_paged
-    from repro_torch.serving import InferenceSession
+PAGED_TABLE = ((7, 2, 9, 4, -1, -1, -1, -1),)   # scattered ids, -1 tail
+
+
+@contextlib.contextmanager
+def nudged_norms():
+    """Every normalized activation times the float after 1.0 (a relative
+    nudge of ~1e-7, one f32 rounding): what such a rounding does to the
+    CPU's own logits sizes each ``CPU_TOL`` entry."""
+    from repro_torch.models import transformer
+
+    plain = transformer.rms_norm
+    up = torch.nextafter(torch.tensor(1.0), torch.tensor(2.0))
+    transformer.rms_norm = lambda w, x, eps: plain(w, x, eps) * up.to(
+        x.device, x.dtype)
+    try:
+        yield
+    finally:
+        transformer.rms_norm = plain
+
+
+def teacher_forced(params, cfg, tokens, device, paged, forced=None):
+    """Host logits of a 48-token prefill and 8 decode steps fed ``forced``
+    tokens (default: the run's own argmax). Paged: ``prefill_paged`` with
+    the token axis padded to 64 (pads go to the trash block) through
+    ``PAGED_TABLE``, then ``decode_step_paged``."""
+    from repro_torch.models import (decode_step, decode_step_paged, prefill,
+                                    prefill_paged)
     from repro_torch.serving.kvcache import init_paged_pools
 
+    tables = torch.tensor(PAGED_TABLE, dtype=torch.int32).to(device)
+    out, fed = [], []
+    with torch.no_grad():
+        if paged:
+            cache = init_paged_pools(cfg, 12, 16, device=device)
+            padded = torch.nn.functional.pad(tokens, (0, 16)).to(device)
+            last, _ = prefill_paged(params, cache, {"tokens": padded}, 48,
+                                    tables, cfg)
+        else:
+            last, cache = prefill(params, {"tokens": tokens.to(device)}, cfg,
+                                  pad_to=64)
+        out.append(last.cpu())
+        for i in range(8):
+            nxt = forced[i] if forced is not None else torch.argmax(
+                out[-1][:, -1], dim=-1).reshape(1, 1)
+            fed.append(nxt)
+            if paged:
+                pos = torch.tensor([48 + i]).to(device)
+                last, _ = decode_step_paged(params, cache, nxt.to(device),
+                                            pos, tables, cfg)
+            else:
+                last, cache = decode_step(params, cache, nxt.to(device),
+                                          48 + i, cfg)
+            out.append(last.cpu())
+    return out, fed
+
+
+def logit_diff(a_steps, b_steps):
+    """(max |diff|, worst step's mean |diff|) over teacher-forced steps."""
+    return (max(float((a - b).abs().max()) for a, b in zip(a_steps, b_steps)),
+            max(float((a - b).abs().mean()) for a, b in zip(a_steps, b_steps)))
+
+
+def card_vs_cpu_phase(dev, paged: bool):
+    """The same fp32 weights at full width and 2 layers, the CPU's plain path
+    against the card's kernel path (both fed the CPU's tokens), beside what
+    a one-rounding nudge does on the CPU alone."""
+    from repro_torch import configs
+    from repro_torch.api.variants import VariantSpec
+    from repro_torch.models import init_params
+    from repro_torch.serving import InferenceSession
+
     cfg = configs.get_config("stablelm-1.6b").with_overrides(
         n_layers=2, dtype="float32")
     params = init_params(cfg, seed=SEED + 3, device="cpu")
     tokens = torch.randint(0, cfg.vocab_size, (1, 48),
                            generator=torch.Generator().manual_seed(SEED + 4))
-    padded = torch.nn.functional.pad(tokens, (0, 16))
-    tables = torch.tensor([[7, 2, 9, 4, -1, -1, -1, -1]], dtype=torch.int32)
-    for spec in (VariantSpec.fp32(), VariantSpec.dynamic_int8()):
-        qparams, _ = spec.build(params, cfg)
-        card = InferenceSession(qparams, cfg)          # moves to the card
-        c_pools = init_paged_pools(cfg, 12, 16, device="cpu")
-        g_pools = init_paged_pools(cfg, 12, 16, device=dev)
-        g_tables = tables.to(dev)
-        with torch.no_grad():
-            c_last, _ = prefill_paged(qparams, c_pools, {"tokens": padded},
-                                      48, tables, cfg)
-            g_last, _ = prefill_paged(card.params, g_pools,
-                                      {"tokens": padded.to(dev)}, 48,
-                                      g_tables, cfg)
-            steps = [(c_last, g_last)]
-            for i in range(8):
-                nxt = torch.argmax(c_last[:, -1], dim=-1).reshape(1, 1)
-                pos = torch.tensor([48 + i])
-                c_last, _ = decode_step_paged(qparams, c_pools, nxt, pos,
-                                              tables, cfg)
-                g_last, _ = decode_step_paged(card.params, g_pools,
-                                              nxt.to(dev), pos.to(dev),
-                                              g_tables, cfg)
-                steps.append((c_last, g_last))
-        worst_max = max(float((c - g.cpu()).abs().max()) for c, g in steps)
-        worst_mean = max(float((c - g.cpu()).abs().mean()) for c, g in steps)
-        tol_max, tol_mean = CPU_TOL[spec.variant]
+    for label, spec, vcfg in cpu_runs(cfg, VariantSpec):
+        qparams, _ = spec.build(params, vcfg)
+        card = InferenceSession(qparams, vcfg)         # moves to the card
+        cpu_steps, fed = teacher_forced(qparams, vcfg, tokens, "cpu", paged)
+        card_steps, _ = teacher_forced(card.params, vcfg, tokens, dev, paged,
+                                       fed)
+        with nudged_norms():
+            nudge_steps, _ = teacher_forced(qparams, vcfg, tokens, "cpu",
+                                            paged, fed)
+        worst_max, worst_mean = logit_diff(cpu_steps, card_steps)
+        nudge_max, nudge_mean = logit_diff(cpu_steps, nudge_steps)
+        tol_max, tol_mean = CPU_TOL[label]
         ok = worst_max <= tol_max and worst_mean <= tol_mean
-        emit("card_vs_cpu_paged", variant=spec.variant, layers=cfg.n_layers,
-             d_model=cfg.d_model, prompt=48, decode_steps=8,
-             table=tables.tolist(), max_abs_err=worst_max,
+        emit("card_vs_cpu_paged" if paged else "card_vs_cpu", variant=label,
+             kv_cache=vcfg.kv_precision, layers=vcfg.n_layers,
+             d_model=vcfg.d_model, vocab=vcfg.vocab_size, prompt=48,
+             decode_steps=8, table=[list(r) for r in PAGED_TABLE]
+             if paged else None, max_abs_err=worst_max,
              mean_abs_err=worst_mean, tol_max=tol_max, tol_mean=tol_mean,
-             ok=ok)
+             cpu_nudge_max=nudge_max, cpu_nudge_mean=nudge_mean,
+             logit_scale=float(cpu_steps[0].abs().max()), ok=ok)
         if not ok:
-            raise AssertionError(f"paged card vs CPU logits differ by max "
-                                 f"{worst_max} / mean {worst_mean} "
-                                 f"({spec.variant})")
-        del card, g_pools
+            raise AssertionError(f"{'paged ' if paged else ''}card vs CPU "
+                                 f"logits differ by max {worst_max} / mean "
+                                 f"{worst_mean} ({label})")
+        del card
 
 
 def main() -> int:
@@ -757,11 +1060,11 @@ def main() -> int:
         return 2
     sys.path.insert(0, src)
     from repro_torch.kernels import (_build, dynquant, flash_prefill,
-                                     paged_attn, qmatmul, ref)
+                                     paged_attn, qdecode, qmatmul, ref)
 
     k = types.SimpleNamespace(ref=ref, qmatmul=qmatmul, dynquant=dynquant,
                               flash_prefill=flash_prefill,
-                              paged_attn=paged_attn)
+                              paged_attn=paged_attn, qdecode=qdecode)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
@@ -783,12 +1086,20 @@ def main() -> int:
     heads = gemm_phase(k, dev, timer)
     heads["flash_prefill"] = flash_phase(k, dev, timer)
     heads["paged_decode"] = paged_phase(k, dev, timer)
+    heads["qdecode"] = qdecode_phase(k, dev, timer)
+    heads["paged_qdecode"] = paged_qdecode_phase(k, dev, timer)
+    heads["flash_qprefill"] = flash_qprefill_phase(k, dev, timer)
     del timer
     torch.cuda.empty_cache()
+    # launches: the queue runs, plus the paged replays for paged_decode and
+    # every int8-KV replay for the int8-KV kernels
     totals = e2e_phase(k, dev)
-    totals["paged_decode"] = engine_phase(k, dev)["paged_decode"]
-    cpu_phase(dev)
-    cpu_paged_phase(dev)
+    paged_totals, all_totals = engine_phase(k, dev)
+    totals["paged_decode"] = paged_totals["paged_decode"]
+    for name in ("qdecode", "paged_qdecode", "flash_qprefill"):
+        totals[name] = totals.get(name, 0) + all_totals[name]
+    card_vs_cpu_phase(dev, paged=False)
+    card_vs_cpu_phase(dev, paged=True)
 
     sources = {"flash_prefill": ("src/repro_torch/csrc/flash_prefill.cu",
                                  "src/repro/kernels/flash_prefill.py:244"),
@@ -797,12 +1108,19 @@ def main() -> int:
                "qmatmul_static": ("src/repro_torch/csrc/qmatmul.cu",
                                   "src/repro/kernels/qmatmul.py:42"),
                "paged_decode": ("src/repro_torch/csrc/paged_attn.cu",
-                                "src/repro/kernels/paged_attn.py:186")}
+                                "src/repro/kernels/paged_attn.py:186"),
+               "qdecode": ("src/repro_torch/csrc/qdecode.cu",
+                           "src/repro/kernels/qdecode.py:48"),
+               "paged_qdecode": ("src/repro_torch/csrc/paged_attn.cu",
+                                 "src/repro/kernels/paged_attn.py:196"),
+               "flash_qprefill": ("src/repro_torch/csrc/flash_prefill.cu",
+                                  "src/repro/kernels/flash_prefill.py:267")}
     kernels = []
     for name, (src_path, replaces) in sources.items():
         h = heads[name]
         shape = {key: h[key] for key in ("M", "K", "N", "B", "S", "Hq", "Hkv",
-                                         "G", "hd", "dv", "bs", "dtype")
+                                         "G", "hd", "dv", "bs", "dtype",
+                                         "kv", "pools")
                  if key in h}
         kernels.append({"name": name, "route": "cuda", "source": src_path,
                         "replaces": replaces, "launches": totals[name],

@@ -1,8 +1,10 @@
 """PyTorch/CUDA port of the ``repro`` serving stack for NVIDIA Hopper.
 
-The dense-GQA, fp-KV serving path (config -> params -> int8 variants ->
-``InferenceSession`` or the dense / paged ``ContinuousBatchingEngine``)
-runs here with hand-written CUDA kernels for flash prefill, paged decode
-attention and the static/dynamic w8a8 GEMMs (``repro_torch.kernels``). The
-package imports torch and numpy only; it never imports JAX or ``repro``.
+The dense-GQA serving path over an fp or int8 KV cache (config -> params
+-> int8 variants -> ``InferenceSession`` or the dense / paged
+``ContinuousBatchingEngine``) runs here with hand-written CUDA kernels for
+flash prefill, paged decode attention, their int8-KV variants, dense
+int8-KV decode and the static/dynamic w8a8 GEMMs (``repro_torch.kernels``).
+The package imports torch and numpy only; it never imports JAX or
+``repro``.
 """

@@ -8,8 +8,9 @@ field by field (``w_int8 [L,K,N]``, ``scale [L,1,N]``, ``act_scale [L]``).
 
 Caches and block pools convert in both directions: the JAX package keeps
 one ``[L, ...]`` leaf per cache field (``{"layers": (k, v)}`` with ``k``
-``[L, B, S, Hkv, hd]`` dense or ``[L, N, bs, Hkv, hd]`` pooled), the port
-one ``(k, v)`` tuple per layer.
+``[L, B, S, Hkv, hd]`` dense or ``[L, N, bs, Hkv, hd]`` pooled, or the int8
+tier's ``(k_q, k_scale, v_q, v_scale)``), the port one tuple of the same
+fields per layer.
 """
 from __future__ import annotations
 
@@ -57,17 +58,19 @@ def to_numpy(t: torch.Tensor) -> np.ndarray:
 
 
 def cache_from_jax(tree, device: DeviceLike = None) -> Any:
-    """JAX cache or pools as numpy (``{"layers": (k, v)}``, leaves
-    ``[L, ...]``) -> the port's ``{"layers": [(k, v), ...]}``."""
+    """JAX cache or pools as numpy (``{"layers": (k, v)}`` or the int8
+    4-tuple, leaves ``[L, ...]``) -> the port's ``{"layers": [(k, v),
+    ...]}`` (or 4-tuples)."""
     dev = resolve_device(device)
-    k, v = (np.asarray(a) for a in tree["layers"])
-    return {"layers": [(to_torch(k[i], dev), to_torch(v[i], dev))
-                       for i in range(k.shape[0])]}
+    fields = [np.asarray(a) for a in tree["layers"]]
+    return {"layers": [tuple(to_torch(f[i], dev) for f in fields)
+                       for i in range(fields[0].shape[0])]}
 
 
 def cache_to_jax(cache) -> Any:
-    """The port's ``{"layers": [(k, v), ...]}`` -> numpy leaves stacked
-    as the JAX package holds them: ``{"layers": (k [L, ...], v [L, ...])}``."""
-    pairs = cache["layers"]
-    return {"layers": (np.stack([to_numpy(k) for k, _ in pairs]),
-                       np.stack([to_numpy(v) for _, v in pairs]))}
+    """The port's per-layer tuples -> numpy leaves stacked as the JAX
+    package holds them: ``{"layers": (k [L, ...], v [L, ...])}`` (or the
+    int8 4-tuple)."""
+    layers = cache["layers"]
+    return {"layers": tuple(np.stack([to_numpy(t[j]) for t in layers])
+                            for j in range(len(layers[0])))}

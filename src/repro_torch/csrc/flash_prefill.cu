@@ -1,9 +1,14 @@
-// Causal flash prefill attention for Hopper (sm_90a).
+// Causal flash prefill attention for Hopper (sm_90a), fp and int8 K/V.
 //
-// Replaces the TPU kernel repro/kernels/flash_prefill.py::
-// flash_prefill_attention (_fp_kernel): causal online-softmax attention of a
-// whole prompt from position 0, GQA query rows flattened as r = s * G + g
-// per kv head, tiles above the diagonal skipped.
+// Replaces the TPU kernels repro/kernels/flash_prefill.py::
+// flash_prefill_attention (_fp_kernel) and flash_qprefill_attention
+// (_q_kernel): causal online-softmax attention of a whole prompt from
+// position 0, GQA query rows flattened as r = s * G + g per kv head, tiles
+// above the diagonal skipped. The int8 variant reads int8 K [B,S,Hkv,hd]
+// and V [B,S,Hkv,dv] with f32 per-(position, head) scales [B,S,Hkv] and
+// fuses the dequantization as the TPU kernel does: the K scale multiplies
+// the score after the dot, (q . k_codes) * k_s / sqrt(hd), and the V scale
+// is folded into the value row as it is staged, code * v_s.
 //
 // One block per (64 group-flattened query rows, kv head, batch). The TPU
 // kernel carries its running max / normalizer / accumulator across a
@@ -19,14 +24,19 @@
 // rows start first.
 //
 // What bounds it on the H100: the causal f32 work, 2 * (hd + dv) flops per
-// (query row, visible key); e.g. 1.07 GFLOP for B4 S256 H32 hd64. Prompts
-// are short next to hd here, so bytes (q, k, v read once, out written once)
-// matter less. f32 CUDA cores keep the result within rounding of the f32
-// reference; bf16/TF32 tensor-core variants are a later step.
+// (query row, visible key); e.g. 1.07 GFLOP for B4 S256 H32 hd64, 16 us at
+// the 67 TFLOP/s f32 rate of the CUDA cores it runs on. Against the card's
+// own floor, bytes bound it (q, k, v and scales read once, out written
+// once): 21.0 MB with bf16 K/V and 17.0 MB with int8 K/V at that shape,
+// half of it the f32 output. f32 CUDA cores keep the result
+// within rounding of the f32 reference; bf16/TF32 tensor-core variants,
+// vector loads and a copy pipeline are later steps.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -44,13 +54,18 @@ __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
+__device__ __forceinline__ float to_f32(int8_t v) { return (float)v; }
 
-template <typename T>
+// ks / vs [B,S,Hkv] f32 scales for int8 K/V (TKV = int8_t), else unused
+template <typename TQ, typename TKV>
 __global__ void __launch_bounds__(FT)
-flash_fp(const T* __restrict__ q, const T* __restrict__ k,
-         const T* __restrict__ v, float* __restrict__ out, int S, int Hq,
-         int Hkv, int hd, int dv) {
+flash_attend(const TQ* __restrict__ q, const TKV* __restrict__ k,
+             const float* __restrict__ ksp, const TKV* __restrict__ v,
+             const float* __restrict__ vsp, float* __restrict__ out, int S,
+             int Hq, int Hkv, int hd, int dv) {
+  constexpr bool QUANT = std::is_same<TKV, int8_t>::value;
   extern __shared__ float smem[];
+  __shared__ float Ksc[FK], Vsc[FK];   // the tile's scales (int8 only)
   const int qs = hd + 1, vs = dv + 1, ps = FK + 1;
   float* Qs = smem;                // [FR][hd + 1]
   float* Ks = Qs + FR * qs;        // [FK][hd + 1]
@@ -94,6 +109,15 @@ flash_fp(const T* __restrict__ q, const T* __restrict__ k,
 
   for (long k0 = 0; k0 <= q_last; k0 += FK) {
     __syncthreads();
+    if (QUANT) {
+      if (tid < FK) {
+        const long kp = k0 + tid;
+        const long at = ((long)b * S + kp) * Hkv + h;
+        Ksc[tid] = kp < S ? ksp[at] : 0.f;
+        Vsc[tid] = kp < S ? vsp[at] : 0.f;
+      }
+      __syncthreads();
+    }
     for (int i = tid; i < FK * hd; i += FT) {
       const int c = i / hd, d = i - c * hd;
       const long kp = k0 + c;
@@ -103,8 +127,10 @@ flash_fp(const T* __restrict__ q, const T* __restrict__ k,
     for (int i = tid; i < FK * dv; i += FT) {
       const int c = i / dv, d = i - c * dv;
       const long kp = k0 + c;
-      Vs[c * vs + d] =
+      float val =
           kp < S ? to_f32(v[(((long)b * S + kp) * Hkv + h) * dv + d]) : 0.f;
+      if (QUANT) val = val * Vsc[c];
+      Vs[c * vs + d] = val;
     }
     __syncthreads();
 
@@ -131,7 +157,8 @@ flash_fp(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const long kp = k0 + tx + 8 * j;
-        s[i][j] = (kp <= qpos[i] && kp < S) ? s[i][j] / scale : NEG_INF;
+        const float dot = QUANT ? s[i][j] * Ksc[tx + 8 * j] : s[i][j];
+        s[i][j] = (kp <= qpos[i] && kp < S) ? dot / scale : NEG_INF;
         mx = fmaxf(mx, s[i][j]);
       }
       for (int o = 1; o < 8; o <<= 1)
@@ -186,13 +213,14 @@ flash_fp(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T>
-int launch(const void* q, const void* k, const void* v, float* out, int B,
-           int S, int Hq, int Hkv, int hd, int dv, cudaStream_t stream) {
+template <typename TQ, typename TKV>
+int launch(const void* q, const void* k, const float* ks, const void* v,
+           const float* vs, float* out, int B, int S, int Hq, int Hkv, int hd,
+           int dv, cudaStream_t stream) {
   static bool attr_set = false;
   if (!attr_set) {
     const cudaError_t e = cudaFuncSetAttribute(
-        flash_fp<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        flash_attend<TQ, TKV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)MAX_SMEM);
     if (e != cudaSuccess) return (int)e;
     attr_set = true;
@@ -202,10 +230,15 @@ int launch(const void* q, const void* k, const void* v, float* out, int B,
                        FR * (FK + 1));
   const long rows = (long)S * (Hq / Hkv);
   const dim3 grid((unsigned)((rows + FR - 1) / FR), Hkv, B);
-  flash_fp<T><<<grid, FT, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), out, S, Hq, Hkv, hd, dv);
+  flash_attend<TQ, TKV><<<grid, FT, smem, stream>>>(
+      static_cast<const TQ*>(q), static_cast<const TKV*>(k), ks,
+      static_cast<const TKV*>(v), vs, out, S, Hq, Hkv, hd, dv);
   return (int)cudaGetLastError();
+}
+
+bool bad_shape(int B, int S, int Hq, int Hkv, int hd, int dv) {
+  return B <= 0 || S <= 0 || Hkv <= 0 || Hq % Hkv || hd < 1 || hd > MAXD ||
+         dv < 1 || dv > MAXD || Hkv > 65535 || B > 65535;
 }
 
 }  // namespace
@@ -221,13 +254,32 @@ const char* repro_error_string(int code) {
 int flash_prefill_fwd(const void* q, const void* k, const void* v, int dtype,
                       float* out, int B, int S, int Hq, int Hkv, int hd,
                       int dv, void* stream) {
-  if (B <= 0 || S <= 0 || Hkv <= 0 || Hq % Hkv || hd < 1 || hd > MAXD ||
-      dv < 1 || dv > MAXD || Hkv > 65535 || B > 65535)
-    return (int)cudaErrorInvalidValue;
+  if (bad_shape(B, S, Hq, Hkv, hd, dv)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float>(q, k, v, out, B, S, Hq, Hkv, hd, dv, s);
+  if (dtype == 0)
+    return launch<float, float>(q, k, nullptr, v, nullptr, out, B, S, Hq, Hkv,
+                                hd, dv, s);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(q, k, v, out, B, S, Hq, Hkv, hd, dv, s);
+    return launch<__nv_bfloat16, __nv_bfloat16>(q, k, nullptr, v, nullptr,
+                                                out, B, S, Hq, Hkv, hd, dv, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// q [B,S,Hq,hd] of q_dtype (0 float32, 1 bfloat16); k [B,S,Hkv,hd] and
+// v [B,S,Hkv,dv] int8; k_s / v_s [B,S,Hkv] f32; out [B,S,Hq,dv] float32;
+// all contiguous.
+int flash_qprefill_fwd(const void* q, int q_dtype, const int8_t* k,
+                       const float* k_s, const int8_t* v, const float* v_s,
+                       float* out, int B, int S, int Hq, int Hkv, int hd,
+                       int dv, void* stream) {
+  if (bad_shape(B, S, Hq, Hkv, hd, dv)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (q_dtype == 0)
+    return launch<float, int8_t>(q, k, k_s, v, v_s, out, B, S, Hq, Hkv, hd,
+                                 dv, s);
+  if (q_dtype == 1)
+    return launch<__nv_bfloat16, int8_t>(q, k, k_s, v, v_s, out, B, S, Hq,
+                                         Hkv, hd, dv, s);
   return (int)cudaErrorInvalidValue;
 }
 

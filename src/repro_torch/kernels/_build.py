@@ -3,7 +3,8 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface and compiles on its own
 (``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared``) into
 ``<repo>/build/repro_torch/lib<name>-<hash>.so`` at first use; the hash
-covers the source and the flags, so an edited source rebuilds. All sources
+covers the source, the shared ``csrc/*.cuh`` headers and the flags, so an
+edited source or header rebuilds. All sources
 compile at once, one ``nvcc`` each. No ``--use_fast_math``: the quantizers
 need IEEE division. Nothing here runs at import time.
 """
@@ -22,7 +23,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("qmatmul", "flash_prefill", "paged_attn")
+SOURCES = ("qmatmul", "flash_prefill", "paged_attn", "qdecode")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -44,7 +45,8 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    src = (CSRC / f"{name}.cu").read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
 

@@ -1,5 +1,6 @@
 """Causal flash prefill: port of
-``repro/kernels/flash_prefill.py::flash_prefill_attention``.
+``repro/kernels/flash_prefill.py::flash_prefill_attention`` and, over int8
+K/V with f32 per-(position, head) scales, ``flash_qprefill_attention``.
 
 Source note. The TPU kernel walks (batch, kv head, q tile, k tile) in grid
 order, carrying the online-softmax state in VMEM scratch across the
@@ -10,13 +11,16 @@ loops over the KV tiles itself up to its last query position, keeping the
 running max, normalizer and accumulator in registers. It computes in f32 on
 the CUDA cores: bound by the causal f32 work (``2 * (hd + dv)`` flops per
 visible (row, key) pair), it stays within rounding of the f32 reference.
+The int8 variant stages the codes, multiplies each score by its K scale
+after the dot and folds the V scale into the staged value row, as the TPU
+kernel does; it reads 1 byte per K/V element instead of 2.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import flash_prefill_ref
+from repro_torch.kernels.ref import flash_prefill_ref, flash_qprefill_ref
 
 MAX_HEAD_DIM = 128
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -68,3 +72,60 @@ def flash_prefill(q, k, v):
 
 
 flash_prefill.launches = 0
+
+
+def _check_q(q, k_i8, k_s, v_i8, v_s):
+    if q.dim() != 4 or k_i8.dim() != 4 or v_i8.dim() != 4:
+        raise ValueError("q, k_i8, v_i8 must be [B,S,H,D]")
+    b, s, hq, hd = q.shape
+    hkv, dv = k_i8.shape[2], v_i8.shape[3]
+    if k_i8.shape != (b, s, hkv, hd) or v_i8.shape[:3] != (b, s, hkv):
+        raise ValueError(f"shapes q {tuple(q.shape)} k {tuple(k_i8.shape)} "
+                         f"v {tuple(v_i8.shape)} do not match")
+    if k_s.shape != (b, s, hkv) or v_s.shape != k_s.shape:
+        raise ValueError(f"scales {tuple(k_s.shape)} / {tuple(v_s.shape)} "
+                         f"must be [B,S,Hkv] = {(b, s, hkv)}")
+    if hq % hkv:
+        raise ValueError(f"Hq={hq} is not a multiple of Hkv={hkv}")
+    if not (1 <= hd <= MAX_HEAD_DIM and 1 <= dv <= MAX_HEAD_DIM):
+        raise ValueError(f"hd={hd}, dv={dv}: each must be in 1..{MAX_HEAD_DIM}")
+    if q.dtype not in _DTYPE_CODE or k_i8.dtype != torch.int8 \
+            or v_i8.dtype != torch.int8 or k_s.dtype != torch.float32 \
+            or v_s.dtype != torch.float32:
+        raise TypeError(f"q {q.dtype} must be float32 or bfloat16, codes "
+                        f"int8 ({k_i8.dtype}/{v_i8.dtype}), scales float32 "
+                        f"({k_s.dtype}/{v_s.dtype})")
+    for name, t in (("k_i8", k_i8), ("k_s", k_s), ("v_i8", v_i8),
+                    ("v_s", v_s)):
+        if t.device != q.device:
+            raise ValueError(f"{name} on {t.device}, q on {q.device}")
+    for name, t in (("q", q), ("k_i8", k_i8), ("k_s", k_s), ("v_i8", v_i8),
+                    ("v_s", v_s)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def flash_qprefill(q, k_i8, k_s, v_i8, v_s):
+    """q [B,S,Hq,hd] f32 or bf16; k_i8 [B,S,Hkv,hd], v_i8 [B,S,Hkv,dv]
+    int8; k_s/v_s [B,S,Hkv] f32 -> [B,S,Hq,dv] f32. CPU tensors take the
+    plain version; CUDA tensors launch the kernel."""
+    _check_q(q, k_i8, k_s, v_i8, v_s)
+    if q.device.type == "cpu":
+        return flash_qprefill_ref(q, k_i8, k_s, v_i8, v_s)
+    if q.device.type != "cuda":
+        raise ValueError(f"no flash_qprefill kernel for {q.device}")
+    b, s, hq, hd = q.shape
+    hkv, dv = k_i8.shape[2], v_i8.shape[3]
+    out = torch.empty((b, s, hq, dv), dtype=torch.float32, device=q.device)
+    fn = _build.function(_LIB, "flash_qprefill_fwd", [
+        _build.P, _build.I, _build.P, _build.P, _build.P, _build.P, _build.P,
+        _build.I, _build.I, _build.I, _build.I, _build.I, _build.I, _build.P])
+    rc = fn(q.data_ptr(), _DTYPE_CODE[q.dtype], k_i8.data_ptr(),
+            k_s.data_ptr(), v_i8.data_ptr(), v_s.data_ptr(), out.data_ptr(),
+            b, s, hq, hkv, hd, dv, _build.stream_of(q))
+    _build.check(_LIB, rc, "flash_qprefill_fwd")
+    flash_qprefill.launches += 1
+    return out
+
+
+flash_qprefill.launches = 0

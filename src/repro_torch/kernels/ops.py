@@ -11,6 +11,7 @@ import torch
 from repro_torch.kernels import dynquant
 from repro_torch.kernels import flash_prefill as _flash
 from repro_torch.kernels import paged_attn
+from repro_torch.kernels import qdecode as _qdecode
 from repro_torch.kernels import qmatmul
 
 
@@ -44,3 +45,29 @@ def paged_decode(q, k_pool, v_pool, tables, pos):
     q [B,Hkv,G,hd]; pools [N,bs,Hkv,hd]; tables [B,M] int32 (-1 =
     unallocated); pos [B] int32. Returns [B,Hkv,G,hd] f32."""
     return paged_attn.paged_decode(q, k_pool, v_pool, tables, pos)
+
+
+def flash_qprefill(q, k_i8, k_s, v_i8, v_s):
+    """Fused-dequant causal prefill over int8 K/V.
+
+    q [B,S,Hq,hd]; k_i8 [B,S,Hkv,hd], v_i8 [B,S,Hkv,dv] int8; k_s/v_s
+    [B,S,Hkv] f32. Returns [B,S,Hq,dv] f32."""
+    return _flash.flash_qprefill(q, k_i8, k_s, v_i8, v_s)
+
+
+def qdecode(q, k_i8, k_s, v_i8, v_s, bias):
+    """Fused-dequant decode attention over a dense int8 cache.
+
+    q [B,Hkv,G,hd]; k_i8/v_i8 [B,S,Hkv,hd] int8; k_s/v_s [B,S,Hkv] f32;
+    bias [B,S] f32 additive. Returns [B,Hkv,G,hd] f32."""
+    return _qdecode.qdecode(q, k_i8, k_s, v_i8, v_s, bias)
+
+
+def paged_qdecode(q, k_pool, k_scale, v_pool, v_scale, tables, pos):
+    """Paged decode attention over int8 block pools.
+
+    q [B,Hkv,G,hd]; pools [N,bs,Hkv,hd] int8; scale pools [N,bs,Hkv] f32;
+    tables [B,M] int32 (-1 = unallocated); pos [B] int32. Returns
+    [B,Hkv,G,hd] f32."""
+    return paged_attn.paged_qdecode(q, k_pool, k_scale, v_pool, v_scale,
+                                    tables, pos)

@@ -1,5 +1,6 @@
 """Paged decode attention: port of
-``repro/kernels/paged_attn.py::paged_decode_attention`` (fp pools).
+``repro/kernels/paged_attn.py::paged_decode_attention`` (fp pools) and
+``paged_qdecode_attention`` (int8 pools with f32 scale pools).
 
 Source note. The TPU kernel walks the grid (B, Hkv, M) with the block table
 in scalar prefetch, so its index map DMAs pool block ``tables[b, m]`` at
@@ -7,16 +8,20 @@ step m, and carries the online-softmax state in VMEM across the sequential
 m axis. On the H100 (``csrc/paged_attn.cu``) one block owns one
 (sequence, kv head), reads the table entries itself and loops over 32-slot
 key tiles up to ``pos[b]``, keeping the running max, normalizer and the
-G x hd accumulator in f32; masked slots are never read. It is bound by the
-bytes of the valid K/V rows: at stablelm-1.6b width, eight sequences
-averaging ~270 positions read ~18 MB per layer, ~5.4 us at 3.35 TB/s.
+G x hd accumulator in f32; masked slots are never read. For int8 pools the
+thread of each slot also reads its K and V scales, the K scale multiplies
+the score after the dot and the V scale is folded into the value row, as
+the TPU kernel does (``csrc/decode_attn.cuh`` holds the loop). It is bound
+by the bytes of the valid K/V rows: at stablelm-1.6b width, eight sequences
+averaging ~300 positions read ~20 MB per layer from bf16 pools (~6 us at
+3.35 TB/s) and ~10.7 MB from int8 pools with their scales (~3.2 us).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import paged_decode_ref
+from repro_torch.kernels.ref import paged_decode_ref, paged_qdecode_ref
 
 MAX_GROUP = 8            # query heads per kv head
 MAX_HEAD_DIM = 128
@@ -25,7 +30,7 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _LIB = "paged_attn"
 
 
-def _check(q, k_pool, v_pool, tables, pos):
+def _check(q, k_pool, v_pool, tables, pos, quant=False):
     if q.dim() != 4 or k_pool.dim() != 4:
         raise ValueError("q must be [B,Hkv,G,hd] and pools [N,bs,Hkv,hd]")
     b, hkv, g, hd = q.shape
@@ -38,15 +43,21 @@ def _check(q, k_pool, v_pool, tables, pos):
                          f"{tuple(pos.shape)} must be [B,M] / [B] with B={b}")
     if tables.dtype != torch.int32 or pos.dtype != torch.int32:
         raise TypeError("tables and pos must be int32")
-    if not (1 <= g <= MAX_GROUP and 8 <= hd <= MAX_HEAD_DIM and hd % 8 == 0):
+    vec = 16 if quant else 8          # elements per 16-byte load
+    if not (1 <= g <= MAX_GROUP and vec <= hd <= MAX_HEAD_DIM
+            and hd % vec == 0):
         raise ValueError(f"G={g}, hd={hd}: need G <= {MAX_GROUP} and hd a "
-                         f"multiple of 8 up to {MAX_HEAD_DIM}")
+                         f"multiple of {vec} up to {MAX_HEAD_DIM}")
     if KEY_TILE % bs:
         raise ValueError(f"block size {bs} must divide {KEY_TILE}")
-    if q.dtype not in _DTYPE_CODE or k_pool.dtype not in _DTYPE_CODE \
+    pool_ok = (k_pool.dtype == torch.int8 if quant
+               else k_pool.dtype in _DTYPE_CODE)
+    if q.dtype not in _DTYPE_CODE or not pool_ok \
             or v_pool.dtype != k_pool.dtype:
         raise TypeError(f"q / pool dtypes {q.dtype} / {k_pool.dtype} / "
-                        f"{v_pool.dtype}: float32 or bfloat16, pools alike")
+                        f"{v_pool.dtype}: q float32 or bfloat16, pools "
+                        f"{'int8' if quant else 'float32 or bfloat16'}, "
+                        f"alike")
     for name, t in (("k_pool", k_pool), ("v_pool", v_pool),
                     ("tables", tables), ("pos", pos)):
         if t.device != q.device:
@@ -84,3 +95,51 @@ def paged_decode(q, k_pool, v_pool, tables, pos):
 
 
 paged_decode.launches = 0
+
+
+def _check_scales(k_pool, k_scale, v_scale):
+    if k_scale.shape != k_pool.shape[:3] or v_scale.shape != k_scale.shape:
+        raise ValueError(f"scale pools {tuple(k_scale.shape)} / "
+                         f"{tuple(v_scale.shape)} must be [N,bs,Hkv] = "
+                         f"{tuple(k_pool.shape[:3])}")
+    for name, t in (("k_scale", k_scale), ("v_scale", v_scale)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if t.device != k_pool.device:
+            raise ValueError(f"{name} on {t.device}, pools on "
+                             f"{k_pool.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def paged_qdecode(q, k_pool, k_scale, v_pool, v_scale, tables, pos):
+    """q [B,Hkv,G,hd]; int8 pools [N,bs,Hkv,hd] with f32 scale pools
+    [N,bs,Hkv]; tables [B,M] int32 (-1 = no block); pos [B] int32 ->
+    [B,Hkv,G,hd] f32. CPU tensors take the plain version; CUDA tensors
+    launch the kernel."""
+    _check(q, k_pool, v_pool, tables, pos, quant=True)
+    _check_scales(k_pool, k_scale, v_scale)
+    if q.device.type == "cpu":
+        return paged_qdecode_ref(q, k_pool, k_scale, v_pool, v_scale, tables,
+                                 pos)
+    if q.device.type != "cuda":
+        raise ValueError(f"no paged_qdecode kernel for {q.device}")
+    if k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
+        raise ValueError("pools must be 16-byte aligned (16-byte loads)")
+    b, hkv, g, hd = q.shape
+    out = torch.empty((b, hkv, g, hd), dtype=torch.float32, device=q.device)
+    fn = _build.function(_LIB, "paged_qdecode_fwd", [
+        _build.P, _build.I, _build.P, _build.P, _build.P, _build.P, _build.P,
+        _build.P, _build.P, _build.I, _build.I, _build.I, _build.I, _build.I,
+        _build.I, _build.P])
+    rc = fn(q.data_ptr(), _DTYPE_CODE[q.dtype], k_pool.data_ptr(),
+            k_scale.data_ptr(), v_pool.data_ptr(), v_scale.data_ptr(),
+            tables.data_ptr(), pos.data_ptr(), out.data_ptr(), b,
+            tables.shape[1], k_pool.shape[1], hkv, g, hd,
+            _build.stream_of(q))
+    _build.check(_LIB, rc, "paged_qdecode_fwd")
+    paged_qdecode.launches += 1
+    return out
+
+
+paged_qdecode.launches = 0

@@ -88,6 +88,48 @@ def flash_prefill_ref(q, k, v):
     return out.reshape(b, s, hq, dv)
 
 
+def _dequant(codes, scale):
+    """int8 codes [..., hd] * per-row scale [...] -> f32, dequantize first
+    (the JAX oracles' order)."""
+    return codes.to(torch.float32) * scale.to(torch.float32)[..., None]
+
+
+def quantize_kv_ref(t):
+    """[B,S,H,hd] -> (int8 codes, f32 scale [B,S,H]), per (slot, head):
+    ``scale = max(absmax, 1e-8) / 127`` and ``codes = round(t / scale)``
+    clipped to +-127, by IEEE division (both constants are same-device
+    tensors, so neither becomes a reciprocal multiply)."""
+    tf = t.to(torch.float32)
+    absmax = tf.abs().amax(dim=-1)
+    scale = torch.maximum(absmax, _const(1e-8, tf)) / _const(127.0, tf)
+    codes = torch.clamp(torch.round(tf / scale[..., None]), -127, 127)
+    return codes.to(torch.int8), scale
+
+
+def qdecode_ref(q, k_i8, k_s, v_i8, v_s, bias):
+    """int8-KV decode attention over a dense cache, in f32.
+
+    q [B,Hkv,G,hd]; k_i8/v_i8 [B,S,Hkv,hd] int8; k_s/v_s [B,S,Hkv] f32;
+    bias [B,S] additive (0 or ``NEG_INF``) -> [B,Hkv,G,hd] f32. The JAX
+    oracle's order: dequantize, ``qk / sqrt(hd)``, add the bias, full-row
+    softmax, normalize p, then the value einsum."""
+    hd = q.shape[-1]
+    kf, vf = _dequant(k_i8, k_s), _dequant(v_i8, v_s)
+    scores = torch.einsum("bkgh,bskh->bkgs", q.to(torch.float32), kf)
+    scores = scores / torch.sqrt(_const(float(hd), scores))
+    scores = scores + bias.to(torch.float32)[:, None, None, :]
+    p = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
+    p = p / p.sum(dim=-1, keepdim=True)
+    return torch.einsum("bkgs,bskh->bkgh", p, vf)
+
+
+def flash_qprefill_ref(q, k_i8, k_s, v_i8, v_s):
+    """int8-KV causal prefill: dequantize per (position, head), then the fp
+    prefill. k_i8 [B,S,Hkv,hd], v_i8 [B,S,Hkv,dv] int8; k_s/v_s [B,S,Hkv]
+    f32 -> [B,S,Hq,dv] f32."""
+    return flash_prefill_ref(q, _dequant(k_i8, k_s), _dequant(v_i8, v_s))
+
+
 RUN_INIT = -1.0e30      # running-max seed of the online-softmax kernels
 
 
@@ -137,6 +179,31 @@ def paged_decode_ref(q, k_pool, v_pool, tables, pos):
     valid = paged_valid(tables, pos, k_pool.shape[1])[:, None, None, :]
     kf = paged_gather(k_pool, tables).to(torch.float32)
     vf = paged_gather(v_pool, tables).to(torch.float32)
+    vf = torch.where(valid[:, 0, 0, :, None, None], vf, _const(0.0, vf))
+    scores = torch.einsum("bkgh,bskh->bkgs", q.to(torch.float32), kf)
+    scores = scores / torch.sqrt(_const(float(hd), scores))
+    scores = torch.where(valid, scores, _const(NEG_INF, scores))
+    m = torch.clamp(scores.amax(dim=-1, keepdim=True), min=RUN_INIT)
+    p = torch.exp(scores - m)
+    p = p / p.sum(dim=-1, keepdim=True)
+    return torch.einsum("bkgs,bskh->bkgh", p, vf)
+
+
+def paged_qdecode_ref(q, k_pool, k_scale, v_pool, v_scale, tables, pos):
+    """Paged decode attention over int8 pools, in f32.
+
+    q [B,Hkv,G,hd]; k_pool/v_pool [N,bs,Hkv,hd] int8; k_scale/v_scale
+    [N,bs,Hkv] f32; tables [B,M] int32; pos [B] -> [B,Hkv,G,hd] f32. The
+    JAX oracle gathers codes and scales, dequantizes, and runs the dense
+    int8 oracle with the paged bias. Here, as in ``paged_decode_ref``,
+    masked slots are selected away (scores to ``NEG_INF``, dequantized
+    values to 0) rather than biased, and the row max is floored at
+    ``RUN_INIT``: an idle row is 0/0, and a NaN scale or any code that an
+    idle row wrote into the trash block never reaches a live row."""
+    hd = q.shape[-1]
+    valid = paged_valid(tables, pos, k_pool.shape[1])[:, None, None, :]
+    kf = _dequant(paged_gather(k_pool, tables), paged_gather(k_scale, tables))
+    vf = _dequant(paged_gather(v_pool, tables), paged_gather(v_scale, tables))
     vf = torch.where(valid[:, 0, 0, :, None, None], vf, _const(0.0, vf))
     scores = torch.einsum("bkgh,bskh->bkgs", q.to(torch.float32), kf)
     scores = scores / torch.sqrt(_const(float(hd), scores))

@@ -1,17 +1,22 @@
 """Dense GQA attention: the port of ``repro.models.attention`` for the
-full-attention, fp-KV path.
+full-attention path with an fp or int8 KV cache.
 
 Prefill goes through the flash-prefill kernel (``kernels.ops.flash_prefill``)
 as ``cfg.opt_flash_prefill`` does by default in the JAX package. Decode over
 the fp cache is a plain masked softmax einsum there, and a plain
-``torch.einsum`` here. The decode cache is updated in place (one
-``[B, 1]`` slot per step) instead of copied, which saves a full cache copy
-per layer per step; callers own the cache they pass in.
+``torch.einsum`` here. The int8 tier (``cfg.kv_precision == "int8"``)
+quantizes K and V per (slot, head) before they are stored, keeps the cache
+as ``(k_q, k_scale, v_q, v_scale)``, and attends over the quantized values
+with the fused-dequant kernels: ``flash_qprefill``, ``qdecode`` and
+``paged_qdecode``. The decode cache is updated in place (one ``[B, 1]``
+slot per step) instead of copied, which saves a full cache copy per layer
+per step; callers own the cache they pass in.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.ref import quantize_kv_ref
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import apply_rope, dense_init, linear
 
@@ -42,13 +47,32 @@ def _ring_or_pad(t: torch.Tensor, s: int, window: int, pad_to: int):
     return t
 
 
+def _quantize_kv(t):
+    """[B,S,H,hd] -> (int8, scale [B,S,H]) per-slot-per-head symmetric.
+    Plain PyTorch on every device, as it is ``jnp`` (not a Pallas kernel)
+    in the JAX package."""
+    return quantize_kv_ref(t)
+
+
+def _kv_tier(cfg: ModelConfig, prefill: bool) -> str:
+    """``cfg.kv_precision`` when it is ported (fp or int8), else raise."""
+    if cfg.kv_precision == "int4":
+        raise NotImplementedError(
+            "the int4 KV tier is ROADMAP Queue 2 items 9-10")
+    if prefill and not cfg.opt_flash_prefill:
+        raise NotImplementedError(
+            "the chunked-query prefill is ROADMAP Queue 1 item 3")
+    return cfg.kv_precision
+
+
 def gqa_prefill(p, x, positions, cfg: ModelConfig, window: int = 0,
                 pad_to: int = 0):
-    """Returns (out [B,S,d], (k, v) cache [B, max(S, pad_to), Hkv, hd])."""
-    if window or cfg.kv_precision != "fp" or not cfg.opt_flash_prefill:
-        raise NotImplementedError(
-            "only the flash, fp-KV, full-attention prefill is ported "
-            "(ROADMAP Queue 1 items 3 and 9)")
+    """Returns (out [B,S,d], cache), the cache padded to ``max(S, pad_to)``
+    slots: ``(k, v)`` [B,S_cache,Hkv,hd], or for the int8 tier
+    ``(k_q, k_scale, v_q, v_scale)`` with f32 scales [B,S_cache,Hkv]. The
+    int8 prefill attends over the quantized K/V (the values decode reads
+    later); codes and scales are padded with zeros after quantizing."""
+    prec = _kv_tier(cfg, prefill=True)
     from repro_torch.kernels import ops
 
     b, s, _ = x.shape
@@ -58,10 +82,16 @@ def gqa_prefill(p, x, positions, cfg: ModelConfig, window: int = 0,
     v = linear(p["wv"], x).reshape(b, s, cfg.n_kv_heads, hd)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
-    out = ops.flash_prefill(q, k, v).to(x.dtype)
+    if prec == "int8":
+        kq, ks = _quantize_kv(k)
+        vq, vs = _quantize_kv(v)
+        out = ops.flash_qprefill(q, kq, ks, vq, vs).to(x.dtype)
+        cache = (kq, ks, vq, vs)
+    else:
+        out = ops.flash_prefill(q, k, v).to(x.dtype)
+        cache = (k, v)
     out = linear(p["wo"], out.reshape(b, s, cfg.n_heads * hd))
-    return out, (_ring_or_pad(k, s, window, pad_to),
-                 _ring_or_pad(v, s, window, pad_to))
+    return out, tuple(_ring_or_pad(t, s, window, pad_to) for t in cache)
 
 
 def _batched_update(cache: torch.Tensor, update: torch.Tensor, slots):
@@ -91,15 +121,14 @@ def decode_positions(pos, b: int, s_cache: int, window: int, device=None):
 
 
 def gqa_decode(p, x, cache_kv, pos, cfg: ModelConfig, window: int = 0):
-    """x [B,1,d]; cache_kv (k, v) as returned by gqa_prefill (updated in
-    place); pos: int or per-sequence [B] tensor of positions."""
-    if cfg.kv_precision != "fp":
-        raise NotImplementedError(
-            "int8/int4 KV decode is ROADMAP Queue 1 item 3 (Queue 2 item 8)")
+    """x [B,1,d]; cache_kv as returned by gqa_prefill (updated in place);
+    pos: int or per-sequence [B] tensor of positions. The int8 tier writes
+    this token's codes and scales, then attends with the ``qdecode``
+    kernel under the bias ``where(valid, 0, NEG_INF)``."""
+    prec = _kv_tier(cfg, prefill=False)
     b = x.shape[0]
     hd = cfg.resolved_head_dim
-    k_cache, v_cache = cache_kv
-    s_cache = k_cache.shape[1]
+    s_cache = cache_kv[0].shape[1]
     pos_vec, slot_vec, _, valid = decode_positions(pos, b, s_cache, window,
                                                    device=x.device)
     pos_b = pos_vec[:, None]
@@ -108,11 +137,22 @@ def gqa_decode(p, x, cache_kv, pos, cfg: ModelConfig, window: int = 0):
     v = linear(p["wv"], x).reshape(b, 1, cfg.n_kv_heads, hd)
     q = apply_rope(q, pos_b, cfg.rope_theta)
     k = apply_rope(k, pos_b, cfg.rope_theta)
-    k_cache = _batched_update(k_cache, k, slot_vec)
-    v_cache = _batched_update(v_cache, v, slot_vec)
-
     hq, hkv = cfg.n_heads, cfg.n_kv_heads
     qg = q.reshape(b, hkv, hq // hkv, hd)
+    if prec == "int8":
+        from repro_torch.kernels import ops
+
+        kq, ks = _quantize_kv(k)
+        vq, vs = _quantize_kv(v)
+        cache_kv = tuple(_batched_update(c, u, slot_vec)
+                         for c, u in zip(cache_kv, (kq, ks, vq, vs)))
+        bias = torch.where(valid, torch.zeros((), device=x.device),
+                           torch.full((), NEG_INF, device=x.device))
+        out = ops.qdecode(qg, *cache_kv, bias)
+        out = out.to(x.dtype).reshape(b, 1, hq * hd)
+        return linear(p["wo"], out), cache_kv
+    k_cache = _batched_update(cache_kv[0], k, slot_vec)
+    v_cache = _batched_update(cache_kv[1], v, slot_vec)
     scores = torch.einsum("bkgh,btkh->bkgt", qg, k_cache).to(torch.float32)
     # constants are filled on the device: a host tensor copy would sync
     scores = scores / torch.full((), hd, dtype=torch.float32,
@@ -124,7 +164,7 @@ def gqa_decode(p, x, cache_kv, pos, cfg: ModelConfig, window: int = 0):
 
 
 # ----------------------------------------------------------------------- #
-# Paged prefill / decode (block-table cache, fp tier)
+# Paged prefill / decode (block-table cache, fp and int8 tiers)
 # ----------------------------------------------------------------------- #
 def _count_vec(pos, b: int, device) -> torch.Tensor:
     """int or [B] tensor -> int64 [B] on ``device``, filled there (no
@@ -154,29 +194,33 @@ def gqa_prefill_paged(p, x, positions, cache, pos, tables, cfg: ModelConfig):
     flash kernel, and write the K/V straight into the block pools through
     the slot's table (in place; the dense cache never materializes).
     ``pos`` is the valid-token count (int or [B]); padded positions land
-    in the trash block."""
-    if cfg.kv_precision != "fp" or not cfg.opt_flash_prefill:
-        raise NotImplementedError(
-            "only the flash, fp-KV paged prefill is ported (ROADMAP Queue 1 "
-            "item 3, Queue 2 items 6-10)")
+    in the trash block. The int8 tier attends over the quantized K/V with
+    ``flash_qprefill`` and scatters codes and scales."""
+    prec = _kv_tier(cfg, prefill=True)
     from repro_torch.kernels import ops
 
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
-    k_pool, v_pool = cache
     n_valid = _count_vec(pos, b, x.device)
     q = linear(p["wq"], x).reshape(b, s, cfg.n_heads, hd)
     k = linear(p["wk"], x).reshape(b, s, cfg.n_kv_heads, hd)
     v = linear(p["wv"], x).reshape(b, s, cfg.n_kv_heads, hd)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
-    blk, off = _paged_prefill_slots(tables, n_valid, s, k_pool.shape[1])
-    out = ops.flash_prefill(q, k, v).to(x.dtype)
+    blk, off = _paged_prefill_slots(tables, n_valid, s, cache[0].shape[1])
+    if prec == "int8":
+        kq, ks = _quantize_kv(k)
+        vq, vs = _quantize_kv(v)
+        out = ops.flash_qprefill(q, kq, ks, vq, vs).to(x.dtype)
+        new = (kq, ks, vq, vs)
+    else:
+        out = ops.flash_prefill(q, k, v).to(x.dtype)
+        new = (k, v)
     # duplicate (block 0, offset) pairs only ever come from padding
-    k_pool[blk, off] = k.to(k_pool.dtype)
-    v_pool[blk, off] = v.to(v_pool.dtype)
+    for pool, t in zip(cache, new):
+        pool[blk, off] = t.to(pool.dtype)
     out = linear(p["wo"], out.reshape(b, s, cfg.n_heads * hd))
-    return out, (k_pool, v_pool)
+    return out, cache
 
 
 def paged_write_slots(tables, pos_vec, block_size: int):
@@ -194,18 +238,17 @@ def paged_write_slots(tables, pos_vec, block_size: int):
 
 
 def gqa_decode_paged(p, x, cache, pos, tables, cfg: ModelConfig):
-    """x [B,1,d]; cache (k_pool, v_pool) [N,bs,Hkv,hd], updated in place;
-    tables [B,M] int32; pos int or [B]. Writes this token's K/V into its
-    table's block, then reads the whole sequence through the table with
-    the paged-attention kernel."""
-    if cfg.kv_precision != "fp":
-        raise NotImplementedError(
-            "int8/int4 paged decode is ROADMAP Queue 2 items 6 and 9")
+    """x [B,1,d]; cache (k_pool, v_pool) [N,bs,Hkv,hd], or for the int8
+    tier (k_pool, k_scale, v_pool, v_scale) with f32 scale pools
+    [N,bs,Hkv], updated in place; tables [B,M] int32; pos int or [B].
+    Writes this token's K/V (codes and scales) into its table's block,
+    then reads the whole sequence through the table with the paged
+    attention kernel (``paged_qdecode`` for int8)."""
+    prec = _kv_tier(cfg, prefill=False)
     from repro_torch.kernels import ops
 
     b = x.shape[0]
     hd = cfg.resolved_head_dim
-    k_pool, v_pool = cache
     pos_vec = _count_vec(pos, b, x.device)
     pos_b = pos_vec[:, None]
     q = linear(p["wq"], x).reshape(b, 1, cfg.n_heads, hd)
@@ -213,12 +256,18 @@ def gqa_decode_paged(p, x, cache, pos, tables, cfg: ModelConfig):
     v = linear(p["wv"], x).reshape(b, 1, cfg.n_kv_heads, hd)
     q = apply_rope(q, pos_b, cfg.rope_theta)
     k = apply_rope(k, pos_b, cfg.rope_theta)
-    blk, off = paged_write_slots(tables, pos_vec, k_pool.shape[1])
-    k_pool[blk, off] = k[:, 0].to(k_pool.dtype)
-    v_pool[blk, off] = v[:, 0].to(v_pool.dtype)
+    blk, off = paged_write_slots(tables, pos_vec, cache[0].shape[1])
+    if prec == "int8":
+        kq, ks = _quantize_kv(k)
+        vq, vs = _quantize_kv(v)
+        new = (kq, ks, vq, vs)
+    else:
+        new = (k, v)
+    for pool, t in zip(cache, new):
+        pool[blk, off] = t[:, 0].to(pool.dtype)
     hq, hkv = cfg.n_heads, cfg.n_kv_heads
     qg = q.reshape(b, hkv, hq // hkv, hd)
-    out = ops.paged_decode(qg, k_pool, v_pool, tables.to(torch.int32),
-                           pos_vec.to(torch.int32))
+    attend = ops.paged_qdecode if prec == "int8" else ops.paged_decode
+    out = attend(qg, *cache, tables.to(torch.int32), pos_vec.to(torch.int32))
     out = out.to(x.dtype).reshape(b, 1, hq * hd)
-    return linear(p["wo"], out), (k_pool, v_pool)
+    return linear(p["wo"], out), cache

@@ -192,12 +192,26 @@ def decode_step_paged(params, caches, tokens, pos, tables, cfg: ModelConfig):
     return lm_head(params, x, cfg), caches
 
 
+def kv_leaves(cfg: ModelConfig, lead, device) -> tuple:
+    """One layer's zeroed KV leaves with leading dims ``lead`` (``(B, S)``
+    for a dense cache, ``(N, bs)`` for a block pool): ``(k, v)`` in the
+    activation dtype, or for the int8 tier ``(k_q, k_scale, v_q,
+    v_scale)``: int8 codes ``[*lead, Hkv, hd]`` and f32 scales
+    ``[*lead, Hkv]``."""
+    shape = tuple(lead) + (cfg.n_kv_heads, cfg.resolved_head_dim)
+    if cfg.kv_precision == "int8":
+        codes = lambda: torch.zeros(shape, dtype=torch.int8, device=device)  # noqa: E731
+        scale = lambda: torch.zeros(shape[:-1], dtype=torch.float32,  # noqa: E731
+                                    device=device)
+        return codes(), scale(), codes(), scale()
+    dt = cfg.activation_dtype
+    return (torch.zeros(shape, dtype=dt, device=device),
+            torch.zeros(shape, dtype=dt, device=device))
+
+
 def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
                device: DeviceLike = None) -> Dict[str, Any]:
     check_supported(cfg)
     dev = resolve_device(device)
-    shape = (batch, seq_len, cfg.n_kv_heads, cfg.resolved_head_dim)
-    dt = cfg.activation_dtype
-    return {"layers": [(torch.zeros(shape, dtype=dt, device=dev),
-                        torch.zeros(shape, dtype=dt, device=dev))
+    return {"layers": [kv_leaves(cfg, (batch, seq_len), dev)
                        for _ in range(cfg.n_layers)]}

@@ -1,4 +1,5 @@
-"""Paged KV cache: the port of ``repro.serving.kvcache`` for the fp tier.
+"""Paged KV cache: the port of ``repro.serving.kvcache`` for the fp and int8
+tiers.
 
 * ``BlockAllocator`` — host-side metadata for a pool of fixed-size token
   blocks: refcounted sharing (copy-on-write via ``ensure_writable``), a
@@ -7,11 +8,12 @@
   pressure evicts them. Pure Python, the same as the JAX package's.
 * ``PagedKVCache`` — the device pools plus the block tables. The pools keep
   the port's per-layer layout, ``{"layers": [(k_pool, v_pool), ...]}`` with
-  each pool ``[N, block_size, Hkv, hd]``, and are written in place (the JAX
-  package replaces them functionally). ``tables`` is rebuilt only when a
+  each pool ``[N, block_size, Hkv, hd]`` (int8 tier: ``(k_pool, k_scale,
+  v_pool, v_scale)`` with f32 scale pools ``[N, block_size, Hkv]``), and
+  are written in place (the JAX package replaces them functionally). ``tables`` is rebuilt only when a
   slot's blocks change, with one host-to-device copy.
 
-The int8/int4 block pools are ROADMAP Queue 2 items 6-10; attaching a
+The int4 block pools are ROADMAP Queue 2 items 9-10; attaching a
 second engine to one store (``shared=``) and the block export/import of
 the handoff between prefill and decode workers are ROADMAP Queue 1 item
 11; the speculative-decoding rollback (``truncate``) is item 8. Also here:
@@ -27,6 +29,7 @@ import torch
 
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.transformer import kv_leaves
 
 #: table entries below 0 mean "no block allocated"; gathers clamp to the
 #: reserved trash block 0 and mask by position validity.
@@ -241,14 +244,14 @@ class BlockAllocator:
 # ------------------------------------------------------------------ #
 # Device-side pools
 # ------------------------------------------------------------------ #
-def _check_fp_tier(cfg: ModelConfig) -> None:
+def _check_pool_tier(cfg: ModelConfig) -> None:
     why = paged_supported(cfg)
     if why is not None:
         raise ValueError(f"paged KV cache unsupported for {cfg.name}: {why}")
-    if cfg.kv_precision != "fp":
+    if cfg.kv_precision == "int4":
         raise NotImplementedError(
-            f"KV tier {cfg.kv_precision!r}: int8/int4 block pools are ROADMAP "
-            "Queue 2 items 6-10")
+            "KV tier 'int4': nibble-packed block pools are ROADMAP Queue 2 "
+            "items 9-10")
     if cfg.attention == "mla" or cfg.n_experts:
         raise NotImplementedError(
             "MLA and MoE block pools are ROADMAP Queue 1 item 9")
@@ -256,21 +259,19 @@ def _check_fp_tier(cfg: ModelConfig) -> None:
 
 def init_paged_pools(cfg: ModelConfig, n_blocks: int, block_size: int,
                      device: DeviceLike = None) -> Dict[str, Any]:
-    """Zeroed block pools, one ``(k_pool, v_pool)`` pair per layer, each
-    ``[n_blocks, block_size, Hkv, hd]`` in the activation dtype: the dense
-    cache's ``[B, S, Hkv, hd]`` with one shared pool in place of per-slot
-    reservations."""
-    _check_fp_tier(cfg)
+    """Zeroed block pools per layer: ``(k_pool, v_pool)``, each
+    ``[n_blocks, block_size, Hkv, hd]`` in the activation dtype, or for the
+    int8 tier ``(k_pool, k_scale, v_pool, v_scale)`` with int8 pools and f32
+    ``[n_blocks, block_size, Hkv]`` scale pools: the dense cache's leaves
+    with one shared pool in place of per-slot reservations."""
+    _check_pool_tier(cfg)
     dev = resolve_device(device)
-    shape = (n_blocks, block_size, cfg.n_kv_heads, cfg.resolved_head_dim)
-    dt = cfg.activation_dtype
-    return {"layers": [(torch.zeros(shape, dtype=dt, device=dev),
-                        torch.zeros(shape, dtype=dt, device=dev))
+    return {"layers": [kv_leaves(cfg, (n_blocks, block_size), dev)
                        for _ in range(cfg.n_layers)]}
 
 
 def _pool_tensors(pools) -> List[torch.Tensor]:
-    return [t for pair in pools["layers"] for t in pair]
+    return [t for leaves in pools["layers"] for t in leaves]
 
 
 class SharedKVPool:
@@ -396,9 +397,9 @@ class PagedKVCache:
     # ------------------------------------------------------------- #
     def scatter_prefill(self, slot: int, dense_cache: Any,
                         n_tokens: int) -> List[int]:
-        """Move a dense batch-1 prefill cache (per-layer ``(k, v)`` of
-        ``[1, S_pad, Hkv, hd]``) into freshly allocated blocks for
-        ``slot``."""
+        """Move a dense batch-1 prefill cache (per-layer leaves of
+        ``[1, S_pad, ...]``, in the pools' order) into freshly allocated
+        blocks for ``slot``."""
         need = self.blocks_for_tokens(n_tokens)
         ids = []
         for _ in range(need):
@@ -410,8 +411,9 @@ class PagedKVCache:
             ids.append(bid)
         bs = self.block_size
         idx = torch.tensor(ids, dtype=torch.int64, device=self.device)
-        for pair, dense in zip(self.pools["layers"], dense_cache["layers"]):
-            for pool, d in zip(pair, dense):
+        for leaves, dense in zip(self.pools["layers"],
+                                 dense_cache["layers"]):
+            for pool, d in zip(leaves, dense):
                 rows = d[0, :need * bs]
                 if rows.shape[0] < need * bs:
                     pad = need * bs - rows.shape[0]

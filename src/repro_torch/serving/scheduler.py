@@ -367,9 +367,9 @@ class ContinuousBatchingEngine:
                                  chunk)
         last, single = prefill(self.params, batch, self.cfg,
                                pad_to=self._pad_len, n_valid=chunk)
-        for (kc, vc), (k1, v1) in zip(self.cache["layers"], single["layers"]):
-            kc[slot:slot + 1].copy_(k1)
-            vc[slot:slot + 1].copy_(v1)
+        for leaves, new in zip(self.cache["layers"], single["layers"]):
+            for c, c1 in zip(leaves, new):
+                c[slot:slot + 1].copy_(c1)
         self.positions[slot] = chunk
         req.n_consumed = chunk
         self.prefill_tokens += chunk
@@ -668,7 +668,7 @@ class ContinuousBatchingEngine:
             kv_bytes = self.kv.kv_bytes_in_use(self.kv.alloc.stats.peak_in_use)
         else:
             kv_bytes = sum(t.numel() * t.element_size()
-                           for pair in self.cache["layers"] for t in pair)
+                           for leaves in self.cache["layers"] for t in leaves)
         m["kv_hbm_bytes_per_req"] = kv_bytes / self.n_slots
         m["kv_hbm_bytes_per_req_per_shard"] = kv_bytes / self.n_slots
         ttft = [r.first_token_at - r.submitted_at for r in done]

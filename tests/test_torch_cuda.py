@@ -10,7 +10,7 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
 from repro_torch.kernels import (dynquant, flash_prefill,  # noqa: E402
-                                 paged_attn, qmatmul)
+                                 paged_attn, qdecode, qmatmul)
 from repro_torch.kernels import ref  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -135,3 +135,96 @@ def test_paged_decode_kernel_matches_plain(dev, case, dtype):
     k_pool[0], v_pool[0] = float("nan"), float("nan")
     again = paged_attn.paged_decode(q, k_pool, v_pool, tables, pos_t)
     assert torch.equal(again[~idle], got[~idle])
+
+
+# ------------------------------------------------------------------ #
+# The int8-KV kernels
+# ------------------------------------------------------------------ #
+def _codes(gen, shape):
+    return torch.randint(-127, 128, shape, generator=gen, dtype=torch.int8)
+
+
+def _scales(gen, shape):
+    # positive scales: dequantized values of order 1, as quantized K/V are
+    return (torch.rand(shape, generator=gen) + 0.5) / 127
+
+
+# (b, s, hkv, g, hd): the stablelm-1.6b dense-engine shape; mistral-nemo
+# width with a ragged S
+QDECODE_CASES = {"stablelm": (8, 512, 32, 1, 64), "nemo": (3, 77, 8, 4, 128)}
+
+
+@pytest.mark.parametrize("case", sorted(QDECODE_CASES))
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_qdecode_kernel_matches_plain(dev, case, dtype):
+    b, s, hkv, g, hd = QDECODE_CASES[case]
+    gen = torch.Generator().manual_seed(s + hd)
+    q = torch.randn((b, hkv, g, hd), generator=gen).to(dtype)
+    pos = torch.randint(0, s, (b,), generator=gen)
+    bias = torch.where(torch.arange(s)[None] <= pos[:, None],
+                       torch.tensor(0.0), torch.tensor(-2.0e38))
+    args = tuple(t.to(dev) for t in (
+        q, _codes(gen, (b, s, hkv, hd)), _scales(gen, (b, s, hkv)),
+        _codes(gen, (b, s, hkv, hd)), _scales(gen, (b, s, hkv)), bias))
+    before = qdecode.qdecode.launches
+    got = qdecode.qdecode(*args)
+    assert qdecode.qdecode.launches == before + 1
+    want = ref.qdecode_ref(*args)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == q.shape
+    # f32 both sides: the kernel scales after the dot, the plain version
+    # dequantizes first; summation order differs
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+
+
+def _to_int8_pools(gen, k_pool, v_pool):
+    n, bs, hkv, _ = k_pool.shape
+    return (_codes(gen, k_pool.shape).to(k_pool.device),
+            _scales(gen, (n, bs, hkv)).to(k_pool.device),
+            _codes(gen, v_pool.shape).to(k_pool.device),
+            _scales(gen, (n, bs, hkv)).to(k_pool.device))
+
+
+@pytest.mark.parametrize("case", ["stablelm", "nemo", "idle"])
+def test_paged_qdecode_kernel_matches_plain(dev, case):
+    b, hkv, g, hd, bs, m, n, pos = PAGED_CASES[case]
+    q, k_pool, v_pool, tables, pos_t = _paged_case(
+        dev, b, hkv, g, hd, bs, m, n, torch.bfloat16, pos, seed=b * hd + bs,
+        holes=[(0, 1)] if case == "idle" else ())
+    pools = _to_int8_pools(torch.Generator().manual_seed(hd), k_pool, v_pool)
+    before = paged_attn.paged_qdecode.launches
+    got = paged_attn.paged_qdecode(q, *pools, tables, pos_t)
+    assert paged_attn.paged_qdecode.launches == before + 1
+    want = ref.paged_qdecode_ref(q, *pools, tables, pos_t)
+    torch.cuda.synchronize()
+    idle = torch.tensor([p < 0 for p in pos], device=dev)
+    assert torch.equal(got.isnan().all(-1).all(-1).all(-1), idle)
+    assert torch.equal(want.isnan().all(-1).all(-1).all(-1), idle)
+    torch.testing.assert_close(got[~idle], want[~idle], rtol=0, atol=1e-4)
+    # what an idle slot writes into the trash block (NaN scales, any
+    # codes) is never read: the live rows do not change
+    k_q, k_s, v_q, v_s = pools
+    k_q[0], v_q[0] = -128, -128
+    k_s[0], v_s[0] = float("nan"), float("nan")
+    again = paged_attn.paged_qdecode(q, *pools, tables, pos_t)
+    assert torch.equal(again[~idle], got[~idle])
+    assert torch.isfinite(again[~idle]).all()
+
+
+@pytest.mark.parametrize("b,s,hq,hkv,hd,dv", [(4, 256, 32, 32, 64, 64),
+                                              (2, 77, 8, 2, 64, 48),
+                                              (1, 300, 32, 8, 128, 128)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_qprefill_kernel_matches_plain(dev, b, s, hq, hkv, hd, dv,
+                                             dtype):
+    gen = torch.Generator().manual_seed(s * hd + dv)
+    args = tuple(t.to(dev) for t in (
+        torch.randn((b, s, hq, hd), generator=gen).to(dtype),
+        _codes(gen, (b, s, hkv, hd)), _scales(gen, (b, s, hkv)),
+        _codes(gen, (b, s, hkv, dv)), _scales(gen, (b, s, hkv))))
+    before = flash_prefill.flash_qprefill.launches
+    got = flash_prefill.flash_qprefill(*args)
+    assert flash_prefill.flash_qprefill.launches == before + 1
+    assert got.dtype == torch.float32 and got.shape == (b, s, hq, dv)
+    torch.testing.assert_close(got, ref.flash_qprefill_ref(*args), rtol=0,
+                               atol=1e-4)

@@ -210,7 +210,7 @@ def test_entry_points_raise_without_cuda_and_no_device():
 def test_unported_branches_name_the_roadmap():
     cfg = t_configs.smoke_config("mistral-nemo-12b")
     for bad in (cfg.with_overrides(window=8),
-                cfg.with_overrides(kv_cache_precision="int8"),
+                cfg.with_overrides(kv_cache_precision="int4"),
                 cfg.with_overrides(attention="mla")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             init_params(bad, device="cpu")

@@ -463,8 +463,8 @@ def test_sizing_helpers_match_jax():
 def test_unported_pools_name_the_roadmap():
     cfg = t_configs.smoke_config("mistral-nemo-12b")
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 2"):
-        t_kv.init_paged_pools(cfg.with_overrides(kv_cache_int8=True), 4, 4,
-                              device="cpu")
+        t_kv.init_paged_pools(cfg.with_overrides(kv_cache_precision="int4"),
+                              4, 4, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 11"):
         t_kv.PagedKVCache(cfg, 1, 4, 4, 2, device="cpu",
                           shared=t_kv.SharedKVPool(cfg, 4, 4, "cpu"))
