@@ -13,26 +13,30 @@ prints one JSON line per phase:
    time, its bound and a library yardstick's time (timed here only, never
    used by the port): the GEMMs, flash prefill and paged decode, then the
    int8-KV kernels qdecode, paged_qdecode (with NaN scales and -128 codes
-   in the trash block) and flash_qprefill;
+   in the trash block) and flash_qprefill, then the int4-KV kernels
+   paged_q4decode (with NaN f16 scales and 0x88 bytes in the trash block)
+   and flash_q4prefill, and the int4 KV quantizer's edge groups, card
+   against CPU;
 3. e2e: stablelm-1.6b at full width in bf16 with random seeded weights, the
    three default variants (fp32 passthrough, dynamic int8, static int8
    calibrated on 2 batches of 2 x 128 tokens) and dynamic int8 over an
-   int8 KV cache, 4 requests served through a RequestQueue ->
-   InferenceSession.generate, with every kernel's launch counter zeroed
-   before and read after;
+   int8 and over an int4 KV cache, 4 requests served through a
+   RequestQueue -> InferenceSession.generate, with every kernel's launch
+   counter zeroed before and read after;
 4. engine: stablelm-1.6b at full width in bf16 behind the paged
    ContinuousBatchingEngine (8 slots, 16-token blocks, a 65-block pool
    small enough to preempt) and then the dense one, replaying a seeded
    trace of 16 greedy requests (4 share a 128-token prefix) through
    ``loadgen.replay``, for the fp32-passthrough and dynamic-int8 variants
    and dynamic int8 over an int8 KV cache (paged, dense, and paged with
-   the bf16 pool's bytes), with every kernel's launch counter zeroed
-   before each replay and read after it, plus a timed and profiled window
-   of batched decode steps;
+   the bf16 pool's bytes) and over an int4 KV cache (paged, dense), the
+   fp32 replays at 12 of the 24 layers (FP32_ENGINE_LAYERS), with
+   every kernel's launch counter zeroed before each replay and read after
+   it, plus a timed and profiled window of batched decode steps;
 5. card vs CPU: the same fp32 weights at full width and 2 layers, the CPU's
    plain path against the card's kernel path on one prompt plus 8
    teacher-forced decode steps, dense and then paged (a block table with
-   scattered ids and a -1 tail), over an fp and an int8 KV cache;
+   scattered ids and a -1 tail), over an fp, an int8 and an int4 KV cache;
 6. a ``kernels`` line, the ``nvidia-smi`` line, and last the device line.
 
 Any failed check raises and the exit code is non-zero. Without a CUDA
@@ -94,6 +98,10 @@ INT8KV_ATOL = 1e-4
 # 8 slots whose requests average ~146 + 32 tokens, so preemption happens
 ENGINE = {"n_slots": 8, "max_len": 512}
 PAGED = {"paged": True, "block_size": 16, "n_blocks": 65}
+# the fp32-passthrough replays run the first 12 of the 24 layers: they
+# cover no kernel that the other replays miss, and the run stays inside
+# its time budget; the counting metrics depend on the trace only
+FP32_ENGINE_LAYERS = 12
 TRACE_N, TRACE_PROMPT, TRACE_GAP = 16, (37, 255), 2.0
 SHARED, SHARED_PREFIX = (4, 5, 6, 7), 128
 PROMPT_LENS = (37, 120, 200, 255)
@@ -108,9 +116,14 @@ N_NEW = 32
 # fp32_int8kv (fp32 weights over the int8 KV cache): the same nudge flips
 # K/V codes at .5 quotients and so moves the CPU's own logits by max
 # 0.00405 / mean 0.00076 (dense and paged alike); the bound is 2.5 times
-# that. card_vs_cpu prints the nudge of every run beside its error.
+# that. fp32_int4kv (fp32 weights over the int4 KV cache): one code step
+# is 1/7 of a group's absmax, so the same nudge moves the CPU's own logits
+# by max 0.0618 / mean 0.0110 (dense and paged alike, measured on the CPU
+# with this script's teacher_forced and nudged_norms); the bound is about
+# 2.5 times that. card_vs_cpu prints the nudge of every run beside its
+# error.
 CPU_TOL = {"fp32": (2e-3, 2e-4), "dynamic_int8": (0.2, 0.03),
-           "fp32_int8kv": (1e-2, 2e-3)}
+           "fp32_int8kv": (1e-2, 2e-3), "fp32_int4kv": (0.15, 0.03)}
 
 
 def emit(phase: str, **fields) -> None:
@@ -178,7 +191,9 @@ def _wrappers(k):
             "paged_decode": k.paged_attn.paged_decode,
             "qdecode": k.qdecode.qdecode,
             "paged_qdecode": k.paged_attn.paged_qdecode,
-            "flash_qprefill": k.flash_prefill.flash_qprefill}
+            "flash_qprefill": k.flash_prefill.flash_qprefill,
+            "paged_q4decode": k.paged_attn.paged_q4decode,
+            "flash_q4prefill": k.flash_prefill.flash_q4prefill}
 
 
 def reset_counters(k):
@@ -599,6 +614,205 @@ def flash_qprefill_phase(k, dev, timer):
     return headline
 
 
+def int4_codes(gen, shape, dev):
+    """Random packed int4 bytes [*shape[:-1], hd // 2] (every nibble -8..7)
+    and positive f16 group scales [*shape[:-1], hd // 32] of order 1/7
+    (dequantized values of order 1, as quantized K/V are)."""
+    *lead, hd = shape
+    codes = torch.randint(-128, 128, (*lead, hd // 2), generator=gen,
+                          dtype=torch.int8)
+    scales = ((torch.rand((*lead, hd // 32), generator=gen) + 0.5) / 7).to(
+        torch.float16)
+    return codes.to(dev), scales.to(dev)
+
+
+def int4_bytes(n_rows, hd):
+    """Bytes of ``n_rows`` int4 K or V rows of width hd with their f16
+    group scales."""
+    return n_rows * (hd // 2 + 2 * (hd // 32))
+
+
+def paged_q4decode_phase(k, dev, timer):
+    """PAGED_SHAPES over int4 pools with f16 group-scale pools. Case (e)
+    then writes what an idle slot leaves in the trash block (NaN f16
+    scales) and 0x88 bytes (codes -8) there, and the live rows must not
+    change."""
+    ref, pa, quant = k.ref, k.paged_attn, k.quantize
+    gen = torch.Generator().manual_seed(SEED + 7)
+    cgen = torch.Generator().manual_seed(SEED + 12)
+    worst, headline = 0.0, None
+    for label, shape in PAGED_SHAPES.items():
+        b, hkv, g, hd, bs, m, n, dt, _ = shape
+        q, kp, vp, tables, pos, live = paged_case(dev, gen, shape)
+        k_pool, k_scale = int4_codes(cgen, tuple(kp.shape), dev)
+        v_pool, v_scale = int4_codes(cgen, tuple(vp.shape), dev)
+        del kp, vp
+        pools = (k_pool, k_scale, v_pool, v_scale)
+        run = lambda: pa.paged_q4decode(q, *pools, tables, pos)  # noqa: E731
+        plain = lambda: ref.paged_q4decode_ref(q, *pools, tables, pos)  # noqa: E731
+        got, want = run(), plain()
+        torch.cuda.synchronize()
+        idle_nan = bool(got[~live].isnan().all()) and bool(
+            want[~live].isnan().all())
+        err = float((got[live] - want[live]).abs().max())
+        if not torch.isfinite(got[live]).all() or err > INT8KV_ATOL \
+                or not idle_nan:
+            raise AssertionError(f"paged_q4decode ({label}): max |err| {err} "
+                                 f"> {INT8KV_ATOL} or idle rows not 0/0")
+        worst = max(worst, err)
+        t_k = timer.graph_ms(run)
+        t_eager = timer.eager_ms(run)
+        t_p = timer.graph_ms(plain, iters=3)
+        # yardstick, three calls: gather codes and scales into contiguous
+        # [B, S, ...] views, dequantize to [B, Hkv, S, hd] in q's dtype,
+        # then one SDPA call over the masked view
+        valid = ref.paged_valid(tables, pos, bs)
+
+        def gather():
+            return tuple(ref.paged_gather(t, tables) for t in pools)
+        gathered = gather()
+
+        def deq():
+            kg, ksg, vg, vsg = gathered
+            return (quant.dequantize_kv_int4(kg, ksg).to(dt).transpose(1, 2)
+                    .contiguous(),
+                    quant.dequantize_kv_int4(vg, vsg).to(dt).transpose(1, 2)
+                    .contiguous())
+        kf, vf = deq()
+        mask = valid[:, None, None, :]
+        sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+            q, kf, vf, attn_mask=mask)
+        lib_out = sdpa().float()
+        lib_err = float((lib_out[live] - want[live]).abs().max())
+        t_gather = timer.graph_ms(gather)
+        t_deq = timer.graph_ms(deq)
+        t_lib = timer.graph_ms(sdpa)
+        # what an idle slot leaves in the trash block reaches no live row
+        trash = None
+        if not bool(live.all()):
+            k_pool[0], v_pool[0] = -120, -120          # 0x88: codes -8
+            k_scale[0], v_scale[0] = float("nan"), float("nan")
+            again, again_plain = run(), plain()
+            torch.cuda.synchronize()
+            trash = bool(torch.isfinite(again[live]).all()) and bool(
+                torch.equal(again[live], got[live])) and bool(
+                torch.equal(again_plain[live], want[live]))
+            if not trash:
+                raise AssertionError(f"paged_q4decode ({label}): the "
+                                     "poisoned trash block reached a live "
+                                     "row")
+        n_valid = int(valid.sum())            # this run's valid slots
+        nbytes = (2 * hkv * int4_bytes(n_valid, hd)
+                  + q.numel() * q.element_size() + tables.numel() * 4
+                  + pos.numel() * 4 + got.numel() * 4)
+        flops = 4.0 * g * hd * n_valid * hkv
+        b_ms, b_by = bound(nbytes, flops, str(dt).split(".")[-1])
+        row = dict(kernel="paged_q4decode", case=label, B=b, Hkv=hkv, G=g,
+                   hd=hd, bs=bs, M=m, N=n, dtype=str(dt).split(".")[-1],
+                   pools="int4", positions=pos.tolist(),
+                   valid_slots=n_valid, idle_rows=int((~live).sum()),
+                   trash_nan_isolated=trash, max_abs_err=err,
+                   atol=INT8KV_ATOL, ms=t_k, eager_ms=t_eager, plain_ms=t_p,
+                   library_ms=t_lib, library_gather_ms=t_gather,
+                   library_dequant_ms=t_deq, library_max_abs_err=lib_err,
+                   mbytes=nbytes / 1e6, bound_ms=b_ms, bound_by=b_by)
+        emit("kernel", **row)
+        if label == HEADLINE_PAGED:
+            headline = row
+        del q, pools, k_pool, v_pool, gathered, kf, vf
+    headline["max_abs_err"] = worst
+    return headline
+
+
+def flash_q4prefill_phase(k, dev, timer):
+    ref, fp, quant = k.ref, k.flash_prefill, k.quantize
+    gen = torch.Generator().manual_seed(SEED + 13)
+    worst, headline = 0.0, None
+    for shape in FLASH_SHAPES:
+        b, s, hq, hkv, hd, dv, dt = shape
+        q = torch.randn((b, s, hq, hd), generator=gen).to(dev, dt)
+        kq, ks = int4_codes(gen, (b, s, hkv, hd), dev)
+        vq, vs = int4_codes(gen, (b, s, hkv, dv), dev)
+        run = lambda: fp.flash_q4prefill(q, kq, ks, vq, vs)  # noqa: E731
+        plain = lambda: ref.flash_q4prefill_ref(q, kq, ks, vq, vs)  # noqa: E731
+        got, want = run(), plain()
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        if not torch.isfinite(got).all() or err > INT8KV_ATOL:
+            raise AssertionError(f"flash_q4prefill {shape}: max |err| {err} "
+                                 f"> {INT8KV_ATOL}")
+        worst = max(worst, err)
+        t_k = timer.graph_ms(run)
+        t_eager = timer.eager_ms(run)
+        t_p = timer.graph_ms(plain, iters=3)
+        # yardstick, two calls: dequantize K/V to q's dtype in the
+        # [B, Hq, S, D] layout SDPA takes, then one causal SDPA call
+        g = hq // hkv
+        qt = q.transpose(1, 2).contiguous()
+
+        def deq():
+            return tuple(quant.dequantize_kv_int4(c, sc).to(dt)
+                         .repeat_interleave(g, dim=2).transpose(1, 2)
+                         .contiguous() for c, sc in ((kq, ks), (vq, vs)))
+        kt, vt = deq()
+        sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+            qt, kt, vt, is_causal=True)
+        t_deq = timer.graph_ms(deq)
+        t_lib = timer.graph_ms(sdpa)
+        visible = s * (s + 1) // 2                 # causal (query, key) pairs
+        flops = 2.0 * (hd + dv) * visible * b * hq
+        nbytes = (q.numel() * q.element_size()
+                  + b * s * hkv * (int4_bytes(1, hd) + int4_bytes(1, dv))
+                  + 4 * b * s * hq * dv)
+        b_ms, b_by = bound(nbytes, flops, str(dt).split(".")[-1])
+        row = dict(kernel="flash_q4prefill", B=b, S=s, Hq=hq, Hkv=hkv, hd=hd,
+                   dv=dv, dtype=str(dt).split(".")[-1], kv="int4",
+                   max_abs_err=err, atol=INT8KV_ATOL, gflop=flops / 1e9,
+                   ms=t_k, eager_ms=t_eager, plain_ms=t_p, library_ms=t_lib,
+                   library_dequant_ms=t_deq, mbytes=nbytes / 1e6,
+                   bound_ms=b_ms, bound_by=b_by,
+                   bound_ms_by_operations=flops / PEAK_OPS_S[
+                       str(dt).split(".")[-1]] * 1e3)
+        emit("kernel", **row)
+        if shape == HEADLINE_FLASH:
+            headline = row
+        del q, kq, vq, kt, vt, qt
+    headline["max_abs_err"] = worst
+    return headline
+
+
+def quantize_int4_phase(k, dev):
+    """The int4 KV quantizer (plain PyTorch on every device) on the card
+    against the CPU on its edge groups: exact .5 quotients, an all-zero
+    group (0/0 -> code 0) and a group whose f16 scale underflows to 0
+    (x/0 -> +-7, scale 0), in f32 and bf16."""
+    quant = k.quantize
+    gen = torch.Generator().manual_seed(SEED + 14)
+    t = torch.randn((4, 16, 8, 64), generator=gen) * 3
+    halves = torch.tensor([7, 0.5, 1.5, 2.5, -0.5, -1.5, -2.5, 3.5, -3.5,
+                           4.5, -6.5, 6.5, 0, 1, -7, 5.5]).repeat(2)
+    t[0, 0, 0, :32] = halves * 0.25
+    t[0, 1, 1, :32] = 0
+    t[1, 2, 0, :32] = torch.randn(32, generator=gen) * 1e-9
+    rows = {}
+    for dt in (torch.float32, torch.bfloat16):
+        x = t.to(dt)
+        want_q, want_s = quant.quantize_kv_int4(x)
+        got_q, got_s = quant.quantize_kv_int4(x.to(dev))
+        codes = quant.unpack_int4(got_q).cpu()
+        ok = (torch.equal(got_q.cpu(), want_q)
+              and torch.equal(got_s.cpu(), want_s)
+              and bool((codes[0, 1, 1, :32] == 0).all())
+              and bool((codes[1, 2, 0, :32].abs() == 7).all())
+              and float(got_s[1, 2, 0, 0]) == 0.0
+              and codes[0, 0, 0, :8].tolist() == [7, 0, 2, 2, 0, -2, -2, 4])
+        rows[str(dt).split(".")[-1]] = ok
+        if not ok:
+            raise AssertionError(f"quantize_kv_int4 ({dt}): card codes or "
+                                 "scales differ from the CPU's")
+    emit("quantize_int4", shape=list(t.shape), card_equals_cpu=rows)
+
+
 def profile_decode(step_fn, n_steps: int, step_ms: float):
     """Device time inside ``n_steps`` decode steps from a torch.profiler
     trace: busy ms per step, the idle share against the unprofiled step
@@ -656,10 +870,12 @@ def e2e_phase(k, dev):
          d_ff=cfg.d_ff, vocab=cfg.vocab_size,
          init_s=time.perf_counter() - t0)
     totals = {"flash_prefill": 0, "qmatmul_dynamic": 0, "qmatmul_static": 0,
-              "qdecode": 0, "flash_qprefill": 0}
+              "qdecode": 0, "flash_qprefill": 0, "flash_q4prefill": 0}
     runs = [(spec.variant, spec, cfg) for spec in DEFAULT_VARIANTS]
     runs.append(("dynamic_int8_kv8", VariantSpec.dynamic_int8(),
                  cfg.with_overrides(kv_cache_int8=True)))
+    runs.append(("dynamic_int8_kv4", VariantSpec.dynamic_int8(),
+                 cfg.with_overrides(kv_cache_precision="int4")))
     for label, spec, cfg in runs:
         t0 = time.perf_counter()
         qparams, info = spec.build(params, cfg, calib_data=calib)
@@ -686,17 +902,26 @@ def e2e_phase(k, dev):
             if not r.done or out.shape != (1, N_NEW) \
                     or int(out.min()) < 0 or int(out.max()) >= cfg.vocab_size:
                 raise AssertionError(f"{label}: bad result {out}")
-        kv8 = cfg.kv_precision == "int8"
-        need = (["flash_qprefill", "qdecode"] if kv8 else ["flash_prefill"]) \
+        tier = cfg.kv_precision
+        # the dense int4 decode is the plain q4decode_ref (no kernel), as
+        # in the JAX package
+        need = {"fp": ["flash_prefill"],
+                "int8": ["flash_qprefill", "qdecode"],
+                "int4": ["flash_q4prefill"]}[tier] \
             + {"dynamic_int8": ["qmatmul_dynamic"],
                "static_int8": ["qmatmul_static"]}.get(spec.variant, [])
         for name in need:
             if launches[name] <= 0:
                 raise AssertionError(f"{label}: {name} never launched "
                                      f"on the main path ({launches})")
-        if kv8 and launches["flash_prefill"]:
-            raise AssertionError(f"{label}: flash_prefill launched over an "
-                                 f"int8 KV cache ({launches})")
+        attention = ("flash_prefill", "flash_qprefill", "flash_q4prefill",
+                     "qdecode", "paged_decode", "paged_qdecode",
+                     "paged_q4decode")
+        stray = [name for name in attention
+                 if launches[name] and name not in need]
+        if stray:
+            raise AssertionError(f"{label}: {stray} launched over an {tier} "
+                                 f"KV cache ({launches})")
         for name in totals:
             totals[name] += launches[name]
 
@@ -714,6 +939,11 @@ def e2e_phase(k, dev):
             per_prefill = read_counters(k)
             if not torch.isfinite(last).all():
                 raise AssertionError(f"{label}: non-finite logits")
+            prefill_k = need[0]
+            if per_prefill[prefill_k] != cfg.n_layers:
+                raise AssertionError(f"{label}: {prefill_k} launched "
+                                     f"{per_prefill[prefill_k]} times in one "
+                                     f"prefill, not {cfg.n_layers}")
             nxt = torch.argmax(last[:, -1], dim=-1).reshape(1, 1)
             reset_counters(k)
             logits, cache = decode_step(session.params, cache, nxt,
@@ -806,7 +1036,9 @@ def decode_window(k, engine, cfg, gen):
 def engine_phase(k, dev):
     """Replays of the trace: fp32 and dynamic int8 (paged, then dense), then
     dynamic int8 over an int8 KV cache (paged with the same 65 blocks, dense,
-    and paged with the bf16 pool's bytes: about twice the blocks). Returns
+    and paged with the bf16 pool's bytes: about twice the blocks), then
+    dynamic int8 over an int4 KV cache (paged with the same 65 blocks, whose
+    counting metrics must equal the bf16-KV replay's, and dense). Returns
     the launch totals of the paged replays and of every replay."""
     from repro_torch import configs
     from repro_torch.api.variants import VariantSpec
@@ -817,6 +1049,7 @@ def engine_phase(k, dev):
 
     cfg = configs.get_config("stablelm-1.6b")
     cfg8 = cfg.with_overrides(kv_cache_int8=True)
+    cfg4 = cfg.with_overrides(kv_cache_precision="int4")
     params = init_params(cfg, seed=SEED)
     trace = engine_trace(cfg)
     prompt_tokens = sum(r.tokens.shape[1] for r in trace.requests)
@@ -830,16 +1063,27 @@ def engine_phase(k, dev):
     budget = PAGED["n_blocks"] * kv_bytes_per_block(cfg, PAGED["block_size"])
     budget_kw = {"paged": True, "block_size": PAGED["block_size"],
                  "kv_budget_bytes": budget}
-    runs = (("fp32", VariantSpec.fp32(), cfg, ("paged", "dense")),
+    cfg_fp32 = cfg.with_overrides(n_layers=min(FP32_ENGINE_LAYERS,
+                                                cfg.n_layers))
+    runs = (("fp32", VariantSpec.fp32(), cfg_fp32, ("paged", "dense")),
             ("dynamic_int8", VariantSpec.dynamic_int8(), cfg,
              ("paged", "dense")),
             ("dynamic_int8_kv8", VariantSpec.dynamic_int8(), cfg8,
-             ("paged", "dense", "paged_budget")))
-    paged_totals, all_totals, streams = {}, {}, {}
+             ("paged", "dense", "paged_budget")),
+            ("dynamic_int8_kv4", VariantSpec.dynamic_int8(), cfg4,
+             ("paged", "dense")))
+    # per KV tier: (paged decode, dense decode, prefill) kernels; the dense
+    # int4 decode is the plain q4decode_ref, as in the JAX package
+    tier_kernels = {"fp": ("paged_decode", None, "flash_prefill"),
+                    "int8": ("paged_qdecode", "qdecode", "flash_qprefill"),
+                    "int4": ("paged_q4decode", None, "flash_q4prefill")}
+    attention = {n for names in tier_kernels.values() for n in names if n}
+    paged_totals, all_totals, streams, reports = {}, {}, {}, {}
     for label, spec, vcfg, modes in runs:
-        qparams, _ = spec.build(params, vcfg)
+        depth = {**params, "layers": params["layers"][:vcfg.n_layers]}
+        qparams, _ = spec.build(depth, vcfg)
         session = InferenceSession(qparams, vcfg)
-        kv8 = vcfg.kv_precision == "int8"
+        tier = vcfg.kv_precision
         for mode in modes:
             kw = dict(ENGINE, **{"paged": PAGED, "dense": {},
                                  "paged_budget": budget_kw}[mode])
@@ -861,48 +1105,60 @@ def engine_phase(k, dev):
                                          f"{r.rid} ended {r.status} with "
                                          f"{r.out_tokens}")
             streams[label, mode] = [r.out_tokens for r in reqs]
+            reports[label, mode] = report
             paged = mode != "dense"
-            attend = ("paged_qdecode" if paged else "qdecode") if kv8 else (
-                "paged_decode" if paged else None)
-            prefill_k = "flash_qprefill" if kv8 else "flash_prefill"
+            paged_k, dense_k, prefill_k = tier_kernels[tier]
+            attend = paged_k if paged else dense_k
             need = [prefill_k] + ([attend] if attend else []) + (
                 ["qmatmul_dynamic"] if spec.variant == "dynamic_int8" else [])
             for name in need:
                 if launches[name] <= 0:
                     raise AssertionError(f"{label}/{mode}: {name} "
                                          f"never launched ({launches})")
-            if kv8:
-                for name in ("flash_prefill", "paged_decode"):
-                    if launches[name]:
-                        raise AssertionError(f"{label}/{mode}: {name} "
-                                             f"launched over an int8 KV "
-                                             f"cache ({launches})")
+            stray = sorted(n for n in attention
+                           if launches[n] and n not in need)
+            if stray:
+                raise AssertionError(f"{label}/{mode}: {stray} launched "
+                                     f"over an {tier} KV cache ({launches})")
+            if launches[prefill_k] % vcfg.n_layers:
+                raise AssertionError(f"{label}/{mode}: {launches[prefill_k]}"
+                                     f" {prefill_k} launches are not "
+                                     f"{vcfg.n_layers} per prefill")
             if mode == "paged" and (report["preempted"] < 1
                                     or report["prefix_hit_tokens"] <= 0):
                 raise AssertionError(
                     f"{label}: the paged replay must preempt and hit "
                     f"the prefix cache ({report['preempted']}, "
                     f"{report['prefix_hit_tokens']})")
+            counting = ("preempted", "prefix_hit_tokens", "kv_blocks_peak",
+                        "decode_steps")
+            base = reports.get(("dynamic_int8", mode))
+            if tier == "int4" and mode == "paged" and any(
+                    report[c] != base[c] for c in counting):
+                raise AssertionError(
+                    f"{label}: counting metrics "
+                    f"{[report[c] for c in counting]} differ from the "
+                    f"bf16-KV replay's {[base[c] for c in counting]}")
             peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
             gen = torch.Generator().manual_seed(SEED + 8)
             per_step, step_ms, dtrace = decode_window(k, engine, cfg, gen)
-            if mode == "paged" and per_step[attend] != cfg.n_layers:
+            if mode == "paged" and per_step[attend] != vcfg.n_layers:
                 raise AssertionError(f"{attend} launched {per_step[attend]} "
                                      f"times in one decode step, not "
-                                     f"{cfg.n_layers}")
+                                     f"{vcfg.n_layers}")
             tokens = report["generated_tokens"]
             extra = {}
             if paged:
                 extra = {"pool_blocks": engine.kv.alloc.n_blocks,
                          "pool_bytes": engine.kv.kv_bytes_in_use(
                              engine.kv.alloc.n_blocks)}
-            if kv8:
+            if tier != "fp":
                 same = sum(a == b for a, b in zip(
                     streams[label, mode],
                     streams["dynamic_int8", mode.replace("_budget", "")]))
                 extra["streams_equal_to_bf16_kv"] = same
             emit("engine", variant=label, mode=mode,
-                 kv_cache=vcfg.kv_precision,
+                 kv_cache=vcfg.kv_precision, layers=vcfg.n_layers,
                  requests=report["completed"], generated_tokens=tokens,
                  serve_s=serve_s, tokens_per_s=tokens / serve_s,
                  p50_ttft_s=report["p50_ttft_s"],
@@ -937,11 +1193,14 @@ def engine_phase(k, dev):
 # ------------------------------------------------------------------ #
 def cpu_runs(cfg, VariantSpec):
     """(CPU_TOL key, variant, config) of the card-vs-CPU runs: fp32 and
-    dynamic-int8 weights over the fp KV cache, fp32 weights over int8."""
+    dynamic-int8 weights over the fp KV cache, fp32 weights over int8 and
+    over int4."""
     return (("fp32", VariantSpec.fp32(), cfg),
             ("dynamic_int8", VariantSpec.dynamic_int8(), cfg),
             ("fp32_int8kv", VariantSpec.fp32(),
-             cfg.with_overrides(kv_cache_int8=True)))
+             cfg.with_overrides(kv_cache_int8=True)),
+            ("fp32_int4kv", VariantSpec.fp32(),
+             cfg.with_overrides(kv_cache_precision="int4")))
 
 
 PAGED_TABLE = ((7, 2, 9, 4, -1, -1, -1, -1),)   # scattered ids, -1 tail
@@ -1060,11 +1319,13 @@ def main() -> int:
         return 2
     sys.path.insert(0, src)
     from repro_torch.kernels import (_build, dynquant, flash_prefill,
-                                     paged_attn, qdecode, qmatmul, ref)
+                                     paged_attn, qdecode, qmatmul, quantize,
+                                     ref)
 
     k = types.SimpleNamespace(ref=ref, qmatmul=qmatmul, dynquant=dynquant,
                               flash_prefill=flash_prefill,
-                              paged_attn=paged_attn, qdecode=qdecode)
+                              paged_attn=paged_attn, qdecode=qdecode,
+                              quantize=quantize)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
@@ -1089,14 +1350,18 @@ def main() -> int:
     heads["qdecode"] = qdecode_phase(k, dev, timer)
     heads["paged_qdecode"] = paged_qdecode_phase(k, dev, timer)
     heads["flash_qprefill"] = flash_qprefill_phase(k, dev, timer)
+    heads["paged_q4decode"] = paged_q4decode_phase(k, dev, timer)
+    heads["flash_q4prefill"] = flash_q4prefill_phase(k, dev, timer)
+    quantize_int4_phase(k, dev)
     del timer
     torch.cuda.empty_cache()
     # launches: the queue runs, plus the paged replays for paged_decode and
-    # every int8-KV replay for the int8-KV kernels
+    # every quantized-KV replay for the quantized-KV kernels
     totals = e2e_phase(k, dev)
     paged_totals, all_totals = engine_phase(k, dev)
     totals["paged_decode"] = paged_totals["paged_decode"]
-    for name in ("qdecode", "paged_qdecode", "flash_qprefill"):
+    for name in ("qdecode", "paged_qdecode", "flash_qprefill",
+                 "paged_q4decode", "flash_q4prefill"):
         totals[name] = totals.get(name, 0) + all_totals[name]
     card_vs_cpu_phase(dev, paged=False)
     card_vs_cpu_phase(dev, paged=True)
@@ -1114,7 +1379,11 @@ def main() -> int:
                "paged_qdecode": ("src/repro_torch/csrc/paged_attn.cu",
                                  "src/repro/kernels/paged_attn.py:196"),
                "flash_qprefill": ("src/repro_torch/csrc/flash_prefill.cu",
-                                  "src/repro/kernels/flash_prefill.py:267")}
+                                  "src/repro/kernels/flash_prefill.py:267"),
+               "paged_q4decode": ("src/repro_torch/csrc/paged_attn.cu",
+                                  "src/repro/kernels/paged_attn.py:207"),
+               "flash_q4prefill": ("src/repro_torch/csrc/flash_prefill.cu",
+                                   "src/repro/kernels/flash_prefill.py:295")}
     kernels = []
     for name, (src_path, replaces) in sources.items():
         h = heads[name]

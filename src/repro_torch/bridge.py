@@ -8,9 +8,11 @@ field by field (``w_int8 [L,K,N]``, ``scale [L,1,N]``, ``act_scale [L]``).
 
 Caches and block pools convert in both directions: the JAX package keeps
 one ``[L, ...]`` leaf per cache field (``{"layers": (k, v)}`` with ``k``
-``[L, B, S, Hkv, hd]`` dense or ``[L, N, bs, Hkv, hd]`` pooled, or the int8
-tier's ``(k_q, k_scale, v_q, v_scale)``), the port one tuple of the same
-fields per layer.
+``[L, B, S, Hkv, hd]`` dense or ``[L, N, bs, Hkv, hd]`` pooled, or the
+quantized tiers' ``(k_q, k_scale, v_q, v_scale)``: int8 codes with f32
+scales, or int4 packed codes with f16 group scales), the port one tuple of
+the same fields per layer. Every dtype round-trips bit for bit (f16 as
+f16, bfloat16 through its 16-bit pattern).
 """
 from __future__ import annotations
 
@@ -58,8 +60,8 @@ def to_numpy(t: torch.Tensor) -> np.ndarray:
 
 
 def cache_from_jax(tree, device: DeviceLike = None) -> Any:
-    """JAX cache or pools as numpy (``{"layers": (k, v)}`` or the int8
-    4-tuple, leaves ``[L, ...]``) -> the port's ``{"layers": [(k, v),
+    """JAX cache or pools as numpy (``{"layers": (k, v)}`` or the int8 /
+    int4 4-tuple, leaves ``[L, ...]``) -> the port's ``{"layers": [(k, v),
     ...]}`` (or 4-tuples)."""
     dev = resolve_device(device)
     fields = [np.asarray(a) for a in tree["layers"]]
@@ -70,7 +72,7 @@ def cache_from_jax(tree, device: DeviceLike = None) -> Any:
 def cache_to_jax(cache) -> Any:
     """The port's per-layer tuples -> numpy leaves stacked as the JAX
     package holds them: ``{"layers": (k [L, ...], v [L, ...])}`` (or the
-    int8 4-tuple)."""
+    int8 / int4 4-tuple)."""
     layers = cache["layers"]
     return {"layers": tuple(np.stack([to_numpy(t[j]) for t in layers])
                             for j in range(len(layers[0])))}

@@ -1,6 +1,6 @@
 // The decode-attention tile loop shared by paged_attn.cu (paged_decode,
-// paged_qdecode) and qdecode.cu (qdecode): one query token per sequence
-// attends over its K/V rows with an f32 online softmax.
+// paged_qdecode, paged_q4decode) and qdecode.cu (qdecode): one query token
+// per sequence attends over its K/V rows with an f32 online softmax.
 //
 // One block of 128 threads owns one (sequence b, kv head h) and walks key
 // tiles of KT = 32 slots. A `Rows` policy says where slot k of sequence b
@@ -17,7 +17,13 @@
 // int8_t) the per-(slot, head) f32 scales ride beside the codes: the K
 // scale multiplies the score after the dot, (q . k_codes) * k_s / sqrt(hd),
 // and the V scale is folded into the value row, code * v_s, as the TPU
-// kernels do. Scores for all G query heads go to shared memory, one warp
+// kernels do. For int4 storage (TKV = kv_int4::q4_t, hd a multiple of 32)
+// one 16-byte vector holds the 32 codes of exactly one scale group; the
+// thread that loads it also loads that group's K and V f16 scales, from
+// the same row address and in the same batch of loads, and dequantizes K
+// and V as it unpacks them, code * s_g: the score is q . k / sqrt(hd) with
+// no scale after the dot, as the TPU int4 kernel computes it. Scores for
+// all G query heads go to shared memory, one warp
 // per query head updates the running max (seed -1e30) and normalizer, and
 // every thread owns up to 8 of the G x hd f32 accumulators. A masked slot
 // gets score -2e38 and value 0 and neither its codes nor its scales are
@@ -32,6 +38,8 @@
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "kv_int4.cuh"
 
 namespace decode_attn {
 
@@ -75,6 +83,14 @@ __device__ __forceinline__ void unpack(float* dst, uint4 u, const int8_t*,
     for (int j = 0; j < 4; ++j)
       dst[4 * i + j] = (float)(int8_t)(w[i] >> (8 * j)) * sc;
 }
+__device__ __forceinline__ void unpack(float* dst, uint4 u,
+                                       const kv_int4::q4_t*, float sc) {
+  const unsigned w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i)             // element 8i + k is nibble k
+#pragma unroll
+    for (int k = 0; k < 8; ++k) dst[8 * i + k] = kv_int4::nibble(w[i], k) * sc;
+}
 
 struct PagedRows {
   static constexpr bool kBias = false;
@@ -97,15 +113,17 @@ struct DenseRows {
   __device__ float bias(int b, int k) const { return bias_[(long)b * S + k]; }
 };
 
-// q [B,Hkv,G,hd]; k / v storage [rows, Hkv, hd]; k_s / v_s [rows, Hkv] f32
-// (int8 storage only, else unused); out [B,Hkv,G,hd] f32.
-template <typename TQ, typename TKV, typename Rows>
+// q [B,Hkv,G,hd]; k / v storage [rows, Hkv, hd] (int4: [rows, Hkv, hd / 2]
+// bytes); k_s / v_s: int8 storage [rows, Hkv] f32, int4 storage
+// [rows, Hkv, hd / 32] f16 (TS = __half), else unused; out [B,Hkv,G,hd] f32.
+template <typename TQ, typename TKV, typename Rows, typename TS>
 __device__ __forceinline__ void attend(
     const TQ* __restrict__ q, const TKV* __restrict__ kp,
-    const float* __restrict__ ksp, const TKV* __restrict__ vp,
-    const float* __restrict__ vsp, const Rows& rows, float* __restrict__ out,
+    const TS* __restrict__ ksp, const TKV* __restrict__ vp,
+    const TS* __restrict__ vsp, const Rows& rows, float* __restrict__ out,
     int b, int h, int Hkv, int G, int hd) {
   constexpr bool QUANT = std::is_same<TKV, int8_t>::value;
+  constexpr bool Q4 = std::is_same<TKV, kv_int4::q4_t>::value;
   __shared__ float Qs[MAXG * MAXD];
   __shared__ float Ks[KT * (MAXD + 1)];
   __shared__ float Vs[KT * MAXD];
@@ -115,9 +133,12 @@ __device__ __forceinline__ void attend(
   __shared__ float ksc_s[KT], vsc_s[KT], add_s[KT];
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  constexpr int VN = 16 / sizeof(TKV);    // stored elements per 16-byte load
+  constexpr int SV = 16 / sizeof(TKV);    // stored elements per 16-byte load
+  constexpr int VN = Q4 ? 2 * SV : SV;    // head_dim elements per load
+  static_assert(!Q4 || VN == kv_int4::GROUP, "one int4 load = one group");
   constexpr int MAXV = KT * MAXD / VN / PT;
   const int vpr = hd / VN;                 // loads per K or V row
+  const int rw = vpr * SV;                 // stored elements per row
   const int ks = hd + 1;
   const float scale = sqrtf((float)hd);
   const long head = (long)b * Hkv + h;
@@ -142,7 +163,7 @@ __device__ __forceinline__ void attend(
       row_s[tid] = r;
       float ksc = 0.f, vsc = 1.f, add = 0.f;
       if (r >= 0) {
-        if (QUANT) {
+        if constexpr (QUANT) {
           ksc = ksp[(long)r * Hkv + h];
           vsc = vsp[(long)r * Hkv + h];
         }
@@ -154,19 +175,27 @@ __device__ __forceinline__ void attend(
     }
     __syncthreads();
     uint4 kr[MAXV], vr[MAXV];
+    float kg[MAXV], vg[MAXV];              // int4: the vector's group scales
 #pragma unroll
     for (int r = 0; r < MAXV; ++r) {
       const int c = tid + r * PT;
       kr[r] = make_uint4(0u, 0u, 0u, 0u);
       vr[r] = kr[r];
+      kg[r] = 0.f;
+      vg[r] = 0.f;
       if (c < KT * vpr) {
         const int j = c / vpr;
         const int row = row_s[j];
         if (row >= 0) {
-          const long off =
-              ((long)row * Hkv + h) * hd + (long)(c - j * vpr) * VN;
+          const long e = (long)row * Hkv + h;
+          const int v = c - j * vpr;       // int4: also the group index
+          const long off = e * rw + (long)v * SV;
           kr[r] = __ldg(reinterpret_cast<const uint4*>(kp + off));
           vr[r] = __ldg(reinterpret_cast<const uint4*>(vp + off));
+          if constexpr (Q4) {
+            kg[r] = kv_int4::scale_at(ksp, e * vpr + v);
+            vg[r] = kv_int4::scale_at(vsp, e * vpr + v);
+          }
         }
       }
     }
@@ -175,8 +204,8 @@ __device__ __forceinline__ void attend(
       const int c = tid + r * PT;
       if (c < KT * vpr) {
         const int j = c / vpr, d0 = (c - j * vpr) * VN;
-        unpack(Ks + j * ks + d0, kr[r], kp, 1.f);
-        unpack(Vs + j * hd + d0, vr[r], kp, vsc_s[j]);
+        unpack(Ks + j * ks + d0, kr[r], kp, Q4 ? kg[r] : 1.f);
+        unpack(Vs + j * hd + d0, vr[r], kp, Q4 ? vg[r] : vsc_s[j]);
       }
     }
     __syncthreads();

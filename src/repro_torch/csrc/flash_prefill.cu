@@ -1,14 +1,21 @@
-// Causal flash prefill attention for Hopper (sm_90a), fp and int8 K/V.
+// Causal flash prefill attention for Hopper (sm_90a), fp, int8 and int4
+// K/V.
 //
 // Replaces the TPU kernels repro/kernels/flash_prefill.py::
-// flash_prefill_attention (_fp_kernel) and flash_qprefill_attention
-// (_q_kernel): causal online-softmax attention of a whole prompt from
-// position 0, GQA query rows flattened as r = s * G + g per kv head, tiles
-// above the diagonal skipped. The int8 variant reads int8 K [B,S,Hkv,hd]
-// and V [B,S,Hkv,dv] with f32 per-(position, head) scales [B,S,Hkv] and
-// fuses the dequantization as the TPU kernel does: the K scale multiplies
-// the score after the dot, (q . k_codes) * k_s / sqrt(hd), and the V scale
-// is folded into the value row as it is staged, code * v_s.
+// flash_prefill_attention (_fp_kernel), flash_qprefill_attention
+// (_q_kernel) and flash_q4prefill_attention (_q4_kernel): causal
+// online-softmax attention of a whole prompt from position 0, GQA query
+// rows flattened as r = s * G + g per kv head, tiles above the diagonal
+// skipped. The int8 variant reads int8 K [B,S,Hkv,hd] and V [B,S,Hkv,dv]
+// with f32 per-(position, head) scales [B,S,Hkv] and fuses the
+// dequantization as the TPU kernel does: the K scale multiplies the score
+// after the dot, (q . k_codes) * k_s / sqrt(hd), and the V scale is folded
+// into the value row as it is staged, code * v_s. The int4 variant reads
+// nibble-packed K [B,S,Hkv,hd/2] and V [B,S,Hkv,dv/2] with f16
+// per-(position, head, group of 32) scales [B,S,Hkv,hd/32] / [..,dv/32]
+// and, as its TPU kernel does, dequantizes K and V while staging them,
+// code * s_g, so the score is q . k / sqrt(hd) with no scale after the
+// dot.
 //
 // One block per (64 group-flattened query rows, kv head, batch). The TPU
 // kernel carries its running max / normalizer / accumulator across a
@@ -27,8 +34,8 @@
 // (query row, visible key); e.g. 1.07 GFLOP for B4 S256 H32 hd64, 16 us at
 // the 67 TFLOP/s f32 rate of the CUDA cores it runs on. Against the card's
 // own floor, bytes bound it (q, k, v and scales read once, out written
-// once): 21.0 MB with bf16 K/V and 17.0 MB with int8 K/V at that shape,
-// half of it the f32 output. f32 CUDA cores keep the result
+// once): 21.0 MB with bf16 K/V, 17.0 MB with int8 K/V and 14.9 MB with int4
+// K/V at that shape, more than half of it the f32 output. f32 CUDA cores keep the result
 // within rounding of the f32 reference; bf16/TF32 tensor-core variants,
 // vector loads and a copy pipeline are later steps.
 
@@ -38,7 +45,11 @@
 
 #include <type_traits>
 
+#include "kv_int4.cuh"
+
 namespace {
+
+using kv_int4::q4_t;
 
 constexpr int FT = 128;            // threads: 16 row groups x 8 column lanes
 constexpr int FR = 64;             // query rows per block
@@ -56,14 +67,42 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
 }
 __device__ __forceinline__ float to_f32(int8_t v) { return (float)v; }
 
-// ks / vs [B,S,Hkv] f32 scales for int8 K/V (TKV = int8_t), else unused
-template <typename TQ, typename TKV>
+// Stages FK positions of one int4 K or V head (width w, w / 2 bytes and
+// w / 32 f16 scales per position) into dst [FK][stride] as code * s_g;
+// row0 = b * S * Hkv + h, positions past S stage 0.
+__device__ __forceinline__ void stage_q4(float* dst, int stride,
+                                         const q4_t* src, const __half* sc,
+                                         long row0, long k0, int S, int Hkv,
+                                         int w) {
+  const int hw = w / 2, ng = w / kv_int4::GROUP;
+  const uint8_t* bytes = reinterpret_cast<const uint8_t*>(src);
+  for (int i = threadIdx.x; i < FK * hw; i += FT) {
+    const int c = i / hw, bb = i - c * hw;   // byte bb: elements 2bb, 2bb+1
+    const long kp = k0 + c;
+    float lo = 0.f, hi = 0.f;
+    if (kp < S) {
+      const long e = row0 + kp * Hkv;
+      const unsigned u = bytes[e * hw + bb];
+      const float s = kv_int4::scale_at(sc, e * ng + 2 * bb / kv_int4::GROUP);
+      lo = kv_int4::nibble(u, 0) * s;
+      hi = kv_int4::nibble(u, 1) * s;
+    }
+    dst[c * stride + 2 * bb] = lo;
+    dst[c * stride + 2 * bb + 1] = hi;
+  }
+}
+
+// ks / vs: [B,S,Hkv] f32 scales for int8 K/V (TKV = int8_t), [B,S,Hkv,hd/32]
+// / [B,S,Hkv,dv/32] f16 group scales for int4 K/V (TKV = q4_t, TS =
+// __half), else unused
+template <typename TQ, typename TKV, typename TS>
 __global__ void __launch_bounds__(FT)
 flash_attend(const TQ* __restrict__ q, const TKV* __restrict__ k,
-             const float* __restrict__ ksp, const TKV* __restrict__ v,
-             const float* __restrict__ vsp, float* __restrict__ out, int S,
+             const TS* __restrict__ ksp, const TKV* __restrict__ v,
+             const TS* __restrict__ vsp, float* __restrict__ out, int S,
              int Hq, int Hkv, int hd, int dv) {
   constexpr bool QUANT = std::is_same<TKV, int8_t>::value;
+  constexpr bool Q4 = std::is_same<TKV, q4_t>::value;
   extern __shared__ float smem[];
   __shared__ float Ksc[FK], Vsc[FK];   // the tile's scales (int8 only)
   const int qs = hd + 1, vs = dv + 1, ps = FK + 1;
@@ -109,7 +148,7 @@ flash_attend(const TQ* __restrict__ q, const TKV* __restrict__ k,
 
   for (long k0 = 0; k0 <= q_last; k0 += FK) {
     __syncthreads();
-    if (QUANT) {
+    if constexpr (QUANT) {
       if (tid < FK) {
         const long kp = k0 + tid;
         const long at = ((long)b * S + kp) * Hkv + h;
@@ -118,19 +157,25 @@ flash_attend(const TQ* __restrict__ q, const TKV* __restrict__ k,
       }
       __syncthreads();
     }
-    for (int i = tid; i < FK * hd; i += FT) {
-      const int c = i / hd, d = i - c * hd;
-      const long kp = k0 + c;
-      Ks[c * qs + d] =
-          kp < S ? to_f32(k[(((long)b * S + kp) * Hkv + h) * hd + d]) : 0.f;
-    }
-    for (int i = tid; i < FK * dv; i += FT) {
-      const int c = i / dv, d = i - c * dv;
-      const long kp = k0 + c;
-      float val =
-          kp < S ? to_f32(v[(((long)b * S + kp) * Hkv + h) * dv + d]) : 0.f;
-      if (QUANT) val = val * Vsc[c];
-      Vs[c * vs + d] = val;
+    if constexpr (Q4) {
+      const long row0 = (long)b * S * Hkv + h;
+      stage_q4(Ks, qs, k, ksp, row0, k0, S, Hkv, hd);
+      stage_q4(Vs, vs, v, vsp, row0, k0, S, Hkv, dv);
+    } else {
+      for (int i = tid; i < FK * hd; i += FT) {
+        const int c = i / hd, d = i - c * hd;
+        const long kp = k0 + c;
+        Ks[c * qs + d] =
+            kp < S ? to_f32(k[(((long)b * S + kp) * Hkv + h) * hd + d]) : 0.f;
+      }
+      for (int i = tid; i < FK * dv; i += FT) {
+        const int c = i / dv, d = i - c * dv;
+        const long kp = k0 + c;
+        float val =
+            kp < S ? to_f32(v[(((long)b * S + kp) * Hkv + h) * dv + d]) : 0.f;
+        if (QUANT) val = val * Vsc[c];
+        Vs[c * vs + d] = val;
+      }
     }
     __syncthreads();
 
@@ -213,15 +258,15 @@ flash_attend(const TQ* __restrict__ q, const TKV* __restrict__ k,
   }
 }
 
-template <typename TQ, typename TKV>
-int launch(const void* q, const void* k, const float* ks, const void* v,
-           const float* vs, float* out, int B, int S, int Hq, int Hkv, int hd,
+template <typename TQ, typename TKV, typename TS>
+int launch(const void* q, const void* k, const TS* ks, const void* v,
+           const TS* vs, float* out, int B, int S, int Hq, int Hkv, int hd,
            int dv, cudaStream_t stream) {
   static bool attr_set = false;
   if (!attr_set) {
     const cudaError_t e = cudaFuncSetAttribute(
-        flash_attend<TQ, TKV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)MAX_SMEM);
+        flash_attend<TQ, TKV, TS>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)MAX_SMEM);
     if (e != cudaSuccess) return (int)e;
     attr_set = true;
   }
@@ -230,7 +275,7 @@ int launch(const void* q, const void* k, const float* ks, const void* v,
                        FR * (FK + 1));
   const long rows = (long)S * (Hq / Hkv);
   const dim3 grid((unsigned)((rows + FR - 1) / FR), Hkv, B);
-  flash_attend<TQ, TKV><<<grid, FT, smem, stream>>>(
+  flash_attend<TQ, TKV, TS><<<grid, FT, smem, stream>>>(
       static_cast<const TQ*>(q), static_cast<const TKV*>(k), ks,
       static_cast<const TKV*>(v), vs, out, S, Hq, Hkv, hd, dv);
   return (int)cudaGetLastError();
@@ -257,11 +302,11 @@ int flash_prefill_fwd(const void* q, const void* k, const void* v, int dtype,
   if (bad_shape(B, S, Hq, Hkv, hd, dv)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch<float, float>(q, k, nullptr, v, nullptr, out, B, S, Hq, Hkv,
-                                hd, dv, s);
+    return launch<float, float, float>(q, k, nullptr, v, nullptr, out, B, S,
+                                       Hq, Hkv, hd, dv, s);
   if (dtype == 1)
-    return launch<__nv_bfloat16, __nv_bfloat16>(q, k, nullptr, v, nullptr,
-                                                out, B, S, Hq, Hkv, hd, dv, s);
+    return launch<__nv_bfloat16, __nv_bfloat16, float>(
+        q, k, nullptr, v, nullptr, out, B, S, Hq, Hkv, hd, dv, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -275,11 +320,32 @@ int flash_qprefill_fwd(const void* q, int q_dtype, const int8_t* k,
   if (bad_shape(B, S, Hq, Hkv, hd, dv)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (q_dtype == 0)
-    return launch<float, int8_t>(q, k, k_s, v, v_s, out, B, S, Hq, Hkv, hd,
-                                 dv, s);
+    return launch<float, int8_t, float>(q, k, k_s, v, v_s, out, B, S, Hq,
+                                        Hkv, hd, dv, s);
   if (q_dtype == 1)
-    return launch<__nv_bfloat16, int8_t>(q, k, k_s, v, v_s, out, B, S, Hq,
-                                         Hkv, hd, dv, s);
+    return launch<__nv_bfloat16, int8_t, float>(q, k, k_s, v, v_s, out, B,
+                                                S, Hq, Hkv, hd, dv, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// q [B,S,Hq,hd] of q_dtype (0 float32, 1 bfloat16); k [B,S,Hkv,hd/2] and
+// v [B,S,Hkv,dv/2] int4 packed two codes per byte; k_s [B,S,Hkv,hd/32]
+// and v_s [B,S,Hkv,dv/32] f16 group scales; out [B,S,Hq,dv] float32; all
+// contiguous; hd and dv multiples of 32.
+int flash_q4prefill_fwd(const void* q, int q_dtype, const void* k,
+                        const __half* k_s, const void* v, const __half* v_s,
+                        float* out, int B, int S, int Hq, int Hkv, int hd,
+                        int dv, void* stream) {
+  if (bad_shape(B, S, Hq, Hkv, hd, dv) || hd % kv_int4::GROUP ||
+      dv % kv_int4::GROUP)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (q_dtype == 0)
+    return launch<float, q4_t, __half>(q, k, k_s, v, v_s, out, B, S, Hq, Hkv,
+                                       hd, dv, s);
+  if (q_dtype == 1)
+    return launch<__nv_bfloat16, q4_t, __half>(q, k, k_s, v, v_s, out, B, S,
+                                               Hq, Hkv, hd, dv, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -1,6 +1,8 @@
 """Causal flash prefill: port of
-``repro/kernels/flash_prefill.py::flash_prefill_attention`` and, over int8
-K/V with f32 per-(position, head) scales, ``flash_qprefill_attention``.
+``repro/kernels/flash_prefill.py::flash_prefill_attention``, over int8 K/V
+with f32 per-(position, head) scales ``flash_qprefill_attention``, and over
+nibble-packed int4 K/V with f16 per-(position, head, group) scales
+``flash_q4prefill_attention``.
 
 Source note. The TPU kernel walks (batch, kv head, q tile, k tile) in grid
 order, carrying the online-softmax state in VMEM scratch across the
@@ -13,14 +15,19 @@ the CUDA cores: bound by the causal f32 work (``2 * (hd + dv)`` flops per
 visible (row, key) pair), it stays within rounding of the f32 reference.
 The int8 variant stages the codes, multiplies each score by its K scale
 after the dot and folds the V scale into the staged value row, as the TPU
-kernel does; it reads 1 byte per K/V element instead of 2.
+kernel does; it reads 1 byte per K/V element instead of 2. The int4
+variant unpacks the nibbles and multiplies each by its group's f16 scale
+while staging the K and V tiles (no scale after the dot), as the TPU int4
+kernel does, and reads half a byte per element plus 2 bytes per group of 32.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import flash_prefill_ref, flash_qprefill_ref
+from repro_torch.kernels.quantize import KV_GROUP
+from repro_torch.kernels.ref import (flash_prefill_ref, flash_q4prefill_ref,
+                                     flash_qprefill_ref)
 
 MAX_HEAD_DIM = 128
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -129,3 +136,68 @@ def flash_qprefill(q, k_i8, k_s, v_i8, v_s):
 
 
 flash_qprefill.launches = 0
+
+
+def _check_q4(q, k_i4, k_s, v_i4, v_s):
+    if q.dim() != 4 or k_i4.dim() != 4 or v_i4.dim() != 4:
+        raise ValueError("q, k_i4, v_i4 must be [B,S,H,D]")
+    b, s, hq, hd = q.shape
+    hkv, dv = k_i4.shape[2], v_i4.shape[3] * 2
+    if k_i4.shape != (b, s, hkv, hd // 2) or v_i4.shape[:3] != (b, s, hkv):
+        raise ValueError(f"shapes q {tuple(q.shape)} k {tuple(k_i4.shape)} "
+                         f"v {tuple(v_i4.shape)} do not match (packed K "
+                         f"width hd // 2)")
+    if hq % hkv:
+        raise ValueError(f"Hq={hq} is not a multiple of Hkv={hkv}")
+    if not (hd % KV_GROUP == 0 and dv % KV_GROUP == 0
+            and KV_GROUP <= hd <= MAX_HEAD_DIM
+            and KV_GROUP <= dv <= MAX_HEAD_DIM):
+        raise ValueError(f"hd={hd}, dv={dv}: each must be a multiple of "
+                         f"{KV_GROUP} up to {MAX_HEAD_DIM}")
+    if k_s.shape != (b, s, hkv, hd // KV_GROUP) \
+            or v_s.shape != (b, s, hkv, dv // KV_GROUP):
+        raise ValueError(f"scales {tuple(k_s.shape)} / {tuple(v_s.shape)} "
+                         f"must be [B,S,Hkv,hd//{KV_GROUP}] / "
+                         f"[B,S,Hkv,dv//{KV_GROUP}]")
+    if q.dtype not in _DTYPE_CODE or k_i4.dtype != torch.int8 \
+            or v_i4.dtype != torch.int8 or k_s.dtype != torch.float16 \
+            or v_s.dtype != torch.float16:
+        raise TypeError(f"q {q.dtype} must be float32 or bfloat16, packed "
+                        f"codes int8 ({k_i4.dtype}/{v_i4.dtype}), scales "
+                        f"float16 ({k_s.dtype}/{v_s.dtype})")
+    for name, t in (("k_i4", k_i4), ("k_s", k_s), ("v_i4", v_i4),
+                    ("v_s", v_s)):
+        if t.device != q.device:
+            raise ValueError(f"{name} on {t.device}, q on {q.device}")
+    for name, t in (("q", q), ("k_i4", k_i4), ("k_s", k_s), ("v_i4", v_i4),
+                    ("v_s", v_s)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def flash_q4prefill(q, k_i4, k_s, v_i4, v_s):
+    """q [B,S,Hq,hd] f32 or bf16; k_i4 [B,S,Hkv,hd//2], v_i4
+    [B,S,Hkv,dv//2] int4 packed two codes per byte; k_s [B,S,Hkv,hd//32],
+    v_s [B,S,Hkv,dv//32] f16 -> [B,S,Hq,dv] f32. hd and dv must be
+    multiples of 32 up to 128. CPU tensors take the plain version; CUDA
+    tensors launch the kernel."""
+    _check_q4(q, k_i4, k_s, v_i4, v_s)
+    if q.device.type == "cpu":
+        return flash_q4prefill_ref(q, k_i4, k_s, v_i4, v_s)
+    if q.device.type != "cuda":
+        raise ValueError(f"no flash_q4prefill kernel for {q.device}")
+    b, s, hq, hd = q.shape
+    hkv, dv = k_i4.shape[2], v_i4.shape[3] * 2
+    out = torch.empty((b, s, hq, dv), dtype=torch.float32, device=q.device)
+    fn = _build.function(_LIB, "flash_q4prefill_fwd", [
+        _build.P, _build.I, _build.P, _build.P, _build.P, _build.P, _build.P,
+        _build.I, _build.I, _build.I, _build.I, _build.I, _build.I, _build.P])
+    rc = fn(q.data_ptr(), _DTYPE_CODE[q.dtype], k_i4.data_ptr(),
+            k_s.data_ptr(), v_i4.data_ptr(), v_s.data_ptr(), out.data_ptr(),
+            b, s, hq, hkv, hd, dv, _build.stream_of(q))
+    _build.check(_LIB, rc, "flash_q4prefill_fwd")
+    flash_q4prefill.launches += 1
+    return out
+
+
+flash_q4prefill.launches = 0

@@ -71,3 +71,22 @@ def paged_qdecode(q, k_pool, k_scale, v_pool, v_scale, tables, pos):
     [B,Hkv,G,hd] f32."""
     return paged_attn.paged_qdecode(q, k_pool, k_scale, v_pool, v_scale,
                                     tables, pos)
+
+
+def flash_q4prefill(q, k_i4, k_s, v_i4, v_s):
+    """Fused-dequant causal prefill over int4 K/V.
+
+    q [B,S,Hq,hd]; k_i4 [B,S,Hkv,hd//2], v_i4 [B,S,Hkv,dv//2] int8, two
+    codes per byte; k_s/v_s [B,S,Hkv,hd//g] / [B,S,Hkv,dv//g] f16 group
+    scales (g = 32). Returns [B,S,Hq,dv] f32."""
+    return _flash.flash_q4prefill(q, k_i4, k_s, v_i4, v_s)
+
+
+def paged_q4decode(q, k_pool, k_scale, v_pool, v_scale, tables, pos):
+    """Paged decode attention over int4 block pools.
+
+    q [B,Hkv,G,hd]; pools [N,bs,Hkv,hd//2] int8, two codes per byte; scale
+    pools [N,bs,Hkv,hd//g] f16 (g = 32); tables [B,M] int32 (-1 =
+    unallocated); pos [B] int32. Returns [B,Hkv,G,hd] f32."""
+    return paged_attn.paged_q4decode(q, k_pool, k_scale, v_pool, v_scale,
+                                     tables, pos)

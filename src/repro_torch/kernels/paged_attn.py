@@ -1,6 +1,7 @@
 """Paged decode attention: port of
-``repro/kernels/paged_attn.py::paged_decode_attention`` (fp pools) and
-``paged_qdecode_attention`` (int8 pools with f32 scale pools).
+``repro/kernels/paged_attn.py::paged_decode_attention`` (fp pools),
+``paged_qdecode_attention`` (int8 pools with f32 scale pools) and
+``paged_q4decode_attention`` (int4 pools with f16 group-scale pools).
 
 Source note. The TPU kernel walks the grid (B, Hkv, M) with the block table
 in scalar prefetch, so its index map DMAs pool block ``tables[b, m]`` at
@@ -11,17 +12,23 @@ key tiles up to ``pos[b]``, keeping the running max, normalizer and the
 G x hd accumulator in f32; masked slots are never read. For int8 pools the
 thread of each slot also reads its K and V scales, the K scale multiplies
 the score after the dot and the V scale is folded into the value row, as
-the TPU kernel does (``csrc/decode_attn.cuh`` holds the loop). It is bound
-by the bytes of the valid K/V rows: at stablelm-1.6b width, eight sequences
-averaging ~300 positions read ~20 MB per layer from bf16 pools (~6 us at
-3.35 TB/s) and ~10.7 MB from int8 pools with their scales (~3.2 us).
+the TPU kernel does (``csrc/decode_attn.cuh`` holds the loop). For int4
+pools each 16-byte load holds the 32 codes of one scale group, the thread
+that issues it also loads that group's two f16 scales in the same batch,
+and K and V are dequantized as they are unpacked, before the dot, as the
+TPU int4 kernel does. It is bound by the bytes of the valid K/V rows: at
+stablelm-1.6b width, eight sequences averaging ~300 positions read ~20 MB
+per layer from bf16 pools (~6 us at 3.35 TB/s), ~10.7 MB from int8 pools
+with their scales (~3.2 us) and ~5.8 MB from int4 pools (~1.7 us).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import paged_decode_ref, paged_qdecode_ref
+from repro_torch.kernels.quantize import KV_GROUP
+from repro_torch.kernels.ref import (paged_decode_ref, paged_q4decode_ref,
+                                     paged_qdecode_ref)
 
 MAX_GROUP = 8            # query heads per kv head
 MAX_HEAD_DIM = 128
@@ -30,26 +37,33 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _LIB = "paged_attn"
 
 
-def _check(q, k_pool, v_pool, tables, pos, quant=False):
+# head_dim elements per 16-byte load, by pool kind
+_VEC = {"fp": 8, "int8": 16, "int4": 32}
+
+
+def _check(q, k_pool, v_pool, tables, pos, kind="fp"):
     if q.dim() != 4 or k_pool.dim() != 4:
         raise ValueError("q must be [B,Hkv,G,hd] and pools [N,bs,Hkv,hd]")
     b, hkv, g, hd = q.shape
     bs = k_pool.shape[1]
-    if k_pool.shape[2:] != (hkv, hd) or v_pool.shape != k_pool.shape:
+    width = hd // 2 if kind == "int4" else hd      # stored elements per row
+    if k_pool.shape[2:] != (hkv, width) or v_pool.shape != k_pool.shape:
         raise ValueError(f"pools {tuple(k_pool.shape)} / {tuple(v_pool.shape)}"
-                         f" do not match q {tuple(q.shape)}")
+                         f" do not match q {tuple(q.shape)} (row width "
+                         f"{width})")
     if tables.dim() != 2 or tables.shape[0] != b or pos.shape != (b,):
         raise ValueError(f"tables {tuple(tables.shape)} / pos "
                          f"{tuple(pos.shape)} must be [B,M] / [B] with B={b}")
     if tables.dtype != torch.int32 or pos.dtype != torch.int32:
         raise TypeError("tables and pos must be int32")
-    vec = 16 if quant else 8          # elements per 16-byte load
+    vec = _VEC[kind]
     if not (1 <= g <= MAX_GROUP and vec <= hd <= MAX_HEAD_DIM
             and hd % vec == 0):
         raise ValueError(f"G={g}, hd={hd}: need G <= {MAX_GROUP} and hd a "
                          f"multiple of {vec} up to {MAX_HEAD_DIM}")
     if KEY_TILE % bs:
         raise ValueError(f"block size {bs} must divide {KEY_TILE}")
+    quant = kind != "fp"
     pool_ok = (k_pool.dtype == torch.int8 if quant
                else k_pool.dtype in _DTYPE_CODE)
     if q.dtype not in _DTYPE_CODE or not pool_ok \
@@ -97,14 +111,16 @@ def paged_decode(q, k_pool, v_pool, tables, pos):
 paged_decode.launches = 0
 
 
-def _check_scales(k_pool, k_scale, v_scale):
-    if k_scale.shape != k_pool.shape[:3] or v_scale.shape != k_scale.shape:
+def _check_scales(k_pool, k_scale, v_scale, shape=None,
+                  dtype=torch.float32):
+    """Scale pools of ``shape`` (default [N,bs,Hkv]) and ``dtype``."""
+    shape = tuple(k_pool.shape[:3]) if shape is None else tuple(shape)
+    if k_scale.shape != shape or v_scale.shape != k_scale.shape:
         raise ValueError(f"scale pools {tuple(k_scale.shape)} / "
-                         f"{tuple(v_scale.shape)} must be [N,bs,Hkv] = "
-                         f"{tuple(k_pool.shape[:3])}")
+                         f"{tuple(v_scale.shape)} must be {shape}")
     for name, t in (("k_scale", k_scale), ("v_scale", v_scale)):
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if t.dtype != dtype:
+            raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
         if t.device != k_pool.device:
             raise ValueError(f"{name} on {t.device}, pools on "
                              f"{k_pool.device}")
@@ -117,7 +133,7 @@ def paged_qdecode(q, k_pool, k_scale, v_pool, v_scale, tables, pos):
     [N,bs,Hkv]; tables [B,M] int32 (-1 = no block); pos [B] int32 ->
     [B,Hkv,G,hd] f32. CPU tensors take the plain version; CUDA tensors
     launch the kernel."""
-    _check(q, k_pool, v_pool, tables, pos, quant=True)
+    _check(q, k_pool, v_pool, tables, pos, kind="int8")
     _check_scales(k_pool, k_scale, v_scale)
     if q.device.type == "cpu":
         return paged_qdecode_ref(q, k_pool, k_scale, v_pool, v_scale, tables,
@@ -143,3 +159,39 @@ def paged_qdecode(q, k_pool, k_scale, v_pool, v_scale, tables, pos):
 
 
 paged_qdecode.launches = 0
+
+
+def paged_q4decode(q, k_pool, k_scale, v_pool, v_scale, tables, pos):
+    """q [B,Hkv,G,hd]; int4 pools [N,bs,Hkv,hd//2] (two codes per byte)
+    with f16 group-scale pools [N,bs,Hkv,hd//32]; tables [B,M] int32 (-1 =
+    no block); pos [B] int32 -> [B,Hkv,G,hd] f32. hd must be a multiple of
+    32 up to 128 and G at most 8. CPU tensors take the plain version; CUDA
+    tensors launch the kernel."""
+    _check(q, k_pool, v_pool, tables, pos, kind="int4")
+    hd = q.shape[-1]
+    _check_scales(k_pool, k_scale, v_scale,
+                  tuple(k_pool.shape[:3]) + (hd // KV_GROUP,), torch.float16)
+    if q.device.type == "cpu":
+        return paged_q4decode_ref(q, k_pool, k_scale, v_pool, v_scale,
+                                  tables, pos)
+    if q.device.type != "cuda":
+        raise ValueError(f"no paged_q4decode kernel for {q.device}")
+    if k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
+        raise ValueError("pools must be 16-byte aligned (16-byte loads)")
+    b, hkv, g, _ = q.shape
+    out = torch.empty((b, hkv, g, hd), dtype=torch.float32, device=q.device)
+    fn = _build.function(_LIB, "paged_q4decode_fwd", [
+        _build.P, _build.I, _build.P, _build.P, _build.P, _build.P, _build.P,
+        _build.P, _build.P, _build.I, _build.I, _build.I, _build.I, _build.I,
+        _build.I, _build.P])
+    rc = fn(q.data_ptr(), _DTYPE_CODE[q.dtype], k_pool.data_ptr(),
+            k_scale.data_ptr(), v_pool.data_ptr(), v_scale.data_ptr(),
+            tables.data_ptr(), pos.data_ptr(), out.data_ptr(), b,
+            tables.shape[1], k_pool.shape[1], hkv, g, hd,
+            _build.stream_of(q))
+    _build.check(_LIB, rc, "paged_q4decode_fwd")
+    paged_q4decode.launches += 1
+    return out
+
+
+paged_q4decode.launches = 0

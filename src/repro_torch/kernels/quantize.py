@@ -1,0 +1,91 @@
+"""The int4 KV tier's wire layout and quantizer: the port's copy of the
+pure-``jnp`` helpers of ``repro/kernels/quantize.py``.
+
+Signed 4-bit codes in [-7, 7] are packed two per int8 byte along head_dim:
+element ``d`` lives in byte ``d // 2``, the even index in the low nibble,
+and nibbles are sign-extended on unpack. One f16 scale covers each group of
+``kv_group_size(hd)`` head_dim elements of one (slot, head). The CUDA
+kernels (``csrc/kv_int4.cuh``) unpack exactly this layout.
+
+Plain PyTorch on every device, as it is ``jnp`` (not a Pallas kernel) in
+the JAX package. The quantizer keeps the reference's operation order, so
+its codes and scales are bit-identical:
+
+1. ``t.float()``, then the absmax of each group;
+2. ``scale = (max(absmax, 1e-8) / 7).to(float16)``, both constants as
+   same-device tensors (IEEE division, no reciprocal rewrite);
+3. the group divided by the *rounded* scale (back in f32), rounded half to
+   even and clamped to +-7;
+4. NaN to 0, then the cast to int8.
+
+A group whose absmax is below ~2e-7 gets a scale that underflows to 0 in
+f16: an all-zero group is then 0/0 = NaN, which step 4 makes code 0 (JAX's
+NaN -> int8 cast gives 0 on the CPU; on CUDA the cast is undefined, hence
+the explicit step), and any other such group is x/0 = +-inf, clamped to
++-7 with a stored scale of 0. Both dequantize to 0.
+"""
+from __future__ import annotations
+
+import torch
+
+#: head_dim elements per int4 scale group (clamped to head_dim when smaller)
+KV_GROUP = 32
+
+
+def kv_group_size(head_dim: int) -> int:
+    """Effective int4 group size: ``KV_GROUP`` clamped to head_dim."""
+    return min(KV_GROUP, head_dim)
+
+
+def _const(value: float, like: torch.Tensor) -> torch.Tensor:
+    return torch.full((), value, dtype=torch.float32, device=like.device)
+
+
+def pack_int4(codes: torch.Tensor) -> torch.Tensor:
+    """[..., D] int8 codes in [-8, 7] -> [..., D // 2] int8, two codes per
+    byte: even index in the low nibble, odd in the high (D must be even)."""
+    lo = codes[..., 0::2].to(torch.int32) & 0xF
+    hi = codes[..., 1::2].to(torch.int32) & 0xF
+    byte = lo | (hi << 4)                       # 0..255
+    return torch.where(byte >= 128, byte - 256, byte).to(torch.int8)
+
+
+def unpack_int4(packed: torch.Tensor) -> torch.Tensor:
+    """[..., D // 2] int8 -> [..., D] int8 codes (sign-extended nibbles).
+    Each nibble is shifted to the top of an int32 and shifted back
+    arithmetically, which sign-extends it in two int32 ops."""
+    p = packed.to(torch.int32)
+    lo = (p << 28) >> 28
+    hi = (p << 24) >> 28
+    stacked = torch.stack([lo, hi], dim=-1)     # [..., D // 2, 2]
+    return stacked.reshape(*packed.shape[:-1],
+                           packed.shape[-1] * 2).to(torch.int8)
+
+
+def quantize_kv_int4(t: torch.Tensor, group_size: int = 0):
+    """[..., hd] float -> (packed [..., hd // 2] int8, scale [..., hd // g]
+    f16), symmetric per-group absmax with qmax 7 and a 1e-8 floor;
+    ``group_size`` defaults to ``kv_group_size(hd)``. Codes are computed
+    against the rounded f16 scale, so dequantizing with the stored scale
+    reconstructs them exactly."""
+    hd = t.shape[-1]
+    g = group_size or kv_group_size(hd)
+    tg = t.to(torch.float32).reshape(*t.shape[:-1], hd // g, g)
+    absmax = tg.abs().amax(dim=-1)
+    scale = (torch.maximum(absmax, _const(1e-8, tg))
+             / _const(7.0, tg)).to(torch.float16)
+    q = torch.clamp(torch.round(tg / scale[..., None].to(torch.float32)),
+                    -7, 7)
+    q = torch.nan_to_num(q, nan=0.0)
+    return pack_int4(q.reshape(t.shape).to(torch.int8)), scale
+
+
+def dequantize_kv_int4(t_i4: torch.Tensor, t_s: torch.Tensor) -> torch.Tensor:
+    """(packed [..., hd // 2] int8, scale [..., n_groups] f16) -> [..., hd]
+    f32. The group size is derived from the shapes (hd / n_groups)."""
+    hd = t_i4.shape[-1] * 2
+    g = hd // t_s.shape[-1]
+    x = unpack_int4(t_i4).to(torch.float32)
+    xg = x.reshape(*x.shape[:-1], hd // g, g) \
+        * t_s[..., None].to(torch.float32)
+    return xg.reshape(x.shape)

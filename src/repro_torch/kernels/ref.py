@@ -15,6 +15,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.quantize import dequantize_kv_int4, quantize_kv_int4
+
 NEG_INF = -2.0e38
 
 
@@ -106,15 +108,11 @@ def quantize_kv_ref(t):
     return codes.to(torch.int8), scale
 
 
-def qdecode_ref(q, k_i8, k_s, v_i8, v_s, bias):
-    """int8-KV decode attention over a dense cache, in f32.
-
-    q [B,Hkv,G,hd]; k_i8/v_i8 [B,S,Hkv,hd] int8; k_s/v_s [B,S,Hkv] f32;
-    bias [B,S] additive (0 or ``NEG_INF``) -> [B,Hkv,G,hd] f32. The JAX
-    oracle's order: dequantize, ``qk / sqrt(hd)``, add the bias, full-row
-    softmax, normalize p, then the value einsum."""
+def _attend_dense(q, kf, vf, bias):
+    """The dense decode oracles' core over dequantized f32 K/V [B,S,Hkv,hd]:
+    ``qk / sqrt(hd)``, the additive bias, full-row softmax, normalize p,
+    then the value einsum."""
     hd = q.shape[-1]
-    kf, vf = _dequant(k_i8, k_s), _dequant(v_i8, v_s)
     scores = torch.einsum("bkgh,bskh->bkgs", q.to(torch.float32), kf)
     scores = scores / torch.sqrt(_const(float(hd), scores))
     scores = scores + bias.to(torch.float32)[:, None, None, :]
@@ -123,11 +121,48 @@ def qdecode_ref(q, k_i8, k_s, v_i8, v_s, bias):
     return torch.einsum("bkgs,bskh->bkgh", p, vf)
 
 
+def qdecode_ref(q, k_i8, k_s, v_i8, v_s, bias):
+    """int8-KV decode attention over a dense cache, in f32.
+
+    q [B,Hkv,G,hd]; k_i8/v_i8 [B,S,Hkv,hd] int8; k_s/v_s [B,S,Hkv] f32;
+    bias [B,S] additive (0 or ``NEG_INF``) -> [B,Hkv,G,hd] f32. The JAX
+    oracle's order: dequantize, ``qk / sqrt(hd)``, add the bias, full-row
+    softmax, normalize p, then the value einsum."""
+    return _attend_dense(q, _dequant(k_i8, k_s), _dequant(v_i8, v_s), bias)
+
+
+def quantize_kv4_ref(t):
+    """[B,S,H,hd] -> (packed int4 [B,S,H,hd//2] int8, f16 scale
+    [B,S,H,hd//g]): the grouped int4 quantizer of ``kernels.quantize``,
+    which owns the layout."""
+    return quantize_kv_int4(t)
+
+
+def q4decode_ref(q, k_i4, k_s, v_i4, v_s, bias):
+    """int4-KV decode attention over a dense cache, in f32.
+
+    q [B,Hkv,G,hd]; k_i4/v_i4 [B,S,Hkv,hd//2] packed int8; k_s/v_s
+    [B,S,Hkv,hd//g] f16 group scales; bias [B,S] additive -> [B,Hkv,G,hd]
+    f32. Dequantize per group (``code * group_scale``), then the core of
+    ``qdecode_ref``. The dense int4 decode of the model runs this on every
+    device, as the JAX package runs its oracle there."""
+    return _attend_dense(q, dequantize_kv_int4(k_i4, k_s),
+                         dequantize_kv_int4(v_i4, v_s), bias)
+
+
 def flash_qprefill_ref(q, k_i8, k_s, v_i8, v_s):
     """int8-KV causal prefill: dequantize per (position, head), then the fp
     prefill. k_i8 [B,S,Hkv,hd], v_i8 [B,S,Hkv,dv] int8; k_s/v_s [B,S,Hkv]
     f32 -> [B,S,Hq,dv] f32."""
     return flash_prefill_ref(q, _dequant(k_i8, k_s), _dequant(v_i8, v_s))
+
+
+def flash_q4prefill_ref(q, k_i4, k_s, v_i4, v_s):
+    """int4-KV causal prefill: dequantize per (position, head, group), then
+    the fp prefill. k_i4 [B,S,Hkv,hd//2], v_i4 [B,S,Hkv,dv//2] packed int8;
+    k_s/v_s [B,S,Hkv,hd//g] / [B,S,Hkv,dv//g] f16 -> [B,S,Hq,dv] f32."""
+    return flash_prefill_ref(q, dequantize_kv_int4(k_i4, k_s),
+                             dequantize_kv_int4(v_i4, v_s))
 
 
 RUN_INIT = -1.0e30      # running-max seed of the online-softmax kernels
@@ -156,6 +191,23 @@ def _paged_bias(tables, pos, block_size: int):
     return torch.where(valid, _const(0.0, valid), _const(NEG_INF, valid))
 
 
+def _attend_paged(q, kf, vf, valid):
+    """The paged oracles' core over gathered f32 K/V [B, M*bs, Hkv, hd] and
+    the [B, M*bs] validity: masked slots selected away (scores to
+    ``NEG_INF``, values to 0), the row max floored at ``RUN_INIT``, then
+    ``qk / sqrt(hd)`` softmax, normalize p and the value einsum."""
+    hd = q.shape[-1]
+    valid = valid[:, None, None, :]
+    vf = torch.where(valid[:, 0, 0, :, None, None], vf, _const(0.0, vf))
+    scores = torch.einsum("bkgh,bskh->bkgs", q.to(torch.float32), kf)
+    scores = scores / torch.sqrt(_const(float(hd), scores))
+    scores = torch.where(valid, scores, _const(NEG_INF, scores))
+    m = torch.clamp(scores.amax(dim=-1, keepdim=True), min=RUN_INIT)
+    p = torch.exp(scores - m)
+    p = p / p.sum(dim=-1, keepdim=True)
+    return torch.einsum("bkgs,bskh->bkgh", p, vf)
+
+
 def paged_decode_ref(q, k_pool, v_pool, tables, pos):
     """Paged decode attention over fp pools, in f32.
 
@@ -175,18 +227,9 @@ def paged_decode_ref(q, k_pool, v_pool, tables, pos):
 
     On every row with a valid slot and finite pools the result is the JAX
     oracle's."""
-    hd = q.shape[-1]
-    valid = paged_valid(tables, pos, k_pool.shape[1])[:, None, None, :]
-    kf = paged_gather(k_pool, tables).to(torch.float32)
-    vf = paged_gather(v_pool, tables).to(torch.float32)
-    vf = torch.where(valid[:, 0, 0, :, None, None], vf, _const(0.0, vf))
-    scores = torch.einsum("bkgh,bskh->bkgs", q.to(torch.float32), kf)
-    scores = scores / torch.sqrt(_const(float(hd), scores))
-    scores = torch.where(valid, scores, _const(NEG_INF, scores))
-    m = torch.clamp(scores.amax(dim=-1, keepdim=True), min=RUN_INIT)
-    p = torch.exp(scores - m)
-    p = p / p.sum(dim=-1, keepdim=True)
-    return torch.einsum("bkgs,bskh->bkgh", p, vf)
+    return _attend_paged(q, paged_gather(k_pool, tables).to(torch.float32),
+                         paged_gather(v_pool, tables).to(torch.float32),
+                         paged_valid(tables, pos, k_pool.shape[1]))
 
 
 def paged_qdecode_ref(q, k_pool, k_scale, v_pool, v_scale, tables, pos):
@@ -200,15 +243,24 @@ def paged_qdecode_ref(q, k_pool, k_scale, v_pool, v_scale, tables, pos):
     values to 0) rather than biased, and the row max is floored at
     ``RUN_INIT``: an idle row is 0/0, and a NaN scale or any code that an
     idle row wrote into the trash block never reaches a live row."""
-    hd = q.shape[-1]
-    valid = paged_valid(tables, pos, k_pool.shape[1])[:, None, None, :]
-    kf = _dequant(paged_gather(k_pool, tables), paged_gather(k_scale, tables))
-    vf = _dequant(paged_gather(v_pool, tables), paged_gather(v_scale, tables))
-    vf = torch.where(valid[:, 0, 0, :, None, None], vf, _const(0.0, vf))
-    scores = torch.einsum("bkgh,bskh->bkgs", q.to(torch.float32), kf)
-    scores = scores / torch.sqrt(_const(float(hd), scores))
-    scores = torch.where(valid, scores, _const(NEG_INF, scores))
-    m = torch.clamp(scores.amax(dim=-1, keepdim=True), min=RUN_INIT)
-    p = torch.exp(scores - m)
-    p = p / p.sum(dim=-1, keepdim=True)
-    return torch.einsum("bkgs,bskh->bkgh", p, vf)
+    return _attend_paged(
+        q, _dequant(paged_gather(k_pool, tables), paged_gather(k_scale, tables)),
+        _dequant(paged_gather(v_pool, tables), paged_gather(v_scale, tables)),
+        paged_valid(tables, pos, k_pool.shape[1]))
+
+
+def paged_q4decode_ref(q, k_pool, k_scale, v_pool, v_scale, tables, pos):
+    """Paged decode attention over int4 pools, in f32.
+
+    q [B,Hkv,G,hd]; k_pool/v_pool [N,bs,Hkv,hd//2] packed int8;
+    k_scale/v_scale [N,bs,Hkv,hd//g] f16 group scales; tables [B,M] int32;
+    pos [B] -> [B,Hkv,G,hd] f32. Gathers codes and scales, dequantizes per
+    group and attends as ``paged_qdecode_ref`` does: masked slots are
+    selected away, so a NaN scale or any byte that an idle row wrote into
+    the trash block never reaches a live row."""
+    return _attend_paged(
+        q, dequantize_kv_int4(paged_gather(k_pool, tables),
+                              paged_gather(k_scale, tables)),
+        dequantize_kv_int4(paged_gather(v_pool, tables),
+                           paged_gather(v_scale, tables)),
+        paged_valid(tables, pos, k_pool.shape[1]))

@@ -1,26 +1,29 @@
 """Dense GQA attention: the port of ``repro.models.attention`` for the
-full-attention path with an fp or int8 KV cache.
+full-attention path with an fp, int8 or int4 KV cache.
 
 Prefill goes through the flash-prefill kernel (``kernels.ops.flash_prefill``)
 as ``cfg.opt_flash_prefill`` does by default in the JAX package. Decode over
 the fp cache is a plain masked softmax einsum there, and a plain
-``torch.einsum`` here. The int8 tier (``cfg.kv_precision == "int8"``)
-quantizes K and V per (slot, head) before they are stored, keeps the cache
-as ``(k_q, k_scale, v_q, v_scale)``, and attends over the quantized values
-with the fused-dequant kernels: ``flash_qprefill``, ``qdecode`` and
-``paged_qdecode``. The decode cache is updated in place (one ``[B, 1]``
-slot per step) instead of copied, which saves a full cache copy per layer
-per step; callers own the cache they pass in.
+``torch.einsum`` here. The quantized tiers quantize K and V before they are
+stored, keep the cache as ``(k_q, k_scale, v_q, v_scale)``, and attend over
+the quantized values with the fused-dequant kernels. int8
+(``cfg.kv_precision == "int8"``): per-(slot, head) f32 scales,
+``flash_qprefill``, ``qdecode`` and ``paged_qdecode``. int4: codes packed two
+per byte with per-(slot, head, group of 32) f16 scales
+(``kernels.quantize``), ``flash_q4prefill`` and ``paged_q4decode``; the
+dense int4 decode stays the plain ``q4decode_ref`` on every device, as it
+stays at the jnp level in the JAX package. The decode cache is updated in
+place (one ``[B, 1]`` slot per step) instead of copied, which saves a full
+cache copy per layer per step; callers own the cache they pass in.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.ref import quantize_kv_ref
+from repro_torch.kernels.quantize import quantize_kv_int4
+from repro_torch.kernels.ref import NEG_INF, q4decode_ref, quantize_kv_ref
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import apply_rope, dense_init, linear
-
-NEG_INF = -2.0e38
 
 
 def init_gqa_params(gen: torch.Generator, cfg: ModelConfig) -> dict:
@@ -54,11 +57,15 @@ def _quantize_kv(t):
     return quantize_kv_ref(t)
 
 
+def _quantize(t, prec: str):
+    """K or V [B,S,Hkv,hd] -> (codes, scales) of the quantized tier
+    ``prec``: int8 per (slot, head), int4 packed per group."""
+    return quantize_kv_int4(t) if prec == "int4" else _quantize_kv(t)
+
+
 def _kv_tier(cfg: ModelConfig, prefill: bool) -> str:
-    """``cfg.kv_precision`` when it is ported (fp or int8), else raise."""
-    if cfg.kv_precision == "int4":
-        raise NotImplementedError(
-            "the int4 KV tier is ROADMAP Queue 2 items 9-10")
+    """``cfg.kv_precision`` (fp, int8 or int4); raise for the chunked-query
+    prefill, which is not ported."""
     if prefill and not cfg.opt_flash_prefill:
         raise NotImplementedError(
             "the chunked-query prefill is ROADMAP Queue 1 item 3")
@@ -68,10 +75,13 @@ def _kv_tier(cfg: ModelConfig, prefill: bool) -> str:
 def gqa_prefill(p, x, positions, cfg: ModelConfig, window: int = 0,
                 pad_to: int = 0):
     """Returns (out [B,S,d], cache), the cache padded to ``max(S, pad_to)``
-    slots: ``(k, v)`` [B,S_cache,Hkv,hd], or for the int8 tier
-    ``(k_q, k_scale, v_q, v_scale)`` with f32 scales [B,S_cache,Hkv]. The
-    int8 prefill attends over the quantized K/V (the values decode reads
-    later); codes and scales are padded with zeros after quantizing."""
+    slots: ``(k, v)`` [B,S_cache,Hkv,hd], or for the quantized tiers
+    ``(k_q, k_scale, v_q, v_scale)``: int8 codes with f32 scales
+    [B,S_cache,Hkv], int4 packed codes [B,S_cache,Hkv,hd//2] with f16 group
+    scales [B,S_cache,Hkv,hd//g]. A quantized prefill attends over the
+    quantized K/V (the values decode reads later) with ``flash_qprefill`` /
+    ``flash_q4prefill``; codes and scales are padded with zeros after
+    quantizing."""
     prec = _kv_tier(cfg, prefill=True)
     from repro_torch.kernels import ops
 
@@ -82,14 +92,15 @@ def gqa_prefill(p, x, positions, cfg: ModelConfig, window: int = 0,
     v = linear(p["wv"], x).reshape(b, s, cfg.n_kv_heads, hd)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
-    if prec == "int8":
-        kq, ks = _quantize_kv(k)
-        vq, vs = _quantize_kv(v)
-        out = ops.flash_qprefill(q, kq, ks, vq, vs).to(x.dtype)
-        cache = (kq, ks, vq, vs)
-    else:
+    if prec == "fp":
         out = ops.flash_prefill(q, k, v).to(x.dtype)
         cache = (k, v)
+    else:
+        kq, ks = _quantize(k, prec)
+        vq, vs = _quantize(v, prec)
+        attend = ops.flash_q4prefill if prec == "int4" else ops.flash_qprefill
+        out = attend(q, kq, ks, vq, vs).to(x.dtype)
+        cache = (kq, ks, vq, vs)
     out = linear(p["wo"], out.reshape(b, s, cfg.n_heads * hd))
     return out, tuple(_ring_or_pad(t, s, window, pad_to) for t in cache)
 
@@ -122,9 +133,11 @@ def decode_positions(pos, b: int, s_cache: int, window: int, device=None):
 
 def gqa_decode(p, x, cache_kv, pos, cfg: ModelConfig, window: int = 0):
     """x [B,1,d]; cache_kv as returned by gqa_prefill (updated in place);
-    pos: int or per-sequence [B] tensor of positions. The int8 tier writes
-    this token's codes and scales, then attends with the ``qdecode``
-    kernel under the bias ``where(valid, 0, NEG_INF)``."""
+    pos: int or per-sequence [B] tensor of positions. The quantized tiers
+    write this token's codes and scales, then attend under the bias
+    ``where(valid, 0, NEG_INF)``: int8 with the ``qdecode`` kernel, int4
+    with the plain ``q4decode_ref`` (no TPU kernel covers the dense int4
+    decode; the JAX package runs its oracle there too)."""
     prec = _kv_tier(cfg, prefill=False)
     b = x.shape[0]
     hd = cfg.resolved_head_dim
@@ -139,16 +152,17 @@ def gqa_decode(p, x, cache_kv, pos, cfg: ModelConfig, window: int = 0):
     k = apply_rope(k, pos_b, cfg.rope_theta)
     hq, hkv = cfg.n_heads, cfg.n_kv_heads
     qg = q.reshape(b, hkv, hq // hkv, hd)
-    if prec == "int8":
+    if prec != "fp":
         from repro_torch.kernels import ops
 
-        kq, ks = _quantize_kv(k)
-        vq, vs = _quantize_kv(v)
+        kq, ks = _quantize(k, prec)
+        vq, vs = _quantize(v, prec)
         cache_kv = tuple(_batched_update(c, u, slot_vec)
                          for c, u in zip(cache_kv, (kq, ks, vq, vs)))
         bias = torch.where(valid, torch.zeros((), device=x.device),
                            torch.full((), NEG_INF, device=x.device))
-        out = ops.qdecode(qg, *cache_kv, bias)
+        attend = q4decode_ref if prec == "int4" else ops.qdecode
+        out = attend(qg, *cache_kv, bias)
         out = out.to(x.dtype).reshape(b, 1, hq * hd)
         return linear(p["wo"], out), cache_kv
     k_cache = _batched_update(cache_kv[0], k, slot_vec)
@@ -164,7 +178,7 @@ def gqa_decode(p, x, cache_kv, pos, cfg: ModelConfig, window: int = 0):
 
 
 # ----------------------------------------------------------------------- #
-# Paged prefill / decode (block-table cache, fp and int8 tiers)
+# Paged prefill / decode (block-table cache, fp, int8 and int4 tiers)
 # ----------------------------------------------------------------------- #
 def _count_vec(pos, b: int, device) -> torch.Tensor:
     """int or [B] tensor -> int64 [B] on ``device``, filled there (no
@@ -194,8 +208,9 @@ def gqa_prefill_paged(p, x, positions, cache, pos, tables, cfg: ModelConfig):
     flash kernel, and write the K/V straight into the block pools through
     the slot's table (in place; the dense cache never materializes).
     ``pos`` is the valid-token count (int or [B]); padded positions land
-    in the trash block. The int8 tier attends over the quantized K/V with
-    ``flash_qprefill`` and scatters codes and scales."""
+    in the trash block. The quantized tiers attend over the quantized K/V
+    with ``flash_qprefill`` / ``flash_q4prefill`` and scatter codes and
+    scales."""
     prec = _kv_tier(cfg, prefill=True)
     from repro_torch.kernels import ops
 
@@ -208,14 +223,15 @@ def gqa_prefill_paged(p, x, positions, cache, pos, tables, cfg: ModelConfig):
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     blk, off = _paged_prefill_slots(tables, n_valid, s, cache[0].shape[1])
-    if prec == "int8":
-        kq, ks = _quantize_kv(k)
-        vq, vs = _quantize_kv(v)
-        out = ops.flash_qprefill(q, kq, ks, vq, vs).to(x.dtype)
-        new = (kq, ks, vq, vs)
-    else:
+    if prec == "fp":
         out = ops.flash_prefill(q, k, v).to(x.dtype)
         new = (k, v)
+    else:
+        kq, ks = _quantize(k, prec)
+        vq, vs = _quantize(v, prec)
+        attend = ops.flash_q4prefill if prec == "int4" else ops.flash_qprefill
+        out = attend(q, kq, ks, vq, vs).to(x.dtype)
+        new = (kq, ks, vq, vs)
     # duplicate (block 0, offset) pairs only ever come from padding
     for pool, t in zip(cache, new):
         pool[blk, off] = t.to(pool.dtype)
@@ -238,12 +254,14 @@ def paged_write_slots(tables, pos_vec, block_size: int):
 
 
 def gqa_decode_paged(p, x, cache, pos, tables, cfg: ModelConfig):
-    """x [B,1,d]; cache (k_pool, v_pool) [N,bs,Hkv,hd], or for the int8
-    tier (k_pool, k_scale, v_pool, v_scale) with f32 scale pools
-    [N,bs,Hkv], updated in place; tables [B,M] int32; pos int or [B].
-    Writes this token's K/V (codes and scales) into its table's block,
-    then reads the whole sequence through the table with the paged
-    attention kernel (``paged_qdecode`` for int8)."""
+    """x [B,1,d]; cache (k_pool, v_pool) [N,bs,Hkv,hd], or for the
+    quantized tiers (k_pool, k_scale, v_pool, v_scale): int8 pools with f32
+    scale pools [N,bs,Hkv], int4 pools [N,bs,Hkv,hd//2] with f16 group-scale
+    pools [N,bs,Hkv,hd//g]; updated in place; tables [B,M] int32; pos int
+    or [B]. Writes this token's K/V (codes and scales) into its table's
+    block, then reads the whole sequence through the table with the paged
+    attention kernel (``paged_qdecode`` for int8, ``paged_q4decode`` for
+    int4)."""
     prec = _kv_tier(cfg, prefill=False)
     from repro_torch.kernels import ops
 
@@ -257,17 +275,18 @@ def gqa_decode_paged(p, x, cache, pos, tables, cfg: ModelConfig):
     q = apply_rope(q, pos_b, cfg.rope_theta)
     k = apply_rope(k, pos_b, cfg.rope_theta)
     blk, off = paged_write_slots(tables, pos_vec, cache[0].shape[1])
-    if prec == "int8":
-        kq, ks = _quantize_kv(k)
-        vq, vs = _quantize_kv(v)
-        new = (kq, ks, vq, vs)
-    else:
+    if prec == "fp":
         new = (k, v)
+    else:
+        kq, ks = _quantize(k, prec)
+        vq, vs = _quantize(v, prec)
+        new = (kq, ks, vq, vs)
     for pool, t in zip(cache, new):
         pool[blk, off] = t[:, 0].to(pool.dtype)
     hq, hkv = cfg.n_heads, cfg.n_kv_heads
     qg = q.reshape(b, hkv, hq // hkv, hd)
-    attend = ops.paged_qdecode if prec == "int8" else ops.paged_decode
+    attend = {"fp": ops.paged_decode, "int8": ops.paged_qdecode,
+              "int4": ops.paged_q4decode}[prec]
     out = attend(qg, *cache, tables.to(torch.int32), pos_vec.to(torch.int32))
     out = out.to(x.dtype).reshape(b, 1, hq * hd)
     return linear(p["wo"], out), cache

@@ -2,8 +2,8 @@
 
 Field names and defaults are the JAX dataclass's, so ``configs/*`` copy
 verbatim; ``dtype`` stays a string and ``activation_dtype`` maps it to a
-``torch.dtype``. Only the dense-GQA, full-attention path with an fp or int8
-KV cache is ported; ``check_supported`` names the ROADMAP item for
+``torch.dtype``. Only the dense-GQA, full-attention path with an fp, int8
+or int4 KV cache is ported; ``check_supported`` names the ROADMAP item for
 everything else.
 """
 from __future__ import annotations
@@ -97,10 +97,6 @@ def check_supported(cfg: ModelConfig) -> None:
     if cfg.frontend != "none" or cfg.n_codebooks > 1:
         raise NotImplementedError(
             "vision/audio frontends and codebooks are ROADMAP Queue 1 item 9")
-    if cfg.kv_precision == "int4":
-        raise NotImplementedError(
-            "KV tier 'int4': nibble-packed KV caches are ROADMAP Queue 2 "
-            "items 9-10")
     if not cfg.opt_flash_prefill:
         raise NotImplementedError(
             "the chunked-query prefill path is ROADMAP Queue 1 item 3; the "

@@ -23,6 +23,7 @@ from typing import Any, Dict
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.kernels.quantize import kv_group_size
 from repro_torch.models import attention as attn
 from repro_torch.models.config import ModelConfig, check_supported
 from repro_torch.models.layers import (dense_init, embed_init, linear,
@@ -195,10 +196,19 @@ def decode_step_paged(params, caches, tokens, pos, tables, cfg: ModelConfig):
 def kv_leaves(cfg: ModelConfig, lead, device) -> tuple:
     """One layer's zeroed KV leaves with leading dims ``lead`` (``(B, S)``
     for a dense cache, ``(N, bs)`` for a block pool): ``(k, v)`` in the
-    activation dtype, or for the int8 tier ``(k_q, k_scale, v_q,
+    activation dtype, or for the quantized tiers ``(k_q, k_scale, v_q,
     v_scale)``: int8 codes ``[*lead, Hkv, hd]`` and f32 scales
-    ``[*lead, Hkv]``."""
-    shape = tuple(lead) + (cfg.n_kv_heads, cfg.resolved_head_dim)
+    ``[*lead, Hkv]``; int4: packed codes ``[*lead, Hkv, hd // 2]`` (two per
+    int8 byte) and f16 group scales ``[*lead, Hkv, hd // g]``."""
+    hd = cfg.resolved_head_dim
+    shape = tuple(lead) + (cfg.n_kv_heads, hd)
+    if cfg.kv_precision == "int4":
+        ng = hd // kv_group_size(hd)
+        codes = lambda: torch.zeros(shape[:-1] + (hd // 2,),  # noqa: E731
+                                    dtype=torch.int8, device=device)
+        scale = lambda: torch.zeros(shape[:-1] + (ng,),  # noqa: E731
+                                    dtype=torch.float16, device=device)
+        return codes(), scale(), codes(), scale()
     if cfg.kv_precision == "int8":
         codes = lambda: torch.zeros(shape, dtype=torch.int8, device=device)  # noqa: E731
         scale = lambda: torch.zeros(shape[:-1], dtype=torch.float32,  # noqa: E731

@@ -1,5 +1,5 @@
-"""Paged KV cache: the port of ``repro.serving.kvcache`` for the fp and int8
-tiers.
+"""Paged KV cache: the port of ``repro.serving.kvcache`` for the fp, int8
+and int4 tiers.
 
 * ``BlockAllocator`` — host-side metadata for a pool of fixed-size token
   blocks: refcounted sharing (copy-on-write via ``ensure_writable``), a
@@ -9,12 +9,13 @@ tiers.
 * ``PagedKVCache`` — the device pools plus the block tables. The pools keep
   the port's per-layer layout, ``{"layers": [(k_pool, v_pool), ...]}`` with
   each pool ``[N, block_size, Hkv, hd]`` (int8 tier: ``(k_pool, k_scale,
-  v_pool, v_scale)`` with f32 scale pools ``[N, block_size, Hkv]``), and
-  are written in place (the JAX package replaces them functionally). ``tables`` is rebuilt only when a
-  slot's blocks change, with one host-to-device copy.
+  v_pool, v_scale)`` with f32 scale pools ``[N, block_size, Hkv]``; int4
+  tier: packed pools ``[N, block_size, Hkv, hd // 2]`` with f16 group-scale
+  pools ``[N, block_size, Hkv, hd // g]``), and are written in place (the
+  JAX package replaces them functionally). ``tables`` is rebuilt only when
+  a slot's blocks change, with one host-to-device copy.
 
-The int4 block pools are ROADMAP Queue 2 items 9-10; attaching a
-second engine to one store (``shared=``) and the block export/import of
+Attaching a second engine to one store (``shared=``) and the block export/import of
 the handoff between prefill and decode workers are ROADMAP Queue 1 item
 11; the speculative-decoding rollback (``truncate``) is item 8. Also here:
 copies of ``pow2_bucket`` and ``bucketed_prefill_ok``.
@@ -28,6 +29,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.kernels.quantize import kv_group_size
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import kv_leaves
 
@@ -37,8 +39,6 @@ NO_BLOCK = -1
 #: block id 0 is reserved: padded scatter writes land there harmlessly and
 #: clamped gathers of unallocated table entries read from it (masked out).
 TRASH_BLOCK = 0
-
-_KV_GROUP = 32      # int4 KV tier: head_dim elements per f16 scale
 
 
 def paged_supported(cfg: ModelConfig) -> Optional[str]:
@@ -248,10 +248,6 @@ def _check_pool_tier(cfg: ModelConfig) -> None:
     why = paged_supported(cfg)
     if why is not None:
         raise ValueError(f"paged KV cache unsupported for {cfg.name}: {why}")
-    if cfg.kv_precision == "int4":
-        raise NotImplementedError(
-            "KV tier 'int4': nibble-packed block pools are ROADMAP Queue 2 "
-            "items 9-10")
     if cfg.attention == "mla" or cfg.n_experts:
         raise NotImplementedError(
             "MLA and MoE block pools are ROADMAP Queue 1 item 9")
@@ -261,9 +257,12 @@ def init_paged_pools(cfg: ModelConfig, n_blocks: int, block_size: int,
                      device: DeviceLike = None) -> Dict[str, Any]:
     """Zeroed block pools per layer: ``(k_pool, v_pool)``, each
     ``[n_blocks, block_size, Hkv, hd]`` in the activation dtype, or for the
-    int8 tier ``(k_pool, k_scale, v_pool, v_scale)`` with int8 pools and f32
-    ``[n_blocks, block_size, Hkv]`` scale pools: the dense cache's leaves
-    with one shared pool in place of per-slot reservations."""
+    quantized tiers ``(k_pool, k_scale, v_pool, v_scale)``: int8 pools with
+    f32 ``[n_blocks, block_size, Hkv]`` scale pools, int4 pools
+    ``[n_blocks, block_size, Hkv, hd // 2]`` with f16
+    ``[n_blocks, block_size, Hkv, hd // g]`` group-scale pools: the dense
+    cache's leaves with one shared pool in place of per-slot
+    reservations."""
     _check_pool_tier(cfg)
     dev = resolve_device(device)
     return {"layers": [kv_leaves(cfg, (n_blocks, block_size), dev)
@@ -448,7 +447,7 @@ def kv_bytes_per_token(cfg: ModelConfig) -> int:
     hd, hkv = cfg.resolved_head_dim, cfg.n_kv_heads
     prec = cfg.kv_precision
     if prec == "int4":
-        return int(2 * hkv * (hd // 2 + 2 * (hd // min(_KV_GROUP, hd))))
+        return int(2 * hkv * (hd // 2 + 2 * (hd // kv_group_size(hd))))
     if prec == "int8":
         return int(2 * hkv * (hd + 4))
     itemsize = torch.empty((), dtype=cfg.activation_dtype).element_size()

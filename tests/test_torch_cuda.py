@@ -11,7 +11,7 @@ torch.set_num_threads(1)
 
 from repro_torch.kernels import (dynquant, flash_prefill,  # noqa: E402
                                  paged_attn, qdecode, qmatmul)
-from repro_torch.kernels import ref  # noqa: E402
+from repro_torch.kernels import quantize, ref  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -228,3 +228,101 @@ def test_flash_qprefill_kernel_matches_plain(dev, b, s, hq, hkv, hd, dv,
     assert got.dtype == torch.float32 and got.shape == (b, s, hq, dv)
     torch.testing.assert_close(got, ref.flash_qprefill_ref(*args), rtol=0,
                                atol=1e-4)
+
+
+# ------------------------------------------------------------------ #
+# The int4-KV kernels and quantizer
+# ------------------------------------------------------------------ #
+def _packed(gen, shape):
+    # every byte, so every nibble -8..7 (the wire layout, not only +-7)
+    return torch.randint(-128, 128, shape, generator=gen, dtype=torch.int8)
+
+
+def _gscales(gen, shape):
+    # f16 group scales of dequantized values of order 1, as int4 K/V are
+    return ((torch.rand(shape, generator=gen) + 0.5) / 7).to(torch.float16)
+
+
+def _to_int4_pools(gen, k_pool, v_pool):
+    n, bs, hkv, hd = k_pool.shape
+    dev = k_pool.device
+    return (_packed(gen, (n, bs, hkv, hd // 2)).to(dev),
+            _gscales(gen, (n, bs, hkv, hd // 32)).to(dev),
+            _packed(gen, (n, bs, hkv, hd // 2)).to(dev),
+            _gscales(gen, (n, bs, hkv, hd // 32)).to(dev))
+
+
+@pytest.mark.parametrize("case", ["stablelm", "nemo", "idle"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_paged_q4decode_kernel_matches_plain(dev, case, dtype):
+    b, hkv, g, hd, bs, m, n, pos = PAGED_CASES[case]
+    q, k_pool, v_pool, tables, pos_t = _paged_case(
+        dev, b, hkv, g, hd, bs, m, n, dtype, pos, seed=b * hd + bs,
+        holes=[(0, 1)] if case == "idle" else ())
+    pools = _to_int4_pools(torch.Generator().manual_seed(hd + 4), k_pool,
+                           v_pool)
+    before = paged_attn.paged_q4decode.launches
+    got = paged_attn.paged_q4decode(q, *pools, tables, pos_t)
+    assert paged_attn.paged_q4decode.launches == before + 1
+    want = ref.paged_q4decode_ref(q, *pools, tables, pos_t)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == q.shape
+    idle = torch.tensor([p < 0 for p in pos], device=dev)
+    assert torch.equal(got.isnan().all(-1).all(-1).all(-1), idle)
+    assert torch.equal(want.isnan().all(-1).all(-1).all(-1), idle)
+    # f32 both sides, both dequantize before the dot; summation order
+    # differs
+    torch.testing.assert_close(got[~idle], want[~idle], rtol=0, atol=1e-4)
+    # what an idle slot writes into the trash block (NaN f16 scales, any
+    # bytes: 0x88 here) is never read: the live rows do not change
+    k_q, k_s, v_q, v_s = pools
+    k_q[0], v_q[0] = -120, -120
+    k_s[0], v_s[0] = float("nan"), float("nan")
+    again = paged_attn.paged_q4decode(q, *pools, tables, pos_t)
+    assert torch.equal(again[~idle], got[~idle])
+    assert torch.isfinite(again[~idle]).all()
+
+
+# chip_smoke.py's four flash shapes (dv a multiple of the group of 32)
+@pytest.mark.parametrize("b,s,hq,hkv,hd,dv", [(4, 256, 32, 32, 64, 64),
+                                              (2, 300, 32, 8, 128, 128),
+                                              (2, 200, 16, 16, 128, 64),
+                                              (1, 64, 32, 32, 64, 64)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_q4prefill_kernel_matches_plain(dev, b, s, hq, hkv, hd, dv,
+                                              dtype):
+    gen = torch.Generator().manual_seed(s * hd + dv + 4)
+    args = tuple(t.to(dev) for t in (
+        torch.randn((b, s, hq, hd), generator=gen).to(dtype),
+        _packed(gen, (b, s, hkv, hd // 2)),
+        _gscales(gen, (b, s, hkv, hd // 32)),
+        _packed(gen, (b, s, hkv, dv // 2)),
+        _gscales(gen, (b, s, hkv, dv // 32))))
+    before = flash_prefill.flash_q4prefill.launches
+    got = flash_prefill.flash_q4prefill(*args)
+    assert flash_prefill.flash_q4prefill.launches == before + 1
+    assert got.dtype == torch.float32 and got.shape == (b, s, hq, dv)
+    torch.testing.assert_close(got, ref.flash_q4prefill_ref(*args), rtol=0,
+                               atol=1e-4)
+
+
+def test_quantize_kv_int4_edge_rows_card_equals_cpu(dev):
+    """Exact .5 quotients, an all-zero group (0/0 -> code 0: the cast of
+    NaN is made explicit) and a group whose f16 scale underflows to 0
+    (x/0 -> +-7): the card's codes and scales equal the CPU's."""
+    gen = torch.Generator().manual_seed(5)
+    t = torch.randn((2, 3, 2, 64), generator=gen) * 3
+    halves = torch.tensor([7, 0.5, 1.5, 2.5, -0.5, -1.5, -2.5, 3.5, -3.5,
+                           4.5, -6.5, 6.5, 0, 1, -7, 5.5]).repeat(2)
+    t[0, 0, 0, :32] = halves * 0.25
+    t[0, 1, 1, :32] = 0
+    t[1, 2, 0, :32] = torch.randn(32, generator=gen) * 1e-9
+    for dtype in (torch.float32, torch.bfloat16):
+        x = t.to(dtype)
+        want_q, want_s = quantize.quantize_kv_int4(x)
+        got_q, got_s = quantize.quantize_kv_int4(x.to(dev))
+        assert torch.equal(got_q.cpu(), want_q)
+        assert torch.equal(got_s.cpu(), want_s)
+        codes = quantize.unpack_int4(got_q).cpu()
+        assert (codes[0, 1, 1, :32] == 0).all()
+        assert (codes[1, 2, 0, :32].abs() == 7).all()

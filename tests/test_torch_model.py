@@ -210,10 +210,14 @@ def test_entry_points_raise_without_cuda_and_no_device():
 def test_unported_branches_name_the_roadmap():
     cfg = t_configs.smoke_config("mistral-nemo-12b")
     for bad in (cfg.with_overrides(window=8),
-                cfg.with_overrides(kv_cache_precision="int4"),
+                cfg.with_overrides(tie_embeddings=True),
                 cfg.with_overrides(attention="mla")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             init_params(bad, device="cpu")
+    # every KV tier is served: fp, int8 and int4
+    for tier in ("fp", "int8", "int4"):
+        init_params(cfg.with_overrides(kv_cache_precision=tier), seed=1,
+                    device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         t_configs.get_config("deepseek-v2-236b")
 

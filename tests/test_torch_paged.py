@@ -462,9 +462,14 @@ def test_sizing_helpers_match_jax():
 
 def test_unported_pools_name_the_roadmap():
     cfg = t_configs.smoke_config("mistral-nemo-12b")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 2"):
-        t_kv.init_paged_pools(cfg.with_overrides(kv_cache_precision="int4"),
-                              4, 4, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 9"):
+        t_kv.init_paged_pools(cfg.with_overrides(attention="mla"), 4, 4,
+                              device="cpu")
+    # the int4 pools are served: packed codes and f16 group scales
+    int4 = t_kv.init_paged_pools(
+        cfg.with_overrides(kv_cache_precision="int4"), 4, 4, device="cpu")
+    assert [t.dtype for t in int4["layers"][0]] == [
+        torch.int8, torch.float16, torch.int8, torch.float16]
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 11"):
         t_kv.PagedKVCache(cfg, 1, 4, 4, 2, device="cpu",
                           shared=t_kv.SharedKVPool(cfg, 4, 4, "cpu"))
