@@ -15,8 +15,11 @@ prints one JSON line per phase:
    int8-KV kernels qdecode, paged_qdecode (with NaN scales and -128 codes
    in the trash block) and flash_qprefill, then the int4-KV kernels
    paged_q4decode (with NaN f16 scales and 0x88 bytes in the trash block)
-   and flash_q4prefill, and the int4 KV quantizer's edge groups, card
-   against CPU;
+   and flash_q4prefill, the int4 KV quantizer's edge groups, card against
+   CPU, and quantize_weights at phi-3-vision's weight shapes (codes and
+   scales bit for bit); the GEMMs and flash prefill also run at the VQI
+   forward's shapes (M 4632 at phi-3-vision's five weight shapes; B8 S579
+   H32 hd96);
 3. e2e: stablelm-1.6b at full width in bf16 with random seeded weights, the
    three default variants (fp32 passthrough, dynamic int8, static int8
    calibrated on 2 batches of 2 x 128 tokens) and dynamic int8 over an
@@ -37,7 +40,20 @@ prints one JSON line per phase:
    plain path against the card's kernel path on one prompt plus 8
    teacher-forced decode steps, dense and then paged (a block table with
    scattered ids and a -1 tail), over an fp, an int8 and an int4 KV cache;
-6. a ``kernels`` line, the ``nvidia-smi`` line, and last the device line.
+6. VQI: phi-3-vision-4.2b at its published width and depth (32 layers,
+   576 patch tokens), bf16, random seeded weights, its three variants
+   (static calibrated on 2 VQI batches) published into a registry in a
+   temporary directory, each activated by its own ``EdgeAgent`` and served
+   through ``fleet.vqi.inspection_pipeline`` behind a RequestQueue, 16
+   captures in batches of 8, launch counters zeroed before and read after;
+   then the lifecycle through an ``ArtifactRegistry`` at published width
+   and LIFECYCLE_LAYERS layers in f32 (publish v1's variants, a staged
+   rollout with ``HealthGate()`` to one standard and one Pi-4-class device
+   on the card, inspections pushing telemetry, a noised v2 whose rollout
+   fails its gate and rolls back; then one device's lifecycle latencies);
+   then card vs CPU logits on a teacher-forced VQI batch at 2 layers, fp32,
+   dynamic int8 and static int8 (calibrated on the CPU);
+7. a ``kernels`` line, the ``nvidia-smi`` line, and last the device line.
 
 Any failed check raises and the exit code is non-zero. Without a CUDA
 device, or outside the repository, it exits non-zero and prints no result.
@@ -63,6 +79,14 @@ PEAK_OPS_S = {"int8": 1979e12, "bfloat16": 989e12, "float32": 67e12}
 
 GEMM_MS = (4, 1024, 1023)
 GEMM_KN = ((2048, 2048), (2048, 11264), (5632, 2048), (2048, 100352))
+# phi-3-vision's VQI forward (8 images x 579 positions): wq, wi, wo,
+# frontend_proj and unembed, whose N leaves a 64-column tail in the last
+# 128-wide tile
+VQI_GEMM_M = 8 * 579
+VQI_GEMM_KN = ((3072, 3072), (3072, 16384), (8192, 3072), (1024, 3072),
+               (3072, 32064))
+GEMM_CASES = tuple((kk, n, GEMM_MS) for kk, n in GEMM_KN) + tuple(
+    (kk, n, (VQI_GEMM_M,)) for kk, n in VQI_GEMM_KN)
 HEADLINE_GEMM = (4, 2048, 11264)          # a decode GEMM (wi of one layer)
 # (B, S, Hq, Hkv, hd, dv, dtype)
 FLASH_SHAPES = ((4, 256, 32, 32, 64, 64, torch.bfloat16),
@@ -70,6 +94,10 @@ FLASH_SHAPES = ((4, 256, 32, 32, 64, 64, torch.bfloat16),
                 (2, 200, 16, 16, 128, 64, torch.bfloat16),
                 (1, 64, 32, 32, 64, 64, torch.float32))
 HEADLINE_FLASH = FLASH_SHAPES[0]
+# phi-3-vision's VQI forward: 576 patch tokens + 3 text tokens, hd 96 (S not
+# a multiple of the kernel's 64-row tile)
+FLASH_SHAPES += ((8, 579, 32, 32, 96, 96, torch.bfloat16),
+                 (8, 579, 32, 32, 96, 96, torch.float32))
 FLASH_ATOL = 1e-4     # f32 on both sides; summation order differs
 # paged decode: (B, Hkv, G, hd, block size, table entries, pool blocks,
 # pool dtype, positions: None = drawn in 36..511, idle rows have -1)
@@ -122,8 +150,34 @@ N_NEW = 32
 # with this script's teacher_forced and nudged_norms); the bound is about
 # 2.5 times that. card_vs_cpu prints the nudge of every run beside its
 # error.
+# vqi_* (phi-3-vision, published width, 2 layers, f32, a teacher-forced
+# forward of 2 VQI images, 579 positions each): the same nudge moves the
+# CPU's own logits by max 3.3e-6 / mean 3.7e-7 with fp32 weights and by max
+# 0.078 / mean 0.0085 with dynamic-int8 weights and by max 0.089 / mean
+# 0.0109 with static-int8 weights calibrated on 2 VQI batches of 2 (measured
+# on the CPU with vqi_card_vs_cpu_phase). fp32 keeps the fp32 bound
+# (summation order, not the nudge, sets it); each int8 bound is about 2.5
+# times its own nudge.
 CPU_TOL = {"fp32": (2e-3, 2e-4), "dynamic_int8": (0.2, 0.03),
-           "fp32_int8kv": (1e-2, 2e-3), "fp32_int4kv": (0.15, 0.03)}
+           "fp32_int8kv": (1e-2, 2e-3), "fp32_int4kv": (0.15, 0.03),
+           "vqi_fp32": (2e-3, 2e-4), "vqi_dynamic_int8": (0.2, 0.02),
+           "vqi_static_int8": (0.22, 0.027)}
+
+
+# quantize_weights at phi-3-vision's weight shapes (wq, wi, wo, frontend_proj,
+# unembed), then the JAX package's ragged test shapes; (K, N)
+QW_SHAPES = ((3072, 3072), (3072, 16384), (8192, 3072), (1024, 3072),
+             (3072, 32064), (48, 33), (300, 96))
+HEADLINE_QW = (3072, 16384, torch.bfloat16)
+# the VQI phases: phi-3-vision-4.2b at its published width; 16 captures
+# served in batches of 8; static calibration on 2 VQI batches of 8
+VLM = "phi-3-vision-4.2b"
+VQI_CAPTURES, VQI_BATCH = 16, 8
+# the lifecycle through the registry runs 2 of the 32 layers in float32:
+# one fp32 artifact of the full model is 15.3 GB on disk, written per
+# version and read again (sha256 + load) by every device at install and
+# activate
+LIFECYCLE_LAYERS = 2
 
 
 def emit(phase: str, **fields) -> None:
@@ -193,7 +247,8 @@ def _wrappers(k):
             "paged_qdecode": k.paged_attn.paged_qdecode,
             "flash_qprefill": k.flash_prefill.flash_qprefill,
             "paged_q4decode": k.paged_attn.paged_q4decode,
-            "flash_q4prefill": k.flash_prefill.flash_q4prefill}
+            "flash_q4prefill": k.flash_prefill.flash_q4prefill,
+            "quantize_weights": k.quantize.quantize_weights}
 
 
 def reset_counters(k):
@@ -213,11 +268,11 @@ def gemm_phase(k, dev, timer):
     gen = torch.Generator(device=dev).manual_seed(SEED)
     worst = {"qmatmul_dynamic": 0.0, "qmatmul_static": 0.0}
     headline = {}
-    for kk, n in GEMM_KN:
+    for kk, n, ms in GEMM_CASES:
         w = torch.randint(-127, 128, (kk, n), generator=gen, device=dev,
                           dtype=torch.int8)
         ws = torch.rand((1, n), generator=gen, device=dev) * 1e-3 + 1e-5
-        for m in GEMM_MS:
+        for m in ms:
             x = (torch.randn((m, kk), generator=gen, device=dev) * 2).to(
                 torch.bfloat16)
             act = (x.float().abs().amax() / 127.0).reshape(())
@@ -813,6 +868,47 @@ def quantize_int4_phase(k, dev):
     emit("quantize_int4", shape=list(t.shape), card_equals_cpu=rows)
 
 
+def quantize_weights_phase(k, dev, timer):
+    """quantize_weights against its plain version at phi-3-vision's weight
+    shapes and the JAX package's ragged test shapes, in bf16 and f32, each
+    input with an all-zero column: codes and scales bit for bit."""
+    ref, quant = k.ref, k.quantize
+    gen = torch.Generator(device=dev).manual_seed(SEED + 15)
+    headline = None
+    for kk, n in QW_SHAPES:
+        base = torch.randn((kk, n), generator=gen, device=dev) * 0.05
+        base[:, 1] = 0.0
+        for dt in (torch.bfloat16, torch.float32):
+            w = base.to(dt)
+            codes, scale = quant.quantize_weights(w)
+            want_codes, want_scale = ref.quantize_ref(w)
+            torch.cuda.synchronize()
+            code_err = int((codes.to(torch.int32)
+                            - want_codes.to(torch.int32)).abs().max())
+            same_scale = torch.equal(scale.view(torch.int32),
+                                     want_scale.view(torch.int32))
+            if code_err or not same_scale or int(codes[:, 1].abs().max()):
+                raise AssertionError(f"quantize_weights [{kk},{n}] {dt}: "
+                                     f"codes max |diff| {code_err}, scales "
+                                     f"identical {same_scale}")
+            t_k = timer.graph_ms(lambda: quant.quantize_weights(w))
+            t_eager = timer.eager_ms(lambda: quant.quantize_weights(w))
+            t_p = timer.graph_ms(lambda: ref.quantize_ref(w), iters=3)
+            nbytes = kk * n * (w.element_size() + 1) + 4 * n
+            b_ms, b_by = bound(nbytes, 0.0, str(dt).split(".")[-1])
+            row = dict(kernel="quantize_weights", K=kk, N=n,
+                       dtype=str(dt).split(".")[-1], max_abs_err=code_err,
+                       scales_identical=same_scale, ms=t_k, eager_ms=t_eager,
+                       plain_ms=t_p, library_ms=None, bound_ms=b_ms,
+                       bound_by=b_by)
+            emit("kernel", **row)
+            if (kk, n, dt) == HEADLINE_QW:
+                headline = row
+            del w, codes, scale, want_codes, want_scale
+        del base
+    return headline
+
+
 def profile_decode(step_fn, n_steps: int, step_ms: float):
     """Device time inside ``n_steps`` decode steps from a torch.profiler
     trace: busy ms per step, the idle share against the unprofiled step
@@ -1307,6 +1403,353 @@ def card_vs_cpu_phase(dev, paged: bool):
         del card
 
 
+# ------------------------------------------------------------------ #
+# Phase 6: the VQI lifecycle on phi-3-vision
+# ------------------------------------------------------------------ #
+def _captures(cfg, n, seed, dev):
+    """``n`` single-image VQI captures (patch embeddings, the text prompt,
+    labels) with asset ids, drawn from a seeded host generator."""
+    from repro_torch.data import vqi_batch
+    from repro_torch.fleet.vqi import TASK
+
+    gen = torch.Generator().manual_seed(seed)
+    out = []
+    for i in range(n):
+        raw = vqi_batch(gen, cfg, TASK, 1, dev)
+        raw["asset_ids"] = [f"tower-{seed}-{i}"]
+        out.append(raw)
+    return out
+
+
+def _stack_captures(raws):
+    out = {key: torch.cat([r[key] for r in raws]) for key in raws[0]
+           if key != "asset_ids"}
+    out["asset_ids"] = [a for r in raws for a in r["asset_ids"]]
+    return out
+
+
+def _classes(logits, cfg):
+    """(asset, condition) argmax per image from VQI logits, one host copy."""
+    from repro_torch.fleet.vqi import TASK
+
+    lay = TASK.vocab_layout(cfg)
+    off = cfg.n_frontend_tokens
+    a = logits[:, off, lay["asset0"]:lay["asset0"] + TASK.n_assets].argmax(-1)
+    c = logits[:, off + 1,
+               lay["cond0"]:lay["cond0"] + TASK.n_conditions].argmax(-1)
+    return [tuple(r) for r in torch.stack([a, c], 1).tolist()]
+
+
+def _gemm_counts(params):
+    """(static, dynamic) int8 GEMMs per forward of a param tree: every int8
+    leaf but the embedding table, static where it carries an act_scale."""
+    from repro_torch.tree import map_with_path
+
+    paths = set()
+    map_with_path(lambda path, _: paths.add(path), params)
+    linears = [p[:-len("w_int8")] for p in paths
+               if p.endswith("/w_int8") and not p.startswith("embed/")]
+    static = sum(f"{p}act_scale" in paths for p in linears)
+    return static, len(linears) - static
+
+
+def vqi_phase(k, dev):
+    """phi-3-vision-4.2b at its published width and depth, bf16, random
+    seeded weights: the three VQI variants (static calibrated on 2 VQI
+    batches) published into a registry in a temporary directory, each
+    activated by its own EdgeAgent (admission, fetch, sha256 check, session
+    on the card) and served through ``inspection_pipeline`` behind a
+    RequestQueue, 16 captures in batches of 8, with every kernel's launch
+    counter zeroed before and read after. Returns the launch totals."""
+    import tempfile
+
+    from repro_torch import configs
+    from repro_torch.api import (ArtifactRegistry, DeviceProfile, EdgeAgent,
+                                 ModelArtifact, TelemetryHub)
+    from repro_torch.core.quant import tree_size_bytes
+    from repro_torch.fleet import vqi
+    from repro_torch.models import init_params
+    from repro_torch.serving import RequestQueue
+
+    cfg = configs.get_config(VLM)
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=SEED + 20)
+    model = ModelArtifact.create("vqi", "full", params, cfg)
+    calib = vqi.vqi_calib_batches(cfg, 2, batch=VQI_BATCH, device=dev)
+    captures = _captures(cfg, VQI_CAPTURES, SEED + 22, dev)
+    torch.cuda.synchronize()
+    emit("vqi_setup", model=cfg.name, dtype=cfg.dtype, layers=cfg.n_layers,
+         d_model=cfg.d_model, heads=cfg.n_heads,
+         head_dim=cfg.resolved_head_dim, d_ff=cfg.d_ff,
+         vocab=cfg.vocab_size, frontend_dim=cfg.frontend_dim,
+         patch_tokens=cfg.n_frontend_tokens, captures=VQI_CAPTURES,
+         batch=VQI_BATCH, fp_bytes=tree_size_bytes(params),
+         init_s=time.perf_counter() - t0)
+    totals, preds = {}, {}
+    build = os.path.join(ROOT, "build")
+    os.makedirs(build, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as root:
+        registry = ArtifactRegistry(root)
+        for spec in vqi.vqi_variant_specs(2):
+            t0 = time.perf_counter()
+            ref = registry.publish_variants(model, [spec],
+                                            calib_data=calib)[spec.variant].ref
+            publish_s = time.perf_counter() - t0
+            agent = EdgeAgent(f"vqi-{spec.variant}", registry,
+                              DeviceProfile("h100", 80 * 10**9))
+            t0 = time.perf_counter()
+            agent.activate(ref)              # install (fetch + sha256), load
+            torch.cuda.synchronize()
+            activate_s = time.perf_counter() - t0
+            hub = TelemetryHub()
+            queue = RequestQueue(vqi.inspection_pipeline(agent, cfg, hub),
+                                 max_batch=VQI_BATCH, stack=_stack_captures,
+                                 unstack=lambda res, n: [[p] for p in res])
+            warm = _stack_captures(captures[:VQI_BATCH])
+            agent.infer({key: warm[key]
+                         for key in ("tokens", "frontend_embeds")})
+            agent.session.stats.reset()
+            torch.cuda.synchronize()
+
+            reset_counters(k)                # ---- the main path: counted
+            reqs = [queue.submit(c) for c in captures]
+            t0 = time.perf_counter()
+            queue.drain()
+            torch.cuda.synchronize()
+            serve_s = time.perf_counter() - t0
+            launches = read_counters(k)      # ---- read right after
+
+            forwards = agent.session.stats.calls
+            n_static, n_dynamic = _gemm_counts(agent.session.params)
+            want = {"flash_prefill": cfg.n_layers,
+                    "qmatmul_static": n_static, "qmatmul_dynamic": n_dynamic}
+            per_forward = {name: n / forwards for name, n in launches.items()}
+            for name, n in want.items():
+                if per_forward[name] != n:
+                    raise AssertionError(f"vqi {spec.variant}: {name} "
+                                         f"launched {per_forward[name]} "
+                                         f"times per forward, not {n}")
+            if agent.session.device.type != dev.type:
+                raise AssertionError(f"vqi {spec.variant}: the session is "
+                                     f"on {agent.session.device}")
+            if not all(r.done and len(r.result) == 1 for r in reqs) \
+                    or hub.total_records != VQI_CAPTURES \
+                    or len(hub.asset_conditions) != VQI_CAPTURES:
+                raise AssertionError(f"vqi {spec.variant}: {hub.summary()}")
+            preds[spec.variant] = [(r.result[0]["asset_type"],
+                                    r.result[0]["condition"]) for r in reqs]
+            for name, n in launches.items():
+                totals[name] = totals.get(name, 0) + n
+            emit("vqi", variant=spec.variant, artifact=ref.key,
+                 quantized_gemms={"static": n_static, "dynamic": n_dynamic},
+                 calibration_batches=2 if spec.variant == "static_int8"
+                 else 0, publish_s=publish_s, activate_s=activate_s,
+                 size_bytes=ref.size_bytes,
+                 tree_size_bytes=tree_size_bytes(agent.session.params),
+                 captures=VQI_CAPTURES, forwards=forwards, serve_s=serve_s,
+                 ms_per_image=serve_s * 1e3 / VQI_CAPTURES,
+                 forward_ms_mean=agent.session.stats.mean_ms,
+                 launches=launches, launches_per_forward=per_forward,
+                 telemetry=hub.model_metrics(agent.active.key),
+                 predictions_equal_to_fp32=sum(
+                     a == b for a, b in zip(preds[spec.variant],
+                                            preds["fp32"])),
+                 peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
+            del agent, queue, reqs
+            torch.cuda.empty_cache()
+    del params, model, calib, captures
+    torch.cuda.empty_cache()
+    return totals
+
+
+def vqi_card_vs_cpu_phase(dev):
+    """phi-3-vision at published width and 2 layers in f32 on a
+    teacher-forced VQI batch: the CPU's plain path against the card's
+    kernel path, fp32, dynamic int8 and static int8, beside what a
+    one-rounding nudge does on the CPU alone (``card_vs_cpu_phase``'s
+    method)."""
+    from repro_torch import configs
+    from repro_torch.api import VariantSpec
+    from repro_torch.data import vqi_batch
+    from repro_torch.fleet.vqi import TASK, vqi_calib_batches
+    from repro_torch.models import forward, init_params
+    from repro_torch.serving import InferenceSession
+
+    cfg = configs.get_config(VLM).with_overrides(n_layers=2, dtype="float32")
+    params = init_params(cfg, seed=SEED + 24, device="cpu")
+    raw = vqi_batch(torch.Generator().manual_seed(SEED + 25), cfg, TASK, 2,
+                    "cpu")
+    batch = {key: raw[key] for key in ("tokens", "frontend_embeds")}
+    # static int8 is calibrated once, on the CPU; the card gets those params
+    calib = vqi_calib_batches(cfg, 2, batch=2, device="cpu")
+    for label, spec in (("vqi_fp32", VariantSpec.fp32()),
+                        ("vqi_dynamic_int8", VariantSpec.dynamic_int8()),
+                        ("vqi_static_int8", VariantSpec.static_int8(2))):
+        qparams, _ = spec.build(params, cfg, calib_data=calib)
+        with torch.no_grad():
+            cpu = forward(qparams, batch, cfg)[0]
+            with nudged_norms():
+                nudge = forward(qparams, batch, cfg)[0]
+        card = InferenceSession(qparams, cfg, device=dev).logits(batch).cpu()
+        worst_max, worst_mean = logit_diff([cpu], [card])
+        nudge_max, nudge_mean = logit_diff([cpu], [nudge])
+        tol_max, tol_mean = CPU_TOL[label]
+        ok = worst_max <= tol_max and worst_mean <= tol_mean
+        emit("vqi_card_vs_cpu", variant=label, layers=cfg.n_layers,
+             d_model=cfg.d_model, vocab=cfg.vocab_size,
+             tokens=cfg.n_frontend_tokens + batch["tokens"].shape[1],
+             images=2, max_abs_err=worst_max, mean_abs_err=worst_mean,
+             tol_max=tol_max, tol_mean=tol_mean, cpu_nudge_max=nudge_max,
+             cpu_nudge_mean=nudge_mean, logit_scale=float(cpu.abs().max()),
+             same_classes=sum(a == b for a, b in zip(
+                 _classes(cpu, cfg), _classes(card, cfg))), ok=ok)
+        if not ok:
+            raise AssertionError(f"vqi card vs CPU logits differ by max "
+                                 f"{worst_max} / mean {worst_mean} ({label})")
+        del qparams, cpu, card, nudge
+
+
+def lifecycle_phase(k, dev):
+    """The paper's lifecycle through the registry at published widths and
+    LIFECYCLE_LAYERS layers, f32: publish v1's three variants, roll v1 out
+    (staged, HealthGate()) to one standard and one Pi-4-class device on the
+    card, run inspections that push telemetry, publish a noised v2 and roll
+    it out: the gate must fail and every device go back to v1. Then the
+    lifecycle latencies of one device. Returns the launch totals."""
+    import tempfile
+
+    from repro_torch import configs
+    from repro_torch.api import (ArtifactRegistry, DeviceProfile, EdgeAgent,
+                                 HealthGate, ModelArtifact, RolloutPolicy)
+    from repro_torch.fleet import vqi
+    from repro_torch.models import init_params
+    from repro_torch.serving import RequestQueue
+    from repro_torch.tree import map_with_path
+
+    cfg = configs.get_config(VLM).with_overrides(n_layers=LIFECYCLE_LAYERS,
+                                                 dtype="float32")
+    params = init_params(cfg, seed=SEED + 26)
+    calib = vqi.vqi_calib_batches(cfg, 2, batch=VQI_BATCH, device=dev)
+    probe = _stack_captures(_captures(cfg, VQI_BATCH, SEED + 27, dev))
+    probe = {key: probe[key] for key in ("tokens", "frontend_embeds")}
+    captures = _captures(cfg, VQI_BATCH, SEED + 28, dev)
+    noise = torch.Generator(device=dev).manual_seed(SEED + 29)
+    v2 = map_with_path(lambda _, t: _noised(t, noise), params)
+    build = os.path.join(ROOT, "build")
+    os.makedirs(build, exist_ok=True)
+    times, sizes = {}, {}
+    with tempfile.TemporaryDirectory(dir=build) as root:
+        registry = ArtifactRegistry(root)
+        reset_counters(k)                    # ---- the lifecycle: counted
+        for version, weights in (("v1", params), ("v2", v2)):
+            model = ModelArtifact.create("vqi", version, weights, cfg)
+            for spec in vqi.vqi_variant_specs(2):
+                t0 = time.perf_counter()
+                art = registry.publish_variants(
+                    model, [spec], calib_data=calib,
+                    evaluate=lambda p, c: vqi.evaluate(p, c, 1, VQI_BATCH,
+                                                       device=dev))
+                times[f"publish_{version}_{spec.variant}_s"] = \
+                    time.perf_counter() - t0
+                sizes[f"{version}_{spec.variant}"] = \
+                    art[spec.variant].size_bytes
+        if not sizes["v1_fp32"] > 2 * sizes["v1_static_int8"]:
+            raise AssertionError(f"fp32 not > 2x static_int8 bytes: {sizes}")
+        fleet = vqi.make_fleet(registry, 1, 1)
+        reference = registry.get("vqi", "v1", "fp32").session()
+        want = _classes(reference.logits(probe), cfg)
+        del reference
+
+        def validate(agent):
+            if agent.session is None:
+                return {}
+            t0 = time.perf_counter()
+            got = _classes(agent.infer(probe), cfg)
+            return {"accuracy": sum(a == b for a, b in zip(got, want))
+                    / len(want),
+                    "mean_latency_ms": (time.perf_counter() - t0) * 1e3}
+
+        policy = RolloutPolicy(gate=HealthGate())
+        t0 = time.perf_counter()
+        r1 = fleet.staged_rollout("vqi", "v1", validate, policy)
+        times["rollout_v1_s"] = time.perf_counter() - t0
+        active_v1 = {d: a.active.key for d, a in fleet.devices.items()}
+        if not r1.succeeded or "int8" not in active_v1["edge-pi4-0"]:
+            raise AssertionError(f"v1 rollout: {r1.reason} {active_v1}")
+        inspected = {}
+        for did, agent in fleet.devices.items():
+            queue = RequestQueue(
+                vqi.inspection_pipeline(agent, cfg, fleet.telemetry),
+                max_batch=4, stack=_stack_captures,
+                unstack=lambda res, n: [[p] for p in res])
+            reqs = [queue.submit(c) for c in captures]
+            queue.drain()
+            inspected[did] = [r.result[0]["condition"] for r in reqs]
+        t0 = time.perf_counter()
+        r2 = fleet.staged_rollout("vqi", "v2", validate, policy)
+        times["rollout_v2_with_rollback_s"] = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        launches = read_counters(k)          # ---- read right after
+        active = {d: a.active.key for d, a in fleet.devices.items()}
+        if r2.succeeded or any(":v1:" not in key for key in active.values()):
+            raise AssertionError(f"v2 rollout must fail and roll back: "
+                                 f"{r2.reason} {active}")
+        for name in ("flash_prefill", "qmatmul_dynamic", "qmatmul_static"):
+            if launches[name] <= 0:
+                raise AssertionError(f"lifecycle: {name} never launched "
+                                     f"({launches})")
+        if any(a.session.device.type != dev.type
+               for a in fleet.devices.values()):
+            raise AssertionError("lifecycle: a session is not on the card")
+        hub = fleet.telemetry
+        if hub.total_records != len(captures) * len(fleet.devices):
+            raise AssertionError(f"lifecycle telemetry: {hub.summary()}")
+
+        # the lifecycle latencies of one device (the quantities of
+        # benchmarks/lifecycle_bench.py)
+        bench = EdgeAgent("bench", registry, DeviceProfile("bench", 10**11))
+        for variant in ("fp32", "static_int8"):
+            t0 = time.perf_counter()
+            registry.fetch(registry.ref("vqi", "v1", variant))
+            torch.cuda.synchronize()
+            times[f"fetch_verify_{variant}_s"] = time.perf_counter() - t0
+        ref1, ref2 = (registry.ref("vqi", v, "fp32") for v in ("v1", "v2"))
+        t0 = time.perf_counter()
+        bench.install(ref1)
+        times["install_fp32_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        bench.activate(ref1)
+        torch.cuda.synchronize()
+        times["activate_fp32_s"] = time.perf_counter() - t0
+        bench.activate(ref2)
+        t0 = time.perf_counter()
+        bench.rollback()
+        torch.cuda.synchronize()
+        times["rollback_fp32_s"] = time.perf_counter() - t0
+        emit("lifecycle", model=cfg.name, layers=cfg.n_layers,
+             d_model=cfg.d_model, dtype=cfg.dtype, sizes_bytes=sizes,
+             v1_succeeded=r1.succeeded, v1_active=active_v1,
+             v2_succeeded=r2.succeeded, v2_reason=r2.reason[:200],
+             rolled_back=r2.rolled_back, active_after=active,
+             audit=[e["kind"] for e in fleet.audit],
+             canary_metrics={str(d): m for d, m in
+                             (r1.canary_metrics or {}).items()},
+             inspected=inspected, telemetry=hub.summary(),
+             launches=launches, latencies_s=times)
+        del fleet, bench
+    del params, v2
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _noised(t, gen):
+    """A float leaf plus N(0, 1) noise (the JAX system test's bad release)."""
+    if not t.is_floating_point():
+        return t
+    return t + torch.randn(t.shape, generator=gen, device=t.device,
+                           dtype=t.dtype)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs one GPU",
@@ -1353,6 +1796,7 @@ def main() -> int:
     heads["paged_q4decode"] = paged_q4decode_phase(k, dev, timer)
     heads["flash_q4prefill"] = flash_q4prefill_phase(k, dev, timer)
     quantize_int4_phase(k, dev)
+    heads["quantize_weights"] = quantize_weights_phase(k, dev, timer)
     del timer
     torch.cuda.empty_cache()
     # launches: the queue runs, plus the paged replays for paged_decode and
@@ -1365,6 +1809,15 @@ def main() -> int:
         totals[name] = totals.get(name, 0) + all_totals[name]
     card_vs_cpu_phase(dev, paged=False)
     card_vs_cpu_phase(dev, paged=True)
+    # the VQI paths through the registry: the inspection queue at full
+    # depth, then the lifecycle at 2 layers; quantize_weights is on neither (artifacts are
+    # built by quantize_tensor, as in the JAX package), so it counts 0
+    totals["quantize_weights"] = 0
+    for run in (vqi_phase(k, dev), lifecycle_phase(k, dev)):
+        for name in ("flash_prefill", "qmatmul_dynamic", "qmatmul_static",
+                     "quantize_weights"):
+            totals[name] += run[name]
+    vqi_card_vs_cpu_phase(dev)
 
     sources = {"flash_prefill": ("src/repro_torch/csrc/flash_prefill.cu",
                                  "src/repro/kernels/flash_prefill.py:244"),
@@ -1383,7 +1836,9 @@ def main() -> int:
                "paged_q4decode": ("src/repro_torch/csrc/paged_attn.cu",
                                   "src/repro/kernels/paged_attn.py:207"),
                "flash_q4prefill": ("src/repro_torch/csrc/flash_prefill.cu",
-                                   "src/repro/kernels/flash_prefill.py:295")}
+                                   "src/repro/kernels/flash_prefill.py:295"),
+               "quantize_weights": ("src/repro_torch/csrc/quantize_weights.cu",
+                                    "src/repro/kernels/quantize.py:96")}
     kernels = []
     for name, (src_path, replaces) in sources.items():
         h = heads[name]

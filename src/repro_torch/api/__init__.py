@@ -1,3 +1,39 @@
-from repro_torch.api.variants import DEFAULT_VARIANTS, QuantRecipe, VariantSpec
+"""repro_torch.api: the port's EdgeMLOps control-plane surface, the names
+of ``repro.api`` without its kernel Backend registry (the port dispatches
+by device, ``kernels/ops.py``) and without the fleet simulator (ROADMAP
+Queue 1 item 12).
 
-__all__ = ["DEFAULT_VARIANTS", "QuantRecipe", "VariantSpec"]
+    ModelArtifact              one object through the whole lifecycle
+    VariantSpec / QuantRecipe  declarative quantization variants
+    ArtifactRegistry           versioned, sha256-checked artifact store
+    Deployment                 fleet rollout facade
+"""
+from repro_torch.api.variants import DEFAULT_VARIANTS, QuantRecipe, VariantSpec
+from repro_torch.api.artifact import ModelArtifact
+from repro_torch.api.registry import ArtifactRef, ArtifactRegistry
+from repro_torch.api.deployment import Deployment
+
+# re-exported so one import serves the common lifecycle scripts
+from repro_torch.clock import SystemClock, VirtualClock, use_clock
+from repro_torch.fleet.agent import DeviceProfile, EdgeAgent, InstallError
+from repro_torch.fleet.orchestrator import (HealthGate, RolloutPolicy,
+                                            RolloutReport)
+from repro_torch.fleet.telemetry import InferenceRecord, TelemetryHub
+from repro_torch.serving.engine import InferenceSession
+from repro_torch.serving.loadgen import ArrivalTrace, TracedRequest, replay
+from repro_torch.serving.sampling import SamplingParams
+from repro_torch.serving.scheduler import ContinuousBatchingEngine, GenRequest
+
+__all__ = [
+    # artifacts + variants
+    "ModelArtifact", "VariantSpec", "QuantRecipe", "DEFAULT_VARIANTS",
+    # clocks (shared virtual-time layer)
+    "SystemClock", "VirtualClock", "use_clock",
+    # serving (continuous batching + load generation)
+    "ContinuousBatchingEngine", "GenRequest", "SamplingParams",
+    "ArrivalTrace", "TracedRequest", "replay",
+    # fleet control plane
+    "Deployment", "ArtifactRegistry", "ArtifactRef", "EdgeAgent",
+    "DeviceProfile", "InstallError", "HealthGate", "RolloutPolicy",
+    "RolloutReport", "TelemetryHub", "InferenceRecord", "InferenceSession",
+]

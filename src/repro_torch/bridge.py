@@ -6,6 +6,11 @@ leaves under ``layers`` (``repro.models.transformer.init_params``) are
 unstacked into the port's per-layer list; quantized leaf dicts unstack
 field by field (``w_int8 [L,K,N]``, ``scale [L,1,N]``, ``act_scale [L]``).
 
+``stack_layers`` / ``unstack_layers`` move a port param tree to the JAX
+layout and back with the tensors left as they are (the checkpoint format
+of ``training/checkpoint.py`` is the JAX tree's). The vision projector
+``frontend_proj`` (fp or quantized) is a top-level leaf and crosses as is.
+
 Caches and block pools convert in both directions: the JAX package keeps
 one ``[L, ...]`` leaf per cache field (``{"layers": (k, v)}`` with ``k``
 ``[L, B, S, Hkv, hd]`` dense or ``[L, N, bs, Hkv, hd]`` pooled, or the
@@ -27,9 +32,11 @@ from repro_torch.tree import map_with_path
 
 
 def to_torch(a, device) -> torch.Tensor:
-    """numpy (incl. ml_dtypes bfloat16) -> torch tensor on ``device``."""
+    """numpy -> torch tensor on ``device``; bfloat16 arrives as
+    ``ml_dtypes.bfloat16`` (from JAX) or as the 2-byte void type ``|V2``
+    (from an npz file)."""
     a = np.asarray(a)
-    if a.dtype.name == "bfloat16":
+    if a.dtype.name == "bfloat16" or a.dtype == np.dtype("V2"):
         t = torch.from_numpy(np.ascontiguousarray(a).view(np.uint16).copy())
         return t.view(torch.bfloat16).to(device)
     return torch.from_numpy(np.ascontiguousarray(a).copy()).to(device)
@@ -39,12 +46,33 @@ def params_from_jax(tree, cfg: ModelConfig, device: DeviceLike = None) -> Any:
     """JAX param tree of numpy arrays -> port param tree on ``device``."""
     check_supported(cfg)
     dev = resolve_device(device)
-    out = {k: map_with_path(lambda _, a: to_torch(a, dev), v)
-           for k, v in tree.items() if k != "layers"}
-    out["layers"] = [
-        map_with_path(lambda _, a, i=i: to_torch(np.asarray(a)[i], dev),
-                      tree["layers"])
-        for i in range(cfg.n_layers)]
+    return unstack_layers(map_with_path(lambda _, a: to_torch(a, dev), tree),
+                          cfg.n_layers)
+
+
+def stack_layers(params) -> Any:
+    """The port's tree -> the JAX layout, tensors kept: the per-layer list
+    under ``layers`` becomes one dict whose leaves are stacked ``[L, ...]``
+    (quantized dicts field by field, a static ``act_scale`` as ``[L]``)."""
+    layers = params["layers"]
+    out = {k: v for k, v in params.items() if k != "layers"}
+
+    def stack(node, *rest):
+        if isinstance(node, dict):
+            return {k: stack(v, *(r[k] for r in rest))
+                    for k, v in node.items()}
+        return torch.stack([node, *rest])
+
+    out["layers"] = stack(*layers)
+    return out
+
+
+def unstack_layers(tree, n_layers: int) -> Any:
+    """Inverse of ``stack_layers``: ``[L, ...]`` leaves under ``layers``
+    become the port's list of ``n_layers`` per-layer dicts."""
+    out = {k: v for k, v in tree.items() if k != "layers"}
+    out["layers"] = [map_with_path(lambda _, t, i=i: t[i], tree["layers"])
+                     for i in range(n_layers)]
     return out
 
 

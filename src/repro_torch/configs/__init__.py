@@ -1,7 +1,8 @@
 """Config registry of the port: ``get_config(arch_id)`` / ``smoke_config``.
 
-Only the dense-GQA architectures of this slice are registered; the other
-assigned architectures arrive with ROADMAP Queue 1 item 9.
+The dense-GQA architectures and phi-3-vision (the VQI model family) are
+registered; the other assigned architectures arrive with ROADMAP Queue 1
+item 9.
 """
 from __future__ import annotations
 
@@ -12,6 +13,7 @@ from repro_torch.models.config import ModelConfig
 
 CLI_ALIASES: Dict[str, str] = {
     "mistral-nemo-12b": "mistral_nemo_12b",
+    "phi-3-vision-4.2b": "phi_3_vision_4_2b",
     "stablelm-1.6b": "stablelm_1_6b",
 }
 ARCH_IDS: List[str] = sorted(CLI_ALIASES.values())

@@ -13,6 +13,7 @@ from repro_torch.kernels import flash_prefill as _flash
 from repro_torch.kernels import paged_attn
 from repro_torch.kernels import qdecode as _qdecode
 from repro_torch.kernels import qmatmul
+from repro_torch.kernels import quantize as _quantize
 
 
 def _flatten_scale(w_scale, n: int) -> torch.Tensor:
@@ -30,6 +31,12 @@ def qmatmul_static(x, w_int8, w_scale, act_scale):
 def qmatmul_dynamic(x, w_int8, w_scale):
     ws = _flatten_scale(w_scale, w_int8.shape[1])
     return dynquant.qmatmul_dynamic(x, w_int8, ws)
+
+
+def quantize_weights(w):
+    """Per-channel symmetric int8: w [K, N] f32/bf16 -> (w_int8 [K, N],
+    scale [1, N] f32)."""
+    return _quantize.quantize_weights(w)
 
 
 def flash_prefill(q, k, v):

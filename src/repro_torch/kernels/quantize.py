@@ -1,5 +1,7 @@
-"""The int4 KV tier's wire layout and quantizer: the port's copy of the
-pure-``jnp`` helpers of ``repro/kernels/quantize.py``.
+"""The port of ``repro/kernels/quantize.py``: the per-channel int8 weight
+quantizer ``quantize_weights`` (a hand-written kernel, ``csrc/
+quantize_weights.cu``) and the int4 KV tier's wire layout and quantizer (the
+port's copy of the pure-``jnp`` helpers).
 
 Signed 4-bit codes in [-7, 7] are packed two per int8 byte along head_dim:
 element ``d`` lives in byte ``d // 2``, the even index in the low nibble,
@@ -27,6 +29,8 @@ the explicit step), and any other such group is x/0 = +-inf, clamped to
 from __future__ import annotations
 
 import torch
+
+from repro_torch.kernels import _build
 
 #: head_dim elements per int4 scale group (clamped to head_dim when smaller)
 KV_GROUP = 32
@@ -89,3 +93,48 @@ def dequantize_kv_int4(t_i4: torch.Tensor, t_s: torch.Tensor) -> torch.Tensor:
     xg = x.reshape(*x.shape[:-1], hd // g, g) \
         * t_s[..., None].to(torch.float32)
     return xg.reshape(x.shape)
+
+
+# --------------------------------------------------------------------- #
+# Per-channel int8 weight quantization (the Pallas ``quantize_weights``)
+# --------------------------------------------------------------------- #
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_LIB = "quantize_weights"
+
+
+def quantize_weights(w: torch.Tensor):
+    """w [K, N] f32/bf16 -> (w_int8 [K, N] int8, scale [1, N] f32): per
+    output column ``round(w * (127 / absmax))`` clipped to +-127 and
+    ``absmax / 127``, absmax floored at 1e-12. CPU tensors take the plain
+    ``ref.quantize_ref``; CUDA tensors launch the kernel (codes and scales
+    bit-identical to the plain version). Artifacts are built with
+    ``core.quant.quantize_tensor``, as in the JAX package: no model path
+    calls this."""
+    if w.dim() != 2:
+        raise ValueError(f"w {tuple(w.shape)}: need [K, N]")
+    if w.dtype not in _DTYPE_CODE:
+        raise TypeError(f"w dtype {w.dtype}: float32 or bfloat16 only")
+    if w.device.type == "cpu":
+        from repro_torch.kernels.ref import quantize_ref
+
+        return quantize_ref(w)
+    if w.device.type != "cuda":
+        raise ValueError(f"no quantize_weights kernel for {w.device}")
+    if not w.is_contiguous():
+        raise ValueError("w must be contiguous")
+    k, n = w.shape
+    codes = torch.empty((k, n), dtype=torch.int8, device=w.device)
+    scale = torch.empty((1, n), dtype=torch.float32, device=w.device)
+    lanes = 16 // w.element_size()      # one 16-byte load per row segment
+    vec = lanes if n % lanes == 0 and w.data_ptr() % 16 == 0 else 1
+    fn = _build.function(_LIB, "qw_quantize", [
+        _build.P, _build.I, _build.I, _build.I, _build.I, _build.P, _build.P,
+        _build.P])
+    rc = fn(w.data_ptr(), _DTYPE_CODE[w.dtype], k, n, vec, codes.data_ptr(),
+            scale.data_ptr(), _build.stream_of(w))
+    _build.check(_LIB, rc, "qw_quantize")
+    quantize_weights.launches += 1
+    return codes, scale
+
+
+quantize_weights.launches = 0

@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core.quant.quantize import quantize_tensor
 from repro_torch.kernels.quantize import dequantize_kv_int4, quantize_kv_int4
 
 NEG_INF = -2.0e38
@@ -30,6 +31,16 @@ def _int8_dot(a_codes: torch.Tensor, b_codes: torch.Tensor) -> torch.Tensor:
     below 2**53, i.e. for any K < 5.5e11, on every device."""
     return torch.matmul(a_codes.to(torch.float64),
                         b_codes.to(torch.float64)).to(torch.float32)
+
+
+def quantize_ref(w):
+    """Per-channel symmetric int8 weight quantization, w [K, N] -> (codes
+    int8 [K, N], scale f32 [1, N]): ``round(w * (127 / absmax))`` clipped to
+    +-127 and ``absmax / 127``, absmax over K floored at 1e-12. The artifact
+    path's ``quantize_tensor`` computes exactly this, so it is the plain
+    version."""
+    q = quantize_tensor(w)
+    return q["w_int8"], q["scale"]
 
 
 def quantize_rows_ref(x):

@@ -1,14 +1,18 @@
 """Model configuration: the port's own copy of ``repro.models.config``.
 
-Field names and defaults are the JAX dataclass's, so ``configs/*`` copy
-verbatim; ``dtype`` stays a string and ``activation_dtype`` maps it to a
-``torch.dtype``. Only the dense-GQA, full-attention path with an fp, int8
-or int4 KV cache is ported; ``check_supported`` names the ROADMAP item for
-everything else.
+Every field of the JAX dataclass, with the same names and defaults, so the
+``configs/*`` modules copy verbatim and a checkpoint manifest written by
+either package (``dataclasses.asdict(cfg)``) loads in the other with
+``ModelConfig(**mc)``. ``dtype`` stays a string and ``activation_dtype``
+maps it to a ``torch.dtype``. Only the dense-GQA, full-attention stack is
+ported (with an fp, int8 or int4 KV cache, and the phi-3-vision frontend
+stub); ``check_supported`` names the ROADMAP item for everything else.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Tuple
+
 import torch
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -16,10 +20,6 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """The fields this slice reads (plus ``remat`` / ``grad_accum``, which
-    the verbatim configs set). Later slices add the MoE, SSM, MLA, hybrid
-    and frontend fields of the JAX dataclass with the code that reads
-    them."""
     name: str
     arch_type: str              # dense | moe | ssm | hybrid | vlm | audio
     n_layers: int
@@ -32,12 +32,38 @@ class ModelConfig:
     attention: str = "full"     # full | sliding | mla | none
     window: int = 0             # sliding-window size
     rope_theta: float = 10_000.0
-    # ---- FFN / MoE ----
+    # ---- MLA (deepseek-v2 family) ----
+    q_lora_rank: int = 0
+    kv_lora_rank: int = 0
+    qk_nope_dim: int = 0
+    qk_rope_dim: int = 0
+    v_head_dim: int = 0
+    # ---- FFN ----
     d_ff: int = 0
+    # ---- MoE ----
     n_experts: int = 0
-    # ---- modality frontend ----
+    n_shared_experts: int = 0
+    top_k: int = 0
+    d_ff_expert: int = 0
+    d_ff_dense: int = 0
+    n_dense_layers: int = 0
+    capacity_factor: float = 1.25
+    router_aux_coef: float = 0.01
+    router_z_coef: float = 1e-3
+    # ---- SSM (mamba2 SSD) ----
+    ssm_state: int = 0
+    ssm_expand: int = 2
+    ssm_headdim: int = 64
+    ssm_ngroups: int = 1
+    ssm_chunk: int = 256
+    conv_width: int = 4
+    # ---- hybrid (recurrentgemma / griffin) ----
+    layer_pattern: Tuple[str, ...] = ()
+    rglru_c: float = 8.0
+    # ---- modality frontend (a stub: precomputed embeddings, projected) ----
     frontend: str = "none"      # none | vision | audio
-    n_frontend_tokens: int = 0
+    frontend_dim: int = 0       # width of the frontend's embeddings
+    n_frontend_tokens: int = 0  # patch / conditioning tokens prepended
     n_codebooks: int = 0
     # ---- numerics / training ----
     dtype: str = "bfloat16"     # float32 | bfloat16
@@ -45,9 +71,17 @@ class ModelConfig:
     tie_embeddings: bool = False
     remat: bool = True
     grad_accum: int = 1
-    # ---- KV tier and prefill path (same defaults as the JAX package) ----
+    # ---- long-context override ----
+    long_context_window: int = 4096
+    # ---- distribution ----
+    fsdp: bool = False
+    # ---- KV tier, prefill path and the JAX package's perf knobs (same
+    # defaults) ----
+    opt_attn_accum: bool = False
     kv_cache_int8: bool = False
     kv_cache_precision: str = ""   # "" | fp | int8 | int4
+    opt_mla_absorb: bool = False
+    opt_moe_shardmap: bool = False
     opt_flash_prefill: bool = True
     # ---- provenance ----
     source: str = ""
@@ -81,12 +115,13 @@ class ModelConfig:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for any branch this slice does not
-    port, naming the ROADMAP item that will."""
-    if cfg.arch_type != "dense" or cfg.n_experts:
+    """Raise ``NotImplementedError`` for any branch the port does not serve
+    yet, naming the ROADMAP item that will."""
+    if cfg.arch_type not in ("dense", "vlm") or cfg.n_experts \
+            or cfg.layer_pattern:
         raise NotImplementedError(
-            f"arch_type {cfg.arch_type!r}: MoE/SSM/hybrid/VLM/audio stacks "
-            "are ROADMAP Queue 1 item 9")
+            f"arch_type {cfg.arch_type!r}: MoE/SSM/hybrid/audio stacks are "
+            "ROADMAP Queue 1 item 9")
     if cfg.attention != "full":
         raise NotImplementedError(
             f"attention {cfg.attention!r}: MLA and sliding windows are "
@@ -94,13 +129,25 @@ def check_supported(cfg: ModelConfig) -> None:
     if cfg.window:
         raise NotImplementedError(
             "sliding-window ring caches are ROADMAP Queue 1 item 9")
-    if cfg.frontend != "none" or cfg.n_codebooks > 1:
+    if cfg.frontend not in ("none", "vision") or cfg.n_codebooks > 1:
         raise NotImplementedError(
-            "vision/audio frontends and codebooks are ROADMAP Queue 1 item 9")
+            "audio frontends and codebooks are ROADMAP Queue 1 item 9")
+    if (cfg.arch_type == "vlm") != (cfg.frontend == "vision") \
+            or (cfg.frontend == "vision" and cfg.frontend_dim <= 0):
+        raise ValueError(
+            f"{cfg.name}: a vlm needs frontend='vision' and frontend_dim > 0, "
+            "and only a vlm has a vision frontend")
     if not cfg.opt_flash_prefill:
         raise NotImplementedError(
             "the chunked-query prefill path is ROADMAP Queue 1 item 3; the "
             "flash kernel covers every full-attention prefill")
+    if cfg.opt_attn_accum:
+        raise NotImplementedError(
+            "opt_attn_accum (bf16 attention operands) is ROADMAP Queue 1 "
+            "item 3")
+    if cfg.fsdp:
+        raise NotImplementedError(
+            "fsdp weight sharding is ROADMAP Queue 1 item 10")
     if cfg.tie_embeddings:
         raise NotImplementedError(
             "tied embeddings are ROADMAP Queue 1 item 9")

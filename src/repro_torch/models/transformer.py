@@ -5,6 +5,7 @@ layer index, e.g. ``layers/3/attn/wq``, so quantization and calibration
 regexes select the same leaves)::
 
     embed [V, d], final_norm [d], unembed [d, V]
+    frontend_proj [frontend_dim, d]        (vlm: the vision stub projector)
     layers: [ {ln1 [d], attn {wq, wk, wv, wo}, ln2 [d], mlp {wi, wo}} ] * L
 
 Entry points:
@@ -58,12 +59,16 @@ def init_params(cfg: ModelConfig, seed: int = 0,
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     dt = cfg.activation_dtype
-    return {
+    p = {
         "embed": embed_init(gen, (cfg.vocab_size, cfg.d_model), dt),
         "final_norm": torch.zeros((cfg.d_model,), dtype=dt, device=dev),
         "unembed": dense_init(gen, (cfg.d_model, cfg.vocab_size), dtype=dt),
-        "layers": [_init_block(gen, cfg) for _ in range(cfg.n_layers)],
     }
+    if cfg.frontend != "none":
+        p["frontend_proj"] = dense_init(
+            gen, (cfg.frontend_dim, cfg.d_model), dtype=dt)
+    p["layers"] = [_init_block(gen, cfg) for _ in range(cfg.n_layers)]
+    return p
 
 
 # ===================================================================== #
@@ -86,7 +91,15 @@ def _take_embed(leaf, tokens, dtype):
 
 
 def embed_inputs(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig):
-    return _take_embed(params["embed"], batch["tokens"], cfg.activation_dtype)
+    """Token embeddings; with a frontend and ``batch["frontend_embeds"]``
+    ([B, n_frontend_tokens, frontend_dim]), the projected embeddings are
+    put in front of them, so positions 0.. are the patches."""
+    x = _take_embed(params["embed"], batch["tokens"], cfg.activation_dtype)
+    if cfg.frontend != "none" and "frontend_embeds" in batch:
+        fe = linear(params["frontend_proj"],
+                    batch["frontend_embeds"].to(x.dtype))
+        x = torch.cat([fe, x], dim=1)
+    return x
 
 
 def lm_head(params, x, cfg: ModelConfig):

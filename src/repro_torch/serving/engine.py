@@ -75,6 +75,13 @@ class InferenceSession:
         self.cfg = cfg
         self.stats = InferenceStats()
 
+    @classmethod
+    def from_artifact(cls, artifact, device: DeviceLike = None
+                      ) -> "InferenceSession":
+        """Serve an ``api.ModelArtifact`` (any quant variant) on ``device``
+        (the JAX package's ``backend=``: kernels follow the device)."""
+        return cls(artifact.params, artifact.config, device=device)
+
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)

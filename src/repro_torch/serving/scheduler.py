@@ -188,6 +188,9 @@ class ContinuousBatchingEngine:
         else:
             params = model
         check_supported(cfg)
+        if cfg.n_frontend_tokens:
+            raise _unported("serving a frontend (vision) model in the engine",
+                            9)
         self.device = resolve_device(device)
         self.params = map_with_path(
             lambda _, t: t.to(self.device) if isinstance(t, torch.Tensor)

@@ -62,7 +62,10 @@ def test_quantize_rounds_half_to_even(dev):
 @pytest.mark.parametrize("b,s,hq,hkv,hd,dv", [(1, 1, 4, 4, 64, 64),
                                               (2, 77, 8, 2, 64, 48),
                                               (1, 300, 32, 8, 128, 128),
-                                              (2, 65, 6, 2, 32, 96)])
+                                              (2, 65, 6, 2, 32, 96),
+                                              # phi-3-vision's VQI forward:
+                                              # 576 patches + 3 tokens
+                                              (8, 579, 32, 32, 96, 96)])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_flash_prefill_kernel_matches_plain(dev, b, s, hq, hkv, hd, dv, dtype):
     gen = torch.Generator(device=dev).manual_seed(s * hd + dv)
@@ -326,3 +329,41 @@ def test_quantize_kv_int4_edge_rows_card_equals_cpu(dev):
         codes = quantize.unpack_int4(got_q).cpu()
         assert (codes[0, 1, 1, :32] == 0).all()
         assert (codes[1, 2, 0, :32].abs() == 7).all()
+
+
+# the JAX package's test shapes (ragged N and K), a decode-width panel, and
+# N with a 16-byte row pitch in each dtype
+@pytest.mark.parametrize("k,n", [(64, 64), (300, 96), (1024, 512), (48, 33),
+                                 (1024, 3072), (96, 40)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_quantize_weights_kernel_matches_plain(dev, k, n, dtype, aligned):
+    """Codes and scales bit for bit, an all-zero column and exact .5
+    quotients included; ``aligned=False`` offsets the input by one element,
+    which takes the one-element load path."""
+    gen = torch.Generator().manual_seed(k + n)
+    w = torch.randn((k, n), generator=gen) * 3
+    w[:, 1] = 0.0
+    w[:, 2] = torch.randint(-126, 126, (k,), generator=gen) + 0.5
+    w[0, 2] = 127.0                       # inv = 1: every value a .5 code
+    w = w.to(dtype)
+    if aligned:
+        wd = w.to(dev)
+    else:
+        buf = torch.empty(k * n + 1, dtype=dtype, device=dev)
+        wd = buf[1:].view(k, n)
+        wd.copy_(w)
+    before = quantize.quantize_weights.launches
+    codes, scale = quantize.quantize_weights(wd)
+    assert quantize.quantize_weights.launches == before + 1
+    torch.cuda.synchronize()
+    want_codes, want_scale = ref.quantize_ref(w)
+    assert codes.dtype == torch.int8 and scale.shape == (1, n)
+    assert torch.equal(codes.cpu(), want_codes)
+    assert torch.equal(scale.cpu().view(torch.int32),
+                       want_scale.view(torch.int32))
+    # and the plain version on the card gives the same bits
+    card_codes, card_scale = ref.quantize_ref(wd)
+    assert torch.equal(card_codes, codes)
+    assert torch.equal(card_scale.view(torch.int32), scale.view(torch.int32))
+    assert int(codes[:, 1].abs().max()) == 0
