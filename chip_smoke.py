@@ -11,7 +11,9 @@ prints one JSON line per phase:
    at the main paths' shapes, with its time (a CUDA-graph replay: device
    time; and the eager call, launch gaps included), the plain version's
    time, its bound and a library yardstick's time (timed here only, never
-   used by the port): the GEMMs, flash prefill and paged decode, then the
+   used by the port): the GEMMs, flash prefill (with the body that ran:
+   the tensor-core body for bf16 and, over two-term splits, for f32
+   inputs) and paged decode, then the
    int8-KV kernels qdecode, paged_qdecode (with NaN scales and -128 codes
    in the trash block) and flash_qprefill, then the int4-KV kernels
    paged_q4decode (with NaN f16 scales and 0x88 bytes in the trash block)
@@ -35,7 +37,11 @@ prints one JSON line per phase:
    the bf16 pool's bytes) and over an int4 KV cache (paged, dense), the
    fp32 replays at 12 of the 24 layers (FP32_ENGINE_LAYERS), with
    every kernel's launch counter zeroed before each replay and read after
-   it, plus a timed and profiled window of batched decode steps;
+   it, plus a timed and profiled window of batched decode steps; then one
+   request of the trace teacher-forced through the paged and the dense
+   path on the card (the fp32-passthrough replay's weights and depth), its
+   per-step logit difference beside the card's own one-rounding nudge and
+   the top-1 / top-2 margin where the replay's streams part;
 5. card vs CPU: the same fp32 weights at full width and 2 layers, the CPU's
    plain path against the card's kernel path on one prompt plus 8
    teacher-forced decode steps, dense and then paged (a block table with
@@ -55,7 +61,9 @@ prints one JSON line per phase:
    dynamic int8 and static int8 (calibrated on the CPU);
 7. a ``kernels`` line, the ``nvidia-smi`` line, and last the device line.
 
-Any failed check raises and the exit code is non-zero. Without a CUDA
+Every counted run also checks that each flash_prefill launch took the
+body of its dtype (``flash_prefill.launches_by_body``). Any failed check
+raises and the exit code is non-zero. Without a CUDA
 device, or outside the repository, it exits non-zero and prints no result.
 """
 from __future__ import annotations
@@ -98,7 +106,11 @@ HEADLINE_FLASH = FLASH_SHAPES[0]
 # a multiple of the kernel's 64-row tile)
 FLASH_SHAPES += ((8, 579, 32, 32, 96, 96, torch.bfloat16),
                  (8, 579, 32, 32, 96, 96, torch.float32))
-FLASH_ATOL = 1e-4     # f32 on both sides; summation order differs
+# f32 reference on the same values; the tensor-core body's bf16 products
+# are exact in f32, p is split into two bf16 terms (bf16 inputs: ~1e-5), and
+# f32 inputs are split too (three products per mma: ~2e-5); summation order
+# differs
+FLASH_ATOL = 1e-4
 # paged decode: (B, Hkv, G, hd, block size, table entries, pool blocks,
 # pool dtype, positions: None = drawn in 36..511, idle rows have -1)
 PAGED_SHAPES = {
@@ -180,8 +192,14 @@ VQI_CAPTURES, VQI_BATCH = 16, 8
 LIFECYCLE_LAYERS = 2
 
 
+T0 = time.perf_counter()
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One JSON line per phase result; ``t_s`` is the script's elapsed
+    time when it was printed."""
+    print(json.dumps({"phase": phase, **fields,
+                      "t_s": time.perf_counter() - T0}), flush=True)
 
 
 def gpu_line() -> str:
@@ -254,10 +272,29 @@ def _wrappers(k):
 def reset_counters(k):
     for fn in _wrappers(k).values():
         fn.launches = 0
+    bodies = k.flash_prefill.flash_prefill.launches_by_body
+    for body in bodies:
+        bodies[body] = 0
 
 
 def read_counters(k):
     return {name: fn.launches for name, fn in _wrappers(k).items()}
+
+
+def read_bodies(k):
+    """flash_prefill's launches per body (``flash_prefill.BODY``)."""
+    return dict(k.flash_prefill.flash_prefill.launches_by_body)
+
+
+def check_bodies(k, where, launches, dtype):
+    """Every flash_prefill launch of a run took the body of its dtype."""
+    bodies = read_bodies(k)
+    body = k.flash_prefill.BODY[dtype]
+    want = {b: launches["flash_prefill"] if b == body else 0 for b in bodies}
+    if bodies != want:
+        raise AssertionError(f"{where}: flash_prefill bodies {bodies}, "
+                             f"want {want}")
+    return {f"flash_prefill.{b}": n for b, n in bodies.items()}
 
 
 # ------------------------------------------------------------------ #
@@ -341,8 +378,13 @@ def flash_phase(k, dev, timer):
         q = torch.randn((b, s, hq, hd), generator=gen, device=dev).to(dt)
         kk = torch.randn((b, s, hkv, hd), generator=gen, device=dev).to(dt)
         v = torch.randn((b, s, hkv, dv), generator=gen, device=dev).to(dt)
+        before = read_bodies(k)
         got, want = fp.flash_prefill(q, kk, v), ref.flash_prefill_ref(q, kk, v)
         torch.cuda.synchronize()
+        ran = [b for b, n in read_bodies(k).items() if n != before[b]]
+        if ran != [fp.BODY[dt]]:
+            raise AssertionError(f"flash_prefill {shape}: bodies {ran} ran, "
+                                 f"not {fp.BODY[dt]}")
         err = float((got - want).abs().max())
         if not torch.isfinite(got).all() or err > FLASH_ATOL:
             raise AssertionError(f"flash_prefill {shape}: max |err| {err} > "
@@ -364,7 +406,8 @@ def flash_phase(k, dev, timer):
             + 4 * b * s * hq * dv
         b_ms, b_by = bound(nbytes, flops, str(dt).split(".")[-1])
         row = dict(kernel="flash_prefill", B=b, S=s, Hq=hq, Hkv=hkv, hd=hd,
-                   dv=dv, dtype=str(dt).split(".")[-1], max_abs_err=err,
+                   dv=dv, dtype=str(dt).split(".")[-1], body=ran[0],
+                   max_abs_err=err,
                    atol=FLASH_ATOL, gflop=flops / 1e9, ms=t_k,
                    eager_ms=t_eager, plain_ms=t_p,
                    library_ms=lib, bound_ms=b_ms, bound_by=b_by)
@@ -966,7 +1009,9 @@ def e2e_phase(k, dev):
          d_ff=cfg.d_ff, vocab=cfg.vocab_size,
          init_s=time.perf_counter() - t0)
     totals = {"flash_prefill": 0, "qmatmul_dynamic": 0, "qmatmul_static": 0,
-              "qdecode": 0, "flash_qprefill": 0, "flash_q4prefill": 0}
+              "qdecode": 0, "flash_qprefill": 0, "flash_q4prefill": 0,
+              **{f"flash_prefill.{body}": 0
+                 for body in k.flash_prefill.BODY.values()}}
     runs = [(spec.variant, spec, cfg) for spec in DEFAULT_VARIANTS]
     runs.append(("dynamic_int8_kv8", VariantSpec.dynamic_int8(),
                  cfg.with_overrides(kv_cache_int8=True)))
@@ -992,6 +1037,8 @@ def e2e_phase(k, dev):
         torch.cuda.synchronize()
         elapsed = time.perf_counter() - t0
         launches = read_counters(k)          # ---- read right after
+        launches.update(check_bodies(k, label, launches,
+                                     getattr(torch, cfg.dtype)))
 
         for r in reqs:
             out = r.result
@@ -1193,6 +1240,8 @@ def engine_phase(k, dev):
             torch.cuda.synchronize()
             serve_s = time.perf_counter() - t0
             launches = read_counters(k)      # ---- read right after
+            launches.update(check_bodies(k, f"{label}/{mode}", launches,
+                                         getattr(torch, vcfg.dtype)))
             reqs = engine.all_requests
             for r in reqs:
                 if not r.done or len(r.out_tokens) != N_NEW or not all(
@@ -1281,7 +1330,7 @@ def engine_phase(k, dev):
              paged_equals_dense_streams=same, of=len(trace))
         del session, qparams
         torch.cuda.empty_cache()
-    return paged_totals, all_totals
+    return paged_totals, all_totals, streams
 
 
 # ------------------------------------------------------------------ #
@@ -1304,53 +1353,58 @@ PAGED_TABLE = ((7, 2, 9, 4, -1, -1, -1, -1),)   # scattered ids, -1 tail
 
 @contextlib.contextmanager
 def nudged_norms():
-    """Every normalized activation times the float after 1.0 (a relative
-    nudge of ~1e-7, one f32 rounding): what such a rounding does to the
-    CPU's own logits sizes each ``CPU_TOL`` entry."""
+    """Every normalized activation times the float after 1.0 in its own
+    dtype (a relative nudge of 2^-23 in f32, 2^-7 in bf16: one rounding):
+    what such a rounding does to a run's own logits sizes each ``CPU_TOL``
+    entry and the paged-vs-dense bound."""
     from repro_torch.models import transformer
 
     plain = transformer.rms_norm
-    up = torch.nextafter(torch.tensor(1.0), torch.tensor(2.0))
-    transformer.rms_norm = lambda w, x, eps: plain(w, x, eps) * up.to(
-        x.device, x.dtype)
+    transformer.rms_norm = lambda w, x, eps: plain(w, x, eps) * torch.full(
+        (), 1.0 + torch.finfo(x.dtype).eps, dtype=x.dtype, device=x.device)
     try:
         yield
     finally:
         transformer.rms_norm = plain
 
 
-def teacher_forced(params, cfg, tokens, device, paged, forced=None):
-    """Host logits of a 48-token prefill and 8 decode steps fed ``forced``
-    tokens (default: the run's own argmax). Paged: ``prefill_paged`` with
-    the token axis padded to 64 (pads go to the trash block) through
-    ``PAGED_TABLE``, then ``decode_step_paged``."""
+def teacher_forced(params, cfg, tokens, device, paged, forced=None,
+                   n_steps=8, table=PAGED_TABLE):
+    """Host logits of the prefill of ``tokens`` [1, n] and ``n_steps``
+    decode steps fed ``forced`` tokens (default: the run's own argmax).
+    Paged: ``prefill_paged`` with the token axis padded to a multiple of 64
+    (pads go to the trash block) through ``table``, then
+    ``decode_step_paged``. Dense: a cache of n + n_steps slots rounded up to
+    a multiple of 64."""
     from repro_torch.models import (decode_step, decode_step_paged, prefill,
                                     prefill_paged)
     from repro_torch.serving.kvcache import init_paged_pools
 
-    tables = torch.tensor(PAGED_TABLE, dtype=torch.int32).to(device)
+    n = tokens.shape[1]
+    tables = torch.tensor(table, dtype=torch.int32).to(device)
     out, fed = [], []
     with torch.no_grad():
         if paged:
-            cache = init_paged_pools(cfg, 12, 16, device=device)
-            padded = torch.nn.functional.pad(tokens, (0, 16)).to(device)
-            last, _ = prefill_paged(params, cache, {"tokens": padded}, 48,
+            n_blocks = max(12, int(tables.max()) + 1)
+            cache = init_paged_pools(cfg, n_blocks, 16, device=device)
+            padded = torch.nn.functional.pad(tokens, (0, -n % 64)).to(device)
+            last, _ = prefill_paged(params, cache, {"tokens": padded}, n,
                                     tables, cfg)
         else:
             last, cache = prefill(params, {"tokens": tokens.to(device)}, cfg,
-                                  pad_to=64)
+                                  pad_to=-(-(n + n_steps) // 64) * 64)
         out.append(last.cpu())
-        for i in range(8):
+        for i in range(n_steps):
             nxt = forced[i] if forced is not None else torch.argmax(
                 out[-1][:, -1], dim=-1).reshape(1, 1)
             fed.append(nxt)
             if paged:
-                pos = torch.tensor([48 + i]).to(device)
+                pos = torch.tensor([n + i]).to(device)
                 last, _ = decode_step_paged(params, cache, nxt.to(device),
                                             pos, tables, cfg)
             else:
                 last, cache = decode_step(params, cache, nxt.to(device),
-                                          48 + i, cfg)
+                                          n + i, cfg)
             out.append(last.cpu())
     return out, fed
 
@@ -1359,6 +1413,76 @@ def logit_diff(a_steps, b_steps):
     """(max |diff|, worst step's mean |diff|) over teacher-forced steps."""
     return (max(float((a - b).abs().max()) for a, b in zip(a_steps, b_steps)),
             max(float((a - b).abs().mean()) for a, b in zip(a_steps, b_steps)))
+
+
+def paged_vs_dense_phase(dev, streams):
+    """Whether the engine replay's paged and dense streams part at a tie or
+    at a fault: one request of the trace, stablelm-1.6b at full width in
+    bf16 over the fp KV cache (the fp32-passthrough replay's weights and
+    depth), teacher-forced with the dense replay's tokens through the
+    dense and the paged path on the card. Per step, max and mean |dlogit|
+    paged against dense beside what the card's own one-rounding nudge
+    (``nudged_norms``) does to the dense logits; the top-1 / top-2 margin
+    at the step where the replay's streams part. The bound is 2.5 times
+    the nudge, as ``CPU_TOL`` is sized."""
+    from repro_torch import configs
+    from repro_torch.api.variants import VariantSpec
+    from repro_torch.models import init_params
+
+    cfg = configs.get_config("stablelm-1.6b")
+    vcfg = cfg.with_overrides(n_layers=min(FP32_ENGINE_LAYERS, cfg.n_layers))
+    params = init_params(cfg, seed=SEED)
+    depth = {**params, "layers": params["layers"][:vcfg.n_layers]}
+    qparams, _ = VariantSpec.fp32().build(depth, vcfg)
+    del params, depth
+    trace = engine_trace(cfg)
+    paged_s, dense_s = streams["fp32", "paged"], streams["fp32", "dense"]
+    parted = [(i, next(j for j, (a, b) in enumerate(zip(p, d)) if a != b))
+              for i, (p, d) in enumerate(zip(paged_s, dense_s)) if p != d]
+    rid, step = parted[0] if parted else (0, None)
+    tokens = trace.requests[rid].tokens
+    forced = [torch.tensor([[t]]) for t in dense_s[rid]]
+    n_steps = N_NEW - 1
+    table = (tuple(range(-(-(tokens.shape[1] + n_steps) // 16), 0, -1))
+             + (-1, -1),)                     # scattered ids, -1 tail
+    runs = {}
+    for name, paged, nudge in (("dense", False, False),
+                               ("paged", True, False),
+                               ("dense_nudged", False, True)):
+        with nudged_norms() if nudge else contextlib.nullcontext():
+            runs[name], _ = teacher_forced(qparams, vcfg, tokens, dev, paged,
+                                           forced, n_steps, table)
+    per_step = [(float((p - d).abs().max()), float((p - d).abs().mean()),
+                 float((u - d).abs().max()), float((u - d).abs().mean()))
+                for p, d, u in zip(runs["paged"], runs["dense"],
+                                   runs["dense_nudged"])]
+    worst_max, worst_mean = logit_diff(runs["paged"], runs["dense"])
+    nudge_max, nudge_mean = logit_diff(runs["dense_nudged"], runs["dense"])
+    tol_max, tol_mean = 2.5 * nudge_max, 2.5 * nudge_mean
+    margins = None
+    if step is not None:
+        margins = {}
+        for name in ("dense", "paged"):
+            top = torch.topk(runs[name][step][0, -1].float(), 2)
+            margins[name] = {"top1": int(top.indices[0]),
+                             "top2": int(top.indices[1]),
+                             "margin": float(top.values[0] - top.values[1])}
+    ok = worst_max <= tol_max and worst_mean <= tol_mean
+    emit("paged_vs_dense", model=cfg.name, dtype=vcfg.dtype,
+         layers=vcfg.n_layers, request=rid, prompt=tokens.shape[1],
+         decode_steps=n_steps, streams_parted=len(parted),
+         parting_step=step,
+         replay_tokens_at_parting=None if step is None else
+         {"paged": paged_s[rid][step], "dense": dense_s[rid][step]},
+         margins_at_parting=margins, max_abs_dlogit=worst_max,
+         mean_abs_dlogit=worst_mean, nudge_max=nudge_max,
+         nudge_mean=nudge_mean, tol_max=tol_max, tol_mean=tol_mean,
+         per_step_paged_max_mean_nudge_max_mean=per_step,
+         logit_scale=float(runs["dense"][0].abs().max()), ok=ok)
+    if not ok:
+        raise AssertionError(f"paged vs dense logits differ by max "
+                             f"{worst_max} / mean {worst_mean}, above 2.5x "
+                             f"the nudge ({nudge_max} / {nudge_mean})")
 
 
 def card_vs_cpu_phase(dev, paged: bool):
@@ -1518,6 +1642,8 @@ def vqi_phase(k, dev):
             torch.cuda.synchronize()
             serve_s = time.perf_counter() - t0
             launches = read_counters(k)      # ---- read right after
+            launches.update(check_bodies(k, f"vqi {spec.variant}", launches,
+                                         getattr(torch, cfg.dtype)))
 
             forwards = agent.session.stats.calls
             n_static, n_dynamic = _gemm_counts(agent.session.params)
@@ -1690,6 +1816,8 @@ def lifecycle_phase(k, dev):
         times["rollout_v2_with_rollback_s"] = time.perf_counter() - t0
         torch.cuda.synchronize()
         launches = read_counters(k)          # ---- read right after
+        launches.update(check_bodies(k, "lifecycle", launches,
+                                     getattr(torch, cfg.dtype)))
         active = {d: a.active.key for d, a in fleet.devices.items()}
         if r2.succeeded or any(":v1:" not in key for key in active.values()):
             raise AssertionError(f"v2 rollout must fail and roll back: "
@@ -1802,11 +1930,12 @@ def main() -> int:
     # launches: the queue runs, plus the paged replays for paged_decode and
     # every quantized-KV replay for the quantized-KV kernels
     totals = e2e_phase(k, dev)
-    paged_totals, all_totals = engine_phase(k, dev)
+    paged_totals, all_totals, streams = engine_phase(k, dev)
     totals["paged_decode"] = paged_totals["paged_decode"]
     for name in ("qdecode", "paged_qdecode", "flash_qprefill",
                  "paged_q4decode", "flash_q4prefill"):
         totals[name] = totals.get(name, 0) + all_totals[name]
+    paged_vs_dense_phase(dev, streams)
     card_vs_cpu_phase(dev, paged=False)
     card_vs_cpu_phase(dev, paged=True)
     # the VQI paths through the registry: the inspection queue at full
@@ -1815,7 +1944,8 @@ def main() -> int:
     totals["quantize_weights"] = 0
     for run in (vqi_phase(k, dev), lifecycle_phase(k, dev)):
         for name in ("flash_prefill", "qmatmul_dynamic", "qmatmul_static",
-                     "quantize_weights"):
+                     "quantize_weights",
+                     *(f"flash_prefill.{body}" for body in read_bodies(k))):
             totals[name] += run[name]
     vqi_card_vs_cpu_phase(dev)
 
@@ -1853,6 +1983,11 @@ def main() -> int:
                         "plain_ms": h["plain_ms"], "bound_ms": h["bound_ms"],
                         "bound_by": h["bound_by"],
                         "library_ms": h["library_ms"], "shape": shape})
+        if name == "flash_prefill":
+            kernels[-1]["body"] = h["body"]
+            kernels[-1]["launches_by_body"] = {
+                body: totals[f"flash_prefill.{body}"]
+                for body in read_bodies(k)}
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

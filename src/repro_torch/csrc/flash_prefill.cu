@@ -6,38 +6,56 @@
 // (_q_kernel) and flash_q4prefill_attention (_q4_kernel): causal
 // online-softmax attention of a whole prompt from position 0, GQA query
 // rows flattened as r = s * G + g per kv head, tiles above the diagonal
-// skipped. The int8 variant reads int8 K [B,S,Hkv,hd] and V [B,S,Hkv,dv]
-// with f32 per-(position, head) scales [B,S,Hkv] and fuses the
-// dequantization as the TPU kernel does: the K scale multiplies the score
-// after the dot, (q . k_codes) * k_s / sqrt(hd), and the V scale is folded
-// into the value row as it is staged, code * v_s. The int4 variant reads
-// nibble-packed K [B,S,Hkv,hd/2] and V [B,S,Hkv,dv/2] with f16
-// per-(position, head, group of 32) scales [B,S,Hkv,hd/32] / [..,dv/32]
-// and, as its TPU kernel does, dequantizes K and V while staging them,
-// code * s_g, so the score is q . k / sqrt(hd) with no scale after the
-// dot.
+// skipped, scores qk / sqrt(hd) (a division, as the TPU kernel) masked with
+// -2e38, running max seeded at -1e30, out = acc / l in f32. The TPU kernel
+// carries its running max / normalizer / accumulator across a sequential
+// grid axis; here one block owns 64 group-flattened query rows of one
+// (batch, kv head) and loops over the KV tiles itself, up to the last query
+// position it holds, so the state never leaves registers. Row blocks are
+// issued latest-first so the longest causal rows start first. Two bodies:
 //
-// One block per (64 group-flattened query rows, kv head, batch). The TPU
-// kernel carries its running max / normalizer / accumulator across a
-// sequential grid axis; here one block loops over the KV tiles itself, up
-// to the last query position it holds, so the state never leaves
-// registers: 128 threads, each owning 4 rows x (4 keys of a 32-key tile)
-// for the scores and 4 rows x (dv / 8 columns) of the f32 accumulator.
-// Q, K and V are read as f32 into shared memory (row stride hd + 1 and
-// dv + 1, so neither the row-wise nor the column-wise reads conflict).
-// Arithmetic is f32 on the CUDA cores: scores qk / sqrt(hd) (a division,
-// as the TPU kernel), masked with -2e38, running max seeded at -1e30,
-// out = acc / l. Row blocks are issued latest-first so the longest causal
-// rows start first.
+// flash_tc (flash_prefill_fwd, bf16 or f32 q/k/v): the tensor-core body. 4
+// warps of 16 query rows; the block's Q is held as bf16 A fragments for the
+// whole loop (bf16: staged once in shared memory and read with ldmatrix).
+// 64-key K and V tiles stream through a 2-stage shared-memory ring filled
+// by 16-byte cp.async copies (rows past S zero-filled), so the next tile is
+// in flight while the tensor cores work on this one; rows are padded so
+// the fragment reads (ldmatrix, ldmatrix.trans for V) have no bank
+// conflicts, and a width that is not a multiple of 16 is zero-padded to
+// the next one (exact). S = QK^T runs on mma.sync m16n8k16 bf16 -> f32
+// (bf16 x bf16 products are exact in f32), then each score is divided by
+// sqrt(hd) (a correctly rounded quotient in three operations, div_by) and
+// masked. The online softmax stays in registers (row max and sum over the
+// quad that shares a C-fragment row, expf as the reference). The value
+// product reuses the C fragments of p as A fragments, split into two bf16
+// terms, hi = bf16(p) and lo = bf16(p - hi): O += hi V + lo V keeps the
+// product within ~1e-5 of the f32 reference, where one bf16 rounding of p
+// alone errs by ~3e-3. f32 q, k and v are split the same way as they are
+// read into fragments (K from 64-bit and V from 32-bit shared-memory reads)
+// and each mma becomes three, hi hi + hi lo + lo hi, for both products:
+// ~2e-5 against the reference. O / l leaves through shared memory in
+// coalesced 16-byte stores.
 //
-// What bounds it on the H100: the causal f32 work, 2 * (hd + dv) flops per
-// (query row, visible key); e.g. 1.07 GFLOP for B4 S256 H32 hd64, 16 us at
-// the 67 TFLOP/s f32 rate of the CUDA cores it runs on. Against the card's
-// own floor, bytes bound it (q, k, v and scales read once, out written
-// once): 21.0 MB with bf16 K/V, 17.0 MB with int8 K/V and 14.9 MB with int4
-// K/V at that shape, more than half of it the f32 output. f32 CUDA cores keep the result
-// within rounding of the f32 reference; bf16/TF32 tensor-core variants,
-// vector loads and a copy pipeline are later steps.
+// flash_attend (the int8 and int4 K/V variants): f32 FMA on the CUDA
+// cores, 128 threads each owning 4 rows x (4 keys of a 32-key tile) of
+// scores and 4 rows x (dv / 8 columns) of the accumulator; Q, K and V read
+// as f32 into shared memory (row stride hd + 1, dv + 1). The int8 variant
+// reads int8 K [B,S,Hkv,hd] and V [B,S,Hkv,dv] with f32 per-(position,
+// head) scales [B,S,Hkv] and fuses the dequantization as the TPU kernel
+// does: the K scale multiplies the score after the dot, (q . k_codes) *
+// k_s / sqrt(hd), and the V scale is folded into the value row as it is
+// staged, code * v_s. The int4 variant reads nibble-packed K [B,S,Hkv,hd/2]
+// and V [B,S,Hkv,dv/2] with f16 per-(position, head, group of 32) scales
+// [B,S,Hkv,hd/32] / [..,dv/32] and, as its TPU kernel does, dequantizes K
+// and V while staging them, code * s_g, so the score is q . k / sqrt(hd)
+// with no scale after the dot.
+//
+// What bounds it on the H100: bytes (q, k, v and scales read once, out
+// written once): 21.0 MB with bf16 K/V at B4 S256 H32 hd64 (6.3 us at 3.35
+// TB/s), 40% of it the f32 output; its causal work, 2 * (hd + dv) flops
+// per visible (query row, key), is 1.07 GFLOP there (1.1 us at the bf16
+// tensor-core rate even with the 1.5x of the split value product, 3x for
+// f32 operands; 16 us at the CUDA cores' f32 rate).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -286,6 +304,500 @@ bool bad_shape(int B, int S, int Hq, int Hkv, int hd, int dv) {
          dv < 1 || dv > MAXD || Hkv > 65535 || B > 65535;
 }
 
+// ---------------------------------------------------------------------
+// flash_tc: the tensor-core body (see the note at the top). T = bf16:
+// operands as they are; T = float: each operand split into two bf16 terms
+// and three products per mma (hi hi + hi lo + lo hi).
+// ---------------------------------------------------------------------
+namespace tc {
+
+constexpr int WARPS = 4;
+constexpr int THREADS = 32 * WARPS;
+constexpr int BR = 16 * WARPS;     // query rows per block, 16 per warp
+constexpr int BK = 64;             // keys per K/V tile
+constexpr int STAGES = 2;          // K/V ring depth
+
+using bf16 = __nv_bfloat16;
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, asynchronously; src_bytes 0 zero-fills
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
+                                              uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// d += a (16x16 bf16, row) * b (16x8 bf16, col), f32 accumulators
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t as_u32(__nv_bfloat162 v) {
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// a / b correctly rounded, for b > 0 and rcp = RN(1 / b): q0 = RN(a rcp)
+// is within an ulp of a / b, the FMA residual a - b q0 is exact, and one
+// FMA correction rounds the quotient as IEEE division does (Markstein's
+// theorem; outside overflow and underflow). Three operations where the
+// compiler's division takes about ten and a branch.
+__device__ __forceinline__ float div_by(float a, float b, float rcp) {
+  const float q0 = a * rcp;
+  return fmaf(fmaf(-q0, b, a), rcp, q0);
+}
+
+// Splits two f32 values into bf16 pairs hi = bf16(x), lo = bf16(x - hi).
+__device__ __forceinline__ void split2(float x0, float x1, uint32_t& hi,
+                                       uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float2 hf = __bfloat1622float2(h);
+  hi = as_u32(h);
+  lo = as_u32(__floats2bfloat162_rn(x0 - hf.x, x1 - hf.y));
+}
+
+template <typename T>
+__device__ __forceinline__ T zero() {
+  return T(0.f);
+}
+template <>
+__device__ __forceinline__ bf16 zero<bf16>() {
+  return __float2bfloat16(0.f);
+}
+
+// Stages n_rows rows of width w into dst [n_rows][stride]: 16-byte
+// cp.async chunks when rows are 16-byte aligned (vec; a row whose pointer
+// is null is zero-filled), else element by element. row(i) gives row i's
+// first element or nullptr; any is a valid global address for the
+// zero-fill copies.
+template <typename T, typename RowPtr>
+__device__ __forceinline__ void stage_rows(T* dst, int stride, int w,
+                                           int n_rows, bool vec, const T* any,
+                                           RowPtr row) {
+  constexpr int E = 16 / sizeof(T);          // elements per chunk
+  const int chunks = (w + E - 1) / E;
+  if (vec) {
+    for (int i = threadIdx.x; i < n_rows * chunks; i += THREADS) {
+      const int r = i / chunks, c = i - r * chunks;
+      const T* src = row(r);
+      cp_async16(smem_addr(dst + r * stride + c * E),
+                 src ? src + c * E : any, src ? 16 : 0);
+    }
+  } else {
+    const int cols = chunks * E;
+    for (int i = threadIdx.x; i < n_rows * cols; i += THREADS) {
+      const int r = i / cols, c = i - r * cols;
+      const T* src = row(r);
+      dst[r * stride + c] = (src && c < w) ? src[c] : zero<T>();
+    }
+  }
+}
+
+// Stages BK key rows of width w into dst [BK][stride]. src is key k0's
+// row of this (batch, kv head); rows are row_elems apart; keys past S are
+// zero-filled. Rows 16-byte aligned (vec): thread -> chunk column
+// tid % cpr (cpr = 8, 16 or 32 chunks, those past the row idle) of every
+// (THREADS / cpr)-th row, cp.async; else element by element.
+template <typename T>
+__device__ __forceinline__ void stage_tile(T* dst, int stride, const T* src,
+                                           long row_elems, int w, int k0,
+                                           int S, bool vec) {
+  constexpr int E = 16 / sizeof(T);
+  const int chunks = (w + E - 1) / E;
+  if (!vec) {
+    stage_rows(dst, stride, w, BK, false, src, [&](int r) -> const T* {
+      return k0 + r < S ? src + r * row_elems : nullptr;
+    });
+    return;
+  }
+  const int lg = chunks > 16 ? 5 : chunks > 8 ? 4 : 3;
+  const int c = threadIdx.x & ((1 << lg) - 1);
+  if (c >= chunks) return;
+  const int r0 = threadIdx.x >> lg, rstep = THREADS >> lg;
+  const T* g = src + r0 * row_elems + c * E;
+  const long gstep = rstep * row_elems;
+  const uint32_t s = smem_addr(dst + r0 * stride + c * E);
+  const uint32_t sstep = rstep * stride * (uint32_t)sizeof(T);
+#pragma unroll
+  for (int n = 0; n < BK / (THREADS >> 5); ++n) {
+    if (n * rstep >= BK) break;
+    const bool in = k0 + r0 + n * rstep < S;
+    cp_async16(s + n * sstep, in ? g + n * gstep : src, in ? 16 : 0);
+  }
+}
+
+// Zeroes columns [E * ceil(w / E), ceil16(w)) of n_rows rows: the pad
+// that no staging writes.
+template <typename T>
+__device__ __forceinline__ void zero_pad(T* dst, int stride, int w,
+                                         int n_rows) {
+  constexpr int E = 16 / sizeof(T);
+  const int c0 = (w + E - 1) / E * E, wp = (w + 15) & ~15;
+  for (int i = threadIdx.x; i < n_rows * ((wp - c0) / E); i += THREADS) {
+    const int r = i / ((wp - c0) / E), c = c0 + (i - r * ((wp - c0) / E)) * E;
+    *reinterpret_cast<uint4*>(dst + r * stride + c) = make_uint4(0, 0, 0, 0);
+  }
+}
+
+// Row strides in elements: bf16 rows padded by 16 bytes, so ldmatrix
+// (and ldmatrix.trans) reads 8 rows without bank conflicts; f32 K rows by
+// 8 floats (64-bit fragment reads of 4 rows x 8 words hit 32 banks) and
+// f32 V rows by 4 (two rows 2 apart land 8 banks apart for the column
+// reads of the value fragments).
+template <typename T>
+__host__ __device__ __forceinline__ int k_stride(int hdp) {
+  return hdp + 8;
+}
+template <typename T>
+__host__ __device__ __forceinline__ int v_stride(int dvp) {
+  return sizeof(T) == 4 ? dvp + 4 : dvp + 8;
+}
+
+// HMAX / DMAX: the largest padded hd / dv this instantiation takes (64, 96
+// or 128); register arrays are sized by them and loops stop at the padded
+// widths, a block-uniform bound.
+template <typename T, int HMAX, int DMAX>
+__global__ void __launch_bounds__(THREADS)
+flash_tc(const T* __restrict__ q, const T* __restrict__ k,
+         const T* __restrict__ v, float* __restrict__ out, int S, int Hq,
+         int Hkv, int hd, int dv, bool vec_k, bool vec_v) {
+  constexpr bool F32 = sizeof(T) == 4;
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  const int hdp = (hd + 15) & ~15, dvp = (dv + 15) & ~15;
+  const int qs = hdp + 8, ks = k_stride<T>(hdp), vs = v_stride<T>(dvp);
+  // bf16: Q tile [BR][qs], then the rings; f32: Q is read into registers
+  bf16* Qs = reinterpret_cast<bf16*>(tc_smem);
+  T* Ks = reinterpret_cast<T*>(tc_smem + (F32 ? 0 : BR * qs * sizeof(bf16)));
+  T* Vs = Ks + STAGES * BK * ks;              // K [STAGES][BK][ks]
+
+  const int G = Hq / Hkv;
+  const int rb = gridDim.x - 1 - blockIdx.x;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+  const long rows_total = (long)S * G;
+  const long r0 = (long)rb * BR;
+  const long last_row = (r0 + BR < rows_total ? r0 + BR : rows_total) - 1;
+  const int n_tiles = (int)(last_row / G / BK) + 1;
+  const long first_pos = r0 / G;
+  auto q_row = [&](long rg) -> const T* {
+    if (rg >= rows_total) return nullptr;
+    const long pos = rg / G;
+    return q + (((long)b * S + pos) * Hq + (long)h * G + (rg - pos * G)) * hd;
+  };
+
+  if constexpr (!F32) zero_pad(Qs, qs, hd, BR);
+  zero_pad(Ks, ks, hd, STAGES * BK);
+  zero_pad(Vs, vs, dv, STAGES * BK);
+
+  if constexpr (!F32)
+    stage_rows(Qs, qs, hd, BR, vec_k, q,
+               [&](int r) -> const T* { return q_row(r0 + r); });
+  const T* kh = k + ((long)b * S * Hkv + h) * hd;   // key 0, this head
+  const T* vh = v + ((long)b * S * Hkv + h) * dv;
+  auto stage_kv = [&](int t) {
+    const int k0 = t * BK, st = t % STAGES;
+    stage_tile(Ks + st * BK * ks, ks, kh + (long)k0 * Hkv * hd,
+               (long)Hkv * hd, hd, k0, S, vec_k);
+    stage_tile(Vs + st * BK * vs, vs, vh + (long)k0 * Hkv * dv,
+               (long)Hkv * dv, dv, k0, S, vec_v);
+  };
+  stage_kv(0);
+  cp_async_commit();
+
+  // this thread's two rows of each C fragment: gid and gid + 8
+  const long row_lo = r0 + warp * 16 + gid;
+  const long qpos_lo = row_lo / G, qpos_hi = (row_lo + 8) / G;
+  const float scale = sqrtf((float)hd), rcp = 1.f / scale;
+
+  // Q as A fragments: bf16 (T = bf16), or hi and lo terms (T = float)
+  uint32_t qf[HMAX / 16][4], ql[F32 ? HMAX / 16 : 1][4];
+  if constexpr (F32) {
+    const T* qa = q_row(row_lo);
+    const T* qb = q_row(row_lo + 8);
+    auto at = [&](const T* p, int c) -> float {
+      return p && c < hd ? __ldg(p + c) : 0.f;
+    };
+#pragma unroll
+    for (int kk = 0; kk < HMAX / 16; ++kk) {
+      if (kk * 16 >= hdp) break;
+      const int c = kk * 16 + tig * 2;
+      split2(at(qa, c), at(qa, c + 1), qf[kk][0], ql[kk][0]);
+      split2(at(qb, c), at(qb, c + 1), qf[kk][1], ql[kk][1]);
+      split2(at(qa, c + 8), at(qa, c + 9), qf[kk][2], ql[kk][2]);
+      split2(at(qb, c + 8), at(qb, c + 9), qf[kk][3], ql[kk][3]);
+    }
+  }
+  float o[DMAX / 8][4];
+#pragma unroll
+  for (int j = 0; j < DMAX / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
+  float m_lo = RUN_INIT, m_hi = RUN_INIT, l_lo = 0.f, l_hi = 0.f;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    if (t + 1 < n_tiles) {
+      stage_kv(t + 1);               // in flight while this tile computes
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if constexpr (!F32) {
+      if (t == 0) {
+#pragma unroll
+        for (int kk = 0; kk < HMAX / 16; ++kk)
+          if (kk * 16 < hdp)
+            ldsm_x4(qf[kk], smem_addr(Qs + (warp * 16 + (lane & 7) +
+                                            ((lane >> 3) & 1) * 8) * qs +
+                                           kk * 16 + (lane >> 4) * 8));
+      }
+    }
+    const T* Kt = Ks + (t % STAGES) * BK * ks;
+    const T* Vt = Vs + (t % STAGES) * BK * vs;
+
+    // S = Q K^T: 8 n-tiles of 8 keys
+    float sc[BK / 8][4];
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < HMAX / 16; ++kk) {
+      if (kk * 16 >= hdp) break;
+      if constexpr (F32) {
+#pragma unroll
+        for (int j = 0; j < BK / 8; ++j) {
+          const T* kr = Kt + (j * 8 + gid) * ks + kk * 16 + tig * 2;
+          const float2 x = *reinterpret_cast<const float2*>(kr);
+          const float2 y = *reinterpret_cast<const float2*>(kr + 8);
+          uint32_t h0, l0, h1, l1;
+          split2(x.x, x.y, h0, l0);
+          split2(y.x, y.y, h1, l1);
+          mma_bf16(sc[j], qf[kk], h0, h1);
+          mma_bf16(sc[j], qf[kk], l0, l1);
+          mma_bf16(sc[j], ql[kk], h0, h1);
+        }
+      } else {
+#pragma unroll
+        for (int jj = 0; jj < BK / 16; ++jj) {
+          uint32_t bk[4];
+          ldsm_x4(bk, smem_addr(Kt + (jj * 16 + (lane & 7) + (lane >> 4) * 8) *
+                                         ks +
+                                kk * 16 + ((lane >> 3) & 1) * 8));
+          mma_bf16(sc[2 * jj], qf[kk], bk[0], bk[1]);
+          mma_bf16(sc[2 * jj + 1], qf[kk], bk[2], bk[3]);
+        }
+      }
+    }
+
+    // scale, mask (only tiles that cross the diagonal or pass S), row max
+    const int k0 = t * BK;
+    const bool masked = k0 + BK - 1 > first_pos || k0 + BK > S;
+    float mx_lo = NEG_INF, mx_hi = NEG_INF;
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float s = div_by(sc[j][e], scale, rcp);   // sc / sqrt(hd)
+        if (masked) {
+          const int kp = k0 + j * 8 + tig * 2 + (e & 1);
+          if (kp > (e < 2 ? qpos_lo : qpos_hi) || kp >= S) s = NEG_INF;
+        }
+        sc[j][e] = s;
+        if (e < 2) mx_lo = fmaxf(mx_lo, s);
+        else mx_hi = fmaxf(mx_hi, s);
+      }
+#pragma unroll
+    for (int o_ = 1; o_ < 4; o_ <<= 1) {
+      mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, o_));
+      mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, o_));
+    }
+    const float mn_lo = fmaxf(m_lo, mx_lo), mn_hi = fmaxf(m_hi, mx_hi);
+    const float a_lo = expf(m_lo - mn_lo), a_hi = expf(m_hi - mn_hi);
+    m_lo = mn_lo;
+    m_hi = mn_hi;
+    float ps_lo = 0.f, ps_hi = 0.f;
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = expf(sc[j][e] - (e < 2 ? mn_lo : mn_hi));
+        sc[j][e] = p;
+        if (e < 2) ps_lo += p;
+        else ps_hi += p;
+      }
+    l_lo = l_lo * a_lo + ps_lo;      // this thread's part; the quad sums
+    l_hi = l_hi * a_hi + ps_hi;      // them at the end
+#pragma unroll
+    for (int j = 0; j < DMAX / 8; ++j) {
+      o[j][0] *= a_lo;
+      o[j][1] *= a_lo;
+      o[j][2] *= a_hi;
+      o[j][3] *= a_hi;
+    }
+
+    // O += P V with P split in two bf16 terms; C fragments of keys
+    // 16kk..16kk+15 are the A fragment of k-step kk
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      uint32_t ph[4], pl[4];
+      split2(sc[2 * kk][0], sc[2 * kk][1], ph[0], pl[0]);
+      split2(sc[2 * kk][2], sc[2 * kk][3], ph[1], pl[1]);
+      split2(sc[2 * kk + 1][0], sc[2 * kk + 1][1], ph[2], pl[2]);
+      split2(sc[2 * kk + 1][2], sc[2 * kk + 1][3], ph[3], pl[3]);
+      if constexpr (F32) {
+#pragma unroll
+        for (int jn = 0; jn < DMAX / 8; ++jn) {
+          if (jn * 8 >= dvp) break;
+          const T* vc = Vt + (kk * 16 + tig * 2) * vs + jn * 8 + gid;
+          uint32_t h0, l0, h1, l1;
+          split2(vc[0], vc[vs], h0, l0);
+          split2(vc[8 * vs], vc[9 * vs], h1, l1);
+          mma_bf16(o[jn], ph, h0, h1);
+          mma_bf16(o[jn], ph, l0, l1);
+          mma_bf16(o[jn], pl, h0, h1);
+        }
+      } else {
+#pragma unroll
+        for (int jp = 0; jp < DMAX / 16; ++jp) {
+          if (jp * 16 >= dvp) break;
+          uint32_t bv[4];
+          ldsm_x4_trans(bv, smem_addr(Vt + (kk * 16 + (lane & 7) +
+                                            ((lane >> 3) & 1) * 8) * vs +
+                                      jp * 16 + (lane >> 4) * 8));
+          mma_bf16(o[2 * jp], ph, bv[0], bv[1]);
+          mma_bf16(o[2 * jp], pl, bv[0], bv[1]);
+          mma_bf16(o[2 * jp + 1], ph, bv[2], bv[3]);
+          mma_bf16(o[2 * jp + 1], pl, bv[2], bv[3]);
+        }
+      }
+    }
+    __syncthreads();                 // this stage is refilled next+1 tile
+  }
+
+  // epilogue: O / l through shared memory, 16-byte row stores
+#pragma unroll
+  for (int o_ = 1; o_ < 4; o_ <<= 1) {
+    l_lo += __shfl_xor_sync(0xffffffffu, l_lo, o_);
+    l_hi += __shfl_xor_sync(0xffffffffu, l_hi, o_);
+  }
+  float* Os = reinterpret_cast<float*>(tc_smem);   // [BR][dvp + 8]
+  const int os = dvp + 8;
+  const int rl = warp * 16 + gid;
+#pragma unroll
+  for (int j = 0; j < DMAX / 8; ++j) {
+    if (j * 8 >= dvp) break;
+    const int c = j * 8 + tig * 2;
+    *reinterpret_cast<float2*>(Os + rl * os + c) =
+        make_float2(o[j][0] / l_lo, o[j][1] / l_lo);
+    *reinterpret_cast<float2*>(Os + (rl + 8) * os + c) =
+        make_float2(o[j][2] / l_hi, o[j][3] / l_hi);
+  }
+  __syncthreads();
+  auto out_row = [&](int r) -> float* {
+    const long rg = r0 + r;
+    const long pos = rg / G;
+    return out + (((long)b * S + pos) * Hq + (long)h * G + (rg - pos * G)) * dv;
+  };
+  if ((dv & 3) == 0) {
+    const int c4 = dv >> 2;
+    for (int i = threadIdx.x; i < BR * c4; i += THREADS) {
+      const int r = i / c4, c = i - r * c4;
+      if (r0 + r < rows_total)
+        *reinterpret_cast<float4*>(out_row(r) + c * 4) =
+            *reinterpret_cast<const float4*>(Os + r * os + c * 4);
+    }
+  } else {
+    for (int i = threadIdx.x; i < BR * dv; i += THREADS) {
+      const int r = i / dv, c = i - r * dv;
+      if (r0 + r < rows_total) out_row(r)[c] = Os[r * os + c];
+    }
+  }
+}
+
+template <typename T>
+size_t smem_bytes(int hd, int dv) {
+  const int hdp = (hd + 15) & ~15, dvp = (dv + 15) & ~15;
+  const size_t q = sizeof(T) == 4 ? 0 : sizeof(bf16) * BR * (hdp + 8);
+  const size_t tiles = q + sizeof(T) * STAGES * BK *
+                               ((size_t)k_stride<T>(hdp) + v_stride<T>(dvp));
+  const size_t epilogue = sizeof(float) * (size_t)BR * (dvp + 8);
+  return tiles > epilogue ? tiles : epilogue;
+}
+
+template <typename T, int HMAX, int DMAX>
+int launch(const void* q, const void* k, const void* v, float* out, int B,
+           int S, int Hq, int Hkv, int hd, int dv, cudaStream_t stream) {
+  static bool attr_set = false;
+  if (!attr_set) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        flash_tc<T, HMAX, DMAX>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem_bytes<T>(HMAX, DMAX));
+    if (e != cudaSuccess) return (int)e;
+    attr_set = true;
+  }
+  constexpr int E = 16 / sizeof(T);   // 16-byte copies need aligned rows
+  const bool vec_k = hd % E == 0 && ((uintptr_t)q | (uintptr_t)k) % 16 == 0;
+  const bool vec_v = dv % E == 0 && (uintptr_t)v % 16 == 0;
+  const long rows = (long)S * (Hq / Hkv);
+  const dim3 grid((unsigned)((rows + BR - 1) / BR), Hkv, B);
+  flash_tc<T, HMAX, DMAX><<<grid, THREADS, smem_bytes<T>(hd, dv), stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), out, S, Hq, Hkv, hd, dv, vec_k, vec_v);
+  return (int)cudaGetLastError();
+}
+
+// One instantiation per width class of the wider of hd and dv: registers
+// (Q fragments, the accumulator) grow with it and set how many blocks share
+// an SM.
+template <typename T>
+int dispatch(const void* q, const void* k, const void* v, float* out, int B,
+             int S, int Hq, int Hkv, int hd, int dv, cudaStream_t stream) {
+  const int w = hd > dv ? hd : dv;
+  if (w <= 64)
+    return launch<T, 64, 64>(q, k, v, out, B, S, Hq, Hkv, hd, dv, stream);
+  if (w <= 96)
+    return launch<T, 96, 96>(q, k, v, out, B, S, Hq, Hkv, hd, dv, stream);
+  return launch<T, 128, 128>(q, k, v, out, B, S, Hq, Hkv, hd, dv, stream);
+}
+
+}  // namespace tc
+
 }  // namespace
 
 extern "C" {
@@ -295,18 +807,18 @@ const char* repro_error_string(int code) {
 }
 
 // q [B,S,Hq,hd], k [B,S,Hkv,hd], v [B,S,Hkv,dv], all contiguous and of one
-// dtype: float32 (0) or bfloat16 (1). out [B,S,Hq,dv] float32.
+// dtype: float32 (0) or bfloat16 (1), both through flash_tc on the tensor
+// cores. out [B,S,Hq,dv] float32.
 int flash_prefill_fwd(const void* q, const void* k, const void* v, int dtype,
                       float* out, int B, int S, int Hq, int Hkv, int hd,
                       int dv, void* stream) {
   if (bad_shape(B, S, Hq, Hkv, hd, dv)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch<float, float, float>(q, k, nullptr, v, nullptr, out, B, S,
-                                       Hq, Hkv, hd, dv, s);
+    return tc::dispatch<float>(q, k, v, out, B, S, Hq, Hkv, hd, dv, s);
   if (dtype == 1)
-    return launch<__nv_bfloat16, __nv_bfloat16, float>(
-        q, k, nullptr, v, nullptr, out, B, S, Hq, Hkv, hd, dv, s);
+    return tc::dispatch<__nv_bfloat16>(q, k, v, out, B, S, Hq, Hkv, hd, dv,
+                                       s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -10,15 +10,21 @@ sequential k axis and skipping tiles above the diagonal. On the H100
 (``csrc/flash_prefill.cu``) blocks run in no order, so each block owns 64
 group-flattened query rows (``r = s * G + g``) of one (batch, kv head) and
 loops over the KV tiles itself up to its last query position, keeping the
-running max, normalizer and accumulator in registers. It computes in f32 on
-the CUDA cores: bound by the causal f32 work (``2 * (hd + dv)`` flops per
-visible (row, key) pair), it stays within rounding of the f32 reference.
-The int8 variant stages the codes, multiplies each score by its K scale
-after the dot and folds the V scale into the staged value row, as the TPU
-kernel does; it reads 1 byte per K/V element instead of 2. The int4
-variant unpacks the nibbles and multiplies each by its group's f16 scale
-while staging the K and V tiles (no scale after the dot), as the TPU int4
-kernel does, and reads half a byte per element plus 2 bytes per group of 32.
+running max, normalizer and accumulator in registers. Bytes bound it (the
+f32 output is the largest stream). bf16 q/k/v take the tensor-core body
+(``flash_tc``): Q held as bf16 mma fragments, 64-key K/V tiles in a
+cp.async ring, both products on ``mma.sync`` bf16 -> f32, and the value
+product over p split in two bf16 terms (hi + lo), which keeps it within
+~1e-5 of the f32 reference where one bf16 rounding of p errs by ~3e-3.
+f32 q/k/v take the same body with every operand split in two bf16 terms
+and three products per mma (hi.hi + hi.lo + lo.hi: ~2e-5). The int8 and
+int4 variants keep the f32 body on the CUDA cores (``flash_attend``). The
+int8 variant stages the codes, multiplies each score by its K scale after
+the dot and folds the V scale into the staged value row, as the TPU kernel
+does; it reads 1 byte per K/V element instead of 2. The int4 variant
+unpacks the nibbles and multiplies each by its group's f16 scale while
+staging the K and V tiles (no scale after the dot), as the TPU int4 kernel
+does, and reads half a byte per element plus 2 bytes per group of 32.
 """
 from __future__ import annotations
 
@@ -31,6 +37,10 @@ from repro_torch.kernels.ref import (flash_prefill_ref, flash_q4prefill_ref,
 
 MAX_HEAD_DIM = 128
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+#: the body ``flash_prefill_fwd`` launches for each dtype: the tensor-core
+#: body over bf16 operands ("tc") or over two-term splits of f32 operands
+#: ("tc_f32")
+BODY = {torch.bfloat16: "tc", torch.float32: "tc_f32"}
 _LIB = "flash_prefill"
 
 
@@ -59,7 +69,8 @@ def _check(q, k, v):
 
 def flash_prefill(q, k, v):
     """q [B,S,Hq,hd]; k [B,S,Hkv,hd]; v [B,S,Hkv,dv] -> [B,S,Hq,dv] f32.
-    CPU tensors take the plain version; CUDA tensors launch the kernel."""
+    CPU tensors take the plain version; CUDA tensors launch the kernel's
+    tensor-core body for their dtype (``BODY``)."""
     _check(q, k, v)
     if q.device.type == "cpu":
         return flash_prefill_ref(q, k, v)
@@ -75,10 +86,12 @@ def flash_prefill(q, k, v):
             out.data_ptr(), b, s, hq, hkv, hd, dv, _build.stream_of(q))
     _build.check(_LIB, rc, "flash_prefill_fwd")
     flash_prefill.launches += 1
+    flash_prefill.launches_by_body[BODY[q.dtype]] += 1
     return out
 
 
 flash_prefill.launches = 0
+flash_prefill.launches_by_body = {body: 0 for body in BODY.values()}
 
 
 def _check_q(q, k_i8, k_s, v_i8, v_s):

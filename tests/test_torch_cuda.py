@@ -4,6 +4,8 @@ Marked ``cuda``: each test skips without a CUDA device (the kernels have no
 CPU mode). This file imports no JAX, so it runs on a GPU host as is:
 ``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py``.
 """
+import math
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -59,22 +61,69 @@ def test_quantize_rounds_half_to_even(dev):
     assert codes.tolist() == [[0, 2, 2, 0, -2, -2, 126, -127]]
 
 
-@pytest.mark.parametrize("b,s,hq,hkv,hd,dv", [(1, 1, 4, 4, 64, 64),
-                                              (2, 77, 8, 2, 64, 48),
-                                              (1, 300, 32, 8, 128, 128),
-                                              (2, 65, 6, 2, 32, 96),
-                                              # phi-3-vision's VQI forward:
-                                              # 576 patches + 3 tokens
-                                              (8, 579, 32, 32, 96, 96)])
+# S 1, 63, 64, 65 and 579 around the 64-row / 64-key tiles; G 3, 4 and 5
+# (G 3 and 5: a 64-row block and a 16-row warp tile straddle two
+# positions' groups); hd 32..128 with dv 48; hd 40 (zero-padded to 48);
+# rows that are no whole number of 16-byte chunks (hd 36 and dv 20 in
+# bf16, hd 33 and dv 17 in both dtypes: staged element by element, dv 17
+# stored column by column)
+FLASH_CASES = [(1, 1, 4, 4, 64, 64),
+               (2, 77, 8, 2, 64, 48),
+               (1, 300, 32, 8, 128, 128),
+               (2, 65, 6, 2, 32, 96),
+               # phi-3-vision's VQI forward: 576 patches + 3 tokens
+               (8, 579, 32, 32, 96, 96),
+               (1, 63, 4, 4, 64, 64),
+               (1, 64, 4, 4, 64, 64),
+               (1, 65, 4, 4, 64, 64),
+               (2, 579, 8, 2, 64, 64),
+               (1, 100, 16, 4, 64, 64),
+               (1, 70, 10, 2, 32, 32),
+               (1, 130, 4, 2, 32, 48),
+               (1, 130, 4, 2, 96, 48),
+               (1, 130, 4, 2, 128, 48),
+               (1, 90, 4, 4, 40, 40),
+               (1, 90, 4, 2, 40, 48),
+               (1, 70, 4, 2, 36, 20),
+               (1, 50, 2, 1, 33, 17)]
+
+
+@pytest.mark.parametrize("b,s,hq,hkv,hd,dv", FLASH_CASES)
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_flash_prefill_kernel_matches_plain(dev, b, s, hq, hkv, hd, dv, dtype):
     gen = torch.Generator(device=dev).manual_seed(s * hd + dv)
     q = torch.randn((b, s, hq, hd), generator=gen, device=dev).to(dtype)
     k = torch.randn((b, s, hkv, hd), generator=gen, device=dev).to(dtype)
     v = torch.randn((b, s, hkv, dv), generator=gen, device=dev).to(dtype)
+    body = flash_prefill.BODY[dtype]
+    before = dict(flash_prefill.flash_prefill.launches_by_body)
     got = flash_prefill.flash_prefill(q, k, v)
+    after = flash_prefill.flash_prefill.launches_by_body
+    assert after == {**before, body: before[body] + 1}
     assert got.dtype == torch.float32 and got.shape == (b, s, hq, dv)
-    # f32 on both sides (bf16 inputs are read as f32); summation order differs
+    # f32 reference on the same values. The tensor-core body's bf16
+    # products are exact in f32 and p is split into two bf16 terms (bf16:
+    # ~1e-5); f32 operands are split too, three products per mma (~2e-5);
+    # summation order differs
+    torch.testing.assert_close(got, ref.flash_prefill_ref(q, k, v),
+                               rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_prefill_kernel_reads_unaligned_rows(dev, dtype):
+    """Contiguous views that start 2 or 4 bytes into their storage: the
+    16-byte copies cannot take them, so the body stages them element by
+    element."""
+    b, s, hq, hkv, hd, dv = 1, 77, 4, 2, 64, 64
+    gen = torch.Generator(device=dev).manual_seed(7)
+
+    def view(*shape):
+        flat = torch.randn(math.prod(shape) + 1, generator=gen, device=dev)
+        return flat.to(dtype)[1:].view(shape)
+
+    q, k, v = view(b, s, hq, hd), view(b, s, hkv, hd), view(b, s, hkv, dv)
+    assert q.is_contiguous() and q.data_ptr() % 16
+    got = flash_prefill.flash_prefill(q, k, v)
     torch.testing.assert_close(got, ref.flash_prefill_ref(q, k, v),
                                rtol=0, atol=1e-4)
 
