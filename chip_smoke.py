@@ -11,7 +11,11 @@ prints one JSON line per phase:
    at the main paths' shapes, with its time (a CUDA-graph replay: device
    time; and the eager call, launch gaps included), the plain version's
    time, its bound and a library yardstick's time (timed here only, never
-   used by the port): the GEMMs, flash prefill (with the body that ran:
+   used by the port): the GEMMs (on the packed weight the card keeps,
+   with the body that ran, "gemv" at M <= 16 or "wgmma", the bf16 output
+   ``linear`` asks for, a bf16 ``torch.matmul`` beside the int8 yardstick,
+   the pack's time and, for the wgmma body, its activation pass alone),
+   flash prefill (with the body that ran:
    the tensor-core body for bf16 and, over two-term splits, for f32
    inputs) and paged decode, then the
    int8-KV kernels qdecode, paged_qdecode (with NaN scales and -128 codes
@@ -62,7 +66,10 @@ prints one JSON line per phase:
 7. a ``kernels`` line, the ``nvidia-smi`` line, and last the device line.
 
 Every counted run also checks that each flash_prefill launch took the
-body of its dtype (``flash_prefill.launches_by_body``). Any failed check
+body of its dtype (``flash_prefill.launches_by_body``), and the GEMMs'
+bodies are checked where M is known: the one-launch decode body at every
+decode step, the wgmma body in the VQI forwards and the 256-row prefill
+(whose unembed reads the last row only: one decode-body launch). Any failed check
 raises and the exit code is non-zero. Without a CUDA
 device, or outside the repository, it exits non-zero and prints no result.
 """
@@ -85,7 +92,9 @@ SEED = 0
 HBM_BYTES_S = 3.35e12
 PEAK_OPS_S = {"int8": 1979e12, "bfloat16": 989e12, "float32": 67e12}
 
-GEMM_MS = (4, 1024, 1023)
+# decode (4 and the engine's 8 slots), the longest batch-1 prompt (255),
+# prefill chunks
+GEMM_MS = (4, 8, 255, 1024, 1023)
 GEMM_KN = ((2048, 2048), (2048, 11264), (5632, 2048), (2048, 100352))
 # phi-3-vision's VQI forward (8 images x 579 positions): wq, wi, wo,
 # frontend_proj and unembed, whose N leaves a 64-column tail in the last
@@ -269,16 +278,40 @@ def _wrappers(k):
             "quantize_weights": k.quantize.quantize_weights}
 
 
+def _gemms(k):
+    return {"qmatmul_dynamic": k.dynquant.qmatmul_dynamic,
+            "qmatmul_static": k.qmatmul.qmatmul_static}
+
+
 def reset_counters(k):
     for fn in _wrappers(k).values():
         fn.launches = 0
-    bodies = k.flash_prefill.flash_prefill.launches_by_body
-    for body in bodies:
-        bodies[body] = 0
+    for fn in (k.flash_prefill.flash_prefill, *_gemms(k).values()):
+        bodies = fn.launches_by_body
+        for body in bodies:
+            bodies[body] = 0
 
 
 def read_counters(k):
-    return {name: fn.launches for name, fn in _wrappers(k).items()}
+    """Launches per wrapper, and the GEMMs' per body
+    (``qmatmul_dynamic.gemv``, ``qmatmul_dynamic.wgmma``, ...)."""
+    out = {name: fn.launches for name, fn in _wrappers(k).items()}
+    for name, fn in _gemms(k).items():
+        out.update({f"{name}.{body}": n
+                    for body, n in fn.launches_by_body.items()})
+    return out
+
+
+def check_gemm_bodies(where, launches, gemv=None):
+    """Each GEMM that launched in a run took the one-launch decode body
+    ``gemv`` times (None: every time) and the ``wgmma`` body the rest."""
+    for name in ("qmatmul_dynamic", "qmatmul_static"):
+        total = launches[name]
+        want = total if gemv is None or total == 0 else gemv
+        split = {b: launches[f"{name}.{b}"] for b in ("gemv", "wgmma")}
+        if split != {"gemv": want, "wgmma": total - want}:
+            raise AssertionError(f"{where}: {name} launches by body {split}, "
+                                 f"want {want} gemv of {total}")
 
 
 def read_bodies(k):
@@ -301,6 +334,15 @@ def check_bodies(k, where, launches, dtype):
 # Phase 2: kernels against their plain versions
 # ------------------------------------------------------------------ #
 def gemm_phase(k, dev, timer):
+    """Both GEMMs at every (M, K, N) of GEMM_CASES on the packed weight (the
+    card's layout, ``qmatmul.pack_weight``, whose time is printed once per
+    weight): codes and row scales bit for bit, outputs within rtol 1e-6 of
+    the plain version, the [K, N] entry point and the bf16 output (the one
+    ``linear`` asks for) bit for bit against the f32 result, and the body
+    that ran against ``qmatmul.plan``. Beside each: the int8 yardstick
+    (``torch._int_mm`` + epilogue) and the bf16 variant's linear (one bf16
+    ``torch.matmul``: a different function, the time the int8 one has to
+    beat)."""
     ref, qm = k.ref, k.qmatmul
     gen = torch.Generator(device=dev).manual_seed(SEED)
     worst = {"qmatmul_dynamic": 0.0, "qmatmul_static": 0.0}
@@ -309,38 +351,64 @@ def gemm_phase(k, dev, timer):
         w = torch.randint(-127, 128, (kk, n), generator=gen, device=dev,
                           dtype=torch.int8)
         ws = torch.rand((1, n), generator=gen, device=dev) * 1e-3 + 1e-5
+        wp = qm.pack_weight(w)
+        pack_ms = timer.eager_ms(lambda: qm.pack_weight(w), iters=3)
+        w_bf16 = w.to(torch.bfloat16)          # the bf16 variant's weight
         for m in ms:
             x = (torch.randn((m, kk), generator=gen, device=dev) * 2).to(
                 torch.bfloat16)
             act = (x.float().abs().amax() / 127.0).reshape(())
+            want_body = qm.plan(m, n, kk).body
             for name in ("qmatmul_dynamic", "qmatmul_static"):
                 static = name == "qmatmul_static"
                 a = act if static else None
                 codes, a_scale = qm.quantize_activations(x, a)
                 if static:
+                    wrapper = qm.qmatmul_static
                     want_codes = ref.quantize_static_ref(x, act)
-                    run = lambda: qm.qmatmul_static(x, w, ws, act)  # noqa: E731
+                    run = lambda dt=torch.float32: qm.qmatmul_static_packed(  # noqa: E731
+                        x, wp, ws, act, out_dtype=dt)
+                    run_kn = lambda: qm.qmatmul_static(x, w, ws, act)  # noqa: E731
                     plain = lambda: ref.qmatmul_static_ref(x, w, ws, act)  # noqa: E731
                 else:
+                    wrapper = k.dynquant.qmatmul_dynamic
                     want_codes, want_scale = ref.quantize_rows_ref(x)
                     if not torch.equal(a_scale, want_scale):
                         raise AssertionError(f"{name} row scales differ at "
                                              f"M={m} K={kk} N={n}")
-                    run = lambda: k.dynquant.qmatmul_dynamic(x, w, ws)  # noqa: E731
+                    run = lambda dt=torch.float32: k.dynquant.qmatmul_dynamic_packed(  # noqa: E731
+                        x, wp, ws, out_dtype=dt)
+                    run_kn = lambda: k.dynquant.qmatmul_dynamic(x, w, ws)  # noqa: E731
                     plain = lambda: ref.qmatmul_dynamic_ref(x, w, ws)  # noqa: E731
                 if not torch.equal(codes, want_codes):
                     bad = int((codes != want_codes).sum())
                     raise AssertionError(f"{name}: {bad} activation codes "
                                          f"differ at M={m} K={kk} N={n}")
+                before = dict(wrapper.launches_by_body)
                 got, want = run(), plain()
                 torch.cuda.synchronize()
+                ran = [b for b, c in wrapper.launches_by_body.items()
+                       if c != before[b]]
+                if ran != [want_body]:
+                    raise AssertionError(f"{name} M={m} K={kk} N={n}: body "
+                                         f"{ran} ran, plan says {want_body}")
                 err = float((got - want).abs().max())
                 # same int32 sums, same epilogue order: rtol 1e-6 is one f32
                 # rounding of the scale products
                 torch.testing.assert_close(got, want, rtol=1e-6, atol=0)
+                if not torch.equal(run_kn(), got) or not torch.equal(
+                        run(torch.bfloat16), got.to(torch.bfloat16)):
+                    raise AssertionError(f"{name} M={m} K={kk} N={n}: the "
+                                         "[K, N] entry or the bf16 output "
+                                         "differs from the f32 result")
                 worst[name] = max(worst[name], err)
                 t_k = timer.graph_ms(run)
                 t_eager = timer.eager_ms(run)
+                t_bf16_out = timer.graph_ms(lambda: run(torch.bfloat16))
+                # the wgmma body's separate activation pass, alone
+                t_quant = (timer.graph_ms(
+                    lambda: qm.quantize_activations(x, a))
+                    if want_body == "wgmma" else None)
                 t_p = timer.graph_ms(plain, iters=3)
                 # yardstick: cuBLASLt int8 GEMM on the same codes, plus the
                 # epilogue. torch._int_mm needs M > 16 and M % 8 == 0, so
@@ -353,17 +421,24 @@ def gemm_phase(k, dev, timer):
                 else:
                     lib_fn = lambda: torch._int_mm(lib_codes, w)[:m].float() * a_scale * ws  # noqa: E731
                 lib = timer.graph_ms(lib_fn)
+                lib_bf16 = timer.graph_ms(lambda: torch.matmul(x, w_bf16))
                 nbytes = m * kk * x.element_size() + kk * n + 4 * n + 4 * m * n
                 b_ms, b_by = bound(nbytes, 2.0 * m * n * kk, "int8")
-                row = dict(kernel=name, M=m, K=kk, N=n, max_abs_err=err,
-                           codes_identical=True, ms=t_k, eager_ms=t_eager,
+                p = qm.plan(m, n, kk)
+                row = dict(kernel=name, M=m, K=kk, N=n, body=want_body,
+                           tile=[p.bm, p.bn], blocks=p.blocks,
+                           max_abs_err=err, codes_identical=True, ms=t_k,
+                           eager_ms=t_eager, ms_bf16_out=t_bf16_out,
+                           quantize_ms=t_quant,
                            plain_ms=t_p, library_ms=lib,
                            library_padded_m=pad_m if pad_m != m else None,
-                           bound_ms=b_ms, bound_by=b_by)
+                           bf16_library_ms=lib_bf16, pack_ms=pack_ms,
+                           bound_ms=b_ms, bound_by=b_by,
+                           ms_over_bound=t_k / b_ms)
                 emit("kernel", **row)
                 if (m, kk, n) == HEADLINE_GEMM:
                     headline[name] = row
-        del w
+        del w, wp, w_bf16
     for name in headline:
         headline[name]["max_abs_err"] = worst[name]
     return headline
@@ -1011,7 +1086,9 @@ def e2e_phase(k, dev):
     totals = {"flash_prefill": 0, "qmatmul_dynamic": 0, "qmatmul_static": 0,
               "qdecode": 0, "flash_qprefill": 0, "flash_q4prefill": 0,
               **{f"flash_prefill.{body}": 0
-                 for body in k.flash_prefill.BODY.values()}}
+                 for body in k.flash_prefill.BODY.values()},
+              **{f"{name}.{body}": 0 for name in _gemms(k)
+                 for body in k.qmatmul.BODIES}}
     runs = [(spec.variant, spec, cfg) for spec in DEFAULT_VARIANTS]
     runs.append(("dynamic_int8_kv8", VariantSpec.dynamic_int8(),
                  cfg.with_overrides(kv_cache_int8=True)))
@@ -1087,11 +1164,14 @@ def e2e_phase(k, dev):
                 raise AssertionError(f"{label}: {prefill_k} launched "
                                      f"{per_prefill[prefill_k]} times in one "
                                      f"prefill, not {cfg.n_layers}")
+            # the 256-row GEMMs take wgmma; the unembed reads the last row
+            check_gemm_bodies(f"{label} prefill", per_prefill, gemv=1)
             nxt = torch.argmax(last[:, -1], dim=-1).reshape(1, 1)
             reset_counters(k)
             logits, cache = decode_step(session.params, cache, nxt,
                                         PROMPT_LENS[-1], cfg)
             per_step = read_counters(k)
+            check_gemm_bodies(f"{label} decode step", per_step)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             for i in range(N_NEW):
@@ -1165,6 +1245,7 @@ def decode_window(k, engine, cfg, gen):
     reset_counters(k)
     engine.step()
     per_step = read_counters(k)
+    check_gemm_bodies("decode window step", per_step)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(8):
@@ -1566,13 +1647,15 @@ def _classes(logits, cfg):
 
 def _gemm_counts(params):
     """(static, dynamic) int8 GEMMs per forward of a param tree: every int8
-    leaf but the embedding table, static where it carries an act_scale."""
+    leaf but the embedding table (packed on the card: ``w_packed``), static
+    where it carries an act_scale."""
     from repro_torch.tree import map_with_path
 
     paths = set()
     map_with_path(lambda path, _: paths.add(path), params)
-    linears = [p[:-len("w_int8")] for p in paths
-               if p.endswith("/w_int8") and not p.startswith("embed/")]
+    linears = [p[:p.rindex("/") + 1] for p in paths
+               if p.endswith(("/w_int8", "/w_packed"))
+               and not p.startswith("embed/")]
     static = sum(f"{p}act_scale" in paths for p in linears)
     return static, len(linears) - static
 
@@ -1646,6 +1729,7 @@ def vqi_phase(k, dev):
                                          getattr(torch, cfg.dtype)))
 
             forwards = agent.session.stats.calls
+            check_gemm_bodies(f"vqi {spec.variant}", launches, gemv=0)
             n_static, n_dynamic = _gemm_counts(agent.session.params)
             want = {"flash_prefill": cfg.n_layers,
                     "qmatmul_static": n_static, "qmatmul_dynamic": n_dynamic}
@@ -1945,7 +2029,9 @@ def main() -> int:
     for run in (vqi_phase(k, dev), lifecycle_phase(k, dev)):
         for name in ("flash_prefill", "qmatmul_dynamic", "qmatmul_static",
                      "quantize_weights",
-                     *(f"flash_prefill.{body}" for body in read_bodies(k))):
+                     *(f"flash_prefill.{body}" for body in read_bodies(k)),
+                     *(f"{g}.{body}" for g in _gemms(k)
+                       for body in k.qmatmul.BODIES)):
             totals[name] += run[name]
     vqi_card_vs_cpu_phase(dev)
 
@@ -1988,6 +2074,11 @@ def main() -> int:
             kernels[-1]["launches_by_body"] = {
                 body: totals[f"flash_prefill.{body}"]
                 for body in read_bodies(k)}
+        if name in _gemms(k):
+            kernels[-1]["body"] = h["body"]
+            kernels[-1]["bf16_library_ms"] = h["bf16_library_ms"]
+            kernels[-1]["launches_by_body"] = {
+                body: totals[f"{name}.{body}"] for body in k.qmatmul.BODIES}
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -23,14 +23,27 @@ def _flatten_scale(w_scale, n: int) -> torch.Tensor:
     return ws.contiguous()
 
 
-def qmatmul_static(x, w_int8, w_scale, act_scale):
+def qmatmul_static(x, w_int8, w_scale, act_scale, out_dtype=torch.float32):
     ws = _flatten_scale(w_scale, w_int8.shape[1])
-    return qmatmul.qmatmul_static(x, w_int8, ws, act_scale)
+    return qmatmul.qmatmul_static(x, w_int8, ws, act_scale,
+                                  out_dtype=out_dtype)
 
 
-def qmatmul_dynamic(x, w_int8, w_scale):
+def qmatmul_dynamic(x, w_int8, w_scale, out_dtype=torch.float32):
     ws = _flatten_scale(w_scale, w_int8.shape[1])
-    return dynquant.qmatmul_dynamic(x, w_int8, ws)
+    return dynquant.qmatmul_dynamic(x, w_int8, ws, out_dtype=out_dtype)
+
+
+def qmatmul_packed(x, w_packed, w_scale, act_scale=None,
+                   out_dtype=torch.float32):
+    """The int8 linear on the packed weight [N, Kp] (``qmatmul.pack_weight``):
+    static with ``act_scale``, dynamic without."""
+    ws = _flatten_scale(w_scale, w_packed.shape[0])
+    if act_scale is None:
+        return dynquant.qmatmul_dynamic_packed(x, w_packed, ws,
+                                               out_dtype=out_dtype)
+    return qmatmul.qmatmul_static_packed(x, w_packed, ws, act_scale,
+                                         out_dtype=out_dtype)
 
 
 def quantize_weights(w):

@@ -80,6 +80,26 @@ def qmatmul_dynamic_ref(x, w_int8, w_scale):
     return _int8_dot(codes, w_int8) * a_scale * w_scale.to(torch.float32)
 
 
+def _packed_dot(codes, w_packed):
+    """codes [M, K] against the K-major packed weight [N, Kp] (zero K
+    tail): the same integer sums as ``_int8_dot(codes, w_int8)``."""
+    pad = w_packed.shape[1] - codes.shape[1]
+    return _int8_dot(torch.nn.functional.pad(codes, (0, pad)), w_packed.t())
+
+
+def qmatmul_static_packed_ref(x, w_packed, w_scale, act_scale):
+    """``qmatmul_static_ref`` on the packed weight [N, Kp]."""
+    codes = quantize_static_ref(x, act_scale)
+    a = torch.as_tensor(act_scale, dtype=torch.float32, device=x.device)
+    return _packed_dot(codes, w_packed) * (a * w_scale.to(torch.float32))
+
+
+def qmatmul_dynamic_packed_ref(x, w_packed, w_scale):
+    """``qmatmul_dynamic_ref`` on the packed weight [N, Kp]."""
+    codes, a_scale = quantize_rows_ref(x)
+    return _packed_dot(codes, w_packed) * a_scale * w_scale.to(torch.float32)
+
+
 def flash_prefill_ref(q, k, v):
     """Causal softmax attention from position 0, in f32.
 

@@ -6,7 +6,9 @@ dict from ``repro_torch.core.quant.quantize_tree``
     {"w_int8": int8[K, N], "scale": f32[1, N] or f32[1, 1]}          # dynamic
     {"w_int8", "scale", "act_scale": f32[]}                          # static
 
-or a calibration observer ``{"w", "obs_id", "obs"}``.
+or the same with ``w_packed`` (int8 [N, Kp], K-major) in place of
+``w_int8``, as ``place_params`` leaves it on the card, or a calibration
+observer ``{"w", "obs_id", "obs"}``.
 """
 from __future__ import annotations
 
@@ -15,9 +17,51 @@ import math
 import torch
 import torch.nn.functional as F
 
+# leaves that no ``linear`` reads: the embedding is gathered row-wise in
+# the JAX layout (``transformer._take_embed``)
+_GATHERED = ("embed",)
+
 
 def is_quantized(p) -> bool:
-    return isinstance(p, dict) and ("w_int8" in p or "w_int4" in p)
+    return isinstance(p, dict) and ("w_int8" in p or "w_int4" in p
+                                    or "w_packed" in p)
+
+
+def _packable(leaf, path: str) -> bool:
+    """A per-channel or per-tensor symmetric int8 leaf that ``linear``
+    reads."""
+    return (isinstance(leaf, dict) and "w_int8" in leaf and "zero" not in leaf
+            and leaf["w_int8"].dim() == 2 and leaf["scale"].dim() == 2
+            and path not in _GATHERED)
+
+
+def place_params(params, device, pack=None):
+    """``params`` with every tensor on ``device``; with ``pack`` (default:
+    on a CUDA device) each int8 linear leaf's ``w_int8 [K, N]`` is replaced
+    by its K-major packed copy ``w_packed [N, Kp]``, the operand layout of
+    the card's GEMMs, so the card holds one copy of the weight. Idempotent;
+    the embedding and non-int8 leaves keep their layout."""
+    from repro_torch.kernels.qmatmul import pack_weight
+
+    device = torch.device(device)
+    if pack is None:
+        pack = device.type == "cuda"
+
+    def walk(tree, path):
+        if isinstance(tree, dict):
+            if pack and _packable(tree, path):
+                leaf = {k: walk(v, f"{path}/{k}") for k, v in tree.items()
+                        if k != "w_int8"}
+                leaf["w_packed"] = pack_weight(tree["w_int8"].to(device))
+                return leaf
+            return {k: walk(v, f"{path}/{k}" if path else str(k))
+                    for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return [walk(v, f"{path}/{i}" if path else str(i))
+                    for i, v in enumerate(tree)]
+        return tree.to(device) if isinstance(tree, torch.Tensor) else tree
+
+    return walk(params, "")
 
 
 def linear(p, x: torch.Tensor) -> torch.Tensor:
@@ -26,20 +70,26 @@ def linear(p, x: torch.Tensor) -> torch.Tensor:
         p["obs"].observe(p["obs_id"], x)            # calibration pass
         return torch.matmul(x, p["w"].to(x.dtype))
     if is_quantized(p):
+        from repro_torch.kernels import ops
+
+        lead = x.shape[:-1]
+        x2 = x.reshape(-1, x.shape[-1]).contiguous()
+        if "w_packed" in p:                         # place_params on the card
+            y = ops.qmatmul_packed(x2, p["w_packed"], p["scale"],
+                                   p.get("act_scale"), out_dtype=x.dtype)
+            return y.reshape(*lead, -1)
         grouped = p["scale"].dim() == p.get("w_int8", p.get("w_int4")).dim() + 1
         if "w_int4" in p or grouped or "zero" in p:
             raise NotImplementedError(
                 "int4 / per-group / asymmetric weight leaves are ROADMAP "
                 "Queue 1 item 4 (weight-only dequant path)")
-        from repro_torch.kernels import ops
-
-        lead = x.shape[:-1]
-        x2 = x.reshape(-1, x.shape[-1]).contiguous()
         if "act_scale" in p:
-            y = ops.qmatmul_static(x2, p["w_int8"], p["scale"], p["act_scale"])
+            y = ops.qmatmul_static(x2, p["w_int8"], p["scale"], p["act_scale"],
+                                   out_dtype=x.dtype)
         else:
-            y = ops.qmatmul_dynamic(x2, p["w_int8"], p["scale"])
-        return y.reshape(*lead, -1).to(x.dtype)
+            y = ops.qmatmul_dynamic(x2, p["w_int8"], p["scale"],
+                                    out_dtype=x.dtype)
+        return y.reshape(*lead, -1)
     return torch.matmul(x, p.to(x.dtype))
 
 

@@ -16,8 +16,8 @@ import torch
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import decode_step, forward, prefill
 from repro_torch.models.config import ModelConfig, check_supported
+from repro_torch.models.layers import place_params
 from repro_torch.serving.kvcache import bucketed_prefill_ok, pow2_bucket
-from repro_torch.tree import map_with_path
 
 
 def interpolated_percentile(xs: Sequence[float], p: float) -> float:
@@ -69,9 +69,7 @@ class InferenceSession:
     def __init__(self, params, cfg: ModelConfig, device: DeviceLike = None):
         check_supported(cfg)
         self.device = resolve_device(device)
-        self.params = map_with_path(
-            lambda _, t: t.to(self.device) if isinstance(t, torch.Tensor)
-            else t, params)
+        self.params = place_params(params, self.device)
         self.cfg = cfg
         self.stats = InferenceStats()
 

@@ -44,13 +44,13 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import (decode_step, decode_step_paged, init_cache,
                                 prefill, prefill_paged)
 from repro_torch.models.config import ModelConfig, check_supported
+from repro_torch.models.layers import place_params
 from repro_torch.serving.engine import InferenceSession, interpolated_percentile
 from repro_torch.serving.kvcache import (PagedKVCache, blocks_for_budget,
                                          bucketed_prefill_ok,
                                          hash_prompt_blocks, paged_supported,
                                          pow2_bucket)
 from repro_torch.serving.sampling import SamplingParams, sample
-from repro_torch.tree import map_with_path
 
 #: every metrics() call returns exactly these keys (the JAX package's
 #: schema, so reports built on either engine line up)
@@ -192,9 +192,7 @@ class ContinuousBatchingEngine:
             raise _unported("serving a frontend (vision) model in the engine",
                             9)
         self.device = resolve_device(device)
-        self.params = map_with_path(
-            lambda _, t: t.to(self.device) if isinstance(t, torch.Tensor)
-            else t, params)
+        self.params = place_params(params, self.device)
         self.cfg = cfg
         self.tp = 1
         self.n_slots = n_slots

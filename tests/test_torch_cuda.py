@@ -26,10 +26,21 @@ def dev():
     return torch.device("cuda")
 
 
-# M=1 (decode), N not a multiple of 8 (byte-wise weight path), K not a
-# multiple of 64 (zero code tail), and a few-tile output (split-K)
-@pytest.mark.parametrize("m,k,n", [(1, 2048, 2048), (37, 300, 203),
-                                   (130, 257, 129), (256, 640, 1024)])
+# Ragged shapes: M=1 (decode), N not a multiple of 8 (odd last column
+# pair), K not a multiple of 128 (zero code tail); then the models' own:
+# M across the decode body (1-16), the switch (17) and the wgmma tiles
+# (64, 255, 1023, and 4632 = the VQI forward's 8 x 579 rows) at
+# stablelm-1.6b's and phi-3-vision's weight shapes (K, N)
+GEMM_M = (1, 4, 8, 16, 17, 64, 255, 1023, 4632)
+GEMM_KN = ((2048, 2048), (2048, 11264), (5632, 2048), (2048, 100352),
+           (3072, 3072), (3072, 16384), (8192, 3072), (1024, 3072),
+           (3072, 32064))
+GEMM_CASES = [(1, 2048, 2048), (37, 300, 203), (130, 257, 129),
+              (256, 640, 1024), (5, 300, 203), (16, 257, 129)] + [
+    (m, k, n) for k, n in GEMM_KN for m in GEMM_M]
+
+
+@pytest.mark.parametrize("m,k,n", GEMM_CASES)
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_qmatmul_kernels_match_plain(dev, m, k, n, dtype):
     gen = torch.Generator(device=dev).manual_seed(m + k + n)
@@ -37,21 +48,37 @@ def test_qmatmul_kernels_match_plain(dev, m, k, n, dtype):
     w = torch.randint(-127, 128, (k, n), generator=gen, device=dev,
                       dtype=torch.int8)
     s = torch.rand((1, n), generator=gen, device=dev) * 1e-2
+    wp = qmatmul.pack_weight(w)
+    body = qmatmul.plan(m, n, k).body
     codes, a_scale = qmatmul.quantize_activations(x)
     want_codes, want_scale = ref.quantize_rows_ref(x)
     assert torch.equal(codes, want_codes) and torch.equal(a_scale, want_scale)
-    before = dynquant.qmatmul_dynamic.launches
-    got = dynquant.qmatmul_dynamic(x, w, s)
-    assert dynquant.qmatmul_dynamic.launches == before + 1
+    before = dict(dynquant.qmatmul_dynamic.launches_by_body)
+    n_before = dynquant.qmatmul_dynamic.launches
+    got = dynquant.qmatmul_dynamic_packed(x, wp, s)
+    assert dynquant.qmatmul_dynamic.launches == n_before + 1
+    assert dynquant.qmatmul_dynamic.launches_by_body == {
+        **before, body: before[body] + 1}
     # exact int32 sums and the same epilogue order on both sides
-    torch.testing.assert_close(got, ref.qmatmul_dynamic_ref(x, w, s),
-                               rtol=1e-6, atol=0)
+    want = ref.qmatmul_dynamic_ref(x, w, s)
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=0)
+    # the [K, N] entry point packs and launches the same kernel; bf16 out
+    # is the f32 result rounded once
+    assert torch.equal(dynquant.qmatmul_dynamic(x, w, s), got)
+    assert torch.equal(dynquant.qmatmul_dynamic_packed(
+        x, wp, s, out_dtype=torch.bfloat16), got.to(torch.bfloat16))
     act = x.float().abs().amax() / 127.0
     codes, _ = qmatmul.quantize_activations(x, act)
     assert torch.equal(codes, ref.quantize_static_ref(x, act))
-    torch.testing.assert_close(qmatmul.qmatmul_static(x, w, s, act),
-                               ref.qmatmul_static_ref(x, w, s, act),
+    before = dict(qmatmul.qmatmul_static.launches_by_body)
+    got = qmatmul.qmatmul_static_packed(x, wp, s, act)
+    assert qmatmul.qmatmul_static.launches_by_body == {
+        **before, body: before[body] + 1}
+    torch.testing.assert_close(got, ref.qmatmul_static_ref(x, w, s, act),
                                rtol=1e-6, atol=0)
+    assert torch.equal(qmatmul.qmatmul_static(x, w, s, act), got)
+    assert torch.equal(qmatmul.qmatmul_static_packed(
+        x, wp, s, act, out_dtype=torch.bfloat16), got.to(torch.bfloat16))
 
 
 def test_quantize_rounds_half_to_even(dev):
