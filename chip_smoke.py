@@ -128,6 +128,11 @@ PAGED_SHAPES = {
     "c": (1, 32, 1, 64, 16, 32, 257, torch.bfloat16, (511,)),
     "d": (8, 32, 1, 64, 16, 32, 257, torch.float32, None),
     "e": (4, 32, 1, 64, 16, 32, 257, torch.bfloat16, (300, -1, 45, 511)),
+    # one long sequence (4096 slots, 256 entries); phi-3-vision's hd 96;
+    # blocks of one slot (a 512-entry table)
+    "f": (1, 32, 1, 64, 16, 256, 300, torch.bfloat16, (4095,)),
+    "g": (8, 32, 1, 96, 16, 40, 330, torch.bfloat16, None),
+    "h": (2, 32, 1, 64, 1, 512, 1100, torch.bfloat16, (511, 300)),
 }
 HEADLINE_PAGED = "a"
 PAGED_ATOL = 1e-4     # f32 on both sides; online vs one-pass softmax
@@ -138,6 +143,9 @@ QDECODE_SHAPES = {
     "b": (8, 512, 8, 4, 128, torch.bfloat16, None),     # nemo width
     "c": (1, 512, 32, 1, 64, torch.bfloat16, (511,)),
     "d": (8, 512, 32, 1, 64, torch.float32, None),
+    # one long sequence; phi-3-vision's hd 96 over its 579 positions
+    "e": (1, 4096, 32, 1, 64, torch.bfloat16, (4095,)),
+    "f": (8, 579, 32, 1, 96, torch.bfloat16, None),
 }
 HEADLINE_QDECODE = "a"
 # int8 kernels against plain versions: f32 on both sides; the kernels scale
@@ -602,12 +610,14 @@ def qdecode_phase(k, dev, timer):
                            torch.full((), -2.0e38, device=dev))
         run = lambda: qd.qdecode(q, kq, ks, vq, vs, bias)  # noqa: E731
         plain = lambda: ref.qdecode_ref(q, kq, ks, vq, vs, bias)  # noqa: E731
-        got, want = run(), plain()
+        got, want, again = run(), plain(), run()
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
         if not torch.isfinite(got).all() or err > INT8KV_ATOL:
             raise AssertionError(f"qdecode ({label}): max |err| {err} > "
                                  f"{INT8KV_ATOL}")
+        if not torch.equal(again, got):     # one launch, no atomics
+            raise AssertionError(f"qdecode ({label}): two calls differ")
         worst = max(worst, err)
         t_k = timer.graph_ms(run)
         t_eager = timer.eager_ms(run)
@@ -631,7 +641,8 @@ def qdecode_phase(k, dev, timer):
         b_ms, b_by = bound(nbytes, flops, str(dt).split(".")[-1])
         row = dict(kernel="qdecode", case=label, B=b, S=s, Hkv=hkv, G=g,
                    hd=hd, dtype=str(dt).split(".")[-1], positions=pos,
-                   max_abs_err=err, atol=INT8KV_ATOL, ms=t_k,
+                   max_abs_err=err, atol=INT8KV_ATOL, repeat_identical=True,
+                   ms=t_k,
                    eager_ms=t_eager, plain_ms=t_p, library_ms=t_lib,
                    library_dequant_ms=t_deq, library_max_abs_err=lib_err,
                    mbytes=nbytes / 1e6, bound_ms=b_ms, bound_by=b_by)
@@ -661,7 +672,7 @@ def paged_qdecode_phase(k, dev, timer):
         pools = (k_pool, k_scale, v_pool, v_scale)
         run = lambda: pa.paged_qdecode(q, *pools, tables, pos)  # noqa: E731
         plain = lambda: ref.paged_qdecode_ref(q, *pools, tables, pos)  # noqa: E731
-        got, want = run(), plain()
+        got, want, twice = run(), plain(), run()
         torch.cuda.synchronize()
         idle_nan = bool(got[~live].isnan().all()) and bool(
             want[~live].isnan().all())
@@ -670,6 +681,10 @@ def paged_qdecode_phase(k, dev, timer):
                 or not idle_nan:
             raise AssertionError(f"paged_qdecode ({label}): max |err| {err} "
                                  f"> {INT8KV_ATOL} or idle rows not 0/0")
+        if not (torch.equal(twice[live], got[live])
+                and torch.equal(twice.isnan(), got.isnan())):
+            raise AssertionError(f"paged_qdecode ({label}): two calls "
+                                 "differ")
         worst = max(worst, err)
         t_k = timer.graph_ms(run)
         t_eager = timer.eager_ms(run)
@@ -719,7 +734,8 @@ def paged_qdecode_phase(k, dev, timer):
                    pools="int8", positions=pos.tolist(),
                    valid_slots=n_valid, idle_rows=int((~live).sum()),
                    trash_nan_isolated=trash, max_abs_err=err,
-                   atol=INT8KV_ATOL, ms=t_k, eager_ms=t_eager, plain_ms=t_p,
+                   atol=INT8KV_ATOL, repeat_identical=True, ms=t_k,
+                   eager_ms=t_eager, plain_ms=t_p,
                    library_ms=t_lib, library_gather_ms=t_gather,
                    library_dequant_ms=t_deq, library_max_abs_err=lib_err,
                    mbytes=nbytes / 1e6, bound_ms=b_ms, bound_by=b_by)
@@ -1999,6 +2015,9 @@ def main() -> int:
          cuda=torch.version.cuda, build_s=build_s, ptxas=ptxas)
 
     timer = Timer(dev)
+    one = torch.zeros(1, device=dev)
+    emit("timer", floor_ms=timer.graph_ms(lambda: one.add_(1), iters=20),
+         what="one 1-element kernel timed as every kernel row is")
     heads = gemm_phase(k, dev, timer)
     heads["flash_prefill"] = flash_phase(k, dev, timer)
     heads["paged_decode"] = paged_phase(k, dev, timer)

@@ -1,35 +1,35 @@
-// The decode-attention tile loop shared by paged_attn.cu (paged_decode,
-// paged_qdecode, paged_q4decode) and qdecode.cu (qdecode): one query token
-// per sequence attends over its K/V rows with an f32 online softmax.
+// The one-block decode-attention tile loop of paged_attn.cu's fp and int4
+// pools (paged_decode, paged_q4decode; they replace the TPU kernels
+// repro/kernels/paged_attn.py::paged_decode_attention and
+// paged_q4decode_attention): one query token per sequence attends over its
+// K/V rows with an f32 online softmax. The int8 kernels (qdecode,
+// paged_qdecode) run decode_split.cuh's split-K loop instead. What bounds
+// the work is bytes (each valid K/V row read once), but this loop's time is
+// latency: each block walks its tiles in turn, table entry, then codes,
+// with five block barriers a tile; decode_split.cuh's design is the later
+// step for these pools too.
 //
 // One block of 128 threads owns one (sequence b, kv head h) and walks key
-// tiles of KT = 32 slots. A `Rows` policy says where slot k of sequence b
-// lives in the [rows, Hkv, hd] K/V storage (-1: masked, never read) and
-// what additive bias its score gets:
-//   PagedRows  block table + position: slot k is valid iff k <= pos[b] and
-//              its table entry is >= 0 (the TPU kernel's _slot_mask);
-//   DenseRows  row b * S + k of a dense cache, every slot read, plus the
-//              caller's additive bias [B, S] (the TPU qdecode kernel).
-// A tile's K and V rows arrive as 16-byte vectors (hd a multiple of
-// 16 / sizeof(TKV)), all of a thread's loads issued before any is stored,
-// and are unpacked to f32 in shared memory (K row stride hd + 1, so the
-// column-wise dot products do not conflict). For int8 storage (TKV =
-// int8_t) the per-(slot, head) f32 scales ride beside the codes: the K
-// scale multiplies the score after the dot, (q . k_codes) * k_s / sqrt(hd),
-// and the V scale is folded into the value row, code * v_s, as the TPU
-// kernels do. For int4 storage (TKV = kv_int4::q4_t, hd a multiple of 32)
-// one 16-byte vector holds the 32 codes of exactly one scale group; the
-// thread that loads it also loads that group's K and V f16 scales, from
-// the same row address and in the same batch of loads, and dequantizes K
-// and V as it unpacks them, code * s_g: the score is q . k / sqrt(hd) with
-// no scale after the dot, as the TPU int4 kernel computes it. Scores for
-// all G query heads go to shared memory, one warp
-// per query head updates the running max (seed -1e30) and normalizer, and
-// every thread owns up to 8 of the G x hd f32 accumulators. A masked slot
-// gets score -2e38 and value 0 and neither its codes nor its scales are
-// read, so whatever the trash block holds (NaN scales an idle slot wrote
-// there included) cannot reach the output. A row with no valid slot gives
-// l = 0 and 0/0 = NaN, as the TPU kernel does.
+// tiles of KT = 32 slots. PagedRows says where slot k of sequence b lives
+// in the [rows, Hkv, hd] K/V storage: through the block table and the
+// position, slot k is valid iff k <= pos[b] and its table entry is >= 0
+// (the TPU kernel's _slot_mask); -1 is masked and never read. A tile's K
+// and V rows arrive as 16-byte vectors (hd a multiple of 16 / sizeof(TKV)),
+// all of a thread's loads issued before any is stored, and are unpacked to
+// f32 in shared memory (K row stride hd + 1, so the column-wise dot
+// products do not conflict). For int4 storage (TKV = kv_int4::q4_t, hd a
+// multiple of 32) one 16-byte vector holds the 32 codes of exactly one
+// scale group; the thread that loads it also loads that group's K and V
+// f16 scales, from the same row address and in the same batch of loads,
+// and dequantizes K and V as it unpacks them, code * s_g: the score is
+// q . k / sqrt(hd), as the TPU int4 kernel computes it. Scores for all G
+// query heads go to shared memory, one warp per query head updates the
+// running max (seed -1e30) and normalizer, and every thread owns up to 8
+// of the G x hd f32 accumulators. A masked slot gets score -2e38 and value
+// 0 and neither its codes nor its scales are read, so whatever the trash
+// block holds (NaN scales an idle slot wrote there included) cannot reach
+// the output. A row with no valid slot gives l = 0 and 0/0 = NaN, as the
+// TPU kernel does.
 
 #pragma once
 
@@ -74,15 +74,6 @@ __device__ __forceinline__ void unpack(float* dst, uint4 u,
     dst[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
   }
 }
-__device__ __forceinline__ void unpack(float* dst, uint4 u, const int8_t*,
-                                       float sc) {
-  const unsigned w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i)             // element 4i + j is byte j
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      dst[4 * i + j] = (float)(int8_t)(w[i] >> (8 * j)) * sc;
-}
 __device__ __forceinline__ void unpack(float* dst, uint4 u,
                                        const kv_int4::q4_t*, float sc) {
   const unsigned w[4] = {u.x, u.y, u.z, u.w};
@@ -93,7 +84,6 @@ __device__ __forceinline__ void unpack(float* dst, uint4 u,
 }
 
 struct PagedRows {
-  static constexpr bool kBias = false;
   const int* tables;
   int M, bs, p;                         // p = pos[b], the write slot
   __device__ int n_keys() const { return p + 1 < M * bs ? p + 1 : M * bs; }
@@ -101,28 +91,17 @@ struct PagedRows {
     const int bid = tables[(long)b * M + k / bs];
     return bid >= 0 ? bid * bs + k % bs : -1;
   }
-  __device__ float bias(int, int) const { return 0.f; }
-};
-
-struct DenseRows {
-  static constexpr bool kBias = true;
-  const float* bias_;                   // [B, S]
-  int S;
-  __device__ int n_keys() const { return S; }
-  __device__ int row(int b, int k) const { return b * S + k; }
-  __device__ float bias(int b, int k) const { return bias_[(long)b * S + k]; }
 };
 
 // q [B,Hkv,G,hd]; k / v storage [rows, Hkv, hd] (int4: [rows, Hkv, hd / 2]
-// bytes); k_s / v_s: int8 storage [rows, Hkv] f32, int4 storage
-// [rows, Hkv, hd / 32] f16 (TS = __half), else unused; out [B,Hkv,G,hd] f32.
+// bytes); k_s / v_s: int4 storage [rows, Hkv, hd / 32] f16 (TS = __half),
+// else unused; out [B,Hkv,G,hd] f32.
 template <typename TQ, typename TKV, typename Rows, typename TS>
 __device__ __forceinline__ void attend(
     const TQ* __restrict__ q, const TKV* __restrict__ kp,
     const TS* __restrict__ ksp, const TKV* __restrict__ vp,
     const TS* __restrict__ vsp, const Rows& rows, float* __restrict__ out,
     int b, int h, int Hkv, int G, int hd) {
-  constexpr bool QUANT = std::is_same<TKV, int8_t>::value;
   constexpr bool Q4 = std::is_same<TKV, kv_int4::q4_t>::value;
   __shared__ float Qs[MAXG * MAXD];
   __shared__ float Ks[KT * (MAXD + 1)];
@@ -130,7 +109,6 @@ __device__ __forceinline__ void attend(
   __shared__ float Ps[MAXG * KT];
   __shared__ float m_s[MAXG], l_s[MAXG], alpha_s[MAXG];
   __shared__ int row_s[KT];
-  __shared__ float ksc_s[KT], vsc_s[KT], add_s[KT];
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   constexpr int SV = 16 / sizeof(TKV);    // stored elements per 16-byte load
@@ -159,19 +137,7 @@ __device__ __forceinline__ void attend(
     __syncthreads();                    // last tile's Ps / Vs reads are done
     if (tid < KT) {
       const int k = k0 + tid;
-      const int r = k < n_keys ? rows.row(b, k) : -1;
-      row_s[tid] = r;
-      float ksc = 0.f, vsc = 1.f, add = 0.f;
-      if (r >= 0) {
-        if constexpr (QUANT) {
-          ksc = ksp[(long)r * Hkv + h];
-          vsc = vsp[(long)r * Hkv + h];
-        }
-        if (Rows::kBias) add = rows.bias(b, k);
-      }
-      ksc_s[tid] = ksc;
-      vsc_s[tid] = vsc;
-      add_s[tid] = add;
+      row_s[tid] = k < n_keys ? rows.row(b, k) : -1;
     }
     __syncthreads();
     uint4 kr[MAXV], vr[MAXV];
@@ -205,7 +171,7 @@ __device__ __forceinline__ void attend(
       if (c < KT * vpr) {
         const int j = c / vpr, d0 = (c - j * vpr) * VN;
         unpack(Ks + j * ks + d0, kr[r], kp, Q4 ? kg[r] : 1.f);
-        unpack(Vs + j * hd + d0, vr[r], kp, Q4 ? vg[r] : vsc_s[j]);
+        unpack(Vs + j * hd + d0, vr[r], kp, Q4 ? vg[r] : 1.f);
       }
     }
     __syncthreads();
@@ -216,9 +182,7 @@ __device__ __forceinline__ void attend(
         float dot = 0.f;
         for (int d = 0; d < hd; ++d)
           dot = fmaf(Qs[g * hd + d], Ks[j * ks + d], dot);
-        if (QUANT) dot = dot * ksc_s[j];
         s = dot / scale;
-        if (Rows::kBias) s = s + add_s[j];
       }
       Ps[g * KT + j] = s;
     }

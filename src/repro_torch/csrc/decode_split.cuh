@@ -1,0 +1,484 @@
+// The split-K decode-attention loop over int8 K/V for Hopper (sm_90a),
+// shared by qdecode.cu (qdecode: a dense cache plus an additive bias) and
+// paged_attn.cu's paged_qdecode_fwd (block pools through a table). One
+// query token per sequence attends over its int8 K/V slots with an f32
+// online softmax; the fp and int4 pools keep decode_attn.cuh's loop.
+//
+// Grid (splits * Hkv, B) in clusters of `splits` CTAs along x: the
+// `splits` CTAs of one (sequence b, kv head h) each take an equal share of
+// that sequence's keys in whole tiles of KT slots (rank order along the
+// sequence; a late rank may get none) and keep a partial (m, l, acc[G, hd])
+// in shared memory. After one cluster barrier the rank-0 CTA merges the
+// partials in rank order through distributed shared memory and writes out;
+// a second barrier keeps the other CTAs, and so their shared memory, alive
+// until it has read them. No workspace, no second launch, no atomics: two
+// calls on the same inputs give the same bits. The host picks `splits`
+// (splits_for) from what it knows: S or M * bs, B * Hkv, and how many CTAs
+// of the kernel the card holds at once.
+//
+// Inside a CTA the four warps walk the share in steps of R = 32 / LPR
+// slots, step i going to warp i % 4. LPR lanes hold one slot row: lane l
+// loads the row's l-th vector of VL K and VL V codes (VL = 16, one
+// 16-byte load; VL = 8 where G > 4, so acc[G][VL] fits the registers;
+// lanes past hd / VL are masked, as hd 96 leaves two of eight), and the
+// same VL dims of q come from shared memory, stored so the lanes of a row
+// read consecutive float4s. Codes become f32 by a byte permute and a
+// subtraction (exact), not I2F. The row's dot is reduced with
+// __shfl_xor_sync, and each warp keeps its own online-softmax state: the
+// running max m[g] (warp-uniform, seeded at RUN_INIT = -1e30; l and acc
+// are rescaled only when it moves), and per lane the normalizer l[g] and
+// acc[g][VL] of its own dims. A step's loads are issued before the
+// previous step's math (a register double buffer), and the loop has no
+// block barrier: the table entries of the share are staged in shared
+// memory once before it (TAB_CAP entries at a time), beside q. The warps
+// merge once at the end of the share, the CTAs once per cluster.
+//
+// The arithmetic is the one-block kernel's: the K scale multiplies the
+// score after the dot, (q . k_codes) * k_s / sqrt(hd), plus the bias for
+// the dense cache, and the V scale is folded in per slot (p * v_s times
+// the codes), all in f32. A masked slot (a table entry of -1, or past
+// pos[b]) scores NEG_INF = -2e38 and neither its codes nor its scales are
+// read, so whatever the trash block holds cannot reach a live row. A CTA
+// or warp whose share holds no valid slot contributes m = -1e30, l = 0 and
+// acc = 0, never -inf, so the merge never computes exp(-inf - -inf). A
+// paged row with no valid slot gives l = 0 and 0/0 = NaN, as the TPU
+// kernel does. The dense kernel reads every slot of S.
+
+#pragma once
+
+#include <cooperative_groups.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace decode_split {
+
+namespace cg = cooperative_groups;
+
+constexpr int PT = 128;                 // threads per CTA
+constexpr int NW = PT / 32;             // warps per CTA
+constexpr int KT = 32;                  // key slots per tile: a share's unit
+constexpr int MAX_SPLITS = 8;           // CTAs per cluster (portable size)
+constexpr int MAXG = 8;                 // query heads per kv head
+constexpr int MAXD = 128;               // head dim
+constexpr int TAB_CAP = 512;            // table entries staged at once
+constexpr float NEG_INF = -2.0e38f;     // a masked slot's score
+constexpr float RUN_INIT = -1.0e30f;    // the running max's seed
+
+// int8 codes a lane holds of one K or V row: one 16-byte load, or one
+// 8-byte load where G > 4 (acc[G][codes] must fit the registers)
+__host__ __device__ constexpr int lane_codes(int gb) {
+  return gb > 4 ? 8 : 16;
+}
+
+// CTAs per (sequence, kv head): a power of two, at most one per tile of
+// the longest sequence the host can see (S, or M * bs), at most
+// MAX_SPLITS, and doubled only while all B * Hkv clusters stay resident at
+// once (`resident`: CTAs of the kernel the card holds)
+inline int splits_for(int n_keys_max, long pairs, long resident) {
+  int s = 1;
+  while (s < MAX_SPLITS && s * KT < n_keys_max && pairs * 2 * s <= resident)
+    s *= 2;
+  return s;
+}
+
+// CTAs of `kernel` resident on the current card at once
+template <class K>
+long resident_ctas(K kernel) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, PT, 0);
+  return (long)sms * (per_sm > 0 ? per_sm : 1);
+}
+
+// the compiled bound on G and lanes per slot row (a power of two >=
+// hd / lane_codes), the two template parameters of a launch
+inline int group_bound(int G) { return G == 1 ? 1 : (G <= 4 ? 4 : 8); }
+inline int lanes_per_row(int hd, int gb) {
+  const int v = hd / lane_codes(gb);
+  return v <= 2 ? 2 : (v <= 4 ? 4 : (v <= 8 ? 8 : 16));
+}
+
+// keys [k0, k1) of CTA `rank` of `splits`: equal shares of whole tiles
+__device__ __forceinline__ void share(int n_keys, int splits, int rank,
+                                      int& k0, int& k1) {
+  const int n = max(n_keys, 0);
+  const int tiles = (n + KT - 1) / KT;
+  const int per = (tiles + splits - 1) / splits;
+  k0 = min(rank * per * KT, n);
+  k1 = min(k0 + per * KT, n);
+}
+
+// A block table: slot k of the sequence lives in row tables[b, k / bs] *
+// bs + k % bs of the pools, and is valid iff k <= pos[b] (k < n_keys) and
+// its table entry is >= 0. bs = 1 << bs_shift divides KT.
+struct PagedRows {
+  static constexpr bool kBias = false;
+  static constexpr int kTab = TAB_CAP;
+  const int* tables;
+  int M, bs_shift, n_keys;              // n_keys = min(pos[b] + 1, M * bs)
+  __device__ int chunk() const { return TAB_CAP << bs_shift; }
+  // the table entries of slots [c0, c1) into tab; c0 is a multiple of bs
+  __device__ void stage(int* tab, int b, int c0, int c1) const {
+    const int e0 = c0 >> bs_shift, n = ((c1 - c0 - 1) >> bs_shift) + 1;
+    for (int i = threadIdx.x; i < n; i += PT)
+      tab[i] = __ldg(tables + (long)b * M + e0 + i);
+  }
+  __device__ int row(const int* tab, int, int c0, int k) const {
+    const int bid = tab[(k - c0) >> bs_shift];
+    return bid >= 0 ? (bid << bs_shift) + (k & ((1 << bs_shift) - 1)) : -1;
+  }
+  __device__ float bias(int, int) const { return 0.f; }
+};
+
+// A dense cache: slot k is row b * S + k, every slot read, plus the
+// caller's additive bias [B, S].
+struct DenseRows {
+  static constexpr bool kBias = true;
+  static constexpr int kTab = 1;
+  const float* bias_;
+  int S, n_keys;                        // n_keys = S
+  __device__ int chunk() const { return S; }
+  __device__ void stage(int*, int, int, int) const {}
+  __device__ int row(const int*, int b, int, int k) const {
+    return b * S + k;
+  }
+  __device__ float bias(int b, int k) const {
+    return __ldg(bias_ + (long)b * S + k);
+  }
+};
+
+template <int VL> struct CodeVec;       // one load of VL int8 codes
+template <> struct CodeVec<16> { using T = uint4; };
+template <> struct CodeVec<8> { using T = uint2; };
+
+// Element 4i + j is byte j of word i. A code c becomes f32 without I2F
+// (16 results per clock per SM, as slow as the bytes here): byte c + 128
+// is put under the exponent of 2^23 by one byte permute, and 2^23 + 128 is
+// taken off; both steps are exact.
+__device__ __forceinline__ void unpack_word(float* f, unsigned w) {
+  const unsigned x = w ^ 0x80808080u;
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    f[j] = __int_as_float(__byte_perm(x, 0x4B000000u, 0x7440u + j)) -
+           8388736.f;
+}
+__device__ __forceinline__ void unpack(float (&f)[16], uint4 u) {
+  unpack_word(f, u.x);
+  unpack_word(f + 4, u.y);
+  unpack_word(f + 8, u.z);
+  unpack_word(f + 12, u.w);
+}
+__device__ __forceinline__ void unpack(float (&f)[8], uint2 u) {
+  unpack_word(f, u.x);
+  unpack_word(f + 4, u.y);
+}
+
+// a lane's part of one slot row: its VL K and VL V codes and the scales
+template <int VL>
+struct Slot {
+  typename CodeVec<VL>::T k, v;
+  float ks, vs, add;
+  bool on;                              // a valid slot (codes were read)
+};
+
+template <int LPR, int VL, class Rows>
+__device__ __forceinline__ Slot<VL> fetch(
+    const int8_t* __restrict__ kp, const float* __restrict__ ksp,
+    const int8_t* __restrict__ vp, const float* __restrict__ vsp,
+    const Rows& rows, const int* tab, int b, int h, int Hkv, int hd, int c0,
+    int c1, int step, int rg, int l) {
+  using T = typename CodeVec<VL>::T;
+  Slot<VL> s;
+  s.k = T{};
+  s.v = T{};
+  s.ks = 0.f;
+  s.vs = 0.f;
+  s.add = 0.f;
+  const int k = c0 + step * (32 / LPR) + rg;
+  const int row = k < c1 ? rows.row(tab, b, c0, k) : -1;
+  s.on = row >= 0;
+  if (s.on) {
+    const long e = (long)row * Hkv + h;
+    if (l * VL < hd) {
+      s.k = __ldg(reinterpret_cast<const T*>(kp + e * hd) + l);
+      s.v = __ldg(reinterpret_cast<const T*>(vp + e * hd) + l);
+    }
+    s.ks = __ldg(ksp + e);
+    s.vs = __ldg(vsp + e);
+    if (Rows::kBias) s.add = rows.bias(b, k);
+  }
+  return s;
+}
+
+// one step of a warp: 32 / LPR slot rows, one per group of LPR lanes
+template <int LPR, int VL, int GB, bool BIAS>
+__device__ __forceinline__ void consume(const Slot<VL>& s, const float* qs,
+                                        int G, int l, float scale,
+                                        float (&m)[GB], float (&lsum)[GB],
+                                        float (&acc)[GB][VL]) {
+  constexpr int QW = LPR * VL;            // q floats per head in qs
+  float kf[VL], vf[VL];
+  unpack(kf, s.k);
+  unpack(vf, s.v);
+#pragma unroll
+  for (int g = 0; g < GB; ++g) {
+    if (GB > 1 && g >= G) break;
+    const float4* q4 = reinterpret_cast<const float4*>(qs + g * QW) + l;
+    float dot = 0.f;
+#pragma unroll
+    for (int i = 0; i < VL / 4; ++i) {
+      const float4 qq = q4[i * LPR];
+      dot = fmaf(qq.x, kf[4 * i], dot);
+      dot = fmaf(qq.y, kf[4 * i + 1], dot);
+      dot = fmaf(qq.z, kf[4 * i + 2], dot);
+      dot = fmaf(qq.w, kf[4 * i + 3], dot);
+    }
+#pragma unroll
+    for (int o = 1; o < LPR; o <<= 1)
+      dot += __shfl_xor_sync(0xffffffffu, dot, o);
+    float sc = NEG_INF;
+    if (s.on) {
+      sc = dot * s.ks / scale;
+      if (BIAS) sc = sc + s.add;
+    }
+    float mx = sc;
+#pragma unroll
+    for (int o = LPR; o < 32; o <<= 1)
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+    if (mx > m[g]) {                      // warp-uniform: the max moved
+      const float alpha = expf(m[g] - mx);
+      lsum[g] *= alpha;
+#pragma unroll
+      for (int c = 0; c < VL; ++c) acc[g][c] *= alpha;
+      m[g] = mx;
+    }
+    const float p = expf(sc - m[g]);
+    lsum[g] += p;
+    const float pv = p * s.vs;
+#pragma unroll
+    for (int c = 0; c < VL; ++c) acc[g][c] = fmaf(pv, vf[c], acc[g][c]);
+  }
+}
+
+// the kv head of this CTA's cluster (blockIdx.y is the sequence)
+__device__ __forceinline__ int cluster_head(int Hkv) {
+  return blockIdx.x / (gridDim.x / Hkv);
+}
+
+// q [B,Hkv,G,hd] f32 (q_bf16 = 0) or bf16; k / v codes [rows, Hkv, hd]
+// int8 and k_s / v_s [rows, Hkv] f32, rows as `Rows` says; out
+// [B,Hkv,G,hd] f32. Called by every thread of every CTA of the cluster.
+template <int LPR, int GB, class Rows>
+__device__ __forceinline__ void attend(
+    const void* __restrict__ q, int q_bf16, const int8_t* __restrict__ kp,
+    const float* __restrict__ ksp, const int8_t* __restrict__ vp,
+    const float* __restrict__ vsp, const Rows& rows, float* __restrict__ out,
+    int b, int h, int Hkv, int G, int hd) {
+  constexpr int VL = lane_codes(GB);
+  constexpr int R = 32 / LPR;             // slot rows per warp step
+  constexpr int QW = LPR * VL;
+  static_assert(QW <= MAXD && GB <= MAXG, "compiled bounds");
+  __shared__ __align__(16) float qs[GB * QW];   // q; then the CTA partial
+  __shared__ __align__(16) float wacc[NW][GB * MAXD];
+  __shared__ float wm[NW][GB], wl[NW][GB];
+  __shared__ float pm[GB], pl[GB];
+  __shared__ int tab[Rows::kTab];
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int splits = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int rg = lane / LPR, l = lane % LPR;
+  const long head = (long)b * Hkv + h;
+  const float scale = sqrtf((float)hd);
+
+  int k0, k1;
+  share(rows.n_keys, splits, rank, k0, k1);
+  const int chunk = rows.chunk();
+  int c1 = min(k0 + chunk, k1);
+  // the first chunk's table entries, and a dense cache's first codes, are
+  // in flight while q is staged
+  if (k0 < k1) rows.stage(tab, b, k0, c1);
+  Slot<VL> cur;
+  if (Rows::kTab == 1)
+    cur = fetch<LPR, VL>(kp, ksp, vp, vsp, rows, tab, b, h, Hkv, hd, k0, c1,
+                         warp, rg, l);
+
+  // qs[g][(i * LPR + l) * 4 + c] = q[g][l * VL + i * 4 + c]: the lanes of a
+  // row read consecutive float4s, and the rows of a warp the same ones
+  for (int o = tid; o < GB * QW; o += PT) {
+    const int g = o / QW, f = (o - g * QW) >> 2, c = o & 3;
+    const int d = (f % LPR) * VL + (f / LPR) * 4 + c;
+    float v = 0.f;
+    if (g < G && d < hd) {
+      const long i = (head * G + g) * hd + d;
+      v = q_bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(q)[i])
+                 : static_cast<const float*>(q)[i];
+    }
+    qs[o] = v;
+  }
+
+  float m[GB], lsum[GB], acc[GB][VL];
+#pragma unroll
+  for (int g = 0; g < GB; ++g) {
+    m[g] = RUN_INIT;
+    lsum[g] = 0.f;
+#pragma unroll
+    for (int c = 0; c < VL; ++c) acc[g][c] = 0.f;
+  }
+  __syncthreads();                        // qs and the first entries
+
+  for (int c0 = k0; c0 < k1; c0 += chunk, c1 = min(c0 + chunk, k1)) {
+    if (c0 != k0) {                       // CTA-uniform: shares > TAB_CAP
+      __syncthreads();                    // entries, paged only
+      rows.stage(tab, b, c0, c1);
+      __syncthreads();
+    }
+    if (Rows::kTab > 1 || c0 != k0)
+      cur = fetch<LPR, VL>(kp, ksp, vp, vsp, rows, tab, b, h, Hkv, hd, c0,
+                           c1, warp, rg, l);
+    const int n_steps = (c1 - c0 + R - 1) / R;
+    for (int st = warp; st < n_steps; st += NW) {
+      Slot<VL> nxt = cur;
+      if (st + NW < n_steps)              // in flight during this step's math
+        nxt = fetch<LPR, VL>(kp, ksp, vp, vsp, rows, tab, b, h, Hkv, hd, c0,
+                             c1, st + NW, rg, l);
+      consume<LPR, VL, GB, Rows::kBias>(cur, qs, G, l, scale, m, lsum, acc);
+      cur = nxt;
+    }
+  }
+
+  // the warp's rows merge: m is warp-uniform, l and acc are summed over the
+  // row groups; row group 0 holds the result
+#pragma unroll
+  for (int g = 0; g < GB; ++g) {
+#pragma unroll
+    for (int o = LPR; o < 32; o <<= 1) {
+      lsum[g] += __shfl_xor_sync(0xffffffffu, lsum[g], o);
+#pragma unroll
+      for (int c = 0; c < VL; ++c)
+        acc[g][c] += __shfl_xor_sync(0xffffffffu, acc[g][c], o);
+    }
+  }
+  if (lane < LPR && lane * VL < hd) {
+#pragma unroll
+    for (int g = 0; g < GB; ++g) {
+      if (g < G) {
+        float4* dst =
+            reinterpret_cast<float4*>(&wacc[warp][g * MAXD + lane * VL]);
+#pragma unroll
+        for (int i = 0; i < VL / 4; ++i)
+          dst[i] = make_float4(acc[g][4 * i], acc[g][4 * i + 1],
+                               acc[g][4 * i + 2], acc[g][4 * i + 3]);
+      }
+    }
+  }
+  if (lane == 0) {
+#pragma unroll
+    for (int g = 0; g < GB; ++g) {
+      wm[warp][g] = m[g];
+      wl[warp][g] = lsum[g];
+    }
+  }
+  __syncthreads();
+
+  // the CTA's partial, in warp order, over q's storage
+  float* part = qs;
+  for (int o = tid; o < G * hd; o += PT) {
+    const int g = o / hd, d = o - g * hd;
+    float mx = wm[0][g];
+#pragma unroll
+    for (int w = 1; w < NW; ++w) mx = fmaxf(mx, wm[w][g]);
+    float ls = 0.f, a = 0.f;
+#pragma unroll
+    for (int w = 0; w < NW; ++w) {
+      const float f = expf(wm[w][g] - mx);
+      ls = fmaf(wl[w][g], f, ls);
+      a = fmaf(wacc[w][g * MAXD + d], f, a);
+    }
+    part[o] = a;
+    if (d == 0) {
+      pm[g] = mx;
+      pl[g] = ls;
+    }
+  }
+  cluster.sync();                         // every partial is written
+
+  // rank 0 merges the cluster's partials in rank order, reading each
+  // rank's (m, l, acc) in one round of remote loads
+  if (rank == 0) {
+    for (int o = tid; o < G * hd; o += PT) {
+      const int g = o / hd;
+      float rm[MAX_SPLITS], rl[MAX_SPLITS], ra[MAX_SPLITS];
+#pragma unroll
+      for (int r = 0; r < MAX_SPLITS; ++r) {
+        if (r < splits) {
+          rm[r] = *cluster.map_shared_rank(pm + g, r);
+          rl[r] = *cluster.map_shared_rank(pl + g, r);
+          ra[r] = *cluster.map_shared_rank(part + o, r);
+        }
+      }
+      float mx = RUN_INIT;
+#pragma unroll
+      for (int r = 0; r < MAX_SPLITS; ++r)
+        if (r < splits) mx = fmaxf(mx, rm[r]);
+      float ls = 0.f, a = 0.f;
+#pragma unroll
+      for (int r = 0; r < MAX_SPLITS; ++r) {
+        if (r < splits) {
+          const float f = expf(rm[r] - mx);
+          ls = fmaf(rl[r], f, ls);
+          a = fmaf(ra[r], f, a);
+        }
+      }
+      out[head * G * hd + o] = a / ls;
+    }
+  }
+  cluster.sync();                         // rank 0 has read every partial
+}
+
+// Launch `kernel` on the grid (splits * Hkv, B) in clusters of `splits`
+// CTAs along x; a cluster that cannot be scheduled is refused here.
+template <typename... KArgs, typename... AArgs>
+int launch(void (*kernel)(KArgs...), int splits, int Hkv, int B,
+           cudaStream_t stream, AArgs&&... args) {
+  while (splits > 1 && (long)splits * Hkv > 0x7fffffffL) splits /= 2;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(splits * Hkv, B);
+  cfg.blockDim = dim3(PT);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = splits;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, args...);
+  return (int)(e != cudaSuccess ? e : cudaGetLastError());
+}
+
+// go.template run<LPR, GB>() for the compiled pair that serves (hd, G)
+template <class Go>
+int dispatch(const Go& go, int hd, int G) {
+  const int gb = group_bound(G), lpr = lanes_per_row(hd, gb);
+  if (gb == 1) {
+    if (lpr == 2) return go.template run<2, 1>();
+    if (lpr == 4) return go.template run<4, 1>();
+    return go.template run<8, 1>();
+  }
+  if (gb == 4) {
+    if (lpr == 2) return go.template run<2, 4>();
+    if (lpr == 4) return go.template run<4, 4>();
+    return go.template run<8, 4>();
+  }
+  if (lpr == 2) return go.template run<2, 8>();
+  if (lpr == 4) return go.template run<4, 8>();
+  if (lpr == 8) return go.template run<8, 8>();
+  return go.template run<16, 8>();
+}
+
+}  // namespace decode_split

@@ -20,32 +20,41 @@
 // The TPU kernel's grid is (B, Hkv, M): the table rides the scalar-
 // prefetch path and the index map DMAs block tables[b, m] at step m, with
 // the running max / normalizer / accumulator in VMEM across the sequential
-// m axis. Here one block of 128 threads owns one (b, kv head) and loops
-// over key tiles of 32 slots (32 / bs table entries each) up to pos[b];
-// the thread of slot j reads its table entry (the prefetch becomes a plain
-// indexed load) and, for int8 pools, the slot's K and V scales; for int4
-// pools each thread that loads a 16-byte vector of 32 codes loads its
-// group's two f16 scales from the same row address in the same batch of
-// loads (no second dependent load per tile), and K is dequantized before
-// the dot, as the TPU int4 kernel does. The tile loop is decode_attn.cuh's
-// (PagedRows): masked slots are never read, so NaN scales or codes that an
-// idle slot wrote into the trash block cannot reach a live row, and an
-// idle row (no valid slot) is 0/0 = NaN, as the TPU kernel gives.
+// m axis. Two loops replace it here.
+//
+// int8 pools (paged_qdecode_fwd): decode_split.cuh's split-K loop
+// (PagedRows). A cluster of up to 8 CTAs per (b, kv head) reads pos[b],
+// splits the sequence's pos[b] + 1 slots into equal shares of 32-slot
+// tiles, stages its share's table entries in shared memory once, and its
+// warps walk their slots with the next step's codes and scales in flight
+// and no block barrier; rank 0 merges the partials through distributed
+// shared memory, in rank order.
+//
+// fp and int4 pools (paged_decode_fwd, paged_q4decode_fwd): decode_attn.cuh
+// (PagedRows). One block of 128 threads owns one (b, kv head) and loops
+// over key tiles of 32 slots (32 / bs table entries each) up to pos[b]; the
+// thread of slot j reads its table entry; for int4 pools each thread that
+// loads a 16-byte vector of 32 codes loads its group's two f16 scales from
+// the same row address in the same batch of loads, and K is dequantized
+// before the dot, as the TPU int4 kernel does.
+//
+// Both loops never read a masked slot, so NaN scales or codes that an idle
+// slot wrote into the trash block cannot reach a live row, and an idle row
+// (no valid slot) is 0/0 = NaN, as the TPU kernel gives.
 //
 // What bounds it on the H100: bytes. Each valid K/V row is read once
 // (2 * hd * itemsize per slot per kv head, plus 8 bytes of scales for
 // int8); q, tables and out are small. At the stablelm-1.6b engine shape
 // (B8 Hkv32 G1 hd64 bs16, ~2450 valid slots) that is ~20 MB for bf16 pools
 // (~6 us at 3.35 TB/s), ~10.7 MB for int8 (~3.2 us) and ~5.8 MB for int4
-// (~1.7 us). This version has no copy pipeline: each thread issues all its
-// 16-byte loads of a tile at once (8 bf16, 16 int8 or 32 int4 elements
-// each; hd a multiple of 8, of 16 for int8 and of 32 for int4), but the
-// tile's math waits for them, and blocks of other (b, head) pairs on the
-// same SM hide part of that latency. Split-K over the table
-// (flash-decoding), cp.async/TMA prefetch of the next tile and tensor
-// cores are later work.
+// (~1.7 us). The one-block loop's time is latency: each block walks its
+// tiles in turn, table entry, then scales, then codes, with no copy
+// pipeline; the split loop spreads a sequence over up to 8 CTAs and keeps
+// the next step's loads in flight. Moving the fp and int4 pools onto it is
+// later work.
 
 #include "decode_attn.cuh"
+#include "decode_split.cuh"
 
 namespace {
 
@@ -90,6 +99,50 @@ int launch_q(int q_dtype, const void* q, const void* k, const TS* ks,
   return (int)cudaErrorInvalidValue;
 }
 
+namespace ds = decode_split;
+
+template <int LPR, int GB>
+__global__ void __launch_bounds__(ds::PT)
+paged_qdecode_split(const void* __restrict__ q, int q_bf16,
+                    const int8_t* __restrict__ kp,
+                    const float* __restrict__ ksp,
+                    const int8_t* __restrict__ vp,
+                    const float* __restrict__ vsp,
+                    const int* __restrict__ tables,
+                    const int* __restrict__ pos, float* __restrict__ out,
+                    int M, int bs_shift, int Hkv, int G, int hd) {
+  const int h = ds::cluster_head(Hkv), b = blockIdx.y;
+  const ds::PagedRows rows{tables, M, bs_shift,
+                           min(pos[b] + 1, M << bs_shift)};
+  ds::attend<LPR, GB>(q, q_bf16, kp, ksp, vp, vsp, rows, out, b, h, Hkv, G,
+                      hd);
+}
+
+struct GoPagedQ {
+  const void* q;
+  int q_bf16;
+  const int8_t* kp;
+  const float* ksp;
+  const int8_t* vp;
+  const float* vsp;
+  const int* tables;
+  const int* pos;
+  float* out;
+  int B, M, bs, Hkv, G, hd;
+  cudaStream_t stream;
+  template <int LPR, int GB>
+  int run() const {
+    static const long resident =
+        ds::resident_ctas(&paged_qdecode_split<LPR, GB>);
+    int shift = 0;
+    while ((1 << shift) < bs) ++shift;
+    return ds::launch(&paged_qdecode_split<LPR, GB>,
+                      ds::splits_for(M * bs, (long)B * Hkv, resident), Hkv,
+                      B, stream, q, q_bf16, kp, ksp, vp, vsp, tables, pos,
+                      out, M, shift, Hkv, G, hd);
+  }
+};
+
 bool bad_shape(int B, int M, int bs, int Hkv, int G, int hd, int vec) {
   return B <= 0 || B > 65535 || M <= 0 || bs <= 0 || KT % bs || Hkv <= 0 ||
          G < 1 || G > MAXG || hd < vec || hd > MAXD || hd % vec;
@@ -125,16 +178,19 @@ int paged_decode_fwd(const void* q, int q_dtype, const void* k_pool,
 }
 
 // As paged_decode_fwd over int8 pools [N,bs,Hkv,hd] with f32 scale pools
-// k_scale / v_scale [N,bs,Hkv]; hd must be a multiple of 16.
+// k_scale / v_scale [N,bs,Hkv]; hd must be a multiple of 16. One launch of
+// the split-K loop (decode_split.cuh).
 int paged_qdecode_fwd(const void* q, int q_dtype, const int8_t* k_pool,
                       const float* k_scale, const int8_t* v_pool,
                       const float* v_scale, const int* tables,
                       const int* pos, float* out, int B, int M, int bs,
                       int Hkv, int G, int hd, void* stream) {
-  if (bad_shape(B, M, bs, Hkv, G, hd, 16)) return (int)cudaErrorInvalidValue;
-  return launch_q<int8_t, float>(q_dtype, q, k_pool, k_scale, v_pool,
-                                 v_scale, tables, pos, out, B, M, bs, Hkv, G,
-                                 hd, static_cast<cudaStream_t>(stream));
+  if (bad_shape(B, M, bs, Hkv, G, hd, 16) || (q_dtype != 0 && q_dtype != 1))
+    return (int)cudaErrorInvalidValue;
+  const GoPagedQ go{q,   q_dtype, k_pool, k_scale, v_pool, v_scale, tables,
+                    pos, out,     B,      M,       bs,     Hkv,     G,
+                    hd,  static_cast<cudaStream_t>(stream)};
+  return ds::dispatch(go, hd, G);
 }
 
 // As paged_decode_fwd over int4 pools [N,bs,Hkv,hd/2] (two codes per

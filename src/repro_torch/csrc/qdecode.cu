@@ -10,49 +10,62 @@
 //   [B,S,Hkv] f32; bias [B,S] f32 (0 or -2e38); out [B,Hkv,G,hd] f32.
 //
 // The TPU kernel stages the whole [S, hd] panel of one (b, kv head) in
-// VMEM and takes a full-row softmax. A Hopper block cannot hold that for
-// long caches, so one block of 128 threads per (b, kv head) walks S in
-// 32-slot tiles with an f32 online softmax (running max seeded at -1e30):
-// the same function on every row that has an unmasked slot, which every
-// decode row has (slot 0 <= pos). The tile loop is decode_attn.cuh's
-// (DenseRows): paged_attn.cu's with an identity table and the additive
-// bias in place of the position mask; the k scale multiplies the score
-// after the dot and the v scale is folded into the value row.
+// VMEM and takes a full-row softmax. Here the loop is decode_split.cuh's
+// (DenseRows): a cluster of up to 8 CTAs per (b, kv head) splits S into
+// equal shares of 32-slot tiles, each CTA's warps walk their slots with an
+// f32 online softmax (running max seeded at -1e30) and no block barrier,
+// and rank 0 merges the partials through distributed shared memory: the
+// same function on every row that has an unmasked slot, which every
+// decode row has (slot 0 <= pos). The k scale multiplies the score after
+// the dot and the v scale is folded in per slot.
 //
 // What bounds it on the H100: bytes. Every slot's codes and scales are
 // read once: at the dense-engine shape (B8 S512 Hkv32 G1 hd64) 16.8 MB of
-// codes, 1.05 MB of scales and 16 KB of bias, ~5.3 us at 3.35 TB/s. Each
-// thread issues its 16-byte loads (16 codes each) of a tile at once, but
-// the tile's math waits for them and each block walks its S / 32 tiles in
-// turn, so one block's serial walk, not bytes, sets the time: split-K over
-// S (flash-decoding) and a cp.async/TMA pipeline are later work.
+// codes, 1.05 MB of scales and 16 KB of bias, ~5.3 us at 3.35 TB/s. The
+// one-block-per-(b, kv head) loop this replaces walked S / 32 tiles in
+// turn, three dependent round trips each: its time was latency, ~60 us
+// at B1 and B8 alike. The split spreads each sequence over up to 8 SMs'
+// CTAs, and each warp keeps its next step's loads in flight.
 
-#include "decode_attn.cuh"
+#include "decode_split.cuh"
 
 namespace {
 
-using namespace decode_attn;
+namespace ds = decode_split;
 
-template <typename TQ>
-__global__ void __launch_bounds__(PT)
-qdecode_attend(const TQ* __restrict__ q, const int8_t* __restrict__ kq,
-               const float* __restrict__ ks, const int8_t* __restrict__ vq,
-               const float* __restrict__ vs, const float* __restrict__ bias,
-               float* __restrict__ out, int S, int Hkv, int G, int hd) {
-  const int h = blockIdx.x, b = blockIdx.y;
-  const DenseRows rows{bias, S};
-  attend<TQ, int8_t>(q, kq, ks, vq, vs, rows, out, b, h, Hkv, G, hd);
+template <int LPR, int GB>
+__global__ void __launch_bounds__(ds::PT)
+qdecode_split(const void* __restrict__ q, int q_bf16,
+              const int8_t* __restrict__ kq, const float* __restrict__ ks,
+              const int8_t* __restrict__ vq, const float* __restrict__ vs,
+              const float* __restrict__ bias, float* __restrict__ out, int S,
+              int Hkv, int G, int hd) {
+  const int h = ds::cluster_head(Hkv), b = blockIdx.y;
+  const ds::DenseRows rows{bias, S, S};
+  ds::attend<LPR, GB>(q, q_bf16, kq, ks, vq, vs, rows, out, b, h, Hkv, G,
+                      hd);
 }
 
-template <typename TQ>
-int launch(const void* q, const int8_t* kq, const float* ks,
-           const int8_t* vq, const float* vs, const float* bias, float* out,
-           int B, int S, int Hkv, int G, int hd, cudaStream_t stream) {
-  const dim3 grid(Hkv, B);
-  qdecode_attend<TQ><<<grid, PT, 0, stream>>>(
-      static_cast<const TQ*>(q), kq, ks, vq, vs, bias, out, S, Hkv, G, hd);
-  return (int)cudaGetLastError();
-}
+struct Go {
+  const void* q;
+  int q_bf16;
+  const int8_t* kq;
+  const float* ks;
+  const int8_t* vq;
+  const float* vs;
+  const float* bias;
+  float* out;
+  int B, S, Hkv, G, hd;
+  cudaStream_t stream;
+  template <int LPR, int GB>
+  int run() const {
+    static const long resident = ds::resident_ctas(&qdecode_split<LPR, GB>);
+    return ds::launch(&qdecode_split<LPR, GB>,
+                      ds::splits_for(S, (long)B * Hkv, resident), Hkv, B,
+                      stream, q, q_bf16, kq, ks, vq, vs, bias, out, S, Hkv,
+                      G, hd);
+  }
+};
 
 }  // namespace
 
@@ -71,15 +84,12 @@ int qdecode_fwd(const void* q, int q_dtype, const int8_t* k, const float* k_s,
                 float* out, int B, int S, int Hkv, int G, int hd,
                 void* stream) {
   if (B <= 0 || B > 65535 || S <= 0 || (long)B * S >= (1L << 31) ||
-      Hkv <= 0 || G < 1 || G > MAXG || hd < 16 || hd > MAXD || hd % 16)
+      Hkv <= 0 || G < 1 || G > ds::MAXG || hd < 16 || hd > ds::MAXD ||
+      hd % 16 || (q_dtype != 0 && q_dtype != 1))
     return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (q_dtype == 0)
-    return launch<float>(q, k, k_s, v, v_s, bias, out, B, S, Hkv, G, hd, s);
-  if (q_dtype == 1)
-    return launch<__nv_bfloat16>(q, k, k_s, v, v_s, bias, out, B, S, Hkv, G,
-                                 hd, s);
-  return (int)cudaErrorInvalidValue;
+  const Go go{q, q_dtype, k, k_s, v, v_s, bias, out, B, S, Hkv, G, hd,
+              static_cast<cudaStream_t>(stream)};
+  return ds::dispatch(go, hd, G);
 }
 
 }  // extern "C"

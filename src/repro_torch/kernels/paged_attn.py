@@ -6,20 +6,29 @@
 Source note. The TPU kernel walks the grid (B, Hkv, M) with the block table
 in scalar prefetch, so its index map DMAs pool block ``tables[b, m]`` at
 step m, and carries the online-softmax state in VMEM across the sequential
-m axis. On the H100 (``csrc/paged_attn.cu``) one block owns one
-(sequence, kv head), reads the table entries itself and loops over 32-slot
-key tiles up to ``pos[b]``, keeping the running max, normalizer and the
-G x hd accumulator in f32; masked slots are never read. For int8 pools the
-thread of each slot also reads its K and V scales, the K scale multiplies
-the score after the dot and the V scale is folded into the value row, as
-the TPU kernel does (``csrc/decode_attn.cuh`` holds the loop). For int4
-pools each 16-byte load holds the 32 codes of one scale group, the thread
-that issues it also loads that group's two f16 scales in the same batch,
-and K and V are dequantized as they are unpacked, before the dot, as the
-TPU int4 kernel does. It is bound by the bytes of the valid K/V rows: at
-stablelm-1.6b width, eight sequences averaging ~300 positions read ~20 MB
-per layer from bf16 pools (~6 us at 3.35 TB/s), ~10.7 MB from int8 pools
-with their scales (~3.2 us) and ~5.8 MB from int4 pools (~1.7 us).
+m axis. On the H100 (``csrc/paged_attn.cu``) masked slots are never read,
+and the running max, normalizer and G x hd accumulator stay in f32.
+
+* int8 pools (``csrc/decode_split.cuh``): one launch runs a cluster of up
+  to 8 CTAs per (sequence, kv head); each reads ``pos[b]``, takes an equal
+  share of the sequence's slots in 32-slot tiles and stages its share's
+  table entries in shared memory once; its warps walk their slots with the
+  next step's codes and scales in flight and no block barrier; the rank-0
+  CTA merges the partials through distributed shared memory, in rank
+  order. The K scale multiplies the score after the dot and the V scale is
+  folded in per slot, as the TPU kernel does.
+* fp and int4 pools (``csrc/decode_attn.cuh``): one block owns one
+  (sequence, kv head), reads the table entries itself and loops over
+  32-slot key tiles up to ``pos[b]``. For int4 pools each 16-byte load
+  holds the 32 codes of one scale group, the thread that issues it also
+  loads that group's two f16 scales in the same batch, and K and V are
+  dequantized as they are unpacked, before the dot, as the TPU int4 kernel
+  does.
+
+Each is bound by the bytes of the valid K/V rows: at stablelm-1.6b width,
+eight sequences averaging ~300 positions read ~20 MB per layer from bf16
+pools (~6 us at 3.35 TB/s), ~10.7 MB from int8 pools with their scales
+(~3.2 us) and ~5.8 MB from int4 pools (~1.7 us).
 """
 from __future__ import annotations
 

@@ -4,13 +4,15 @@
 Source note. The TPU kernel stages one (batch, kv head)'s whole ``[S, hd]``
 int8 K/V panel in VMEM, folds the K scales into the scores after the dot
 and the V scales into the probabilities, and takes a full-row softmax under
-an additive bias. On the H100 (``csrc/qdecode.cu``) one block per
-(sequence, kv head) walks S in 32-slot tiles with an f32 online softmax:
-the paged kernel's tile loop (``csrc/decode_attn.cuh``) with an identity
-table and the bias in place of the position mask. It is bound by the bytes
-of the codes and scales: at the dense engine's shape (B8 S512 Hkv32 hd64)
-~17.9 MB, ~5.3 us at 3.35 TB/s; one block's serial walk over S / 32 tiles
-sets its time until the walk is split across blocks.
+an additive bias. On the H100 (``csrc/qdecode.cu``, loop in
+``csrc/decode_split.cuh``) one launch runs a cluster of up to 8 CTAs per
+(sequence, kv head): each CTA takes an equal share of S in 32-slot tiles,
+its warps walk their slots with an f32 online softmax, the next step's
+codes and scales in flight and no block barrier, and the rank-0 CTA merges
+the partials through distributed shared memory in rank order (no
+workspace, no atomics: repeated calls give the same bits). It is bound by
+the bytes of the codes and scales: at the dense engine's shape (B8 S512
+Hkv32 hd64) ~17.9 MB, ~5.3 us at 3.35 TB/s.
 """
 from __future__ import annotations
 

@@ -181,13 +181,22 @@ def _positions(b, seed):
 
 
 # (b, hkv, g, hd, bs, m, n, pos): stablelm-1.6b engine shape; mistral-nemo
-# width; one sequence at the last slot; small blocks; an idle row
+# width; one sequence at the last slot; small blocks; an idle row; then
+# the split-K edges of the int8 kernel: blocks of 1 slot (a 600-entry
+# table) and of 32, positions one before, at and after a share boundary
+# (n_keys 64, 65, 66, 256, 257, 258: shares of 32 and 64 slots at 8
+# splits), G 8 at hd 128 and phi-3-vision's hd 96 with an idle row
 PAGED_CASES = {
     "stablelm": (8, 32, 1, 64, 16, 32, 257, _positions(8, 0)),
     "nemo": (8, 8, 4, 128, 16, 32, 257, _positions(8, 1)),
     "b1": (1, 32, 1, 64, 16, 32, 33, [511]),
     "bs8": (3, 4, 8, 32, 8, 8, 25, [63, 7, 30]),
     "idle": (4, 8, 2, 64, 32, 4, 17, [100, -1, 31, 127]),
+    "bs1": (2, 4, 1, 64, 1, 600, 1300, [599, 40]),
+    "bs32": (3, 8, 2, 64, 32, 16, 60, [511, 32, 31]),
+    "share_edges": (6, 4, 1, 64, 16, 32, 120, [63, 64, 65, 255, 256, 257]),
+    "g8": (2, 4, 8, 128, 16, 32, 70, [300, 511]),
+    "hd96": (4, 8, 1, 96, 16, 40, 170, [578, 100, -1, 33]),
 }
 
 
@@ -228,18 +237,30 @@ def _scales(gen, shape):
     return (torch.rand(shape, generator=gen) + 0.5) / 127
 
 
-# (b, s, hkv, g, hd): the stablelm-1.6b dense-engine shape; mistral-nemo
-# width with a ragged S
-QDECODE_CASES = {"stablelm": (8, 512, 32, 1, 64), "nemo": (3, 77, 8, 4, 128)}
+# (b, s, hkv, g, hd, positions or None: drawn): the stablelm-1.6b
+# dense-engine shape; mistral-nemo width with a ragged S; then the split-K
+# edges: B1 S512 (8 splits), S one before, at and after a share boundary
+# (8, 8 and 9 tiles at 8 splits), G 8 at hd 128 and phi-3-vision's hd 96
+QDECODE_CASES = {
+    "stablelm": (8, 512, 32, 1, 64, None),
+    "nemo": (3, 77, 8, 4, 128, None),
+    "b1": (1, 512, 32, 1, 64, [511]),
+    "share_255": (2, 255, 4, 1, 64, [254, 31]),
+    "share_256": (2, 256, 4, 4, 64, [255, 32]),
+    "share_257": (2, 257, 4, 1, 64, [256, 0]),
+    "g8": (2, 300, 4, 8, 128, None),
+    "hd96": (4, 579, 8, 1, 96, None),
+}
 
 
 @pytest.mark.parametrize("case", sorted(QDECODE_CASES))
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_qdecode_kernel_matches_plain(dev, case, dtype):
-    b, s, hkv, g, hd = QDECODE_CASES[case]
+    b, s, hkv, g, hd, pos = QDECODE_CASES[case]
     gen = torch.Generator().manual_seed(s + hd)
     q = torch.randn((b, hkv, g, hd), generator=gen).to(dtype)
-    pos = torch.randint(0, s, (b,), generator=gen)
+    pos = (torch.randint(0, s, (b,), generator=gen) if pos is None
+           else torch.tensor(pos))
     bias = torch.where(torch.arange(s)[None] <= pos[:, None],
                        torch.tensor(0.0), torch.tensor(-2.0e38))
     args = tuple(t.to(dev) for t in (
@@ -254,6 +275,9 @@ def test_qdecode_kernel_matches_plain(dev, case, dtype):
     # f32 both sides: the kernel scales after the dot, the plain version
     # dequantizes first; summation order differs
     torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+    # one launch, no atomics: a second call gives the same bits
+    assert torch.equal(qdecode.qdecode(*args), got)
+    assert qdecode.qdecode.launches == before + 2
 
 
 def _to_int8_pools(gen, k_pool, v_pool):
@@ -264,12 +288,13 @@ def _to_int8_pools(gen, k_pool, v_pool):
             _scales(gen, (n, bs, hkv)).to(k_pool.device))
 
 
-@pytest.mark.parametrize("case", ["stablelm", "nemo", "idle"])
+@pytest.mark.parametrize("case", ["stablelm", "nemo", "idle", "b1", "bs1",
+                                  "bs32", "share_edges", "g8", "hd96"])
 def test_paged_qdecode_kernel_matches_plain(dev, case):
     b, hkv, g, hd, bs, m, n, pos = PAGED_CASES[case]
     q, k_pool, v_pool, tables, pos_t = _paged_case(
         dev, b, hkv, g, hd, bs, m, n, torch.bfloat16, pos, seed=b * hd + bs,
-        holes=[(0, 1)] if case == "idle" else ())
+        holes=[(0, 1)] if case in ("idle", "bs1", "hd96") else ())
     pools = _to_int8_pools(torch.Generator().manual_seed(hd), k_pool, v_pool)
     before = paged_attn.paged_qdecode.launches
     got = paged_attn.paged_qdecode(q, *pools, tables, pos_t)
@@ -280,6 +305,11 @@ def test_paged_qdecode_kernel_matches_plain(dev, case):
     assert torch.equal(got.isnan().all(-1).all(-1).all(-1), idle)
     assert torch.equal(want.isnan().all(-1).all(-1).all(-1), idle)
     torch.testing.assert_close(got[~idle], want[~idle], rtol=0, atol=1e-4)
+    # one launch, no atomics: a second call gives the same bits
+    twice = paged_attn.paged_qdecode(q, *pools, tables, pos_t)
+    assert paged_attn.paged_qdecode.launches == before + 2
+    assert torch.equal(twice[~idle], got[~idle])
+    assert torch.equal(twice.isnan(), got.isnan())
     # what an idle slot writes into the trash block (NaN scales, any
     # codes) is never read: the live rows do not change
     k_q, k_s, v_q, v_s = pools

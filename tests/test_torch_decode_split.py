@@ -1,0 +1,404 @@
+"""The int8-KV decode kernels' split plan, on the CPU.
+
+``csrc/decode_split.cuh`` runs only on a card (thread-block clusters,
+distributed shared memory). Its plan is emulated here in torch, in its
+order of work: the host's choice of splits, each CTA's share of whole
+tiles, each warp's steps of 32 / LPR slot rows with its own online softmax
+(running max seeded at RUN_INIT, masked slots at NEG_INF and never read,
+rescaled when the warp's max moves), the warps' merge and the cluster's
+merge in rank order. The constants are read from the CUDA source, so the
+model and the kernel cannot drift. The model is held to the plain
+versions (``qdecode_ref``, ``paged_qdecode_ref``) and to the JAX Pallas
+kernels in interpret mode; the kernels themselves are held to the plain
+versions in ``test_torch_cuda.py``.
+"""
+import math
+import re
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels.paged_attn import paged_qdecode_attention  # noqa: E402
+from repro.kernels.qdecode import qdecode_attention  # noqa: E402
+from repro_torch.kernels import paged_attn, qdecode  # noqa: E402
+from repro_torch.kernels import ref as t_ref  # noqa: E402
+
+CUH = Path(qdecode.__file__).resolve().parents[1] / "csrc" / "decode_split.cuh"
+NEG_INF_BIAS = -2.0e38
+
+
+def _cuh_constants():
+    """Every namespace-level ``constexpr int|float NAME = expr;`` of the
+    header, evaluated in order."""
+    env = {}
+    for kind, name, expr in re.findall(
+            r"^constexpr (int|float) (\w+) = ([^;]+);", CUH.read_text(),
+            flags=re.M):
+        if kind == "int":
+            env[name] = int(eval(expr, {}, dict(env)))
+        else:
+            env[name] = float(expr.rstrip("f"))
+    return env
+
+
+C = _cuh_constants()
+KT, NW, PT = C["KT"], C["NW"], C["PT"]
+
+
+# ------------------------------------------------------------------ #
+# The host's plan, mirrored from the header
+# ------------------------------------------------------------------ #
+def lane_codes(gb):
+    return 8 if gb > 4 else 16
+
+
+def group_bound(g):
+    return 1 if g == 1 else (4 if g <= 4 else 8)
+
+
+def lanes_per_row(hd, gb):
+    v = hd // lane_codes(gb)
+    return 2 if v <= 2 else (4 if v <= 4 else (8 if v <= 8 else 16))
+
+
+def splits_for(n_keys_max, pairs, resident):
+    s = 1
+    while (s < C["MAX_SPLITS"] and s * KT < n_keys_max
+           and pairs * 2 * s <= resident):
+        s *= 2
+    return s
+
+
+def share(n_keys, splits, rank):
+    n = max(n_keys, 0)
+    per = -(-(-(-n // KT)) // splits)        # ceil(ceil(n / KT) / splits)
+    k0 = min(rank * per * KT, n)
+    return k0, min(k0 + per * KT, n)
+
+
+def test_python_mirrors_the_source():
+    src = CUH.read_text()
+    for line in ("return gb > 4 ? 8 : 16;",
+                 "return G == 1 ? 1 : (G <= 4 ? 4 : 8);",
+                 "return v <= 2 ? 2 : (v <= 4 ? 4 : (v <= 8 ? 8 : 16));",
+                 "while (s < MAX_SPLITS && s * KT < n_keys_max && "
+                 "pairs * 2 * s <= resident)",
+                 "const int per = (tiles + splits - 1) / splits;",
+                 "k0 = min(rank * per * KT, n);",
+                 "k1 = min(k0 + per * KT, n);"):
+        assert line in " ".join(src.split()), line
+    assert (PT, NW, KT) == (128, 4, 32)
+    assert C["MAX_SPLITS"] == 8                   # the portable cluster size
+    assert C["NEG_INF"] == NEG_INF_BIAS == t_ref.NEG_INF
+    assert C["RUN_INIT"] == t_ref.RUN_INIT
+    assert qdecode.MAX_GROUP == paged_attn.MAX_GROUP == C["MAXG"]
+    assert qdecode.MAX_HEAD_DIM == paged_attn.MAX_HEAD_DIM == C["MAXD"]
+    assert paged_attn.KEY_TILE == KT
+    # every (lanes, G bound) pair the shapes need is compiled
+    for gb in (1, 4, 8):
+        for hd in range(16, C["MAXD"] + 1, 16):
+            lpr = lanes_per_row(hd, gb)
+            assert f"run<{lpr}, {gb}>()" in src
+            assert hd <= lpr * lane_codes(gb) <= C["MAXD"]
+
+
+@pytest.mark.parametrize("n_keys_max,pairs,resident,want", [
+    (1, 32, 792, 1), (32, 32, 792, 1), (33, 32, 792, 2), (100, 32, 792, 4),
+    (512, 32, 792, 8), (5000, 1, 792, 8),
+    # the engine's shapes: B8 x Hkv32 at G 1 (6 CTAs a SM), B8 x Hkv8 at
+    # G 4 (3 a SM): all clusters resident at once
+    (512, 256, 792, 2), (512, 64, 396, 4), (512, 8 * 32, 396, 1),
+    (512, 4096, 792, 1)])
+def test_splits_for(n_keys_max, pairs, resident, want):
+    s = splits_for(n_keys_max, pairs, resident)
+    assert s == want
+    assert s & (s - 1) == 0 and 1 <= s <= C["MAX_SPLITS"]
+    assert s == 1 or pairs * s <= resident
+
+
+@pytest.mark.parametrize("splits", [1, 2, 4, 8])
+@pytest.mark.parametrize("n_keys", [0, 1, 31, 32, 33, 63, 64, 65, 255, 256,
+                                    257, 511, 512, 513, 4999])
+def test_shares_cover_every_key_once_in_whole_tiles(n_keys, splits):
+    seen = []
+    for rank in range(splits):
+        k0, k1 = share(n_keys, splits, rank)
+        assert k0 % KT == 0 or k0 == n_keys
+        assert k0 <= k1 and (k1 == n_keys or (k1 - k0) % KT == 0)
+        seen += range(k0, k1)
+    assert seen == list(range(n_keys))           # in rank order, once each
+
+
+# ------------------------------------------------------------------ #
+# The kernel's plan, emulated
+# ------------------------------------------------------------------ #
+def _attend_one(q, kf, ks, vf, vs, valid, add, n_keys, splits, lpr, chunk):
+    """One sequence, all kv heads: q [Hkv,G,hd]; kf / vf [n, Hkv, hd] f32
+    codes and ks / vs [n, Hkv] of the slots (zero where masked: a masked
+    slot is never read); valid / add [n] -> out [Hkv,G,hd]."""
+    hkv, g, hd = q.shape
+    r = 32 // lpr
+    scale = torch.sqrt(torch.tensor(float(hd)))
+    parts = []
+    for rank in range(splits):
+        k0, k1 = share(n_keys, splits, rank)
+        m = torch.full((NW, hkv, g), C["RUN_INIT"])
+        lsum = torch.zeros((NW, hkv, g, r))
+        acc = torch.zeros((NW, hkv, g, r, hd))
+        for c0 in range(k0, k1, chunk):
+            c1 = min(c0 + chunk, k1)
+            for st in range(-(-(c1 - c0) // r)):
+                w = st % NW                          # step st -> warp st % 4
+                ks_ = torch.arange(c0 + st * r, c0 + st * r + r)
+                on = (ks_ < c1) & valid[ks_.clamp(max=len(valid) - 1)]
+                kk = ks_.clamp(max=len(valid) - 1)
+                dot = torch.einsum("hgd,rhd->hgr", q, kf[kk])
+                sc = torch.where(on[None, None],
+                                 dot * ks[kk].T[:, None] / scale
+                                 + add[kk][None, None],
+                                 torch.tensor(C["NEG_INF"]))
+                mx = sc.amax(-1)
+                moved = mx > m[w]
+                alpha = torch.exp(m[w] - torch.where(moved, mx, m[w]))
+                lsum[w] = lsum[w] * alpha[..., None]
+                acc[w] = acc[w] * alpha[..., None, None]
+                m[w] = torch.where(moved, mx, m[w])
+                p = torch.exp(sc - m[w][..., None])
+                lsum[w] = lsum[w] + p
+                pv = p * torch.where(on, vs[kk].T, torch.tensor(0.0))[:, None]
+                acc[w] = acc[w] + (pv[..., None]
+                                   * vf[kk].permute(1, 0, 2)[:, None])
+        lw, aw = lsum.sum(-1), acc.sum(-2)           # the row groups' sum
+        mc = m.amax(0)                               # the warps' merge
+        f = torch.exp(m - mc)
+        parts.append((mc, (lw * f).sum(0), (aw * f[..., None]).sum(0)))
+    mx = torch.full((hkv, g), C["RUN_INIT"])
+    for mr, _, _ in parts:                           # the cluster's merge
+        mx = torch.maximum(mx, mr)
+    ls = torch.zeros((hkv, g))
+    a = torch.zeros((hkv, g, hd))
+    for mr, lr, ar in parts:
+        f = torch.exp(mr - mx)
+        ls = ls + lr * f
+        a = a + ar * f[..., None]
+    return a / ls[..., None]
+
+
+def _plan(q, n_keys_max, splits):
+    g, hd = q.shape[2], q.shape[3]
+    return (lanes_per_row(hd, group_bound(g)),
+            splits if splits else splits_for(n_keys_max, 1, 10 ** 9))
+
+
+def model_qdecode(q, k_i8, k_s, v_i8, v_s, bias, splits=None):
+    """The dense kernel's plan: every slot of S read, the bias added."""
+    b, s = k_i8.shape[:2]
+    lpr, splits = _plan(q, s, splits)
+    valid = torch.ones(s, dtype=torch.bool)
+    return torch.stack([
+        _attend_one(q[i].float(), k_i8[i].float(), k_s[i], v_i8[i].float(),
+                    v_s[i], valid, bias[i], s, splits, lpr, s)
+        for i in range(b)])
+
+
+def model_paged(q, k_pool, k_scale, v_pool, v_scale, tables, pos,
+                splits=None):
+    """The paged kernel's plan: slot k < min(pos + 1, M * bs) of a mapped
+    table entry is read; nothing else is."""
+    n, bs, hkv, hd = k_pool.shape
+    b, m = tables.shape
+    lpr, splits = _plan(q, m * bs, splits)
+    outs = []
+    for i in range(b):
+        n_keys = min(int(pos[i]) + 1, m * bs)
+        slots = torch.arange(max(n_keys, 1))
+        ent = tables[i, slots // bs].long()
+        valid = (ent >= 0) & (slots < n_keys)
+        rows = torch.where(valid, ent * bs + slots % bs, 0)
+        kf = torch.zeros((len(slots), hkv, hd))
+        vf, ks, vs = torch.zeros_like(kf), torch.zeros((len(slots), hkv)), \
+            torch.zeros((len(slots), hkv))
+        live = rows[valid]                           # read only valid rows
+        kf[valid] = k_pool.reshape(n * bs, hkv, hd)[live].float()
+        vf[valid] = v_pool.reshape(n * bs, hkv, hd)[live].float()
+        ks[valid] = k_scale.reshape(n * bs, hkv)[live]
+        vs[valid] = v_scale.reshape(n * bs, hkv)[live]
+        outs.append(_attend_one(q[i].float(), kf, ks, vf, vs, valid,
+                                torch.zeros(len(slots)), n_keys, splits, lpr,
+                                C["TAB_CAP"] * bs))
+    return torch.stack(outs)
+
+
+# ------------------------------------------------------------------ #
+# Inputs made with numpy from a seed
+# ------------------------------------------------------------------ #
+def _codes(rng, shape):
+    return rng.integers(-127, 128, shape).astype(np.int8)
+
+
+def _scales(rng, shape):
+    # dequantized values of order 1, as quantized K/V are
+    return (rng.uniform(0.5, 1.5, shape) / 127).astype(np.float32)
+
+
+def _dense_case(seed, b, s, hkv, g, hd, pos):
+    """``pos[i]``: the last unmasked slot of row i (slot 0 always valid)."""
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(b, hkv, g, hd)).astype(np.float32)
+    bias = np.where(np.arange(s)[None] <= np.asarray(pos)[:, None], 0.0,
+                    NEG_INF_BIAS).astype(np.float32)
+    return (q, _codes(rng, (b, s, hkv, hd)), _scales(rng, (b, s, hkv)),
+            _codes(rng, (b, s, hkv, hd)), _scales(rng, (b, s, hkv)), bias)
+
+
+def _paged_case(seed, b, hkv, g, hd, bs, m, pos, holes=()):
+    """Shuffled block ids up to each position (block 0 is the trash block);
+    an idle row (pos -1) has an all -1 table at position 0."""
+    rng = np.random.default_rng(seed)
+    n = b * m + 3
+    q = rng.normal(size=(b, hkv, g, hd)).astype(np.float32)
+    pools = (_codes(rng, (n, bs, hkv, hd)), _scales(rng, (n, bs, hkv)),
+             _codes(rng, (n, bs, hkv, hd)), _scales(rng, (n, bs, hkv)))
+    ids = iter(rng.permutation(np.arange(1, n)))
+    tables = np.full((b, m), -1, np.int32)
+    for i, p in enumerate(pos):
+        for j in range(p // bs + 1 if p >= 0 else 0):
+            tables[i, j] = next(ids)
+    for i, j in holes:
+        tables[i, j] = -1
+    return (q, *pools, tables, np.asarray([max(p, 0) for p in pos], np.int32))
+
+
+def _t(*arrays):
+    return tuple(torch.from_numpy(np.asarray(a)) for a in arrays)
+
+
+def _j(*arrays):
+    return tuple(jnp.asarray(a) for a in arrays)
+
+
+# (B, S, Hkv, G, hd, positions, splits): n_keys 1, 31, 32, 33; positions
+# one before, at and after a share boundary (2 tiles a CTA at S 256 and 8
+# splits, so a boundary every 64 slots) and the last slot; G 1, 4, 8 at hd
+# 64, 96, 128
+DENSE = {
+    "s1": (2, 1, 2, 1, 64, [0, 0], None),
+    "s31": (2, 31, 2, 4, 96, [30, 5], None),
+    "s32": (2, 32, 2, 8, 128, [31, 0], None),
+    "s33": (2, 33, 2, 1, 64, [32, 31], None),
+    "share_edges": (3, 256, 2, 4, 64, [63, 64, 65], 4),
+    "share_edges_8": (3, 513, 1, 8, 96, [127, 128, 512], 8),
+}
+
+
+@pytest.mark.parametrize("case", sorted(DENSE))
+def test_dense_model_matches_plain_and_pallas(case):
+    b, s, hkv, g, hd, pos, splits = DENSE[case]
+    arrays = _dense_case(len(case) + s, b, s, hkv, g, hd, pos)
+    got = model_qdecode(*_t(*arrays), splits=splits)
+    want = t_ref.qdecode_ref(*_t(*arrays))
+    pallas = np.asarray(qdecode_attention(*_j(*arrays), interpret=True))
+    assert got.shape == want.shape and torch.isfinite(got).all()
+    # f32 throughout; the kernel scales after the dot, the plain version
+    # dequantizes first, and the summation orders differ
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-4, rtol=0)
+    np.testing.assert_allclose(got.numpy(), pallas, atol=1e-4, rtol=0)
+
+
+# (B, Hkv, G, hd, bs, M, positions, holes, splits): n_keys = pos + 1 of 1,
+# 31, 32, 33; share boundaries +-1; M * bs exactly; bs 1, 16, 32; tables
+# with -1 holes; idle rows (pos -1); G 1, 4, 8 at hd 64, 96, 128
+PAGED = {
+    "bs16_edges": (4, 2, 1, 64, 16, 4, [0, 30, 31, 32], (), None),
+    "bs1_edges": (3, 2, 4, 96, 1, 40, [32, 31, 39], [(0, 5)], None),
+    "bs32_full": (2, 2, 8, 128, 32, 3, [95, 64], [(1, 1)], None),
+    "share_edges": (3, 1, 4, 64, 16, 16, [63, 64, 65], [(2, 3)], 8),
+    "idle": (4, 2, 1, 64, 16, 8, [100, -1, 31, 127], [(0, 1)], None),
+    "idle_g8": (2, 1, 8, 96, 32, 4, [-1, 127], (), 4),
+}
+
+
+@pytest.mark.parametrize("case", sorted(PAGED))
+def test_paged_model_matches_plain_and_pallas(case):
+    b, hkv, g, hd, bs, m, pos, holes, splits = PAGED[case]
+    arrays = _paged_case(len(case) * bs, b, hkv, g, hd, bs, m, pos, holes)
+    got = model_paged(*_t(*arrays), splits=splits)
+    want = t_ref.paged_qdecode_ref(*_t(*arrays))
+    live = torch.tensor([p >= 0 for p in pos])
+    # an idle row is 0/0 on both sides, and nothing else is
+    assert torch.equal(got.isnan().flatten(1).all(1), ~live)
+    assert torch.equal(want.isnan().flatten(1).all(1), ~live)
+    assert torch.isfinite(got[live]).all()
+    np.testing.assert_allclose(got[live].numpy(), want[live].numpy(),
+                               atol=1e-4, rtol=0)
+    pallas = np.asarray(paged_qdecode_attention(*_j(*arrays),
+                                                interpret=True))
+    np.testing.assert_allclose(got[live].numpy(), pallas[live.numpy()],
+                               atol=1e-4, rtol=0)
+
+
+def test_paged_model_stages_long_tables_in_chunks():
+    """At bs 1 a chunk of TAB_CAP staged entries is 512 slots: one
+    sequence of 4500 keys at 1 split walks 9 chunks, a hole in the 2nd."""
+    assert C["TAB_CAP"] == 512
+    arrays = _paged_case(11, 2, 1, 1, 32, 1, 4600, [4499, 600], [(0, 700)])
+    got = model_paged(*_t(*arrays), splits=1)
+    want = t_ref.paged_qdecode_ref(*_t(*arrays))
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-4, rtol=0)
+
+
+def test_poisoned_trash_block_leaves_live_rows_bit_identical():
+    """What an idle slot writes into block 0 (NaN scales, -128 codes) is
+    never read: the live rows do not change, in the model and the plain
+    version alike."""
+    b, hkv, g, hd, bs, m, pos, holes, splits = PAGED["idle"]
+    arrays = list(_t(*_paged_case(5, b, hkv, g, hd, bs, m, pos, holes)))
+    live = torch.tensor([p >= 0 for p in pos])
+    before = model_paged(*arrays, splits=splits)
+    before_ref = t_ref.paged_qdecode_ref(*arrays)
+    k_pool, k_scale, v_pool, v_scale = (t.clone() for t in arrays[1:5])
+    k_pool[0], v_pool[0] = -128, -128
+    k_scale[0], v_scale[0] = float("nan"), float("nan")
+    arrays[1:5] = k_pool, k_scale, v_pool, v_scale
+    after = model_paged(*arrays, splits=splits)
+    assert torch.equal(after[live], before[live])
+    assert torch.isfinite(after[live]).all()
+    assert torch.equal(t_ref.paged_qdecode_ref(*arrays)[live],
+                       before_ref[live])
+
+
+@pytest.mark.parametrize("splits", [1, 2, 4, 8])
+def test_empty_shares_contribute_nothing(splits):
+    """33 keys are 2 tiles: at 4 and 8 splits ranks 2.. hold no slot and
+    contribute m = RUN_INIT, l = 0, acc = 0; every split count gives the
+    one-CTA result."""
+    arrays = _t(*_dense_case(3, 2, 33, 2, 4, 64, [32, 7]))
+    one = model_qdecode(*arrays, splits=1)
+    got = model_qdecode(*arrays, splits=splits)
+    torch.testing.assert_close(got, one, atol=1e-6, rtol=0)
+
+
+def test_minus_inf_seeds_would_poison_the_merge():
+    """The trap the RUN_INIT seed avoids: an empty partial seeded at -inf
+    beside another empty one gives exp(-inf - -inf) = NaN, while RUN_INIT
+    gives a weight of 1 times l = 0."""
+    def merge(parts):
+        mx = torch.tensor(C["RUN_INIT"])
+        for mr, _ in parts:
+            mx = torch.maximum(mx, mr)
+        return sum(lr * torch.exp(mr - mx) for mr, lr in parts)
+
+    inf = torch.tensor(-math.inf)
+    seed = torch.tensor(C["RUN_INIT"])
+    zero = torch.tensor(0.0)
+    assert merge([(seed, zero), (seed, zero)]) == 0
+    mx = torch.maximum(inf, inf)
+    assert torch.isnan(torch.exp(inf - mx))
+    live = (torch.tensor(3.0), torch.tensor(2.0))
+    assert merge([(seed, zero), live, (seed, zero)]) == 2.0
