@@ -6,7 +6,10 @@
 Builds the CUDA kernels from ``src/repro_torch/csrc`` (into ``build/``) and
 prints one JSON line per phase:
 
-1. card: ``nvidia-smi`` name and power limit, kernel build time;
+1. card: ``nvidia-smi`` name and power limit, kernel build time, ptxas
+   registers and spills per source and per instantiation of the int8
+   tensor-core prefill (``flash_qtc``) and the int4 split loop
+   (``paged_q4decode_split``), and any kernel that spills;
 2. kernels: each CUDA kernel against its plain PyTorch version on the card
    at the main paths' shapes, with its time (a CUDA-graph replay: device
    time; and the eager call, launch gaps included), the plain version's
@@ -19,9 +22,11 @@ prints one JSON line per phase:
    the tensor-core body for bf16 and, over two-term splits, for f32
    inputs) and paged decode, then the
    int8-KV kernels qdecode, paged_qdecode (with NaN scales and -128 codes
-   in the trash block) and flash_qprefill, then the int4-KV kernels
-   paged_q4decode (with NaN f16 scales and 0x88 bytes in the trash block)
-   and flash_q4prefill, the int4 KV quantizer's edge groups, card against
+   in the trash block) and flash_qprefill (with the body that ran and its
+   instantiation's ptxas line), then the int4-KV kernels paged_q4decode
+   (with NaN f16 scales and 0x88 bytes in the trash block, and its
+   instantiation's ptxas line) and flash_q4prefill; the decode kernels and
+   flash_qprefill also bit-identical across two calls; the int4 KV quantizer's edge groups, card against
    CPU, and quantize_weights at phi-3-vision's weight shapes (codes and
    scales bit for bit); the GEMMs and flash prefill also run at the VQI
    forward's shapes (M 4632 at phi-3-vision's five weight shapes; B8 S579
@@ -65,8 +70,9 @@ prints one JSON line per phase:
    dynamic int8 and static int8 (calibrated on the CPU);
 7. a ``kernels`` line, the ``nvidia-smi`` line, and last the device line.
 
-Every counted run also checks that each flash_prefill launch took the
-body of its dtype (``flash_prefill.launches_by_body``), and the GEMMs'
+Every counted run also checks that each flash_prefill and flash_qprefill
+launch took the body of its dtype (``launches_by_body``), each engine
+window's profile names its attention kernel once per layer, and the GEMMs'
 bodies are checked where M is known: the one-launch decode body at every
 decode step, the wgmma body in the VQI forwards and the 256-row prefill
 (whose unembed reads the last row only: one decode-body launch). Any failed check
@@ -78,6 +84,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -159,6 +166,10 @@ PAGED = {"paged": True, "block_size": 16, "n_blocks": 65}
 # cover no kernel that the other replays miss, and the run stays inside
 # its time budget; the counting metrics depend on the trace only
 FP32_ENGINE_LAYERS = 12
+# a torch.profiler trace can lose a kernel record (one of 96 seen once on
+# the H100): a trace that shows fewer launches of its watched kernel than
+# the wrapper counted is taken again, at most this many times in all
+PROFILE_ATTEMPTS = 3
 TRACE_N, TRACE_PROMPT, TRACE_GAP = 16, (37, 255), 2.0
 SHARED, SHARED_PREFIX = (4, 5, 6, 7), 128
 PROMPT_LENS = (37, 120, 200, 255)
@@ -294,7 +305,8 @@ def _gemms(k):
 def reset_counters(k):
     for fn in _wrappers(k).values():
         fn.launches = 0
-    for fn in (k.flash_prefill.flash_prefill, *_gemms(k).values()):
+    for fn in (k.flash_prefill.flash_prefill, k.flash_prefill.flash_qprefill,
+               *_gemms(k).values()):
         bodies = fn.launches_by_body
         for body in bodies:
             bodies[body] = 0
@@ -322,20 +334,75 @@ def check_gemm_bodies(where, launches, gemv=None):
                                  f"want {want} gemv of {total}")
 
 
-def read_bodies(k):
-    """flash_prefill's launches per body (``flash_prefill.BODY``)."""
-    return dict(k.flash_prefill.flash_prefill.launches_by_body)
+def read_bodies(k, name="flash_prefill"):
+    """flash_prefill's (or flash_qprefill's) launches per body
+    (``flash_prefill.BODY`` / ``QBODY``)."""
+    return dict(getattr(k.flash_prefill, name).launches_by_body)
 
 
 def check_bodies(k, where, launches, dtype):
-    """Every flash_prefill launch of a run took the body of its dtype."""
-    bodies = read_bodies(k)
-    body = k.flash_prefill.BODY[dtype]
-    want = {b: launches["flash_prefill"] if b == body else 0 for b in bodies}
-    if bodies != want:
-        raise AssertionError(f"{where}: flash_prefill bodies {bodies}, "
-                             f"want {want}")
-    return {f"flash_prefill.{b}": n for b, n in bodies.items()}
+    """Every flash_prefill and flash_qprefill launch of a run took the body
+    of its dtype."""
+    out = {}
+    for name, table in (("flash_prefill", k.flash_prefill.BODY),
+                        ("flash_qprefill", k.flash_prefill.QBODY)):
+        bodies = read_bodies(k, name)
+        want = {b: launches[name] if b == table[dtype] else 0
+                for b in bodies}
+        if bodies != want:
+            raise AssertionError(f"{where}: {name} bodies {bodies}, "
+                                 f"want {want}")
+        out.update({f"{name}.{b}": n for b, n in bodies.items()})
+    return out
+
+
+def ptxas_kernels(log: str, filt: str) -> dict:
+    """{kernel: (registers, spill store bytes, spill load bytes)} from the
+    ``nvcc -Xptxas -v`` output of one source; names demangled by the
+    toolkit's cu++filt, without arguments or the anonymous namespace."""
+    found, name, spill = {}, None, ("?", "?")
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            name = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      ln)
+        if m:
+            spill = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and name:
+            found[name] = (int(m.group(1)), *spill)
+            name, spill = None, ("?", "?")
+    names = list(found)
+    try:
+        plain = subprocess.run([filt, *names], capture_output=True,
+                               text=True, timeout=60,
+                               check=True).stdout.splitlines()
+    except (OSError, subprocess.SubprocessError):
+        plain = names
+    if len(plain) != len(names):
+        plain = names
+    tidy = [re.sub(r"\(.*$", "", re.sub(
+        r"^void |\(int\)|<unnamed>::|\(anonymous namespace\)::", "", p))
+        for p in plain]
+    return {t: found[n] for t, n in zip(tidy, names)}
+
+
+def q4_split_instance(hd: int, g: int) -> str:
+    """The ``paged_q4decode_split<LPR, GB>`` that serves (hd, G): the
+    header's group_bound, Int4::lane_codes and lanes_per_row."""
+    gb = 1 if g == 1 else (4 if g <= 4 else 8)
+    v = hd // (32 if gb == 1 else (16 if gb <= 4 else 8))
+    lpr = 2 if v <= 2 else (4 if v <= 4 else (8 if v <= 8 else 16))
+    return f"paged_q4decode_split<{lpr}, {gb}>"
+
+
+def qtc_instance(hd: int, dv: int, dtype) -> str:
+    """The ``tc::flash_qtc<TQ, W, W>`` that serves (hd, dv, q dtype)."""
+    w = max(hd, dv)
+    w = 64 if w <= 64 else (96 if w <= 96 else 128)
+    tq = "float" if dtype == torch.float32 else "__nv_bfloat16"
+    return f"tc::flash_qtc<{tq}, {w}, {w}>"
 
 
 # ------------------------------------------------------------------ #
@@ -758,12 +825,20 @@ def flash_qprefill_phase(k, dev, timer):
         vq, vs = int8_codes(gen, (b, s, hkv, dv), dev)
         run = lambda: fp.flash_qprefill(q, kq, ks, vq, vs)  # noqa: E731
         plain = lambda: ref.flash_qprefill_ref(q, kq, ks, vq, vs)  # noqa: E731
-        got, want = run(), plain()
+        before = read_bodies(k, "flash_qprefill")
+        got, want, twice = run(), plain(), run()
         torch.cuda.synchronize()
+        ran = [b for b, n in read_bodies(k, "flash_qprefill").items()
+               if n != before[b]]
+        if ran != [fp.QBODY[dt]]:
+            raise AssertionError(f"flash_qprefill {shape}: bodies {ran} ran, "
+                                 f"not {fp.QBODY[dt]}")
         err = float((got - want).abs().max())
         if not torch.isfinite(got).all() or err > INT8KV_ATOL:
             raise AssertionError(f"flash_qprefill {shape}: max |err| {err} > "
                                  f"{INT8KV_ATOL}")
+        if not torch.equal(twice, got):     # one launch, no atomics
+            raise AssertionError(f"flash_qprefill {shape}: two calls differ")
         worst = max(worst, err)
         t_k = timer.graph_ms(run)
         t_eager = timer.eager_ms(run)
@@ -787,8 +862,11 @@ def flash_qprefill_phase(k, dev, timer):
         nbytes = (q.numel() * q.element_size() + kq.numel() + vq.numel()
                   + 4 * (ks.numel() + vs.numel()) + 4 * b * s * hq * dv)
         b_ms, b_by = bound(nbytes, flops, str(dt).split(".")[-1])
+        inst = qtc_instance(hd, dv, dt)
         row = dict(kernel="flash_qprefill", B=b, S=s, Hq=hq, Hkv=hkv, hd=hd,
                    dv=dv, dtype=str(dt).split(".")[-1], kv="int8",
+                   body=ran[0], instance=inst, ptxas=k.ptxas.get(inst),
+                   repeat_identical=True,
                    max_abs_err=err, atol=INT8KV_ATOL, gflop=flops / 1e9,
                    ms=t_k, eager_ms=t_eager, plain_ms=t_p, library_ms=t_lib,
                    library_dequant_ms=t_deq, mbytes=nbytes / 1e6,
@@ -839,7 +917,7 @@ def paged_q4decode_phase(k, dev, timer):
         pools = (k_pool, k_scale, v_pool, v_scale)
         run = lambda: pa.paged_q4decode(q, *pools, tables, pos)  # noqa: E731
         plain = lambda: ref.paged_q4decode_ref(q, *pools, tables, pos)  # noqa: E731
-        got, want = run(), plain()
+        got, want, twice = run(), plain(), run()
         torch.cuda.synchronize()
         idle_nan = bool(got[~live].isnan().all()) and bool(
             want[~live].isnan().all())
@@ -848,6 +926,10 @@ def paged_q4decode_phase(k, dev, timer):
                 or not idle_nan:
             raise AssertionError(f"paged_q4decode ({label}): max |err| {err} "
                                  f"> {INT8KV_ATOL} or idle rows not 0/0")
+        if not (torch.equal(twice[live], got[live])
+                and torch.equal(twice.isnan(), got.isnan())):
+            raise AssertionError(f"paged_q4decode ({label}): two calls "
+                                 "differ")
         worst = max(worst, err)
         t_k = timer.graph_ms(run)
         t_eager = timer.eager_ms(run)
@@ -896,12 +978,15 @@ def paged_q4decode_phase(k, dev, timer):
                   + pos.numel() * 4 + got.numel() * 4)
         flops = 4.0 * g * hd * n_valid * hkv
         b_ms, b_by = bound(nbytes, flops, str(dt).split(".")[-1])
+        inst = q4_split_instance(hd, g)
         row = dict(kernel="paged_q4decode", case=label, B=b, Hkv=hkv, G=g,
                    hd=hd, bs=bs, M=m, N=n, dtype=str(dt).split(".")[-1],
-                   pools="int4", positions=pos.tolist(),
+                   pools="int4", body="split", instance=inst,
+                   ptxas=k.ptxas.get(inst), positions=pos.tolist(),
                    valid_slots=n_valid, idle_rows=int((~live).sum()),
                    trash_nan_isolated=trash, max_abs_err=err,
-                   atol=INT8KV_ATOL, ms=t_k, eager_ms=t_eager, plain_ms=t_p,
+                   atol=INT8KV_ATOL, repeat_identical=True, ms=t_k,
+                   eager_ms=t_eager, plain_ms=t_p,
                    library_ms=t_lib, library_gather_ms=t_gather,
                    library_dequant_ms=t_deq, library_max_abs_err=lib_err,
                    mbytes=nbytes / 1e6, bound_ms=b_ms, bound_by=b_by)
@@ -1043,10 +1128,36 @@ def quantize_weights_phase(k, dev, timer):
     return headline
 
 
-def profile_decode(step_fn, n_steps: int, step_ms: float):
-    """Device time inside ``n_steps`` decode steps from a torch.profiler
-    trace: busy ms per step, the idle share against the unprofiled step
-    time, and the kernels with the most device time."""
+def profile_steps(step_fn, n_steps: int, step_ms: float, watch=None,
+                  expect=None):
+    """Device time inside ``n_steps`` calls of ``step_fn`` (decode steps, or
+    a prefill) from a torch.profiler trace: busy ms per step, the idle share
+    against the unprofiled step time, the kernels with the most device time
+    and, if ``watch`` names a kernel template, its ms and calls per step.
+
+    ``expect``: the calls of ``watch`` each step launches (its wrapper's
+    count). A trace that shows more fails at once; one that shows fewer has
+    lost kernel records, and is taken again, at most PROFILE_ATTEMPTS times
+    in all; the lost counts are reported under ``records_lost``."""
+    lost = []
+    for _ in range(PROFILE_ATTEMPTS):
+        out = _profile_once(step_fn, n_steps, step_ms, watch)
+        seen = out.get("watched")
+        if expect is None or seen is None:
+            return out
+        got = round(seen["calls_per_step"] * n_steps)
+        if got > expect * n_steps:
+            raise AssertionError(f"the trace shows {got} {watch} kernels in "
+                                 f"{n_steps} steps of {expect}")
+        if got == expect * n_steps:
+            out["records_lost"] = lost
+            return out
+        lost.append(expect * n_steps - got)
+    raise AssertionError(f"{PROFILE_ATTEMPTS} traces of {n_steps} steps of "
+                         f"{expect} {watch} kernels each lost records: {lost}")
+
+
+def _profile_once(step_fn, n_steps, step_ms, watch):
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -1067,13 +1178,20 @@ def profile_decode(step_fn, n_steps: int, step_ms: float):
     if busy_ms <= 0:
         return {"device_busy_ms_per_step": "not measured"}
     rows.sort(reverse=True)
-    return {"device_busy_ms_per_step": busy_ms,
-            "device_idle_share": max(0.0, 1.0 - busy_ms / step_ms),
-            "kernels_per_step": sum(r[2] for r in rows) / n_steps,
-            "top_kernels": [{"name": name[:80],
-                             "ms_per_step": us / 1e3 / n_steps,
-                             "calls_per_step": cnt / n_steps}
-                            for us, name, cnt in rows[:8]]}
+    out = {"device_busy_ms_per_step": busy_ms,
+           "device_idle_share": max(0.0, 1.0 - busy_ms / step_ms),
+           "kernels_per_step": sum(r[2] for r in rows) / n_steps,
+           "top_kernels": [{"name": name[:80],
+                            "ms_per_step": us / 1e3 / n_steps,
+                            "calls_per_step": cnt / n_steps}
+                           for us, name, cnt in rows[:8]]}
+    if watch:
+        hits = [(us, cnt) for us, name, cnt in rows if f"::{watch}<" in name]
+        out["watched"] = {"kernel": watch,
+                          "ms_per_step": sum(h[0] for h in hits) / 1e3
+                          / n_steps,
+                          "calls_per_step": sum(h[1] for h in hits) / n_steps}
+    return out
 
 
 # ------------------------------------------------------------------ #
@@ -1103,6 +1221,8 @@ def e2e_phase(k, dev):
               "qdecode": 0, "flash_qprefill": 0, "flash_q4prefill": 0,
               **{f"flash_prefill.{body}": 0
                  for body in k.flash_prefill.BODY.values()},
+              **{f"flash_qprefill.{body}": 0
+                 for body in k.flash_prefill.QBODY.values()},
               **{f"{name}.{body}": 0 for name in _gemms(k)
                  for body in k.qmatmul.BODIES}}
     runs = [(spec.variant, spec, cfg) for spec in DEFAULT_VARIANTS]
@@ -1173,6 +1293,14 @@ def e2e_phase(k, dev):
             torch.cuda.synchronize()
             prefill_ms = (time.perf_counter() - t0) * 1e3
             per_prefill = read_counters(k)
+            # one more prefill, profiled: its device time and the share
+            # of it its attention kernel takes, 24 launches of it
+            watch = {"fp": "flash_tc", "int8": "flash_qtc",
+                     "int4": "flash_attend"}[tier]
+            ptrace = profile_steps(
+                lambda: prefill(session.params, batch, cfg, pad_to=512,
+                                n_valid=PROMPT_LENS[-1]), 1, prefill_ms,
+                watch, expect=cfg.n_layers)
             if not torch.isfinite(last).all():
                 raise AssertionError(f"{label}: non-finite logits")
             prefill_k = need[0]
@@ -1205,14 +1333,15 @@ def e2e_phase(k, dev):
                 state["logits"], state["cache"] = decode_step(
                     session.params, state["cache"], nxt, state["pos"], cfg)
                 state["pos"] += 1
-            trace = profile_decode(one_step, 4, decode_ms)
+            trace = profile_steps(one_step, 4, decode_ms)
         emit("e2e", variant=label, kv_cache=cfg.kv_precision,
              quantized_leaves=len(info["quantized_paths"]),
              calibration_batches=info.get("calibration_batches", 0),
              build_s=build_s, requests=len(reqs), prompt_lens=PROMPT_LENS,
              new_tokens_each=N_NEW, serve_s=elapsed,
              tokens_per_s=len(reqs) * N_NEW / elapsed,
-             prefill_ms_s255=prefill_ms, decode_step_ms=decode_ms,
+             prefill_ms_s255=prefill_ms, prefill_trace=ptrace,
+             decode_step_ms=decode_ms,
              launches=launches, launches_per_prefill=per_prefill,
              launches_per_decode_step=per_step, decode_trace=trace,
              peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
@@ -1247,10 +1376,12 @@ def engine_trace(cfg):
     return ArrivalTrace(tuple(reqs), trace.seed, trace.mean_interarrival)
 
 
-def decode_window(k, engine, cfg, gen):
+def decode_window(k, engine, cfg, gen, watch=None, expect=None):
     """Fill every slot with a 60-token request (40 new tokens: 7 blocks
     each, so the window never preempts), step until all slots decode, then
-    count one step's launches, time 8 steps and profile 4."""
+    count one step's launches, time 8 steps and profile 4 (``watch``: the
+    attention kernel whose device time the profile reports, ``expect`` of
+    them a step)."""
     for _ in range(engine.n_slots):
         engine.submit(torch.randint(0, cfg.vocab_size, (1, 60), generator=gen),
                       max_new_tokens=40)
@@ -1268,7 +1399,7 @@ def decode_window(k, engine, cfg, gen):
         engine.step()
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) * 1e3 / 8
-    trace = profile_decode(engine.step, 4, step_ms)
+    trace = profile_steps(engine.step, 4, step_ms, watch, expect)
     engine.run()
     return per_step, step_ms, trace
 
@@ -1383,7 +1514,13 @@ def engine_phase(k, dev):
                     f"bf16-KV replay's {[base[c] for c in counting]}")
             peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
             gen = torch.Generator().manual_seed(SEED + 8)
-            per_step, step_ms, dtrace = decode_window(k, engine, cfg, gen)
+            # the attention kernel each window's trace must name
+            watch = {("fp", True): "paged_attend",
+                     ("int8", True): "paged_qdecode_split",
+                     ("int4", True): "paged_q4decode_split",
+                     ("int8", False): "qdecode_split"}.get((tier, paged))
+            per_step, step_ms, dtrace = decode_window(k, engine, cfg, gen,
+                                                      watch, vcfg.n_layers)
             if mode == "paged" and per_step[attend] != vcfg.n_layers:
                 raise AssertionError(f"{attend} launched {per_step[attend]} "
                                      f"times in one decode step, not "
@@ -1996,7 +2133,7 @@ def main() -> int:
     k = types.SimpleNamespace(ref=ref, qmatmul=qmatmul, dynquant=dynquant,
                               flash_prefill=flash_prefill,
                               paged_attn=paged_attn, qdecode=qdecode,
-                              quantize=quantize)
+                              quantize=quantize, ptxas={})
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
@@ -2010,9 +2147,19 @@ def main() -> int:
                         for ln in log.splitlines() if "Used" in ln
                         or ("spill" in ln and " 0 bytes spill stores" not in ln)})
              for n, log in _build.BUILD_LOG.items()}
+    # kernel instantiation -> (registers, spill st, spill ld)
+    filt = os.path.join(os.path.dirname(_build._nvcc()), "cu++filt")
+    for log in _build.BUILD_LOG.values():
+        k.ptxas.update(ptxas_kernels(log, filt))
+    spilled = sorted(name for name, (_, st, ld) in k.ptxas.items()
+                     if st or ld)
     emit("card", nvidia_smi=smi, name=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count(), torch=torch.__version__,
-         cuda=torch.version.cuda, build_s=build_s, ptxas=ptxas)
+         cuda=torch.version.cuda, build_s=build_s, ptxas=ptxas,
+         ptxas_redesigned={name: k.ptxas[name] for name in sorted(k.ptxas)
+                           if "flash_qtc" in name
+                           or "paged_q4decode_split" in name},
+         ptxas_spilled=spilled)
 
     timer = Timer(dev)
     one = torch.zeros(1, device=dev)
@@ -2036,7 +2183,9 @@ def main() -> int:
     paged_totals, all_totals, streams = engine_phase(k, dev)
     totals["paged_decode"] = paged_totals["paged_decode"]
     for name in ("qdecode", "paged_qdecode", "flash_qprefill",
-                 "paged_q4decode", "flash_q4prefill"):
+                 "paged_q4decode", "flash_q4prefill",
+                 *(f"flash_qprefill.{body}"
+                   for body in k.flash_prefill.QBODY.values())):
         totals[name] = totals.get(name, 0) + all_totals[name]
     paged_vs_dense_phase(dev, streams)
     card_vs_cpu_phase(dev, paged=False)
@@ -2088,11 +2237,13 @@ def main() -> int:
                         "plain_ms": h["plain_ms"], "bound_ms": h["bound_ms"],
                         "bound_by": h["bound_by"],
                         "library_ms": h["library_ms"], "shape": shape})
-        if name == "flash_prefill":
+        if name in ("flash_prefill", "flash_qprefill"):
             kernels[-1]["body"] = h["body"]
             kernels[-1]["launches_by_body"] = {
-                body: totals[f"flash_prefill.{body}"]
-                for body in read_bodies(k)}
+                body: totals[f"{name}.{body}"]
+                for body in read_bodies(k, name)}
+        if name == "paged_q4decode":
+            kernels[-1]["body"] = h["body"]
         if name in _gemms(k):
             kernels[-1]["body"] = h["body"]
             kernels[-1]["bf16_library_ms"] = h["bf16_library_ms"]

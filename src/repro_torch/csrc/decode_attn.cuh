@@ -1,13 +1,13 @@
-// The one-block decode-attention tile loop of paged_attn.cu's fp and int4
-// pools (paged_decode, paged_q4decode; they replace the TPU kernels
-// repro/kernels/paged_attn.py::paged_decode_attention and
-// paged_q4decode_attention): one query token per sequence attends over its
-// K/V rows with an f32 online softmax. The int8 kernels (qdecode,
-// paged_qdecode) run decode_split.cuh's split-K loop instead. What bounds
-// the work is bytes (each valid K/V row read once), but this loop's time is
-// latency: each block walks its tiles in turn, table entry, then codes,
-// with five block barriers a tile; decode_split.cuh's design is the later
-// step for these pools too.
+// The one-block decode-attention tile loop of paged_attn.cu's fp pools
+// (paged_decode; it replaces the TPU kernel
+// repro/kernels/paged_attn.py::paged_decode_attention): one query token per
+// sequence attends over its K/V rows with an f32 online softmax. The int8
+// and int4 kernels (qdecode, paged_qdecode, paged_q4decode) run
+// decode_split.cuh's split-K loop instead. What bounds the work is bytes
+// (each valid K/V row read once), but this loop's time is latency: each
+// block walks its tiles in turn, table entry, then K/V rows, with five
+// block barriers a tile; decode_split.cuh's design is the later step for
+// these pools too.
 //
 // One block of 128 threads owns one (sequence b, kv head h) and walks key
 // tiles of KT = 32 slots. PagedRows says where slot k of sequence b lives
@@ -17,29 +17,19 @@
 // and V rows arrive as 16-byte vectors (hd a multiple of 16 / sizeof(TKV)),
 // all of a thread's loads issued before any is stored, and are unpacked to
 // f32 in shared memory (K row stride hd + 1, so the column-wise dot
-// products do not conflict). For int4 storage (TKV = kv_int4::q4_t, hd a
-// multiple of 32) one 16-byte vector holds the 32 codes of exactly one
-// scale group; the thread that loads it also loads that group's K and V
-// f16 scales, from the same row address and in the same batch of loads,
-// and dequantizes K and V as it unpacks them, code * s_g: the score is
-// q . k / sqrt(hd), as the TPU int4 kernel computes it. Scores for all G
-// query heads go to shared memory, one warp per query head updates the
-// running max (seed -1e30) and normalizer, and every thread owns up to 8
-// of the G x hd f32 accumulators. A masked slot gets score -2e38 and value
-// 0 and neither its codes nor its scales are read, so whatever the trash
-// block holds (NaN scales an idle slot wrote there included) cannot reach
-// the output. A row with no valid slot gives l = 0 and 0/0 = NaN, as the
-// TPU kernel does.
+// products do not conflict). Scores for all G query heads go to shared
+// memory, one warp per query head updates the running max (seed -1e30) and
+// normalizer, and every thread owns up to 8 of the G x hd f32
+// accumulators. A masked slot gets score -2e38 and value 0 and its row is
+// not read, so whatever the trash block holds (NaN an idle slot wrote
+// there included) cannot reach the output. A row with no valid slot gives
+// l = 0 and 0/0 = NaN, as the TPU kernel does.
 
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
-
-#include <type_traits>
-
-#include "kv_int4.cuh"
 
 namespace decode_attn {
 
@@ -56,17 +46,15 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
 
-// one 16-byte vector of stored elements -> f32 in shared memory, times sc
-// (sc is 1 for fp storage)
-__device__ __forceinline__ void unpack(float* dst, uint4 u, const float*,
-                                       float) {
+// one 16-byte vector of stored elements -> f32 in shared memory
+__device__ __forceinline__ void unpack(float* dst, uint4 u, const float*) {
   dst[0] = __uint_as_float(u.x);
   dst[1] = __uint_as_float(u.y);
   dst[2] = __uint_as_float(u.z);
   dst[3] = __uint_as_float(u.w);
 }
 __device__ __forceinline__ void unpack(float* dst, uint4 u,
-                                       const __nv_bfloat16*, float) {
+                                       const __nv_bfloat16*) {
   const unsigned w[4] = {u.x, u.y, u.z, u.w};
 #pragma unroll
   for (int i = 0; i < 4; ++i) {           // element 2i is the low half
@@ -74,15 +62,6 @@ __device__ __forceinline__ void unpack(float* dst, uint4 u,
     dst[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
   }
 }
-__device__ __forceinline__ void unpack(float* dst, uint4 u,
-                                       const kv_int4::q4_t*, float sc) {
-  const unsigned w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i)             // element 8i + k is nibble k
-#pragma unroll
-    for (int k = 0; k < 8; ++k) dst[8 * i + k] = kv_int4::nibble(w[i], k) * sc;
-}
-
 struct PagedRows {
   const int* tables;
   int M, bs, p;                         // p = pos[b], the write slot
@@ -93,16 +72,14 @@ struct PagedRows {
   }
 };
 
-// q [B,Hkv,G,hd]; k / v storage [rows, Hkv, hd] (int4: [rows, Hkv, hd / 2]
-// bytes); k_s / v_s: int4 storage [rows, Hkv, hd / 32] f16 (TS = __half),
-// else unused; out [B,Hkv,G,hd] f32.
-template <typename TQ, typename TKV, typename Rows, typename TS>
-__device__ __forceinline__ void attend(
-    const TQ* __restrict__ q, const TKV* __restrict__ kp,
-    const TS* __restrict__ ksp, const TKV* __restrict__ vp,
-    const TS* __restrict__ vsp, const Rows& rows, float* __restrict__ out,
-    int b, int h, int Hkv, int G, int hd) {
-  constexpr bool Q4 = std::is_same<TKV, kv_int4::q4_t>::value;
+// q [B,Hkv,G,hd]; k / v storage [rows, Hkv, hd]; out [B,Hkv,G,hd] f32.
+template <typename TQ, typename TKV, typename Rows>
+__device__ __forceinline__ void attend(const TQ* __restrict__ q,
+                                       const TKV* __restrict__ kp,
+                                       const TKV* __restrict__ vp,
+                                       const Rows& rows,
+                                       float* __restrict__ out, int b, int h,
+                                       int Hkv, int G, int hd) {
   __shared__ float Qs[MAXG * MAXD];
   __shared__ float Ks[KT * (MAXD + 1)];
   __shared__ float Vs[KT * MAXD];
@@ -111,12 +88,9 @@ __device__ __forceinline__ void attend(
   __shared__ int row_s[KT];
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  constexpr int SV = 16 / sizeof(TKV);    // stored elements per 16-byte load
-  constexpr int VN = Q4 ? 2 * SV : SV;    // head_dim elements per load
-  static_assert(!Q4 || VN == kv_int4::GROUP, "one int4 load = one group");
+  constexpr int VN = 16 / sizeof(TKV);    // elements per 16-byte load
   constexpr int MAXV = KT * MAXD / VN / PT;
   const int vpr = hd / VN;                 // loads per K or V row
-  const int rw = vpr * SV;                 // stored elements per row
   const int ks = hd + 1;
   const float scale = sqrtf((float)hd);
   const long head = (long)b * Hkv + h;
@@ -141,27 +115,19 @@ __device__ __forceinline__ void attend(
     }
     __syncthreads();
     uint4 kr[MAXV], vr[MAXV];
-    float kg[MAXV], vg[MAXV];              // int4: the vector's group scales
 #pragma unroll
     for (int r = 0; r < MAXV; ++r) {
       const int c = tid + r * PT;
       kr[r] = make_uint4(0u, 0u, 0u, 0u);
       vr[r] = kr[r];
-      kg[r] = 0.f;
-      vg[r] = 0.f;
       if (c < KT * vpr) {
         const int j = c / vpr;
         const int row = row_s[j];
         if (row >= 0) {
-          const long e = (long)row * Hkv + h;
-          const int v = c - j * vpr;       // int4: also the group index
-          const long off = e * rw + (long)v * SV;
+          const long off =
+              ((long)row * Hkv + h) * hd + (long)(c - j * vpr) * VN;
           kr[r] = __ldg(reinterpret_cast<const uint4*>(kp + off));
           vr[r] = __ldg(reinterpret_cast<const uint4*>(vp + off));
-          if constexpr (Q4) {
-            kg[r] = kv_int4::scale_at(ksp, e * vpr + v);
-            vg[r] = kv_int4::scale_at(vsp, e * vpr + v);
-          }
         }
       }
     }
@@ -170,8 +136,8 @@ __device__ __forceinline__ void attend(
       const int c = tid + r * PT;
       if (c < KT * vpr) {
         const int j = c / vpr, d0 = (c - j * vpr) * VN;
-        unpack(Ks + j * ks + d0, kr[r], kp, Q4 ? kg[r] : 1.f);
-        unpack(Vs + j * hd + d0, vr[r], kp, Q4 ? vg[r] : 1.f);
+        unpack(Ks + j * ks + d0, kr[r], kp);
+        unpack(Vs + j * hd + d0, vr[r], kp);
       }
     }
     __syncthreads();

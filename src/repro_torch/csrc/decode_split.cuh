@@ -1,8 +1,21 @@
-// The split-K decode-attention loop over int8 K/V for Hopper (sm_90a),
-// shared by qdecode.cu (qdecode: a dense cache plus an additive bias) and
-// paged_attn.cu's paged_qdecode_fwd (block pools through a table). One
-// query token per sequence attends over its int8 K/V slots with an f32
-// online softmax; the fp and int4 pools keep decode_attn.cuh's loop.
+// The split-K decode-attention loop over quantized K/V for Hopper (sm_90a),
+// shared by qdecode.cu (qdecode: a dense int8 cache plus an additive bias)
+// and paged_attn.cu's paged_qdecode_fwd (int8 block pools) and
+// paged_q4decode_fwd (int4 block pools), both through a block table. One
+// query token per sequence attends over its K/V slots with an f32 online
+// softmax; the fp pools keep decode_attn.cuh's loop.
+//
+// Two code formats, one loop:
+// - Int8: int8 codes [rows, Hkv, hd] with f32 scales [rows, Hkv]. The K
+//   scale multiplies the score after the dot, (q . k_codes) * k_s /
+//   sqrt(hd), plus the bias for the dense cache, and the V scale is folded
+//   in per slot (p * v_s times the codes), as the TPU int8 kernels do.
+// - Int4: nibble-packed codes [rows, Hkv, hd / 2] with f16 scales per
+//   (slot, head, group of 32) [rows, Hkv, hd / 32] (kv_int4.cuh's layout).
+//   A lane's codes lie in one group, so it needs one K and one V scale;
+//   it dequantizes both before the dot, code * s_g in f32 (exact), and the
+//   score is q . k / sqrt(hd) with no scale after the dot, acc += p * v, as
+//   the TPU int4 kernel does.
 //
 // Grid (splits * Hkv, B) in clusters of `splits` CTAs along x: the
 // `splits` CTAs of one (sequence b, kv head h) each take an equal share of
@@ -18,31 +31,29 @@
 //
 // Inside a CTA the four warps walk the share in steps of R = 32 / LPR
 // slots, step i going to warp i % 4. LPR lanes hold one slot row: lane l
-// loads the row's l-th vector of VL K and VL V codes (VL = 16, one
-// 16-byte load; VL = 8 where G > 4, so acc[G][VL] fits the registers;
-// lanes past hd / VL are masked, as hd 96 leaves two of eight), and the
-// same VL dims of q come from shared memory, stored so the lanes of a row
-// read consecutive float4s. Codes become f32 by a byte permute and a
-// subtraction (exact), not I2F. The row's dot is reduced with
-// __shfl_xor_sync, and each warp keeps its own online-softmax state: the
-// running max m[g] (warp-uniform, seeded at RUN_INIT = -1e30; l and acc
-// are rescaled only when it moves), and per lane the normalizer l[g] and
-// acc[g][VL] of its own dims. A step's loads are issued before the
-// previous step's math (a register double buffer), and the loop has no
-// block barrier: the table entries of the share are staged in shared
-// memory once before it (TAB_CAP entries at a time), beside q. The warps
-// merge once at the end of the share, the CTAs once per cluster.
+// loads the row's l-th vector of VL K and VL V codes (lane_codes: int8 16
+// codes, one 16-byte load, or 8 where G > 4; int4 32 codes at G 1, 16 at G
+// <= 4 and 8 above, so acc[G][VL] fits the registers; lanes past hd / VL
+// are masked, as hd 96 leaves some), and the same VL dims of q come from
+// shared memory, stored so the lanes of a row read consecutive float4s.
+// Codes become f32 by byte permutes and a subtraction (exact), not I2F.
+// The row's dot is reduced with __shfl_xor_sync, and each warp keeps its
+// own online-softmax state: the running max m[g] (warp-uniform, seeded at
+// RUN_INIT = -1e30; l and acc are rescaled only when it moves), and per
+// lane the normalizer l[g] and acc[g][VL] of its own dims. A step's loads
+// (codes and scales in one batch) are issued before the previous step's
+// math (a register double buffer), and the loop has no block barrier: the
+// table entries of the share are staged in shared memory once before it
+// (TAB_CAP entries at a time), beside q. The warps merge once at the end
+// of the share, the CTAs once per cluster.
 //
-// The arithmetic is the one-block kernel's: the K scale multiplies the
-// score after the dot, (q . k_codes) * k_s / sqrt(hd), plus the bias for
-// the dense cache, and the V scale is folded in per slot (p * v_s times
-// the codes), all in f32. A masked slot (a table entry of -1, or past
-// pos[b]) scores NEG_INF = -2e38 and neither its codes nor its scales are
-// read, so whatever the trash block holds cannot reach a live row. A CTA
-// or warp whose share holds no valid slot contributes m = -1e30, l = 0 and
-// acc = 0, never -inf, so the merge never computes exp(-inf - -inf). A
-// paged row with no valid slot gives l = 0 and 0/0 = NaN, as the TPU
-// kernel does. The dense kernel reads every slot of S.
+// A masked slot (a table entry of -1, or past pos[b]) scores NEG_INF =
+// -2e38 and neither its codes nor its scales are read, so whatever the
+// trash block holds cannot reach a live row. A CTA or warp whose share
+// holds no valid slot contributes m = -1e30, l = 0 and acc = 0, never -inf,
+// so the merge never computes exp(-inf - -inf). A paged row with no valid
+// slot gives l = 0 and 0/0 = NaN, as the TPU kernel does. The dense kernel
+// reads every slot of S.
 
 #pragma once
 
@@ -50,6 +61,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "kv_int4.cuh"
 
 namespace decode_split {
 
@@ -65,11 +78,46 @@ constexpr int TAB_CAP = 512;            // table entries staged at once
 constexpr float NEG_INF = -2.0e38f;     // a masked slot's score
 constexpr float RUN_INIT = -1.0e30f;    // the running max's seed
 
-// int8 codes a lane holds of one K or V row: one 16-byte load, or one
-// 8-byte load where G > 4 (acc[G][codes] must fit the registers)
-__host__ __device__ constexpr int lane_codes(int gb) {
-  return gb > 4 ? 8 : 16;
-}
+// int8 codes, one f32 scale per (slot, head) applied after the dot
+struct Int8 {
+  using Scale = float;                  // a scale in memory
+  using Bits = float;                   // a scale as a lane holds it
+  static constexpr bool kScaleAfterDot = true;
+  // codes a lane holds of one K or V row: one 16-byte load, or one 8-byte
+  // load where G > 4 (acc[G][codes] must fit the registers)
+  __host__ __device__ static constexpr int lane_codes(int gb) {
+    return gb > 4 ? 8 : 16;
+  }
+  __host__ __device__ static constexpr int bytes(int codes) { return codes; }
+  __device__ static Bits scale(const Scale* p, long e, int, int) {
+    return __ldg(p + e);
+  }
+  __device__ static float to_f32(Bits b) { return b; }
+};
+
+// int4 codes two a byte, one f16 scale per (slot, head, group of 32)
+// applied before the dot
+struct Int4 {
+  using Scale = __half;
+  using Bits = unsigned short;          // loaded raw, converted at use
+  static constexpr bool kScaleAfterDot = false;
+  // codes a lane holds of one K or V row: one 16-, 8- or 4-byte load, all
+  // in one group of 32 (acc[G][codes] must fit the registers)
+  __host__ __device__ static constexpr int lane_codes(int gb) {
+    return gb == 1 ? 32 : (gb <= 4 ? 16 : 8);
+  }
+  __host__ __device__ static constexpr int bytes(int codes) {
+    return codes / 2;
+  }
+  // the scale of the group that holds element d0 of row e
+  __device__ static Bits scale(const Scale* p, long e, int hd, int d0) {
+    return __ldg(reinterpret_cast<const unsigned short*>(p) +
+                 e * (hd / kv_int4::GROUP) + d0 / kv_int4::GROUP);
+  }
+  __device__ static float to_f32(Bits b) {
+    return __half2float(__ushort_as_half(b));
+  }
+};
 
 // CTAs per (sequence, kv head): a power of two, at most one per tile of
 // the longest sequence the host can see (S, or M * bs), at most
@@ -95,8 +143,9 @@ long resident_ctas(K kernel) {
 // the compiled bound on G and lanes per slot row (a power of two >=
 // hd / lane_codes), the two template parameters of a launch
 inline int group_bound(int G) { return G == 1 ? 1 : (G <= 4 ? 4 : 8); }
-inline int lanes_per_row(int hd, int gb) {
-  const int v = hd / lane_codes(gb);
+template <class Fmt>
+int lanes_per_row(int hd, int gb) {
+  const int v = hd / Fmt::lane_codes(gb);
   return v <= 2 ? 2 : (v <= 4 ? 4 : (v <= 8 ? 8 : 16));
 }
 
@@ -149,79 +198,116 @@ struct DenseRows {
   }
 };
 
-template <int VL> struct CodeVec;       // one load of VL int8 codes
+template <int BYTES> struct CodeVec;    // one load of a lane's codes
 template <> struct CodeVec<16> { using T = uint4; };
 template <> struct CodeVec<8> { using T = uint2; };
+template <> struct CodeVec<4> { using T = unsigned; };
+
+__device__ __forceinline__ unsigned word(const uint4& u, int i) {
+  return i == 0 ? u.x : (i == 1 ? u.y : (i == 2 ? u.z : u.w));
+}
+__device__ __forceinline__ unsigned word(const uint2& u, int i) {
+  return i == 0 ? u.x : u.y;
+}
+__device__ __forceinline__ unsigned word(unsigned u, int) { return u; }
 
 // Element 4i + j is byte j of word i. A code c becomes f32 without I2F
 // (16 results per clock per SM, as slow as the bytes here): byte c + 128
 // is put under the exponent of 2^23 by one byte permute, and 2^23 + 128 is
 // taken off; both steps are exact.
-__device__ __forceinline__ void unpack_word(float* f, unsigned w) {
+__device__ __forceinline__ void unpack_word(Int8, float* f, unsigned w) {
   const unsigned x = w ^ 0x80808080u;
 #pragma unroll
   for (int j = 0; j < 4; ++j)
     f[j] = __int_as_float(__byte_perm(x, 0x4B000000u, 0x7440u + j)) -
            8388736.f;
 }
-__device__ __forceinline__ void unpack(float (&f)[16], uint4 u) {
-  unpack_word(f, u.x);
-  unpack_word(f + 4, u.y);
-  unpack_word(f + 8, u.z);
-  unpack_word(f + 12, u.w);
+// Element 8i + 2j + n is nibble n of byte j of word i (the even element in
+// the low nibble). The same way: nibble c + 8 goes under the exponent of
+// 2^23 and 2^23 + 8 is taken off.
+__device__ __forceinline__ void unpack_word(Int4, float* f, unsigned w) {
+  const unsigned x = w ^ 0x88888888u;
+  const unsigned lo = x & 0x0f0f0f0fu, hi = (x >> 4) & 0x0f0f0f0fu;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    f[2 * j] = __int_as_float(__byte_perm(lo, 0x4B000000u, 0x7440u + j)) -
+               8388616.f;
+    f[2 * j + 1] =
+        __int_as_float(__byte_perm(hi, 0x4B000000u, 0x7440u + j)) -
+        8388616.f;
+  }
 }
-__device__ __forceinline__ void unpack(float (&f)[8], uint2 u) {
-  unpack_word(f, u.x);
-  unpack_word(f + 4, u.y);
+template <class Fmt, int VL, typename V>
+__device__ __forceinline__ void unpack(float (&f)[VL], const V& v) {
+  constexpr int W = sizeof(V) / 4;        // words of the load
+#pragma unroll
+  for (int i = 0; i < W; ++i) unpack_word(Fmt{}, f + i * (VL / W), word(v, i));
 }
 
 // a lane's part of one slot row: its VL K and VL V codes and the scales
-template <int VL>
+template <class Fmt, int VL>
 struct Slot {
-  typename CodeVec<VL>::T k, v;
-  float ks, vs, add;
+  typename CodeVec<Fmt::bytes(VL)>::T k, v;
+  typename Fmt::Bits ks, vs;
+  float add;
   bool on;                              // a valid slot (codes were read)
 };
 
-template <int LPR, int VL, class Rows>
-__device__ __forceinline__ Slot<VL> fetch(
-    const int8_t* __restrict__ kp, const float* __restrict__ ksp,
-    const int8_t* __restrict__ vp, const float* __restrict__ vsp,
+template <class Fmt, int LPR, int VL, class Rows>
+__device__ __forceinline__ Slot<Fmt, VL> fetch(
+    const int8_t* __restrict__ kp, const typename Fmt::Scale* __restrict__ ksp,
+    const int8_t* __restrict__ vp, const typename Fmt::Scale* __restrict__ vsp,
     const Rows& rows, const int* tab, int b, int h, int Hkv, int hd, int c0,
     int c1, int step, int rg, int l) {
-  using T = typename CodeVec<VL>::T;
-  Slot<VL> s;
+  using T = typename CodeVec<Fmt::bytes(VL)>::T;
+  Slot<Fmt, VL> s;
   s.k = T{};
   s.v = T{};
-  s.ks = 0.f;
-  s.vs = 0.f;
+  s.ks = 0;
+  s.vs = 0;
   s.add = 0.f;
   const int k = c0 + step * (32 / LPR) + rg;
   const int row = k < c1 ? rows.row(tab, b, c0, k) : -1;
   s.on = row >= 0;
   if (s.on) {
     const long e = (long)row * Hkv + h;
+    const long row_bytes = Fmt::bytes(hd);
     if (l * VL < hd) {
-      s.k = __ldg(reinterpret_cast<const T*>(kp + e * hd) + l);
-      s.v = __ldg(reinterpret_cast<const T*>(vp + e * hd) + l);
+      s.k = __ldg(reinterpret_cast<const T*>(kp + e * row_bytes) + l);
+      s.v = __ldg(reinterpret_cast<const T*>(vp + e * row_bytes) + l);
+      if (!Fmt::kScaleAfterDot) {       // a group scale: its lanes only
+        s.ks = Fmt::scale(ksp, e, hd, l * VL);
+        s.vs = Fmt::scale(vsp, e, hd, l * VL);
+      }
     }
-    s.ks = __ldg(ksp + e);
-    s.vs = __ldg(vsp + e);
+    if (Fmt::kScaleAfterDot) {          // a row scale: every lane of the
+      s.ks = Fmt::scale(ksp, e, hd, 0);   // row scales the reduced dot
+      s.vs = Fmt::scale(vsp, e, hd, 0);
+    }
     if (Rows::kBias) s.add = rows.bias(b, k);
   }
   return s;
 }
 
 // one step of a warp: 32 / LPR slot rows, one per group of LPR lanes
-template <int LPR, int VL, int GB, bool BIAS>
-__device__ __forceinline__ void consume(const Slot<VL>& s, const float* qs,
-                                        int G, int l, float scale,
-                                        float (&m)[GB], float (&lsum)[GB],
+template <class Fmt, int LPR, int VL, int GB, bool BIAS>
+__device__ __forceinline__ void consume(const Slot<Fmt, VL>& s,
+                                        const float* qs, int G, int l,
+                                        float scale, float (&m)[GB],
+                                        float (&lsum)[GB],
                                         float (&acc)[GB][VL]) {
   constexpr int QW = LPR * VL;            // q floats per head in qs
   float kf[VL], vf[VL];
-  unpack(kf, s.k);
-  unpack(vf, s.v);
+  unpack<Fmt>(kf, s.k);
+  unpack<Fmt>(vf, s.v);
+  const float ks = Fmt::to_f32(s.ks), vs = Fmt::to_f32(s.vs);
+  if (!Fmt::kScaleAfterDot) {             // dequantize first: exact
+#pragma unroll
+    for (int c = 0; c < VL; ++c) {
+      kf[c] *= ks;
+      vf[c] *= vs;
+    }
+  }
 #pragma unroll
   for (int g = 0; g < GB; ++g) {
     if (GB > 1 && g >= G) break;
@@ -240,7 +326,7 @@ __device__ __forceinline__ void consume(const Slot<VL>& s, const float* qs,
       dot += __shfl_xor_sync(0xffffffffu, dot, o);
     float sc = NEG_INF;
     if (s.on) {
-      sc = dot * s.ks / scale;
+      sc = Fmt::kScaleAfterDot ? dot * ks / scale : dot / scale;
       if (BIAS) sc = sc + s.add;
     }
     float mx = sc;
@@ -256,7 +342,7 @@ __device__ __forceinline__ void consume(const Slot<VL>& s, const float* qs,
     }
     const float p = expf(sc - m[g]);
     lsum[g] += p;
-    const float pv = p * s.vs;
+    const float pv = Fmt::kScaleAfterDot ? p * vs : p;
 #pragma unroll
     for (int c = 0; c < VL; ++c) acc[g][c] = fmaf(pv, vf[c], acc[g][c]);
   }
@@ -267,16 +353,16 @@ __device__ __forceinline__ int cluster_head(int Hkv) {
   return blockIdx.x / (gridDim.x / Hkv);
 }
 
-// q [B,Hkv,G,hd] f32 (q_bf16 = 0) or bf16; k / v codes [rows, Hkv, hd]
-// int8 and k_s / v_s [rows, Hkv] f32, rows as `Rows` says; out
-// [B,Hkv,G,hd] f32. Called by every thread of every CTA of the cluster.
-template <int LPR, int GB, class Rows>
+// q [B,Hkv,G,hd] f32 (q_bf16 = 0) or bf16; k / v codes and k_s / v_s in
+// Fmt's layout, rows as `Rows` says; out [B,Hkv,G,hd] f32. Called by every
+// thread of every CTA of the cluster.
+template <class Fmt, int LPR, int GB, class Rows>
 __device__ __forceinline__ void attend(
     const void* __restrict__ q, int q_bf16, const int8_t* __restrict__ kp,
-    const float* __restrict__ ksp, const int8_t* __restrict__ vp,
-    const float* __restrict__ vsp, const Rows& rows, float* __restrict__ out,
-    int b, int h, int Hkv, int G, int hd) {
-  constexpr int VL = lane_codes(GB);
+    const typename Fmt::Scale* __restrict__ ksp, const int8_t* __restrict__ vp,
+    const typename Fmt::Scale* __restrict__ vsp, const Rows& rows,
+    float* __restrict__ out, int b, int h, int Hkv, int G, int hd) {
+  constexpr int VL = Fmt::lane_codes(GB);
   constexpr int R = 32 / LPR;             // slot rows per warp step
   constexpr int QW = LPR * VL;
   static_assert(QW <= MAXD && GB <= MAXG, "compiled bounds");
@@ -301,10 +387,10 @@ __device__ __forceinline__ void attend(
   // the first chunk's table entries, and a dense cache's first codes, are
   // in flight while q is staged
   if (k0 < k1) rows.stage(tab, b, k0, c1);
-  Slot<VL> cur;
+  Slot<Fmt, VL> cur;
   if (Rows::kTab == 1)
-    cur = fetch<LPR, VL>(kp, ksp, vp, vsp, rows, tab, b, h, Hkv, hd, k0, c1,
-                         warp, rg, l);
+    cur = fetch<Fmt, LPR, VL>(kp, ksp, vp, vsp, rows, tab, b, h, Hkv, hd, k0,
+                              c1, warp, rg, l);
 
   // qs[g][(i * LPR + l) * 4 + c] = q[g][l * VL + i * 4 + c]: the lanes of a
   // row read consecutive float4s, and the rows of a warp the same ones
@@ -337,15 +423,16 @@ __device__ __forceinline__ void attend(
       __syncthreads();
     }
     if (Rows::kTab > 1 || c0 != k0)
-      cur = fetch<LPR, VL>(kp, ksp, vp, vsp, rows, tab, b, h, Hkv, hd, c0,
-                           c1, warp, rg, l);
+      cur = fetch<Fmt, LPR, VL>(kp, ksp, vp, vsp, rows, tab, b, h, Hkv, hd,
+                                c0, c1, warp, rg, l);
     const int n_steps = (c1 - c0 + R - 1) / R;
     for (int st = warp; st < n_steps; st += NW) {
-      Slot<VL> nxt = cur;
+      Slot<Fmt, VL> nxt = cur;
       if (st + NW < n_steps)              // in flight during this step's math
-        nxt = fetch<LPR, VL>(kp, ksp, vp, vsp, rows, tab, b, h, Hkv, hd, c0,
-                             c1, st + NW, rg, l);
-      consume<LPR, VL, GB, Rows::kBias>(cur, qs, G, l, scale, m, lsum, acc);
+        nxt = fetch<Fmt, LPR, VL>(kp, ksp, vp, vsp, rows, tab, b, h, Hkv, hd,
+                                  c0, c1, st + NW, rg, l);
+      consume<Fmt, LPR, VL, GB, Rows::kBias>(cur, qs, G, l, scale, m, lsum,
+                                             acc);
       cur = nxt;
     }
   }
@@ -461,24 +548,34 @@ int launch(void (*kernel)(KArgs...), int splits, int Hkv, int B,
   return (int)(e != cudaSuccess ? e : cudaGetLastError());
 }
 
-// go.template run<LPR, GB>() for the compiled pair that serves (hd, G)
-template <class Go>
+// go.template run<LPR, GB>() where a lane row of LPR lanes fits MAXD;
+// dispatch never asks for another
+template <class Fmt, int LPR, int GB, class Go>
+int run(const Go& go) {
+  if constexpr (LPR * Fmt::lane_codes(GB) <= MAXD)
+    return go.template run<LPR, GB>();
+  else
+    return (int)cudaErrorInvalidValue;
+}
+
+// the compiled (LPR, GB) pair that serves (hd, G) in format Fmt
+template <class Fmt, class Go>
 int dispatch(const Go& go, int hd, int G) {
-  const int gb = group_bound(G), lpr = lanes_per_row(hd, gb);
+  const int gb = group_bound(G), lpr = lanes_per_row<Fmt>(hd, gb);
   if (gb == 1) {
-    if (lpr == 2) return go.template run<2, 1>();
-    if (lpr == 4) return go.template run<4, 1>();
-    return go.template run<8, 1>();
+    if (lpr == 2) return run<Fmt, 2, 1>(go);
+    if (lpr == 4) return run<Fmt, 4, 1>(go);
+    return run<Fmt, 8, 1>(go);
   }
   if (gb == 4) {
-    if (lpr == 2) return go.template run<2, 4>();
-    if (lpr == 4) return go.template run<4, 4>();
-    return go.template run<8, 4>();
+    if (lpr == 2) return run<Fmt, 2, 4>(go);
+    if (lpr == 4) return run<Fmt, 4, 4>(go);
+    return run<Fmt, 8, 4>(go);
   }
-  if (lpr == 2) return go.template run<2, 8>();
-  if (lpr == 4) return go.template run<4, 8>();
-  if (lpr == 8) return go.template run<8, 8>();
-  return go.template run<16, 8>();
+  if (lpr == 2) return run<Fmt, 2, 8>(go);
+  if (lpr == 4) return run<Fmt, 4, 8>(go);
+  if (lpr == 8) return run<Fmt, 8, 8>(go);
+  return run<Fmt, 16, 8>(go);
 }
 
 }  // namespace decode_split

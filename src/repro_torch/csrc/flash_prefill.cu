@@ -12,7 +12,7 @@
 // grid axis; here one block owns 64 group-flattened query rows of one
 // (batch, kv head) and loops over the KV tiles itself, up to the last query
 // position it holds, so the state never leaves registers. Row blocks are
-// issued latest-first so the longest causal rows start first. Two bodies:
+// issued latest-first so the longest causal rows start first. Three bodies:
 //
 // flash_tc (flash_prefill_fwd, bf16 or f32 q/k/v): the tensor-core body. 4
 // warps of 16 query rows; the block's Q is held as bf16 A fragments for the
@@ -36,26 +36,36 @@
 // ~2e-5 against the reference. O / l leaves through shared memory in
 // coalesced 16-byte stores.
 //
-// flash_attend (the int8 and int4 K/V variants): f32 FMA on the CUDA
-// cores, 128 threads each owning 4 rows x (4 keys of a 32-key tile) of
-// scores and 4 rows x (dv / 8 columns) of the accumulator; Q, K and V read
-// as f32 into shared memory (row stride hd + 1, dv + 1). The int8 variant
-// reads int8 K [B,S,Hkv,hd] and V [B,S,Hkv,dv] with f32 per-(position,
-// head) scales [B,S,Hkv] and fuses the dequantization as the TPU kernel
-// does: the K scale multiplies the score after the dot, (q . k_codes) *
-// k_s / sqrt(hd), and the V scale is folded into the value row as it is
-// staged, code * v_s. The int4 variant reads nibble-packed K [B,S,Hkv,hd/2]
-// and V [B,S,Hkv,dv/2] with f16 per-(position, head, group of 32) scales
-// [B,S,Hkv,hd/32] / [..,dv/32] and, as its TPU kernel does, dequantizes K
-// and V while staging them, code * s_g, so the score is q . k / sqrt(hd)
-// with no scale after the dot.
+// flash_qtc (flash_qprefill_fwd: int8 K [B,S,Hkv,hd] and V [B,S,Hkv,dv]
+// with f32 per-(position, head) scales [B,S,Hkv], bf16 or f32 q): the same
+// tensor-core loop over codes. 64-key tiles of int8 codes and their 64 K
+// and 64 V scales stream through a 2-stage cp.async ring (half the bytes of
+// the bf16 ring; codes and scales past S zero-filled, so a masked score is
+// 0 * 0 before the mask, never NaN); the tile after next is issued as soon
+// as a stage is free. Every int8 code is exact in bf16, so one pass per
+// tile converts the landed codes into a padded bf16 tile that the
+// ldmatrix fragment code above reads, and the codes feed mma.sync
+// unchanged. The dequantization is fused as the TPU kernel does it: the
+// score is (q . codes) * k_s / sqrt(hd), and the V scale folds into p per
+// key, p' = p * v_s, split hi + lo for O += p' V_codes while l sums p. f32
+// q is split once into two bf16 terms, two products per mma (the codes
+// need no split): ~1e-5 against the f32 reference.
+//
+// flash_attend (flash_q4prefill_fwd, int4 K/V): f32 FMA on the CUDA cores,
+// 128 threads each owning 4 rows x (4 keys of a 32-key tile) of scores and
+// 4 rows x (dv / 8 columns) of the accumulator, Q, K and V in shared
+// memory as f32 (row stride hd + 1, dv + 1). It reads nibble-packed K
+// [B,S,Hkv,hd/2] and V [B,S,Hkv,dv/2] with f16 per-(position, head, group
+// of 32) scales [B,S,Hkv,hd/32] / [..,dv/32] and, as its TPU kernel does,
+// dequantizes K and V while staging them, code * s_g, so the score is
+// q . k / sqrt(hd) with no scale after the dot.
 //
 // What bounds it on the H100: bytes (q, k, v and scales read once, out
 // written once): 21.0 MB with bf16 K/V at B4 S256 H32 hd64 (6.3 us at 3.35
-// TB/s), 40% of it the f32 output; its causal work, 2 * (hd + dv) flops
-// per visible (query row, key), is 1.07 GFLOP there (1.1 us at the bf16
-// tensor-core rate even with the 1.5x of the split value product, 3x for
-// f32 operands; 16 us at the CUDA cores' f32 rate).
+// TB/s), 40% of it the f32 output, 17.0 MB with int8 K/V; its causal work,
+// 2 * (hd + dv) flops per visible (query row, key), is 1.07 GFLOP there
+// (1.1 us at the bf16 tensor-core rate even with the 1.5x of the split
+// value product, 3x for f32 operands; 16 us at the CUDA cores' f32 rate).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -83,7 +93,6 @@ __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
-__device__ __forceinline__ float to_f32(int8_t v) { return (float)v; }
 
 // Stages FK positions of one int4 K or V head (width w, w / 2 bytes and
 // w / 32 f16 scales per position) into dst [FK][stride] as code * s_g;
@@ -110,19 +119,15 @@ __device__ __forceinline__ void stage_q4(float* dst, int stride,
   }
 }
 
-// ks / vs: [B,S,Hkv] f32 scales for int8 K/V (TKV = int8_t), [B,S,Hkv,hd/32]
-// / [B,S,Hkv,dv/32] f16 group scales for int4 K/V (TKV = q4_t, TS =
-// __half), else unused
-template <typename TQ, typename TKV, typename TS>
+// k / v: int4 K [B,S,Hkv,hd/2] / V [B,S,Hkv,dv/2] packed bytes; ks / vs:
+// [B,S,Hkv,hd/32] / [B,S,Hkv,dv/32] f16 group scales
+template <typename TQ>
 __global__ void __launch_bounds__(FT)
-flash_attend(const TQ* __restrict__ q, const TKV* __restrict__ k,
-             const TS* __restrict__ ksp, const TKV* __restrict__ v,
-             const TS* __restrict__ vsp, float* __restrict__ out, int S,
+flash_attend(const TQ* __restrict__ q, const q4_t* __restrict__ k,
+             const __half* __restrict__ ksp, const q4_t* __restrict__ v,
+             const __half* __restrict__ vsp, float* __restrict__ out, int S,
              int Hq, int Hkv, int hd, int dv) {
-  constexpr bool QUANT = std::is_same<TKV, int8_t>::value;
-  constexpr bool Q4 = std::is_same<TKV, q4_t>::value;
   extern __shared__ float smem[];
-  __shared__ float Ksc[FK], Vsc[FK];   // the tile's scales (int8 only)
   const int qs = hd + 1, vs = dv + 1, ps = FK + 1;
   float* Qs = smem;                // [FR][hd + 1]
   float* Ks = Qs + FR * qs;        // [FK][hd + 1]
@@ -166,35 +171,9 @@ flash_attend(const TQ* __restrict__ q, const TKV* __restrict__ k,
 
   for (long k0 = 0; k0 <= q_last; k0 += FK) {
     __syncthreads();
-    if constexpr (QUANT) {
-      if (tid < FK) {
-        const long kp = k0 + tid;
-        const long at = ((long)b * S + kp) * Hkv + h;
-        Ksc[tid] = kp < S ? ksp[at] : 0.f;
-        Vsc[tid] = kp < S ? vsp[at] : 0.f;
-      }
-      __syncthreads();
-    }
-    if constexpr (Q4) {
-      const long row0 = (long)b * S * Hkv + h;
-      stage_q4(Ks, qs, k, ksp, row0, k0, S, Hkv, hd);
-      stage_q4(Vs, vs, v, vsp, row0, k0, S, Hkv, dv);
-    } else {
-      for (int i = tid; i < FK * hd; i += FT) {
-        const int c = i / hd, d = i - c * hd;
-        const long kp = k0 + c;
-        Ks[c * qs + d] =
-            kp < S ? to_f32(k[(((long)b * S + kp) * Hkv + h) * hd + d]) : 0.f;
-      }
-      for (int i = tid; i < FK * dv; i += FT) {
-        const int c = i / dv, d = i - c * dv;
-        const long kp = k0 + c;
-        float val =
-            kp < S ? to_f32(v[(((long)b * S + kp) * Hkv + h) * dv + d]) : 0.f;
-        if (QUANT) val = val * Vsc[c];
-        Vs[c * vs + d] = val;
-      }
-    }
+    const long row0 = (long)b * S * Hkv + h;
+    stage_q4(Ks, qs, k, ksp, row0, k0, S, Hkv, hd);
+    stage_q4(Vs, vs, v, vsp, row0, k0, S, Hkv, dv);
     __syncthreads();
 
     float s[4][4];
@@ -220,8 +199,7 @@ flash_attend(const TQ* __restrict__ q, const TKV* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const long kp = k0 + tx + 8 * j;
-        const float dot = QUANT ? s[i][j] * Ksc[tx + 8 * j] : s[i][j];
-        s[i][j] = (kp <= qpos[i] && kp < S) ? dot / scale : NEG_INF;
+        s[i][j] = (kp <= qpos[i] && kp < S) ? s[i][j] / scale : NEG_INF;
         mx = fmaxf(mx, s[i][j]);
       }
       for (int o = 1; o < 8; o <<= 1)
@@ -276,15 +254,16 @@ flash_attend(const TQ* __restrict__ q, const TKV* __restrict__ k,
   }
 }
 
-template <typename TQ, typename TKV, typename TS>
-int launch(const void* q, const void* k, const TS* ks, const void* v,
-           const TS* vs, float* out, int B, int S, int Hq, int Hkv, int hd,
-           int dv, cudaStream_t stream) {
+template <typename TQ>
+int launch_q4(const void* q, const void* k, const __half* ks, const void* v,
+              const __half* vs, float* out, int B, int S, int Hq, int Hkv,
+              int hd, int dv, cudaStream_t stream) {
   static bool attr_set = false;
   if (!attr_set) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        flash_attend<TQ, TKV, TS>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)MAX_SMEM);
+    const cudaError_t e =
+        cudaFuncSetAttribute(flash_attend<TQ>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)MAX_SMEM);
     if (e != cudaSuccess) return (int)e;
     attr_set = true;
   }
@@ -293,9 +272,9 @@ int launch(const void* q, const void* k, const TS* ks, const void* v,
                        FR * (FK + 1));
   const long rows = (long)S * (Hq / Hkv);
   const dim3 grid((unsigned)((rows + FR - 1) / FR), Hkv, B);
-  flash_attend<TQ, TKV, TS><<<grid, FT, smem, stream>>>(
-      static_cast<const TQ*>(q), static_cast<const TKV*>(k), ks,
-      static_cast<const TKV*>(v), vs, out, S, Hq, Hkv, hd, dv);
+  flash_attend<TQ><<<grid, FT, smem, stream>>>(
+      static_cast<const TQ*>(q), static_cast<const q4_t*>(k), ks,
+      static_cast<const q4_t*>(v), vs, out, S, Hq, Hkv, hd, dv);
   return (int)cudaGetLastError();
 }
 
@@ -327,6 +306,14 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
                                            int src_bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+// 4 bytes global -> shared, asynchronously; src_bytes 0 zero-fills
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
                "l"(src), "r"(src_bytes)
                : "memory");
 }
@@ -486,6 +473,200 @@ __host__ __device__ __forceinline__ int v_stride(int dvp) {
   return sizeof(T) == 4 ? dvp + 4 : dvp + 8;
 }
 
+// Pieces shared by flash_tc and flash_qtc. sc[j][e] is a thread's C
+// fragment of keys 8j..8j+7 of a tile: row gid (e < 2) or gid + 8 of the
+// warp's 16, key 8j + 2 tig + (e & 1).
+
+// Q as bf16 A fragments of the warp's 16 rows, from the staged tile Qs
+template <int HMAX>
+__device__ __forceinline__ void q_frags(uint32_t (&qf)[HMAX / 16][4],
+                                        const bf16* Qs, int qs, int hdp,
+                                        int warp, int lane) {
+#pragma unroll
+  for (int kk = 0; kk < HMAX / 16; ++kk)
+    if (kk * 16 < hdp)
+      ldsm_x4(qf[kk], smem_addr(Qs + (warp * 16 + (lane & 7) +
+                                      ((lane >> 3) & 1) * 8) * qs +
+                                kk * 16 + (lane >> 4) * 8));
+}
+
+// f32 Q rows qa (row gid) and qb (gid + 8; null past the rows) as A
+// fragments split in two bf16 terms: qf[0] = hi, qf[1] = lo
+template <int HMAX>
+__device__ __forceinline__ void q_frags_split(uint32_t (&qf)[2][HMAX / 16][4],
+                                              const float* qa,
+                                              const float* qb, int hd,
+                                              int hdp, int tig) {
+  auto at = [&](const float* p, int c) -> float {
+    return p && c < hd ? __ldg(p + c) : 0.f;
+  };
+#pragma unroll
+  for (int kk = 0; kk < HMAX / 16; ++kk) {
+    if (kk * 16 >= hdp) break;
+    const int c = kk * 16 + tig * 2;
+    split2(at(qa, c), at(qa, c + 1), qf[0][kk][0], qf[1][kk][0]);
+    split2(at(qb, c), at(qb, c + 1), qf[0][kk][1], qf[1][kk][1]);
+    split2(at(qa, c + 8), at(qa, c + 9), qf[0][kk][2], qf[1][kk][2]);
+    split2(at(qb, c + 8), at(qb, c + 9), qf[0][kk][3], qf[1][kk][3]);
+  }
+}
+
+// sc += Q K^T over the bf16 K tile Kt [BK][ks], for each of the NQ terms
+// of Q (one K fragment read serves them all)
+template <int HMAX, int NQ>
+__device__ __forceinline__ void qk_bf16(float (&sc)[BK / 8][4],
+                                        const uint32_t (&qf)[NQ][HMAX / 16][4],
+                                        const bf16* Kt, int ks, int hdp,
+                                        int lane) {
+#pragma unroll
+  for (int kk = 0; kk < HMAX / 16; ++kk) {
+    if (kk * 16 >= hdp) break;
+#pragma unroll
+    for (int jj = 0; jj < BK / 16; ++jj) {
+      uint32_t bk[4];
+      ldsm_x4(bk, smem_addr(Kt + (jj * 16 + (lane & 7) + (lane >> 4) * 8) * ks +
+                            kk * 16 + ((lane >> 3) & 1) * 8));
+#pragma unroll
+      for (int n = 0; n < NQ; ++n) {
+        mma_bf16(sc[2 * jj], qf[n][kk], bk[0], bk[1]);
+        mma_bf16(sc[2 * jj + 1], qf[n][kk], bk[2], bk[3]);
+      }
+    }
+  }
+}
+
+// Masks the tile's scaled scores (only a tile that crosses the diagonal or
+// passes S), moves the running max m of the thread's two rows, rescales
+// its part of the normalizer l and the accumulator o, adds this tile's p
+// to l and leaves p = exp(s - m) in sc.
+template <int DMAX>
+__device__ __forceinline__ void online_softmax(
+    float (&sc)[BK / 8][4], int k0, int S, long first_pos, long qpos_lo,
+    long qpos_hi, int tig, float& m_lo, float& m_hi, float& l_lo,
+    float& l_hi, float (&o)[DMAX / 8][4]) {
+  const bool masked = k0 + BK - 1 > first_pos || k0 + BK > S;
+  float mx_lo = NEG_INF, mx_hi = NEG_INF;
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float s = sc[j][e];
+      if (masked) {
+        const int kp = k0 + j * 8 + tig * 2 + (e & 1);
+        if (kp > (e < 2 ? qpos_lo : qpos_hi) || kp >= S) s = NEG_INF;
+      }
+      sc[j][e] = s;
+      if (e < 2) mx_lo = fmaxf(mx_lo, s);
+      else mx_hi = fmaxf(mx_hi, s);
+    }
+#pragma unroll
+  for (int o_ = 1; o_ < 4; o_ <<= 1) {
+    mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, o_));
+    mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, o_));
+  }
+  const float mn_lo = fmaxf(m_lo, mx_lo), mn_hi = fmaxf(m_hi, mx_hi);
+  const float a_lo = expf(m_lo - mn_lo), a_hi = expf(m_hi - mn_hi);
+  m_lo = mn_lo;
+  m_hi = mn_hi;
+  float ps_lo = 0.f, ps_hi = 0.f;
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float p = expf(sc[j][e] - (e < 2 ? mn_lo : mn_hi));
+      sc[j][e] = p;
+      if (e < 2) ps_lo += p;
+      else ps_hi += p;
+    }
+  l_lo = l_lo * a_lo + ps_lo;      // this thread's part; the quad sums
+  l_hi = l_hi * a_hi + ps_hi;      // them at the end
+#pragma unroll
+  for (int j = 0; j < DMAX / 8; ++j) {
+    o[j][0] *= a_lo;
+    o[j][1] *= a_lo;
+    o[j][2] *= a_hi;
+    o[j][3] *= a_hi;
+  }
+}
+
+// o += P V over the bf16 V tile Vt [BK][vs], P split in two bf16 terms;
+// the C fragments of keys 16kk..16kk+15 are the A fragment of k-step kk
+template <int DMAX>
+__device__ __forceinline__ void pv_bf16(float (&o)[DMAX / 8][4],
+                                        const float (&p)[BK / 8][4],
+                                        const bf16* Vt, int vs, int dvp,
+                                        int lane) {
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk) {
+    uint32_t ph[4], pl[4];
+    split2(p[2 * kk][0], p[2 * kk][1], ph[0], pl[0]);
+    split2(p[2 * kk][2], p[2 * kk][3], ph[1], pl[1]);
+    split2(p[2 * kk + 1][0], p[2 * kk + 1][1], ph[2], pl[2]);
+    split2(p[2 * kk + 1][2], p[2 * kk + 1][3], ph[3], pl[3]);
+#pragma unroll
+    for (int jp = 0; jp < DMAX / 16; ++jp) {
+      if (jp * 16 >= dvp) break;
+      uint32_t bv[4];
+      ldsm_x4_trans(bv, smem_addr(Vt + (kk * 16 + (lane & 7) +
+                                        ((lane >> 3) & 1) * 8) * vs +
+                                  jp * 16 + (lane >> 4) * 8));
+      mma_bf16(o[2 * jp], ph, bv[0], bv[1]);
+      mma_bf16(o[2 * jp], pl, bv[0], bv[1]);
+      mma_bf16(o[2 * jp + 1], ph, bv[2], bv[3]);
+      mma_bf16(o[2 * jp + 1], pl, bv[2], bv[3]);
+    }
+  }
+}
+
+// O / l of the block's BR rows out through shared memory Os [BR][dvp + 8]
+// (the caller has synchronized: Os overlays the tiles), in coalesced
+// 16-byte row stores
+template <int DMAX>
+__device__ __forceinline__ void store_out(const float (&o)[DMAX / 8][4],
+                                          float l_lo, float l_hi, float* Os,
+                                          float* __restrict__ out, long r0,
+                                          long rows_total, int b, int S,
+                                          int Hq, int h, int G, int dv,
+                                          int dvp, int warp, int lane) {
+  const int gid = lane >> 2, tig = lane & 3;
+#pragma unroll
+  for (int o_ = 1; o_ < 4; o_ <<= 1) {
+    l_lo += __shfl_xor_sync(0xffffffffu, l_lo, o_);
+    l_hi += __shfl_xor_sync(0xffffffffu, l_hi, o_);
+  }
+  const int os = dvp + 8;
+  const int rl = warp * 16 + gid;
+#pragma unroll
+  for (int j = 0; j < DMAX / 8; ++j) {
+    if (j * 8 >= dvp) break;
+    const int c = j * 8 + tig * 2;
+    *reinterpret_cast<float2*>(Os + rl * os + c) =
+        make_float2(o[j][0] / l_lo, o[j][1] / l_lo);
+    *reinterpret_cast<float2*>(Os + (rl + 8) * os + c) =
+        make_float2(o[j][2] / l_hi, o[j][3] / l_hi);
+  }
+  __syncthreads();
+  auto out_row = [&](int r) -> float* {
+    const long rg = r0 + r;
+    const long pos = rg / G;
+    return out + (((long)b * S + pos) * Hq + (long)h * G + (rg - pos * G)) * dv;
+  };
+  if ((dv & 3) == 0) {
+    const int c4 = dv >> 2;
+    for (int i = threadIdx.x; i < BR * c4; i += THREADS) {
+      const int r = i / c4, c = i - r * c4;
+      if (r0 + r < rows_total)
+        *reinterpret_cast<float4*>(out_row(r) + c * 4) =
+            *reinterpret_cast<const float4*>(Os + r * os + c * 4);
+    }
+  } else {
+    for (int i = threadIdx.x; i < BR * dv; i += THREADS) {
+      const int r = i / dv, c = i - r * dv;
+      if (r0 + r < rows_total) out_row(r)[c] = Os[r * os + c];
+    }
+  }
+}
+
 // HMAX / DMAX: the largest padded hd / dv this instantiation takes (64, 96
 // or 128); register arrays are sized by them and loops stop at the padded
 // widths, a block-uniform bound.
@@ -544,23 +725,9 @@ flash_tc(const T* __restrict__ q, const T* __restrict__ k,
   const float scale = sqrtf((float)hd), rcp = 1.f / scale;
 
   // Q as A fragments: bf16 (T = bf16), or hi and lo terms (T = float)
-  uint32_t qf[HMAX / 16][4], ql[F32 ? HMAX / 16 : 1][4];
-  if constexpr (F32) {
-    const T* qa = q_row(row_lo);
-    const T* qb = q_row(row_lo + 8);
-    auto at = [&](const T* p, int c) -> float {
-      return p && c < hd ? __ldg(p + c) : 0.f;
-    };
-#pragma unroll
-    for (int kk = 0; kk < HMAX / 16; ++kk) {
-      if (kk * 16 >= hdp) break;
-      const int c = kk * 16 + tig * 2;
-      split2(at(qa, c), at(qa, c + 1), qf[kk][0], ql[kk][0]);
-      split2(at(qb, c), at(qb, c + 1), qf[kk][1], ql[kk][1]);
-      split2(at(qa, c + 8), at(qa, c + 9), qf[kk][2], ql[kk][2]);
-      split2(at(qb, c + 8), at(qb, c + 9), qf[kk][3], ql[kk][3]);
-    }
-  }
+  uint32_t qf[F32 ? 2 : 1][HMAX / 16][4];
+  if constexpr (F32)
+    q_frags_split<HMAX>(qf, q_row(row_lo), q_row(row_lo + 8), hd, hdp, tig);
   float o[DMAX / 8][4];
 #pragma unroll
   for (int j = 0; j < DMAX / 8; ++j)
@@ -578,14 +745,7 @@ flash_tc(const T* __restrict__ q, const T* __restrict__ k,
     }
     __syncthreads();
     if constexpr (!F32) {
-      if (t == 0) {
-#pragma unroll
-        for (int kk = 0; kk < HMAX / 16; ++kk)
-          if (kk * 16 < hdp)
-            ldsm_x4(qf[kk], smem_addr(Qs + (warp * 16 + (lane & 7) +
-                                            ((lane >> 3) & 1) * 8) * qs +
-                                           kk * 16 + (lane >> 4) * 8));
-      }
+      if (t == 0) q_frags<HMAX>(qf[0], Qs, qs, hdp, warp, lane);
     }
     const T* Kt = Ks + (t % STAGES) * BK * ks;
     const T* Vt = Vs + (t % STAGES) * BK * vs;
@@ -596,10 +756,10 @@ flash_tc(const T* __restrict__ q, const T* __restrict__ k,
     for (int j = 0; j < BK / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
+    if constexpr (F32) {
 #pragma unroll
-    for (int kk = 0; kk < HMAX / 16; ++kk) {
-      if (kk * 16 >= hdp) break;
-      if constexpr (F32) {
+      for (int kk = 0; kk < HMAX / 16; ++kk) {
+        if (kk * 16 >= hdp) break;
 #pragma unroll
         for (int j = 0; j < BK / 8; ++j) {
           const T* kr = Kt + (j * 8 + gid) * ks + kk * 16 + tig * 2;
@@ -608,79 +768,31 @@ flash_tc(const T* __restrict__ q, const T* __restrict__ k,
           uint32_t h0, l0, h1, l1;
           split2(x.x, x.y, h0, l0);
           split2(y.x, y.y, h1, l1);
-          mma_bf16(sc[j], qf[kk], h0, h1);
-          mma_bf16(sc[j], qf[kk], l0, l1);
-          mma_bf16(sc[j], ql[kk], h0, h1);
-        }
-      } else {
-#pragma unroll
-        for (int jj = 0; jj < BK / 16; ++jj) {
-          uint32_t bk[4];
-          ldsm_x4(bk, smem_addr(Kt + (jj * 16 + (lane & 7) + (lane >> 4) * 8) *
-                                         ks +
-                                kk * 16 + ((lane >> 3) & 1) * 8));
-          mma_bf16(sc[2 * jj], qf[kk], bk[0], bk[1]);
-          mma_bf16(sc[2 * jj + 1], qf[kk], bk[2], bk[3]);
+          mma_bf16(sc[j], qf[0][kk], h0, h1);
+          mma_bf16(sc[j], qf[0][kk], l0, l1);
+          mma_bf16(sc[j], qf[1][kk], h0, h1);
         }
       }
+    } else {
+      qk_bf16<HMAX, 1>(sc, qf, Kt, ks, hdp, lane);
     }
-
-    // scale, mask (only tiles that cross the diagonal or pass S), row max
-    const int k0 = t * BK;
-    const bool masked = k0 + BK - 1 > first_pos || k0 + BK > S;
-    float mx_lo = NEG_INF, mx_hi = NEG_INF;
 #pragma unroll
     for (int j = 0; j < BK / 8; ++j)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float s = div_by(sc[j][e], scale, rcp);   // sc / sqrt(hd)
-        if (masked) {
-          const int kp = k0 + j * 8 + tig * 2 + (e & 1);
-          if (kp > (e < 2 ? qpos_lo : qpos_hi) || kp >= S) s = NEG_INF;
-        }
-        sc[j][e] = s;
-        if (e < 2) mx_lo = fmaxf(mx_lo, s);
-        else mx_hi = fmaxf(mx_hi, s);
-      }
-#pragma unroll
-    for (int o_ = 1; o_ < 4; o_ <<= 1) {
-      mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, o_));
-      mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, o_));
-    }
-    const float mn_lo = fmaxf(m_lo, mx_lo), mn_hi = fmaxf(m_hi, mx_hi);
-    const float a_lo = expf(m_lo - mn_lo), a_hi = expf(m_hi - mn_hi);
-    m_lo = mn_lo;
-    m_hi = mn_hi;
-    float ps_lo = 0.f, ps_hi = 0.f;
-#pragma unroll
-    for (int j = 0; j < BK / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = expf(sc[j][e] - (e < 2 ? mn_lo : mn_hi));
-        sc[j][e] = p;
-        if (e < 2) ps_lo += p;
-        else ps_hi += p;
-      }
-    l_lo = l_lo * a_lo + ps_lo;      // this thread's part; the quad sums
-    l_hi = l_hi * a_hi + ps_hi;      // them at the end
-#pragma unroll
-    for (int j = 0; j < DMAX / 8; ++j) {
-      o[j][0] *= a_lo;
-      o[j][1] *= a_lo;
-      o[j][2] *= a_hi;
-      o[j][3] *= a_hi;
-    }
+      for (int e = 0; e < 4; ++e)
+        sc[j][e] = div_by(sc[j][e], scale, rcp);   // sc / sqrt(hd)
+    online_softmax<DMAX>(sc, t * BK, S, first_pos, qpos_lo, qpos_hi, tig,
+                         m_lo, m_hi, l_lo, l_hi, o);
 
-    // O += P V with P split in two bf16 terms; C fragments of keys
-    // 16kk..16kk+15 are the A fragment of k-step kk
+    // O += P V with P split in two bf16 terms
+    if constexpr (F32) {
 #pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      uint32_t ph[4], pl[4];
-      split2(sc[2 * kk][0], sc[2 * kk][1], ph[0], pl[0]);
-      split2(sc[2 * kk][2], sc[2 * kk][3], ph[1], pl[1]);
-      split2(sc[2 * kk + 1][0], sc[2 * kk + 1][1], ph[2], pl[2]);
-      split2(sc[2 * kk + 1][2], sc[2 * kk + 1][3], ph[3], pl[3]);
-      if constexpr (F32) {
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        uint32_t ph[4], pl[4];
+        split2(sc[2 * kk][0], sc[2 * kk][1], ph[0], pl[0]);
+        split2(sc[2 * kk][2], sc[2 * kk][3], ph[1], pl[1]);
+        split2(sc[2 * kk + 1][0], sc[2 * kk + 1][1], ph[2], pl[2]);
+        split2(sc[2 * kk + 1][2], sc[2 * kk + 1][3], ph[3], pl[3]);
 #pragma unroll
         for (int jn = 0; jn < DMAX / 8; ++jn) {
           if (jn * 8 >= dvp) break;
@@ -692,62 +804,15 @@ flash_tc(const T* __restrict__ q, const T* __restrict__ k,
           mma_bf16(o[jn], ph, l0, l1);
           mma_bf16(o[jn], pl, h0, h1);
         }
-      } else {
-#pragma unroll
-        for (int jp = 0; jp < DMAX / 16; ++jp) {
-          if (jp * 16 >= dvp) break;
-          uint32_t bv[4];
-          ldsm_x4_trans(bv, smem_addr(Vt + (kk * 16 + (lane & 7) +
-                                            ((lane >> 3) & 1) * 8) * vs +
-                                      jp * 16 + (lane >> 4) * 8));
-          mma_bf16(o[2 * jp], ph, bv[0], bv[1]);
-          mma_bf16(o[2 * jp], pl, bv[0], bv[1]);
-          mma_bf16(o[2 * jp + 1], ph, bv[2], bv[3]);
-          mma_bf16(o[2 * jp + 1], pl, bv[2], bv[3]);
-        }
       }
+    } else {
+      pv_bf16<DMAX>(o, sc, Vt, vs, dvp, lane);
     }
     __syncthreads();                 // this stage is refilled next+1 tile
   }
 
-  // epilogue: O / l through shared memory, 16-byte row stores
-#pragma unroll
-  for (int o_ = 1; o_ < 4; o_ <<= 1) {
-    l_lo += __shfl_xor_sync(0xffffffffu, l_lo, o_);
-    l_hi += __shfl_xor_sync(0xffffffffu, l_hi, o_);
-  }
-  float* Os = reinterpret_cast<float*>(tc_smem);   // [BR][dvp + 8]
-  const int os = dvp + 8;
-  const int rl = warp * 16 + gid;
-#pragma unroll
-  for (int j = 0; j < DMAX / 8; ++j) {
-    if (j * 8 >= dvp) break;
-    const int c = j * 8 + tig * 2;
-    *reinterpret_cast<float2*>(Os + rl * os + c) =
-        make_float2(o[j][0] / l_lo, o[j][1] / l_lo);
-    *reinterpret_cast<float2*>(Os + (rl + 8) * os + c) =
-        make_float2(o[j][2] / l_hi, o[j][3] / l_hi);
-  }
-  __syncthreads();
-  auto out_row = [&](int r) -> float* {
-    const long rg = r0 + r;
-    const long pos = rg / G;
-    return out + (((long)b * S + pos) * Hq + (long)h * G + (rg - pos * G)) * dv;
-  };
-  if ((dv & 3) == 0) {
-    const int c4 = dv >> 2;
-    for (int i = threadIdx.x; i < BR * c4; i += THREADS) {
-      const int r = i / c4, c = i - r * c4;
-      if (r0 + r < rows_total)
-        *reinterpret_cast<float4*>(out_row(r) + c * 4) =
-            *reinterpret_cast<const float4*>(Os + r * os + c * 4);
-    }
-  } else {
-    for (int i = threadIdx.x; i < BR * dv; i += THREADS) {
-      const int r = i / dv, c = i - r * dv;
-      if (r0 + r < rows_total) out_row(r)[c] = Os[r * os + c];
-    }
-  }
+  store_out<DMAX>(o, l_lo, l_hi, reinterpret_cast<float*>(tc_smem), out, r0,
+                  rows_total, b, S, Hq, h, G, dv, dvp, warp, lane);
 }
 
 template <typename T>
@@ -782,18 +847,245 @@ int launch(const void* q, const void* k, const void* v, float* out, int B,
   return (int)cudaGetLastError();
 }
 
-// One instantiation per width class of the wider of hd and dv: registers
-// (Q fragments, the accumulator) grow with it and set how many blocks share
-// an SM.
+// ---------------------------------------------------------------------
+// flash_qtc: the int8-K/V tensor-core body (see the note at the top). TQ =
+// bf16: Q as it is; TQ = float: Q split in two bf16 terms, two products
+// per mma (the codes are exact in bf16).
+// ---------------------------------------------------------------------
+static_assert(THREADS == 2 * BK, "one thread per K or V scale of a tile");
+
+// two int8 codes of x ^ 0x80808080 (bytes j and j + 1) as a bf16 pair,
+// exact: each through f32 by a byte permute and a subtraction
+__device__ __forceinline__ uint32_t codes_bf16x2(unsigned x, int j) {
+  const float a =
+      __int_as_float(__byte_perm(x, 0x4B000000u, 0x7440u + j)) - 8388736.f;
+  const float b =
+      __int_as_float(__byte_perm(x, 0x4B000000u, 0x7441u + j)) - 8388736.f;
+  return as_u32(__floats2bfloat162_rn(a, b));
+}
+
+// The int8 tile src [BK][w] (w a multiple of 16, rows unpadded) into the
+// bf16 tile dst [BK][stride], 16 codes a step
+__device__ __forceinline__ void codes_to_bf16(bf16* dst, int stride,
+                                              const int8_t* src, int w) {
+  const int cpr = w >> 4;                    // 16-code chunks per row
+  for (int i = threadIdx.x; i < BK * cpr; i += THREADS) {
+    const int r = i / cpr, c = i - r * cpr;
+    const uint4 u = *reinterpret_cast<const uint4*>(src + i * 16);
+    const unsigned x0 = u.x ^ 0x80808080u, x1 = u.y ^ 0x80808080u;
+    const unsigned x2 = u.z ^ 0x80808080u, x3 = u.w ^ 0x80808080u;
+    uint4* d = reinterpret_cast<uint4*>(dst + r * stride + c * 16);
+    d[0] = make_uint4(codes_bf16x2(x0, 0), codes_bf16x2(x0, 2),
+                      codes_bf16x2(x1, 0), codes_bf16x2(x1, 2));
+    d[1] = make_uint4(codes_bf16x2(x2, 0), codes_bf16x2(x2, 2),
+                      codes_bf16x2(x3, 0), codes_bf16x2(x3, 2));
+  }
+}
+
+// q [B,S,Hq,hd] TQ; k [B,S,Hkv,hd] / v [B,S,Hkv,dv] int8 codes; ksp / vsp
+// [B,S,Hkv] f32 scales. HMAX / DMAX as flash_tc.
+template <typename TQ, int HMAX, int DMAX>
+__global__ void __launch_bounds__(THREADS)
+flash_qtc(const TQ* __restrict__ q, const int8_t* __restrict__ k,
+          const float* __restrict__ ksp, const int8_t* __restrict__ v,
+          const float* __restrict__ vsp, float* __restrict__ out, int S,
+          int Hq, int Hkv, int hd, int dv, bool vec_q, bool vec_k,
+          bool vec_v) {
+  constexpr bool F32 = sizeof(TQ) == 4;
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  const int hdp = (hd + 15) & ~15, dvp = (dv + 15) & ~15;
+  const int qs = hdp + 8, ks = hdp + 8, vs = dvp + 8;
+  // bf16 q: the Q tile [BR][qs]; then the bf16 tile the fragments read, K
+  // [BK][ks] and V [BK][vs], and its scales Sc [2][BK] (K, V); then the
+  // ring: scales Rs [STAGES][2][BK], codes Rk [STAGES][BK][hdp] and Rv
+  // [STAGES][BK][dvp]
+  bf16* Qs = reinterpret_cast<bf16*>(tc_smem);
+  bf16* Kb = reinterpret_cast<bf16*>(tc_smem +
+                                     (F32 ? 0 : BR * qs * sizeof(bf16)));
+  bf16* Vb = Kb + BK * ks;
+  float* Sc = reinterpret_cast<float*>(Vb + BK * vs);
+  float* Rs = Sc + 2 * BK;
+  int8_t* Rk = reinterpret_cast<int8_t*>(Rs + STAGES * 2 * BK);
+  int8_t* Rv = Rk + STAGES * BK * hdp;
+
+  const int G = Hq / Hkv;
+  const int rb = gridDim.x - 1 - blockIdx.x;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+  const long rows_total = (long)S * G;
+  const long r0 = (long)rb * BR;
+  const long last_row = (r0 + BR < rows_total ? r0 + BR : rows_total) - 1;
+  const int n_tiles = (int)(last_row / G / BK) + 1;
+  const long first_pos = r0 / G;
+  auto q_row = [&](long rg) -> const TQ* {
+    if (rg >= rows_total) return nullptr;
+    const long pos = rg / G;
+    return q + (((long)b * S + pos) * Hq + (long)h * G + (rg - pos * G)) * hd;
+  };
+
+  if constexpr (!F32) {
+    zero_pad(Qs, qs, hd, BR);
+    stage_rows(Qs, qs, hd, BR, vec_q, q,
+               [&](int r) -> const TQ* { return q_row(r0 + r); });
+  }
+  const long kv0 = (long)b * S * Hkv + h;         // (b, key 0, h)
+  const int8_t* kh = k + kv0 * hd;
+  const int8_t* vh = v + kv0 * dv;
+  // this thread's scale of each tile: key k0 + i's K (threads 0..63) or V
+  // (64..127) scale, from sh + k0 * Hkv
+  const int i_sc = threadIdx.x % BK;
+  const float* sh = (threadIdx.x < BK ? ksp : vsp) + kv0;
+  // codes of keys past S and the rows' pad are zero, and so are their
+  // scales: a masked score is 0 * 0 before the mask, never NaN
+  auto stage_kv = [&](int t) {
+    const int k0 = t * BK, st = t % STAGES;
+    stage_tile(Rk + st * BK * hdp, hdp, kh + (long)k0 * Hkv * hd,
+               (long)Hkv * hd, hd, k0, S, vec_k);
+    stage_tile(Rv + st * BK * dvp, dvp, vh + (long)k0 * Hkv * dv,
+               (long)Hkv * dv, dv, k0, S, vec_v);
+    const bool in = k0 + i_sc < S;
+    cp_async4(smem_addr(Rs + st * 2 * BK + threadIdx.x),
+              sh + (in ? (long)(k0 + i_sc) * Hkv : 0), in ? 4 : 0);
+  };
+  stage_kv(0);
+  cp_async_commit();
+  if (n_tiles > 1) {
+    stage_kv(1);
+    cp_async_commit();
+  }
+
+  const long row_lo = r0 + warp * 16 + gid;
+  const long qpos_lo = row_lo / G, qpos_hi = (row_lo + 8) / G;
+  const float scale = sqrtf((float)hd), rcp = 1.f / scale;
+  uint32_t qf[F32 ? 2 : 1][HMAX / 16][4];
+  if constexpr (F32)
+    q_frags_split<HMAX>(qf, q_row(row_lo), q_row(row_lo + 8), hd, hdp, tig);
+  float o[DMAX / 8][4];
+#pragma unroll
+  for (int j = 0; j < DMAX / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
+  float m_lo = RUN_INIT, m_hi = RUN_INIT, l_lo = 0.f, l_hi = 0.f;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    if (t + 1 < n_tiles) cp_async_wait<1>();
+    else cp_async_wait<0>();
+    __syncthreads();                 // tile t landed; tile t - 1 is read
+    if constexpr (!F32) {
+      if (t == 0) q_frags<HMAX>(qf[0], Qs, qs, hdp, warp, lane);
+    }
+    const int st = t % STAGES;
+    codes_to_bf16(Kb, ks, Rk + st * BK * hdp, hdp);
+    codes_to_bf16(Vb, vs, Rv + st * BK * dvp, dvp);
+    Sc[threadIdx.x] = Rs[st * 2 * BK + threadIdx.x];
+    __syncthreads();                 // the bf16 tile is written
+    if (t + 2 < n_tiles) {           // into the stage just converted
+      stage_kv(t + 2);
+      cp_async_commit();
+    }
+
+    float sc[BK / 8][4];
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
+    qk_bf16<HMAX, F32 ? 2 : 1>(sc, qf, Kb, ks, hdp, lane);
+    // (q . codes) * k_s / sqrt(hd), the TPU kernel's order
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) {
+      const float2 f = *reinterpret_cast<const float2*>(Sc + j * 8 + tig * 2);
+      sc[j][0] = div_by(sc[j][0] * f.x, scale, rcp);
+      sc[j][1] = div_by(sc[j][1] * f.y, scale, rcp);
+      sc[j][2] = div_by(sc[j][2] * f.x, scale, rcp);
+      sc[j][3] = div_by(sc[j][3] * f.y, scale, rcp);
+    }
+    online_softmax<DMAX>(sc, t * BK, S, first_pos, qpos_lo, qpos_hi, tig,
+                         m_lo, m_hi, l_lo, l_hi, o);
+    // p' = p * v_s of its key (l has taken p), then O += p' V_codes
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) {
+      const float2 f =
+          *reinterpret_cast<const float2*>(Sc + BK + j * 8 + tig * 2);
+      sc[j][0] *= f.x;
+      sc[j][1] *= f.y;
+      sc[j][2] *= f.x;
+      sc[j][3] *= f.y;
+    }
+    pv_bf16<DMAX>(o, sc, Vb, vs, dvp, lane);
+  }
+
+  __syncthreads();                   // the output overlays the tiles
+  store_out<DMAX>(o, l_lo, l_hi, reinterpret_cast<float*>(tc_smem), out, r0,
+                  rows_total, b, S, Hq, h, G, dv, dvp, warp, lane);
+}
+
+template <typename TQ>
+size_t qtc_smem_bytes(int hd, int dv) {
+  const int hdp = (hd + 15) & ~15, dvp = (dv + 15) & ~15;
+  const size_t q = sizeof(TQ) == 4 ? 0 : sizeof(bf16) * BR * (hdp + 8);
+  const size_t tiles = q + sizeof(bf16) * BK * (size_t)(hdp + 8 + dvp + 8) +
+                       sizeof(float) * (2 + STAGES * 2) * BK +
+                       (size_t)STAGES * BK * (hdp + dvp);
+  const size_t epilogue = sizeof(float) * (size_t)BR * (dvp + 8);
+  return tiles > epilogue ? tiles : epilogue;
+}
+
+template <typename TQ, int HMAX, int DMAX>
+int launch_qtc(const void* q, const int8_t* k, const float* ks,
+               const int8_t* v, const float* vs, float* out, int B, int S,
+               int Hq, int Hkv, int hd, int dv, cudaStream_t stream) {
+  static bool attr_set = false;
+  if (!attr_set) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        flash_qtc<TQ, HMAX, DMAX>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)qtc_smem_bytes<TQ>(HMAX, DMAX));
+    if (e != cudaSuccess) return (int)e;
+    attr_set = true;
+  }
+  // 16-byte copies need aligned rows: 8 bf16 q elements, 16 codes
+  const bool vec_q = hd % 8 == 0 && (uintptr_t)q % 16 == 0;
+  const bool vec_k = hd % 16 == 0 && (uintptr_t)k % 16 == 0;
+  const bool vec_v = dv % 16 == 0 && (uintptr_t)v % 16 == 0;
+  const long rows = (long)S * (Hq / Hkv);
+  const dim3 grid((unsigned)((rows + BR - 1) / BR), Hkv, B);
+  flash_qtc<TQ, HMAX, DMAX>
+      <<<grid, THREADS, qtc_smem_bytes<TQ>(hd, dv), stream>>>(
+          static_cast<const TQ*>(q), k, ks, v, vs, out, S, Hq, Hkv, hd, dv,
+          vec_q, vec_k, vec_v);
+  return (int)cudaGetLastError();
+}
+
+// f(std::integral_constant<int, W>) for the width class W (64, 96, 128)
+// of the wider of hd and dv: one instantiation per class, since registers
+// (Q fragments, the accumulator) grow with it and set how many blocks
+// share an SM
+template <class F>
+int by_width(int hd, int dv, F f) {
+  const int w = hd > dv ? hd : dv;
+  if (w <= 64) return f(std::integral_constant<int, 64>{});
+  if (w <= 96) return f(std::integral_constant<int, 96>{});
+  return f(std::integral_constant<int, 128>{});
+}
+
 template <typename T>
 int dispatch(const void* q, const void* k, const void* v, float* out, int B,
              int S, int Hq, int Hkv, int hd, int dv, cudaStream_t stream) {
-  const int w = hd > dv ? hd : dv;
-  if (w <= 64)
-    return launch<T, 64, 64>(q, k, v, out, B, S, Hq, Hkv, hd, dv, stream);
-  if (w <= 96)
-    return launch<T, 96, 96>(q, k, v, out, B, S, Hq, Hkv, hd, dv, stream);
-  return launch<T, 128, 128>(q, k, v, out, B, S, Hq, Hkv, hd, dv, stream);
+  return by_width(hd, dv, [&](auto W) {
+    constexpr int w = decltype(W)::value;
+    return launch<T, w, w>(q, k, v, out, B, S, Hq, Hkv, hd, dv, stream);
+  });
+}
+
+template <typename TQ>
+int dispatch_q(const void* q, const int8_t* k, const float* ks,
+               const int8_t* v, const float* vs, float* out, int B, int S,
+               int Hq, int Hkv, int hd, int dv, cudaStream_t stream) {
+  return by_width(hd, dv, [&](auto W) {
+    constexpr int w = decltype(W)::value;
+    return launch_qtc<TQ, w, w>(q, k, ks, v, vs, out, B, S, Hq, Hkv, hd, dv,
+                                stream);
+  });
 }
 
 }  // namespace tc
@@ -832,11 +1124,11 @@ int flash_qprefill_fwd(const void* q, int q_dtype, const int8_t* k,
   if (bad_shape(B, S, Hq, Hkv, hd, dv)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (q_dtype == 0)
-    return launch<float, int8_t, float>(q, k, k_s, v, v_s, out, B, S, Hq,
-                                        Hkv, hd, dv, s);
+    return tc::dispatch_q<float>(q, k, k_s, v, v_s, out, B, S, Hq, Hkv, hd,
+                                 dv, s);
   if (q_dtype == 1)
-    return launch<__nv_bfloat16, int8_t, float>(q, k, k_s, v, v_s, out, B,
-                                                S, Hq, Hkv, hd, dv, s);
+    return tc::dispatch_q<__nv_bfloat16>(q, k, k_s, v, v_s, out, B, S, Hq,
+                                         Hkv, hd, dv, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -853,11 +1145,11 @@ int flash_q4prefill_fwd(const void* q, int q_dtype, const void* k,
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (q_dtype == 0)
-    return launch<float, q4_t, __half>(q, k, k_s, v, v_s, out, B, S, Hq, Hkv,
-                                       hd, dv, s);
+    return launch_q4<float>(q, k, k_s, v, v_s, out, B, S, Hq, Hkv, hd, dv,
+                            s);
   if (q_dtype == 1)
-    return launch<__nv_bfloat16, q4_t, __half>(q, k, k_s, v, v_s, out, B, S,
-                                               Hq, Hkv, hd, dv, s);
+    return launch_q4<__nv_bfloat16>(q, k, k_s, v, v_s, out, B, S, Hq, Hkv,
+                                    hd, dv, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -1,5 +1,6 @@
-// The int4 KV tier's wire layout on the card, shared by paged_attn.cu
-// (paged_q4decode) and flash_prefill.cu (flash_q4prefill).
+// The int4 KV tier's wire layout on the card, shared by decode_split.cuh
+// (the Int4 format of paged_q4decode's split loop) and flash_prefill.cu
+// (flash_q4prefill).
 //
 // Layout (repro_torch/kernels/quantize.py, the JAX package's
 // kernels/quantize.py): signed 4-bit codes in [-7, 7], two per byte along

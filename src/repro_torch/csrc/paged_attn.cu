@@ -22,21 +22,21 @@
 // the running max / normalizer / accumulator in VMEM across the sequential
 // m axis. Two loops replace it here.
 //
-// int8 pools (paged_qdecode_fwd): decode_split.cuh's split-K loop
-// (PagedRows). A cluster of up to 8 CTAs per (b, kv head) reads pos[b],
-// splits the sequence's pos[b] + 1 slots into equal shares of 32-slot
-// tiles, stages its share's table entries in shared memory once, and its
-// warps walk their slots with the next step's codes and scales in flight
-// and no block barrier; rank 0 merges the partials through distributed
-// shared memory, in rank order.
+// int8 and int4 pools (paged_qdecode_fwd, paged_q4decode_fwd):
+// decode_split.cuh's split-K loop (PagedRows) in its Int8 or Int4 code
+// format. A cluster of up to 8 CTAs per (b, kv head) reads pos[b], splits
+// the sequence's pos[b] + 1 slots into equal shares of 32-slot tiles,
+// stages its share's table entries in shared memory once, and its warps
+// walk their slots with the next step's codes and scales in flight and no
+// block barrier; rank 0 merges the partials through distributed shared
+// memory, in rank order. An int8 lane scales the dot after it; an int4
+// lane loads its group's two f16 scales beside its codes and dequantizes K
+// and V before the dot, as the TPU int4 kernel does.
 //
-// fp and int4 pools (paged_decode_fwd, paged_q4decode_fwd): decode_attn.cuh
-// (PagedRows). One block of 128 threads owns one (b, kv head) and loops
-// over key tiles of 32 slots (32 / bs table entries each) up to pos[b]; the
-// thread of slot j reads its table entry; for int4 pools each thread that
-// loads a 16-byte vector of 32 codes loads its group's two f16 scales from
-// the same row address in the same batch of loads, and K is dequantized
-// before the dot, as the TPU int4 kernel does.
+// fp pools (paged_decode_fwd): decode_attn.cuh (PagedRows). One block of
+// 128 threads owns one (b, kv head) and loops over key tiles of 32 slots
+// (32 / bs table entries each) up to pos[b]; the thread of slot j reads its
+// table entry.
 //
 // Both loops never read a masked slot, so NaN scales or codes that an idle
 // slot wrote into the trash block cannot reach a live row, and an idle row
@@ -44,14 +44,14 @@
 //
 // What bounds it on the H100: bytes. Each valid K/V row is read once
 // (2 * hd * itemsize per slot per kv head, plus 8 bytes of scales for
-// int8); q, tables and out are small. At the stablelm-1.6b engine shape
-// (B8 Hkv32 G1 hd64 bs16, ~2450 valid slots) that is ~20 MB for bf16 pools
-// (~6 us at 3.35 TB/s), ~10.7 MB for int8 (~3.2 us) and ~5.8 MB for int4
-// (~1.7 us). The one-block loop's time is latency: each block walks its
-// tiles in turn, table entry, then scales, then codes, with no copy
-// pipeline; the split loop spreads a sequence over up to 8 CTAs and keeps
-// the next step's loads in flight. Moving the fp and int4 pools onto it is
-// later work.
+// int8, hd / 8 bytes of group scales for int4); q, tables and out are
+// small. At the stablelm-1.6b engine shape (B8 Hkv32 G1 hd64 bs16, ~2450
+// valid slots) that is ~20 MB for bf16 pools (~6 us at 3.35 TB/s), ~10.7 MB
+// for int8 (~3.2 us) and ~5.8 MB for int4 (~1.7 us). The one-block loop's
+// time is latency: each block walks its tiles in turn, table entry, then
+// rows, with no copy pipeline; the split loop spreads a sequence over up to
+// 8 CTAs and keeps the next step's loads in flight. Moving the fp pools
+// onto it is later work.
 
 #include "decode_attn.cuh"
 #include "decode_split.cuh"
@@ -60,46 +60,56 @@ namespace {
 
 using namespace decode_attn;
 
-using kv_int4::q4_t;
-
-template <typename TQ, typename TKV, typename TS>
+template <typename TQ, typename TKV>
 __global__ void __launch_bounds__(PT)
 paged_attend(const TQ* __restrict__ q, const TKV* __restrict__ kp,
-             const TS* __restrict__ ksp, const TKV* __restrict__ vp,
-             const TS* __restrict__ vsp, const int* __restrict__ tables,
+             const TKV* __restrict__ vp, const int* __restrict__ tables,
              const int* __restrict__ pos, float* __restrict__ out, int M,
              int bs, int Hkv, int G, int hd) {
   const int h = blockIdx.x, b = blockIdx.y;
   const PagedRows rows{tables, M, bs, pos[b]};
-  attend<TQ, TKV>(q, kp, ksp, vp, vsp, rows, out, b, h, Hkv, G, hd);
+  attend<TQ, TKV>(q, kp, vp, rows, out, b, h, Hkv, G, hd);
 }
 
-template <typename TQ, typename TKV, typename TS>
-int launch(const void* q, const void* k, const TS* ks, const void* v,
-           const TS* vs, const int* tables, const int* pos, float* out,
-           int B, int M, int bs, int Hkv, int G, int hd, cudaStream_t stream) {
+template <typename TQ, typename TKV>
+int launch(const void* q, const void* k, const void* v, const int* tables,
+           const int* pos, float* out, int B, int M, int bs, int Hkv, int G,
+           int hd, cudaStream_t stream) {
   const dim3 grid(Hkv, B);
-  paged_attend<TQ, TKV, TS><<<grid, PT, 0, stream>>>(
-      static_cast<const TQ*>(q), static_cast<const TKV*>(k), ks,
-      static_cast<const TKV*>(v), vs, tables, pos, out, M, bs, Hkv, G, hd);
+  paged_attend<TQ, TKV><<<grid, PT, 0, stream>>>(
+      static_cast<const TQ*>(q), static_cast<const TKV*>(k),
+      static_cast<const TKV*>(v), tables, pos, out, M, bs, Hkv, G, hd);
   return (int)cudaGetLastError();
 }
 
-template <typename TKV, typename TS>
-int launch_q(int q_dtype, const void* q, const void* k, const TS* ks,
-             const void* v, const TS* vs, const int* tables,
-             const int* pos, float* out, int B, int M, int bs, int Hkv, int G,
-             int hd, cudaStream_t s) {
+template <typename TKV>
+int launch_q(int q_dtype, const void* q, const void* k, const void* v,
+             const int* tables, const int* pos, float* out, int B, int M,
+             int bs, int Hkv, int G, int hd, cudaStream_t s) {
   if (q_dtype == 0)
-    return launch<float, TKV, TS>(q, k, ks, v, vs, tables, pos, out, B, M,
-                                  bs, Hkv, G, hd, s);
+    return launch<float, TKV>(q, k, v, tables, pos, out, B, M, bs, Hkv, G,
+                              hd, s);
   if (q_dtype == 1)
-    return launch<__nv_bfloat16, TKV, TS>(q, k, ks, v, vs, tables, pos, out,
-                                          B, M, bs, Hkv, G, hd, s);
+    return launch<__nv_bfloat16, TKV>(q, k, v, tables, pos, out, B, M, bs,
+                                      Hkv, G, hd, s);
   return (int)cudaErrorInvalidValue;
 }
 
 namespace ds = decode_split;
+
+template <class Fmt, int LPR, int GB>
+__device__ __forceinline__ void paged_split(
+    const void* __restrict__ q, int q_bf16, const int8_t* __restrict__ kp,
+    const typename Fmt::Scale* __restrict__ ksp, const int8_t* __restrict__ vp,
+    const typename Fmt::Scale* __restrict__ vsp,
+    const int* __restrict__ tables, const int* __restrict__ pos,
+    float* __restrict__ out, int M, int bs_shift, int Hkv, int G, int hd) {
+  const int h = ds::cluster_head(Hkv), b = blockIdx.y;
+  const ds::PagedRows rows{tables, M, bs_shift,
+                           min(pos[b] + 1, M << bs_shift)};
+  ds::attend<Fmt, LPR, GB>(q, q_bf16, kp, ksp, vp, vsp, rows, out, b, h, Hkv,
+                           G, hd);
+}
 
 template <int LPR, int GB>
 __global__ void __launch_bounds__(ds::PT)
@@ -111,20 +121,45 @@ paged_qdecode_split(const void* __restrict__ q, int q_bf16,
                     const int* __restrict__ tables,
                     const int* __restrict__ pos, float* __restrict__ out,
                     int M, int bs_shift, int Hkv, int G, int hd) {
-  const int h = ds::cluster_head(Hkv), b = blockIdx.y;
-  const ds::PagedRows rows{tables, M, bs_shift,
-                           min(pos[b] + 1, M << bs_shift)};
-  ds::attend<LPR, GB>(q, q_bf16, kp, ksp, vp, vsp, rows, out, b, h, Hkv, G,
-                      hd);
+  paged_split<ds::Int8, LPR, GB>(q, q_bf16, kp, ksp, vp, vsp, tables, pos,
+                                 out, M, bs_shift, Hkv, G, hd);
 }
 
-struct GoPagedQ {
+// 32 codes a lane at G bound 1: with a floor of 4 CTAs an SM, ptxas keeps
+// the kernel under 128 registers without spilling (left to its occupancy
+// heuristic it picks 96 and spills); 3 above it, as it picks there
+template <int LPR, int GB>
+__global__ void __launch_bounds__(ds::PT, GB == 1 ? 4 : 3)
+paged_q4decode_split(const void* __restrict__ q, int q_bf16,
+                     const int8_t* __restrict__ kp,
+                     const __half* __restrict__ ksp,
+                     const int8_t* __restrict__ vp,
+                     const __half* __restrict__ vsp,
+                     const int* __restrict__ tables,
+                     const int* __restrict__ pos, float* __restrict__ out,
+                     int M, int bs_shift, int Hkv, int G, int hd) {
+  paged_split<ds::Int4, LPR, GB>(q, q_bf16, kp, ksp, vp, vsp, tables, pos,
+                                 out, M, bs_shift, Hkv, G, hd);
+}
+
+template <int LPR, int GB>
+auto split_kernel(ds::Int8) {
+  return &paged_qdecode_split<LPR, GB>;
+}
+template <int LPR, int GB>
+auto split_kernel(ds::Int4) {
+  return &paged_q4decode_split<LPR, GB>;
+}
+
+// one launch of the split loop over Fmt's pools
+template <class Fmt>
+struct GoPaged {
   const void* q;
   int q_bf16;
   const int8_t* kp;
-  const float* ksp;
+  const typename Fmt::Scale* ksp;
   const int8_t* vp;
-  const float* vsp;
+  const typename Fmt::Scale* vsp;
   const int* tables;
   const int* pos;
   float* out;
@@ -132,14 +167,13 @@ struct GoPagedQ {
   cudaStream_t stream;
   template <int LPR, int GB>
   int run() const {
-    static const long resident =
-        ds::resident_ctas(&paged_qdecode_split<LPR, GB>);
+    const auto kernel = split_kernel<LPR, GB>(Fmt{});
+    static const long resident = ds::resident_ctas(kernel);
     int shift = 0;
     while ((1 << shift) < bs) ++shift;
-    return ds::launch(&paged_qdecode_split<LPR, GB>,
-                      ds::splits_for(M * bs, (long)B * Hkv, resident), Hkv,
-                      B, stream, q, q_bf16, kp, ksp, vp, vsp, tables, pos,
-                      out, M, shift, Hkv, G, hd);
+    return ds::launch(kernel, ds::splits_for(M * bs, (long)B * Hkv, resident),
+                      Hkv, B, stream, q, q_bf16, kp, ksp, vp, vsp, tables,
+                      pos, out, M, shift, Hkv, G, hd);
   }
 };
 
@@ -167,19 +201,17 @@ int paged_decode_fwd(const void* q, int q_dtype, const void* k_pool,
   if (bad_shape(B, M, bs, Hkv, G, hd, 8)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (kv_dtype == 0)
-    return launch_q<float, float>(q_dtype, q, k_pool, nullptr, v_pool,
-                                  nullptr, tables, pos, out, B, M, bs, Hkv,
-                                  G, hd, s);
+    return launch_q<float>(q_dtype, q, k_pool, v_pool, tables, pos, out, B,
+                           M, bs, Hkv, G, hd, s);
   if (kv_dtype == 1)
-    return launch_q<__nv_bfloat16, float>(q_dtype, q, k_pool, nullptr,
-                                          v_pool, nullptr, tables, pos, out,
-                                          B, M, bs, Hkv, G, hd, s);
+    return launch_q<__nv_bfloat16>(q_dtype, q, k_pool, v_pool, tables, pos,
+                                   out, B, M, bs, Hkv, G, hd, s);
   return (int)cudaErrorInvalidValue;
 }
 
 // As paged_decode_fwd over int8 pools [N,bs,Hkv,hd] with f32 scale pools
 // k_scale / v_scale [N,bs,Hkv]; hd must be a multiple of 16. One launch of
-// the split-K loop (decode_split.cuh).
+// the split-K loop (decode_split.cuh, Int8).
 int paged_qdecode_fwd(const void* q, int q_dtype, const int8_t* k_pool,
                       const float* k_scale, const int8_t* v_pool,
                       const float* v_scale, const int* tables,
@@ -187,25 +219,28 @@ int paged_qdecode_fwd(const void* q, int q_dtype, const int8_t* k_pool,
                       int Hkv, int G, int hd, void* stream) {
   if (bad_shape(B, M, bs, Hkv, G, hd, 16) || (q_dtype != 0 && q_dtype != 1))
     return (int)cudaErrorInvalidValue;
-  const GoPagedQ go{q,   q_dtype, k_pool, k_scale, v_pool, v_scale, tables,
-                    pos, out,     B,      M,       bs,     Hkv,     G,
-                    hd,  static_cast<cudaStream_t>(stream)};
-  return ds::dispatch(go, hd, G);
+  const GoPaged<ds::Int8> go{
+      q,   q_dtype, k_pool, k_scale, v_pool, v_scale, tables, pos, out, B,
+      M,   bs,      Hkv,    G,       hd,     static_cast<cudaStream_t>(stream)};
+  return ds::dispatch<ds::Int8>(go, hd, G);
 }
 
 // As paged_decode_fwd over int4 pools [N,bs,Hkv,hd/2] (two codes per
 // byte) with f16 group-scale pools k_scale / v_scale [N,bs,Hkv,hd/32]; hd
-// must be a multiple of 32.
-int paged_q4decode_fwd(const void* q, int q_dtype, const void* k_pool,
-                       const __half* k_scale, const void* v_pool,
+// must be a multiple of 32. One launch of the split-K loop
+// (decode_split.cuh, Int4).
+int paged_q4decode_fwd(const void* q, int q_dtype, const int8_t* k_pool,
+                       const __half* k_scale, const int8_t* v_pool,
                        const __half* v_scale, const int* tables,
                        const int* pos, float* out, int B, int M, int bs,
                        int Hkv, int G, int hd, void* stream) {
-  if (bad_shape(B, M, bs, Hkv, G, hd, kv_int4::GROUP))
+  if (bad_shape(B, M, bs, Hkv, G, hd, kv_int4::GROUP) ||
+      (q_dtype != 0 && q_dtype != 1))
     return (int)cudaErrorInvalidValue;
-  return launch_q<q4_t, __half>(q_dtype, q, k_pool, k_scale, v_pool,
-                                v_scale, tables, pos, out, B, M, bs, Hkv, G,
-                                hd, static_cast<cudaStream_t>(stream));
+  const GoPaged<ds::Int4> go{
+      q,   q_dtype, k_pool, k_scale, v_pool, v_scale, tables, pos, out, B,
+      M,   bs,      Hkv,    G,       hd,     static_cast<cudaStream_t>(stream)};
+  return ds::dispatch<ds::Int4>(go, hd, G);
 }
 
 }  // extern "C"

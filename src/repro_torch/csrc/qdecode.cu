@@ -42,8 +42,8 @@ qdecode_split(const void* __restrict__ q, int q_bf16,
               int Hkv, int G, int hd) {
   const int h = ds::cluster_head(Hkv), b = blockIdx.y;
   const ds::DenseRows rows{bias, S, S};
-  ds::attend<LPR, GB>(q, q_bf16, kq, ks, vq, vs, rows, out, b, h, Hkv, G,
-                      hd);
+  ds::attend<ds::Int8, LPR, GB>(q, q_bf16, kq, ks, vq, vs, rows, out, b, h,
+                                Hkv, G, hd);
 }
 
 struct Go {
@@ -89,7 +89,7 @@ int qdecode_fwd(const void* q, int q_dtype, const int8_t* k, const float* k_s,
     return (int)cudaErrorInvalidValue;
   const Go go{q, q_dtype, k, k_s, v, v_s, bias, out, B, S, Hkv, G, hd,
               static_cast<cudaStream_t>(stream)};
-  return ds::dispatch(go, hd, G);
+  return ds::dispatch<ds::Int8>(go, hd, G);
 }
 
 }  // extern "C"

@@ -17,14 +17,17 @@ cp.async ring, both products on ``mma.sync`` bf16 -> f32, and the value
 product over p split in two bf16 terms (hi + lo), which keeps it within
 ~1e-5 of the f32 reference where one bf16 rounding of p errs by ~3e-3.
 f32 q/k/v take the same body with every operand split in two bf16 terms
-and three products per mma (hi.hi + hi.lo + lo.hi: ~2e-5). The int8 and
-int4 variants keep the f32 body on the CUDA cores (``flash_attend``). The
-int8 variant stages the codes, multiplies each score by its K scale after
-the dot and folds the V scale into the staged value row, as the TPU kernel
-does; it reads 1 byte per K/V element instead of 2. The int4 variant
-unpacks the nibbles and multiplies each by its group's f16 scale while
-staging the K and V tiles (no scale after the dot), as the TPU int4 kernel
-does, and reads half a byte per element plus 2 bytes per group of 32.
+and three products per mma (hi.hi + hi.lo + lo.hi: ~2e-5). The int8
+variant takes the same loop over codes (``flash_qtc``): 64-key tiles of
+int8 codes and their scales in the cp.async ring (1 byte per K/V element
+instead of 2), one pass per tile turning the codes into bf16 (exact), the
+score ``(q . codes) * k_s / sqrt(hd)`` as the TPU kernel computes it, and
+the V scale folded into p per key before the hi + lo split; f32 q is split
+once into two bf16 terms. The int4 variant keeps the f32 body on the CUDA
+cores (``flash_attend``): it unpacks the nibbles and multiplies each by its
+group's f16 scale while staging the K and V tiles (no scale after the
+dot), as the TPU int4 kernel does, and reads half a byte per element plus
+2 bytes per group of 32.
 """
 from __future__ import annotations
 
@@ -41,6 +44,10 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 #: body over bf16 operands ("tc") or over two-term splits of f32 operands
 #: ("tc_f32")
 BODY = {torch.bfloat16: "tc", torch.float32: "tc_f32"}
+#: the body ``flash_qprefill_fwd`` launches for each q dtype: the int8
+#: tensor-core body over bf16 q ("qtc") or over a two-term split of f32 q
+#: ("qtc_f32")
+QBODY = {torch.bfloat16: "qtc", torch.float32: "qtc_f32"}
 _LIB = "flash_prefill"
 
 
@@ -128,7 +135,8 @@ def _check_q(q, k_i8, k_s, v_i8, v_s):
 def flash_qprefill(q, k_i8, k_s, v_i8, v_s):
     """q [B,S,Hq,hd] f32 or bf16; k_i8 [B,S,Hkv,hd], v_i8 [B,S,Hkv,dv]
     int8; k_s/v_s [B,S,Hkv] f32 -> [B,S,Hq,dv] f32. CPU tensors take the
-    plain version; CUDA tensors launch the kernel."""
+    plain version; CUDA tensors launch the kernel's int8 tensor-core body
+    for q's dtype (``QBODY``)."""
     _check_q(q, k_i8, k_s, v_i8, v_s)
     if q.device.type == "cpu":
         return flash_qprefill_ref(q, k_i8, k_s, v_i8, v_s)
@@ -145,10 +153,12 @@ def flash_qprefill(q, k_i8, k_s, v_i8, v_s):
             b, s, hq, hkv, hd, dv, _build.stream_of(q))
     _build.check(_LIB, rc, "flash_qprefill_fwd")
     flash_qprefill.launches += 1
+    flash_qprefill.launches_by_body[QBODY[q.dtype]] += 1
     return out
 
 
 flash_qprefill.launches = 0
+flash_qprefill.launches_by_body = {body: 0 for body in QBODY.values()}
 
 
 def _check_q4(q, k_i4, k_s, v_i4, v_s):

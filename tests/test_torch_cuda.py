@@ -320,9 +320,16 @@ def test_paged_qdecode_kernel_matches_plain(dev, case):
     assert torch.isfinite(again[~idle]).all()
 
 
+# chip_smoke.py's flash shapes (hd 64 G 1, hd 128 G 4, hd 128 / dv 64, the
+# VQI's hd 96 over S 579), then ragged ones: S not a multiple of the 64-key
+# tile, hd and dv not multiples of 16 (the zero-padded path), dv 48
 @pytest.mark.parametrize("b,s,hq,hkv,hd,dv", [(4, 256, 32, 32, 64, 64),
                                               (2, 77, 8, 2, 64, 48),
-                                              (1, 300, 32, 8, 128, 128)])
+                                              (1, 300, 32, 8, 128, 128),
+                                              (2, 200, 16, 16, 128, 64),
+                                              (2, 579, 8, 8, 96, 96),
+                                              (1, 130, 4, 2, 40, 24),
+                                              (1, 65, 6, 2, 32, 96)])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_flash_qprefill_kernel_matches_plain(dev, b, s, hq, hkv, hd, dv,
                                              dtype):
@@ -331,12 +338,21 @@ def test_flash_qprefill_kernel_matches_plain(dev, b, s, hq, hkv, hd, dv,
         torch.randn((b, s, hq, hd), generator=gen).to(dtype),
         _codes(gen, (b, s, hkv, hd)), _scales(gen, (b, s, hkv)),
         _codes(gen, (b, s, hkv, dv)), _scales(gen, (b, s, hkv))))
-    before = flash_prefill.flash_qprefill.launches
+    body = flash_prefill.QBODY[dtype]
+    before = dict(flash_prefill.flash_qprefill.launches_by_body)
+    n_before = flash_prefill.flash_qprefill.launches
     got = flash_prefill.flash_qprefill(*args)
-    assert flash_prefill.flash_qprefill.launches == before + 1
+    assert flash_prefill.flash_qprefill.launches == n_before + 1
+    assert flash_prefill.flash_qprefill.launches_by_body == {
+        **before, body: before[body] + 1}
     assert got.dtype == torch.float32 and got.shape == (b, s, hq, dv)
+    # f32 reference on the dequantized values: the codes are exact in bf16,
+    # p * v_s is split in two bf16 terms and f32 q in two (~1e-5); the
+    # kernel scales after the dot, the plain version dequantizes first
     torch.testing.assert_close(got, ref.flash_qprefill_ref(*args), rtol=0,
                                atol=1e-4)
+    # one launch, no atomics: a second call gives the same bits
+    assert torch.equal(flash_prefill.flash_qprefill(*args), got)
 
 
 # ------------------------------------------------------------------ #
@@ -361,13 +377,18 @@ def _to_int4_pools(gen, k_pool, v_pool):
             _gscales(gen, (n, bs, hkv, hd // 32)).to(dev))
 
 
-@pytest.mark.parametrize("case", ["stablelm", "nemo", "idle"])
+# every PAGED_CASES kind but bs8 (hd 32: one group, two lanes a row at G
+# bound 8, covered by the "hd32" case): the split loop's edges in int4
+@pytest.mark.parametrize("case", ["stablelm", "nemo", "idle", "b1", "bs1",
+                                  "bs32", "share_edges", "g8", "hd96",
+                                  "hd32"])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_paged_q4decode_kernel_matches_plain(dev, case, dtype):
-    b, hkv, g, hd, bs, m, n, pos = PAGED_CASES[case]
+    b, hkv, g, hd, bs, m, n, pos = {
+        **PAGED_CASES, "hd32": (3, 4, 4, 32, 8, 8, 25, [63, 7, 30])}[case]
     q, k_pool, v_pool, tables, pos_t = _paged_case(
         dev, b, hkv, g, hd, bs, m, n, dtype, pos, seed=b * hd + bs,
-        holes=[(0, 1)] if case == "idle" else ())
+        holes=[(0, 1)] if case in ("idle", "bs1", "hd96") else ())
     pools = _to_int4_pools(torch.Generator().manual_seed(hd + 4), k_pool,
                            v_pool)
     before = paged_attn.paged_q4decode.launches
@@ -382,6 +403,10 @@ def test_paged_q4decode_kernel_matches_plain(dev, case, dtype):
     # f32 both sides, both dequantize before the dot; summation order
     # differs
     torch.testing.assert_close(got[~idle], want[~idle], rtol=0, atol=1e-4)
+    # one launch, no atomics: a second call gives the same bits
+    twice = paged_attn.paged_q4decode(q, *pools, tables, pos_t)
+    assert torch.equal(twice[~idle], got[~idle])
+    assert torch.equal(twice.isnan(), got.isnan())
     # what an idle slot writes into the trash block (NaN f16 scales, any
     # bytes: 0x88 here) is never read: the live rows do not change
     k_q, k_s, v_q, v_s = pools

@@ -1,4 +1,4 @@
-"""The int8-KV decode kernels' split plan, on the CPU.
+"""The quantized-KV decode kernels' split plan, on the CPU.
 
 ``csrc/decode_split.cuh`` runs only on a card (thread-block clusters,
 distributed shared memory). Its plan is emulated here in torch, in its
@@ -6,9 +6,13 @@ order of work: the host's choice of splits, each CTA's share of whole
 tiles, each warp's steps of 32 / LPR slot rows with its own online softmax
 (running max seeded at RUN_INIT, masked slots at NEG_INF and never read,
 rescaled when the warp's max moves), the warps' merge and the cluster's
-merge in rank order. The constants are read from the CUDA source, so the
-model and the kernel cannot drift. The model is held to the plain
-versions (``qdecode_ref``, ``paged_qdecode_ref``) and to the JAX Pallas
+merge in rank order. It reads two code formats: int8 codes with a per-row
+scale after the dot (``qdecode``, ``paged_qdecode``) and nibble-packed
+int4 codes with f16 group scales, dequantized before the dot
+(``paged_q4decode``). The constants, the codes a lane holds and the lane
+plan are read from the CUDA source, so the model and the kernel cannot
+drift. The model is held to the plain versions (``qdecode_ref``,
+``paged_qdecode_ref``, ``paged_q4decode_ref``) and to the JAX Pallas
 kernels in interpret mode; the kernels themselves are held to the plain
 versions in ``test_torch_cuda.py``.
 """
@@ -24,10 +28,13 @@ torch.set_num_threads(1)
 
 import jax.numpy as jnp  # noqa: E402
 
-from repro.kernels.paged_attn import paged_qdecode_attention  # noqa: E402
+from repro.kernels.paged_attn import (paged_q4decode_attention,  # noqa: E402
+                                      paged_qdecode_attention)
 from repro.kernels.qdecode import qdecode_attention  # noqa: E402
 from repro_torch.kernels import paged_attn, qdecode  # noqa: E402
 from repro_torch.kernels import ref as t_ref  # noqa: E402
+from repro_torch.kernels.quantize import (KV_GROUP,  # noqa: E402
+                                          dequantize_kv_int4)
 
 CUH = Path(qdecode.__file__).resolve().parents[1] / "csrc" / "decode_split.cuh"
 NEG_INF_BIAS = -2.0e38
@@ -49,21 +56,67 @@ def _cuh_constants():
 
 C = _cuh_constants()
 KT, NW, PT = C["KT"], C["NW"], C["PT"]
+FORMATS = {"int8": "Int8", "int4": "Int4"}     # test name: header struct
+
+
+def _c_eval(expr, env):
+    """A C expression of ternaries over comparisons, evaluated."""
+    expr = expr.strip()
+    while expr.startswith("(") and expr.endswith(")"):
+        depth = 0
+        for i, ch in enumerate(expr):
+            depth += {"(": 1, ")": -1}.get(ch, 0)
+            if depth == 0 and i < len(expr) - 1:
+                break
+        else:
+            expr = expr[1:-1].strip()
+            continue
+        break
+    depth, q_at, colon_at, pending = 0, None, None, 0
+    for i, ch in enumerate(expr):
+        depth += {"(": 1, ")": -1}.get(ch, 0)
+        if depth:
+            continue
+        if ch == "?":
+            if q_at is None:
+                q_at = i
+            else:
+                pending += 1
+        elif ch == ":" and q_at is not None:
+            if pending:
+                pending -= 1
+            else:
+                colon_at = i
+                break
+    if q_at is None:
+        return eval(expr, {}, dict(env))
+    cond = _c_eval(expr[:q_at], env)
+    return _c_eval(expr[q_at + 1:colon_at] if cond else expr[colon_at + 1:],
+                   env)
+
+
+def _lane_codes_source(fmt):
+    """The body of ``FORMATS[fmt]::lane_codes`` in the header."""
+    body = re.search(rf"struct {FORMATS[fmt]} {{(.*?)\n}};", CUH.read_text(),
+                     flags=re.S).group(1)
+    return re.search(r"lane_codes\(int gb\) {\s*return ([^;]+);",
+                     body).group(1)
 
 
 # ------------------------------------------------------------------ #
 # The host's plan, mirrored from the header
 # ------------------------------------------------------------------ #
-def lane_codes(gb):
-    return 8 if gb > 4 else 16
+def lane_codes(gb, fmt="int8"):
+    """Codes a lane holds of one K or V row, read from the header."""
+    return _c_eval(_lane_codes_source(fmt), {"gb": gb})
 
 
 def group_bound(g):
     return 1 if g == 1 else (4 if g <= 4 else 8)
 
 
-def lanes_per_row(hd, gb):
-    v = hd // lane_codes(gb)
+def lanes_per_row(hd, gb, fmt="int8"):
+    v = hd // lane_codes(gb, fmt)
     return 2 if v <= 2 else (4 if v <= 4 else (8 if v <= 8 else 16))
 
 
@@ -84,8 +137,7 @@ def share(n_keys, splits, rank):
 
 def test_python_mirrors_the_source():
     src = CUH.read_text()
-    for line in ("return gb > 4 ? 8 : 16;",
-                 "return G == 1 ? 1 : (G <= 4 ? 4 : 8);",
+    for line in ("return G == 1 ? 1 : (G <= 4 ? 4 : 8);",
                  "return v <= 2 ? 2 : (v <= 4 ? 4 : (v <= 8 ? 8 : 16));",
                  "while (s < MAX_SPLITS && s * KT < n_keys_max && "
                  "pairs * 2 * s <= resident)",
@@ -100,12 +152,61 @@ def test_python_mirrors_the_source():
     assert qdecode.MAX_GROUP == paged_attn.MAX_GROUP == C["MAXG"]
     assert qdecode.MAX_HEAD_DIM == paged_attn.MAX_HEAD_DIM == C["MAXD"]
     assert paged_attn.KEY_TILE == KT
-    # every (lanes, G bound) pair the shapes need is compiled
-    for gb in (1, 4, 8):
-        for hd in range(16, C["MAXD"] + 1, 16):
-            lpr = lanes_per_row(hd, gb)
-            assert f"run<{lpr}, {gb}>()" in src
-            assert hd <= lpr * lane_codes(gb) <= C["MAXD"]
+    assert [lane_codes(gb) for gb in (1, 4, 8)] == [16, 16, 8]
+    assert [lane_codes(gb, "int4") for gb in (1, 4, 8)] == [32, 16, 8]
+    # every (lanes, G bound) pair the shapes need is dispatched, and fits
+    # the compiled bound (run<> refuses a pair that does not)
+    assert "if constexpr (LPR * Fmt::lane_codes(GB) <= MAXD)" in src
+    for fmt, step in (("int8", 16), ("int4", KV_GROUP)):
+        for gb in (1, 4, 8):
+            for hd in range(step, C["MAXD"] + 1, step):
+                lpr = lanes_per_row(hd, gb, fmt)
+                assert f"run<Fmt, {lpr}, {gb}>(go)" in src
+                assert hd <= lpr * lane_codes(gb, fmt) <= C["MAXD"]
+
+
+@pytest.mark.parametrize("gb", [1, 4, 8])
+@pytest.mark.parametrize("hd", [32, 64, 96, 128])
+def test_int4_lane_codes_lie_in_one_group(hd, gb):
+    """An int4 lane loads a whole vector of packed codes (16, 8 or 4
+    bytes) and needs one f16 scale each for K and V: its codes never cross
+    a group of 32. acc[G][codes] stays within the int8 loop's registers."""
+    vl = lane_codes(gb, "int4")
+    lpr = lanes_per_row(hd, gb, "int4")
+    assert vl // 2 in (16, 8, 4)                # one load of whole bytes
+    assert gb * vl <= 64                         # acc[G][codes] as int8's
+    assert lpr * vl >= hd
+    lanes = [lane for lane in range(lpr) if lane * vl < hd]
+    assert len(lanes) == -(-hd // vl)            # the rest are masked
+    for lane in lanes:
+        first, last = lane * vl, (lane + 1) * vl - 1
+        assert first // KV_GROUP == last // KV_GROUP
+        assert last < hd                         # no lane straddles hd
+
+
+@pytest.mark.parametrize("fmt", ["int8", "int4"])
+def test_code_unpack_is_exact(fmt):
+    """The kernel's unpack: a code's byte (int8: c + 128) or nibble (int4:
+    c + 8) is placed under the exponent of 2^23 by a byte permute, and 2^23
+    plus the bias is taken off; f32 holds every step exactly. Emulated on
+    every code, with the source's constants."""
+    src = " ".join(CUH.read_text().split())
+    flip, bias = {"int8": (0x80808080, 8388736.0),
+                  "int4": (0x88888888, 8388616.0)}[fmt]
+    assert f"0x{flip:08x}u" in src and f"{int(bias)}.f" in src
+    if fmt == "int8":
+        codes = np.arange(-128, 128)
+        words = (codes & 0xFF).astype(np.uint32)
+        fields = [(words ^ flip) & 0xFF]
+    else:
+        codes = np.arange(-8, 8)
+        words = (codes & 0xF).astype(np.uint32) * 0x11    # both nibbles
+        x = words ^ flip
+        fields = [x & 0x0F, (x >> 4) & 0x0F]              # lo, hi
+    for field in fields:
+        f = (np.uint32(0x4B000000) | field.astype(np.uint32)).view(
+            np.float32) - np.float32(bias)
+        assert np.array_equal(f, codes.astype(np.float32))
 
 
 @pytest.mark.parametrize("n_keys_max,pairs,resident,want", [
@@ -190,9 +291,9 @@ def _attend_one(q, kf, ks, vf, vs, valid, add, n_keys, splits, lpr, chunk):
     return a / ls[..., None]
 
 
-def _plan(q, n_keys_max, splits):
+def _plan(q, n_keys_max, splits, fmt="int8"):
     g, hd = q.shape[2], q.shape[3]
-    return (lanes_per_row(hd, group_bound(g)),
+    return (lanes_per_row(hd, group_bound(g), fmt),
             splits if splits else splits_for(n_keys_max, 1, 10 ** 9))
 
 
@@ -208,12 +309,15 @@ def model_qdecode(q, k_i8, k_s, v_i8, v_s, bias, splits=None):
 
 
 def model_paged(q, k_pool, k_scale, v_pool, v_scale, tables, pos,
-                splits=None):
+                splits=None, fmt="int8"):
     """The paged kernel's plan: slot k < min(pos + 1, M * bs) of a mapped
-    table entry is read; nothing else is."""
-    n, bs, hkv, hd = k_pool.shape
+    table entry is read; nothing else is. int4 rows are dequantized as they
+    are read (code * s_g, exact) and score with no scale after the dot: a
+    unit row scale in the int8 model."""
+    n, bs, hkv = k_pool.shape[:3]
+    hd = q.shape[-1]
     b, m = tables.shape
-    lpr, splits = _plan(q, m * bs, splits)
+    lpr, splits = _plan(q, m * bs, splits, fmt)
     outs = []
     for i in range(b):
         n_keys = min(int(pos[i]) + 1, m * bs)
@@ -225,10 +329,17 @@ def model_paged(q, k_pool, k_scale, v_pool, v_scale, tables, pos,
         vf, ks, vs = torch.zeros_like(kf), torch.zeros((len(slots), hkv)), \
             torch.zeros((len(slots), hkv))
         live = rows[valid]                           # read only valid rows
-        kf[valid] = k_pool.reshape(n * bs, hkv, hd)[live].float()
-        vf[valid] = v_pool.reshape(n * bs, hkv, hd)[live].float()
-        ks[valid] = k_scale.reshape(n * bs, hkv)[live]
-        vs[valid] = v_scale.reshape(n * bs, hkv)[live]
+        if fmt == "int8":
+            kf[valid] = k_pool.reshape(n * bs, hkv, hd)[live].float()
+            vf[valid] = v_pool.reshape(n * bs, hkv, hd)[live].float()
+            ks[valid] = k_scale.reshape(n * bs, hkv)[live]
+            vs[valid] = v_scale.reshape(n * bs, hkv)[live]
+        else:
+            for f, pool, sc in ((kf, k_pool, k_scale), (vf, v_pool, v_scale)):
+                f[valid] = dequantize_kv_int4(
+                    pool.reshape(n * bs, hkv, hd // 2)[live],
+                    sc.reshape(n * bs, hkv, hd // KV_GROUP)[live])
+            ks[valid], vs[valid] = 1.0, 1.0
         outs.append(_attend_one(q[i].float(), kf, ks, vf, vs, valid,
                                 torch.zeros(len(slots)), n_keys, splits, lpr,
                                 C["TAB_CAP"] * bs))
@@ -257,14 +368,27 @@ def _dense_case(seed, b, s, hkv, g, hd, pos):
             _codes(rng, (b, s, hkv, hd)), _scales(rng, (b, s, hkv)), bias)
 
 
-def _paged_case(seed, b, hkv, g, hd, bs, m, pos, holes=()):
+def _int4_pools(rng, n, bs, hkv, hd):
+    """Packed int4 pools (every byte, so every nibble -8..7) with f16 group
+    scales of dequantized values of order 1, as int4 K/V are."""
+    def codes():
+        return rng.integers(-128, 128, (n, bs, hkv, hd // 2)).astype(np.int8)
+
+    def scales():
+        return (rng.uniform(0.5, 1.5, (n, bs, hkv, hd // KV_GROUP))
+                / 7).astype(np.float16)
+    return codes(), scales(), codes(), scales()
+
+
+def _paged_case(seed, b, hkv, g, hd, bs, m, pos, holes=(), fmt="int8"):
     """Shuffled block ids up to each position (block 0 is the trash block);
     an idle row (pos -1) has an all -1 table at position 0."""
     rng = np.random.default_rng(seed)
     n = b * m + 3
     q = rng.normal(size=(b, hkv, g, hd)).astype(np.float32)
     pools = (_codes(rng, (n, bs, hkv, hd)), _scales(rng, (n, bs, hkv)),
-             _codes(rng, (n, bs, hkv, hd)), _scales(rng, (n, bs, hkv)))
+             _codes(rng, (n, bs, hkv, hd)), _scales(rng, (n, bs, hkv))) \
+        if fmt == "int8" else _int4_pools(rng, n, bs, hkv, hd)
     ids = iter(rng.permutation(np.arange(1, n)))
     tables = np.full((b, m), -1, np.int32)
     for i, p in enumerate(pos):
@@ -322,14 +446,24 @@ PAGED = {
     "idle": (4, 2, 1, 64, 16, 8, [100, -1, 31, 127], [(0, 1)], None),
     "idle_g8": (2, 1, 8, 96, 32, 4, [-1, 127], (), 4),
 }
+# the same kinds over int4 pools (hd a multiple of 32), plus hd 32: one
+# group, a masked lane at G bound 1
+PAGED4 = {"q4_" + key: case for key, case in PAGED.items()}
+PAGED4["q4_hd32"] = (3, 2, 1, 32, 8, 8, [63, 20, 7], [(1, 1)], None)
+# (plain version, Pallas kernel) by format
+ORACLES = {"int8": (t_ref.paged_qdecode_ref, paged_qdecode_attention),
+           "int4": (t_ref.paged_q4decode_ref, paged_q4decode_attention)}
 
 
-@pytest.mark.parametrize("case", sorted(PAGED))
+@pytest.mark.parametrize("case", sorted(PAGED) + sorted(PAGED4))
 def test_paged_model_matches_plain_and_pallas(case):
-    b, hkv, g, hd, bs, m, pos, holes, splits = PAGED[case]
-    arrays = _paged_case(len(case) * bs, b, hkv, g, hd, bs, m, pos, holes)
-    got = model_paged(*_t(*arrays), splits=splits)
-    want = t_ref.paged_qdecode_ref(*_t(*arrays))
+    fmt = "int4" if case in PAGED4 else "int8"
+    b, hkv, g, hd, bs, m, pos, holes, splits = {**PAGED, **PAGED4}[case]
+    plain, kernel = ORACLES[fmt]
+    arrays = _paged_case(len(case) * bs, b, hkv, g, hd, bs, m, pos, holes,
+                         fmt)
+    got = model_paged(*_t(*arrays), splits=splits, fmt=fmt)
+    want = plain(*_t(*arrays))
     live = torch.tensor([p >= 0 for p in pos])
     # an idle row is 0/0 on both sides, and nothing else is
     assert torch.equal(got.isnan().flatten(1).all(1), ~live)
@@ -337,40 +471,46 @@ def test_paged_model_matches_plain_and_pallas(case):
     assert torch.isfinite(got[live]).all()
     np.testing.assert_allclose(got[live].numpy(), want[live].numpy(),
                                atol=1e-4, rtol=0)
-    pallas = np.asarray(paged_qdecode_attention(*_j(*arrays),
-                                                interpret=True))
+    pallas = np.asarray(kernel(*_j(*arrays), interpret=True))
     np.testing.assert_allclose(got[live].numpy(), pallas[live.numpy()],
                                atol=1e-4, rtol=0)
 
 
 def test_paged_model_stages_long_tables_in_chunks():
     """At bs 1 a chunk of TAB_CAP staged entries is 512 slots: one
-    sequence of 4500 keys at 1 split walks 9 chunks, a hole in the 2nd."""
+    sequence of 4500 keys at 1 split walks 9 chunks, a hole in the 2nd;
+    over int8 and int4 pools."""
     assert C["TAB_CAP"] == 512
-    arrays = _paged_case(11, 2, 1, 1, 32, 1, 4600, [4499, 600], [(0, 700)])
-    got = model_paged(*_t(*arrays), splits=1)
-    want = t_ref.paged_qdecode_ref(*_t(*arrays))
-    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-4, rtol=0)
+    for fmt in ("int8", "int4"):
+        arrays = _paged_case(11, 2, 1, 1, 32, 1, 4600, [4499, 600],
+                             [(0, 700)], fmt)
+        got = model_paged(*_t(*arrays), splits=1, fmt=fmt)
+        want = ORACLES[fmt][0](*_t(*arrays))
+        np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-4,
+                                   rtol=0)
 
 
 def test_poisoned_trash_block_leaves_live_rows_bit_identical():
-    """What an idle slot writes into block 0 (NaN scales, -128 codes) is
-    never read: the live rows do not change, in the model and the plain
-    version alike."""
+    """What an idle slot writes into block 0 is never read: NaN scales
+    and -128 codes (int8) or NaN f16 scales and 0x88 bytes (int4: codes
+    -8). The live rows do not change, in the model and the plain version
+    alike."""
     b, hkv, g, hd, bs, m, pos, holes, splits = PAGED["idle"]
-    arrays = list(_t(*_paged_case(5, b, hkv, g, hd, bs, m, pos, holes)))
     live = torch.tensor([p >= 0 for p in pos])
-    before = model_paged(*arrays, splits=splits)
-    before_ref = t_ref.paged_qdecode_ref(*arrays)
-    k_pool, k_scale, v_pool, v_scale = (t.clone() for t in arrays[1:5])
-    k_pool[0], v_pool[0] = -128, -128
-    k_scale[0], v_scale[0] = float("nan"), float("nan")
-    arrays[1:5] = k_pool, k_scale, v_pool, v_scale
-    after = model_paged(*arrays, splits=splits)
-    assert torch.equal(after[live], before[live])
-    assert torch.isfinite(after[live]).all()
-    assert torch.equal(t_ref.paged_qdecode_ref(*arrays)[live],
-                       before_ref[live])
+    for fmt, poison in (("int8", -128), ("int4", -120)):
+        plain = ORACLES[fmt][0]
+        arrays = list(_t(*_paged_case(5, b, hkv, g, hd, bs, m, pos, holes,
+                                      fmt)))
+        before = model_paged(*arrays, splits=splits, fmt=fmt)
+        before_ref = plain(*arrays)
+        k_pool, k_scale, v_pool, v_scale = (t.clone() for t in arrays[1:5])
+        k_pool[0], v_pool[0] = poison, poison
+        k_scale[0], v_scale[0] = float("nan"), float("nan")
+        arrays[1:5] = k_pool, k_scale, v_pool, v_scale
+        after = model_paged(*arrays, splits=splits, fmt=fmt)
+        assert torch.equal(after[live], before[live])
+        assert torch.isfinite(after[live]).all()
+        assert torch.equal(plain(*arrays)[live], before_ref[live])
 
 
 @pytest.mark.parametrize("splits", [1, 2, 4, 8])
