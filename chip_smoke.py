@@ -7,9 +7,9 @@ Builds the CUDA kernels from ``src/repro_torch/csrc`` (into ``build/``) and
 prints one JSON line per phase:
 
 1. card: ``nvidia-smi`` name and power limit, kernel build time, ptxas
-   registers and spills per source and per instantiation of the int8
-   tensor-core prefill (``flash_qtc``) and the int4 split loop
-   (``paged_q4decode_split``), and any kernel that spills;
+   registers and spills per source and per instantiation of the quantized
+   tensor-core prefills (``flash_qtc``, ``flash_q4tc``) and the split-K
+   decode loops (``*_split``), and any kernel that spills;
 2. kernels: each CUDA kernel against its plain PyTorch version on the card
    at the main paths' shapes, with its time (a CUDA-graph replay: device
    time; and the eager call, launch gaps included), the plain version's
@@ -20,13 +20,16 @@ prints one JSON line per phase:
    the pack's time and, for the wgmma body, its activation pass alone),
    flash prefill (with the body that ran:
    the tensor-core body for bf16 and, over two-term splits, for f32
-   inputs) and paged decode, then the
+   inputs) and paged decode (with NaN in the trash block of its bf16 or
+   f32 pools, and its instantiation's ptxas line), then the
    int8-KV kernels qdecode, paged_qdecode (with NaN scales and -128 codes
    in the trash block) and flash_qprefill (with the body that ran and its
    instantiation's ptxas line), then the int4-KV kernels paged_q4decode
    (with NaN f16 scales and 0x88 bytes in the trash block, and its
-   instantiation's ptxas line) and flash_q4prefill; the decode kernels and
-   flash_qprefill also bit-identical across two calls; the int4 KV quantizer's edge groups, card against
+   instantiation's ptxas line) and flash_q4prefill (with the body that ran
+   and its instantiation's ptxas line); the decode kernels and the
+   quantized prefills also bit-identical across two calls; the int4 KV
+   quantizer's edge groups, card against
    CPU, and quantize_weights at phi-3-vision's weight shapes (codes and
    scales bit for bit); the GEMMs and flash prefill also run at the VQI
    forward's shapes (M 4632 at phi-3-vision's five weight shapes; B8 S579
@@ -70,8 +73,9 @@ prints one JSON line per phase:
    dynamic int8 and static int8 (calibrated on the CPU);
 7. a ``kernels`` line, the ``nvidia-smi`` line, and last the device line.
 
-Every counted run also checks that each flash_prefill and flash_qprefill
-launch took the body of its dtype (``launches_by_body``), each engine
+Every counted run also checks that each flash_prefill, flash_qprefill and
+flash_q4prefill launch took the body of its dtype (``launches_by_body``),
+each engine
 window's profile names its attention kernel once per layer, and the GEMMs'
 bodies are checked where M is known: the one-launch decode body at every
 decode step, the wgmma body in the VQI forwards and the 256-row prefill
@@ -302,11 +306,18 @@ def _gemms(k):
             "qmatmul_static": k.qmatmul.qmatmul_static}
 
 
+def _flash(k):
+    """The flash prefills, whose launches are counted per body too."""
+    fp = k.flash_prefill
+    return {"flash_prefill": fp.flash_prefill,
+            "flash_qprefill": fp.flash_qprefill,
+            "flash_q4prefill": fp.flash_q4prefill}
+
+
 def reset_counters(k):
     for fn in _wrappers(k).values():
         fn.launches = 0
-    for fn in (k.flash_prefill.flash_prefill, k.flash_prefill.flash_qprefill,
-               *_gemms(k).values()):
+    for fn in (*_flash(k).values(), *_gemms(k).values()):
         bodies = fn.launches_by_body
         for body in bodies:
             bodies[body] = 0
@@ -335,17 +346,18 @@ def check_gemm_bodies(where, launches, gemv=None):
 
 
 def read_bodies(k, name="flash_prefill"):
-    """flash_prefill's (or flash_qprefill's) launches per body
-    (``flash_prefill.BODY`` / ``QBODY``)."""
-    return dict(getattr(k.flash_prefill, name).launches_by_body)
+    """A flash prefill's launches per body (``flash_prefill.BODY`` /
+    ``QBODY`` / ``Q4BODY``)."""
+    return dict(_flash(k)[name].launches_by_body)
 
 
 def check_bodies(k, where, launches, dtype):
-    """Every flash_prefill and flash_qprefill launch of a run took the body
-    of its dtype."""
-    out = {}
-    for name, table in (("flash_prefill", k.flash_prefill.BODY),
-                        ("flash_qprefill", k.flash_prefill.QBODY)):
+    """Every flash_prefill, flash_qprefill and flash_q4prefill launch of a
+    run took the body of its dtype."""
+    fp, out = k.flash_prefill, {}
+    for name, table in (("flash_prefill", fp.BODY),
+                        ("flash_qprefill", fp.QBODY),
+                        ("flash_q4prefill", fp.Q4BODY)):
         bodies = read_bodies(k, name)
         want = {b: launches[name] if b == table[dtype] else 0
                 for b in bodies}
@@ -397,12 +409,23 @@ def q4_split_instance(hd: int, g: int) -> str:
     return f"paged_q4decode_split<{lpr}, {gb}>"
 
 
-def qtc_instance(hd: int, dv: int, dtype) -> str:
-    """The ``tc::flash_qtc<TQ, W, W>`` that serves (hd, dv, q dtype)."""
+def fp_split_instance(hd: int, g: int, pool_dtype) -> str:
+    """The ``paged_decode_split<T, LPR, GB>`` that serves (hd, G, pool
+    dtype): Fp::lane_codes is 8 at every G bound."""
+    gb = 1 if g == 1 else (4 if g <= 4 else 8)
+    v = -(-hd // 8)
+    lpr = 2 if v <= 2 else (4 if v <= 4 else (8 if v <= 8 else 16))
+    t = "float" if pool_dtype == torch.float32 else "__nv_bfloat16"
+    return f"paged_decode_split<{t}, {lpr}, {gb}>"
+
+
+def qtc_instance(hd: int, dv: int, dtype, body="flash_qtc") -> str:
+    """The ``tc::flash_qtc<TQ, W, W>`` (or ``flash_q4tc``) that serves (hd,
+    dv, q dtype)."""
     w = max(hd, dv)
     w = 64 if w <= 64 else (96 if w <= 96 else 128)
     tq = "float" if dtype == torch.float32 else "__nv_bfloat16"
-    return f"tc::flash_qtc<{tq}, {w}, {w}>"
+    return f"tc::{body}<{tq}, {w}, {w}>"
 
 
 # ------------------------------------------------------------------ #
@@ -596,8 +619,9 @@ def paged_phase(k, dev, timer):
     for label, shape in PAGED_SHAPES.items():
         b, hkv, g, hd, bs, m, n, dt, _ = shape
         q, kp, vp, tables, pos, live = paged_case(dev, gen, shape)
-        got = pa.paged_decode(q, kp, vp, tables, pos)
-        want = ref.paged_decode_ref(q, kp, vp, tables, pos)
+        run = lambda: pa.paged_decode(q, kp, vp, tables, pos)  # noqa: E731
+        plain = lambda: ref.paged_decode_ref(q, kp, vp, tables, pos)  # noqa: E731
+        got, want, twice = run(), plain(), run()
         torch.cuda.synchronize()
         idle_nan = bool(got[~live].isnan().all()) and bool(
             want[~live].isnan().all())
@@ -606,12 +630,13 @@ def paged_phase(k, dev, timer):
                 or not idle_nan:
             raise AssertionError(f"paged_decode ({label}): max |err| {err} "
                                  f"> {PAGED_ATOL} or idle rows not 0/0")
+        if not (torch.equal(twice[live], got[live])
+                and torch.equal(twice.isnan(), got.isnan())):
+            raise AssertionError(f"paged_decode ({label}): two calls differ")
         worst = max(worst, err)
-        run = lambda: pa.paged_decode(q, kp, vp, tables, pos)  # noqa: E731
         t_k = timer.graph_ms(run)
         t_eager = timer.eager_ms(run)
-        t_p = timer.graph_ms(
-            lambda: ref.paged_decode_ref(q, kp, vp, tables, pos), iters=3)
+        t_p = timer.graph_ms(plain, iters=3)
         # yardstick, two calls: gather the blocks into a contiguous masked
         # [B, Hkv, S, hd] view, then one SDPA call over it
         valid = ref.paged_valid(tables, pos, bs)
@@ -626,17 +651,29 @@ def paged_phase(k, dev, timer):
         lib_err = float((sdpa()[live].float() - want[live]).abs().max())
         t_gather = timer.graph_ms(gather)
         t_lib = timer.graph_ms(sdpa)
+        # block 0 is in no table: NaN there (what an idle slot may leave in
+        # the trash block) reaches no live row
+        kp[0], vp[0] = float("nan"), float("nan")
+        again = run()
+        torch.cuda.synchronize()
+        if not (torch.equal(again[live], got[live])
+                and torch.equal(again.isnan(), got.isnan())):
+            raise AssertionError(f"paged_decode ({label}): NaN in the trash "
+                                 "block reached a live row")
         n_valid = int(valid.sum())            # this run's valid slots
         item = kp.element_size()
         nbytes = (2 * n_valid * hkv * hd * item + q.numel() * q.element_size()
                   + tables.numel() * 4 + pos.numel() * 4 + got.numel() * 4)
         flops = 4.0 * g * hd * n_valid * hkv
         b_ms, b_by = bound(nbytes, flops, str(dt).split(".")[-1])
+        inst = fp_split_instance(hd, g, dt)
         row = dict(kernel="paged_decode", case=label, B=b, Hkv=hkv, G=g,
                    hd=hd, bs=bs, M=m, N=n, dtype=str(dt).split(".")[-1],
+                   body="split", instance=inst, ptxas=k.ptxas.get(inst),
                    positions=pos.tolist(), valid_slots=n_valid,
-                   idle_rows=int((~live).sum()), max_abs_err=err,
-                   atol=PAGED_ATOL, ms=t_k, eager_ms=t_eager, plain_ms=t_p,
+                   idle_rows=int((~live).sum()), trash_nan_isolated=True,
+                   max_abs_err=err, atol=PAGED_ATOL, repeat_identical=True,
+                   ms=t_k, eager_ms=t_eager, plain_ms=t_p,
                    library_ms=t_lib, library_gather_ms=t_gather,
                    library_max_abs_err=lib_err, mbytes=nbytes / 1e6,
                    bound_ms=b_ms, bound_by=b_by)
@@ -1009,12 +1046,21 @@ def flash_q4prefill_phase(k, dev, timer):
         vq, vs = int4_codes(gen, (b, s, hkv, dv), dev)
         run = lambda: fp.flash_q4prefill(q, kq, ks, vq, vs)  # noqa: E731
         plain = lambda: ref.flash_q4prefill_ref(q, kq, ks, vq, vs)  # noqa: E731
-        got, want = run(), plain()
+        before = read_bodies(k, "flash_q4prefill")
+        got, want, twice = run(), plain(), run()
         torch.cuda.synchronize()
+        ran = [b for b, n in read_bodies(k, "flash_q4prefill").items()
+               if n != before[b]]
+        if ran != [fp.Q4BODY[dt]]:
+            raise AssertionError(f"flash_q4prefill {shape}: bodies {ran} "
+                                 f"ran, not {fp.Q4BODY[dt]}")
         err = float((got - want).abs().max())
         if not torch.isfinite(got).all() or err > INT8KV_ATOL:
             raise AssertionError(f"flash_q4prefill {shape}: max |err| {err} "
                                  f"> {INT8KV_ATOL}")
+        if not torch.equal(twice, got):     # one launch, no atomics
+            raise AssertionError(f"flash_q4prefill {shape}: two calls "
+                                 "differ")
         worst = max(worst, err)
         t_k = timer.graph_ms(run)
         t_eager = timer.eager_ms(run)
@@ -1039,8 +1085,11 @@ def flash_q4prefill_phase(k, dev, timer):
                   + b * s * hkv * (int4_bytes(1, hd) + int4_bytes(1, dv))
                   + 4 * b * s * hq * dv)
         b_ms, b_by = bound(nbytes, flops, str(dt).split(".")[-1])
+        inst = qtc_instance(hd, dv, dt, "flash_q4tc")
         row = dict(kernel="flash_q4prefill", B=b, S=s, Hq=hq, Hkv=hkv, hd=hd,
                    dv=dv, dtype=str(dt).split(".")[-1], kv="int4",
+                   body=ran[0], instance=inst, ptxas=k.ptxas.get(inst),
+                   repeat_identical=True,
                    max_abs_err=err, atol=INT8KV_ATOL, gflop=flops / 1e9,
                    ms=t_k, eager_ms=t_eager, plain_ms=t_p, library_ms=t_lib,
                    library_dequant_ms=t_deq, mbytes=nbytes / 1e6,
@@ -1223,6 +1272,8 @@ def e2e_phase(k, dev):
                  for body in k.flash_prefill.BODY.values()},
               **{f"flash_qprefill.{body}": 0
                  for body in k.flash_prefill.QBODY.values()},
+              **{f"flash_q4prefill.{body}": 0
+                 for body in k.flash_prefill.Q4BODY.values()},
               **{f"{name}.{body}": 0 for name in _gemms(k)
                  for body in k.qmatmul.BODIES}}
     runs = [(spec.variant, spec, cfg) for spec in DEFAULT_VARIANTS]
@@ -1296,7 +1347,7 @@ def e2e_phase(k, dev):
             # one more prefill, profiled: its device time and the share
             # of it its attention kernel takes, 24 launches of it
             watch = {"fp": "flash_tc", "int8": "flash_qtc",
-                     "int4": "flash_attend"}[tier]
+                     "int4": "flash_q4tc"}[tier]
             ptrace = profile_steps(
                 lambda: prefill(session.params, batch, cfg, pad_to=512,
                                 n_valid=PROMPT_LENS[-1]), 1, prefill_ms,
@@ -1515,7 +1566,7 @@ def engine_phase(k, dev):
             peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
             gen = torch.Generator().manual_seed(SEED + 8)
             # the attention kernel each window's trace must name
-            watch = {("fp", True): "paged_attend",
+            watch = {("fp", True): "paged_decode_split",
                      ("int8", True): "paged_qdecode_split",
                      ("int4", True): "paged_q4decode_split",
                      ("int8", False): "qdecode_split"}.get((tier, paged))
@@ -2157,8 +2208,7 @@ def main() -> int:
          count=torch.cuda.device_count(), torch=torch.__version__,
          cuda=torch.version.cuda, build_s=build_s, ptxas=ptxas,
          ptxas_redesigned={name: k.ptxas[name] for name in sorted(k.ptxas)
-                           if "flash_qtc" in name
-                           or "paged_q4decode_split" in name},
+                           if "flash_q" in name or "_split" in name},
          ptxas_spilled=spilled)
 
     timer = Timer(dev)
@@ -2185,7 +2235,9 @@ def main() -> int:
     for name in ("qdecode", "paged_qdecode", "flash_qprefill",
                  "paged_q4decode", "flash_q4prefill",
                  *(f"flash_qprefill.{body}"
-                   for body in k.flash_prefill.QBODY.values())):
+                   for body in k.flash_prefill.QBODY.values()),
+                 *(f"flash_q4prefill.{body}"
+                   for body in k.flash_prefill.Q4BODY.values())):
         totals[name] = totals.get(name, 0) + all_totals[name]
     paged_vs_dense_phase(dev, streams)
     card_vs_cpu_phase(dev, paged=False)
@@ -2237,12 +2289,12 @@ def main() -> int:
                         "plain_ms": h["plain_ms"], "bound_ms": h["bound_ms"],
                         "bound_by": h["bound_by"],
                         "library_ms": h["library_ms"], "shape": shape})
-        if name in ("flash_prefill", "flash_qprefill"):
+        if name in _flash(k):
             kernels[-1]["body"] = h["body"]
             kernels[-1]["launches_by_body"] = {
                 body: totals[f"{name}.{body}"]
                 for body in read_bodies(k, name)}
-        if name == "paged_q4decode":
+        if name in ("paged_decode", "paged_q4decode"):
             kernels[-1]["body"] = h["body"]
         if name in _gemms(k):
             kernels[-1]["body"] = h["body"]

@@ -13,8 +13,9 @@ attention kernel phase (flash prefill, paged decode, the int8-KV and
 int4-KV kernels) that its ``chip_smoke.py`` defines, each kernel held to
 its plain version and timed as ``chip_smoke.py`` times it. Every JSON line
 is printed as that checkout's ``chip_smoke.py`` prints it, with ``root``
-and ``turn`` added. Needs one CUDA card; without one it exits non-zero and
-prints no result.
+and ``turn`` added; a turn that built its checkout's kernels also prints their
+ptxas registers and spills per instantiation. Needs one CUDA card; without
+one it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
@@ -51,7 +52,12 @@ def one(root: str) -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     _build.build_all()
-    cs.emit("card", nvidia_smi=cs.gpu_line())
+    # ptxas registers and spills per instantiation, where this turn built
+    # the checkout's kernels (a later turn of the same checkout reuses them)
+    filt = os.path.join(os.path.dirname(_build._nvcc()), "cu++filt")
+    for log in _build.BUILD_LOG.values():
+        k.ptxas.update(cs.ptxas_kernels(log, filt))
+    cs.emit("card", nvidia_smi=cs.gpu_line(), ptxas=k.ptxas)
     timer = cs.Timer(dev)
     one_el = torch.zeros(1, device=dev)
     cs.emit("timer", floor_ms=timer.graph_ms(lambda: one_el.add_(1),

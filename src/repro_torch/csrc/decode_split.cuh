@@ -1,11 +1,15 @@
-// The split-K decode-attention loop over quantized K/V for Hopper (sm_90a),
-// shared by qdecode.cu (qdecode: a dense int8 cache plus an additive bias)
-// and paged_attn.cu's paged_qdecode_fwd (int8 block pools) and
-// paged_q4decode_fwd (int4 block pools), both through a block table. One
-// query token per sequence attends over its K/V slots with an f32 online
-// softmax; the fp pools keep decode_attn.cuh's loop.
+// The split-K decode-attention loop for Hopper (sm_90a), shared by
+// qdecode.cu (qdecode: a dense int8 cache plus an additive bias) and
+// paged_attn.cu's paged_decode_fwd (bf16 or f32 block pools),
+// paged_qdecode_fwd (int8 block pools) and paged_q4decode_fwd (int4 block
+// pools), all three through a block table. One query token per sequence
+// attends over its K/V slots with an f32 online softmax.
 //
-// Two code formats, one loop:
+// Three code formats, one loop:
+// - Fp<T>: bf16 or f32 elements [rows, Hkv, hd], no scale. A lane holds 8
+//   elements of a row (one 16-byte load in bf16, two in f32), each exact
+//   in f32 (bf16 by a shift), and the score is q . k / sqrt(hd), as the
+//   TPU fp kernel computes it. No scale pointer is read.
 // - Int8: int8 codes [rows, Hkv, hd] with f32 scales [rows, Hkv]. The K
 //   scale multiplies the score after the dot, (q . k_codes) * k_s /
 //   sqrt(hd), plus the bias for the dense cache, and the V scale is folded
@@ -31,12 +35,13 @@
 //
 // Inside a CTA the four warps walk the share in steps of R = 32 / LPR
 // slots, step i going to warp i % 4. LPR lanes hold one slot row: lane l
-// loads the row's l-th vector of VL K and VL V codes (lane_codes: int8 16
-// codes, one 16-byte load, or 8 where G > 4; int4 32 codes at G 1, 16 at G
-// <= 4 and 8 above, so acc[G][VL] fits the registers; lanes past hd / VL
-// are masked, as hd 96 leaves some), and the same VL dims of q come from
-// shared memory, stored so the lanes of a row read consecutive float4s.
-// Codes become f32 by byte permutes and a subtraction (exact), not I2F.
+// loads the row's l-th vector of VL K and VL V codes (lane_codes: fp 8
+// elements; int8 16 codes, one 16-byte load, or 8 where G > 4; int4 32
+// codes at G 1, 16 at G <= 4 and 8 above, so acc[G][VL] fits the
+// registers; lanes past hd / VL are masked, as hd 96 leaves some), and the
+// same VL dims of q come from shared memory, stored so the lanes of a row
+// read consecutive float4s. Codes become f32 by byte permutes and a
+// subtraction (exact), not I2F; bf16 elements by a shift.
 // The row's dot is reduced with __shfl_xor_sync, and each warp keeps its
 // own online-softmax state: the running max m[g] (warp-uniform, seeded at
 // RUN_INIT = -1e30; l and acc are rescaled only when it moves), and per
@@ -78,10 +83,27 @@ constexpr int TAB_CAP = 512;            // table entries staged at once
 constexpr float NEG_INF = -2.0e38f;     // a masked slot's score
 constexpr float RUN_INIT = -1.0e30f;    // the running max's seed
 
+// bf16 or f32 elements, no scale
+template <typename T>
+struct Fp {
+  using Scale = float;                  // none is read
+  using Bits = float;
+  static constexpr bool kScaled = false;
+  static constexpr bool kScaleAfterDot = false;
+  // elements a lane holds of one K or V row: 16 bytes of bf16, 32 of f32;
+  // a multiple of 8 (hd's step) up to 128 takes at most 16 lanes
+  __host__ __device__ static constexpr int lane_codes(int) { return 8; }
+  __host__ __device__ static constexpr int bytes(int codes) {
+    return codes * (int)sizeof(T);
+  }
+  __device__ static float to_f32(Bits b) { return b; }
+};
+
 // int8 codes, one f32 scale per (slot, head) applied after the dot
 struct Int8 {
   using Scale = float;                  // a scale in memory
   using Bits = float;                   // a scale as a lane holds it
+  static constexpr bool kScaled = true;
   static constexpr bool kScaleAfterDot = true;
   // codes a lane holds of one K or V row: one 16-byte load, or one 8-byte
   // load where G > 4 (acc[G][codes] must fit the registers)
@@ -100,6 +122,7 @@ struct Int8 {
 struct Int4 {
   using Scale = __half;
   using Bits = unsigned short;          // loaded raw, converted at use
+  static constexpr bool kScaled = true;
   static constexpr bool kScaleAfterDot = false;
   // codes a lane holds of one K or V row: one 16-, 8- or 4-byte load, all
   // in one group of 32 (acc[G][codes] must fit the registers)
@@ -141,11 +164,12 @@ long resident_ctas(K kernel) {
 }
 
 // the compiled bound on G and lanes per slot row (a power of two >=
-// hd / lane_codes), the two template parameters of a launch
+// hd / lane_codes, which divides hd), the two template parameters of a
+// launch
 inline int group_bound(int G) { return G == 1 ? 1 : (G <= 4 ? 4 : 8); }
 template <class Fmt>
 int lanes_per_row(int hd, int gb) {
-  const int v = hd / Fmt::lane_codes(gb);
+  const int lc = Fmt::lane_codes(gb), v = (hd + lc - 1) / lc;
   return v <= 2 ? 2 : (v <= 4 ? 4 : (v <= 8 ? 8 : 16));
 }
 
@@ -202,6 +226,19 @@ template <int BYTES> struct CodeVec;    // one load of a lane's codes
 template <> struct CodeVec<16> { using T = uint4; };
 template <> struct CodeVec<8> { using T = uint2; };
 template <> struct CodeVec<4> { using T = unsigned; };
+struct Vec32 {                          // two 16-byte loads (8 f32)
+  uint4 a, b;
+};
+template <> struct CodeVec<32> { using T = Vec32; };
+
+template <class V>
+__device__ __forceinline__ V ldg_vec(const V* p) {
+  return __ldg(p);
+}
+__device__ __forceinline__ Vec32 ldg_vec(const Vec32* p) {
+  const uint4* u = reinterpret_cast<const uint4*>(p);
+  return Vec32{__ldg(u), __ldg(u + 1)};
+}
 
 __device__ __forceinline__ unsigned word(const uint4& u, int i) {
   return i == 0 ? u.x : (i == 1 ? u.y : (i == 2 ? u.z : u.w));
@@ -210,6 +247,20 @@ __device__ __forceinline__ unsigned word(const uint2& u, int i) {
   return i == 0 ? u.x : u.y;
 }
 __device__ __forceinline__ unsigned word(unsigned u, int) { return u; }
+__device__ __forceinline__ unsigned word(const Vec32& u, int i) {
+  return i < 4 ? word(u.a, i) : word(u.b, i - 4);
+}
+
+// f32: word i is element i. bf16: element 2i is the low half of word i,
+// 2i + 1 the high half; a bf16 is the top half of its f32 (exact).
+__device__ __forceinline__ void unpack_word(Fp<float>, float* f, unsigned w) {
+  f[0] = __uint_as_float(w);
+}
+__device__ __forceinline__ void unpack_word(Fp<__nv_bfloat16>, float* f,
+                                            unsigned w) {
+  f[0] = __uint_as_float(w << 16);
+  f[1] = __uint_as_float(w & 0xffff0000u);
+}
 
 // Element 4i + j is byte j of word i. A code c becomes f32 without I2F
 // (16 results per clock per SM, as slow as the bytes here): byte c + 128
@@ -245,6 +296,7 @@ __device__ __forceinline__ void unpack(float (&f)[VL], const V& v) {
 }
 
 // a lane's part of one slot row: its VL K and VL V codes and the scales
+// (none in Fp)
 template <class Fmt, int VL>
 struct Slot {
   typename CodeVec<Fmt::bytes(VL)>::T k, v;
@@ -273,15 +325,15 @@ __device__ __forceinline__ Slot<Fmt, VL> fetch(
     const long e = (long)row * Hkv + h;
     const long row_bytes = Fmt::bytes(hd);
     if (l * VL < hd) {
-      s.k = __ldg(reinterpret_cast<const T*>(kp + e * row_bytes) + l);
-      s.v = __ldg(reinterpret_cast<const T*>(vp + e * row_bytes) + l);
-      if (!Fmt::kScaleAfterDot) {       // a group scale: its lanes only
-        s.ks = Fmt::scale(ksp, e, hd, l * VL);
-        s.vs = Fmt::scale(vsp, e, hd, l * VL);
+      s.k = ldg_vec(reinterpret_cast<const T*>(kp + e * row_bytes) + l);
+      s.v = ldg_vec(reinterpret_cast<const T*>(vp + e * row_bytes) + l);
+      if constexpr (Fmt::kScaled && !Fmt::kScaleAfterDot) {
+        s.ks = Fmt::scale(ksp, e, hd, l * VL);   // a group scale: its
+        s.vs = Fmt::scale(vsp, e, hd, l * VL);   // lanes only
       }
     }
-    if (Fmt::kScaleAfterDot) {          // a row scale: every lane of the
-      s.ks = Fmt::scale(ksp, e, hd, 0);   // row scales the reduced dot
+    if constexpr (Fmt::kScaleAfterDot) {  // a row scale: every lane of the
+      s.ks = Fmt::scale(ksp, e, hd, 0);     // row scales the reduced dot
       s.vs = Fmt::scale(vsp, e, hd, 0);
     }
     if (Rows::kBias) s.add = rows.bias(b, k);
@@ -301,7 +353,8 @@ __device__ __forceinline__ void consume(const Slot<Fmt, VL>& s,
   unpack<Fmt>(kf, s.k);
   unpack<Fmt>(vf, s.v);
   const float ks = Fmt::to_f32(s.ks), vs = Fmt::to_f32(s.vs);
-  if (!Fmt::kScaleAfterDot) {             // dequantize first: exact
+  // a group scale dequantizes first: exact
+  if constexpr (Fmt::kScaled && !Fmt::kScaleAfterDot) {
 #pragma unroll
     for (int c = 0; c < VL; ++c) {
       kf[c] *= ks;
@@ -565,12 +618,14 @@ int dispatch(const Go& go, int hd, int G) {
   if (gb == 1) {
     if (lpr == 2) return run<Fmt, 2, 1>(go);
     if (lpr == 4) return run<Fmt, 4, 1>(go);
-    return run<Fmt, 8, 1>(go);
+    if (lpr == 8) return run<Fmt, 8, 1>(go);
+    return run<Fmt, 16, 1>(go);
   }
   if (gb == 4) {
     if (lpr == 2) return run<Fmt, 2, 4>(go);
     if (lpr == 4) return run<Fmt, 4, 4>(go);
-    return run<Fmt, 8, 4>(go);
+    if (lpr == 8) return run<Fmt, 8, 4>(go);
+    return run<Fmt, 16, 4>(go);
   }
   if (lpr == 2) return run<Fmt, 2, 8>(go);
   if (lpr == 4) return run<Fmt, 4, 8>(go);

@@ -51,21 +51,32 @@
 // q is split once into two bf16 terms, two products per mma (the codes
 // need no split): ~1e-5 against the f32 reference.
 //
-// flash_attend (flash_q4prefill_fwd, int4 K/V): f32 FMA on the CUDA cores,
-// 128 threads each owning 4 rows x (4 keys of a 32-key tile) of scores and
-// 4 rows x (dv / 8 columns) of the accumulator, Q, K and V in shared
-// memory as f32 (row stride hd + 1, dv + 1). It reads nibble-packed K
-// [B,S,Hkv,hd/2] and V [B,S,Hkv,dv/2] with f16 per-(position, head, group
-// of 32) scales [B,S,Hkv,hd/32] / [..,dv/32] and, as its TPU kernel does,
-// dequantizes K and V while staging them, code * s_g, so the score is
-// q . k / sqrt(hd) with no scale after the dot.
+// flash_q4tc (flash_q4prefill_fwd: nibble-packed int4 K [B,S,Hkv,hd/2] and
+// V [B,S,Hkv,dv/2] with f16 per-(position, head, group of 32) scales
+// [B,S,Hkv,hd/32] / [..,dv/32], bf16 or f32 q; kv_int4.cuh's layout): the
+// same loop over nibble codes. 64-key tiles of packed bytes (a quarter of
+// the bf16 ring's bytes; zero-filled past S, and nibble 0 is code 0) stream
+// through the 2-stage cp.async ring; a tile's f16 group scales (2-8 bytes
+// a key, Hkv * groups halves from the next key's: below cp.async's 4-byte
+// copy at hd 32, 6 bytes at hd 96) are read by plain 2-byte loads into
+// registers one tile ahead, a thread per key and side, and stored to
+// shared memory as f32 when the tile lands. One pass per tile turns the
+// nibbles into the padded bf16 tile that the ldmatrix code reads: every
+// code in [-8, 7] is exact in bf16 (nibble c + 8 under the bf16 exponent of
+// 128, then 136 taken off). The dequantized value code * s_g needs up to
+// 15 significand bits, more than bf16 holds, so the scales stay in f32:
+// each group of 32 K columns (two k16-steps) has its own accumulator,
+// which is multiplied by s_k[key, g] before it joins the score (then / sqrt
+// (hd), div_by); for each group of 32 V columns, p'_g = p * s_v[key, g] is
+// split hi + lo for O[:, group] += p'_g V_codes[:, group], while l sums p.
+// f32 q is split once into two bf16 terms, as in flash_qtc.
 //
-// What bounds it on the H100: bytes (q, k, v and scales read once, out
+// What bounds them on the H100: bytes (q, k, v and scales read once, out
 // written once): 21.0 MB with bf16 K/V at B4 S256 H32 hd64 (6.3 us at 3.35
-// TB/s), 40% of it the f32 output, 17.0 MB with int8 K/V; its causal work,
-// 2 * (hd + dv) flops per visible (query row, key), is 1.07 GFLOP there
-// (1.1 us at the bf16 tensor-core rate even with the 1.5x of the split
-// value product, 3x for f32 operands; 16 us at the CUDA cores' f32 rate).
+// TB/s), 40% of it the f32 output, 17.0 MB with int8 K/V, 14.9 MB with
+// int4; its causal work, 2 * (hd + dv) flops per visible (query row, key),
+// is 1.07 GFLOP there (1.1 us at the bf16 tensor-core rate even with the
+// 1.5x of the split value product, 3x for f32 operands).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -77,206 +88,9 @@
 
 namespace {
 
-using kv_int4::q4_t;
-
-constexpr int FT = 128;            // threads: 16 row groups x 8 column lanes
-constexpr int FR = 64;             // query rows per block
-constexpr int FK = 32;             // keys per KV tile
 constexpr int MAXD = 128;          // largest hd and dv
-constexpr int DC = MAXD / 8;       // accumulator columns per lane
 constexpr float NEG_INF = -2.0e38f;
 constexpr float RUN_INIT = -1.0e30f;
-constexpr size_t MAX_SMEM =
-    sizeof(float) * (FR * (MAXD + 1) + 2 * FK * (MAXD + 1) + FR * (FK + 1));
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-// Stages FK positions of one int4 K or V head (width w, w / 2 bytes and
-// w / 32 f16 scales per position) into dst [FK][stride] as code * s_g;
-// row0 = b * S * Hkv + h, positions past S stage 0.
-__device__ __forceinline__ void stage_q4(float* dst, int stride,
-                                         const q4_t* src, const __half* sc,
-                                         long row0, long k0, int S, int Hkv,
-                                         int w) {
-  const int hw = w / 2, ng = w / kv_int4::GROUP;
-  const uint8_t* bytes = reinterpret_cast<const uint8_t*>(src);
-  for (int i = threadIdx.x; i < FK * hw; i += FT) {
-    const int c = i / hw, bb = i - c * hw;   // byte bb: elements 2bb, 2bb+1
-    const long kp = k0 + c;
-    float lo = 0.f, hi = 0.f;
-    if (kp < S) {
-      const long e = row0 + kp * Hkv;
-      const unsigned u = bytes[e * hw + bb];
-      const float s = kv_int4::scale_at(sc, e * ng + 2 * bb / kv_int4::GROUP);
-      lo = kv_int4::nibble(u, 0) * s;
-      hi = kv_int4::nibble(u, 1) * s;
-    }
-    dst[c * stride + 2 * bb] = lo;
-    dst[c * stride + 2 * bb + 1] = hi;
-  }
-}
-
-// k / v: int4 K [B,S,Hkv,hd/2] / V [B,S,Hkv,dv/2] packed bytes; ks / vs:
-// [B,S,Hkv,hd/32] / [B,S,Hkv,dv/32] f16 group scales
-template <typename TQ>
-__global__ void __launch_bounds__(FT)
-flash_attend(const TQ* __restrict__ q, const q4_t* __restrict__ k,
-             const __half* __restrict__ ksp, const q4_t* __restrict__ v,
-             const __half* __restrict__ vsp, float* __restrict__ out, int S,
-             int Hq, int Hkv, int hd, int dv) {
-  extern __shared__ float smem[];
-  const int qs = hd + 1, vs = dv + 1, ps = FK + 1;
-  float* Qs = smem;                // [FR][hd + 1]
-  float* Ks = Qs + FR * qs;        // [FK][hd + 1]
-  float* Vs = Ks + FK * qs;        // [FK][dv + 1]
-  float* Ps = Vs + FK * vs;        // [FR][FK + 1]
-
-  const int G = Hq / Hkv;
-  const int rb = gridDim.x - 1 - blockIdx.x;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, ty = tid >> 3, tx = tid & 7;
-  const long rows_total = (long)S * G;
-  const long r0 = (long)rb * FR;
-
-  for (int i = tid; i < FR * hd; i += FT) {
-    const int r = i / hd, d = i - r * hd;
-    const long rg = r0 + r;
-    float val = 0.f;
-    if (rg < rows_total) {
-      const long pos = rg / G;
-      const int gg = (int)(rg - pos * G);
-      val = to_f32(q[(((long)b * S + pos) * Hq + (long)h * G + gg) * hd + d]);
-    }
-    Qs[r * qs + d] = val;
-  }
-
-  long qpos[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) qpos[i] = (r0 + ty * 4 + i) / G;
-  const long last_row = (r0 + FR < rows_total ? r0 + FR : rows_total) - 1;
-  const long q_last = last_row / G;
-  const float scale = sqrtf((float)hd);
-
-  float m[4], l[4], acc[4][DC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = RUN_INIT;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < DC; ++c) acc[i][c] = 0.f;
-  }
-
-  for (long k0 = 0; k0 <= q_last; k0 += FK) {
-    __syncthreads();
-    const long row0 = (long)b * S * Hkv + h;
-    stage_q4(Ks, qs, k, ksp, row0, k0, S, Hkv, hd);
-    stage_q4(Vs, vs, v, vsp, row0, k0, S, Hkv, dv);
-    __syncthreads();
-
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-    for (int d = 0; d < hd; ++d) {
-      float qv[4], kv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = Qs[(ty * 4 + i) * qs + d];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) kv[j] = Ks[(tx + 8 * j) * qs + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-    }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float mx = NEG_INF;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const long kp = k0 + tx + 8 * j;
-        s[i][j] = (kp <= qpos[i] && kp < S) ? s[i][j] / scale : NEG_INF;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      for (int o = 1; o < 8; o <<= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-      const float m_new = fmaxf(m[i], mx);
-      const float alpha = expf(m[i] - m_new);
-      float psum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = expf(s[i][j] - m_new);
-        Ps[(ty * 4 + i) * ps + tx + 8 * j] = p;
-        psum += p;
-      }
-      for (int o = 1; o < 8; o <<= 1)
-        psum += __shfl_xor_sync(0xffffffffu, psum, o);
-      l[i] = l[i] * alpha + psum;
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < DC; ++c) acc[i][c] *= alpha;
-    }
-    __syncwarp();   // a warp's 4 row groups write and read only their own Ps rows
-
-    for (int kk = 0; kk < FK; ++kk) {
-      float pv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) pv[i] = Ps[(ty * 4 + i) * ps + kk];
-      const float* vrow = Vs + kk * vs;
-#pragma unroll
-      for (int c = 0; c < DC; ++c) {
-        const int col = tx + 8 * c;
-        if (col < dv) {
-          const float vv = vrow[col];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) acc[i][c] = fmaf(pv[i], vv, acc[i][c]);
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const long rg = r0 + ty * 4 + i;
-    if (rg >= rows_total) continue;
-    const long pos = rg / G;
-    const int gg = (int)(rg - pos * G);
-    float* o = out + (((long)b * S + pos) * Hq + (long)h * G + gg) * dv;
-#pragma unroll
-    for (int c = 0; c < DC; ++c) {
-      const int col = tx + 8 * c;
-      if (col < dv) o[col] = acc[i][c] / l[i];
-    }
-  }
-}
-
-template <typename TQ>
-int launch_q4(const void* q, const void* k, const __half* ks, const void* v,
-              const __half* vs, float* out, int B, int S, int Hq, int Hkv,
-              int hd, int dv, cudaStream_t stream) {
-  static bool attr_set = false;
-  if (!attr_set) {
-    const cudaError_t e =
-        cudaFuncSetAttribute(flash_attend<TQ>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)MAX_SMEM);
-    if (e != cudaSuccess) return (int)e;
-    attr_set = true;
-  }
-  const size_t smem =
-      sizeof(float) * (FR * (hd + 1) + FK * (hd + 1) + FK * (dv + 1) +
-                       FR * (FK + 1));
-  const long rows = (long)S * (Hq / Hkv);
-  const dim3 grid((unsigned)((rows + FR - 1) / FR), Hkv, B);
-  flash_attend<TQ><<<grid, FT, smem, stream>>>(
-      static_cast<const TQ*>(q), static_cast<const q4_t*>(k), ks,
-      static_cast<const q4_t*>(v), vs, out, S, Hq, Hkv, hd, dv);
-  return (int)cudaGetLastError();
-}
 
 bool bad_shape(int B, int S, int Hq, int Hkv, int hd, int dv) {
   return B <= 0 || S <= 0 || Hkv <= 0 || Hq % Hkv || hd < 1 || hd > MAXD ||
@@ -473,7 +287,7 @@ __host__ __device__ __forceinline__ int v_stride(int dvp) {
   return sizeof(T) == 4 ? dvp + 4 : dvp + 8;
 }
 
-// Pieces shared by flash_tc and flash_qtc. sc[j][e] is a thread's C
+// Pieces shared by flash_tc, flash_qtc and flash_q4tc. sc[j][e] is a thread's C
 // fragment of keys 8j..8j+7 of a tile: row gid (e < 2) or gid + 8 of the
 // warp's 16, key 8j + 2 tig + (e & 1).
 
@@ -1056,6 +870,307 @@ int launch_qtc(const void* q, const int8_t* k, const float* ks,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------
+// flash_q4tc: the int4-K/V tensor-core body (see the note at the top).
+// TQ = bf16: Q as it is; TQ = float: Q split in two bf16 terms, two
+// products per mma. The scales multiply in f32, per group of 32 columns.
+// ---------------------------------------------------------------------
+constexpr int NGMAX = 4;           // most scale groups a row
+static_assert(NGMAX * kv_int4::GROUP == MAXD, "groups of the widest row");
+
+// Eight int4 codes of the word w (element 2j in the low nibble of byte j)
+// as four bf16 pairs, exact: nibble c + 8 under 0x43 is the bf16 128 + c +
+// 8, and 136 is taken off in bf16 (the difference c is representable, so
+// the subtraction does not round).
+__device__ __forceinline__ void nibbles_bf16x8(unsigned w, uint32_t* d) {
+  const unsigned x = w ^ 0x88888888u;
+  const unsigned lo = x & 0x0f0f0f0fu, hi = (x >> 4) & 0x0f0f0f0fu;
+  const __nv_bfloat162 off = __floats2bfloat162_rn(136.f, 136.f);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    // byte 0 = lo byte j (element 2j), byte 2 = hi byte j (element 2j + 1)
+    uint32_t pair = (__byte_perm(lo, hi, 0x0400u + 0x0101u * j) &
+                     0x00ff00ffu) | 0x43004300u;
+    d[j] = as_u32(__hsub2(*reinterpret_cast<__nv_bfloat162*>(&pair), off));
+  }
+}
+
+// The packed tile src [BK][w / 2] (w a multiple of 32, rows unpadded) into
+// the bf16 tile dst [BK][stride], 32 codes (16 bytes) a step
+__device__ __forceinline__ void nibbles_to_bf16(bf16* dst, int stride,
+                                                const int8_t* src, int w) {
+  const int cpr = w >> 5;                    // 16-byte chunks per row
+  for (int i = threadIdx.x; i < BK * cpr; i += THREADS) {
+    const int r = i / cpr, c = i - r * cpr;
+    const uint4 u = *reinterpret_cast<const uint4*>(src + i * 16);
+    uint4* d = reinterpret_cast<uint4*>(dst + r * stride + c * 32);
+    uint32_t e[16];
+    nibbles_bf16x8(u.x, e);
+    nibbles_bf16x8(u.y, e + 4);
+    nibbles_bf16x8(u.z, e + 8);
+    nibbles_bf16x8(u.w, e + 12);
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+      d[n] = make_uint4(e[4 * n], e[4 * n + 1], e[4 * n + 2], e[4 * n + 3]);
+  }
+}
+
+// sc += sum over groups g of (Q K_codes^T over g's 32 columns) * s_k[key,
+// g]: one accumulator pair per group and 16 keys, scaled in f32 before it
+// joins the score; Sk [groups][BK] f32. Each K fragment is read once.
+template <int HMAX, int NQ>
+__device__ __forceinline__ void qk_q4(float (&sc)[BK / 8][4],
+                                      const uint32_t (&qf)[NQ][HMAX / 16][4],
+                                      const bf16* Kt, int ks, const float* Sk,
+                                      int hd, int lane) {
+  const int tig = lane & 3;
+#pragma unroll
+  for (int jj = 0; jj < BK / 16; ++jj) {
+#pragma unroll
+    for (int g = 0; g < HMAX / kv_int4::GROUP; ++g) {
+      if (g * kv_int4::GROUP >= hd) break;
+      float a[2][4] = {};
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int kk = 2 * g + h;
+        uint32_t bk[4];
+        ldsm_x4(bk, smem_addr(Kt + (jj * 16 + (lane & 7) + (lane >> 4) * 8) *
+                                       ks +
+                              kk * 16 + ((lane >> 3) & 1) * 8));
+#pragma unroll
+        for (int n = 0; n < NQ; ++n) {
+          mma_bf16(a[0], qf[n][kk], bk[0], bk[1]);
+          mma_bf16(a[1], qf[n][kk], bk[2], bk[3]);
+        }
+      }
+      const float* sg = Sk + g * BK + jj * 16 + tig * 2;
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {   // keys 16jj + 8n + 2tig + (e & 1)
+        const float2 f = *reinterpret_cast<const float2*>(sg + 8 * n);
+        float* s = sc[2 * jj + n];
+        s[0] = fmaf(a[n][0], f.x, s[0]);
+        s[1] = fmaf(a[n][1], f.y, s[1]);
+        s[2] = fmaf(a[n][2], f.x, s[2]);
+        s[3] = fmaf(a[n][3], f.y, s[3]);
+      }
+    }
+  }
+}
+
+// o[:, g] += p'_g V_codes[:, g] for each group g of 32 value columns, p'_g
+// = p * s_v[key, g] split in two bf16 terms; Sv [groups][BK] f32. The C
+// fragments of keys 16kk..16kk+15 are the A fragment of k-step kk.
+template <int DMAX>
+__device__ __forceinline__ void pv_q4(float (&o)[DMAX / 8][4],
+                                      const float (&p)[BK / 8][4],
+                                      const bf16* Vt, int vs, const float* Sv,
+                                      int dv, int lane) {
+  const int tig = lane & 3;
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk) {
+#pragma unroll
+    for (int g = 0; g < DMAX / kv_int4::GROUP; ++g) {
+      if (g * kv_int4::GROUP >= dv) break;
+      const float* sg = Sv + g * BK + kk * 16 + tig * 2;
+      const float2 fa = *reinterpret_cast<const float2*>(sg);
+      const float2 fb = *reinterpret_cast<const float2*>(sg + 8);
+      uint32_t ph[4], pl[4];
+      split2(p[2 * kk][0] * fa.x, p[2 * kk][1] * fa.y, ph[0], pl[0]);
+      split2(p[2 * kk][2] * fa.x, p[2 * kk][3] * fa.y, ph[1], pl[1]);
+      split2(p[2 * kk + 1][0] * fb.x, p[2 * kk + 1][1] * fb.y, ph[2], pl[2]);
+      split2(p[2 * kk + 1][2] * fb.x, p[2 * kk + 1][3] * fb.y, ph[3], pl[3]);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int jp = 2 * g + h;
+        uint32_t bv[4];
+        ldsm_x4_trans(bv, smem_addr(Vt + (kk * 16 + (lane & 7) +
+                                          ((lane >> 3) & 1) * 8) * vs +
+                                    jp * 16 + (lane >> 4) * 8));
+        mma_bf16(o[2 * jp], ph, bv[0], bv[1]);
+        mma_bf16(o[2 * jp], pl, bv[0], bv[1]);
+        mma_bf16(o[2 * jp + 1], ph, bv[2], bv[3]);
+        mma_bf16(o[2 * jp + 1], pl, bv[2], bv[3]);
+      }
+    }
+  }
+}
+
+// q [B,S,Hq,hd] TQ; k [B,S,Hkv,hd/2] / v [B,S,Hkv,dv/2] packed int4 codes;
+// ksp / vsp [B,S,Hkv,hd/32] / [B,S,Hkv,dv/32] f16 group scales; hd and dv
+// multiples of 32. HMAX / DMAX as flash_tc.
+template <typename TQ, int HMAX, int DMAX>
+__global__ void __launch_bounds__(THREADS)
+flash_q4tc(const TQ* __restrict__ q, const int8_t* __restrict__ k,
+           const __half* __restrict__ ksp, const int8_t* __restrict__ v,
+           const __half* __restrict__ vsp, float* __restrict__ out, int S,
+           int Hq, int Hkv, int hd, int dv, bool vec_q, bool vec_k,
+           bool vec_v) {
+  constexpr bool F32 = sizeof(TQ) == 4;
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  const int qs = hd + 8, ks = hd + 8, vs = dv + 8;
+  const int hb = hd / 2, vb = dv / 2;                 // packed bytes a key
+  const int ngk = hd / kv_int4::GROUP, ngv = dv / kv_int4::GROUP;
+  // bf16 q: the Q tile [BR][qs]; then the bf16 tile the fragments read, K
+  // [BK][ks] and V [BK][vs], and its scales Sk [ngk][BK] and Sv [ngv][BK];
+  // then the ring of packed codes Rk [STAGES][BK][hb] and Rv
+  // [STAGES][BK][vb]
+  bf16* Qs = reinterpret_cast<bf16*>(tc_smem);
+  bf16* Kb = reinterpret_cast<bf16*>(tc_smem +
+                                     (F32 ? 0 : BR * qs * sizeof(bf16)));
+  bf16* Vb = Kb + BK * ks;
+  float* Sk = reinterpret_cast<float*>(Vb + BK * vs);
+  float* Sv = Sk + ngk * BK;
+  int8_t* Rk = reinterpret_cast<int8_t*>(Sv + ngv * BK);
+  int8_t* Rv = Rk + STAGES * BK * hb;
+
+  const int G = Hq / Hkv;
+  const int rb = gridDim.x - 1 - blockIdx.x;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+  const long rows_total = (long)S * G;
+  const long r0 = (long)rb * BR;
+  const long last_row = (r0 + BR < rows_total ? r0 + BR : rows_total) - 1;
+  const int n_tiles = (int)(last_row / G / BK) + 1;
+  const long first_pos = r0 / G;
+  auto q_row = [&](long rg) -> const TQ* {
+    if (rg >= rows_total) return nullptr;
+    const long pos = rg / G;
+    return q + (((long)b * S + pos) * Hq + (long)h * G + (rg - pos * G)) * hd;
+  };
+
+  if constexpr (!F32)
+    stage_rows(Qs, qs, hd, BR, vec_q, q,
+               [&](int r) -> const TQ* { return q_row(r0 + r); });
+  const long kv0 = (long)b * S * Hkv + h;         // (b, key 0, h)
+  const int8_t* kh = k + kv0 * hb;
+  const int8_t* vh = v + kv0 * vb;
+  // codes of keys past S are zero (nibble 0 is code 0), and so are their
+  // scales: a masked score is 0 * 0 before the mask, never NaN
+  auto stage_kv = [&](int t) {
+    const int k0 = t * BK, st = t % STAGES;
+    stage_tile(Rk + st * BK * hb, hb, kh + (long)k0 * Hkv * hb,
+               (long)Hkv * hb, hb, k0, S, vec_k);
+    stage_tile(Rv + st * BK * vb, vb, vh + (long)k0 * Hkv * vb,
+               (long)Hkv * vb, vb, k0, S, vec_v);
+  };
+  // this thread's scales of a tile: key k0 + i_sc's K (threads 0..63) or V
+  // (64..127) group scales, raw f16 bits in registers, 0 past S
+  const int i_sc = threadIdx.x % BK;
+  const bool k_side = threadIdx.x < BK;
+  const int ng = k_side ? ngk : ngv;
+  const unsigned short* sh =
+      reinterpret_cast<const unsigned short*>(k_side ? ksp : vsp) + kv0 * ng;
+  float* s_dst = (k_side ? Sk : Sv) + i_sc;
+  unsigned short sr[NGMAX];
+  auto load_scales = [&](int t) {
+    const int key = t * BK + i_sc;
+#pragma unroll
+    for (int g = 0; g < NGMAX; ++g)
+      sr[g] = key < S && g < ng ? __ldg(sh + (long)key * Hkv * ng + g)
+                                : (unsigned short)0;
+  };
+  stage_kv(0);
+  cp_async_commit();
+  if (n_tiles > 1) {
+    stage_kv(1);
+    cp_async_commit();
+  }
+  load_scales(0);
+
+  const long row_lo = r0 + warp * 16 + gid;
+  const long qpos_lo = row_lo / G, qpos_hi = (row_lo + 8) / G;
+  const float scale = sqrtf((float)hd), rcp = 1.f / scale;
+  uint32_t qf[F32 ? 2 : 1][HMAX / 16][4];
+  if constexpr (F32)
+    q_frags_split<HMAX>(qf, q_row(row_lo), q_row(row_lo + 8), hd, hd, tig);
+  float o[DMAX / 8][4];
+#pragma unroll
+  for (int j = 0; j < DMAX / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
+  float m_lo = RUN_INIT, m_hi = RUN_INIT, l_lo = 0.f, l_hi = 0.f;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    if (t + 1 < n_tiles) cp_async_wait<1>();
+    else cp_async_wait<0>();
+    __syncthreads();                 // tile t landed; tile t - 1 is read
+    if constexpr (!F32) {
+      if (t == 0) q_frags<HMAX>(qf[0], Qs, qs, hd, warp, lane);
+    }
+#pragma unroll
+    for (int g = 0; g < NGMAX; ++g)
+      if (g < ng) s_dst[g * BK] = __half2float(__ushort_as_half(sr[g]));
+    const int st = t % STAGES;
+    nibbles_to_bf16(Kb, ks, Rk + st * BK * hb, hd);
+    nibbles_to_bf16(Vb, vs, Rv + st * BK * vb, dv);
+    __syncthreads();                 // the bf16 tile and its scales
+    if (t + 2 < n_tiles) {           // into the stage just converted
+      stage_kv(t + 2);
+      cp_async_commit();
+    }
+    if (t + 1 < n_tiles) load_scales(t + 1);   // in flight over this tile
+
+    float sc[BK / 8][4];
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
+    qk_q4<HMAX, F32 ? 2 : 1>(sc, qf, Kb, ks, Sk, hd, lane);
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        sc[j][e] = div_by(sc[j][e], scale, rcp);   // sc / sqrt(hd)
+    online_softmax<DMAX>(sc, t * BK, S, first_pos, qpos_lo, qpos_hi, tig,
+                         m_lo, m_hi, l_lo, l_hi, o);
+    pv_q4<DMAX>(o, sc, Vb, vs, Sv, dv, lane);
+  }
+
+  __syncthreads();                   // the output overlays the tiles
+  store_out<DMAX>(o, l_lo, l_hi, reinterpret_cast<float*>(tc_smem), out, r0,
+                  rows_total, b, S, Hq, h, G, dv, dv, warp, lane);
+}
+
+template <typename TQ>
+size_t q4tc_smem_bytes(int hd, int dv) {
+  const size_t q = sizeof(TQ) == 4 ? 0 : sizeof(bf16) * BR * (hd + 8);
+  const size_t tiles = q + sizeof(bf16) * BK * (size_t)(hd + 8 + dv + 8) +
+                       sizeof(float) * BK * (size_t)(hd + dv) /
+                           kv_int4::GROUP +
+                       (size_t)STAGES * BK * (hd + dv) / 2;
+  const size_t epilogue = sizeof(float) * (size_t)BR * (dv + 8);
+  return tiles > epilogue ? tiles : epilogue;
+}
+
+template <typename TQ, int HMAX, int DMAX>
+int launch_q4tc(const void* q, const void* k, const __half* ks,
+                const void* v, const __half* vs, float* out, int B, int S,
+                int Hq, int Hkv, int hd, int dv, cudaStream_t stream) {
+  static bool attr_set = false;
+  if (!attr_set) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        flash_q4tc<TQ, HMAX, DMAX>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)q4tc_smem_bytes<TQ>(HMAX, DMAX));
+    if (e != cudaSuccess) return (int)e;
+    attr_set = true;
+  }
+  // 16-byte copies need aligned rows: 8 bf16 q elements; a packed row of
+  // hd / 2 bytes is whole 16-byte chunks
+  const bool vec_q = (uintptr_t)q % 16 == 0;
+  const bool vec_k = (uintptr_t)k % 16 == 0;
+  const bool vec_v = (uintptr_t)v % 16 == 0;
+  const long rows = (long)S * (Hq / Hkv);
+  const dim3 grid((unsigned)((rows + BR - 1) / BR), Hkv, B);
+  flash_q4tc<TQ, HMAX, DMAX>
+      <<<grid, THREADS, q4tc_smem_bytes<TQ>(hd, dv), stream>>>(
+          static_cast<const TQ*>(q), static_cast<const int8_t*>(k), ks,
+          static_cast<const int8_t*>(v), vs, out, S, Hq, Hkv, hd, dv, vec_q,
+          vec_k, vec_v);
+  return (int)cudaGetLastError();
+}
+
 // f(std::integral_constant<int, W>) for the width class W (64, 96, 128)
 // of the wider of hd and dv: one instantiation per class, since registers
 // (Q fragments, the accumulator) grow with it and set how many blocks
@@ -1085,6 +1200,17 @@ int dispatch_q(const void* q, const int8_t* k, const float* ks,
     constexpr int w = decltype(W)::value;
     return launch_qtc<TQ, w, w>(q, k, ks, v, vs, out, B, S, Hq, Hkv, hd, dv,
                                 stream);
+  });
+}
+
+template <typename TQ>
+int dispatch_q4(const void* q, const void* k, const __half* ks,
+                const void* v, const __half* vs, float* out, int B, int S,
+                int Hq, int Hkv, int hd, int dv, cudaStream_t stream) {
+  return by_width(hd, dv, [&](auto W) {
+    constexpr int w = decltype(W)::value;
+    return launch_q4tc<TQ, w, w>(q, k, ks, v, vs, out, B, S, Hq, Hkv, hd, dv,
+                                 stream);
   });
 }
 
@@ -1135,7 +1261,8 @@ int flash_qprefill_fwd(const void* q, int q_dtype, const int8_t* k,
 // q [B,S,Hq,hd] of q_dtype (0 float32, 1 bfloat16); k [B,S,Hkv,hd/2] and
 // v [B,S,Hkv,dv/2] int4 packed two codes per byte; k_s [B,S,Hkv,hd/32]
 // and v_s [B,S,Hkv,dv/32] f16 group scales; out [B,S,Hq,dv] float32; all
-// contiguous; hd and dv multiples of 32.
+// contiguous; hd and dv multiples of 32. Both q dtypes through flash_q4tc
+// on the tensor cores.
 int flash_q4prefill_fwd(const void* q, int q_dtype, const void* k,
                         const __half* k_s, const void* v, const __half* v_s,
                         float* out, int B, int S, int Hq, int Hkv, int hd,
@@ -1145,11 +1272,11 @@ int flash_q4prefill_fwd(const void* q, int q_dtype, const void* k,
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (q_dtype == 0)
-    return launch_q4<float>(q, k, k_s, v, v_s, out, B, S, Hq, Hkv, hd, dv,
-                            s);
+    return tc::dispatch_q4<float>(q, k, k_s, v, v_s, out, B, S, Hq, Hkv, hd,
+                                  dv, s);
   if (q_dtype == 1)
-    return launch_q4<__nv_bfloat16>(q, k, k_s, v, v_s, out, B, S, Hq, Hkv,
-                                    hd, dv, s);
+    return tc::dispatch_q4<__nv_bfloat16>(q, k, k_s, v, v_s, out, B, S, Hq,
+                                          Hkv, hd, dv, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -20,25 +20,19 @@
 // The TPU kernel's grid is (B, Hkv, M): the table rides the scalar-
 // prefetch path and the index map DMAs block tables[b, m] at step m, with
 // the running max / normalizer / accumulator in VMEM across the sequential
-// m axis. Two loops replace it here.
-//
-// int8 and int4 pools (paged_qdecode_fwd, paged_q4decode_fwd):
-// decode_split.cuh's split-K loop (PagedRows) in its Int8 or Int4 code
-// format. A cluster of up to 8 CTAs per (b, kv head) reads pos[b], splits
-// the sequence's pos[b] + 1 slots into equal shares of 32-slot tiles,
-// stages its share's table entries in shared memory once, and its warps
-// walk their slots with the next step's codes and scales in flight and no
-// block barrier; rank 0 merges the partials through distributed shared
-// memory, in rank order. An int8 lane scales the dot after it; an int4
+// m axis. Here one loop serves all three pool kinds: decode_split.cuh's
+// split-K loop (PagedRows) in its Fp<T>, Int8 or Int4 code format. A
+// cluster of up to 8 CTAs per (b, kv head) reads pos[b], splits the
+// sequence's pos[b] + 1 slots into equal shares of 32-slot tiles, stages
+// its share's table entries in shared memory once, and its warps walk
+// their slots with the next step's codes and scales in flight and no block
+// barrier; rank 0 merges the partials through distributed shared memory,
+// in rank order. An fp lane reads 8 elements of its row (16 bytes of bf16,
+// 32 of f32) and no scale; an int8 lane scales the dot after it; an int4
 // lane loads its group's two f16 scales beside its codes and dequantizes K
 // and V before the dot, as the TPU int4 kernel does.
 //
-// fp pools (paged_decode_fwd): decode_attn.cuh (PagedRows). One block of
-// 128 threads owns one (b, kv head) and loops over key tiles of 32 slots
-// (32 / bs table entries each) up to pos[b]; the thread of slot j reads its
-// table entry.
-//
-// Both loops never read a masked slot, so NaN scales or codes that an idle
+// The loop never reads a masked slot, so NaN scales or codes that an idle
 // slot wrote into the trash block cannot reach a live row, and an idle row
 // (no valid slot) is 0/0 = NaN, as the TPU kernel gives.
 //
@@ -47,53 +41,13 @@
 // int8, hd / 8 bytes of group scales for int4); q, tables and out are
 // small. At the stablelm-1.6b engine shape (B8 Hkv32 G1 hd64 bs16, ~2450
 // valid slots) that is ~20 MB for bf16 pools (~6 us at 3.35 TB/s), ~10.7 MB
-// for int8 (~3.2 us) and ~5.8 MB for int4 (~1.7 us). The one-block loop's
-// time is latency: each block walks its tiles in turn, table entry, then
-// rows, with no copy pipeline; the split loop spreads a sequence over up to
-// 8 CTAs and keeps the next step's loads in flight. Moving the fp pools
-// onto it is later work.
+// for int8 (~3.2 us) and ~5.8 MB for int4 (~1.7 us). The split loop spreads
+// a sequence over up to 8 CTAs and keeps the next step's loads in flight;
+// what is left above the bound is latency (see PERF.md).
 
-#include "decode_attn.cuh"
 #include "decode_split.cuh"
 
 namespace {
-
-using namespace decode_attn;
-
-template <typename TQ, typename TKV>
-__global__ void __launch_bounds__(PT)
-paged_attend(const TQ* __restrict__ q, const TKV* __restrict__ kp,
-             const TKV* __restrict__ vp, const int* __restrict__ tables,
-             const int* __restrict__ pos, float* __restrict__ out, int M,
-             int bs, int Hkv, int G, int hd) {
-  const int h = blockIdx.x, b = blockIdx.y;
-  const PagedRows rows{tables, M, bs, pos[b]};
-  attend<TQ, TKV>(q, kp, vp, rows, out, b, h, Hkv, G, hd);
-}
-
-template <typename TQ, typename TKV>
-int launch(const void* q, const void* k, const void* v, const int* tables,
-           const int* pos, float* out, int B, int M, int bs, int Hkv, int G,
-           int hd, cudaStream_t stream) {
-  const dim3 grid(Hkv, B);
-  paged_attend<TQ, TKV><<<grid, PT, 0, stream>>>(
-      static_cast<const TQ*>(q), static_cast<const TKV*>(k),
-      static_cast<const TKV*>(v), tables, pos, out, M, bs, Hkv, G, hd);
-  return (int)cudaGetLastError();
-}
-
-template <typename TKV>
-int launch_q(int q_dtype, const void* q, const void* k, const void* v,
-             const int* tables, const int* pos, float* out, int B, int M,
-             int bs, int Hkv, int G, int hd, cudaStream_t s) {
-  if (q_dtype == 0)
-    return launch<float, TKV>(q, k, v, tables, pos, out, B, M, bs, Hkv, G,
-                              hd, s);
-  if (q_dtype == 1)
-    return launch<__nv_bfloat16, TKV>(q, k, v, tables, pos, out, B, M, bs,
-                                      Hkv, G, hd, s);
-  return (int)cudaErrorInvalidValue;
-}
 
 namespace ds = decode_split;
 
@@ -109,6 +63,19 @@ __device__ __forceinline__ void paged_split(
                            min(pos[b] + 1, M << bs_shift)};
   ds::attend<Fmt, LPR, GB>(q, q_bf16, kp, ksp, vp, vsp, rows, out, b, h, Hkv,
                            G, hd);
+}
+
+// bf16 or f32 pools: no scale pointer
+template <typename T, int LPR, int GB>
+__global__ void __launch_bounds__(ds::PT)
+paged_decode_split(const void* __restrict__ q, int q_bf16,
+                   const int8_t* __restrict__ kp,
+                   const int8_t* __restrict__ vp,
+                   const int* __restrict__ tables,
+                   const int* __restrict__ pos, float* __restrict__ out,
+                   int M, int bs_shift, int Hkv, int G, int hd) {
+  paged_split<ds::Fp<T>, LPR, GB>(q, q_bf16, kp, nullptr, vp, nullptr,
+                                  tables, pos, out, M, bs_shift, Hkv, G, hd);
 }
 
 template <int LPR, int GB>
@@ -142,6 +109,10 @@ paged_q4decode_split(const void* __restrict__ q, int q_bf16,
                                  out, M, bs_shift, Hkv, G, hd);
 }
 
+template <int LPR, int GB, typename T>
+auto split_kernel(ds::Fp<T>) {
+  return &paged_decode_split<T, LPR, GB>;
+}
 template <int LPR, int GB>
 auto split_kernel(ds::Int8) {
   return &paged_qdecode_split<LPR, GB>;
@@ -151,7 +122,7 @@ auto split_kernel(ds::Int4) {
   return &paged_q4decode_split<LPR, GB>;
 }
 
-// one launch of the split loop over Fmt's pools
+// one launch of the split loop over Fmt's pools (Fp: ksp / vsp unused)
 template <class Fmt>
 struct GoPaged {
   const void* q;
@@ -171,15 +142,34 @@ struct GoPaged {
     static const long resident = ds::resident_ctas(kernel);
     int shift = 0;
     while ((1 << shift) < bs) ++shift;
-    return ds::launch(kernel, ds::splits_for(M * bs, (long)B * Hkv, resident),
-                      Hkv, B, stream, q, q_bf16, kp, ksp, vp, vsp, tables,
-                      pos, out, M, shift, Hkv, G, hd);
+    const int splits = ds::splits_for(M * bs, (long)B * Hkv, resident);
+    if constexpr (Fmt::kScaled)
+      return ds::launch(kernel, splits, Hkv, B, stream, q, q_bf16, kp, ksp,
+                        vp, vsp, tables, pos, out, M, shift, Hkv, G, hd);
+    else
+      return ds::launch(kernel, splits, Hkv, B, stream, q, q_bf16, kp, vp,
+                        tables, pos, out, M, shift, Hkv, G, hd);
   }
 };
 
 bool bad_shape(int B, int M, int bs, int Hkv, int G, int hd, int vec) {
-  return B <= 0 || B > 65535 || M <= 0 || bs <= 0 || KT % bs || Hkv <= 0 ||
-         G < 1 || G > MAXG || hd < vec || hd > MAXD || hd % vec;
+  return B <= 0 || B > 65535 || M <= 0 || bs <= 0 || ds::KT % bs ||
+         Hkv <= 0 || G < 1 || G > ds::MAXG || hd < vec || hd > ds::MAXD ||
+         hd % vec;
+}
+
+template <class Fmt>
+int go_paged(const void* q, int q_dtype, const void* k, const void* ks,
+             const void* v, const void* vs, const int* tables, const int* pos,
+             float* out, int B, int M, int bs, int Hkv, int G, int hd,
+             void* stream) {
+  using Scale = typename Fmt::Scale;
+  const GoPaged<Fmt> go{q, q_dtype, static_cast<const int8_t*>(k),
+                        static_cast<const Scale*>(ks),
+                        static_cast<const int8_t*>(v),
+                        static_cast<const Scale*>(vs), tables, pos, out, B, M,
+                        bs, Hkv, G, hd, static_cast<cudaStream_t>(stream)};
+  return ds::dispatch<Fmt>(go, hd, G);
 }
 
 }  // namespace
@@ -193,19 +183,22 @@ const char* repro_error_string(int code) {
 // q [B,Hkv,G,hd] of q_dtype, pools [N,bs,Hkv,hd] of kv_dtype (0 float32,
 // 1 bfloat16), tables [B,M] int32, pos [B] int32, out [B,Hkv,G,hd]
 // float32; all contiguous, pools 16-byte aligned. bs must divide 32 and hd
-// be a multiple of 8.
+// be a multiple of 8. One launch of the split-K loop (decode_split.cuh,
+// Fp<T>).
 int paged_decode_fwd(const void* q, int q_dtype, const void* k_pool,
                      const void* v_pool, int kv_dtype, const int* tables,
                      const int* pos, float* out, int B, int M, int bs,
                      int Hkv, int G, int hd, void* stream) {
-  if (bad_shape(B, M, bs, Hkv, G, hd, 8)) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bad_shape(B, M, bs, Hkv, G, hd, 8) || (q_dtype != 0 && q_dtype != 1))
+    return (int)cudaErrorInvalidValue;
   if (kv_dtype == 0)
-    return launch_q<float>(q_dtype, q, k_pool, v_pool, tables, pos, out, B,
-                           M, bs, Hkv, G, hd, s);
+    return go_paged<ds::Fp<float>>(q, q_dtype, k_pool, nullptr, v_pool,
+                                   nullptr, tables, pos, out, B, M, bs, Hkv,
+                                   G, hd, stream);
   if (kv_dtype == 1)
-    return launch_q<__nv_bfloat16>(q_dtype, q, k_pool, v_pool, tables, pos,
-                                   out, B, M, bs, Hkv, G, hd, s);
+    return go_paged<ds::Fp<__nv_bfloat16>>(q, q_dtype, k_pool, nullptr,
+                                           v_pool, nullptr, tables, pos, out,
+                                           B, M, bs, Hkv, G, hd, stream);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -219,10 +212,8 @@ int paged_qdecode_fwd(const void* q, int q_dtype, const int8_t* k_pool,
                       int Hkv, int G, int hd, void* stream) {
   if (bad_shape(B, M, bs, Hkv, G, hd, 16) || (q_dtype != 0 && q_dtype != 1))
     return (int)cudaErrorInvalidValue;
-  const GoPaged<ds::Int8> go{
-      q,   q_dtype, k_pool, k_scale, v_pool, v_scale, tables, pos, out, B,
-      M,   bs,      Hkv,    G,       hd,     static_cast<cudaStream_t>(stream)};
-  return ds::dispatch<ds::Int8>(go, hd, G);
+  return go_paged<ds::Int8>(q, q_dtype, k_pool, k_scale, v_pool, v_scale,
+                            tables, pos, out, B, M, bs, Hkv, G, hd, stream);
 }
 
 // As paged_decode_fwd over int4 pools [N,bs,Hkv,hd/2] (two codes per
@@ -237,10 +228,8 @@ int paged_q4decode_fwd(const void* q, int q_dtype, const int8_t* k_pool,
   if (bad_shape(B, M, bs, Hkv, G, hd, kv_int4::GROUP) ||
       (q_dtype != 0 && q_dtype != 1))
     return (int)cudaErrorInvalidValue;
-  const GoPaged<ds::Int4> go{
-      q,   q_dtype, k_pool, k_scale, v_pool, v_scale, tables, pos, out, B,
-      M,   bs,      Hkv,    G,       hd,     static_cast<cudaStream_t>(stream)};
-  return ds::dispatch<ds::Int4>(go, hd, G);
+  return go_paged<ds::Int4>(q, q_dtype, k_pool, k_scale, v_pool, v_scale,
+                            tables, pos, out, B, M, bs, Hkv, G, hd, stream);
 }
 
 }  // extern "C"

@@ -23,11 +23,15 @@ int8 codes and their scales in the cp.async ring (1 byte per K/V element
 instead of 2), one pass per tile turning the codes into bf16 (exact), the
 score ``(q . codes) * k_s / sqrt(hd)`` as the TPU kernel computes it, and
 the V scale folded into p per key before the hi + lo split; f32 q is split
-once into two bf16 terms. The int4 variant keeps the f32 body on the CUDA
-cores (``flash_attend``): it unpacks the nibbles and multiplies each by its
-group's f16 scale while staging the K and V tiles (no scale after the
-dot), as the TPU int4 kernel does, and reads half a byte per element plus
-2 bytes per group of 32.
+once into two bf16 terms. The int4 variant takes the same loop over nibble
+codes (``flash_q4tc``): 64-key tiles of packed bytes in the cp.async ring
+(half a byte per element) with their f16 group scales loaded a tile ahead,
+one pass per tile turning the nibbles into bf16 (exact). A code times its
+f16 scale needs up to 15 significand bits, more than bf16 holds, so the
+scales stay in f32: each group of 32 K columns has its own accumulator,
+multiplied by its key's group scale before it joins the score, and for
+each group of 32 V columns the scale folds into p per key before the hi +
+lo split; f32 q is split once into two bf16 terms.
 """
 from __future__ import annotations
 
@@ -48,6 +52,10 @@ BODY = {torch.bfloat16: "tc", torch.float32: "tc_f32"}
 #: tensor-core body over bf16 q ("qtc") or over a two-term split of f32 q
 #: ("qtc_f32")
 QBODY = {torch.bfloat16: "qtc", torch.float32: "qtc_f32"}
+#: the body ``flash_q4prefill_fwd`` launches for each q dtype: the int4
+#: tensor-core body over bf16 q ("q4tc") or over a two-term split of f32 q
+#: ("q4tc_f32")
+Q4BODY = {torch.bfloat16: "q4tc", torch.float32: "q4tc_f32"}
 _LIB = "flash_prefill"
 
 
@@ -203,7 +211,8 @@ def flash_q4prefill(q, k_i4, k_s, v_i4, v_s):
     [B,S,Hkv,dv//2] int4 packed two codes per byte; k_s [B,S,Hkv,hd//32],
     v_s [B,S,Hkv,dv//32] f16 -> [B,S,Hq,dv] f32. hd and dv must be
     multiples of 32 up to 128. CPU tensors take the plain version; CUDA
-    tensors launch the kernel."""
+    tensors launch the kernel's int4 tensor-core body for q's dtype
+    (``Q4BODY``)."""
     _check_q4(q, k_i4, k_s, v_i4, v_s)
     if q.device.type == "cpu":
         return flash_q4prefill_ref(q, k_i4, k_s, v_i4, v_s)
@@ -220,7 +229,9 @@ def flash_q4prefill(q, k_i4, k_s, v_i4, v_s):
             b, s, hq, hkv, hd, dv, _build.stream_of(q))
     _build.check(_LIB, rc, "flash_q4prefill_fwd")
     flash_q4prefill.launches += 1
+    flash_q4prefill.launches_by_body[Q4BODY[q.dtype]] += 1
     return out
 
 
 flash_q4prefill.launches = 0
+flash_q4prefill.launches_by_body = {body: 0 for body in Q4BODY.values()}

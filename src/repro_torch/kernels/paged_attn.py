@@ -9,20 +9,21 @@ step m, and carries the online-softmax state in VMEM across the sequential
 m axis. On the H100 (``csrc/paged_attn.cu``) masked slots are never read,
 and the running max, normalizer and G x hd accumulator stay in f32.
 
-* int8 and int4 pools (``csrc/decode_split.cuh``, one loop in two code
-  formats): one launch runs a cluster of up to 8 CTAs per (sequence, kv
-  head); each reads ``pos[b]``, takes an equal share of the sequence's
-  slots in 32-slot tiles and stages its share's table entries in shared
-  memory once; its warps walk their slots with the next step's codes and
-  scales in flight and no block barrier; the rank-0 CTA merges the
-  partials through distributed shared memory, in rank order. int8: the K
-  scale multiplies the score after the dot and the V scale is folded in
-  per slot, as the TPU kernel does. int4: a lane's codes lie in one group
-  of 32, so it loads that group's two f16 scales beside them and
-  dequantizes K and V before the dot, as the TPU int4 kernel does.
-* fp pools (``csrc/decode_attn.cuh``): one block owns one (sequence, kv
-  head), reads the table entries itself and loops over 32-slot key tiles
-  up to ``pos[b]``.
+All three pool kinds run one loop (``csrc/decode_split.cuh``) in three
+code formats: one launch runs a cluster of up to 8 CTAs per (sequence, kv
+head); each reads ``pos[b]``, takes an equal share of the sequence's slots
+in 32-slot tiles and stages its share's table entries in shared memory
+once; its warps walk their slots with the next step's rows in flight and
+no block barrier; the rank-0 CTA merges the partials through distributed
+shared memory, in rank order, so two calls give the same bits.
+
+* bf16 and f32 pools (``Fp``): a lane reads 8 elements of a row (16 bytes
+  of bf16, 32 of f32), exact in f32, and no scale.
+* int8 pools: the K scale multiplies the score after the dot and the V
+  scale is folded in per slot, as the TPU kernel does.
+* int4 pools: a lane's codes lie in one group of 32, so it loads that
+  group's two f16 scales beside them and dequantizes K and V before the
+  dot, as the TPU int4 kernel does.
 
 Each is bound by the bytes of the valid K/V rows: at stablelm-1.6b width,
 eight sequences averaging ~300 positions read ~20 MB per layer from bf16

@@ -185,7 +185,9 @@ def _positions(b, seed):
 # the split-K edges of the int8 kernel: blocks of 1 slot (a 600-entry
 # table) and of 32, positions one before, at and after a share boundary
 # (n_keys 64, 65, 66, 256, 257, 258: shares of 32 and 64 slots at 8
-# splits), G 8 at hd 128 and phi-3-vision's hd 96 with an idle row
+# splits), G 8 at hd 128 and phi-3-vision's hd 96 with an idle row; then
+# the fp pools' lane plan: G 8 at hd 128 over blocks of one slot (16 lanes
+# a row), and hd 40 and 8, whose rows leave lanes masked
 PAGED_CASES = {
     "stablelm": (8, 32, 1, 64, 16, 32, 257, _positions(8, 0)),
     "nemo": (8, 8, 4, 128, 16, 32, 257, _positions(8, 1)),
@@ -197,6 +199,9 @@ PAGED_CASES = {
     "share_edges": (6, 4, 1, 64, 16, 32, 120, [63, 64, 65, 255, 256, 257]),
     "g8": (2, 4, 8, 128, 16, 32, 70, [300, 511]),
     "hd96": (4, 8, 1, 96, 16, 40, 170, [578, 100, -1, 33]),
+    "g8_bs1": (2, 4, 8, 128, 1, 300, 700, [299, 150]),
+    "hd40": (3, 4, 4, 40, 8, 8, 30, [63, -1, 20]),
+    "hd8": (2, 2, 2, 8, 4, 16, 40, [63, 0]),
 }
 
 
@@ -219,10 +224,15 @@ def test_paged_decode_kernel_matches_plain(dev, case, dtype):
     assert torch.equal(want.isnan().all(-1).all(-1).all(-1), idle)
     # f32 on both sides (bf16 read as f32); summation order differs
     torch.testing.assert_close(got[~idle], want[~idle], rtol=0, atol=1e-4)
+    # one launch, no atomics: a second call gives the same bits
+    twice = paged_attn.paged_decode(q, k_pool, v_pool, tables, pos_t)
+    assert torch.equal(twice[~idle], got[~idle])
+    assert torch.equal(twice.isnan(), got.isnan())
     # masked slots are never read: NaN in the trash block changes nothing
     k_pool[0], v_pool[0] = float("nan"), float("nan")
     again = paged_attn.paged_decode(q, k_pool, v_pool, tables, pos_t)
     assert torch.equal(again[~idle], got[~idle])
+    assert torch.isfinite(again[~idle]).all()
 
 
 # ------------------------------------------------------------------ #
@@ -417,11 +427,14 @@ def test_paged_q4decode_kernel_matches_plain(dev, case, dtype):
     assert torch.isfinite(again[~idle]).all()
 
 
-# chip_smoke.py's four flash shapes (dv a multiple of the group of 32)
+# chip_smoke.py's flash shapes (dv a multiple of the group of 32), then
+# hd 32 with dv 96 (one K scale a key: 2 bytes) and G 4 at S 65
 @pytest.mark.parametrize("b,s,hq,hkv,hd,dv", [(4, 256, 32, 32, 64, 64),
                                               (2, 300, 32, 8, 128, 128),
                                               (2, 200, 16, 16, 128, 64),
-                                              (1, 64, 32, 32, 64, 64)])
+                                              (1, 64, 32, 32, 64, 64),
+                                              (2, 579, 32, 32, 96, 96),
+                                              (1, 65, 8, 2, 32, 96)])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_flash_q4prefill_kernel_matches_plain(dev, b, s, hq, hkv, hd, dv,
                                               dtype):
@@ -433,11 +446,17 @@ def test_flash_q4prefill_kernel_matches_plain(dev, b, s, hq, hkv, hd, dv,
         _packed(gen, (b, s, hkv, dv // 2)),
         _gscales(gen, (b, s, hkv, dv // 32))))
     before = flash_prefill.flash_q4prefill.launches
+    bodies = dict(flash_prefill.flash_q4prefill.launches_by_body)
     got = flash_prefill.flash_q4prefill(*args)
     assert flash_prefill.flash_q4prefill.launches == before + 1
+    body = flash_prefill.Q4BODY[dtype]
+    assert flash_prefill.flash_q4prefill.launches_by_body == {
+        **bodies, body: bodies[body] + 1}
     assert got.dtype == torch.float32 and got.shape == (b, s, hq, dv)
     torch.testing.assert_close(got, ref.flash_q4prefill_ref(*args), rtol=0,
                                atol=1e-4)
+    # one launch, no atomics: a second call gives the same bits
+    assert torch.equal(flash_prefill.flash_q4prefill(*args), got)
 
 
 def test_quantize_kv_int4_edge_rows_card_equals_cpu(dev):

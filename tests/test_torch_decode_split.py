@@ -6,12 +6,13 @@ order of work: the host's choice of splits, each CTA's share of whole
 tiles, each warp's steps of 32 / LPR slot rows with its own online softmax
 (running max seeded at RUN_INIT, masked slots at NEG_INF and never read,
 rescaled when the warp's max moves), the warps' merge and the cluster's
-merge in rank order. It reads two code formats: int8 codes with a per-row
-scale after the dot (``qdecode``, ``paged_qdecode``) and nibble-packed
-int4 codes with f16 group scales, dequantized before the dot
-(``paged_q4decode``). The constants, the codes a lane holds and the lane
-plan are read from the CUDA source, so the model and the kernel cannot
-drift. The model is held to the plain versions (``qdecode_ref``,
+merge in rank order. It reads three code formats: bf16 or f32 elements
+with no scale (``paged_decode``), int8 codes with a per-row scale after the
+dot (``qdecode``, ``paged_qdecode``) and nibble-packed int4 codes with f16
+group scales, dequantized before the dot (``paged_q4decode``). The
+constants, the codes a lane holds and the lane plan are read from the CUDA
+source, so the model and the kernel cannot drift. The model is held to the
+plain versions (``paged_decode_ref``, ``qdecode_ref``,
 ``paged_qdecode_ref``, ``paged_q4decode_ref``) and to the JAX Pallas
 kernels in interpret mode; the kernels themselves are held to the plain
 versions in ``test_torch_cuda.py``.
@@ -28,7 +29,8 @@ torch.set_num_threads(1)
 
 import jax.numpy as jnp  # noqa: E402
 
-from repro.kernels.paged_attn import (paged_q4decode_attention,  # noqa: E402
+from repro.kernels.paged_attn import (paged_decode_attention,  # noqa: E402
+                                      paged_q4decode_attention,
                                       paged_qdecode_attention)
 from repro.kernels.qdecode import qdecode_attention  # noqa: E402
 from repro_torch.kernels import paged_attn, qdecode  # noqa: E402
@@ -56,7 +58,8 @@ def _cuh_constants():
 
 C = _cuh_constants()
 KT, NW, PT = C["KT"], C["NW"], C["PT"]
-FORMATS = {"int8": "Int8", "int4": "Int4"}     # test name: header struct
+# test name: header struct (fp: Fp<T>, bf16 or f32 pools)
+FORMATS = {"int8": "Int8", "int4": "Int4", "fp": "Fp"}
 
 
 def _c_eval(expr, env):
@@ -99,7 +102,7 @@ def _lane_codes_source(fmt):
     """The body of ``FORMATS[fmt]::lane_codes`` in the header."""
     body = re.search(rf"struct {FORMATS[fmt]} {{(.*?)\n}};", CUH.read_text(),
                      flags=re.S).group(1)
-    return re.search(r"lane_codes\(int gb\) {\s*return ([^;]+);",
+    return re.search(r"lane_codes\(int(?: gb)?\) {\s*return ([^;]+);",
                      body).group(1)
 
 
@@ -116,7 +119,7 @@ def group_bound(g):
 
 
 def lanes_per_row(hd, gb, fmt="int8"):
-    v = hd // lane_codes(gb, fmt)
+    v = -(-hd // lane_codes(gb, fmt))           # ceil
     return 2 if v <= 2 else (4 if v <= 4 else (8 if v <= 8 else 16))
 
 
@@ -138,6 +141,7 @@ def share(n_keys, splits, rank):
 def test_python_mirrors_the_source():
     src = CUH.read_text()
     for line in ("return G == 1 ? 1 : (G <= 4 ? 4 : 8);",
+                 "const int lc = Fmt::lane_codes(gb), v = (hd + lc - 1) / lc;",
                  "return v <= 2 ? 2 : (v <= 4 ? 4 : (v <= 8 ? 8 : 16));",
                  "while (s < MAX_SPLITS && s * KT < n_keys_max && "
                  "pairs * 2 * s <= resident)",
@@ -154,10 +158,11 @@ def test_python_mirrors_the_source():
     assert paged_attn.KEY_TILE == KT
     assert [lane_codes(gb) for gb in (1, 4, 8)] == [16, 16, 8]
     assert [lane_codes(gb, "int4") for gb in (1, 4, 8)] == [32, 16, 8]
+    assert [lane_codes(gb, "fp") for gb in (1, 4, 8)] == [8, 8, 8]
     # every (lanes, G bound) pair the shapes need is dispatched, and fits
     # the compiled bound (run<> refuses a pair that does not)
     assert "if constexpr (LPR * Fmt::lane_codes(GB) <= MAXD)" in src
-    for fmt, step in (("int8", 16), ("int4", KV_GROUP)):
+    for fmt, step in (("int8", 16), ("int4", KV_GROUP), ("fp", 8)):
         for gb in (1, 4, 8):
             for hd in range(step, C["MAXD"] + 1, step):
                 lpr = lanes_per_row(hd, gb, fmt)
@@ -182,6 +187,48 @@ def test_int4_lane_codes_lie_in_one_group(hd, gb):
         first, last = lane * vl, (lane + 1) * vl - 1
         assert first // KV_GROUP == last // KV_GROUP
         assert last < hd                         # no lane straddles hd
+
+
+@pytest.mark.parametrize("gb", [1, 4, 8])
+@pytest.mark.parametrize("hd", range(8, 129, 8))
+def test_fp_lanes_never_straddle_a_row(hd, gb):
+    """An fp lane holds 8 elements (one 16-byte load of bf16, two of f32):
+    every hd the wrapper takes (a multiple of 8 up to 128) is whole lanes,
+    at most 16 of them, and lanes past hd are masked, never read across
+    into the next head's row. acc[G][8] stays within 64 registers."""
+    vl = lane_codes(gb, "fp")
+    lpr = lanes_per_row(hd, gb, "fp")
+    assert vl == 8 and hd % vl == 0
+    assert gb * vl <= 64
+    assert lpr in (2, 4, 8, 16) and hd <= lpr * vl <= C["MAXD"]
+    lanes = [lane for lane in range(lpr) if lane * vl < hd]
+    assert len(lanes) == hd // vl
+    assert all((lane + 1) * vl <= hd for lane in lanes)
+    assert lpr // 2 * vl < hd or lpr == 2        # no smaller row would do
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_fp_unpack_is_exact(dtype):
+    """bf16 element 2i is the low half of word i and 2i + 1 the high half;
+    each becomes f32 by a shift (w << 16, w & 0xffff0000), exact; an f32
+    word is its element. Emulated on random words, held to torch's own
+    conversion."""
+    src = " ".join(CUH.read_text().split())
+    assert "f[0] = __uint_as_float(w << 16);" in src
+    assert "f[1] = __uint_as_float(w & 0xffff0000u);" in src
+    assert "f[0] = __uint_as_float(w);" in src
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.normal(size=4096).astype(np.float32) * 1e3)
+    x = x.to(dtype)
+    if dtype == torch.bfloat16:
+        words = x.view(torch.int16).numpy().view(np.uint16).astype(np.uint32)
+        words = words[0::2] | (words[1::2] << 16)          # little endian
+        f = np.empty(x.numel(), np.float32)
+        f[0::2] = (words << np.uint32(16)).view(np.float32)
+        f[1::2] = (words & np.uint32(0xFFFF0000)).view(np.float32)
+    else:
+        f = x.numpy().view(np.uint32).view(np.float32)
+    assert np.array_equal(f, x.float().numpy())
 
 
 @pytest.mark.parametrize("fmt", ["int8", "int4"])
@@ -312,8 +359,9 @@ def model_paged(q, k_pool, k_scale, v_pool, v_scale, tables, pos,
                 splits=None, fmt="int8"):
     """The paged kernel's plan: slot k < min(pos + 1, M * bs) of a mapped
     table entry is read; nothing else is. int4 rows are dequantized as they
-    are read (code * s_g, exact) and score with no scale after the dot: a
-    unit row scale in the int8 model."""
+    are read (code * s_g, exact) and fp rows become f32 (exact); both score
+    with no scale after the dot: a unit row scale in the int8 model. fp
+    pools have no scale pools (``k_scale`` / ``v_scale`` None)."""
     n, bs, hkv = k_pool.shape[:3]
     hd = q.shape[-1]
     b, m = tables.shape
@@ -329,7 +377,11 @@ def model_paged(q, k_pool, k_scale, v_pool, v_scale, tables, pos,
         vf, ks, vs = torch.zeros_like(kf), torch.zeros((len(slots), hkv)), \
             torch.zeros((len(slots), hkv))
         live = rows[valid]                           # read only valid rows
-        if fmt == "int8":
+        if fmt == "fp":
+            kf[valid] = k_pool.reshape(n * bs, hkv, hd)[live].float()
+            vf[valid] = v_pool.reshape(n * bs, hkv, hd)[live].float()
+            ks[valid], vs[valid] = 1.0, 1.0
+        elif fmt == "int8":
             kf[valid] = k_pool.reshape(n * bs, hkv, hd)[live].float()
             vf[valid] = v_pool.reshape(n * bs, hkv, hd)[live].float()
             ks[valid] = k_scale.reshape(n * bs, hkv)[live]
@@ -490,11 +542,68 @@ def test_paged_model_stages_long_tables_in_chunks():
                                    rtol=0)
 
 
+def _fp_case(seed, b, hkv, g, hd, bs, m, pos, holes, dtype):
+    """``_paged_case``'s tables and q over bf16 or f32 pools of N(0, 1)
+    values, as torch tensors of ``dtype`` (q in ``dtype`` too)."""
+    q, k_i8, _, v_i8, _, tables, pos_ = _paged_case(seed, b, hkv, g, hd, bs,
+                                                    m, pos, holes)
+    rng = np.random.default_rng(seed + 1)
+    k_pool, v_pool = (torch.from_numpy(rng.normal(size=k_i8.shape).astype(
+        np.float32)).to(dtype) for _ in range(2))
+    return (torch.from_numpy(q).to(dtype), k_pool, v_pool,
+            *_t(tables, pos_))
+
+
+def _fp_model(q, k_pool, v_pool, tables, pos, splits=None):
+    return model_paged(q, k_pool, None, v_pool, None, tables, pos,
+                       splits=splits, fmt="fp")
+
+
+# the fp pools' cases: hd 32..128 (8 to 16 lanes a row), G 1, 4, 8, blocks
+# of 1, 16 and 32 slots, holes, idle rows and share boundaries
+PAGEDFP = {
+    "fp_hd32_g1": (3, 2, 1, 32, 8, 8, [63, 20, 7], [(1, 1)], None),
+    "fp_hd64_g4": (4, 2, 4, 64, 16, 4, [0, 30, 31, 32], (), None),
+    "fp_hd96_g8_idle": (2, 1, 8, 96, 32, 4, [-1, 127], (), 4),
+    "fp_hd128_g8_bs1": (3, 2, 8, 128, 1, 40, [32, 31, 39], [(0, 5)], None),
+    "fp_hd128_g1_edges": (3, 1, 1, 128, 16, 16, [63, 64, 65], [(2, 3)], 8),
+    "fp_hd40_g4_idle": (4, 2, 4, 40, 16, 8, [100, -1, 31, 127], [(0, 1)],
+                        None),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", sorted(PAGEDFP))
+def test_fp_paged_model_matches_plain_and_pallas(case, dtype):
+    """bf16 and f32 pools, q of the same dtype: the model against
+    ``paged_decode_ref`` and the Pallas kernel on the same values."""
+    b, hkv, g, hd, bs, m, pos, holes, splits = PAGEDFP[case]
+    args = _fp_case(len(case) * bs, b, hkv, g, hd, bs, m, pos, holes, dtype)
+    got = _fp_model(*args, splits=splits)
+    want = t_ref.paged_decode_ref(*args)
+    live = torch.tensor([p >= 0 for p in pos])
+    assert torch.equal(got.isnan().flatten(1).all(1), ~live)
+    assert torch.equal(want.isnan().flatten(1).all(1), ~live)
+    assert torch.isfinite(got[live]).all()
+    # f32 throughout (bf16 elements are exact in f32); summation orders
+    # differ
+    np.testing.assert_allclose(got[live].numpy(), want[live].numpy(),
+                               atol=1e-4, rtol=0)
+    jdt = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
+    q, k_pool, v_pool, tables, pos_t = args
+    pallas = np.asarray(paged_decode_attention(
+        *(jnp.asarray(t.float().numpy(), jdt) for t in (q, k_pool, v_pool)),
+        jnp.asarray(tables.numpy()), jnp.asarray(pos_t.numpy()),
+        interpret=True))
+    np.testing.assert_allclose(got[live].numpy(), pallas[live.numpy()],
+                               atol=1e-4, rtol=0)
+
+
 def test_poisoned_trash_block_leaves_live_rows_bit_identical():
     """What an idle slot writes into block 0 is never read: NaN scales
-    and -128 codes (int8) or NaN f16 scales and 0x88 bytes (int4: codes
-    -8). The live rows do not change, in the model and the plain version
-    alike."""
+    and -128 codes (int8), NaN f16 scales and 0x88 bytes (int4: codes -8)
+    or NaN elements (bf16 and f32 pools). The live rows do not change, in
+    the model and the plain version alike."""
     b, hkv, g, hd, bs, m, pos, holes, splits = PAGED["idle"]
     live = torch.tensor([p >= 0 for p in pos])
     for fmt, poison in (("int8", -128), ("int4", -120)):
@@ -511,6 +620,18 @@ def test_poisoned_trash_block_leaves_live_rows_bit_identical():
         assert torch.equal(after[live], before[live])
         assert torch.isfinite(after[live]).all()
         assert torch.equal(plain(*arrays)[live], before_ref[live])
+    # bf16 and f32 pools: NaN rows in block 0
+    for dtype in (torch.bfloat16, torch.float32):
+        args = list(_fp_case(5, b, hkv, g, hd, bs, m, pos, holes, dtype))
+        before = _fp_model(*args, splits=splits)
+        before_ref = t_ref.paged_decode_ref(*args)
+        args[1], args[2] = args[1].clone(), args[2].clone()
+        args[1][0], args[2][0] = float("nan"), float("nan")
+        after = _fp_model(*args, splits=splits)
+        assert torch.equal(after[live], before[live])
+        assert torch.isfinite(after[live]).all()
+        assert torch.equal(t_ref.paged_decode_ref(*args)[live],
+                           before_ref[live])
 
 
 @pytest.mark.parametrize("splits", [1, 2, 4, 8])

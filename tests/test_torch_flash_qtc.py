@@ -138,9 +138,9 @@ def test_every_int8_code_is_exact_in_bf16():
 def test_tile_constant_is_the_kernels():
     src = CU.read_text()
     assert BK == 64 and TC["BR"] == 64 and TC["THREADS"] == 2 * BK
-    assert "flash_qtc" in src and "flash_attend<TQ>" in src
-    # the int8 K/V no longer reach the CUDA-core body
-    assert "flash_attend<float, int8_t" not in src
+    assert "flash_qtc" in src and "flash_q4tc" in src
+    # no K/V reaches a CUDA-core body: the int4 one is gone too
+    assert "flash_attend" not in src
     assert "to_f32(int8_t" not in src
 
 
