@@ -71,7 +71,19 @@ prints one JSON line per phase:
    fails its gate and rolls back; then one device's lifecycle latencies);
    then card vs CPU logits on a teacher-forced VQI batch at 2 layers, fp32,
    dynamic int8 and static int8 (calibrated on the CPU);
-7. a ``kernels`` line, the ``nvidia-smi`` line, and last the device line.
+7. train: the flash_prefill autograd Function's (dq, dk, dv) against
+   torch.autograd through the plain version (f32, bf16, GQA at hd 96),
+   every other kernel wrapper refusing a grad, then stablelm-1.6b at its
+   published width and depth in f32 (remat on) trained by ``fit`` on
+   ``lm_stream`` batches of 8 x 128: 6 steps with fp32 moments and 3 with
+   int8 moments, each step's loss, grad norm, ms, tokens/s and flash
+   launches (2 per layer), and the peak device memory;
+8. vqi_loop: the paper's loop at ``vqi_config()``: train the VQI model
+   (asset accuracy > 0.9), publish v1's three variants, a staged rollout
+   gated on VQI task accuracy, inspections pushing telemetry, a noised v2
+   that fails its gate and rolls back, a retrain from the telemetry
+   published as v3, whose rollout passes;
+9. a ``kernels`` line, the ``nvidia-smi`` line, and last the device line.
 
 Every counted run also checks that each flash_prefill, flash_qprefill and
 flash_q4prefill launch took the body of its dtype (``launches_by_body``),
@@ -87,6 +99,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import os
 import re
 import subprocess
@@ -222,6 +235,31 @@ VQI_CAPTURES, VQI_BATCH = 16, 8
 # version and read again (sha256 + load) by every device at install and
 # activate
 LIFECYCLE_LAYERS = 2
+# training: stablelm-1.6b at published width and depth in f32 (remat on, its
+# default), lm_stream batches of 8 x 128; fit with fp32 moments, then with
+# int8 moments
+TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ = "stablelm-1.6b", 8, 128
+TRAIN_STEPS, TRAIN_INT8_STEPS = 6, 3
+# the flash Function's (dq, dk, dv) against torch.autograd through the
+# plain version, (B, S, Hq, Hkv, hd, dtype): the training shape in f32 and
+# bf16, and a GQA case at hd 96
+FLASH_GRAD_SHAPES = ((8, 128, 32, 32, 64, torch.float32),
+                     (8, 128, 32, 32, 64, torch.bfloat16),
+                     (8, 128, 32, 8, 96, torch.float32))
+# max |got - want| / max |want| per grad, want in f32. f32: the forward's
+# output (the kernel's, ~2e-5 from the plain one) enters rowsum(dout *
+# out); bf16: the grads come back in bf16, so one bf16 rounding, up to
+# 2**-8 of each element: the bound is one bf16 ulp of the largest (2**-7)
+FLASH_GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 8e-3}
+# the paper's loop at vqi_config() (the width at which both packages train
+# the VQI family): 150 training steps of batch 32, a retrain of 60 steps
+# from the fleet's telemetry; inspections of 32 captures per device
+VQI_TRAIN_STEPS, VQI_TRAIN_BATCH, VQI_LOOP_CAPTURES = 150, 32, 32
+VQI_RETRAIN_STEPS = 60
+# the field captures' noise (training draws at 0.6): heavy enough that
+# a share of the inspections is low-confidence or wrong and goes back to the
+# hub's retrain buffer
+VQI_FIELD_NOISE = 8.0
 
 
 T0 = time.perf_counter()
@@ -2158,6 +2196,346 @@ def lifecycle_phase(k, dev):
     return launches
 
 
+# ------------------------------------------------------------------ #
+# Training, and the paper's train -> publish -> roll out -> retrain loop
+# ------------------------------------------------------------------ #
+def flash_grad_check(k, dev):
+    """The flash_prefill Function (the kernel's forward, the plain
+    backward) against torch.autograd through flash_prefill_ref on the same
+    inputs, at FLASH_GRAD_SHAPES; each launch takes its dtype's body."""
+    fp = k.flash_prefill
+    out = []
+    for b, s, hq, hkv, hd, dtype in FLASH_GRAD_SHAPES:
+        gen = torch.Generator(device=dev).manual_seed(b * s + hq + hd)
+        q, kk, v = (torch.randn(shape, generator=gen, device=dev).to(dtype)
+                    .requires_grad_(True)
+                    for shape in ((b, s, hq, hd), (b, s, hkv, hd),
+                                  (b, s, hkv, hd)))
+        dout = torch.randn((b, s, hq, hd), generator=gen, device=dev)
+        before = dict(fp.flash_prefill.launches_by_body)
+        got_out = fp.flash_prefill(q, kk, v)
+        if got_out.grad_fn is None or fp.flash_prefill.launches_by_body != {
+                **before, fp.BODY[dtype]: before[fp.BODY[dtype]] + 1}:
+            raise AssertionError(f"flash grad {dtype}: the kernel did not "
+                                 "launch under its autograd Function")
+        got = torch.autograd.grad(got_out, (q, kk, v), dout)
+        f32 = [t.detach().float().requires_grad_(True) for t in (q, kk, v)]
+        want = torch.autograd.grad(k.ref.flash_prefill_ref(*f32), f32, dout)
+        errs = {}
+        for name, g, w in zip(("dq", "dk", "dv"), got, want):
+            if g.dtype != dtype:
+                raise AssertionError(f"flash grad {name}: {g.dtype}")
+            errs[name] = ((g.float() - w).abs().max()
+                          / w.abs().max()).item()
+        out.append({"B": b, "S": s, "Hq": hq, "Hkv": hkv, "hd": hd,
+                    "dtype": str(dtype), "body": fp.BODY[dtype],
+                    "rel_err": errs, "tol": FLASH_GRAD_TOL[dtype]})
+        if max(errs.values()) > FLASH_GRAD_TOL[dtype]:
+            raise AssertionError(f"flash grads differ: {out[-1]}")
+    return out
+
+
+def refuse_grad_check(k, dev):
+    """Every kernel wrapper without a backward raises, naming itself, when
+    an input requires grad; flash_prefill alone carries a graph."""
+    f = lambda *shape: torch.randn(shape, device=dev)  # noqa: E731
+    x = f(4, 64).requires_grad_(True)
+    w = torch.randint(-127, 128, (64, 48), device=dev, dtype=torch.int8)
+    ws = f(1, 48).abs() * 1e-2
+    q = f(2, 4, 1, 64).requires_grad_(True)
+    pool = torch.zeros((5, 16, 4, 64), device=dev)
+    tables = torch.tensor([[1, 2], [3, 4]], dtype=torch.int32, device=dev)
+    pos = torch.tensor([20, 9], dtype=torch.int32, device=dev)
+    i8 = torch.zeros((5, 16, 4, 64), dtype=torch.int8, device=dev)
+    i4 = torch.zeros((5, 16, 4, 32), dtype=torch.int8, device=dev)
+    s8 = torch.ones((5, 16, 4), device=dev)
+    s4 = torch.ones((5, 16, 4, 2), dtype=torch.float16, device=dev)
+    qp = f(2, 16, 4, 64).requires_grad_(True)
+    dense = (i8[:2], s8[:2], i8[:2], s8[:2])
+    calls = {
+        "qmatmul_dynamic": lambda: k.dynquant.qmatmul_dynamic(x, w, ws),
+        "qmatmul_static": lambda: k.qmatmul.qmatmul_static(x, w, ws, 0.05),
+        "quantize_activations": lambda: k.qmatmul.quantize_activations(x),
+        "qdecode": lambda: k.qdecode.qdecode(q, *dense,
+                                             torch.zeros((2, 16),
+                                                         device=dev)),
+        "paged_decode": lambda: k.paged_attn.paged_decode(
+            q, pool, pool, tables, pos),
+        "paged_qdecode": lambda: k.paged_attn.paged_qdecode(
+            q, i8, s8, i8, s8, tables, pos),
+        "paged_q4decode": lambda: k.paged_attn.paged_q4decode(
+            q, i4, s4, i4, s4, tables, pos),
+        "flash_qprefill": lambda: k.flash_prefill.flash_qprefill(qp, *dense),
+        "flash_q4prefill": lambda: k.flash_prefill.flash_q4prefill(
+            qp, i4[:2], s4[:2], i4[:2], s4[:2]),
+        "quantize_weights": lambda: k.quantize.quantize_weights(
+            f(64, 48).requires_grad_(True)),
+    }
+    for name, call in calls.items():
+        try:
+            call()
+        except RuntimeError as e:
+            if not str(e).startswith(f"{name}: "):
+                raise
+        else:
+            raise AssertionError(f"{name} dropped a gradient silently")
+    return sorted(calls)
+
+
+def train_phase(k, dev):
+    """stablelm-1.6b at published width and depth in f32 (remat on):
+    the flash Function's grads against the plain version, every other
+    wrapper refusing a grad, then ``fit`` on ``lm_stream`` batches:
+    TRAIN_STEPS steps with fp32 moments, then TRAIN_INT8_STEPS with int8
+    moments. Each step: loss, grad norm, ms (host clock around a device
+    sync, the next batch's draw included), tokens/s and flash launches (2
+    per layer: the forward and the recompute). Returns the launch
+    totals of the two fits."""
+    from repro_torch import configs
+    from repro_torch.data import lm_stream
+    from repro_torch.models import init_params
+    from repro_torch.training import (OptimizerConfig, adamw_init, fit,
+                                      train_step)
+    from repro_torch.tree import get_path, leaves_with_path
+
+    grads = flash_grad_check(k, dev)
+    refused = refuse_grad_check(k, dev)
+    emit("train_checks", flash_grads=grads, refuse_grad=refused)
+
+    cfg = configs.get_config(TRAIN_ARCH).with_overrides(dtype="float32")
+    if not cfg.remat:
+        raise AssertionError("train: remat must be on, as configured")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=SEED + 40)
+    stream = lm_stream(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=SEED + 41,
+                       device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    fp = k.flash_prefill.flash_prefill
+    marks = []
+
+    def timed(src):
+        while True:
+            torch.cuda.synchronize()
+            marks.append((time.perf_counter(), fp.launches))
+            yield next(src)
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counters(k)                        # ---- the main path: counted
+    history = []
+    for steps, int8_state in ((TRAIN_STEPS, False),
+                              (TRAIN_INT8_STEPS, True)):
+        oc = OptimizerConfig(lr=1e-3, warmup_steps=1, total_steps=steps,
+                             int8_state=int8_state)
+        params, hist = fit(cfg, oc, timed(stream), steps, params=params,
+                           log_every=1, log_fn=lambda line: None,
+                           device=dev)
+        torch.cuda.synchronize()
+        marks.append((time.perf_counter(), fp.launches))
+        history += [dict(h, int8_state=int8_state) for h in hist]
+        marks.append(None)                   # a fit's end: no step here
+    launches = read_counters(k)              # ---- read right after
+    launches.update(check_bodies(k, "train", launches, torch.float32))
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    spans = [(a, b) for a, b in zip(marks, marks[1:]) if a and b]
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    for h, ((t_a, n_a), (t_b, n_b)) in zip(history, spans):
+        h["ms"] = (t_b - t_a) * 1e3
+        h["tokens_per_s"] = tokens / (t_b - t_a)
+        h["flash_launches"] = n_b - n_a
+        emit("train_step", **{key: h[key] for key in (
+            "step", "int8_state", "loss", "grad_norm", "lr", "token_acc",
+            "ms", "tokens_per_s", "flash_launches")})
+    losses = [h["loss"] for h in history]
+    norms = [h["grad_norm"] for h in history]
+    if len(history) != TRAIN_STEPS + TRAIN_INT8_STEPS \
+            or not all(map(math.isfinite, losses + norms)):
+        raise AssertionError(f"train: losses {losses}, norms {norms}")
+    # the fp32-moment fit must lower the loss. The int8-moment fit is held
+    # to finite values only: its per-row absmax codes of v (the JAX
+    # package's, bit for bit on the CPU) put every element whose grad is
+    # below 1/16 of its row's largest at code 0 (v spans the square of the
+    # grads' range), printed as int8_v_zero_share; AdamW's step
+    # m / (sqrt(v) + eps) then grows on those elements
+    if not losses[TRAIN_STEPS - 1] < losses[0]:
+        raise AssertionError(f"train: the fp32-moment fit did not lower "
+                             f"the loss: {losses[:TRAIN_STEPS]}")
+    want = 2 * cfg.n_layers                  # the forward and the recompute
+    if any(h["flash_launches"] != want for h in history):
+        raise AssertionError(f"train: flash launches per step "
+                             f"{[h['flash_launches'] for h in history]}, "
+                             f"want {want}")
+    others = {n: c for n, c in launches.items()
+              if c and not n.startswith("flash_prefill")}
+    if others:
+        raise AssertionError(f"train: other kernels launched: {others}")
+    # the int8 moments after one step from the trained params: the share
+    # of v codes that are 0 (the element's second moment is lost)
+    oc8 = OptimizerConfig(lr=1e-3, warmup_steps=1, total_steps=1,
+                          int8_state=True)
+    _, state, _ = train_step(params, adamw_init(params, oc8), next(stream),
+                             cfg, oc8)
+    codes = [get_path(state["mu"], path)["v"]["q"]
+             for path, _ in leaves_with_path(params)]
+    zero_share = (sum((c == 0).sum().item() for c in codes)
+                  / sum(c.numel() for c in codes))
+    del state, codes
+    emit("train", model=cfg.name, dtype=cfg.dtype, layers=cfg.n_layers,
+         d_model=cfg.d_model, heads=cfg.n_heads, head_dim=cfg.head_dim,
+         d_ff=cfg.d_ff, vocab=cfg.vocab_size, remat=cfg.remat,
+         batch=TRAIN_BATCH, seq=TRAIN_SEQ, init_s=init_s,
+         losses=losses, grad_norms=norms,
+         ms_per_step=[h["ms"] for h in history],
+         tokens_per_s=[h["tokens_per_s"] for h in history],
+         peak_mem_gb=peak_gb, launches=launches,
+         int8_v_zero_share=zero_share)
+    del params, stream
+    torch.cuda.empty_cache()
+    return launches
+
+
+def vqi_loop_phase(k, dev):
+    """The paper's loop on the card at ``vqi_config()``: train the VQI
+    model (asset accuracy > 0.9), publish v1's three variants, roll v1 out
+    to one standard and one Pi-4-class device behind a gate on VQI task
+    accuracy (``evaluate`` on labelled batches), run inspections that push
+    telemetry, publish a noised v2 whose rollout must fail and roll back,
+    retrain from the telemetry, and roll the result out as v3 (the gate
+    must pass). Returns the launch totals of the whole loop."""
+    import tempfile
+
+    from repro_torch.api import ArtifactRegistry, HealthGate, RolloutPolicy
+    from repro_torch.data import vqi_batch, vqi_eval_accuracy
+    from repro_torch.fleet import vqi
+    from repro_torch.models import forward
+    from repro_torch.serving import RequestQueue
+    from repro_torch.tree import map_with_path
+
+    cfg = vqi.vqi_config()
+    times = {}
+    reset_counters(k)                        # ---- the loop: counted
+    t0 = time.perf_counter()
+    params, history = vqi.train_vqi_model(
+        cfg, steps=VQI_TRAIN_STEPS, batch=VQI_TRAIN_BATCH,
+        log_fn=lambda line: None, device=dev)
+    torch.cuda.synchronize()
+    times["train_s"] = time.perf_counter() - t0
+    trained = vqi.evaluate(params, cfg, device=dev)
+    if not trained["asset_acc"] > 0.9:
+        raise AssertionError(f"vqi loop: the VQI model did not learn: "
+                             f"{trained}")
+    noise = torch.Generator(device=dev).manual_seed(SEED + 50)
+    v2 = map_with_path(lambda _, t: t + 0.8 * torch.randn(
+        t.shape, generator=noise, device=dev, dtype=t.dtype), params)
+    # field captures under heavier noise than training saw: the
+    # low-confidence or wrong ones go to the hub's retrain buffer
+    field = vqi.VQITask(noise=VQI_FIELD_NOISE)
+    gen = torch.Generator().manual_seed(SEED + 51)
+    captures = []
+    for i in range(VQI_LOOP_CAPTURES):
+        raw = vqi_batch(gen, cfg, field, 1, dev)
+        raw["asset_ids"] = [f"field-{i}"]
+        captures.append(raw)
+
+    def validate(agent):
+        """The gate's metric: VQI task accuracy of the agent's active
+        session on evaluate's labelled batches (no latency: at this width
+        a forward is host-bound, a few ms that vary by half between
+        calls)."""
+        if agent.session is None:
+            return {}
+        return {"accuracy": vqi.evaluate(agent.session.params, cfg, 2,
+                                         device=dev)["accuracy"]}
+
+    build = os.path.join(ROOT, "build")
+    os.makedirs(build, exist_ok=True)
+    policy = RolloutPolicy(gate=HealthGate())
+    reports = {}
+    with tempfile.TemporaryDirectory(dir=build) as root:
+        registry = ArtifactRegistry(root)
+        fleet = vqi.make_fleet(registry, 1, 1, device=dev)
+
+        def release(version, weights):
+            t0 = time.perf_counter()
+            vqi.publish_variants(registry, "vqi", version, weights, cfg,
+                                 device=dev)
+            times[f"publish_{version}_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            reports[version] = fleet.staged_rollout("vqi", version, validate,
+                                                    policy)
+            times[f"rollout_{version}_s"] = time.perf_counter() - t0
+            return {d: a.active.key for d, a in fleet.devices.items()}
+
+        active_v1 = release("v1", params)
+        if not reports["v1"].succeeded or "int8" not in active_v1[
+                "edge-pi4-0"]:
+            raise AssertionError(f"vqi loop v1: {reports['v1'].reason} "
+                                 f"{active_v1}")
+        for agent in fleet.devices.values():
+            queue = RequestQueue(
+                vqi.inspection_pipeline(agent, cfg, fleet.telemetry),
+                max_batch=8, stack=_stack_captures,
+                unstack=lambda res, n: [[p] for p in res])
+            for c in captures:
+                queue.submit(c)
+            queue.drain()
+        hub = fleet.telemetry
+        if hub.total_records != len(captures) * len(fleet.devices):
+            raise AssertionError(f"vqi loop telemetry: {hub.summary()}")
+        active_v2 = release("v2", v2)
+        if reports["v2"].succeeded or any(":v1:" not in key
+                                          for key in active_v2.values()):
+            raise AssertionError(f"vqi loop: v2 must fail and roll back: "
+                                 f"{reports['v2'].reason} {active_v2}")
+        t0 = time.perf_counter()
+        v3, info = vqi.retrain_from_telemetry(hub, params, cfg,
+                                              steps=VQI_RETRAIN_STEPS,
+                                              log_fn=lambda line: None,
+                                              device=dev)
+        torch.cuda.synchronize()
+        times["retrain_s"] = time.perf_counter() - t0
+        retrained = vqi.evaluate(v3, cfg, device=dev)
+        probe = vqi_batch(gen, cfg, field, 64, dev)
+        with torch.no_grad():
+            field_acc = {name: vqi_eval_accuracy(
+                forward(p, probe, cfg)[0], probe, cfg)
+                for name, p in (("v1", params), ("v3", v3))}
+        active_v3 = release("v3", v3)
+        if not reports["v3"].succeeded or any(":v3:" not in key
+                                              for key in active_v3.values()):
+            raise AssertionError(f"vqi loop v3: {reports['v3'].reason} "
+                                 f"{active_v3}")
+        torch.cuda.synchronize()
+        launches = read_counters(k)          # ---- read right after
+        launches.update(check_bodies(k, "vqi loop", launches,
+                                     torch.float32))
+        for name in ("flash_prefill", "qmatmul_dynamic", "qmatmul_static"):
+            if launches[name] <= 0:
+                raise AssertionError(f"vqi loop: {name} never launched")
+        emit("vqi_loop", model=cfg.name, d_model=cfg.d_model,
+             layers=cfg.n_layers, dtype=cfg.dtype,
+             train_steps=VQI_TRAIN_STEPS, batch=VQI_TRAIN_BATCH,
+             train_ms_per_step=times["train_s"] * 1e3 / VQI_TRAIN_STEPS,
+             loss_first_last=[history[0]["loss"], history[-1]["loss"]],
+             trained=trained, retrained=retrained,
+             field_asset_cond_acc=field_acc,
+             replayed_samples=info["replayed_samples"],
+             retrain_final_loss=info["final_loss"],
+             retrain_ms_per_step=times["retrain_s"] * 1e3
+             / VQI_RETRAIN_STEPS,
+             canary_metrics={v: {str(d): m for d, m in
+                                 (r.canary_metrics or {}).items()}
+                             for v, r in reports.items()},
+             v2_reason=reports["v2"].reason[:200],
+             active={"v1": active_v1, "v2": active_v2, "v3": active_v3},
+             telemetry=hub.summary(), latencies_s=times, launches=launches)
+        del fleet
+    del params, v2, v3
+    torch.cuda.empty_cache()
+    return launches
+
+
 def _noised(t, gen):
     """A float leaf plus N(0, 1) noise (the JAX system test's bad release)."""
     if not t.is_floating_point():
@@ -2246,14 +2624,22 @@ def main() -> int:
     # depth, then the lifecycle at 2 layers; quantize_weights is on neither (artifacts are
     # built by quantize_tensor, as in the JAX package), so it counts 0
     totals["quantize_weights"] = 0
-    for run in (vqi_phase(k, dev), lifecycle_phase(k, dev)):
+
+    def add(run):
         for name in ("flash_prefill", "qmatmul_dynamic", "qmatmul_static",
                      "quantize_weights",
                      *(f"flash_prefill.{body}" for body in read_bodies(k)),
                      *(f"{g}.{body}" for g in _gemms(k)
                        for body in k.qmatmul.BODIES)):
             totals[name] += run[name]
+
+    add(vqi_phase(k, dev))
+    add(lifecycle_phase(k, dev))
     vqi_card_vs_cpu_phase(dev)
+    # training at full width and depth (flash_prefill under autograd: the
+    # forward and the recompute), then the paper's loop at vqi_config()
+    add(train_phase(k, dev))
+    add(vqi_loop_phase(k, dev))
 
     sources = {"flash_prefill": ("src/repro_torch/csrc/flash_prefill.cu",
                                  "src/repro/kernels/flash_prefill.py:244"),

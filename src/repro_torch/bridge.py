@@ -87,6 +87,24 @@ def to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.numpy()
 
 
+def opt_state_from_jax(state, cfg: ModelConfig, device: DeviceLike = None
+                       ) -> Any:
+    """JAX AdamW state of numpy arrays (``{"mu": ..., "step"}``, fp32
+    ``{"m", "v"}`` or int8 ``{"q", "scale"}`` moments, ``[L, ...]`` under
+    ``layers``) -> the port's state on ``device``, unstacked as
+    ``params_from_jax`` unstacks the params: an int8 scale ``[L, 1]``
+    becomes each layer's ``[1]``."""
+    dev = resolve_device(device)
+    return {"mu": params_from_jax(state["mu"], cfg, dev),
+            "step": to_torch(state["step"], dev)}
+
+
+def grads_to_jax(tree) -> Any:
+    """A port tree shaped like the params (grads, moments) -> numpy leaves
+    in the JAX layout (``stack_layers``), to compare leaf by leaf."""
+    return map_with_path(lambda _, t: to_numpy(t), stack_layers(tree))
+
+
 def cache_from_jax(tree, device: DeviceLike = None) -> Any:
     """JAX cache or pools as numpy (``{"layers": (k, v)}`` or the int8 /
     int4 4-tuple, leaves ``[L, ...]``) -> the port's ``{"layers": [(k, v),

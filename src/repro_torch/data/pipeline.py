@@ -1,13 +1,18 @@
-"""The synthetic VQI dataset (TTPLA-like visual quality inspection, the
-paper's use case): the port of the VQI part of ``repro.data.pipeline``.
+"""Synthetic data: the port of ``repro.data.pipeline``.
 
-Each sample is a set of patch embeddings (the stubbed vision frontend's
-output) drawn around a centroid fixed by its (asset type, condition); the
-model must emit the two class tokens. Layout, shapes and the label scheme
-are the JAX package's; tokens are int64, as torch indexes with them.
+``lm_batch`` / ``lm_stream``: a Zipf-like token stream with first-order
+structure, so a language model's training loss falls.
 
-The numbers are not the JAX package's: ``jax.random`` cannot be drawn in
-torch, so the centroids come from a ``torch.Generator`` seeded with
+``vqi_batch`` / ``vqi_stream``: the synthetic VQI dataset (TTPLA-like
+visual quality inspection, the paper's use case). Each sample is a set of
+patch embeddings (the stubbed vision frontend's output) drawn around a
+centroid fixed by its (asset type, condition); the model must emit the two
+class tokens. Layout, shapes and the label scheme are the JAX package's;
+tokens are int64, as torch indexes with them.
+
+The numbers are not the JAX package's, for either dataset: ``jax.random``
+cannot be drawn in torch, so the distributions are the same and the draws
+are not. The VQI centroids come from a ``torch.Generator`` seeded with
 ``CENTROID_SEED`` and the rest from the caller's generator. Every draw is
 made on the host and moved to ``device``, so a seed gives the same batch on
 every device. Tests that compare the packages feed both the same JAX-made
@@ -22,16 +27,49 @@ import torch
 
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.config import ModelConfig
+from repro_torch.training.loss import IGNORE
 
 ASSET_TYPES = ("transmission_tower", "power_line", "transformer", "switchgear")
 CONDITIONS = ("good", "degraded", "critical")
-#: label of positions that carry no loss (``repro.training.loss.IGNORE``)
-IGNORE = -100
 # the class centroids are part of the dataset's definition, not of the
 # sampling stream: every caller sees the same clusters
 CENTROID_SEED = 1234
 
 
+# --------------------------------------------------------------------- #
+# Language-model stream
+# --------------------------------------------------------------------- #
+def lm_batch(gen: torch.Generator, cfg: ModelConfig, batch: int, seq: int,
+             device: DeviceLike = None) -> Dict[str, torch.Tensor]:
+    """``tokens`` / ``labels`` [B, S] int64: Pareto(1.2) * 8 steps clipped
+    to the vocab, tokens ``(cumsum * 31 + base) % V`` with a uniform
+    ``base`` per row, labels the tokens rolled left by one with the last
+    position IGNORE. ``gen`` is a host generator."""
+    dev = resolve_device(device)
+    v = cfg.vocab_size
+    # Pareto(1.2) on [1, inf) is exp(Exponential(1) / 1.2); the clip to
+    # V - 1 comes before the integer cast, as XLA's cast saturates
+    pareto = torch.exp(torch.empty((batch, seq)).exponential_(
+        generator=gen) / 1.2)
+    zipf = torch.clamp(pareto * 8, 0, v - 1).to(torch.int64)
+    base = torch.randint(0, v, (batch, 1), generator=gen)
+    toks = (torch.cumsum(zipf, dim=1) * 31 + base) % v
+    labels = torch.roll(toks, -1, dims=1)
+    labels[:, -1] = IGNORE
+    return {"tokens": toks.to(dev), "labels": labels.to(dev)}
+
+
+def lm_stream(cfg: ModelConfig, batch: int, seq: int, seed: int = 0,
+              device: DeviceLike = None
+              ) -> Iterator[Dict[str, torch.Tensor]]:
+    gen = torch.Generator().manual_seed(seed)
+    while True:
+        yield lm_batch(gen, cfg, batch, seq, device)
+
+
+# --------------------------------------------------------------------- #
+# VQI synthetic dataset (TTPLA-like)
+# --------------------------------------------------------------------- #
 @dataclasses.dataclass(frozen=True)
 class VQITask:
     """Token layout: [frontend patches] [BOS] -> predict asset, condition."""

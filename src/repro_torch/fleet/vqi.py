@@ -1,11 +1,9 @@
 """The VQI use case end to end (the paper's sections 2 and 5), the port of
-``repro.fleet.vqi`` without training: publish fp32 / static-int8 /
-dynamic-int8 artifacts of a phi-3-vision model, deploy them to a
-heterogeneous fleet, run inspections and push asset-condition updates
-through telemetry. The paper's Figure 5 as executable code.
-
-Training (``train_vqi_model``, ``retrain_from_telemetry``) is ROADMAP Queue
-1 item 13; models here come from ``init_params`` or a registry.
+``repro.fleet.vqi``: train a VQI model (phi-3-vision reduced), publish
+fp32 / static-int8 / dynamic-int8 artifacts, deploy them to a
+heterogeneous fleet, run inspections that push asset-condition updates
+through telemetry, and retrain from the captures the fleet sends back.
+The paper's Figure 5 as executable code.
 """
 from __future__ import annotations
 
@@ -19,7 +17,8 @@ from repro_torch.api.artifact import ModelArtifact
 from repro_torch.api.registry import ArtifactRegistry
 from repro_torch.api.variants import VariantSpec
 from repro_torch.data.pipeline import (ASSET_TYPES, CONDITIONS, VQITask,
-                                       vqi_batch, vqi_eval_accuracy)
+                                       vqi_batch, vqi_eval_accuracy,
+                                       vqi_stream)
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.fleet.agent import DeviceProfile, EdgeAgent
 from repro_torch.fleet.orchestrator import FleetOrchestrator
@@ -27,6 +26,8 @@ from repro_torch.fleet.telemetry import InferenceRecord, TelemetryHub
 from repro_torch.models import forward
 from repro_torch.models.config import ModelConfig
 from repro_torch.serving.engine import Pipeline
+from repro_torch.training.loop import fit
+from repro_torch.training.optimizer import OptimizerConfig
 
 TASK = VQITask()
 
@@ -38,9 +39,13 @@ def vqi_config(d_model: int = 128) -> ModelConfig:
 
 
 def train_vqi_model(cfg: ModelConfig, steps: int = 150, batch: int = 32,
-                    log_fn=print):
-    raise NotImplementedError(
-        "training (loss, AdamW, train_step, fit) is ROADMAP Queue 1 item 13")
+                    log_fn=print, device: DeviceLike = None):
+    """(params, history) of ``steps`` AdamW steps on fresh VQI batches, from
+    ``init_params(cfg, 0, device)``."""
+    oc = OptimizerConfig(lr=1e-3, warmup_steps=10, total_steps=steps,
+                         weight_decay=0.01)
+    stream = vqi_stream(cfg, batch, device=device)
+    return fit(cfg, oc, stream, steps, log_fn=log_fn, device=device)
 
 
 def evaluate(params, cfg: ModelConfig, n_batches: int = 4, batch: int = 64,
@@ -181,9 +186,39 @@ def make_fleet(registry: ArtifactRegistry, n_standard: int = 2,
     return orch
 
 
+# ------------------------------------------------------------------ #
+# Closed MLOps loop: telemetry buffer -> retrain -> publish -> rollout
+# (the paper's Fig. 4 right-to-left feedback arrow, as executable code)
+# ------------------------------------------------------------------ #
 def retrain_from_telemetry(hub: TelemetryHub, params, cfg: ModelConfig,
                            steps: int = 60, batch: int = 32,
                            mix_fraction: float = 0.25, log_fn=print,
-                           seed: int = 99):
-    raise NotImplementedError(
-        "retraining from telemetry needs training, ROADMAP Queue 1 item 13")
+                           seed: int = 99, device: DeviceLike = None):
+    """Fine-tune ``params`` (on ``device``) on fresh VQI batches mixed with
+    the hub's labelled retrain captures: ``int(batch * mix_fraction)`` rows
+    of every batch are replaced by captures drawn uniformly from the
+    buffer (with replacement, from the stream's generator)."""
+    dev = resolve_device(device)
+    buffered = [r.sample for r in hub.retrain_buffer
+                if r.sample and r.sample.get("labels") is not None]
+    oc = OptimizerConfig(lr=5e-4, warmup_steps=5, total_steps=steps,
+                         weight_decay=0.01)
+
+    def stream():
+        gen = torch.Generator().manual_seed(seed)
+        n_mix = int(batch * mix_fraction) if buffered else 0
+        while True:
+            b = vqi_batch(gen, cfg, TASK, batch, dev)
+            b = {k: b[k] for k in ("tokens", "labels", "frontend_embeds")}
+            if n_mix:
+                idx = torch.randint(0, len(buffered), (n_mix,),
+                                    generator=gen).tolist()
+                for k in b:
+                    rows = torch.stack([buffered[i][k].to(dev) for i in idx])
+                    b[k] = torch.cat([rows.to(b[k].dtype), b[k][n_mix:]])
+            yield b
+
+    new_params, history = fit(cfg, oc, stream(), steps, params=params,
+                              log_fn=log_fn, device=dev)
+    return new_params, {"replayed_samples": len(buffered),
+                        "final_loss": history[-1]["loss"]}

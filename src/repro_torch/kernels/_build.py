@@ -108,5 +108,17 @@ def check(lib_name: str, rc: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")
 
 
+def refuse_grad(what: str, *tensors) -> None:
+    """Raise when autograd would need a gradient through a kernel that has
+    no backward: its output would carry no ``grad_fn`` and cut the graph
+    without a word. Called on the CUDA branch of every wrapper but
+    ``flash_prefill``'s, which has one."""
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad for t in tensors):
+        raise RuntimeError(f"{what}: the CUDA kernel has no backward; call "
+                           "it under torch.no_grad() or on inputs that "
+                           "require no grad")
+
+
 def stream_of(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream

@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import _build
 from repro_torch.kernels.qmatmul import (BODIES, _check_operands,
                                          _check_packed, _qmm_cuda,
                                          pack_weight)
@@ -41,6 +42,7 @@ def qmatmul_dynamic_packed(x, w_packed, w_scale, *, out_dtype=torch.float32):
         return qmatmul_dynamic_packed_ref(x, w_packed, w_scale).to(out_dtype)
     if x.device.type != "cuda":
         raise ValueError(f"no qmatmul_dynamic kernel for {x.device}")
+    _build.refuse_grad("qmatmul_dynamic", x, w_scale)
     out, body = _qmm_cuda(x, w_packed, w_scale, None, out_dtype)
     qmatmul_dynamic.launches += 1
     qmatmul_dynamic.launches_by_body[body] += 1

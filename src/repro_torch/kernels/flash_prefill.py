@@ -32,6 +32,14 @@ scales stay in f32: each group of 32 K columns has its own accumulator,
 multiplied by its key's group scale before it joins the score, and for
 each group of 32 V columns the scale folds into p per key before the hi +
 lo split; f32 q is split once into two bf16 terms.
+
+Training. ``flash_prefill`` is the one kernel with a gradient: under grad
+mode its CUDA branch runs ``flash_tc`` inside an autograd Function whose
+backward is the plain ``ref.flash_prefill_vjp`` (P recomputed in f32), as
+the JAX package differentiates its plain ``flash_prefill_ref`` (a
+``pallas_call`` has no transpose rule). Every other wrapper here, like
+each in this package, raises when asked for a gradient on the card
+(``_build.refuse_grad``).
 """
 from __future__ import annotations
 
@@ -39,8 +47,8 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.quantize import KV_GROUP
-from repro_torch.kernels.ref import (flash_prefill_ref, flash_q4prefill_ref,
-                                     flash_qprefill_ref)
+from repro_torch.kernels.ref import (flash_prefill_ref, flash_prefill_vjp,
+                                     flash_q4prefill_ref, flash_qprefill_ref)
 
 MAX_HEAD_DIM = 128
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -82,15 +90,9 @@ def _check(q, k, v):
             raise ValueError(f"{name} must be contiguous")
 
 
-def flash_prefill(q, k, v):
-    """q [B,S,Hq,hd]; k [B,S,Hkv,hd]; v [B,S,Hkv,dv] -> [B,S,Hq,dv] f32.
-    CPU tensors take the plain version; CUDA tensors launch the kernel's
-    tensor-core body for their dtype (``BODY``)."""
-    _check(q, k, v)
-    if q.device.type == "cpu":
-        return flash_prefill_ref(q, k, v)
-    if q.device.type != "cuda":
-        raise ValueError(f"no flash_prefill kernel for {q.device}")
+def _flash_tc(q, k, v):
+    """Launch ``flash_tc`` (body ``BODY[q.dtype]``) on checked CUDA
+    tensors and count it."""
     b, s, hq, hd = q.shape
     hkv, dv = k.shape[2], v.shape[3]
     out = torch.empty((b, s, hq, dv), dtype=torch.float32, device=q.device)
@@ -103,6 +105,40 @@ def flash_prefill(q, k, v):
     flash_prefill.launches += 1
     flash_prefill.launches_by_body[BODY[q.dtype]] += 1
     return out
+
+
+class _FlashPrefill(torch.autograd.Function):
+    """The kernel's forward under autograd. The backward is the plain
+    ``flash_prefill_vjp``, as the JAX package differentiates the plain
+    ``flash_prefill_ref`` (``pallas_call`` has no transpose rule); under
+    activation checkpointing the recompute launches the kernel again."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        out = _flash_tc(q, k, v)
+        ctx.save_for_backward(q, k, v, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        return flash_prefill_vjp(*ctx.saved_tensors, dout)
+
+
+def flash_prefill(q, k, v):
+    """q [B,S,Hq,hd]; k [B,S,Hkv,hd]; v [B,S,Hkv,dv] -> [B,S,Hq,dv] f32.
+    CPU tensors take the plain version (differentiable as it is); CUDA
+    tensors launch the kernel's tensor-core body for their dtype
+    (``BODY``), through ``_FlashPrefill`` when grad mode is on and an input
+    requires grad."""
+    _check(q, k, v)
+    if q.device.type == "cpu":
+        return flash_prefill_ref(q, k, v)
+    if q.device.type != "cuda":
+        raise ValueError(f"no flash_prefill kernel for {q.device}")
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _FlashPrefill.apply(q, k, v)
+    return _flash_tc(q, k, v)
 
 
 flash_prefill.launches = 0
@@ -150,6 +186,7 @@ def flash_qprefill(q, k_i8, k_s, v_i8, v_s):
         return flash_qprefill_ref(q, k_i8, k_s, v_i8, v_s)
     if q.device.type != "cuda":
         raise ValueError(f"no flash_qprefill kernel for {q.device}")
+    _build.refuse_grad("flash_qprefill", q, k_s, v_s)
     b, s, hq, hd = q.shape
     hkv, dv = k_i8.shape[2], v_i8.shape[3]
     out = torch.empty((b, s, hq, dv), dtype=torch.float32, device=q.device)
@@ -218,6 +255,7 @@ def flash_q4prefill(q, k_i4, k_s, v_i4, v_s):
         return flash_q4prefill_ref(q, k_i4, k_s, v_i4, v_s)
     if q.device.type != "cuda":
         raise ValueError(f"no flash_q4prefill kernel for {q.device}")
+    _build.refuse_grad("flash_q4prefill", q, k_s, v_s)
     b, s, hq, hd = q.shape
     hkv, dv = k_i4.shape[2], v_i4.shape[3] * 2
     out = torch.empty((b, s, hq, dv), dtype=torch.float32, device=q.device)

@@ -55,7 +55,10 @@ def quantize_weights(w):
 def flash_prefill(q, k, v):
     """Fused online-softmax causal prefill attention.
 
-    q [B,S,Hq,hd]; k [B,S,Hkv,hd]; v [B,S,Hkv,dv]. Returns [B,S,Hq,dv] f32."""
+    q [B,S,Hq,hd]; k [B,S,Hkv,hd]; v [B,S,Hkv,dv]. Returns [B,S,Hq,dv] f32.
+    Differentiable: on the card, under grad, the kernel's forward runs in
+    an autograd Function whose backward is the plain ``flash_prefill_vjp``;
+    on the CPU autograd flows through the plain forward."""
     return _flash.flash_prefill(q, k, v)
 
 

@@ -100,6 +100,7 @@ def paged_decode(q, k_pool, v_pool, tables, pos):
         return paged_decode_ref(q, k_pool, v_pool, tables, pos)
     if q.device.type != "cuda":
         raise ValueError(f"no paged_decode kernel for {q.device}")
+    _build.refuse_grad("paged_decode", q, k_pool, v_pool)
     if k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
         raise ValueError("pools must be 16-byte aligned (16-byte loads)")
     b, hkv, g, hd = q.shape
@@ -149,6 +150,7 @@ def paged_qdecode(q, k_pool, k_scale, v_pool, v_scale, tables, pos):
                                  pos)
     if q.device.type != "cuda":
         raise ValueError(f"no paged_qdecode kernel for {q.device}")
+    _build.refuse_grad("paged_qdecode", q, k_scale, v_scale)
     if k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
         raise ValueError("pools must be 16-byte aligned (16-byte loads)")
     b, hkv, g, hd = q.shape
@@ -185,6 +187,7 @@ def paged_q4decode(q, k_pool, k_scale, v_pool, v_scale, tables, pos):
                                   tables, pos)
     if q.device.type != "cuda":
         raise ValueError(f"no paged_q4decode kernel for {q.device}")
+    _build.refuse_grad("paged_q4decode", q, k_scale, v_scale)
     if k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
         raise ValueError("pools must be 16-byte aligned (16-byte loads)")
     b, hkv, g, _ = q.shape

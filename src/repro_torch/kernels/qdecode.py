@@ -68,6 +68,7 @@ def qdecode(q, k_i8, k_s, v_i8, v_s, bias):
         return qdecode_ref(q, k_i8, k_s, v_i8, v_s, bias)
     if q.device.type != "cuda":
         raise ValueError(f"no qdecode kernel for {q.device}")
+    _build.refuse_grad("qdecode", q, k_s, v_s, bias)
     if k_i8.data_ptr() % 16 or v_i8.data_ptr() % 16:
         raise ValueError("codes must be 16-byte aligned (16-byte loads)")
     b, hkv, g, hd = q.shape

@@ -216,6 +216,7 @@ def quantize_activations(x, act_scale=None):
         if act_scale is None:
             return quantize_rows_ref(x)
         return quantize_static_ref(x, act_scale), None
+    _build.refuse_grad("quantize_activations", x, act_scale)
     a = None if act_scale is None else _act_scale_tensor(act_scale, x.device)
     codes, a_scale = _quantize_cuda(x.contiguous(), a)
     return codes[:, :x.shape[1]], a_scale
@@ -233,6 +234,7 @@ def qmatmul_static_packed(x, w_packed, w_scale, act_scale, *,
                                          act_scale).to(out_dtype)
     if x.device.type != "cuda":
         raise ValueError(f"no qmatmul_static kernel for {x.device}")
+    _build.refuse_grad("qmatmul_static", x, w_scale, act_scale)
     a = _act_scale_tensor(act_scale, x.device)
     out, body = _qmm_cuda(x, w_packed, w_scale, a, out_dtype)
     qmatmul_static.launches += 1

@@ -120,6 +120,7 @@ def quantize_weights(w: torch.Tensor):
         return quantize_ref(w)
     if w.device.type != "cuda":
         raise ValueError(f"no quantize_weights kernel for {w.device}")
+    _build.refuse_grad("quantize_weights", w)
     if not w.is_contiguous():
         raise ValueError("w must be contiguous")
     k, n = w.shape

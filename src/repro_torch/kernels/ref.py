@@ -121,6 +121,35 @@ def flash_prefill_ref(q, k, v):
     return out.reshape(b, s, hq, dv)
 
 
+def flash_prefill_vjp(q, k, v, out, dout):
+    """(dq, dk, dv) of ``flash_prefill_ref`` at (q, k, v), given its output
+    ``out`` [B,S,Hq,dv] and the output's cotangent ``dout``: P recomputed in
+    f32 with the forward's scale and ``NEG_INF`` causal mask, ``dS = P *
+    (dP - rowsum(dout * out))``; dk and dv are summed over the G query
+    heads of each kv head. Each comes back in its input's dtype."""
+    b, s, hq, hd = q.shape
+    hkv, dv = k.shape[2], v.shape[3]
+    g = hq // hkv
+    qg = q.to(torch.float32).reshape(b, s, hkv, g, hd)
+    kf, vf = k.to(torch.float32), v.to(torch.float32)
+    do = dout.to(torch.float32).reshape(b, s, hkv, g, dv)
+    o = out.to(torch.float32).reshape(b, s, hkv, g, dv)
+    sqrt_hd = torch.sqrt(_const(float(hd), qg))
+    scores = torch.einsum("bskgh,btkh->bkgst", qg, kf) / sqrt_hd
+    pos = torch.arange(s, device=q.device)
+    causal = pos[:, None] >= pos[None, :]
+    scores = torch.where(causal, scores, _const(NEG_INF, scores))
+    p = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
+    p = p / p.sum(dim=-1, keepdim=True)
+    d_v = torch.einsum("bkgst,bskgh->btkh", p, do)
+    dp = torch.einsum("bskgh,btkh->bkgst", do, vf)
+    rows = torch.einsum("bskgh,bskgh->bkgs", do, o)[..., None]
+    ds = p * (dp - rows) / sqrt_hd
+    d_q = torch.einsum("bkgst,btkh->bskgh", ds, kf).reshape(b, s, hq, hd)
+    d_k = torch.einsum("bkgst,bskgh->btkh", ds, qg)
+    return d_q.to(q.dtype), d_k.to(k.dtype), d_v.to(v.dtype)
+
+
 def _dequant(codes, scale):
     """int8 codes [..., hd] * per-row scale [...] -> f32, dequantize first
     (the JAX oracles' order)."""

@@ -15,13 +15,17 @@ Entry points:
     prefill_paged(params, pools, batch, pos, tables, cfg)    -> (logits, pools)
     decode_step_paged(params, pools, tokens, pos, tables, cfg) -> (logits, pools)
 
-A Python loop over the layers stands in for the JAX ``scan``.
+A Python loop over the layers stands in for the JAX ``scan``. In train
+mode with ``cfg.remat`` and grad mode on, each layer runs under
+``torch.utils.checkpoint`` (the JAX package's ``jax.checkpoint`` per
+scanned layer): the backward recomputes it, flash kernel launch included.
 """
 from __future__ import annotations
 
 from typing import Any, Dict
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels.quantize import kv_group_size
@@ -131,14 +135,26 @@ def _block(lp, x, cfg: ModelConfig, *, mode: str, cache=None,
     return x + swiglu(lp["mlp"]["wi"], lp["mlp"]["wo"], h2), new_cache
 
 
+def _train_block(lp, x, cfg: ModelConfig, positions):
+    return _block(lp, x, cfg, mode="train", positions=positions)[0]
+
+
 def _backbone(params, x, cfg: ModelConfig, *, mode: str, caches=None,
               pos=None, pad_to: int = 0, tables=None):
     """``tables`` (paged prefill / decode) is shared by every layer: block
     ids are per sequence, not per layer."""
     check_supported(cfg)
     positions = torch.arange(x.shape[1], device=x.device)
+    remat = cfg.remat and mode == "train" and torch.is_grad_enabled()
     new = []
     for i, lp in enumerate(params["layers"]):
+        if remat:
+            # one activation checkpoint per layer, as jax.checkpoint wraps
+            # each scanned layer: the backward recomputes the layer
+            x = checkpoint(_train_block, lp, x, cfg, positions,
+                           use_reentrant=False, preserve_rng_state=False)
+            new.append(None)
+            continue
         cache = None if caches is None else caches["layers"][i]
         x, c = _block(lp, x, cfg, mode=mode, cache=cache, positions=positions,
                       pos=pos, pad_to=pad_to, tables=tables)

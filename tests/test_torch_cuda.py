@@ -517,3 +517,125 @@ def test_quantize_weights_kernel_matches_plain(dev, k, n, dtype, aligned):
     assert torch.equal(card_codes, codes)
     assert torch.equal(card_scale.view(torch.int32), scale.view(torch.int32))
     assert int(codes[:, 1].abs().max()) == 0
+
+
+# ------------------------------------------------------------------ #
+# Training: flash_prefill under autograd; no other wrapper drops a grad
+# ------------------------------------------------------------------ #
+@pytest.mark.parametrize("b,s,hq,hkv,hd,dv", [(8, 128, 32, 32, 64, 64),
+                                              (2, 100, 32, 8, 96, 96),
+                                              (2, 77, 4, 2, 64, 32)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_prefill_grads_through_the_kernel(dev, b, s, hq, hkv, hd, dv,
+                                                dtype):
+    """Under grad the wrapper launches the kernel through its autograd
+    Function; (dq, dk, dv) match torch.autograd through the plain version
+    on f32 copies of the same inputs within 1e-4 of each grad's largest
+    element (f32), or one bf16 ulp of it (bf16: each grad is rounded to
+    bf16 once, up to 2**-8 of itself)."""
+    gen = torch.Generator(device=dev).manual_seed(s + hd + dv)
+    q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dtype)
+               .requires_grad_(True)
+               for shape in ((b, s, hq, hd), (b, s, hkv, hd),
+                             (b, s, hkv, dv)))
+    dout = torch.randn((b, s, hq, dv), generator=gen, device=dev)
+    body = flash_prefill.BODY[dtype]
+    before = dict(flash_prefill.flash_prefill.launches_by_body)
+    out = flash_prefill.flash_prefill(q, k, v)
+    assert out.grad_fn is not None
+    assert flash_prefill.flash_prefill.launches_by_body == {
+        **before, body: before[body] + 1}
+    got = torch.autograd.grad(out, (q, k, v), dout)
+    f32 = [t.detach().float().requires_grad_(True) for t in (q, k, v)]
+    want = torch.autograd.grad(ref.flash_prefill_ref(*f32), f32, dout)
+    tol = 1e-4 if dtype == torch.float32 else 2.0 ** -7
+    for g, w, x in zip(got, want, (q, k, v)):
+        assert g.dtype == x.dtype and g.shape == x.shape
+        torch.testing.assert_close(g.float(), w, rtol=0,
+                                   atol=tol * w.abs().max().item())
+    # without grad the same call returns a tensor with no graph
+    with torch.no_grad():
+        assert flash_prefill.flash_prefill(q, k, v).grad_fn is None
+
+
+def _grad_cases(dev):
+    """(name, call) for every kernel wrapper but flash_prefill, each
+    called with a float input that requires grad."""
+    gen = torch.Generator().manual_seed(0)
+    f = lambda *shape: torch.randn(shape, generator=gen).to(dev)  # noqa: E731
+    x = f(4, 64).requires_grad_(True)
+    w = _codes(gen, (64, 48)).to(dev)
+    ws = _scales(gen, (1, 48)).to(dev)
+    wp = qmatmul.pack_weight(w)
+    act = torch.tensor(0.05, device=dev)
+    q = f(2, 4, 1, 64).requires_grad_(True)
+    _, kp, vp, tables, pos = _paged_case(dev, 2, 4, 1, 64, 16, 4, 9,
+                                         torch.float32, [40, 20], seed=1)
+    k8, ks8, v8, vs8 = _to_int8_pools(gen, kp, vp)
+    k4, ks4, v4, vs4 = _to_int4_pools(gen, kp, vp)
+    dense = tuple(t.to(dev) for t in (
+        _codes(gen, (2, 32, 4, 64)), _scales(gen, (2, 32, 4)),
+        _codes(gen, (2, 32, 4, 64)), _scales(gen, (2, 32, 4))))
+    bias = torch.zeros((2, 32), device=dev)
+    qp = f(2, 32, 4, 64).requires_grad_(True)
+    k4d = _packed(gen, (2, 32, 4, 32)).to(dev)
+    s4d = _gscales(gen, (2, 32, 4, 2)).to(dev)
+    return [
+        ("qmatmul_dynamic", lambda: dynquant.qmatmul_dynamic(x, w, ws)),
+        ("qmatmul_dynamic",
+         lambda: dynquant.qmatmul_dynamic_packed(x, wp, ws)),
+        ("qmatmul_static", lambda: qmatmul.qmatmul_static(x, w, ws, act)),
+        ("qmatmul_static",
+         lambda: qmatmul.qmatmul_static_packed(x, wp, ws, act)),
+        ("quantize_activations", lambda: qmatmul.quantize_activations(x)),
+        ("qdecode", lambda: qdecode.qdecode(q, *dense, bias)),
+        ("paged_decode",
+         lambda: paged_attn.paged_decode(q, kp, vp, tables, pos)),
+        ("paged_qdecode", lambda: paged_attn.paged_qdecode(
+            q, k8, ks8, v8, vs8, tables, pos)),
+        ("paged_q4decode", lambda: paged_attn.paged_q4decode(
+            q, k4, ks4, v4, vs4, tables, pos)),
+        ("flash_qprefill",
+         lambda: flash_prefill.flash_qprefill(qp, *dense)),
+        ("flash_q4prefill",
+         lambda: flash_prefill.flash_q4prefill(qp, k4d, s4d, k4d, s4d)),
+        ("quantize_weights", lambda: quantize.quantize_weights(
+            f(64, 48).requires_grad_(True))),
+    ]
+
+
+def test_kernel_wrappers_refuse_to_drop_a_gradient(dev):
+    """Every wrapper without a backward raises, naming itself, when grad
+    mode is on and an input requires grad; under no_grad it launches."""
+    for name, call in _grad_cases(dev):
+        with pytest.raises(RuntimeError, match=f"^{name}: .*no backward"):
+            call()
+        with torch.no_grad():
+            out = call()
+        assert all(t.grad_fn is None for t in
+                   (out if isinstance(out, tuple) else (out,))
+                   if isinstance(t, torch.Tensor))
+
+
+def test_train_step_on_the_card_launches_flash_twice_a_layer(dev):
+    """A train step of the stablelm smoke model (remat on) on the card:
+    every attention layer launches the kernel in the forward and again in
+    the recompute, and the step's loss and grad norm are finite."""
+    from repro_torch import configs
+    from repro_torch.data import lm_stream
+    from repro_torch.models import init_params
+    from repro_torch.training import OptimizerConfig, adamw_init, train_step
+
+    cfg = configs.smoke_config("stablelm-1.6b").with_overrides(
+        dtype="float32", remat=True)
+    params = init_params(cfg, seed=0, device=dev)
+    oc = OptimizerConfig(lr=1e-3, warmup_steps=1, total_steps=2)
+    state = adamw_init(params, oc)
+    batch = next(lm_stream(cfg, 4, 32, device=dev))
+    before = flash_prefill.flash_prefill.launches_by_body["tc_f32"]
+    params, state, metrics = train_step(params, state, batch, cfg, oc)
+    torch.cuda.synchronize()
+    assert flash_prefill.flash_prefill.launches_by_body["tc_f32"] \
+        == before + 2 * cfg.n_layers
+    assert all(torch.isfinite(metrics[k]).item()
+               for k in ("loss", "grad_norm"))

@@ -411,7 +411,8 @@ def test_vqi_batch_distributions():
     assert all(torch.equal(again[k], b[k]) for k in b)
 
 
-def test_inspection_queue_pushes_one_record_per_capture(tmp_path):
+def test_inspection_queue_pushes_one_record_per_capture(tmp_path,
+                                                        monkeypatch):
     cfg = t_vqi.vqi_config(d_model=64)
     params = init_params(cfg, seed=1, device="cpu")
     registry = ArtifactRegistry(str(tmp_path))
@@ -442,7 +443,10 @@ def test_inspection_queue_pushes_one_record_per_capture(tmp_path):
     assert hub.total_records == 6 and len(hub.asset_conditions) == 6
     assert hub.model_metrics("vqi:v1:fp32")["calls"] == 6
     assert agent.health()["calls"] == 2          # two batches of 4 and 2
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 13"):
+    # training is ported: like every entry point, it runs on the card
+    # unless asked for the CPU, and raises when there is none
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         t_vqi.train_vqi_model(cfg)
 
 
