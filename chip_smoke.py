@@ -8,8 +8,9 @@ prints one JSON line per phase:
 
 1. card: ``nvidia-smi`` name and power limit, kernel build time, ptxas
    registers and spills per source and per instantiation of the quantized
-   tensor-core prefills (``flash_qtc``, ``flash_q4tc``) and the split-K
-   decode loops (``*_split``), and any kernel that spills;
+   tensor-core prefills (``flash_qtc``, ``flash_q4tc``), the split-K
+   decode loops (``*_split``) and the weight quantizer's two routes
+   (``quantize_cluster``, ``quantize_cols``), and any kernel that spills;
 2. kernels: each CUDA kernel against its plain PyTorch version on the card
    at the main paths' shapes, with its time (a CUDA-graph replay: device
    time; and the eager call, launch gaps included), the plain version's
@@ -30,10 +31,12 @@ prints one JSON line per phase:
    and its instantiation's ptxas line); the decode kernels and the
    quantized prefills also bit-identical across two calls; the int4 KV
    quantizer's edge groups, card against
-   CPU, and quantize_weights at phi-3-vision's weight shapes (codes and
-   scales bit for bit); the GEMMs and flash prefill also run at the VQI
-   forward's shapes (M 4632 at phi-3-vision's five weight shapes; B8 S579
-   H32 hd96);
+   CPU, and quantize_weights at phi-3-vision's weight shapes and
+   stablelm-1.6b's embedding (codes and scales bit for bit, each row with
+   the route and plan that ran and its ptxas line; both routes, the
+   cluster and the two-pass one, must run); the GEMMs and flash prefill
+   also run at the VQI forward's shapes (M 4632 at phi-3-vision's five
+   weight shapes; B8 S579 H32 hd96);
 3. e2e: stablelm-1.6b at full width in bf16 with random seeded weights, the
    three default variants (fp32 passthrough, dynamic int8, static int8
    calibrated on 2 batches of 2 x 128 tokens) and dynamic int8 over an
@@ -222,9 +225,10 @@ CPU_TOL = {"fp32": (2e-3, 2e-4), "dynamic_int8": (0.2, 0.03),
 
 
 # quantize_weights at phi-3-vision's weight shapes (wq, wi, wo, frontend_proj,
-# unembed), then the JAX package's ragged test shapes; (K, N)
+# unembed), then the JAX package's ragged test shapes, then stablelm-1.6b's
+# embedding leaf, taller than a cluster holds (the two-pass route); (K, N)
 QW_SHAPES = ((3072, 3072), (3072, 16384), (8192, 3072), (1024, 3072),
-             (3072, 32064), (48, 33), (300, 96))
+             (3072, 32064), (48, 33), (300, 96), (100352, 2048))
 HEADLINE_QW = (3072, 16384, torch.bfloat16)
 # the VQI phases: phi-3-vision-4.2b at its published width; 16 captures
 # served in batches of 8; static calibration on 2 VQI batches of 8
@@ -355,6 +359,9 @@ def _flash(k):
 def reset_counters(k):
     for fn in _wrappers(k).values():
         fn.launches = 0
+    routes = k.quantize.quantize_weights.routes
+    for route in routes:
+        routes[route] = 0
     for fn in (*_flash(k).values(), *_gemms(k).values()):
         bodies = fn.launches_by_body
         for body in bodies:
@@ -362,9 +369,12 @@ def reset_counters(k):
 
 
 def read_counters(k):
-    """Launches per wrapper, and the GEMMs' per body
-    (``qmatmul_dynamic.gemv``, ``qmatmul_dynamic.wgmma``, ...)."""
+    """Launches per wrapper, the GEMMs' per body (``qmatmul_dynamic.gemv``,
+    ``qmatmul_dynamic.wgmma``, ...) and quantize_weights' per route
+    (``quantize_weights.cluster``, ``quantize_weights.two_pass``)."""
     out = {name: fn.launches for name, fn in _wrappers(k).items()}
+    out.update({f"quantize_weights.{route}": n for route, n in
+                k.quantize.quantize_weights.routes.items()})
     for name, fn in _gemms(k).items():
         out.update({f"{name}.{body}": n
                     for body, n in fn.launches_by_body.items()})
@@ -1174,19 +1184,39 @@ def quantize_int4_phase(k, dev):
     emit("quantize_int4", shape=list(t.shape), card_equals_cpu=rows)
 
 
+def qw_instance(quant, p, dt) -> str:
+    """The kernel instantiation that the quantize_weights plan ``p``
+    launches."""
+    t = "float" if dt == torch.float32 else "__nv_bfloat16"
+    if p.route == "cluster":
+        return f"quantize_cluster<{t}>"
+    return f"quantize_cols<{t}, {p.width // quant.TWO_PASS_TC}>"
+
+
 def quantize_weights_phase(k, dev, timer):
     """quantize_weights against its plain version at phi-3-vision's weight
-    shapes and the JAX package's ragged test shapes, in bf16 and f32, each
-    input with an all-zero column: codes and scales bit for bit."""
+    shapes, the JAX package's ragged test shapes and stablelm-1.6b's
+    embedding leaf, in bf16 and f32, each input with an all-zero column:
+    codes and scales bit for bit. Each row carries the route and plan that
+    ran (``quantize.plan_for``) and that instantiation's ptxas line; each
+    call moves the route counter of its plan by one, and both routes run."""
     ref, quant = k.ref, k.quantize
+    fn = quant.quantize_weights
     gen = torch.Generator(device=dev).manual_seed(SEED + 15)
     headline = None
+    start = dict(fn.routes)
     for kk, n in QW_SHAPES:
         base = torch.randn((kk, n), generator=gen, device=dev) * 0.05
         base[:, 1] = 0.0
         for dt in (torch.bfloat16, torch.float32):
             w = base.to(dt)
-            codes, scale = quant.quantize_weights(w)
+            p = quant.plan_for(w)
+            before = dict(fn.routes)
+            codes, scale = fn(w)
+            moved = {r: fn.routes[r] - before[r] for r in before}
+            if moved != {r: int(r == p.route) for r in before}:
+                raise AssertionError(f"quantize_weights [{kk},{n}] {dt}: "
+                                     f"routes moved {moved}, plan {p}")
             want_codes, want_scale = ref.quantize_ref(w)
             torch.cuda.synchronize()
             code_err = int((codes.to(torch.int32)
@@ -1197,21 +1227,29 @@ def quantize_weights_phase(k, dev, timer):
                 raise AssertionError(f"quantize_weights [{kk},{n}] {dt}: "
                                      f"codes max |diff| {code_err}, scales "
                                      f"identical {same_scale}")
-            t_k = timer.graph_ms(lambda: quant.quantize_weights(w))
-            t_eager = timer.eager_ms(lambda: quant.quantize_weights(w))
+            del want_codes, want_scale
+            t_k = timer.graph_ms(lambda: fn(w))
+            t_eager = timer.eager_ms(lambda: fn(w))
             t_p = timer.graph_ms(lambda: ref.quantize_ref(w), iters=3)
             nbytes = kk * n * (w.element_size() + 1) + 4 * n
             b_ms, b_by = bound(nbytes, 0.0, str(dt).split(".")[-1])
+            inst = qw_instance(quant, p, dt)
             row = dict(kernel="quantize_weights", K=kk, N=n,
-                       dtype=str(dt).split(".")[-1], max_abs_err=code_err,
+                       dtype=str(dt).split(".")[-1], route=p.route,
+                       plan=p._asdict(), instance=inst,
+                       ptxas=k.ptxas.get(inst), max_abs_err=code_err,
                        scales_identical=same_scale, ms=t_k, eager_ms=t_eager,
                        plain_ms=t_p, library_ms=None, bound_ms=b_ms,
-                       bound_by=b_by)
+                       bound_by=b_by, x_bound=t_k / b_ms)
             emit("kernel", **row)
             if (kk, n, dt) == HEADLINE_QW:
                 headline = row
-            del w, codes, scale, want_codes, want_scale
+            del w, codes, scale
         del base
+    ran = {r: fn.routes[r] - start[r] for r in start}
+    if not all(ran.values()):
+        raise AssertionError(f"quantize_weights: a route never ran {ran}")
+    headline["compare_launches_by_route"] = ran
     return headline
 
 
@@ -2586,7 +2624,9 @@ def main() -> int:
          count=torch.cuda.device_count(), torch=torch.__version__,
          cuda=torch.version.cuda, build_s=build_s, ptxas=ptxas,
          ptxas_redesigned={name: k.ptxas[name] for name in sorted(k.ptxas)
-                           if "flash_q" in name or "_split" in name},
+                           if "flash_q" in name or "_split" in name
+                           or name.startswith(("quantize_cluster",
+                                               "quantize_cols"))},
          ptxas_spilled=spilled)
 
     timer = Timer(dev)
@@ -2624,10 +2664,14 @@ def main() -> int:
     # depth, then the lifecycle at 2 layers; quantize_weights is on neither (artifacts are
     # built by quantize_tensor, as in the JAX package), so it counts 0
     totals["quantize_weights"] = 0
+    totals.update({f"quantize_weights.{route}": 0
+                   for route in k.quantize.ROUTES})
 
     def add(run):
         for name in ("flash_prefill", "qmatmul_dynamic", "qmatmul_static",
                      "quantize_weights",
+                     *(f"quantize_weights.{route}"
+                       for route in k.quantize.ROUTES),
                      *(f"flash_prefill.{body}" for body in read_bodies(k)),
                      *(f"{g}.{body}" for g in _gemms(k)
                        for body in k.qmatmul.BODIES)):
@@ -2682,6 +2726,13 @@ def main() -> int:
                 for body in read_bodies(k, name)}
         if name in ("paged_decode", "paged_q4decode"):
             kernels[-1]["body"] = h["body"]
+        if name == "quantize_weights":
+            kernels[-1]["plan"] = h["plan"]
+            kernels[-1]["launches_by_route"] = {
+                route: totals[f"quantize_weights.{route}"]
+                for route in k.quantize.ROUTES}
+            kernels[-1]["compare_launches_by_route"] = h[
+                "compare_launches_by_route"]
         if name in _gemms(k):
             kernels[-1]["body"] = h["body"]
             kernels[-1]["bf16_library_ms"] = h["bf16_library_ms"]

@@ -10,8 +10,9 @@ Each argument is the root of a checkout. Each turn runs, in a fresh
 process, that checkout's own ``chip_smoke.py`` pieces: its kernels built
 from its sources into its own ``build/``, the timer line, then every
 attention kernel phase (flash prefill, paged decode, the int8-KV and
-int4-KV kernels) that its ``chip_smoke.py`` defines, each kernel held to
-its plain version and timed as ``chip_smoke.py`` times it. Every JSON line
+int4-KV kernels) and the weight quantizer's phase that its
+``chip_smoke.py`` defines, each kernel held to its plain version and timed
+as ``chip_smoke.py`` times it. Every JSON line
 is printed as that checkout's ``chip_smoke.py`` prints it, with ``root``
 and ``turn`` added; a turn that built its checkout's kernels also prints their
 ptxas registers and spills per instantiation. Needs one CUDA card; without
@@ -27,7 +28,8 @@ import types
 
 PHASES = ("flash_phase", "paged_phase", "qdecode_phase",
           "paged_qdecode_phase", "flash_qprefill_phase",
-          "paged_q4decode_phase", "flash_q4prefill_phase")
+          "paged_q4decode_phase", "flash_q4prefill_phase",
+          "quantize_weights_phase")
 
 
 def one(root: str) -> int:

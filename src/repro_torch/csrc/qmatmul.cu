@@ -48,13 +48,15 @@
 //     tensor-core rate (2 M N K ops at 1979 TOPS: 0.044 ms for M 4632 and
 //     K = N = 3072).
 
-#include <cuda.h>  // CUtensorMap and its enums; the encoder comes through
-                   // cudaGetDriverEntryPoint, so nothing links libcuda
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "tma.cuh"  // mbarrier / TMA helpers and the tensor-map encoder
+
 namespace {
+
+using namespace tma;
 
 // Layout constants (tests/test_torch_gemm_plan.py reads them from here).
 constexpr int PACK_K = 128;           // K tile of both bodies: one swizzle row
@@ -338,59 +340,6 @@ qgemv(const T* __restrict__ x, const int8_t* __restrict__ w,
 // ------------------------------------------------------------------ //
 // qgemm_wgmma: the prefill body
 // ------------------------------------------------------------------ //
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_u32(bar)),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
-                   smem_u32(bar))
-               : "memory");
-}
-
-// Returns once the phase of parity ``parity`` has completed.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(parity)
-        : "memory");
-  }
-}
-
-// TMA: the box at (c0 = K byte, c1 = row) of ``map`` into ``dst``; the
-// bytes complete a transaction on ``bar``. Rows past the tensor's edge
-// arrive as zeros and still count in the box's bytes.
-__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
-                                            uint64_t* bar, int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::"
-      "bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
-      "r"(smem_u32(bar))
-      : "memory");
-}
-
 // wgmma operand descriptor of a K-major tile in 128-byte swizzle: rows of
 // SW_ROW_BYTES, groups of SW_ATOM_ROWS rows SW_SBO_BYTES apart. One k32
 // step inside the atom advances the start address by WG_K_BYTES; the
@@ -745,31 +694,6 @@ qgemm_wgmma(const __grid_constant__ CUtensorMap tm_a,
 // ------------------------------------------------------------------ //
 // Host side
 // ------------------------------------------------------------------ //
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
 // A K-major int8 matrix [rows, Kp] as TMA boxes of [box_rows, PACK_K]
 // bytes with 128-byte swizzle; boxes past the last row fill with zeros.
 int make_map(CUtensorMap* map, const int8_t* base, int Kp, int rows,

@@ -28,6 +28,8 @@ the explicit step), and any other such group is x/0 = +-inf, clamped to
 """
 from __future__ import annotations
 
+from typing import NamedTuple, Tuple
+
 import torch
 
 from repro_torch.kernels import _build
@@ -101,15 +103,81 @@ def dequantize_kv_int4(t_i4: torch.Tensor, t_s: torch.Tensor) -> torch.Tensor:
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _LIB = "quantize_weights"
 
+# Layout constants of ``csrc/quantize_weights.cu`` (the tests read them
+# from the source and hold these to them)
+W = 32                     # cluster strip: a 32-byte sector of codes a row
+CLUSTER_MAX = 8            # the portable cluster size
+BOX_MAX = 256              # TMA's largest box dimension (rows)
+BOX_ALIGN = 8              # box rows are a multiple of this
+SMEM_ALIGN = 128           # TMA destination alignment
+SMEM_CAP = 227 * 1024      # a CTA's most shared memory
+TWO_PASS_TC = 4            # two-pass: threads across a strip of 4 * vec
+ROUTES = ("cluster", "two_pass")
+
+
+class Plan(NamedTuple):
+    route: str      # "cluster" or "two_pass"
+    width: int      # columns of a strip: W (two-pass: 4 * vec)
+    cluster: int    # c: CTAs of a cluster, splitting K (two-pass: 1)
+    rows: int       # rows of a CTA's K-slice (two-pass: K)
+    box: int        # rows of one TMA box (two-pass: 0)
+    load: str       # cluster: "tma" or "plain"; two-pass: "vec" or "scalar"
+
+
+def slice_rows(k: int, c: int) -> Tuple[int, int]:
+    """(rows, box) of the K-slices when a cluster of ``c`` CTAs splits K:
+    ``ceil(K / c)`` rows in the fewest boxes of at most BOX_MAX rows, each
+    rounded up to BOX_ALIGN; rank r takes rows [r * rows, min(K, (r + 1) *
+    rows)), so a late rank may get fewer rows or none."""
+    share = -(-k // c)
+    nbox = -(-share // BOX_MAX)
+    box = -(-share // nbox)
+    box = -(-box // BOX_ALIGN) * BOX_ALIGN
+    return nbox * box, box
+
+
+def cluster_smem(rows: int, box: int, elem: int) -> int:
+    """A cluster CTA's dynamic shared memory (``cluster_smem`` in the
+    source): alignment slack, the [rows, W] slice, one mbarrier a box, W
+    partial maxima and W reciprocals."""
+    return SMEM_ALIGN + rows * W * elem + 8 * (rows // box) + 8 * W
+
+
+def plan(k: int, n: int, dtype: torch.dtype, aligned: bool = True) -> Plan:
+    """The route and layout for w [K, N] of ``dtype`` whose base is 16-byte
+    aligned (``aligned``).
+
+    Cluster route: strips of W columns, each split along K over c =
+    CLUSTER_MAX CTAs (fewer where K has fewer than CLUSTER_MAX boxes of
+    BOX_ALIGN rows): the smallest K-slices, so the most CTAs in flight.
+    TMA loads where it can describe w (the base and the row pitch in
+    16-byte units), else plain loads. Where a K-slice outgrows SMEM_CAP (a
+    strip taller than CLUSTER_MAX CTAs hold): the two-pass route."""
+    elem = torch.finfo(dtype).bits // 8
+    pitch = aligned and n * elem % 16 == 0
+    c = min(CLUSTER_MAX, -(-k // BOX_ALIGN))
+    rows, box = slice_rows(k, c)
+    if cluster_smem(rows, box, elem) <= SMEM_CAP:
+        return Plan("cluster", W, c, rows, box, "tma" if pitch else "plain")
+    return Plan("two_pass", TWO_PASS_TC * (16 // elem if pitch else 1), 1, k,
+                0, "vec" if pitch else "scalar")
+
+
+def plan_for(w: torch.Tensor) -> Plan:
+    """The plan ``quantize_weights`` launches for the CUDA tensor ``w``."""
+    k, n = w.shape
+    return plan(k, n, w.dtype, w.data_ptr() % 16 == 0)
+
 
 def quantize_weights(w: torch.Tensor):
     """w [K, N] f32/bf16 -> (w_int8 [K, N] int8, scale [1, N] f32): per
     output column ``round(w * (127 / absmax))`` clipped to +-127 and
     ``absmax / 127``, absmax floored at 1e-12. CPU tensors take the plain
-    ``ref.quantize_ref``; CUDA tensors launch the kernel (codes and scales
-    bit-identical to the plain version). Artifacts are built with
-    ``core.quant.quantize_tensor``, as in the JAX package: no model path
-    calls this."""
+    ``ref.quantize_ref``; CUDA tensors launch the kernel on the route
+    ``plan_for`` names (codes and scales bit-identical to the plain
+    version; ``.routes`` counts launches per route). Artifacts are built
+    with ``core.quant.quantize_tensor``, as in the JAX package: no model
+    path calls this."""
     if w.dim() != 2:
         raise ValueError(f"w {tuple(w.shape)}: need [K, N]")
     if w.dtype not in _DTYPE_CODE:
@@ -126,16 +194,24 @@ def quantize_weights(w: torch.Tensor):
     k, n = w.shape
     codes = torch.empty((k, n), dtype=torch.int8, device=w.device)
     scale = torch.empty((1, n), dtype=torch.float32, device=w.device)
-    lanes = 16 // w.element_size()      # one 16-byte load per row segment
-    vec = lanes if n % lanes == 0 and w.data_ptr() % 16 == 0 else 1
-    fn = _build.function(_LIB, "qw_quantize", [
-        _build.P, _build.I, _build.I, _build.I, _build.I, _build.P, _build.P,
-        _build.P])
-    rc = fn(w.data_ptr(), _DTYPE_CODE[w.dtype], k, n, vec, codes.data_ptr(),
-            scale.data_ptr(), _build.stream_of(w))
-    _build.check(_LIB, rc, "qw_quantize")
+    p = plan_for(w)
+    P, I = _build.P, _build.I
+    if p.route == "cluster":
+        fn = _build.function(_LIB, "qw_cluster",
+                             [P, I, I, I, I, I, I, I, P, P, P])
+        rc = fn(w.data_ptr(), _DTYPE_CODE[w.dtype], k, n, p.cluster, p.rows,
+                p.box, int(p.load == "tma"), codes.data_ptr(),
+                scale.data_ptr(), _build.stream_of(w))
+    else:
+        fn = _build.function(_LIB, "qw_two_pass", [P, I, I, I, I, P, P, P])
+        rc = fn(w.data_ptr(), _DTYPE_CODE[w.dtype], k, n,
+                p.width // TWO_PASS_TC, codes.data_ptr(), scale.data_ptr(),
+                _build.stream_of(w))
+    _build.check(_LIB, rc, f"qw_{p.route}")
     quantize_weights.launches += 1
+    quantize_weights.routes[p.route] += 1
     return codes, scale
 
 
 quantize_weights.launches = 0
+quantize_weights.routes = {route: 0 for route in ROUTES}

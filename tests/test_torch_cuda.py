@@ -481,16 +481,10 @@ def test_quantize_kv_int4_edge_rows_card_equals_cpu(dev):
         assert (codes[1, 2, 0, :32].abs() == 7).all()
 
 
-# the JAX package's test shapes (ragged N and K), a decode-width panel, and
-# N with a 16-byte row pitch in each dtype
-@pytest.mark.parametrize("k,n", [(64, 64), (300, 96), (1024, 512), (48, 33),
-                                 (1024, 3072), (96, 40)])
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("aligned", [True, False])
-def test_quantize_weights_kernel_matches_plain(dev, k, n, dtype, aligned):
-    """Codes and scales bit for bit, an all-zero column and exact .5
-    quotients included; ``aligned=False`` offsets the input by one element,
-    which takes the one-element load path."""
+def _qw_case(dev, k, n, dtype, aligned):
+    """w [K, N] with an all-zero column and a column of exact .5 quotients,
+    on the CPU and on the card; ``aligned=False`` offsets the card copy by
+    one element (no 16-byte base: plain loads, or one-element loads)."""
     gen = torch.Generator().manual_seed(k + n)
     w = torch.randn((k, n), generator=gen) * 3
     w[:, 1] = 0.0
@@ -498,14 +492,24 @@ def test_quantize_weights_kernel_matches_plain(dev, k, n, dtype, aligned):
     w[0, 2] = 127.0                       # inv = 1: every value a .5 code
     w = w.to(dtype)
     if aligned:
-        wd = w.to(dev)
-    else:
-        buf = torch.empty(k * n + 1, dtype=dtype, device=dev)
-        wd = buf[1:].view(k, n)
-        wd.copy_(w)
+        return w, w.to(dev)
+    buf = torch.empty(k * n + 1, dtype=dtype, device=dev)
+    wd = buf[1:].view(k, n)
+    wd.copy_(w)
+    return w, wd
+
+
+def _check_qw(w, wd):
+    """One launch on the route of the plan, codes and scales bit for bit
+    against the plain version on the CPU and on the card."""
+    k, n = w.shape
+    plan = quantize.plan_for(wd)
     before = quantize.quantize_weights.launches
+    routes = dict(quantize.quantize_weights.routes)
     codes, scale = quantize.quantize_weights(wd)
     assert quantize.quantize_weights.launches == before + 1
+    routes[plan.route] += 1
+    assert quantize.quantize_weights.routes == routes
     torch.cuda.synchronize()
     want_codes, want_scale = ref.quantize_ref(w)
     assert codes.dtype == torch.int8 and scale.shape == (1, n)
@@ -517,6 +521,44 @@ def test_quantize_weights_kernel_matches_plain(dev, k, n, dtype, aligned):
     assert torch.equal(card_codes, codes)
     assert torch.equal(card_scale.view(torch.int32), scale.view(torch.int32))
     assert int(codes[:, 1].abs().max()) == 0
+    halves = w[:, 2].to(torch.float32)    # round half to even
+    assert torch.equal(codes[:, 2].cpu().to(torch.float32),
+                       torch.round(halves))
+    return plan
+
+
+# the JAX package's test shapes (ragged N and K), a decode-width panel, and
+# N with a 16-byte row pitch in each dtype
+@pytest.mark.parametrize("k,n", [(64, 64), (300, 96), (1024, 512), (48, 33),
+                                 (1024, 3072), (96, 40)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_quantize_weights_kernel_matches_plain(dev, k, n, dtype, aligned):
+    """Codes and scales bit for bit, an all-zero column and exact .5
+    quotients included; ``aligned=False`` offsets the input by one element,
+    which takes the plain-load fill."""
+    _check_qw(*_qw_case(dev, k, n, dtype, aligned))
+
+
+@pytest.mark.parametrize("c", list(range(1, quantize.CLUSTER_MAX + 1)))
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_quantize_weights_every_cluster_size(dev, c, dtype, aligned):
+    """Each cluster size the plan can return: K = 8 c - 3 rows (c boxes of
+    8 rows, the last rank 5 of them) and N = 200 (six strips of 32 columns
+    and a ragged one of 8)."""
+    plan = _check_qw(*_qw_case(dev, 8 * c - 3, 200, dtype, aligned))
+    assert (plan.route, plan.cluster) == ("cluster", c)
+    assert plan.load == ("tma" if aligned else "plain")
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_quantize_weights_two_pass_route(dev, dtype, aligned):
+    """A K taller than CLUSTER_MAX CTAs hold takes the two-pass route."""
+    plan = _check_qw(*_qw_case(dev, 30000, 64, dtype, aligned))
+    assert plan.route == "two_pass"
+    assert plan.load == ("vec" if aligned else "scalar")
 
 
 # ------------------------------------------------------------------ #
