@@ -86,7 +86,27 @@ prints one JSON line per phase:
    gated on VQI task accuracy, inspections pushing telemetry, a noised v2
    that fails its gate and rolls back, a retrain from the telemetry
    published as v3, whose rollout passes;
-9. a ``kernels`` line, the ``nvidia-smi`` line, and last the device line.
+9. chunked: stablelm-1.6b at full width and depth in bf16, a 255- and a
+   600-token prompt prefilled through the flash kernels and through the
+   chunked core (``opt_flash_prefill=False``, plain PyTorch), with and
+   without ``opt_attn_accum``, over the fp, int8 and int4 tiers: logits
+   held to 2.5x the card's one-rounding nudge, layer 0's cache codes equal
+   on both paths;
+10. dense_configs: phi3-mini-3.8b and deepseek-7b (bf16, and deepseek-7b
+   as dynamic int8) at published width and depth: a prefill, 8 decode
+   steps and ``generate`` behind a RequestQueue, ms and peak memory;
+11. quant_modes: stablelm-1.6b's int4 (g 64), per-group int8 (g 128),
+   percentile-clipped and asymmetric variants quantized on the card, codes
+   and scales bit for bit against the CPU's (the unembedding's 205 M
+   elements included), sizes, logit deltas against bf16 and 8-slot decode
+   steps beside dynamic int8's;
+12. spec: stablelm-1.6b bf16 as the target, its dynamic-int8 and int4
+   drafts published with ``draft_of`` and resolved through
+   ``Deployment.spec_config``, the engine trace served paged and dense with
+   and without each draft, every spec stream held to the non-spec one (a
+   parting's margin to the card's nudge), then one sampled request alone
+   and inside the trace;
+13. a ``kernels`` line, the ``nvidia-smi`` line, and last the device line.
 
 Every counted run also checks that each flash_prefill, flash_qprefill and
 flash_q4prefill launch took the body of its dtype (``launches_by_body``),
@@ -129,8 +149,15 @@ GEMM_KN = ((2048, 2048), (2048, 11264), (5632, 2048), (2048, 100352))
 VQI_GEMM_M = 8 * 579
 VQI_GEMM_KN = ((3072, 3072), (3072, 16384), (8192, 3072), (1024, 3072),
                (3072, 32064))
+# deepseek-7b's dynamic-int8 linears on the dense_configs path: wq/wk/wv/wo,
+# the fused wi (2 x 11008), wo of the MLP at a batch-1 decode step and at
+# the 64- and 128-token prefills (prompts padded to their power-of-two
+# bucket), and the unembed at the last position only
+DENSE_GEMM_MS = (1, 64, 128)
+DENSE_GEMM_CASES = ((4096, 4096, DENSE_GEMM_MS), (4096, 22016, DENSE_GEMM_MS),
+                    (11008, 4096, DENSE_GEMM_MS), (4096, 102400, (1,)))
 GEMM_CASES = tuple((kk, n, GEMM_MS) for kk, n in GEMM_KN) + tuple(
-    (kk, n, (VQI_GEMM_M,)) for kk, n in VQI_GEMM_KN)
+    (kk, n, (VQI_GEMM_M,)) for kk, n in VQI_GEMM_KN) + DENSE_GEMM_CASES
 HEADLINE_GEMM = (4, 2048, 11264)          # a decode GEMM (wi of one layer)
 # (B, S, Hq, Hkv, hd, dv, dtype)
 FLASH_SHAPES = ((4, 256, 32, 32, 64, 64, torch.bfloat16),
@@ -142,6 +169,13 @@ HEADLINE_FLASH = FLASH_SHAPES[0]
 # a multiple of the kernel's 64-row tile)
 FLASH_SHAPES += ((8, 579, 32, 32, 96, 96, torch.bfloat16),
                  (8, 579, 32, 32, 96, 96, torch.float32))
+# the chunked phase's flash side: stablelm-1.6b's 255- and 600-token
+# prompts, unpadded; the dense_configs phase: phi3-mini-3.8b (hd 96) and
+# deepseek-7b (hd 128) at batch 1, their 64- and 128-token buckets
+FLASH_SHAPES += tuple((1, s, 32, 32, 64, 64, torch.bfloat16)
+                      for s in (255, 600)) + tuple(
+    (1, s, 32, 32, hd, hd, torch.bfloat16) for hd in (96, 128)
+    for s in (64, 128))
 # f32 reference on the same values; the tensor-core body's bf16 products
 # are exact in f32, p is split into two bf16 terms (bf16 inputs: ~1e-5), and
 # f32 inputs are split too (three products per mma: ~2e-5); summation order
@@ -264,6 +298,14 @@ VQI_RETRAIN_STEPS = 60
 # a share of the inspections is low-confidence or wrong and goes back to the
 # hub's retrain buffer
 VQI_FIELD_NOISE = 8.0
+# the chunked prefill: one and two query chunks of 512 (the second padded)
+CHUNK_PROMPTS = (255, 600)
+# phi3-mini and deepseek-7b at published width and depth: a 128-token
+# prefill and 8 decode steps
+DENSE_ARCHS, DENSE_PROMPT, DENSE_STEPS = ("phi3-mini-3.8b", "deepseek-7b"), 128, 8
+DENSE_QUEUE = (37, 100)     # the RequestQueue's two prompts
+# speculative decoding: draft tokens proposed per verify step
+SPEC_K = 3
 
 
 T0 = time.perf_counter()
@@ -379,6 +421,12 @@ def read_counters(k):
         out.update({f"{name}.{body}": n
                     for body, n in fn.launches_by_body.items()})
     return out
+
+
+def _merge(totals, launches):
+    """Adds one run's counters into ``totals``, key by key."""
+    for name, n in launches.items():
+        totals[name] = totals.get(name, 0) + n
 
 
 def check_gemm_bodies(where, launches, gemv=None):
@@ -2582,6 +2630,735 @@ def _noised(t, gen):
                            dtype=t.dtype)
 
 
+# ------------------------------------------------------------------ #
+# Phase 9: the chunked prefill and opt_attn_accum at full width
+# ------------------------------------------------------------------ #
+def _counted(k, dtype, where, fn):
+    """``fn()`` with every launch counter zeroed just before and read just
+    after; each flash launch must take its dtype's body."""
+    reset_counters(k)                        # ---- this path: counted
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = read_counters(k)              # ---- read right after
+    launches.update(check_bodies(k, where, launches, dtype))
+    return out, ms, launches
+
+
+def chunked_phase(k, dev):
+    """stablelm-1.6b at full width and depth in bf16: a 255- and a
+    600-token prompt (one and two query chunks of 512) prefilled through
+    the flash kernels and through the chunked core (``opt_flash_prefill=
+    False``, plain PyTorch, no attention kernel), and through the chunked
+    core with ``opt_attn_accum=True``, over the fp, int8 and int4 tiers, on
+    the same weights. Last-position logits beside the card's one-rounding
+    nudge of the flash path: chunked against flash over the fp tier, and
+    accum against plain chunked, held to 2.5x it; over a quantized tier the
+    flash path attends over the codes and the chunked one over the fp K/V,
+    as in the JAX package, so their difference (the tier's quantization
+    error) is reported and the chunked logits must equal the fp tier's.
+    The int8 / int4 caches' codes of layer 0 (the same K/V on both paths)
+    equal over the prompt; later layers' inputs differ by that error, so
+    the share of their codes that differ is reported; the chunked pad
+    rows' scales (int8: the floor scale). Returns the launch totals."""
+    from repro_torch import configs
+    from repro_torch.models import init_params, prefill
+
+    cfg = configs.get_config("stablelm-1.6b")
+    params = init_params(cfg, seed=SEED)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 30)
+    prompts = {s: torch.randint(0, cfg.vocab_size, (1, s), generator=gen,
+                                device=dev) for s in CHUNK_PROMPTS}
+    dtype = getattr(torch, cfg.dtype)
+    prefill_k = {"fp": "flash_prefill", "int8": "flash_qprefill",
+                 "int4": "flash_q4prefill"}
+    attention = ("flash_prefill", "flash_qprefill", "flash_q4prefill")
+    with torch.no_grad():                    # warm-up, uncounted
+        for flash in (True, False):
+            prefill(params, {"tokens": prompts[CHUNK_PROMPTS[0]]},
+                    cfg.with_overrides(opt_flash_prefill=flash), pad_to=264)
+    torch.cuda.synchronize()
+    totals, chunked_fp = {}, {}
+    for tier in ("fp", "int8", "int4"):
+        paths = {"flash": dict(opt_flash_prefill=True),
+                 "chunked": dict(opt_flash_prefill=False),
+                 "chunked_accum": dict(opt_flash_prefill=False,
+                                       opt_attn_accum=True)}
+        for s, tokens in prompts.items():
+            out, row = {}, {}
+            for path, over in paths.items():
+                vcfg = cfg.with_overrides(kv_cache_precision=tier, **over)
+                with torch.no_grad():
+                    (last, cache), ms, launches = _counted(
+                        k, dtype, f"chunked/{tier}/{path}/{s}",
+                        lambda vcfg=vcfg: prefill(params, {"tokens": tokens},
+                                                  vcfg, pad_to=s + 8))
+                want = {n: (cfg.n_layers if path == "flash"
+                            and n == prefill_k[tier] else 0)
+                        for n in attention}
+                if {n: launches[n] for n in attention} != want:
+                    raise AssertionError(f"chunked/{tier}/{path}/{s}: "
+                                         f"attention launches {launches}")
+                if not torch.isfinite(last).all():
+                    raise AssertionError(f"chunked/{tier}/{path}/{s}: "
+                                         "non-finite logits")
+                _merge(totals, launches)
+                out[path] = (last.float(), cache)
+                row[f"{path}_ms"] = ms
+            vcfg = cfg.with_overrides(kv_cache_precision=tier)
+            with torch.no_grad(), nudged_norms():
+                nudged, _ = prefill(params, {"tokens": tokens}, vcfg,
+                                    pad_to=s + 8)
+            nudge_max, nudge_mean = logit_diff([nudged], [out["flash"][0]])
+            ok = True
+            for name, (a, b) in (("chunked_vs_flash", ("chunked", "flash")),
+                                 ("accum_vs_chunked", ("chunked_accum",
+                                                       "chunked"))):
+                dmax, dmean = logit_diff([out[a][0]], [out[b][0]])
+                row[name] = {"max_abs_dlogit": dmax, "mean_abs_dlogit": dmean}
+                # a quantized tier's flash prefill attends over the codes,
+                # the chunked one over the fp K/V (the JAX package's two
+                # paths): their difference is the tier's quantization error
+                if tier == "fp" or name == "accum_vs_chunked":
+                    ok &= dmax <= 2.5 * nudge_max and dmean <= 2.5 * nudge_mean
+            if tier == "fp":
+                chunked_fp[s] = out["chunked"][0]
+            else:
+                # the chunked logits do not depend on the tier: it changes
+                # only what the cache stores
+                row["chunked_equals_fp_tier"] = torch.equal(
+                    out["chunked"][0], chunked_fp[s])
+                ok &= row["chunked_equals_fp_tier"]
+            if tier != "fp":
+                flash_c, chunk_c = out["flash"][1], out["chunked"][1]
+                first = [torch.equal(f[:, :s], c[:, :s]) for f, c in
+                         zip(flash_c["layers"][0], chunk_c["layers"][0])]
+                later = [float((f[:, :s] != c[:, :s]).float().mean())
+                         for lf, lc in zip(flash_c["layers"][1:],
+                                           chunk_c["layers"][1:])
+                         for f, c in zip(lf[::2], lc[::2])]
+                # pads: zeros after quantizing (flash), the quantized zero
+                # rows (chunked: int8's floor scale)
+                pads = chunk_c["layers"][0][1][:, s:]
+                row.update(layer0_codes_equal=all(first),
+                           later_layers_codes_differ_share=max(later),
+                           chunked_pad_scale=float(pads.float().max()),
+                           flash_pad_scale=float(
+                               flash_c["layers"][0][1][:, s:].float().max()))
+                ok &= all(first)
+            emit("chunked", model=cfg.name, dtype=cfg.dtype,
+                 layers=cfg.n_layers, kv_cache=tier, prompt=s,
+                 query_chunks=-(-s // 512), nudge_max=nudge_max,
+                 nudge_mean=nudge_mean, tol_factor=2.5, **row, ok=ok)
+            if not ok:
+                raise AssertionError(f"chunked/{tier}/{s}: {row} against "
+                                     f"the nudge {nudge_max} / {nudge_mean}")
+            del out, nudged
+    del params
+    torch.cuda.empty_cache()
+    return totals
+
+
+# ------------------------------------------------------------------ #
+# Phase 10: phi3-mini and deepseek-7b at published width and depth
+# ------------------------------------------------------------------ #
+def dense_configs_phase(k, dev):
+    """phi3-mini-3.8b and deepseek-7b at their published width and depth,
+    bf16, random seeded weights (deepseek-7b also as dynamic int8): a
+    128-token prefill, 8 decode steps, then ``InferenceSession.generate``
+    of 2 prompts x 16 tokens behind a RequestQueue, each counted; ms per
+    prefill and per step, peak memory. The flash prefill's logits are
+    held to the chunked core's (plain PyTorch, no attention kernel) on the
+    same weights within 2.5x the card's one-rounding nudge. Returns the
+    launch totals."""
+    from repro_torch import configs
+    from repro_torch.api.variants import VariantSpec
+    from repro_torch.models import decode_step, init_params, prefill
+    from repro_torch.serving import InferenceSession, Pipeline, RequestQueue
+
+    totals = {}
+    for arch in DENSE_ARCHS:
+        cfg = configs.get_config(arch)
+        t0 = time.perf_counter()
+        params = init_params(cfg, seed=SEED)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        gen = torch.Generator(device=dev).manual_seed(SEED + 31)
+        prompt = torch.randint(0, cfg.vocab_size, (1, DENSE_PROMPT),
+                               generator=gen, device=dev)
+        queue_prompts = [torch.randint(0, cfg.vocab_size, (1, n),
+                                       generator=gen, device=dev)
+                         for n in DENSE_QUEUE]
+        specs = [("bf16", VariantSpec.fp32())]
+        if arch == "deepseek-7b":
+            specs.append(("dynamic_int8", VariantSpec.dynamic_int8()))
+        dtype = getattr(torch, cfg.dtype)
+        ref_logits = None
+        for label, spec in specs:
+            t0 = time.perf_counter()
+            qparams, info = spec.build(params, cfg)
+            session = InferenceSession(qparams, cfg)
+            torch.cuda.synchronize()
+            build_s = time.perf_counter() - t0
+            with torch.no_grad():                    # warm-up, uncounted
+                last, cache = prefill(session.params, {"tokens": prompt}, cfg,
+                                      pad_to=256)
+                decode_step(session.params, cache,
+                            torch.argmax(last[:, -1], -1).reshape(1, 1),
+                            DENSE_PROMPT, cfg)
+                del cache
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+
+            def run():
+                with torch.no_grad():
+                    t0 = time.perf_counter()
+                    last, cache = prefill(session.params, {"tokens": prompt},
+                                          cfg, pad_to=256)
+                    torch.cuda.synchronize()
+                    pre_ms = (time.perf_counter() - t0) * 1e3
+                    first = last
+                    toks = []
+                    t0 = time.perf_counter()
+                    for i in range(DENSE_STEPS):
+                        nxt = torch.argmax(last[:, -1], -1).reshape(1, 1)
+                        toks.append(nxt)
+                        last, cache = decode_step(session.params, cache, nxt,
+                                                  DENSE_PROMPT + i, cfg)
+                    torch.cuda.synchronize()
+                    step_ms = (time.perf_counter() - t0) * 1e3 / DENSE_STEPS
+                return first, last, torch.cat(toks, 1), pre_ms, step_ms
+
+            (first, last, toks, pre_ms, step_ms), _, launches = _counted(
+                k, dtype, f"{arch}/{label}", run)
+            pipe = Pipeline(preprocess=lambda raw: raw,
+                            infer=lambda b: session.generate(b, 16),
+                            postprocess=lambda out, raw: out)
+            queue = RequestQueue(pipe, max_batch=1)
+            reqs = [queue.submit({"tokens": p}) for p in queue_prompts]
+            _, serve_ms, q_launches = _counted(k, dtype, f"{arch}/{label} q",
+                                               queue.drain)
+            need = ["flash_prefill"] + (["qmatmul_dynamic"]
+                                        if label == "dynamic_int8" else [])
+            for name in need:
+                if launches[name] <= 0 or q_launches[name] <= 0:
+                    raise AssertionError(f"{arch}/{label}: {name} never "
+                                         f"launched ({launches})")
+            if launches["flash_prefill"] != cfg.n_layers:
+                raise AssertionError(f"{arch}/{label}: flash_prefill "
+                                     f"launched {launches['flash_prefill']}"
+                                     f" times in one prefill")
+            for r in reqs:
+                if not r.done or r.result.shape != (1, 16) or int(
+                        r.result.min()) < 0 or int(
+                        r.result.max()) >= cfg.vocab_size:
+                    raise AssertionError(f"{arch}/{label}: bad result")
+            if not (torch.isfinite(first).all() and torch.isfinite(last).all()):
+                raise AssertionError(f"{arch}/{label}: non-finite logits")
+            # the flash prefill against the chunked core on the same weights
+            with torch.no_grad():
+                chunked, _ = prefill(session.params, {"tokens": prompt},
+                                     cfg.with_overrides(
+                                         opt_flash_prefill=False), pad_to=256)
+                with nudged_norms():
+                    nudged, _ = prefill(session.params, {"tokens": prompt},
+                                        cfg, pad_to=256)
+            dmax, dmean = logit_diff([chunked], [first])
+            nudge_max, nudge_mean = logit_diff([nudged], [first])
+            if dmax > 2.5 * nudge_max or dmean > 2.5 * nudge_mean:
+                raise AssertionError(
+                    f"{arch}/{label}: flash vs chunked logits {dmax} / "
+                    f"{dmean} above 2.5x the nudge {nudge_max} / {nudge_mean}")
+            extra = {"flash_vs_chunked": {"max_abs_dlogit": dmax,
+                                          "mean_abs_dlogit": dmean,
+                                          "nudge_max": nudge_max,
+                                          "nudge_mean": nudge_mean,
+                                          "tol_factor": 2.5}}
+            if ref_logits is None:
+                ref_logits = first.float()
+            else:
+                extra["prefill_logit_delta_vs_bf16"] = dict(zip(
+                    ("max", "mean"), logit_diff([first], [ref_logits])))
+            _merge(totals, launches)
+            _merge(totals, q_launches)
+            emit("dense_configs", model=cfg.name, variant=label,
+                 dtype=cfg.dtype, layers=cfg.n_layers, d_model=cfg.d_model,
+                 heads=cfg.n_heads, d_ff=cfg.d_ff, vocab=cfg.vocab_size,
+                 init_s=init_s, build_s=build_s,
+                 quantized_leaves=len(info["quantized_paths"]),
+                 prefill_tokens=DENSE_PROMPT, prefill_ms=pre_ms,
+                 decode_steps=DENSE_STEPS, decode_step_ms=step_ms,
+                 greedy_tokens=toks[0].tolist(),
+                 queue_requests=len(reqs), queue_tokens_each=16,
+                 queue_serve_ms=serve_ms,
+                 queue_tokens_per_s=len(reqs) * 16 / serve_ms * 1e3,
+                 launches=launches, queue_launches=q_launches,
+                 peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+                 **extra)
+            del session, qparams, pipe, queue, reqs
+            torch.cuda.empty_cache()
+        del params, ref_logits
+        torch.cuda.empty_cache()
+    return totals
+
+
+# ------------------------------------------------------------------ #
+# Phase 11: the quantization modes at full width
+# ------------------------------------------------------------------ #
+def _tensor_kwargs(qc):
+    """``quantize_tree``'s arguments to ``quantize_tensor`` for ``qc``."""
+    return dict(per_channel=qc.granularity != "per_tensor",
+                symmetric=qc.symmetric, bits=qc.bits,
+                group_size=qc.group_size if qc.granularity == "per_group"
+                else 0, clip_percentile=qc.clip_percentile)
+
+
+def quant_modes_phase(k, dev):
+    """stablelm-1.6b at full width and depth, bf16: ``quantize_tree`` on the
+    card for ``VariantSpec.int4()``, per-group int8 (g 128), int8 clipped
+    at the 99.9th percentile and asymmetric per-channel int8. For each:
+    codes and scales (and zero points) of layers/0 wq and wi, the embedding
+    and the unembedding (205 M elements: the percentile's sort) bit for bit
+    against the CPU's, ``tree_size_bytes``, the teacher-forced logit delta
+    against bf16 on one 128-token prompt, and ms per 8-slot decode step
+    beside dynamic int8's, each decode window counted. Returns the launch
+    totals."""
+    from repro_torch import configs
+    from repro_torch.api.variants import VariantSpec
+    from repro_torch.core.quant import (QuantConfig, quantize_tensor,
+                                        quantize_tree, tree_size_bytes)
+    from repro_torch.models import decode_step, init_params, prefill
+    from repro_torch.serving import InferenceSession
+    from repro_torch.tree import get_path
+
+    cfg = configs.get_config("stablelm-1.6b")
+    params = init_params(cfg, seed=SEED)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 32)
+    prompt = torch.randint(0, cfg.vocab_size, (1, 128), generator=gen,
+                           device=dev)
+    batch8 = torch.randint(0, cfg.vocab_size, (8, 64), generator=gen,
+                           device=dev)
+    dtype = getattr(torch, cfg.dtype)
+    with torch.no_grad():
+        ref = InferenceSession(params, cfg).logits({"tokens": prompt})
+    bf16_bytes = tree_size_bytes(params)
+    modes = (("int4_g64", VariantSpec.int4().recipe.to_quant_config()),
+             ("int8_g128", VariantSpec.dynamic_int8(
+                 granularity="per_group",
+                 group_size=128).recipe.to_quant_config()),
+             ("int8_pct99.9", VariantSpec.dynamic_int8(
+                 clip_percentile=99.9).recipe.to_quant_config()),
+             ("int8_asym", QuantConfig(symmetric=False, min_size=1024)),
+             ("dynamic_int8", VariantSpec.dynamic_int8()
+              .recipe.to_quant_config()))
+    leaves = ("layers/0/attn/wq", "layers/0/mlp/wi", "embed", "unembed")
+    totals = {}
+    for label, qc in modes:
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            qparams, paths = quantize_tree(params, qc)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        bits = {}
+        for path in leaves if label != "dynamic_int8" else ():
+            w = get_path(params, path)
+            card = get_path(qparams, path)
+            t0 = time.perf_counter()
+            cpu = quantize_tensor(w.cpu(), **_tensor_kwargs(qc))
+            bits[path] = {"keys": sorted(cpu),
+                          "equal": set(cpu) == set(card) and all(
+                              torch.equal(card[key].cpu(), cpu[key])
+                              for key in cpu),
+                          "numel": w.numel(),
+                          "cpu_s": time.perf_counter() - t0}
+        session = InferenceSession(qparams, cfg)
+        with torch.no_grad():
+            logits = session.logits({"tokens": prompt})
+            _, cache = prefill(session.params, {"tokens": batch8}, cfg,
+                               pad_to=128)
+            nxt = batch8[:, -1:]
+            decode_step(session.params, cache, nxt, 64, cfg)  # warm-up
+
+            def window():
+                last = None
+                for i in range(8):
+                    last, _ = decode_step(session.params, cache, nxt,
+                                          65 + i, cfg)
+                return last
+
+            last, window_ms, launches = _counted(k, dtype,
+                                                 f"quant/{label}", window)
+            dtrace = profile_steps(
+                lambda: decode_step(session.params, cache, nxt, 73, cfg), 2,
+                window_ms / 8)
+        gemm = launches["qmatmul_dynamic"]
+        weight_only = label not in ("int8_pct99.9", "dynamic_int8")
+        if (gemm == 0) != weight_only:
+            raise AssertionError(f"quant/{label}: {gemm} int8 GEMM launches "
+                                 "in the decode window")
+        _merge(totals, launches)
+        ok = all(b["equal"] for b in bits.values()) and bool(
+            torch.isfinite(logits).all() and torch.isfinite(last).all())
+        dmax, dmean = logit_diff([logits], [ref])
+        emit("quant_modes", model=cfg.name, variant=label,
+             recipe={f: getattr(qc, f) for f in (
+                 "granularity", "group_size", "bits", "clip_percentile",
+                 "symmetric", "min_size")},
+             quantized_leaves=len(paths), build_s=build_s,
+             card_vs_cpu_bits=bits, tree_size_bytes=tree_size_bytes(qparams),
+             bf16_bytes=bf16_bytes,
+             size_ratio=tree_size_bytes(qparams) / bf16_bytes,
+             logit_delta_vs_bf16={"max": dmax, "mean": dmean},
+             decode_step_ms_8_slots=window_ms / 8,
+             decode_window_launches=launches, decode_trace=dtrace, ok=ok)
+        if not ok:
+            raise AssertionError(f"quant/{label}: card vs CPU {bits}")
+        del qparams, session, cache
+        torch.cuda.empty_cache()
+    del params
+    torch.cuda.empty_cache()
+    return totals
+
+
+# ------------------------------------------------------------------ #
+# Phase 12: speculative decoding at full width
+# ------------------------------------------------------------------ #
+def _bf16_ulp(x: float) -> float:
+    """One bf16 ulp at ``x`` (the logits are bf16 products upcast to f32),
+    reported beside the nudge."""
+    return torch.finfo(torch.bfloat16).eps * 2.0 ** math.floor(
+        math.log2(abs(x)))
+
+
+def _partings(params, cfg, trace, base, got, dev, memo):
+    """For each request whose spec stream parts from the non-spec one: the
+    spec stream teacher-forced through the target's own dense decode path
+    (the same prefix as the non-spec stream up to the parting), plainly and
+    with every normalized activation nudged by one rounding
+    (``nudged_norms``, the same forced tokens). A step's nudge is the
+    largest change of its logits. At the parting step the non-spec
+    stream's token, and at every step the spec stream's token, must lie
+    within that step's nudge of the top logit: a tie up to one rounding.
+    ``memo`` keeps the teacher-forced runs of each (request, spec stream):
+    the drafts' streams are the same target's."""
+    out = []
+    for rid, (b, g) in enumerate(zip(base, got)):
+        if b == g:
+            continue
+        step = next(j for j, (x, y) in enumerate(zip(b, g)) if x != y)
+        if (rid, tuple(g)) not in memo:
+            tokens = trace.requests[rid].tokens
+            forced = [torch.tensor([[t]]) for t in g[:-1]]
+            plain, _ = teacher_forced(params, cfg, tokens, dev, False, forced,
+                                      len(g) - 1)
+            with nudged_norms():
+                nudged, _ = teacher_forced(params, cfg, tokens, dev, False,
+                                           forced, len(g) - 1)
+            memo[rid, tuple(g)] = (
+                [p[0, -1] for p in plain],
+                [float((n - p).abs().max()) for n, p in zip(nudged, plain)])
+        steps, nudge = memo[rid, tuple(g)]
+        # each step's spec token below the top, over that step's nudge
+        below = [float(x.max() - x[t]) / n for x, t, n in zip(steps, g, nudge)]
+        logits = steps[step]
+        top = torch.topk(logits, 2).values
+        base_below = float(top[0] - logits[b[step]])
+        out.append({"request": rid, "step": step, "tokens": [b[step],
+                                                            g[step]],
+                    "top1_top2_margin": float(top[0] - top[1]),
+                    "ulp": _bf16_ulp(float(top[0])), "nudge": nudge[step],
+                    "gap": float(logits[b[step]] - logits[g[step]]),
+                    "base_below_top": base_below,
+                    "spec_below_top": below[step] * nudge[step],
+                    "spec_worst_below_top_over_nudge": max(below),
+                    "ok": base_below <= nudge[step] and max(below) <= 1})
+    return out
+
+
+def spec_phase(k, dev):
+    """stablelm-1.6b at full width and depth in bf16 as the target, its
+    dynamic-int8 and int4 variants published with ``draft_of="fp32"`` into
+    an ArtifactRegistry in a temporary directory (v1 and v2) and resolved
+    through ``Deployment.spec_config(k=3)``. The engine trace's 16 greedy
+    requests served by the paged engine (the 65-block pool: it preempts)
+    and the dense one, non-spec and with each draft, each replay counted;
+    every spec stream held to the same engine's non-spec stream (where two
+    part: both tokens within one rounding's nudge of the top there, and
+    every token of the spec stream the target's greedy choice up to that
+    nudge on its own prefix); after the paged
+    int8-draft replay, 8 slots decoding: a spec step's ms and profile. Then
+    one sampled request (temperature 0.8) alone and inside the trace.
+    Returns the launch totals."""
+    import tempfile
+
+    from repro_torch import configs
+    from repro_torch.api import (ArtifactRegistry, Deployment, ModelArtifact,
+                                 VariantSpec)
+    from repro_torch.models import init_params
+    from repro_torch.serving import (ArrivalTrace, ContinuousBatchingEngine,
+                                     InferenceSession, SamplingParams,
+                                     replay)
+    from repro_torch.serving.loadgen import TracedRequest
+
+    cfg = configs.get_config("stablelm-1.6b")
+    params = init_params(cfg, seed=SEED)
+    trace = engine_trace(cfg)
+    session = InferenceSession(params, cfg)
+    dtype = getattr(torch, cfg.dtype)
+    build = os.path.join(ROOT, "build")
+    os.makedirs(build, exist_ok=True)
+    totals = {}
+    with tempfile.TemporaryDirectory(dir=build) as root:
+        dep = Deployment(ArtifactRegistry(root), "stablelm")
+        drafts = {}
+        for version, spec in (("v1", VariantSpec.dynamic_int8(
+                draft_of="fp32")), ("v2", VariantSpec.int4(draft_of="fp32"))):
+            t0 = time.perf_counter()
+            dep.publish(ModelArtifact.create("stablelm", version, params, cfg),
+                        [spec])
+            publish_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            drafts[spec.variant] = dep.spec_config(version, k=SPEC_K)
+            torch.cuda.synchronize()
+            emit("spec_publish", version=version, variant=spec.variant,
+                 draft_of=spec.draft_of, publish_s=publish_s,
+                 resolve_s=time.perf_counter() - t0,
+                 draft_bytes=drafts[spec.variant].draft.size_bytes)
+    sampled = TracedRequest(trace.requests[3].arrival_step,
+                            trace.requests[3].tokens, N_NEW,
+                            SamplingParams(temperature=0.8, seed=SEED + 33))
+    with_sampled = ArrivalTrace(trace.requests[:4] + (sampled,)
+                                + trace.requests[4:], trace.seed,
+                                trace.mean_interarrival)
+    streams, failures, memo = {}, [], {}
+    runs = [("none", mode) for mode in ("paged", "dense")] + [
+        (draft, mode) for draft in drafts for mode in ("paged", "dense")]
+    for draft, mode in runs:
+        kw = dict(ENGINE, **(PAGED if mode == "paged" else {}))
+        if draft != "none":
+            kw["spec"] = drafts[draft]
+        engine = ContinuousBatchingEngine(session, **kw)
+        engine.warmup(prompt_len=64, max_new_tokens=4)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        report, serve_ms, launches = _counted(
+            k, dtype, f"spec/{draft}/{mode}", lambda: replay(engine, trace))
+        reqs = engine.all_requests
+        for r in reqs:
+            if not r.done or len(r.out_tokens) != N_NEW:
+                raise AssertionError(f"spec/{draft}/{mode}: request {r.rid} "
+                                     f"ended {r.status}")
+        streams[draft, mode] = [r.out_tokens for r in reqs]
+        need = ["flash_prefill"] + (["paged_decode"] if (
+            draft == "none" and mode == "paged") else []) + (
+            ["qmatmul_dynamic"] if draft == "dynamic_int8" else [])
+        for name in need:
+            if launches[name] <= 0:
+                raise AssertionError(f"spec/{draft}/{mode}: {name} never "
+                                     f"launched ({launches})")
+        if draft != "none" and launches["paged_decode"]:
+            raise AssertionError(f"spec/{draft}/{mode}: the target decoded "
+                                 "through paged_decode, not verify")
+        if mode == "paged" and report["preempted"] < 1:
+            raise AssertionError(f"spec/{draft}/{mode}: no preemption")
+        extra = {}
+        if draft == "dynamic_int8" and mode == "paged":
+            # 8 slots decoding: a spec step's host ms and device profile
+            gen = torch.Generator().manual_seed(SEED + 34)
+            for _ in range(engine.n_slots):
+                engine.submit(torch.randint(0, cfg.vocab_size, (1, 60),
+                                            generator=gen), max_new_tokens=40)
+            while not all(r is not None and r.status == "decode"
+                          for r in engine.active):
+                engine.step()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(2):
+                engine.step()
+            torch.cuda.synchronize()
+            step_ms = (time.perf_counter() - t0) * 1e3 / 2
+            extra_trace = {"spec_step_ms_8_slots": step_ms,
+                           "spec_step_trace": profile_steps(engine.step, 2,
+                                                            step_ms)}
+            engine.run()
+        else:
+            extra_trace = {}
+        if draft != "none":
+            partings = _partings(params, cfg, trace, streams["none", mode],
+                                 streams[draft, mode], dev, memo)
+            failures += [p for p in partings if not p["ok"]]
+            extra = {"streams_equal_to_non_spec": sum(
+                a == b for a, b in zip(streams["none", mode],
+                                       streams[draft, mode])),
+                     "partings": partings}
+        _merge(totals, launches)
+        tokens = report["generated_tokens"]
+        emit("spec", model=cfg.name, dtype=cfg.dtype, layers=cfg.n_layers,
+             draft=draft, mode=mode, k=SPEC_K if draft != "none" else 0,
+             requests=report["completed"], generated_tokens=tokens,
+             decode_steps=report["decode_steps"], serve_ms=serve_ms,
+             tokens_per_s=tokens / serve_ms * 1e3,
+             p50_ttft_s=report["p50_ttft_s"], p99_ttft_s=report["p99_ttft_s"],
+             **{key: report[key] for key in (
+                 "acceptance_rate", "accepted_tokens_per_step", "spec_events",
+                 "spec_draft_tokens", "spec_accepted_tokens", "preempted",
+                 "prefix_hit_tokens", "kv_blocks_peak")},
+             launches=launches,
+             peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 1e9, **extra,
+             **extra_trace)
+        del engine
+        torch.cuda.empty_cache()
+    # one sampled request: alone, then inside the trace (paged, int8 draft)
+    sampled_streams = {}
+    for where, tr in (("alone", ArrivalTrace((sampled,), 0, 0.0)),
+                      ("in_trace", with_sampled)):
+        engine = ContinuousBatchingEngine(
+            session, spec=drafts["dynamic_int8"], **ENGINE, **PAGED)
+        (_, _, launches) = _counted(k, dtype, f"spec/sampled/{where}",
+                                    lambda: replay(engine, tr))
+        _merge(totals, launches)
+        req = next(r for r in engine.all_requests if not
+                   r.sampling.is_greedy)
+        sampled_streams[where] = req.out_tokens
+        del engine
+    same = sampled_streams["alone"] == sampled_streams["in_trace"]
+    emit("spec_sampled", temperature=0.8, seed=SEED + 33, draft="dynamic_int8",
+         mode="paged", streams=sampled_streams, identical=same,
+         differs_from_greedy=sampled_streams["alone"] != streams[
+             "none", "paged"][3])
+    if failures or not same:
+        raise AssertionError(f"spec: partings not at a tie {failures}, "
+                             f"sampled streams identical: {same}")
+    del session, params, drafts, memo
+    torch.cuda.empty_cache()
+    return totals
+
+
+# ------------------------------------------------------------------ #
+# Phase 13: every shape the main paths gave a kernel, against plain
+# ------------------------------------------------------------------ #
+def _flash_key(q, k, dv):
+    # (B, S, Hq, Hkv, hd, dv, dtype), as FLASH_SHAPES
+    b, s, hq, hd = q.shape
+    return (b, s, hq, k.shape[2], hd, dv, q.dtype)
+
+
+def _gemm_key(x, n):
+    # (M, K, N, x dtype) of an x [M, K]
+    return (*x.shape, n, x.dtype)
+
+
+@contextlib.contextmanager
+def recording_shapes(seen):
+    """Records into ``seen`` (kernel name -> set of shape keys) the shape of
+    every call that the model code makes through ``kernels.ops`` to the
+    flash prefills and the int8 GEMMs; the wrappers and their counters are
+    left as they are."""
+    from repro_torch.kernels import ops
+
+    keys = {"flash_prefill": lambda q, k, v: (
+                "flash_prefill", _flash_key(q, k, v.shape[-1])),
+            "flash_qprefill": lambda q, k, ks, v, vs: (
+                "flash_qprefill", _flash_key(q, k, v.shape[-1])),
+            # int4 V: two codes a byte
+            "flash_q4prefill": lambda q, k, ks, v, vs: (
+                "flash_q4prefill", _flash_key(q, k, 2 * v.shape[-1])),
+            "qmatmul_dynamic": lambda x, w, *a, **kw: (
+                "qmatmul_dynamic", _gemm_key(x, w.shape[1])),
+            "qmatmul_static": lambda x, w, *a, **kw: (
+                "qmatmul_static", _gemm_key(x, w.shape[1])),
+            # a packed weight is [N, Kp]
+            "qmatmul_packed": lambda x, w, s, act_scale=None, **kw: (
+                "qmatmul_dynamic" if act_scale is None else "qmatmul_static",
+                _gemm_key(x, w.shape[0]))}
+    saved = {name: getattr(ops, name) for name in keys}
+
+    def recorder(name):
+        def call(*args, **kw):
+            kernel, key = keys[name](*args, **kw)
+            seen.setdefault(kernel, set()).add(key)
+            return saved[name](*args, **kw)
+        return call
+    try:
+        for name in keys:
+            setattr(ops, name, recorder(name))
+        yield seen
+    finally:
+        for name, fn in saved.items():
+            setattr(ops, name, fn)
+
+
+def held_shapes_phase(k, dev, seen):
+    """Every flash-prefill and int8-GEMM shape that the main paths gave a
+    kernel (``recording_shapes``), held against the plain version on
+    random inputs of that shape and dtype. Shapes the kernel phases already
+    held (FLASH_SHAPES, GEMM_CASES at bf16 activations) are counted; the
+    rest run here, at the kernel phases' tolerances: flash FLASH_ATOL,
+    int8 / int4 K/V INT8KV_ATOL, GEMMs rtol 1e-6."""
+    ref, fp, qm, dq = k.ref, k.flash_prefill, k.qmatmul, k.dynquant
+    gen = torch.Generator(device=dev).manual_seed(SEED + 40)
+    cpu_gen = torch.Generator().manual_seed(SEED + 41)
+    gemm_held = {(m, kk, n, torch.bfloat16) for kk, n, ms in GEMM_CASES
+                 for m in ms}
+    codes = {"flash_qprefill": int8_codes, "flash_q4prefill": int4_codes}
+    summary = {}
+    for name in sorted(seen):
+        keys = sorted(seen[name], key=str)
+        gemm = name.startswith("qmatmul")
+        new = [key for key in keys
+               if key not in (gemm_held if gemm else FLASH_SHAPES)]
+        worst = 0.0
+        for key in new:
+            if gemm:
+                m, kk, n, dt = key
+                w = torch.randint(-127, 128, (kk, n), generator=gen,
+                                  device=dev, dtype=torch.int8)
+                ws = torch.rand((1, n), generator=gen, device=dev) * 1e-3 \
+                    + 1e-5
+                x = (torch.randn((m, kk), generator=gen, device=dev)
+                     * 2).to(dt)
+                wp = qm.pack_weight(w)
+                if name == "qmatmul_dynamic":
+                    got = dq.qmatmul_dynamic_packed(x, wp, ws)
+                    want = ref.qmatmul_dynamic_ref(x, w, ws)
+                else:
+                    act = (x.float().abs().amax() / 127.0).reshape(())
+                    got = qm.qmatmul_static_packed(x, wp, ws, act)
+                    want = ref.qmatmul_static_ref(x, w, ws, act)
+                torch.testing.assert_close(got, want, rtol=1e-6, atol=0,
+                                           msg=lambda m, key=key: f"{name} "
+                                           f"{key}: {m}")
+                del w, wp
+            else:
+                b, s, hq, hkv, hd, dv, dt = key
+                q = torch.randn((b, s, hq, hd), generator=gen,
+                                device=dev).to(dt)
+                if name == "flash_prefill":
+                    kv = [torch.randn((b, s, hkv, d), generator=gen,
+                                      device=dev).to(dt) for d in (hd, dv)]
+                    got = fp.flash_prefill(q, *kv)
+                    want, atol = ref.flash_prefill_ref(q, *kv), FLASH_ATOL
+                else:
+                    kv = [*codes[name](cpu_gen, (b, s, hkv, hd), dev),
+                          *codes[name](cpu_gen, (b, s, hkv, dv), dev)]
+                    got = getattr(fp, name)(q, *kv)
+                    want = getattr(ref, f"{name}_ref")(q, *kv)
+                    atol = INT8KV_ATOL
+                err = float((got - want).abs().max())
+                if not torch.isfinite(got).all() or err > atol:
+                    raise AssertionError(f"{name} {key}: max |err| {err} > "
+                                         f"{atol}")
+            worst = max(worst, float((got - want).abs().max()))
+            del got, want
+        summary[name] = {"shapes": len(keys),
+                         "held_by_kernel_phases": len(keys) - len(new),
+                         "held_here": len(new), "max_abs_err_here": worst,
+                         "here": [[str(v) for v in key] for key in new]}
+    torch.cuda.empty_cache()
+    emit("held_shapes", **summary)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs one GPU",
@@ -2645,45 +3422,47 @@ def main() -> int:
     heads["quantize_weights"] = quantize_weights_phase(k, dev, timer)
     del timer
     torch.cuda.empty_cache()
-    # launches: the queue runs, plus the paged replays for paged_decode and
-    # every quantized-KV replay for the quantized-KV kernels
-    totals = e2e_phase(k, dev)
-    paged_totals, all_totals, streams = engine_phase(k, dev)
-    totals["paged_decode"] = paged_totals["paged_decode"]
-    for name in ("qdecode", "paged_qdecode", "flash_qprefill",
-                 "paged_q4decode", "flash_q4prefill",
-                 *(f"flash_qprefill.{body}"
-                   for body in k.flash_prefill.QBODY.values()),
-                 *(f"flash_q4prefill.{body}"
-                   for body in k.flash_prefill.Q4BODY.values())):
-        totals[name] = totals.get(name, 0) + all_totals[name]
-    paged_vs_dense_phase(dev, streams)
-    card_vs_cpu_phase(dev, paged=False)
-    card_vs_cpu_phase(dev, paged=True)
-    # the VQI paths through the registry: the inspection queue at full
-    # depth, then the lifecycle at 2 layers; quantize_weights is on neither (artifacts are
-    # built by quantize_tensor, as in the JAX package), so it counts 0
-    totals["quantize_weights"] = 0
-    totals.update({f"quantize_weights.{route}": 0
-                   for route in k.quantize.ROUTES})
+    # every main path below records the shapes it gives the flash
+    # prefills and the int8 GEMMs; held_shapes_phase holds each one
+    seen = {}
+    with recording_shapes(seen):
+        # launches: the queue runs, plus the paged replays for paged_decode
+        # and every quantized-KV replay for the quantized-KV kernels
+        totals = e2e_phase(k, dev)
+        paged_totals, all_totals, streams = engine_phase(k, dev)
+        totals["paged_decode"] = paged_totals["paged_decode"]
+        for name in ("qdecode", "paged_qdecode", "flash_qprefill",
+                     "paged_q4decode", "flash_q4prefill",
+                     *(f"flash_qprefill.{body}"
+                       for body in k.flash_prefill.QBODY.values()),
+                     *(f"flash_q4prefill.{body}"
+                       for body in k.flash_prefill.Q4BODY.values())):
+            totals[name] = totals.get(name, 0) + all_totals[name]
+        paged_vs_dense_phase(dev, streams)
+        card_vs_cpu_phase(dev, paged=False)
+        card_vs_cpu_phase(dev, paged=True)
+        # the VQI paths through the registry: the inspection queue at full
+        # depth, then the lifecycle at 2 layers; quantize_weights is on
+        # neither (artifacts are built by quantize_tensor, as in the JAX
+        # package), so it counts 0
+        totals["quantize_weights"] = 0
+        totals.update({f"quantize_weights.{route}": 0
+                       for route in k.quantize.ROUTES})
 
-    def add(run):
-        for name in ("flash_prefill", "qmatmul_dynamic", "qmatmul_static",
-                     "quantize_weights",
-                     *(f"quantize_weights.{route}"
-                       for route in k.quantize.ROUTES),
-                     *(f"flash_prefill.{body}" for body in read_bodies(k)),
-                     *(f"{g}.{body}" for g in _gemms(k)
-                       for body in k.qmatmul.BODIES)):
-            totals[name] += run[name]
-
-    add(vqi_phase(k, dev))
-    add(lifecycle_phase(k, dev))
-    vqi_card_vs_cpu_phase(dev)
-    # training at full width and depth (flash_prefill under autograd: the
-    # forward and the recompute), then the paper's loop at vqi_config()
-    add(train_phase(k, dev))
-    add(vqi_loop_phase(k, dev))
+        _merge(totals, vqi_phase(k, dev))
+        _merge(totals, lifecycle_phase(k, dev))
+        vqi_card_vs_cpu_phase(dev)
+        # training at full width and depth (flash_prefill under autograd:
+        # the forward and the recompute), then the paper's loop at
+        # vqi_config()
+        _merge(totals, train_phase(k, dev))
+        _merge(totals, vqi_loop_phase(k, dev))
+        # the dense model's and quantization's remaining modules, then
+        # speculative decoding on them
+        for phase in (chunked_phase, dense_configs_phase, quant_modes_phase,
+                      spec_phase):
+            _merge(totals, phase(k, dev))
+    held_shapes_phase(k, dev, seen)
 
     sources = {"flash_prefill": ("src/repro_torch/csrc/flash_prefill.cu",
                                  "src/repro/kernels/flash_prefill.py:244"),

@@ -6,7 +6,8 @@ Queue 1 item 12).
     ModelArtifact              one object through the whole lifecycle
     VariantSpec / QuantRecipe  declarative quantization variants
     ArtifactRegistry           versioned, sha256-checked artifact store
-    Deployment                 fleet rollout facade
+    Deployment                 fleet rollout facade (``spec_config``: a
+                               draft/target pair for speculative decoding)
 """
 from repro_torch.api.variants import DEFAULT_VARIANTS, QuantRecipe, VariantSpec
 from repro_torch.api.artifact import ModelArtifact
@@ -23,6 +24,7 @@ from repro_torch.serving.engine import InferenceSession
 from repro_torch.serving.loadgen import ArrivalTrace, TracedRequest, replay
 from repro_torch.serving.sampling import SamplingParams
 from repro_torch.serving.scheduler import ContinuousBatchingEngine, GenRequest
+from repro_torch.serving.spec_decode import SpecConfig
 
 __all__ = [
     # artifacts + variants
@@ -30,7 +32,7 @@ __all__ = [
     # clocks (shared virtual-time layer)
     "SystemClock", "VirtualClock", "use_clock",
     # serving (continuous batching + load generation)
-    "ContinuousBatchingEngine", "GenRequest", "SamplingParams",
+    "ContinuousBatchingEngine", "GenRequest", "SamplingParams", "SpecConfig",
     "ArrivalTrace", "TracedRequest", "replay",
     # fleet control plane
     "Deployment", "ArtifactRegistry", "ArtifactRef", "EdgeAgent",

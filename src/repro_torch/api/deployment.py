@@ -9,6 +9,7 @@ roll a version out behind health gates, inspect status, roll back.
     dep.add_device("edge-std-0", DeviceProfile("edge-standard", 8 * 1024**3))
     dep.publish(model, specs, calib_data=batches, evaluate=eval_fn)
     report = dep.rollout("v1", validate=validate_fn)
+    spec = dep.spec_config(k=3)     # a draft_of pair, for the engine's spec=
 """
 from __future__ import annotations
 
@@ -107,10 +108,29 @@ class Deployment:
                                          self._resolve_version(version),
                                          validate, policy)
 
-    def spec_config(self, version: Optional[str] = None, **kwargs):
-        raise NotImplementedError(
-            "draft/target pairing for speculative decoding is ROADMAP "
-            "Queue 1 item 8")
+    def spec_config(self, version: Optional[str] = None, *,
+                    target_variant: str = "fp32", k: int = 4,
+                    draft_backend=None, device: DeviceLike = None):
+        """This model version's draft/target pair (declared with
+        ``VariantSpec(draft_of=...)`` at publish time) as a serving
+        ``SpecConfig`` for ``ContinuousBatchingEngine(target, spec=...)``;
+        the draft is fetched onto ``device``. The port has no backend
+        registry: ``draft_backend`` must stay None."""
+        from repro_torch.serving.spec_decode import SpecConfig
+
+        if draft_backend is not None:
+            raise ValueError(
+                "the port dispatches kernels by device; it has no backend "
+                "registry (draft_backend must be None)")
+        version = self._resolve_version(version)
+        ref = self.registry.draft_for(self.model, version, target_variant)
+        if ref is None:
+            raise KeyError(
+                f"no draft variant published for {self.model}:{version} "
+                f"target {target_variant!r}: publish one with "
+                "VariantSpec(..., draft_of=target)")
+        return SpecConfig(draft=self.registry.fetch_artifact(ref, device),
+                          k=k)
 
     def _resolve_version(self, version: Optional[str]) -> str:
         if version is not None:

@@ -5,10 +5,10 @@ A content-addressed, versioned store of model artifacts (weights +
 manifest, ``training/checkpoint.py``'s format) with an ``index.json`` in
 the JAX package's layout, so each package reads the other's registry. The
 same model version is published as fp32 / static_int8 / dynamic_int8
-variants and devices pull the variant their profile requires. Index
-entries are kept whole, so a ``draft_of`` relation (a speculative-decoding
-draft) that the JAX package published survives; publishing and reading one
-arrive with ROADMAP Queue 1 item 8.
+variants and devices pull the variant their profile requires. A variant
+published with ``VariantSpec(draft_of=...)`` records its speculative-decoding
+relation in its index entry, and ``draft_for`` finds it again, whichever
+package published it.
 """
 from __future__ import annotations
 
@@ -120,8 +120,24 @@ class ArtifactRegistry:
             metrics = evaluate(vparams, model.config) if evaluate else {}
             artifact = self.publish_artifact(
                 model.with_variant(spec.variant, vparams, metrics))
+            if spec.draft_of:
+                # the draft relation, for Deployment.spec_config
+                self._index[artifact.ref.key]["draft_of"] = spec.draft_of
+                self._save_index()
             out[spec.variant] = artifact
         return out
+
+    def draft_for(self, name: str, version: str,
+                  target_variant: str = "fp32") -> Optional[ArtifactRef]:
+        """The variant published with ``draft_of == target_variant`` for
+        this model version (its speculative-decoding draft), or None."""
+        for key, entry in self._index.items():
+            n, v, variant = key.split(":")
+            if (n == name and v == version
+                    and entry.get("draft_of") == target_variant):
+                return ArtifactRef(name, version, variant,
+                                   entry["sha256"], entry["size_bytes"])
+        return None
 
     def fetch_artifact(self, ref: ArtifactRef, device: DeviceLike = None):
         """Integrity-checked load as a ``ModelArtifact`` on ``device``."""

@@ -22,7 +22,7 @@ from repro_torch.models.config import ModelConfig
 class QuantRecipe:
     """Declarative quantization recipe; maps 1:1 onto ``QuantConfig``."""
     mode: str = "dynamic_int8"        # none | dynamic_int8 | static_int8
-    granularity: str = "per_channel"  # per_channel | per_tensor
+    granularity: str = "per_channel"  # per_channel | per_tensor | per_group
     group_size: int = 128
     bits: int = 8
     clip_percentile: float = 0.0
@@ -42,27 +42,45 @@ class QuantRecipe:
 @dataclasses.dataclass(frozen=True)
 class VariantSpec:
     """One artifact variant: its published label + the recipe producing it.
-    (``draft_of`` and the int4 constructor arrive with speculative decoding
-    and int4 weights, ROADMAP Queue 1 items 4 and 8.)"""
+
+    ``draft_of`` declares a speculative-decoding relation: this variant
+    serves as the *draft* for the named target variant (e.g.
+    ``dynamic_int8`` drafting for ``fp32``). The registry records it in its
+    index at publish time, and ``Deployment.spec_config`` pairs the two
+    into a serving ``SpecConfig``."""
     variant: str
     recipe: Optional[QuantRecipe] = None     # None -> params pass through
     calib_batches: int = 0                   # cap on calib_data (0 = all)
+    draft_of: Optional[str] = None           # target variant this one drafts
 
     @classmethod
     def fp32(cls) -> "VariantSpec":
         return cls("fp32", None)
 
     @classmethod
-    def dynamic_int8(cls, min_size: int = 1024, **kw) -> "VariantSpec":
+    def dynamic_int8(cls, min_size: int = 1024,
+                     draft_of: Optional[str] = None, **kw) -> "VariantSpec":
         return cls("dynamic_int8",
-                   QuantRecipe(mode="dynamic_int8", min_size=min_size, **kw))
+                   QuantRecipe(mode="dynamic_int8", min_size=min_size, **kw),
+                   draft_of=draft_of)
 
     @classmethod
     def static_int8(cls, calib_batches: int = 4, min_size: int = 1024,
-                    **kw) -> "VariantSpec":
+                    draft_of: Optional[str] = None, **kw) -> "VariantSpec":
         return cls("static_int8",
                    QuantRecipe(mode="static_int8", min_size=min_size, **kw),
-                   calib_batches=calib_batches)
+                   calib_batches=calib_batches, draft_of=draft_of)
+
+    @classmethod
+    def int4(cls, group_size: int = 64, min_size: int = 1024,
+             draft_of: Optional[str] = None, **kw) -> "VariantSpec":
+        """Weight-only int4, one scale per ``group_size`` contraction
+        elements (the paper's "advanced quantization" future work)."""
+        return cls("int4",
+                   QuantRecipe(mode="dynamic_int8", bits=4,
+                               granularity="per_group", group_size=group_size,
+                               min_size=min_size, **kw),
+                   draft_of=draft_of)
 
     def build(self, params, cfg: ModelConfig,
               calib_data: Optional[Iterable[Dict[str, torch.Tensor]]] = None,

@@ -1,29 +1,40 @@
 """Config registry of the port: ``get_config(arch_id)`` / ``smoke_config``.
 
 The dense-GQA architectures and phi-3-vision (the VQI model family) are
-registered; the other assigned architectures arrive with ROADMAP Queue 1
-item 9.
+registered; the MoE, MLA, SSM, hybrid and audio architectures arrive with
+ROADMAP Queue 1 item 9.
 """
 from __future__ import annotations
 
 import importlib
-from typing import Dict, List
+from typing import Dict, FrozenSet, List
 
 from repro_torch.models.config import ModelConfig
 
 CLI_ALIASES: Dict[str, str] = {
+    "deepseek-7b": "deepseek_7b",
     "mistral-nemo-12b": "mistral_nemo_12b",
     "phi-3-vision-4.2b": "phi_3_vision_4_2b",
+    "phi3-mini-3.8b": "phi3_mini_3_8b",
     "stablelm-1.6b": "stablelm_1_6b",
 }
 ARCH_IDS: List[str] = sorted(CLI_ALIASES.values())
 
+#: the JAX package's architectures with no twin here: ROADMAP Queue 1 item 9
+#: ports them
+UNPORTED: FrozenSet[str] = frozenset({
+    "deepseek_v2_236b", "kimi_k2_1t_a32b", "mamba2_780m", "musicgen_large",
+    "recurrentgemma_9b",
+})
+
 
 def _module(arch_id: str):
     key = CLI_ALIASES.get(arch_id, arch_id.replace("-", "_").replace(".", "_"))
-    if key not in ARCH_IDS:
+    if key in UNPORTED:
         raise NotImplementedError(
             f"{arch_id!r} is not ported yet (ROADMAP Queue 1 item 9)")
+    if key not in ARCH_IDS:
+        raise KeyError(f"unknown architecture {arch_id!r}")
     return importlib.import_module(f"repro_torch.configs.{key}")
 
 

@@ -7,6 +7,8 @@ from repro_torch.models.transformer import (
     init_params,
     prefill,
     prefill_paged,
+    verify_step,
+    verify_step_paged,
 )
 
 __all__ = [
@@ -16,6 +18,8 @@ __all__ = [
     "decode_step",
     "prefill_paged",
     "decode_step_paged",
+    "verify_step",
+    "verify_step_paged",
     "init_cache",
     "init_params",
 ]

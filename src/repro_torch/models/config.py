@@ -5,8 +5,9 @@ Every field of the JAX dataclass, with the same names and defaults, so the
 either package (``dataclasses.asdict(cfg)``) loads in the other with
 ``ModelConfig(**mc)``. ``dtype`` stays a string and ``activation_dtype``
 maps it to a ``torch.dtype``. Only the dense-GQA, full-attention stack is
-ported (with an fp, int8 or int4 KV cache, and the phi-3-vision frontend
-stub); ``check_supported`` names the ROADMAP item for everything else.
+ported (with an fp, int8 or int4 KV cache, the flash or the chunked
+prefill, and the phi-3-vision frontend stub); ``check_supported`` names
+the ROADMAP item for everything else.
 """
 from __future__ import annotations
 
@@ -137,14 +138,6 @@ def check_supported(cfg: ModelConfig) -> None:
         raise ValueError(
             f"{cfg.name}: a vlm needs frontend='vision' and frontend_dim > 0, "
             "and only a vlm has a vision frontend")
-    if not cfg.opt_flash_prefill:
-        raise NotImplementedError(
-            "the chunked-query prefill path is ROADMAP Queue 1 item 3; the "
-            "flash kernel covers every full-attention prefill")
-    if cfg.opt_attn_accum:
-        raise NotImplementedError(
-            "opt_attn_accum (bf16 attention operands) is ROADMAP Queue 1 "
-            "item 3")
     if cfg.fsdp:
         raise NotImplementedError(
             "fsdp weight sharding is ROADMAP Queue 1 item 10")

@@ -5,6 +5,7 @@ dict from ``repro_torch.core.quant.quantize_tree``
 
     {"w_int8": int8[K, N], "scale": f32[1, N] or f32[1, 1]}          # dynamic
     {"w_int8", "scale", "act_scale": f32[]}                          # static
+    {"w_int4" or "w_int8", "scale" f32[K/g, 1, N] or [1, N], "zero"?} # weight-only
 
 or the same with ``w_packed`` (int8 [N, Kp], K-major) in place of
 ``w_int8``, as ``place_params`` leaves it on the card, or a calibration
@@ -29,7 +30,8 @@ def is_quantized(p) -> bool:
 
 def _packable(leaf, path: str) -> bool:
     """A per-channel or per-tensor symmetric int8 leaf that ``linear``
-    reads."""
+    reads (a grouped leaf's rank-3 scale, an int4 or an asymmetric leaf
+    stays weight-only)."""
     return (isinstance(leaf, dict) and "w_int8" in leaf and "zero" not in leaf
             and leaf["w_int8"].dim() == 2 and leaf["scale"].dim() == 2
             and path not in _GATHERED)
@@ -70,6 +72,16 @@ def linear(p, x: torch.Tensor) -> torch.Tensor:
         p["obs"].observe(p["obs_id"], x)            # calibration pass
         return torch.matmul(x, p["w"].to(x.dtype))
     if is_quantized(p):
+        codes = p.get("w_int8", p.get("w_int4"))
+        if codes is not None and ("w_int4" in p or "zero" in p
+                                  or p["scale"].dim() == codes.dim() + 1):
+            # int4 / per-group / asymmetric: weight-only, dequantized and
+            # multiplied in the activation dtype (plain PyTorch, as the JAX
+            # package computes it outside any Pallas kernel); the w8a8
+            # GEMMs serve the plain int8 leaves
+            from repro_torch.core.quant.quantize import dequantize_tensor
+
+            return torch.matmul(x, dequantize_tensor(p, x.dtype))
         from repro_torch.kernels import ops
 
         lead = x.shape[:-1]
@@ -78,11 +90,6 @@ def linear(p, x: torch.Tensor) -> torch.Tensor:
             y = ops.qmatmul_packed(x2, p["w_packed"], p["scale"],
                                    p.get("act_scale"), out_dtype=x.dtype)
             return y.reshape(*lead, -1)
-        grouped = p["scale"].dim() == p.get("w_int8", p.get("w_int4")).dim() + 1
-        if "w_int4" in p or grouped or "zero" in p:
-            raise NotImplementedError(
-                "int4 / per-group / asymmetric weight leaves are ROADMAP "
-                "Queue 1 item 4 (weight-only dequant path)")
         if "act_scale" in p:
             y = ops.qmatmul_static(x2, p["w_int8"], p["scale"], p["act_scale"],
                                    out_dtype=x.dtype)

@@ -14,6 +14,8 @@ Entry points:
     decode_step(params, cache, tokens, pos, cfg) -> (logits, cache)
     prefill_paged(params, pools, batch, pos, tables, cfg)    -> (logits, pools)
     decode_step_paged(params, pools, tokens, pos, tables, cfg) -> (logits, pools)
+    verify_step(params, cache, tokens, pos, cfg)  -> (logits [B,M,V], cache)
+    verify_step_paged(params, pools, tokens, pos, tables, cfg) -> (logits, pools)
 
 A Python loop over the layers stands in for the JAX ``scan``. In train
 mode with ``cfg.remat`` and grad mode on, each layer runs under
@@ -79,16 +81,23 @@ def init_params(cfg: ModelConfig, seed: int = 0,
 # Embedding / head
 # ===================================================================== #
 def _take_embed(leaf, tokens, dtype):
-    """Embedding gather, aware of quantized and observer leaves. int8 rows
-    dequantize after the gather (per-channel scale [1, d])."""
+    """Embedding gather, aware of quantized and observer leaves. Quantized
+    rows dequantize after the gather (minus the zero point when
+    asymmetric); a grouped scale runs over the vocab axis, so row v takes
+    ``scale[v // g, 0]``."""
     if isinstance(leaf, dict) and ("w_int8" in leaf or "w_int4" in leaf):
-        if "w_int4" in leaf or "zero" in leaf \
-                or leaf["scale"].dim() == leaf["w_int8"].dim() + 1:
-            raise NotImplementedError(
-                "int4 / grouped / asymmetric embeddings are ROADMAP Queue 1 "
-                "item 4")
-        rows = leaf["w_int8"][tokens].to(torch.float32)
-        return (rows * leaf["scale"][0]).to(dtype)
+        vals = leaf.get("w_int8", leaf.get("w_int4"))
+        rows = vals[tokens].to(torch.float32)
+        if "zero" in leaf:
+            rows = rows - leaf["zero"][0]
+        scale = leaf["scale"]
+        if scale.dim() == vals.dim() + 1:
+            g = vals.shape[0] // scale.shape[0]
+            row_scale = scale[:, 0][torch.div(tokens, g,
+                                              rounding_mode="floor")]
+        else:
+            row_scale = scale[0]
+        return (rows * row_scale).to(dtype)
     if isinstance(leaf, dict) and "w" in leaf:
         leaf = leaf["w"]
     return leaf[tokens].to(dtype)
@@ -117,7 +126,14 @@ def lm_head(params, x, cfg: ModelConfig):
 def _block(lp, x, cfg: ModelConfig, *, mode: str, cache=None,
            positions=None, pos=None, pad_to: int = 0, tables=None):
     h = rms_norm(lp["ln1"], x, cfg.norm_eps)
-    if mode == "decode" and tables is not None:
+    if mode == "verify":
+        # speculative decoding: score k+1 candidate positions in one pass
+        if tables is not None:
+            a_out, new_cache = attn.gqa_verify_paged(lp["attn"], h, cache,
+                                                     pos, tables, cfg)
+        else:
+            a_out, new_cache = attn.gqa_verify(lp["attn"], h, cache, pos, cfg)
+    elif mode == "decode" and tables is not None:
         # paged decode: pooled cache leaves read through block tables
         a_out, new_cache = attn.gqa_decode_paged(lp["attn"], h, cache, pos,
                                                  tables, cfg)
@@ -218,6 +234,30 @@ def decode_step_paged(params, caches, tokens, pos, tables, cfg: ModelConfig):
     otherwise."""
     x = embed_inputs(params, {"tokens": tokens}, cfg)
     x, caches = _backbone(params, x, cfg, mode="decode", caches=caches,
+                          pos=pos, tables=tables)
+    return lm_head(params, x, cfg), caches
+
+
+def verify_step(params, caches, tokens, pos, cfg: ModelConfig):
+    """Multi-token verify (speculative decoding): score M candidate tokens
+    [B, M] in one pass against a dense cache (updated in place); ``pos``
+    (int or [B]) is the cache position of ``tokens[:, 0]``. Returns (logits
+    [B, M, V], caches): ``logits[:, i]`` is what M sequential
+    ``decode_step`` calls would give after ``tokens[:, :i+1]``. All M
+    tokens' K/V are written; callers roll a rejected tail back by position
+    alone (stale entries are masked, then overwritten)."""
+    x = embed_inputs(params, {"tokens": tokens}, cfg)
+    x, caches = _backbone(params, x, cfg, mode="verify", caches=caches,
+                          pos=pos)
+    return lm_head(params, x, cfg), caches
+
+
+def verify_step_paged(params, caches, tokens, pos, tables, cfg: ModelConfig):
+    """Paged ``verify_step``: pools and per-sequence block tables; the
+    scheduler truncates tail blocks that hold only rejected tokens
+    (``PagedKVCache.truncate``)."""
+    x = embed_inputs(params, {"tokens": tokens}, cfg)
+    x, caches = _backbone(params, x, cfg, mode="verify", caches=caches,
                           pos=pos, tables=tables)
     return lm_head(params, x, cfg), caches
 

@@ -18,6 +18,12 @@ from repro_torch.serving.kvcache import (
 )
 from repro_torch.serving.loadgen import ArrivalTrace, TracedRequest, replay
 from repro_torch.serving.sampling import SamplingParams, sample
+from repro_torch.serving.spec_decode import (
+    SpecConfig,
+    greedy_accept,
+    rejection_sample,
+    spec_supported,
+)
 from repro_torch.serving.scheduler import (
     METRIC_KEYS,
     ContinuousBatchingEngine,
@@ -49,4 +55,8 @@ __all__ = [
     "ContinuousBatchingEngine",
     "EngineConfig",
     "GenRequest",
+    "SpecConfig",
+    "spec_supported",
+    "greedy_accept",
+    "rejection_sample",
 ]

@@ -17,8 +17,8 @@ and int4 tiers.
 
 Attaching a second engine to one store (``shared=``) and the block export/import of
 the handoff between prefill and decode workers are ROADMAP Queue 1 item
-11; the speculative-decoding rollback (``truncate``) is item 8. Also here:
-copies of ``pow2_bucket`` and ``bucketed_prefill_ok``.
+11. ``truncate`` is the speculative-decoding rollback. Also here: copies
+of ``pow2_bucket`` and ``bucketed_prefill_ok``.
 """
 from __future__ import annotations
 
@@ -375,6 +375,21 @@ class PagedKVCache:
             return False
         self.attach(slot, bid)
         return True
+
+    def truncate(self, slot: int, keep_blocks: int) -> int:
+        """Speculative-decoding rollback: free ``slot``'s tail blocks beyond
+        the first ``keep_blocks`` (blocks that only ever held rejected
+        verify writes). Tail blocks are private (grown fresh for decode,
+        never hash-registered), so they go straight back to the free list.
+        Returns the number of blocks released."""
+        blocks = self.slot_blocks[slot]
+        n = 0
+        while len(blocks) > keep_blocks:
+            self.alloc.free(blocks.pop())
+            n += 1
+        if n:
+            self._dirty()
+        return n
 
     def release_slot(self, slot: int) -> None:
         for bid in self.slot_blocks[slot]:

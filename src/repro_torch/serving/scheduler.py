@@ -25,24 +25,36 @@ On the hot loop ``positions`` and ``last_tokens`` are device tensors
 updated in place, and each step takes one ``.tolist()`` of the batched
 argmax (one stream sync per step, not one per slot).
 
-Not ported here: speculative decoding (ROADMAP Queue 1 item 8), tensor
-parallelism (item 10), prefill/decode workers sharing one KV store
-(``submit_prefill``, ``submit_handoff``, ``shared_kv``: item 11), and
-frontend / multi-codebook requests (item 9). Each raises and names its
-item.
+* ``spec=SpecConfig(...)``: speculative decoding. A draft model proposes
+  ``k`` tokens per step from its own dense per-slot cache (last row: a
+  scratch position for idle slots); the target scores all ``k+1``
+  positions in one ``verify_step`` / ``verify_step_paged`` pass and the
+  engine commits the longest agreed prefix plus one target token. Greedy
+  output is the target's ``generate`` token for token; sampled requests
+  use seeded rejection sampling (``serving.spec_decode``). Dense caches
+  roll back by position alone; paged engines also free tail blocks that
+  held only rejected tokens (``PagedKVCache.truncate``). Prompt feeds
+  (chunked-prefill and prefix-hit tails, preemption resume) ride the
+  verify pass, up to ``k+1`` tokens a step.
+
+Not ported here: tensor parallelism (ROADMAP Queue 1 item 10),
+prefill/decode workers sharing one KV store (``submit_prefill``,
+``submit_handoff``, ``shared_kv``: item 11), and frontend / multi-codebook
+requests (item 9). Each raises and names its item.
 """
 from __future__ import annotations
 
 import dataclasses
 import heapq
 import time
-from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import (decode_step, decode_step_paged, init_cache,
-                                prefill, prefill_paged)
+                                prefill, prefill_paged, verify_step,
+                                verify_step_paged)
 from repro_torch.models.config import ModelConfig, check_supported
 from repro_torch.models.layers import place_params
 from repro_torch.serving.engine import InferenceSession, interpolated_percentile
@@ -51,6 +63,9 @@ from repro_torch.serving.kvcache import (PagedKVCache, blocks_for_budget,
                                          hash_prompt_blocks, paged_supported,
                                          pow2_bucket)
 from repro_torch.serving.sampling import SamplingParams, sample
+from repro_torch.serving.spec_decode import (SpecConfig, draft_propose,
+                                             greedy_accept, rejection_sample,
+                                             spec_supported)
 
 #: every metrics() call returns exactly these keys (the JAX package's
 #: schema, so reports built on either engine line up)
@@ -70,12 +85,12 @@ METRIC_KEYS = (
     # tensor-parallel serving (1 and == kv_hbm_bytes_per_req here)
     "tp",
     "kv_hbm_bytes_per_req_per_shard",
-    # speculative decoding (always zero here: ROADMAP Queue 1 item 8)
-    "spec_events",
-    "spec_draft_tokens",
-    "spec_accepted_tokens",
-    "acceptance_rate",
-    "accepted_tokens_per_step",
+    # speculative decoding (zero for non-spec engines)
+    "spec_events",               # per-slot draft/verify acceptance rounds
+    "spec_draft_tokens",         # draft tokens proposed
+    "spec_accepted_tokens",      # draft tokens accepted AND committed
+    "acceptance_rate",           # accepted / proposed draft tokens
+    "accepted_tokens_per_step",  # committed tokens per verify round
 )
 
 
@@ -112,6 +127,12 @@ class GenRequest:
     _admit_tokens: Optional[torch.Tensor] = None   # resume feed (prompt + gen)
     _resume_last: Optional[int] = None  # last generated token pre-preemption
     _block_hashes: Optional[List[int]] = None      # feed hash chain (cached)
+    # speculative decoding (spec engines only)
+    spec_events: int = 0               # verify rounds this request ran
+    spec_accepted: int = 0             # draft tokens accepted + committed
+    # committed tokens the draft cache still lacks: normally [last]; two
+    # right after a fully accepted round emitted a bonus token
+    _spec_pending: Optional[List[int]] = None
 
     @property
     def prompt_len(self) -> int:
@@ -146,6 +167,14 @@ def _hits_eos(token, eos_id) -> bool:
     return first == eos_id
 
 
+def _tree_insert(batched, single, slot: int) -> None:
+    """Copy a batch-1 cache (per-layer leaves ``[1, S, ...]``) into slot
+    ``slot`` of the batched cache, in place."""
+    for leaves, new in zip(batched["layers"], single["layers"]):
+        for c, c1 in zip(leaves, new):
+            c[slot:slot + 1].copy_(c1)
+
+
 def _unported(what: str, item: int) -> NotImplementedError:
     return NotImplementedError(f"{what} is ROADMAP Queue 1 item {item}")
 
@@ -162,7 +191,8 @@ class ContinuousBatchingEngine:
                  paged: bool = False, block_size: int = 16,
                  n_blocks: Optional[int] = None,
                  kv_budget_bytes: Optional[int] = None,
-                 spec=None, tp: int = 1, shared_kv=None,
+                 spec: Optional[SpecConfig] = None, tp: int = 1,
+                 shared_kv=None,
                  config: Optional[EngineConfig] = None,
                  device: DeviceLike = None):
         if config is not None:
@@ -171,8 +201,6 @@ class ContinuousBatchingEngine:
                     "the port dispatches kernels by device; it has no "
                     "backend registry (EngineConfig.backend must be None)")
             tp = config.tp if tp == 1 else tp
-        if spec is not None:
-            raise _unported("speculative decoding (spec=)", 8)
         if tp != 1:
             raise _unported(f"tensor-parallel serving (tp={tp})", 10)
         if shared_kv is not None:
@@ -200,7 +228,27 @@ class ContinuousBatchingEngine:
         self.prefill_chunk = prefill_chunk
         self.max_queue_depth = max_queue_depth
         self.paged = paged
-        self._pad_len = max_len
+        self.spec = spec
+        self.spec_k = 0
+        self._spec_m = 1               # verify span (k + 1) for spec engines
+        if spec is not None:
+            draft_params, draft_cfg, draft_dev = spec.resolve_draft()
+            why = spec_supported(cfg, draft_cfg, spec.k,
+                                 allow_moe_target=spec.allow_moe_target)
+            if why is not None:
+                raise ValueError(f"speculative decoding unsupported: {why}")
+            check_supported(draft_cfg)
+            if draft_dev is not None and draft_dev != self.device:
+                raise ValueError(f"the draft session is on {draft_dev}, the "
+                                 f"engine on {self.device}")
+            self.spec_k = spec.k
+            self._spec_m = spec.k + 1
+            self.draft_params = place_params(draft_params, self.device)
+            self.draft_cfg = draft_cfg
+        # cache length: max_len plus the verify span's headroom, so
+        # speculative writes near the sequence cap never clamp into valid
+        # rows
+        self._pad_len = max_len + (self._spec_m if spec is not None else 0)
         dev = self.device
         self.positions = torch.zeros((n_slots,), dtype=torch.int64, device=dev)
         self.last_tokens = torch.zeros((n_slots, 1), dtype=torch.int64,
@@ -217,6 +265,19 @@ class ContinuousBatchingEngine:
         self.prefix_hit_tokens = 0
         self.prompt_tokens_computed = 0
         self.prompt_tokens_submitted = 0
+        self.spec_events = 0           # per-slot verify acceptance rounds
+        self.spec_committed = 0        # tokens committed by those rounds
+        self.draft_proposed = 0
+        self.draft_accepted = 0
+        if spec is not None:
+            # the draft keeps a dense per-slot cache even under a paged
+            # target; its last row is a scratch position where idle and
+            # prefilling slots' batched draft writes land harmlessly
+            self.draft_cache = init_cache(self.draft_cfg, n_slots,
+                                          self._pad_len, device=dev)
+            self.draft_positions = torch.zeros((n_slots,), dtype=torch.int64,
+                                               device=dev)
+            self._draft_trash = self._pad_len - 1
         if paged:
             why = paged_supported(cfg)
             if why is not None:
@@ -267,6 +328,10 @@ class ContinuousBatchingEngine:
         self.prefix_hit_tokens = 0
         self.prompt_tokens_computed = 0
         self.prompt_tokens_submitted = 0
+        self.spec_events = 0
+        self.spec_committed = 0
+        self.draft_proposed = 0
+        self.draft_accepted = 0
         if self.paged:
             self.kv.reset()
 
@@ -368,14 +433,14 @@ class ContinuousBatchingEngine:
                                  chunk)
         last, single = prefill(self.params, batch, self.cfg,
                                pad_to=self._pad_len, n_valid=chunk)
-        for leaves, new in zip(self.cache["layers"], single["layers"]):
-            for c, c1 in zip(leaves, new):
-                c[slot:slot + 1].copy_(c1)
+        _tree_insert(self.cache, single, slot)
         self.positions[slot] = chunk
         req.n_consumed = chunk
         self.prefill_tokens += chunk
         self.prompt_tokens_computed += chunk
         self.active[slot] = req
+        if self.spec is not None:
+            self._admit_draft(slot, req)
         if chunk == s:
             # whole prompt in cache: prefill logits give the first token
             nxt = sample(last[0, -1], req.sampling, 0)
@@ -456,6 +521,8 @@ class ContinuousBatchingEngine:
         req.cache_pos = cache_tokens
         req.n_consumed = hit or chunk
         self.active[slot] = req
+        if self.spec is not None:
+            self._admit_draft(slot, req)
         if req.n_consumed == s:
             # whole feed in cache (tiny cold prompt): prefill logits give
             # the next token, or the pre-preemption token on resume
@@ -481,6 +548,20 @@ class ContinuousBatchingEngine:
         self.positions[slot] = 0
         if self.paged:
             self.kv.release_slot(slot)
+
+    def _admit_draft(self, slot: int, req: GenRequest) -> None:
+        """Prefill the draft's dense cache with the request's whole feed.
+        The draft has no prefix cache: it re-prefills prompt (+ generated
+        tokens on a preemption resume) even when the target got a prefix
+        hit."""
+        req._spec_pending = None
+        dcfg = self.draft_cfg
+        n_valid = req.feed_len
+        batch = self._pad_tokens({"tokens": req.feed_tokens}, dcfg, n_valid)
+        _, single = prefill(self.draft_params, batch, dcfg,
+                            pad_to=self._pad_len, n_valid=n_valid)
+        _tree_insert(self.draft_cache, single, slot)
+        self.draft_positions[slot] = req.feed_len
 
     # ---------------------------------------------------------------- #
     def _pick_victim(self) -> Optional[int]:
@@ -526,15 +607,17 @@ class ContinuousBatchingEngine:
         heapq.heappush(self._pending, (-req.priority, req.rid, req))
 
     def _ensure_blocks(self) -> None:
-        """Grow every active slot's table to cover its next write position,
-        preempting victims when the pool is exhausted."""
+        """Grow every active slot's table to cover its next write position
+        (the whole k+1 verify span for spec engines), preempting victims
+        when the pool is exhausted."""
         kv = self.kv
         bs = kv.block_size
+        span = self._spec_m
         for slot in range(self.n_slots):
             req = self.active[slot]
             if req is None:
                 continue
-            while req.cache_pos // bs >= len(kv.slot_blocks[slot]):
+            while (req.cache_pos + span - 1) // bs >= len(kv.slot_blocks[slot]):
                 if kv.grow(slot):
                     continue
                 victim = self._pick_victim()
@@ -567,9 +650,196 @@ class ContinuousBatchingEngine:
             req.finished_at = time.perf_counter()
 
     # ---------------------------------------------------------------- #
+    # Speculative decoding step (spec engines)
+    # ---------------------------------------------------------------- #
+    def _draft_phase(self, decode_slots: List[int]
+                     ) -> Tuple[Dict[int, List[int]], Dict[int, List[Any]]]:
+        """k batched draft decode steps. A decode slot feeds its pending
+        tokens (committed tokens the draft cache lacks), then the draft's
+        own proposals; idle and prefilling slots feed token 0 at the
+        scratch position. Returns (proposals, the draft distributions of
+        sampled slots' proposals)."""
+        proposals: Dict[int, List[int]] = {s: [] for s in decode_slots}
+        dprobs: Dict[int, List[Any]] = {s: [] for s in decode_slots}
+        pend: Dict[int, List[int]] = {}
+        n0: Dict[int, int] = {}
+        for s in decode_slots:
+            req = self.active[s]
+            pend[s] = list(req._spec_pending or [req.out_tokens[-1]])
+            n0[s] = len(req.out_tokens)
+        in_decode = torch.tensor([r is not None and r.status == "decode"
+                                  for r in self.active]).to(self.device)
+        base_pos = torch.where(in_decode, self.draft_positions,
+                               torch.full_like(self.draft_positions,
+                                               self._draft_trash))
+        for i in range(self.spec_k):
+            feed = [0] * self.n_slots
+            for s in decode_slots:
+                j = i - len(pend[s])
+                feed[s] = int(pend[s][i] if j < 0 else proposals[s][j])
+            toks = torch.tensor(feed, dtype=torch.int64).reshape(
+                self.n_slots, 1).to(self.device)
+            logits, _ = decode_step(self.draft_params, self.draft_cache, toks,
+                                    base_pos + i, self.draft_cfg)
+            last = logits[:, -1]
+            batch_argmax = None
+            for s in decode_slots:
+                j = i - len(pend[s]) + 1     # proposal produced this round
+                if j < 0:
+                    continue                 # still catching up on pending
+                req = self.active[s]
+                if req.sampling.is_greedy:
+                    if batch_argmax is None:
+                        batch_argmax = torch.argmax(last, dim=-1).tolist()
+                    proposals[s].append(int(batch_argmax[s]))
+                else:
+                    tok, probs = draft_propose(last[s], req.sampling,
+                                               n0[s] + j)
+                    proposals[s].append(tok)
+                    dprobs[s].append(probs)
+        return proposals, dprobs
+
+    def _step_spec(self) -> int:
+        """Admit -> draft k proposals -> one multi-token verify -> per-slot
+        accept and commit with rollback. Prompt-feeding slots ride the same
+        verify pass, consuming up to k+1 feed tokens. Returns #occupied."""
+        self._admit()
+        if self.paged:
+            self._ensure_blocks()            # covers the whole verify span
+        active_idx = [s for s in range(self.n_slots)
+                      if self.active[s] is not None]
+        if not active_idx:
+            return 0
+        m = self._spec_m
+        decode_slots = [s for s in active_idx
+                        if self.active[s].status == "decode"]
+        proposals, dprobs = (self._draft_phase(decode_slots)
+                             if decode_slots else ({}, {}))
+        # candidates [B, m]: the last committed token and the proposals of
+        # a decode slot, the next feed tokens of a feeding slot, padded
+        # with 0 (pad writes are stale by position and overwritten)
+        cand = [[0] * m for _ in range(self.n_slots)]
+        t_feed: Dict[int, int] = {}
+        for s in active_idx:
+            req = self.active[s]
+            if req.status == "decode":
+                row = [int(req.out_tokens[-1])] + proposals[s]
+            else:
+                t_f = min(m, req.feed_len - req.n_consumed)
+                t_feed[s] = t_f
+                row = req.feed_tokens[0, req.n_consumed:
+                                      req.n_consumed + t_f].tolist()
+            cand[s][:len(row)] = row
+        cand_t = torch.tensor(cand, dtype=torch.int64).to(self.device)
+        if self.paged:
+            logits, _ = verify_step_paged(self.params, self.kv.pools, cand_t,
+                                          self.positions, self.kv.tables,
+                                          self.cfg)
+        else:
+            logits, _ = verify_step(self.params, self.cache, cand_t,
+                                    self.positions, self.cfg)
+        self.steps += 1
+        tgt_argmax = None
+        pos_delta = [0] * self.n_slots
+        n_occupied = 0
+        for s in active_idx:
+            req = self.active[s]
+            if req.status != "decode":
+                n_occupied += self._commit_feed(s, req, t_feed[s], logits)
+                pos_delta[s] = t_feed[s]
+            else:
+                k_s = len(proposals[s])
+                if req.sampling.is_greedy:
+                    if tgt_argmax is None:
+                        tgt_argmax = torch.argmax(logits, dim=-1).tolist()
+                    n_acc, toks = greedy_accept(proposals[s],
+                                                tgt_argmax[s][:k_s + 1])
+                else:
+                    n_acc, toks = rejection_sample(
+                        proposals[s], dprobs[s], logits[s], req.sampling,
+                        len(req.out_tokens))
+                occupied, c = self._commit_spec(s, req, n_acc, k_s, toks)
+                n_occupied += occupied
+                pos_delta[s] = c
+                req.cache_pos += c
+            if req.done:
+                self._release(s)
+                pos_delta[s] = 0
+        self.positions += torch.tensor(pos_delta,
+                                       dtype=torch.int64).to(self.device)
+        if self.paged:
+            # rollback: drop tail blocks that only ever held rejected
+            # verify writes (or pad), so the pool carries no dead
+            # speculation between steps
+            for s in active_idx:
+                req = self.active[s]
+                if req is not None:
+                    self.kv.truncate(
+                        s, self.kv.blocks_for_tokens(req.cache_pos))
+        return n_occupied
+
+    def _commit_feed(self, slot: int, req: GenRequest, t_f: int,
+                     logits) -> int:
+        """Advance a prompt-feeding slot by the ``t_f`` feed tokens the
+        verify pass just wrote; on completion emit the first new token (or
+        take back the pre-preemption token on resume)."""
+        start = req.n_consumed
+        req.n_consumed += t_f
+        req.cache_pos += t_f
+        self.prompt_tokens_computed += (min(req.n_consumed, req.prompt_len)
+                                        - min(start, req.prompt_len))
+        if req.n_consumed < req.feed_len:
+            self._set_last(slot, self._prompt_token(req, req.n_consumed))
+            return 1
+        req.status = "decode"
+        if req._resume_last is not None:
+            self._set_last(slot, req._resume_last)
+            req._resume_last = None
+            return 1
+        nxt = sample(logits[slot, t_f - 1], req.sampling,
+                     len(req.out_tokens))
+        self._record(req, int(nxt))
+        self._set_last(slot, nxt)
+        return 0 if req.done else 1
+
+    def _commit_spec(self, slot: int, req: GenRequest, n_acc: int,
+                     k_s: int, toks: List[int]) -> Tuple[int, int]:
+        """Commit one verify round's tokens (stopping at EOS or budget),
+        update the acceptance counts and the draft's bookkeeping. Returns
+        (still occupied, tokens committed)."""
+        c = 0
+        for t in toks:
+            self._record(req, int(t))
+            c += 1
+            if req.done:
+                break
+        self.spec_events += 1
+        self.spec_committed += c
+        self.draft_proposed += k_s
+        accepted = min(n_acc, c)
+        self.draft_accepted += accepted
+        req.spec_events += 1
+        req.spec_accepted += accepted
+        if req.done:
+            req._spec_pending = None
+            return 0, c
+        if c == k_s + 1 and n_acc == k_s:
+            # bonus round: the draft never consumed its own last proposal,
+            # so the next draft phase feeds it before the bonus token
+            req._spec_pending = [toks[c - 2], toks[c - 1]]
+        else:
+            req._spec_pending = [toks[c - 1]]
+        self._set_last(slot, toks[c - 1])
+        total = req.prompt_len + len(req.out_tokens)
+        self.draft_positions[slot] = total - len(req._spec_pending)
+        return 1, c
+
+    # ---------------------------------------------------------------- #
     @torch.no_grad()
     def step(self) -> int:
         """Admit -> one batched decode step -> harvest. Returns #occupied."""
+        if self.spec is not None:
+            return self._step_spec()
         self._admit()
         if self.paged:
             self._ensure_blocks()                # may preempt under pressure
@@ -659,6 +929,13 @@ class ContinuousBatchingEngine:
             kv_blocks_peak=(self.kv.alloc.stats.peak_in_use
                             if self.paged else 0),
             tp=self.tp,
+            spec_events=self.spec_events,
+            spec_draft_tokens=self.draft_proposed,
+            spec_accepted_tokens=self.draft_accepted,
+            acceptance_rate=(self.draft_accepted / self.draft_proposed
+                             if self.draft_proposed else 0.0),
+            accepted_tokens_per_step=(self.spec_committed / self.spec_events
+                                      if self.spec_events else 0.0),
         )
         if not done:
             return m

@@ -681,3 +681,112 @@ def test_train_step_on_the_card_launches_flash_twice_a_layer(dev):
         == before + 2 * cfg.n_layers
     assert all(torch.isfinite(metrics[k]).item()
                for k in ("loss", "grad_norm"))
+
+
+# --------------------------------------------------------------------- #
+# Weight-only linears, the chunked prefill, the percentile, speculation
+# --------------------------------------------------------------------- #
+@pytest.mark.parametrize("recipe", [
+    dict(bits=4, group_size=64), dict(bits=8, group_size=128),
+    dict(symmetric=False), dict(bits=4, clip_percentile=99.9)], ids=str)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_weight_only_linear_card_equals_cpu(dev, recipe, dtype):
+    """int4 / grouped / asymmetric leaves: codes and scales quantized on the
+    card are the CPU's bit for bit, and the dequantize-then-matmul linear
+    agrees with the CPU's to the dtype's matmul rounding."""
+    from repro_torch.core.quant import quantize_tensor
+    from repro_torch.models.layers import linear, place_params
+
+    gen = torch.Generator().manual_seed(3)
+    w = (torch.randn(2048, 512, generator=gen) * 0.05).to(dtype)
+    x = torch.randn(5, 2048, generator=gen).to(dtype)
+    kw = dict(recipe)
+    kw["group_size"] = kw.get("group_size", 0)
+    cpu = quantize_tensor(w, **kw)
+    card = quantize_tensor(w.to(dev), **kw)
+    for key in cpu:
+        assert torch.equal(card[key].cpu(), cpu[key]), key
+    leaf = place_params(card, dev)              # stays weight-only
+    assert "w_packed" not in leaf
+    want = linear(cpu, x.float()).float()
+    got = linear(leaf, x.to(dev).float()).float().cpu()
+    torch.testing.assert_close(got, want, atol=1e-3, rtol=1e-4)
+    if dtype == torch.bfloat16:
+        got16 = linear(leaf, x.to(dev)).float().cpu()
+        assert (got16 - want).abs().max() <= 2 ** -6 * want.abs().max()
+
+
+def test_percentile_on_a_2_25_leaf_card_equals_cpu(dev):
+    """The sort + gather percentile on a 2^25-element leaf (per channel and
+    per tensor, both over 2^24): the card's scales are the CPU's bit for
+    bit (``torch.quantile`` refuses the leaf on either device)."""
+    from repro_torch.core.quant import percentile, quantize_tensor
+
+    w = torch.randn(8192, 4096, generator=torch.Generator().manual_seed(5))
+    assert w.numel() == 2 ** 25
+    for dims in ((0,), (0, 1)):
+        assert torch.equal(percentile(w.abs().to(dev), 99.9, dims).cpu(),
+                           percentile(w.abs(), 99.9, dims))
+    for per_channel in (True, False):
+        cpu = quantize_tensor(w, per_channel=per_channel,
+                              clip_percentile=99.9)
+        card = quantize_tensor(w.to(dev), per_channel=per_channel,
+                               clip_percentile=99.9)
+        for key in cpu:
+            assert torch.equal(card[key].cpu(), cpu[key]), key
+
+
+@pytest.mark.parametrize("tier", ["fp", "int8", "int4"])
+def test_chunked_prefill_card_equals_cpu(dev, tier):
+    """``opt_flash_prefill=False`` on the card (the chunked core, plain
+    PyTorch) against the CPU: logits of a 600-token prefill (two query
+    chunks) in f32 within 1e-3, and the quantized caches' codes equal but
+    for rare .5 flips."""
+    from repro_torch import configs
+    from repro_torch.models import init_params, prefill
+    from repro_torch.models.layers import place_params
+
+    cfg = configs.smoke_config("mistral-nemo-12b").with_overrides(
+        dtype="float32", opt_flash_prefill=False, kv_cache_precision=tier)
+    params = init_params(cfg, seed=1, device="cpu")
+    tokens = torch.randint(0, cfg.vocab_size, (1, 600),
+                           generator=torch.Generator().manual_seed(2))
+    launches = flash_prefill.flash_prefill.launches
+    with torch.no_grad():
+        want, cache = prefill(params, {"tokens": tokens}, cfg, pad_to=640)
+        got, card_cache = prefill(place_params(params, dev),
+                                  {"tokens": tokens.to(dev)}, cfg, pad_to=640)
+    assert flash_prefill.flash_prefill.launches == launches
+    torch.testing.assert_close(got.cpu(), want, atol=1e-3, rtol=0)
+    for c, g in zip(cache["layers"][0], card_cache["layers"][0]):
+        if c.dtype == torch.int8 and tier == "int8":
+            assert (c.int() - g.cpu().int()).abs().max() <= 1
+
+
+def test_greedy_spec_engine_on_the_card_equals_generate(dev):
+    """A short greedy speculative run on the card (stablelm smoke in f32,
+    dynamic-int8 draft, paged and dense) gives the target's own
+    ``generate`` streams."""
+    from repro_torch import configs
+    from repro_torch.api.variants import VariantSpec
+    from repro_torch.models import init_params
+    from repro_torch.serving import (ContinuousBatchingEngine,
+                                     InferenceSession, SpecConfig)
+
+    cfg = configs.smoke_config("stablelm-1.6b").with_overrides(
+        dtype="float32")
+    params = init_params(cfg, seed=0, device=dev)
+    draft, _ = VariantSpec.dynamic_int8().build(params, cfg)
+    session = InferenceSession(params, cfg, device=dev)
+    gen = torch.Generator().manual_seed(4)
+    prompts = [torch.randint(0, cfg.vocab_size, (1, n), generator=gen)
+               for n in (9, 17, 30)]
+    want = [session.generate({"tokens": p}, 10)[0].tolist() for p in prompts]
+    for kw in ({}, dict(paged=True, block_size=16)):
+        engine = ContinuousBatchingEngine(
+            session, n_slots=2, max_len=64,
+            spec=SpecConfig(draft=(draft, cfg), k=3), **kw)
+        reqs = [engine.submit(p, max_new_tokens=10) for p in prompts]
+        engine.run()
+        assert [r.out_tokens for r in reqs] == want
+        assert engine.metrics()["spec_events"] > 0

@@ -197,8 +197,8 @@ def test_deployment_facade(setup):
     assert dep.rollback() == []          # nothing older to go back to
     with pytest.raises(ValueError, match="manages 'm'"):
         dep.publish(ModelArtifact.create("other", "v1", params, cfg), SPECS)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 8"):
-        dep.spec_config()
+    with pytest.raises(KeyError, match="no draft variant"):
+        dep.spec_config()                # no variant was published draft_of
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 12"):
         dep.simulator()
     with pytest.raises(ValueError, match="telemetry/variant_policy"):

@@ -54,12 +54,14 @@ C = _cu_constants()
 # the port's kernel tests' ragged shapes: no dimension a multiple of the
 # TPU blocks or the card's tiles
 GEMM_SHAPES = [(7, 48, 33), (130, 257, 129), (1, 128, 256)]
-# (K, N): stablelm-1.6b and phi-3-vision's weight shapes (chip_smoke.py's
-# GEMM_KN and VQI_GEMM_KN) and the card tests' ragged ones
+# (K, N): stablelm-1.6b, phi-3-vision and deepseek-7b's weight shapes
+# (chip_smoke.py's GEMM_KN, VQI_GEMM_KN and DENSE_GEMM_CASES) and the card
+# tests' ragged ones
 PLAN_KN = [(2048, 2048), (2048, 11264), (5632, 2048), (2048, 100352),
            (3072, 3072), (3072, 16384), (8192, 3072), (1024, 3072),
-           (3072, 32064), (300, 203), (257, 129), (640, 1024)]
-PLAN_M = list(range(1, 18)) + [255, 1023, 1024, 4632]
+           (3072, 32064), (4096, 4096), (4096, 22016), (11008, 4096),
+           (4096, 102400), (300, 203), (257, 129), (640, 1024)]
+PLAN_M = list(range(1, 18)) + [64, 128, 255, 1023, 1024, 4632]
 
 
 def test_python_mirrors_the_source_constants():

@@ -329,7 +329,7 @@ def test_engine_from_session_and_no_device(nemo):
 def test_unported_options_name_the_roadmap(nemo):
     _, tp = nemo.params["fp32"]
     cfg = nemo.tcfg
-    for kw, item in (({"spec": object()}, "item 8"), ({"tp": 2}, "item 10"),
+    for kw, item in (({"tp": 2}, "item 10"),
                      ({"config": EngineConfig(tp=2)}, "item 10"),
                      ({"shared_kv": object(), "paged": True}, "item 11")):
         with pytest.raises(NotImplementedError, match=f"ROADMAP .*{item}"):
