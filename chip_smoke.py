@@ -36,7 +36,9 @@ prints one JSON line per phase:
    the route and plan that ran and its ptxas line; both routes, the
    cluster and the two-pass one, must run); the GEMMs and flash prefill
    also run at the VQI forward's shapes (M 4632 at phi-3-vision's five
-   weight shapes; B8 S579 H32 hd96);
+   weight shapes; B8 S579 H32 hd96), and flash prefill at MLA's 192 / 128
+   width class (MLA_FLASH: one 1024-token deepseek-v2 prefill, with the
+   class's ptxas lines);
 3. e2e: stablelm-1.6b at full width in bf16 with random seeded weights, the
    three default variants (fp32 passthrough, dynamic int8, static int8
    calibrated on 2 batches of 2 x 128 tokens) and dynamic int8 over an
@@ -106,7 +108,17 @@ prints one JSON line per phase:
    and without each draft, every spec stream held to the non-spec one (a
    parting's margin to the card's nudge), then one sampled request alone
    and inside the trace;
-13. a ``kernels`` line, the ``nvidia-smi`` line, and last the device line.
+13. moe_mla: deepseek-v2-236b (MLA + MoE) at its published width and 4 of
+   60 layers in bf16 and as dynamic int8, kimi-k2-1t-a32b (GQA + MoE) at 2
+   of 61 layers in bf16: the queue, the dense and paged engines over an
+   8-request trace (an 8-slot decode step profiled), paged against dense
+   streams (``moe_partings``), flash against chunked prefill and naive
+   against absorbed decode within 2.5x the nudge, a spec replay with the
+   int8 variant drafting for the bf16 target, the routing card against
+   CPU at 2 layers; ``fraction_dropped``, peak memory and the flash
+   launches per width class (every MLA prefill in the 192 / 128 class);
+14. a ``kernels`` line (flash_prefill with its launches per width
+   class), the ``nvidia-smi`` line, and last the device line.
 
 Every counted run also checks that each flash_prefill, flash_qprefill and
 flash_q4prefill launch took the body of its dtype (``launches_by_body``),
@@ -176,6 +188,10 @@ FLASH_SHAPES += tuple((1, s, 32, 32, 64, 64, torch.bfloat16)
                       for s in (255, 600)) + tuple(
     (1, s, 32, 32, hd, hd, torch.bfloat16) for hd in (96, 128)
     for s in (64, 128))
+# the MLA width class: one 1024-token deepseek-v2 prefill of one layer at
+# its published width (128 heads, hd = qk_nope 128 + qk_rope 64, dv 128)
+# (flash_prefill only: the quantized prefills stay at 128)
+MLA_FLASH = (1, 1024, 128, 128, 192, 128, torch.bfloat16)
 # f32 reference on the same values; the tensor-core body's bf16 products
 # are exact in f32, p is split into two bf16 terms (bf16 inputs: ~1e-5), and
 # f32 inputs are split too (three products per mma: ~2e-5); summation order
@@ -306,6 +322,15 @@ DENSE_ARCHS, DENSE_PROMPT, DENSE_STEPS = ("phi3-mini-3.8b", "deepseek-7b"), 128,
 DENSE_QUEUE = (37, 100)     # the RequestQueue's two prompts
 # speculative decoding: draft tokens proposed per verify step
 SPEC_K = 3
+# MoE and MLA at published width: deepseek-v2 (MLA + MoE) at 4 of its 60
+# layers (1 dense + 3 MoE: 13.30 B parameters, 26.6 GB in bf16) and kimi-k2
+# (GQA + MoE) at 2 of its 61 (1 dense + 1 MoE: 19.97 B, 39.9 GB in bf16;
+# bf16 only: its int8 experts would dequantize through 45 GB of f32);
+# a trace of 8 requests, prompts of 32-128 tokens, 16 new tokens each;
+# the routing card vs CPU at deepseek-v2's width and 2 layers (10.7 GB)
+MOE_DEPTH = {"deepseek-v2-236b": 4, "kimi-k2-1t-a32b": 2}
+MOE_TRACE_N, MOE_PROMPT, MOE_NEW = 8, (32, 128), 16
+MOE_ROUTE_DEPTH, MOE_ROUTE_PROMPT, MOE_ROUTE_STEPS = 2, 32, 4
 
 
 T0 = time.perf_counter()
@@ -408,18 +433,24 @@ def reset_counters(k):
         bodies = fn.launches_by_body
         for body in bodies:
             bodies[body] = 0
+    classes = k.flash_prefill.flash_prefill.launches_by_class
+    for c in classes:
+        classes[c] = 0
 
 
 def read_counters(k):
     """Launches per wrapper, the GEMMs' per body (``qmatmul_dynamic.gemv``,
-    ``qmatmul_dynamic.wgmma``, ...) and quantize_weights' per route
-    (``quantize_weights.cluster``, ``quantize_weights.two_pass``)."""
+    ``qmatmul_dynamic.wgmma``, ...), quantize_weights' per route
+    (``quantize_weights.cluster``, ``quantize_weights.two_pass``) and
+    flash_prefill's per width class (``flash_prefill.class.192x128``)."""
     out = {name: fn.launches for name, fn in _wrappers(k).items()}
     out.update({f"quantize_weights.{route}": n for route, n in
                 k.quantize.quantize_weights.routes.items()})
     for name, fn in _gemms(k).items():
         out.update({f"{name}.{body}": n
                     for body, n in fn.launches_by_body.items()})
+    out.update({f"flash_prefill.class.{c}": n for c, n in
+                k.flash_prefill.flash_prefill.launches_by_class.items()})
     return out
 
 
@@ -639,26 +670,37 @@ def gemm_phase(k, dev, timer):
 
 
 def flash_phase(k, dev, timer):
+    """flash_prefill at every FLASH_SHAPES shape and MLA_FLASH against the
+    plain version, timed beside its bound and one PyTorch call computing
+    the same function (``scaled_dot_product_attention``, causal; where it
+    refuses the shape, None and its error). Returns (the headline row, the
+    MLA row with its instantiation's ptxas line)."""
     ref, fp = k.ref, k.flash_prefill
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
-    worst, headline = 0.0, None
-    for shape in FLASH_SHAPES:
+    worst, headline, mla = 0.0, None, None
+    for shape in FLASH_SHAPES + (MLA_FLASH,):
         b, s, hq, hkv, hd, dv, dt = shape
         q = torch.randn((b, s, hq, hd), generator=gen, device=dev).to(dt)
         kk = torch.randn((b, s, hkv, hd), generator=gen, device=dev).to(dt)
         v = torch.randn((b, s, hkv, dv), generator=gen, device=dev).to(dt)
         before = read_bodies(k)
+        classes = dict(fp.flash_prefill.launches_by_class)
         got, want = fp.flash_prefill(q, kk, v), ref.flash_prefill_ref(q, kk, v)
         torch.cuda.synchronize()
         ran = [b for b, n in read_bodies(k).items() if n != before[b]]
         if ran != [fp.BODY[dt]]:
             raise AssertionError(f"flash_prefill {shape}: bodies {ran} ran, "
                                  f"not {fp.BODY[dt]}")
+        cls = [c for c, n in fp.flash_prefill.launches_by_class.items()
+               if n != classes[c]]
+        if cls != [fp.width_class(hd, dv)]:
+            raise AssertionError(f"flash_prefill {shape}: classes {cls}")
         err = float((got - want).abs().max())
         if not torch.isfinite(got).all() or err > FLASH_ATOL:
             raise AssertionError(f"flash_prefill {shape}: max |err| {err} > "
                                  f"{FLASH_ATOL}")
         worst = max(worst, err)
+        del got, want
         t_k = timer.graph_ms(lambda: fp.flash_prefill(q, kk, v))
         t_eager = timer.eager_ms(lambda: fp.flash_prefill(q, kk, v))
         t_p = timer.graph_ms(lambda: ref.flash_prefill_ref(q, kk, v), iters=3)
@@ -666,9 +708,13 @@ def flash_phase(k, dev, timer):
         qt = q.transpose(1, 2).contiguous()
         kt = kk.repeat_interleave(g, dim=2).transpose(1, 2).contiguous()
         vt = v.repeat_interleave(g, dim=2).transpose(1, 2).contiguous()
-        lib = timer.graph_ms(
-            lambda: torch.nn.functional.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True))
+        lib_error = None
+        try:
+            lib = timer.graph_ms(
+                lambda: torch.nn.functional.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True))
+        except RuntimeError as e:      # a library refusal is a finding
+            lib, lib_error = None, str(e).splitlines()[0][:200]
         visible = s * (s + 1) // 2                 # causal (query, key) pairs
         flops = 2.0 * (hd + dv) * visible * b * hq
         nbytes = (q.numel() + kk.numel() + v.numel()) * q.element_size() \
@@ -676,15 +722,25 @@ def flash_phase(k, dev, timer):
         b_ms, b_by = bound(nbytes, flops, str(dt).split(".")[-1])
         row = dict(kernel="flash_prefill", B=b, S=s, Hq=hq, Hkv=hkv, hd=hd,
                    dv=dv, dtype=str(dt).split(".")[-1], body=ran[0],
-                   max_abs_err=err,
+                   width_class=cls[0], max_abs_err=err,
                    atol=FLASH_ATOL, gflop=flops / 1e9, ms=t_k,
                    eager_ms=t_eager, plain_ms=t_p,
                    library_ms=lib, bound_ms=b_ms, bound_by=b_by)
+        if lib_error:
+            row["library_error"] = lib_error
+        if shape == MLA_FLASH:
+            t = "float" if dt == torch.float32 else "__nv_bfloat16"
+            row["ptxas"] = {n: k.ptxas.get(n) for n in (
+                f"tc::flash_tc<{t}, 192, 128>",
+                "tc::flash_tc<float, 192, 128>")}
+            mla = row
         emit("kernel", **row)
         if shape == HEADLINE_FLASH:
             headline = row
+        del q, kk, v, qt, kt, vt
+        torch.cuda.empty_cache()
     headline["max_abs_err"] = worst
-    return headline
+    return headline, mla
 
 
 def paged_case(dev, gen, shape):
@@ -3236,7 +3292,437 @@ def spec_phase(k, dev):
 
 
 # ------------------------------------------------------------------ #
-# Phase 13: every shape the main paths gave a kernel, against plain
+# Phase 13: MoE and MLA at published width
+# ------------------------------------------------------------------ #
+@contextlib.contextmanager
+def moe_probes(drops=None, routes=None):
+    """Records each MoE layer call of the port: ``drops`` gets (assignments
+    T * k, ``fraction_dropped`` left on the device until read), ``routes``
+    the router's (probs, top-k choices) on the host (a sync a call: only
+    for the short routing runs)."""
+    from repro_torch.models import moe
+
+    route, ffn = moe.route, moe.moe_ffn
+
+    def rec_route(p, xt, cfg):
+        out = route(p, xt, cfg)
+        routes.append((out[1].float().cpu(), out[3].cpu()))
+        return out
+
+    def rec_ffn(p, x, cfg):
+        out, aux = ffn(p, x, cfg)
+        drops.append((x.shape[0] * x.shape[1] * cfg.top_k,
+                      aux["fraction_dropped"]))
+        return out, aux
+
+    try:
+        if routes is not None:
+            moe.route = rec_route
+        if drops is not None:
+            moe.moe_ffn = rec_ffn
+        yield
+    finally:
+        moe.route, moe.moe_ffn = route, ffn
+
+
+def dropped(drops):
+    """(assignments dropped, of all, the largest fraction of one call)."""
+    n = [round(float(fd) * a) for a, fd in drops]
+    return sum(n), sum(a for a, _ in drops), max(
+        (float(fd) for _, fd in drops), default=0.0)
+
+
+def paged_split_forced(params, cfg, tokens, forced, dev,
+                       bs=PAGED["block_size"]):
+    """Host logits of ``tokens`` [1, n] admitted as the paged engine admits
+    a cold prompt (its full-block prefix prefilled into the pools, the rest
+    fed one token a decode step), then one decode step per ``forced``
+    token: out[0] predicts the first new token, as ``teacher_forced``'s."""
+    from repro_torch.models import decode_step_paged, prefill_paged
+    from repro_torch.serving.kvcache import init_paged_pools
+
+    n = tokens.shape[1]
+    nb = -(-(n + len(forced)) // bs)
+    pools = init_paged_pools(cfg, nb + 1, bs, device=dev)
+    tables = torch.arange(1, nb + 1, dtype=torch.int32, device=dev)[None]
+    chunk = ((n - 1) // bs) * bs or n
+    feed = [t.reshape(1, 1) for t in tokens[0, chunk:]] + list(forced)
+    out = []
+    with torch.no_grad():
+        last, _ = prefill_paged(params, pools,
+                                {"tokens": tokens[:, :chunk].to(dev)}, chunk,
+                                tables, cfg)
+        if chunk == n:
+            out.append(last.cpu())
+        for i, tok in enumerate(feed):
+            pos = torch.full((1,), chunk + i, device=dev)
+            last, _ = decode_step_paged(params, pools, tok.to(dev), pos,
+                                        tables, cfg)
+            if chunk + i + 1 >= n:
+                out.append(last.cpu())
+    return out
+
+
+def moe_partings(params, cfg, trace, dense, paged, dev):
+    """Where a paged stream parts from the dense one: both paths
+    teacher-forced with the common prefix (the dense path plainly and with
+    ``nudged_norms``; the paged path as the paged engine admits the
+    prompt). Capacity is shared by the tokens of one pass, so the paged
+    path, whose prompt tail rides decode steps, keeps tail assignments
+    that the dense prefill may drop. Where both paths dropped as many
+    assignments (a rounding parting), their logits must agree within 2.5x
+    the step's nudge and both tokens lie within the nudge of the top;
+    where they did not (a capacity parting), each token must lie within
+    the nudge of the top of its own path."""
+    out = []
+    for rid, (a, b) in enumerate(zip(dense, paged)):
+        if a == b:
+            continue
+        step = next(j for j, (x, y) in enumerate(zip(a, b)) if x != y)
+        tokens = trace.requests[rid].tokens
+        forced = [torch.tensor([[t]]) for t in a[:step]]
+        d_drops, p_drops = [], []
+        with moe_probes(drops=d_drops):
+            d_plain, _ = teacher_forced(params, cfg, tokens, dev, False,
+                                        forced, step)
+        with nudged_norms():
+            d_nudged, _ = teacher_forced(params, cfg, tokens, dev, False,
+                                         forced, step)
+        with moe_probes(drops=p_drops):
+            p_plain = paged_split_forced(params, cfg, tokens, forced, dev)
+        nudge = float((d_nudged[step] - d_plain[step]).abs().max())
+        ld, lp = d_plain[step][0, -1], p_plain[step][0, -1]
+        paths = float((ld - lp).abs().max())
+        extra = dropped(d_drops)[0] - dropped(p_drops)[0]
+        below = {"dense_on_dense": float(ld.max() - ld[a[step]]),
+                 "paged_on_dense": float(ld.max() - ld[b[step]]),
+                 "paged_on_paged": float(lp.max() - lp[b[step]])}
+        if extra == 0:
+            ok = (paths <= 2.5 * nudge and below["dense_on_dense"] <= nudge
+                  and below["paged_on_dense"] <= nudge)
+        else:
+            ok = (below["dense_on_dense"] <= nudge
+                  and below["paged_on_paged"] <= nudge)
+        out.append({"request": rid, "step": step, "tokens": [a[step],
+                                                            b[step]],
+                    "kind": "rounding" if extra == 0 else "capacity",
+                    "dense_minus_paged_assignments_dropped": extra,
+                    "paths_max_abs_dlogit": paths, "nudge": nudge,
+                    "below_top": below, "ok": ok})
+    return out
+
+
+def moe_route_check(params, cfg, dev):
+    """deepseek-v2 at full width and depth 2 (its dense layer and one MoE
+    layer), the same weights on the card and on the CPU (the port's plain
+    path): a 32-token prefill and 4 decode steps fed the CPU's greedy
+    tokens, the card's run also with ``nudged_norms``. Top-k choices must
+    be equal but where the CPU's k-th and (k+1)-th router probabilities
+    are within one rounding's effect on them (the card's nudged probs);
+    the logits, at every step whose token routed the same, within 2.5x
+    the step's nudge."""
+    from repro_torch.models.layers import place_params
+
+    cfg2 = cfg.with_overrides(n_layers=MOE_ROUTE_DEPTH)
+    card = {**params, "layers": params["layers"][:MOE_ROUTE_DEPTH
+                                                 - cfg.n_dense_layers]}
+    t0 = time.perf_counter()
+    host = place_params(card, "cpu")
+    copy_s = time.perf_counter() - t0
+    tokens = torch.randint(0, cfg.vocab_size, (1, MOE_ROUTE_PROMPT),
+                           generator=torch.Generator().manual_seed(SEED + 51))
+    r_cpu, r_card, r_nudged = [], [], []
+    t0 = time.perf_counter()
+    with moe_probes(routes=r_cpu):
+        cpu, fed = teacher_forced(host, cfg2, tokens, "cpu", False, None,
+                                  MOE_ROUTE_STEPS)
+    cpu_s = time.perf_counter() - t0
+    del host
+    with moe_probes(routes=r_card):
+        got, _ = teacher_forced(card, cfg2, tokens, dev, False, fed,
+                                MOE_ROUTE_STEPS)
+    with nudged_norms(), moe_probes(routes=r_nudged):
+        nudged, _ = teacher_forced(card, cfg2, tokens, dev, False, fed,
+                                   MOE_ROUTE_STEPS)
+    k = cfg.top_k
+    differ, near, outside, flipped = 0, 0, [], set()
+    for step, ((p_cpu, i_cpu), (p_card, i_card), (p_n, _)) in enumerate(
+            zip(r_cpu, r_card, r_nudged)):
+        srt = torch.sort(p_cpu, dim=-1, descending=True).values
+        gap = srt[:, k - 1] - srt[:, k]
+        rounding = (p_n - p_card).abs().amax(dim=-1)
+        near += int((gap <= rounding).sum())
+        for t in range(p_cpu.shape[0]):
+            if set(i_cpu[t].tolist()) == set(i_card[t].tolist()):
+                continue
+            differ += 1
+            if t == p_cpu.shape[0] - 1:
+                flipped.add(step)     # the position whose logits are read
+            if gap[t] > rounding[t]:
+                outside.append({"call": step, "token": t,
+                                "gap": float(gap[t]),
+                                "rounding": float(rounding[t])})
+    steps = []
+    for step, (a, b, n) in enumerate(zip(cpu, got, nudged)):
+        steps.append({"max_abs_dlogit": float((a - b).abs().max()),
+                      "nudge": float((n - b).abs().max()),
+                      "routing_differs": step in flipped})
+    bad = [s for s in steps if not s["routing_differs"]
+           and s["max_abs_dlogit"] > 2.5 * s["nudge"]]
+    emit("moe_routing_card_vs_cpu", model=cfg.name, layers=MOE_ROUTE_DEPTH,
+         prompt=MOE_ROUTE_PROMPT, decode_steps=MOE_ROUTE_STEPS,
+         host_copy_s=copy_s, cpu_s=cpu_s,
+         tokens_routed=sum(p.shape[0] for p, _ in r_cpu),
+         top_k_differ=differ, within_one_rounding=near,
+         differ_outside_one_rounding=outside, steps=steps, tol_factor=2.5)
+    if outside or bad or len(r_cpu) != MOE_ROUTE_STEPS + 1:
+        raise AssertionError(f"moe routing card vs CPU: {outside} {bad}")
+
+
+def moe_trace(cfg):
+    """MOE_TRACE_N greedy requests, prompts uniform in MOE_PROMPT tokens,
+    MOE_NEW new tokens each, Poisson arrivals TRACE_GAP ticks apart."""
+    from repro_torch.serving import ArrivalTrace
+
+    return ArrivalTrace.generate(cfg, MOE_TRACE_N, seed=SEED + 50,
+                                 mean_interarrival=TRACE_GAP,
+                                 prompt_len=MOE_PROMPT,
+                                 max_new=(MOE_NEW, MOE_NEW))
+
+
+def _flash_class(k, cfg) -> str:
+    """The flash_tc width class of ``cfg``'s prefill (MLA: hd = qk_nope +
+    qk_rope beside dv = v_head_dim)."""
+    if cfg.attention == "mla":
+        return k.flash_prefill.width_class(cfg.qk_nope_dim + cfg.qk_rope_dim,
+                                           cfg.v_head_dim)
+    hd = cfg.resolved_head_dim
+    return k.flash_prefill.width_class(hd, hd)
+
+
+def moe_serve(k, session, cfg, label, dev, spec=None, profile=False):
+    """The batch-1 queue (``generate``, MOE_NEW tokens after each of
+    DENSE_QUEUE's prompts), then the trace replayed by the dense and the
+    paged engine (``spec``: one dense spec replay instead), each counted;
+    every flash launch of the MLA model must take the 192 / 128 class.
+    Returns (launches, streams by mode)."""
+    from repro_torch.serving import (ContinuousBatchingEngine, Pipeline,
+                                     RequestQueue, replay)
+
+    dtype = getattr(torch, cfg.dtype)
+    trace = moe_trace(cfg)
+    cls = _flash_class(k, cfg)
+    totals, streams = {}, {}
+    gen = torch.Generator(device=dev).manual_seed(SEED + 52)
+    runs = ([("spec", spec)] if spec is not None
+            else [("queue", None), ("dense", None), ("paged", None)])
+    for mode, sp in runs:
+        drops = []
+        torch.cuda.reset_peak_memory_stats(dev)
+        extra = {}
+        if mode == "queue":
+            prompts = [torch.randint(0, cfg.vocab_size, (1, n), generator=gen,
+                                     device=dev) for n in DENSE_QUEUE]
+            pipe = Pipeline(preprocess=lambda raw: raw,
+                            infer=lambda b: session.generate(b, MOE_NEW),
+                            postprocess=lambda out, raw: out)
+            queue = RequestQueue(pipe, max_batch=1)
+            reqs = [queue.submit({"tokens": p}) for p in prompts]
+            with moe_probes(drops=drops):
+                _, serve_ms, launches = _counted(
+                    k, dtype, f"{label}/queue", queue.drain)
+            for r in reqs:
+                if not r.done or r.result.shape != (1, MOE_NEW) or int(
+                        r.result.min()) < 0 or int(
+                        r.result.max()) >= cfg.vocab_size:
+                    raise AssertionError(f"{label}/queue: bad result")
+            prefills = len(reqs)
+            tokens = len(reqs) * MOE_NEW
+            extra = {"queue_tokens_per_s": tokens / serve_ms * 1e3,
+                     "host_ms_per_token": serve_ms / tokens}
+        else:
+            kw = dict(ENGINE, **(PAGED if mode == "paged" else {}))
+            engine = ContinuousBatchingEngine(session, spec=sp, **kw)
+            engine.warmup(prompt_len=64, max_new_tokens=4)
+            torch.cuda.synchronize()
+            with moe_probes(drops=drops):
+                report, serve_ms, launches = _counted(
+                    k, dtype, f"{label}/{mode}", lambda: replay(engine,
+                                                                trace))
+            for r in engine.all_requests:
+                if not r.done or len(r.out_tokens) != MOE_NEW or not all(
+                        0 <= t < cfg.vocab_size for t in r.out_tokens):
+                    raise AssertionError(f"{label}/{mode}: request {r.rid} "
+                                         f"ended {r.status}")
+            streams[mode] = [r.out_tokens for r in engine.all_requests]
+            prefills = None
+            tokens = report["generated_tokens"]
+            extra = {key: report[key] for key in (
+                "p50_ttft_s", "p99_ttft_s", "decode_steps", "preempted",
+                "kv_blocks_peak", "acceptance_rate", "spec_events")}
+            extra.update(tokens_per_s=tokens / serve_ms * 1e3,
+                         host_ms_per_step=serve_ms / report["decode_steps"])
+            if profile and mode == "paged":
+                watch = ("paged_decode_split" if cfg.attention != "mla"
+                         else None)
+                per_step, step_ms, dtrace = decode_window(
+                    k, engine, cfg, torch.Generator().manual_seed(SEED + 53),
+                    watch, cfg.n_layers if watch else None)
+                extra.update(decode_step_ms_8_slots=step_ms,
+                             launches_per_decode_step=per_step,
+                             decode_trace=dtrace)
+            del engine
+        flash = launches["flash_prefill"]
+        by_class = {c: launches[f"flash_prefill.class.{c}"]
+                    for c in k.flash_prefill.CLASSES}
+        if flash <= 0 or by_class[cls] != flash or flash % cfg.n_layers or (
+                prefills is not None and flash != prefills * cfg.n_layers):
+            raise AssertionError(f"{label}/{mode}: flash_prefill launches "
+                                 f"{flash} by class {by_class}, want class "
+                                 f"{cls}, {cfg.n_layers} a prefill")
+        need = (["qmatmul_dynamic"] if "int8" in label else []) + (
+            ["paged_decode"] if mode == "paged" and cfg.attention != "mla"
+            else [])
+        for name in need:
+            if launches[name] <= 0:
+                raise AssertionError(f"{label}/{mode}: {name} never "
+                                     f"launched ({launches})")
+        if cfg.attention == "mla" and launches["paged_decode"]:
+            raise AssertionError(f"{label}/{mode}: MLA decoded through "
+                                 "paged_decode")
+        n_drop, n_all, worst = dropped(drops)
+        emit("moe_mla", model=cfg.name, variant=label, mode=mode,
+             layers=cfg.n_layers, d_model=cfg.d_model, experts=cfg.n_experts,
+             top_k=cfg.top_k, generated_tokens=tokens, serve_ms=serve_ms,
+             fraction_dropped=n_drop / max(n_all, 1),
+             fraction_dropped_worst_call=worst, moe_calls=len(drops),
+             flash_launches_by_class=by_class, launches=launches,
+             peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+             **extra)
+        _merge(totals, launches)
+        torch.cuda.empty_cache()
+    return totals, streams, trace
+
+
+def moe_mla_phase(k, dev):
+    """deepseek-v2-236b (MLA + MoE) at its published width and MOE_DEPTH
+    layers in bf16: the queue, the dense and paged engines over
+    ``moe_trace`` (an 8-slot paged decode step profiled), paged against
+    dense streams (``moe_partings``), flash against chunked prefill logits
+    and naive against absorbed decode logits (2.5x each step's nudge); its
+    dynamic-int8 artifact built from the same weights drafting for it in a
+    dense spec replay (``allow_moe_target``); the routing card vs CPU
+    (``moe_route_check``); then, the bf16 weights freed, the int8 variant
+    through the queue and both engines. Then kimi-k2-1t-a32b (GQA + MoE) in
+    bf16 at MOE_DEPTH layers: the queue, both engines, paged against dense.
+    Returns the launch totals."""
+    from repro_torch import configs
+    from repro_torch.api.variants import VariantSpec
+    from repro_torch.core.quant import quantized_size_bytes
+    from repro_torch.models import init_params, prefill
+    from repro_torch.serving import InferenceSession, SpecConfig
+    from repro_torch.tree import leaves_with_path
+
+    totals = {}
+    for arch in ("deepseek-v2-236b", "kimi-k2-1t-a32b"):
+        cfg = configs.get_config(arch).with_overrides(n_layers=MOE_DEPTH[arch])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        params = init_params(cfg, seed=SEED)
+        torch.cuda.synchronize()
+        emit("moe_mla_setup", model=cfg.name, layers=cfg.n_layers,
+             published_layers=configs.get_config(arch).n_layers,
+             params=cfg.param_count(),
+             active_params=cfg.param_count(active_only=True),
+             param_gb=sum(t.numel() * t.element_size() for _, t in
+                          leaves_with_path(params)) / 1e9,
+             init_s=time.perf_counter() - t0,
+             init_peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
+        session = InferenceSession(params, cfg)
+        launches, streams, trace = moe_serve(k, session, cfg, "bf16", dev,
+                                             profile=True)
+        _merge(totals, launches)
+        partings = moe_partings(session.params, cfg, trace, streams["dense"],
+                                streams["paged"], dev)
+        emit("moe_mla_paged_vs_dense", model=cfg.name,
+             streams_equal=sum(a == b for a, b in zip(streams["dense"],
+                                                      streams["paged"])),
+             of=len(trace), partings=partings)
+        if not all(p["ok"] for p in partings):
+            raise AssertionError(f"{cfg.name}: paged vs dense partings "
+                                 f"{partings}")
+        # flash against the chunked core; naive against absorbed decode
+        gen = torch.Generator(device=dev).manual_seed(SEED + 54)
+        prompt = torch.randint(0, cfg.vocab_size, (1, DENSE_PROMPT),
+                               generator=gen, device=dev)
+        with torch.no_grad():
+            flash, _ = prefill(params, {"tokens": prompt}, cfg, pad_to=256)
+            chunked, _ = prefill(params, {"tokens": prompt},
+                                 cfg.with_overrides(opt_flash_prefill=False),
+                                 pad_to=256)
+            with nudged_norms():
+                nudged, _ = prefill(params, {"tokens": prompt}, cfg,
+                                    pad_to=256)
+        checks = {"flash_vs_chunked": [{
+            "max_abs_dlogit": float((chunked - flash).abs().max()),
+            "nudge": float((nudged - flash).abs().max())}]}
+        if cfg.attention == "mla":
+            naive, fed = teacher_forced(params, cfg, prompt.cpu(), dev, False)
+            absorbed, _ = teacher_forced(
+                params, cfg.with_overrides(opt_mla_absorb=True), prompt.cpu(),
+                dev, False, fed)
+            with nudged_norms():
+                n_naive, _ = teacher_forced(params, cfg, prompt.cpu(), dev,
+                                            False, fed)
+            checks["naive_vs_absorbed"] = [
+                {"max_abs_dlogit": float((a - b).abs().max()),
+                 "nudge": float((n - a).abs().max())}
+                for a, b, n in zip(naive, absorbed, n_naive)]
+        bad = {name: rows for name, rows in checks.items()
+               if any(r["max_abs_dlogit"] > 2.5 * r["nudge"] for r in rows)}
+        emit("moe_mla_paths", model=cfg.name, tol_factor=2.5, **checks)
+        if bad:
+            raise AssertionError(f"{cfg.name}: beyond 2.5x the nudge {bad}")
+        if arch == "deepseek-v2-236b":
+            torch.cuda.reset_peak_memory_stats(dev)
+            t0 = time.perf_counter()
+            qparams, info = VariantSpec.dynamic_int8().build(params, cfg)
+            torch.cuda.synchronize()
+            emit("moe_mla_int8_build", model=cfg.name,
+                 build_s=time.perf_counter() - t0,
+                 quantized_leaves=len(info["quantized_paths"]),
+                 size_gb=quantized_size_bytes(qparams) / 1e9,
+                 peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
+            spec = SpecConfig(draft=(qparams, cfg), k=SPEC_K,
+                              allow_moe_target=True)
+            launches, s_streams, _ = moe_serve(k, session, cfg,
+                                               "bf16_int8_draft", dev,
+                                               spec=spec)
+            _merge(totals, launches)
+            same = sum(a == b for a, b in zip(streams["dense"],
+                                               s_streams["spec"]))
+            firsts = [next((j for j, (x, y) in enumerate(zip(a, b))
+                            if x != y), None)
+                      for a, b in zip(streams["dense"], s_streams["spec"])]
+            emit("moe_mla_spec_agreement", model=cfg.name,
+                 streams_equal_to_non_spec=same, of=len(trace),
+                 first_parting_step=firsts)
+            moe_route_check(params, cfg, dev)
+            del session, params, spec
+            torch.cuda.empty_cache()
+            session = InferenceSession(qparams, cfg)
+            del qparams
+            launches, _, _ = moe_serve(k, session, cfg, "dynamic_int8", dev)
+            _merge(totals, launches)
+        del session
+        params = None
+        torch.cuda.empty_cache()
+    return totals
+
+
+# ------------------------------------------------------------------ #
+# Phase 14: every shape the main paths gave a kernel, against plain
 # ------------------------------------------------------------------ #
 def _flash_key(q, k, dv):
     # (B, S, Hq, Hkv, hd, dv, dtype), as FLASH_SHAPES
@@ -3293,7 +3779,8 @@ def held_shapes_phase(k, dev, seen):
     """Every flash-prefill and int8-GEMM shape that the main paths gave a
     kernel (``recording_shapes``), held against the plain version on
     random inputs of that shape and dtype. Shapes the kernel phases already
-    held (FLASH_SHAPES, GEMM_CASES at bf16 activations) are counted; the
+    held (FLASH_SHAPES, MLA_FLASH, GEMM_CASES at bf16 activations) are
+    counted; the
     rest run here, at the kernel phases' tolerances: flash FLASH_ATOL,
     int8 / int4 K/V INT8KV_ATOL, GEMMs rtol 1e-6."""
     ref, fp, qm, dq = k.ref, k.flash_prefill, k.qmatmul, k.dynquant
@@ -3307,7 +3794,8 @@ def held_shapes_phase(k, dev, seen):
         keys = sorted(seen[name], key=str)
         gemm = name.startswith("qmatmul")
         new = [key for key in keys
-               if key not in (gemm_held if gemm else FLASH_SHAPES)]
+               if key not in (gemm_held if gemm
+                              else FLASH_SHAPES + (MLA_FLASH,))]
         worst = 0.0
         for key in new:
             if gemm:
@@ -3403,7 +3891,8 @@ def main() -> int:
          ptxas_redesigned={name: k.ptxas[name] for name in sorted(k.ptxas)
                            if "flash_q" in name or "_split" in name
                            or name.startswith(("quantize_cluster",
-                                               "quantize_cols"))},
+                                               "quantize_cols"))
+                           or ", 192, 128>" in name},
          ptxas_spilled=spilled)
 
     timer = Timer(dev)
@@ -3411,7 +3900,8 @@ def main() -> int:
     emit("timer", floor_ms=timer.graph_ms(lambda: one.add_(1), iters=20),
          what="one 1-element kernel timed as every kernel row is")
     heads = gemm_phase(k, dev, timer)
-    heads["flash_prefill"] = flash_phase(k, dev, timer)
+    heads["flash_prefill"], heads["flash_prefill_mla"] = flash_phase(
+        k, dev, timer)
     heads["paged_decode"] = paged_phase(k, dev, timer)
     heads["qdecode"] = qdecode_phase(k, dev, timer)
     heads["paged_qdecode"] = paged_qdecode_phase(k, dev, timer)
@@ -3462,6 +3952,9 @@ def main() -> int:
         for phase in (chunked_phase, dense_configs_phase, quant_modes_phase,
                       spec_phase):
             _merge(totals, phase(k, dev))
+        # the MoE and MLA models at published width (the flash prefill's
+        # 192 / 128 class)
+        _merge(totals, moe_mla_phase(k, dev))
     held_shapes_phase(k, dev, seen)
 
     sources = {"flash_prefill": ("src/repro_torch/csrc/flash_prefill.cu",
@@ -3503,6 +3996,11 @@ def main() -> int:
             kernels[-1]["launches_by_body"] = {
                 body: totals[f"{name}.{body}"]
                 for body in read_bodies(k, name)}
+        if name == "flash_prefill":
+            kernels[-1]["launches_by_class"] = {
+                c: totals.get(f"flash_prefill.class.{c}", 0)
+                for c in k.flash_prefill.CLASSES}
+            kernels[-1]["mla_class"] = heads["flash_prefill_mla"]
         if name in ("paged_decode", "paged_q4decode"):
             kernels[-1]["body"] = h["body"]
         if name == "quantize_weights":

@@ -2,9 +2,11 @@
 
 The caller converts the JAX tree to numpy first (``jax.tree.map(np.asarray,
 params)``), so this module never imports JAX. Layer-stacked ``[L, ...]``
-leaves under ``layers`` (``repro.models.transformer.init_params``) are
-unstacked into the port's per-layer list; quantized leaf dicts unstack
-field by field (``w_int8 [L,K,N]``, ``scale [L,1,N]``, ``act_scale [L]``).
+leaves under ``layers`` and, for an MoE model, ``head_layers``
+(``repro.models.transformer.init_params``) are unstacked into the port's
+per-layer lists; quantized leaf dicts unstack field by field (``w_int8
+[L,K,N]``, ``scale [L,1,N]``, ``act_scale [L]``; an expert leaf's
+``w_int8 [L,E,d,2ff]``).
 
 ``stack_layers`` / ``unstack_layers`` move a port param tree to the JAX
 layout and back with the tensors left as they are (the checkpoint format
@@ -12,11 +14,12 @@ of ``training/checkpoint.py`` is the JAX tree's). The vision projector
 ``frontend_proj`` (fp or quantized) is a top-level leaf and crosses as is.
 
 Caches and block pools convert in both directions: the JAX package keeps
-one ``[L, ...]`` leaf per cache field (``{"layers": (k, v)}`` with ``k``
-``[L, B, S, Hkv, hd]`` dense or ``[L, N, bs, Hkv, hd]`` pooled, or the
-quantized tiers' ``(k_q, k_scale, v_q, v_scale)``: int8 codes with f32
-scales, or int4 packed codes with f16 group scales), the port one tuple of
-the same fields per layer. Every dtype round-trips bit for bit (f16 as
+one ``[L, ...]`` leaf per cache field and stack (``{"layers": (k, v)}``
+with ``k`` ``[L, B, S, Hkv, hd]`` dense or ``[L, N, bs, Hkv, hd]`` pooled,
+or the quantized tiers' ``(k_q, k_scale, v_q, v_scale)``: int8 codes with
+f32 scales, or int4 packed codes with f16 group scales; MLA's ``(c_kv,
+k_rope)``; an MoE model's ``head_layers`` beside ``layers``), the port one
+tuple of the same fields per layer. Every dtype round-trips bit for bit (f16 as
 f16, bfloat16 through its 16-bit pattern).
 """
 from __future__ import annotations
@@ -28,7 +31,8 @@ import torch
 
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.config import ModelConfig, check_supported
-from repro_torch.tree import map_with_path
+from repro_torch.models.transformer import STACKS
+from repro_torch.tree import leaves_with_path, map_with_path
 
 
 def to_torch(a, device) -> torch.Tensor:
@@ -46,16 +50,15 @@ def params_from_jax(tree, cfg: ModelConfig, device: DeviceLike = None) -> Any:
     """JAX param tree of numpy arrays -> port param tree on ``device``."""
     check_supported(cfg)
     dev = resolve_device(device)
-    return unstack_layers(map_with_path(lambda _, a: to_torch(a, dev), tree),
-                          cfg.n_layers)
+    return unstack_layers(map_with_path(lambda _, a: to_torch(a, dev), tree))
 
 
 def stack_layers(params) -> Any:
-    """The port's tree -> the JAX layout, tensors kept: the per-layer list
-    under ``layers`` becomes one dict whose leaves are stacked ``[L, ...]``
-    (quantized dicts field by field, a static ``act_scale`` as ``[L]``)."""
-    layers = params["layers"]
-    out = {k: v for k, v in params.items() if k != "layers"}
+    """The port's tree -> the JAX layout, tensors kept: each per-layer list
+    (``layers``, and ``head_layers`` of an MoE model) becomes one dict
+    whose leaves are stacked ``[L, ...]`` (quantized dicts field by field,
+    a static ``act_scale`` as ``[L]``)."""
+    out = {k: v for k, v in params.items() if k not in STACKS}
 
     def stack(node, *rest):
         if isinstance(node, dict):
@@ -63,16 +66,25 @@ def stack_layers(params) -> Any:
                     for k, v in node.items()}
         return torch.stack([node, *rest])
 
-    out["layers"] = stack(*layers)
+    for key in STACKS:
+        if key in params:
+            out[key] = stack(*params[key])
     return out
 
 
-def unstack_layers(tree, n_layers: int) -> Any:
-    """Inverse of ``stack_layers``: ``[L, ...]`` leaves under ``layers``
-    become the port's list of ``n_layers`` per-layer dicts."""
-    out = {k: v for k, v in tree.items() if k != "layers"}
-    out["layers"] = [map_with_path(lambda _, t, i=i: t[i], tree["layers"])
-                     for i in range(n_layers)]
+def unstack_layers(tree, n_layers: int = 0) -> Any:
+    """Inverse of ``stack_layers``: the ``[L, ...]`` leaves of each stack
+    become the port's list of per-layer dicts, L read from the leaves
+    (``n_layers``, when given, must be the layers of all stacks)."""
+    out = {k: v for k, v in tree.items() if k not in STACKS}
+    for key in STACKS:
+        if key in tree:
+            n = next(t.shape[0] for _, t in leaves_with_path(tree[key]))
+            out[key] = [map_with_path(lambda _, t, i=i: t[i], tree[key])
+                        for i in range(n)]
+    got = sum(len(out[key]) for key in STACKS if key in out)
+    if n_layers and got != n_layers:
+        raise ValueError(f"the tree holds {got} layers, not {n_layers}")
     return out
 
 
@@ -106,19 +118,24 @@ def grads_to_jax(tree) -> Any:
 
 
 def cache_from_jax(tree, device: DeviceLike = None) -> Any:
-    """JAX cache or pools as numpy (``{"layers": (k, v)}`` or the int8 /
-    int4 4-tuple, leaves ``[L, ...]``) -> the port's ``{"layers": [(k, v),
-    ...]}`` (or 4-tuples)."""
+    """JAX cache or pools as numpy (``{"layers": (k, v)}``, the int8 /
+    int4 4-tuple or MLA's ``(c_kv, k_rope)``, leaves ``[L, ...]``, and an
+    MoE model's ``head_layers`` alike) -> the port's ``{"layers": [(k, v),
+    ...]}`` (or 4-tuples), stack by stack."""
     dev = resolve_device(device)
-    fields = [np.asarray(a) for a in tree["layers"]]
-    return {"layers": [tuple(to_torch(f[i], dev) for f in fields)
-                       for i in range(fields[0].shape[0])]}
+    out = {}
+    for key in STACKS:
+        if key in tree:
+            fields = [np.asarray(a) for a in tree[key]]
+            out[key] = [tuple(to_torch(f[i], dev) for f in fields)
+                        for i in range(fields[0].shape[0])]
+    return out
 
 
 def cache_to_jax(cache) -> Any:
     """The port's per-layer tuples -> numpy leaves stacked as the JAX
     package holds them: ``{"layers": (k [L, ...], v [L, ...])}`` (or the
-    int8 / int4 4-tuple)."""
-    layers = cache["layers"]
-    return {"layers": tuple(np.stack([to_numpy(t[j]) for t in layers])
-                            for j in range(len(layers[0])))}
+    int8 / int4 4-tuple, or MLA's pair), stack by stack."""
+    return {key: tuple(np.stack([to_numpy(t[j]) for t in cache[key]])
+                       for j in range(len(cache[key][0])))
+            for key in STACKS if key in cache}

@@ -1,8 +1,8 @@
 """Config registry of the port: ``get_config(arch_id)`` / ``smoke_config``.
 
-The dense-GQA architectures and phi-3-vision (the VQI model family) are
-registered; the MoE, MLA, SSM, hybrid and audio architectures arrive with
-ROADMAP Queue 1 item 9.
+The dense-GQA architectures, phi-3-vision (the VQI model family) and the
+MoE architectures (deepseek-v2 with MLA, kimi-k2 with GQA) are registered;
+the SSM, hybrid and audio architectures arrive with ROADMAP Queue 1 item 9.
 """
 from __future__ import annotations
 
@@ -13,6 +13,8 @@ from repro_torch.models.config import ModelConfig
 
 CLI_ALIASES: Dict[str, str] = {
     "deepseek-7b": "deepseek_7b",
+    "deepseek-v2-236b": "deepseek_v2_236b",
+    "kimi-k2-1t-a32b": "kimi_k2_1t_a32b",
     "mistral-nemo-12b": "mistral_nemo_12b",
     "phi-3-vision-4.2b": "phi_3_vision_4_2b",
     "phi3-mini-3.8b": "phi3_mini_3_8b",
@@ -23,8 +25,7 @@ ARCH_IDS: List[str] = sorted(CLI_ALIASES.values())
 #: the JAX package's architectures with no twin here: ROADMAP Queue 1 item 9
 #: ports them
 UNPORTED: FrozenSet[str] = frozenset({
-    "deepseek_v2_236b", "kimi_k2_1t_a32b", "mamba2_780m", "musicgen_large",
-    "recurrentgemma_9b",
+    "mamba2_780m", "musicgen_large", "recurrentgemma_9b",
 })
 
 

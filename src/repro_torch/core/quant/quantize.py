@@ -196,6 +196,26 @@ def quantizable(path: str, leaf, qc: QuantConfig) -> bool:
     return re.search(qc.include, path) is not None
 
 
+#: f32 bytes of one chunk of a stacked leaf quantized at a time
+CHUNK_BYTES = 1 << 30
+
+
+def _quantize_leaf(leaf: torch.Tensor, **kw) -> Dict[str, torch.Tensor]:
+    """``quantize_tensor`` of a leaf; one with leading dims (an MoE
+    layer's ``[E, K, N]`` experts) is quantized a chunk of its first dim at
+    a time, which gives the same codes and scales (every granularity keeps
+    the leading dims) without an f32 copy of the whole leaf. A percentile
+    is taken over the whole leaf: its final add depends on the result's
+    size."""
+    per = leaf[0].numel() * 4 if leaf.dim() >= 3 else 0
+    if not per or kw["clip_percentile"] or leaf.numel() * 4 <= CHUNK_BYTES:
+        return quantize_tensor(leaf, **kw)
+    step = max(1, CHUNK_BYTES // per)
+    parts = [quantize_tensor(leaf[i:i + step], **kw)
+             for i in range(0, leaf.shape[0], step)]
+    return {key: torch.cat([q[key] for q in parts]) for key in parts[0]}
+
+
 def quantize_tree(params, qc: QuantConfig,
                   act_scales: Optional[Dict[str, float]] = None):
     """Returns (quantized tree, list of quantized paths).
@@ -209,7 +229,7 @@ def quantize_tree(params, qc: QuantConfig,
     def visit(p, leaf):
         if not quantizable(p, leaf, qc):
             return leaf
-        q = quantize_tensor(
+        q = _quantize_leaf(
             leaf, per_channel=qc.granularity != "per_tensor",
             symmetric=qc.symmetric, bits=qc.bits,
             group_size=qc.group_size if qc.granularity == "per_group" else 0,
@@ -228,15 +248,15 @@ def tree_size_bytes(params) -> int:
     """Artifact size in bytes: every tensor, quantized dicts included, with
     int4 codes counted as packed nibbles (the on-wire format). Nibbles are
     counted per stacked path (``layers/3/attn/wq`` with every other layer's
-    ``wq``), as the JAX package counts its ``[L, ...]`` leaf, so an odd
-    per-layer size gives the same total."""
+    ``wq``; ``head_layers`` alike), as the JAX package counts its
+    ``[L, ...]`` leaf, so an odd per-layer size gives the same total."""
     total = 0
     nibbles: Dict[str, int] = {}
     for path, leaf in leaves_with_path(params):
         if not isinstance(leaf, torch.Tensor):
             continue
         if path.rsplit("/", 1)[-1] == "w_int4":
-            key = re.sub(r"^layers/\d+/", "layers/", path)
+            key = re.sub(r"^(head_layers|layers)/\d+/", r"\1/", path)
             nibbles[key] = nibbles.get(key, 0) + leaf.numel()
         else:
             total += leaf.numel() * leaf.element_size()

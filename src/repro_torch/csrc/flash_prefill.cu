@@ -34,7 +34,10 @@
 // read into fragments (K from 64-bit and V from 32-bit shared-memory reads)
 // and each mma becomes three, hi hi + hi lo + lo hi, for both products:
 // ~2e-5 against the reference. O / l leaves through shared memory in
-// coalesced 16-byte stores.
+// coalesced 16-byte stores. Width classes (one instantiation each, as
+// registers grow with them): the wider of hd and dv up to 64, 96 or 128,
+// and MLA's hd up to 192 with dv up to 128 (deepseek-v2: q and k of
+// qk_nope + qk_rope = 192, v of 128, one kv head per query head).
 //
 // flash_qtc (flash_qprefill_fwd: int8 K [B,S,Hkv,hd] and V [B,S,Hkv,dv]
 // with f32 per-(position, head) scales [B,S,Hkv], bf16 or f32 q): the same
@@ -88,12 +91,16 @@
 
 namespace {
 
-constexpr int MAXD = 128;          // largest hd and dv
+constexpr int MAXD = 128;          // largest hd and dv of every body
+// flash_tc's MLA class: q and k of hd = qk_nope + qk_rope (128 + 64 at
+// deepseek-v2's width) beside v of dv <= MAXD
+constexpr int MAXD_MLA = 192;
 constexpr float NEG_INF = -2.0e38f;
 constexpr float RUN_INIT = -1.0e30f;
 
-bool bad_shape(int B, int S, int Hq, int Hkv, int hd, int dv) {
-  return B <= 0 || S <= 0 || Hkv <= 0 || Hq % Hkv || hd < 1 || hd > MAXD ||
+bool bad_shape(int B, int S, int Hq, int Hkv, int hd, int dv,
+               int max_hd = MAXD) {
+  return B <= 0 || S <= 0 || Hkv <= 0 || Hq % Hkv || hd < 1 || hd > max_hd ||
          dv < 1 || dv > MAXD || Hkv > 65535 || B > 65535;
 }
 
@@ -230,8 +237,8 @@ __device__ __forceinline__ void stage_rows(T* dst, int stride, int w,
 // Stages BK key rows of width w into dst [BK][stride]. src is key k0's
 // row of this (batch, kv head); rows are row_elems apart; keys past S are
 // zero-filled. Rows 16-byte aligned (vec): thread -> chunk column
-// tid % cpr (cpr = 8, 16 or 32 chunks, those past the row idle) of every
-// (THREADS / cpr)-th row, cp.async; else element by element.
+// tid % cpr (cpr = 8, 16, 32 or 64 chunks, those past the row idle) of
+// every (THREADS / cpr)-th row, cp.async; else element by element.
 template <typename T>
 __device__ __forceinline__ void stage_tile(T* dst, int stride, const T* src,
                                            long row_elems, int w, int k0,
@@ -244,7 +251,8 @@ __device__ __forceinline__ void stage_tile(T* dst, int stride, const T* src,
     });
     return;
   }
-  const int lg = chunks > 16 ? 5 : chunks > 8 ? 4 : 3;
+  // 64 chunks a row: an f32 row of the MLA class (hd up to 192)
+  const int lg = chunks > 32 ? 6 : chunks > 16 ? 5 : chunks > 8 ? 4 : 3;
   const int c = threadIdx.x & ((1 << lg) - 1);
   if (c >= chunks) return;
   const int r0 = threadIdx.x >> lg, rstep = THREADS >> lg;
@@ -253,7 +261,7 @@ __device__ __forceinline__ void stage_tile(T* dst, int stride, const T* src,
   const uint32_t s = smem_addr(dst + r0 * stride + c * E);
   const uint32_t sstep = rstep * stride * (uint32_t)sizeof(T);
 #pragma unroll
-  for (int n = 0; n < BK / (THREADS >> 5); ++n) {
+  for (int n = 0; n < BK / (THREADS >> 6); ++n) {
     if (n * rstep >= BK) break;
     const bool in = k0 + r0 + n * rstep < S;
     cp_async16(s + n * sstep, in ? g + n * gstep : src, in ? 16 : 0);
@@ -482,8 +490,8 @@ __device__ __forceinline__ void store_out(const float (&o)[DMAX / 8][4],
 }
 
 // HMAX / DMAX: the largest padded hd / dv this instantiation takes (64, 96
-// or 128); register arrays are sized by them and loops stop at the padded
-// widths, a block-uniform bound.
+// or 128 each, or MLA's 192 / 128); register arrays are sized by them and
+// loops stop at the padded widths, a block-uniform bound.
 template <typename T, int HMAX, int DMAX>
 __global__ void __launch_bounds__(THREADS)
 flash_tc(const T* __restrict__ q, const T* __restrict__ k,
@@ -1183,9 +1191,14 @@ int by_width(int hd, int dv, F f) {
   return f(std::integral_constant<int, 128>{});
 }
 
+// flash_tc adds the MLA class <192, 128> for hd above MAXD (bad_shape has
+// held dv to MAXD); the quantized bodies stay at MAXD
 template <typename T>
 int dispatch(const void* q, const void* k, const void* v, float* out, int B,
              int S, int Hq, int Hkv, int hd, int dv, cudaStream_t stream) {
+  if (hd > MAXD)
+    return launch<T, MAXD_MLA, MAXD>(q, k, v, out, B, S, Hq, Hkv, hd, dv,
+                                     stream);
   return by_width(hd, dv, [&](auto W) {
     constexpr int w = decltype(W)::value;
     return launch<T, w, w>(q, k, v, out, B, S, Hq, Hkv, hd, dv, stream);
@@ -1226,11 +1239,12 @@ const char* repro_error_string(int code) {
 
 // q [B,S,Hq,hd], k [B,S,Hkv,hd], v [B,S,Hkv,dv], all contiguous and of one
 // dtype: float32 (0) or bfloat16 (1), both through flash_tc on the tensor
-// cores. out [B,S,Hq,dv] float32.
+// cores; hd up to 192, dv up to 128. out [B,S,Hq,dv] float32.
 int flash_prefill_fwd(const void* q, const void* k, const void* v, int dtype,
                       float* out, int B, int S, int Hq, int Hkv, int hd,
                       int dv, void* stream) {
-  if (bad_shape(B, S, Hq, Hkv, hd, dv)) return (int)cudaErrorInvalidValue;
+  if (bad_shape(B, S, Hq, Hkv, hd, dv, MAXD_MLA))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return tc::dispatch<float>(q, k, v, out, B, S, Hq, Hkv, hd, dv, s);

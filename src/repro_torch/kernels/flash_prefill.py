@@ -50,7 +50,12 @@ from repro_torch.kernels.quantize import KV_GROUP
 from repro_torch.kernels.ref import (flash_prefill_ref, flash_prefill_vjp,
                                      flash_q4prefill_ref, flash_qprefill_ref)
 
-MAX_HEAD_DIM = 128
+#: the widest q / k rows ``flash_prefill`` takes (MLA's qk_nope + qk_rope =
+#: 192 at deepseek-v2's width: the kernel's 192 / 128 width class) and the
+#: widest v rows of every body; the quantized prefills take hd up to
+#: MAX_V_DIM (MLA has no quantized KV tier)
+MAX_HEAD_DIM = 192
+MAX_V_DIM = 128
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 #: the body ``flash_prefill_fwd`` launches for each dtype: the tensor-core
 #: body over bf16 operands ("tc") or over two-term splits of f32 operands
@@ -65,6 +70,18 @@ QBODY = {torch.bfloat16: "qtc", torch.float32: "qtc_f32"}
 #: ("q4tc_f32")
 Q4BODY = {torch.bfloat16: "q4tc", torch.float32: "q4tc_f32"}
 _LIB = "flash_prefill"
+#: the ``flash_tc`` width classes (one instantiation each per dtype)
+CLASSES = ("64", "96", "128", "192x128")
+
+
+def width_class(hd: int, dv: int) -> str:
+    """The ``flash_tc`` width class ``flash_prefill_fwd`` launches for (hd,
+    dv): MLA's 192 / 128 above hd 128, else the wider of hd and dv rounded
+    up to 64, 96 or 128 (``dispatch`` and ``by_width`` in the source)."""
+    if hd > MAX_V_DIM:
+        return "192x128"
+    w = max(hd, dv)
+    return "64" if w <= 64 else "96" if w <= 96 else "128"
 
 
 def _check(q, k, v):
@@ -77,8 +94,9 @@ def _check(q, k, v):
                          f"v {tuple(v.shape)} do not match")
     if hq % hkv:
         raise ValueError(f"Hq={hq} is not a multiple of Hkv={hkv}")
-    if not (1 <= hd <= MAX_HEAD_DIM and 1 <= dv <= MAX_HEAD_DIM):
-        raise ValueError(f"hd={hd}, dv={dv}: each must be in 1..{MAX_HEAD_DIM}")
+    if not (1 <= hd <= MAX_HEAD_DIM and 1 <= dv <= MAX_V_DIM):
+        raise ValueError(f"hd={hd}, dv={dv}: hd must be in "
+                         f"1..{MAX_HEAD_DIM}, dv in 1..{MAX_V_DIM}")
     if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"q/k/v dtypes {q.dtype}/{k.dtype}/{v.dtype}: one of "
                         "float32, bfloat16 for all three")
@@ -104,6 +122,7 @@ def _flash_tc(q, k, v):
     _build.check(_LIB, rc, "flash_prefill_fwd")
     flash_prefill.launches += 1
     flash_prefill.launches_by_body[BODY[q.dtype]] += 1
+    flash_prefill.launches_by_class[width_class(hd, dv)] += 1
     return out
 
 
@@ -143,6 +162,7 @@ def flash_prefill(q, k, v):
 
 flash_prefill.launches = 0
 flash_prefill.launches_by_body = {body: 0 for body in BODY.values()}
+flash_prefill.launches_by_class = {c: 0 for c in CLASSES}
 
 
 def _check_q(q, k_i8, k_s, v_i8, v_s):
@@ -158,8 +178,8 @@ def _check_q(q, k_i8, k_s, v_i8, v_s):
                          f"must be [B,S,Hkv] = {(b, s, hkv)}")
     if hq % hkv:
         raise ValueError(f"Hq={hq} is not a multiple of Hkv={hkv}")
-    if not (1 <= hd <= MAX_HEAD_DIM and 1 <= dv <= MAX_HEAD_DIM):
-        raise ValueError(f"hd={hd}, dv={dv}: each must be in 1..{MAX_HEAD_DIM}")
+    if not (1 <= hd <= MAX_V_DIM and 1 <= dv <= MAX_V_DIM):
+        raise ValueError(f"hd={hd}, dv={dv}: each must be in 1..{MAX_V_DIM}")
     if q.dtype not in _DTYPE_CODE or k_i8.dtype != torch.int8 \
             or v_i8.dtype != torch.int8 or k_s.dtype != torch.float32 \
             or v_s.dtype != torch.float32:
@@ -218,10 +238,10 @@ def _check_q4(q, k_i4, k_s, v_i4, v_s):
     if hq % hkv:
         raise ValueError(f"Hq={hq} is not a multiple of Hkv={hkv}")
     if not (hd % KV_GROUP == 0 and dv % KV_GROUP == 0
-            and KV_GROUP <= hd <= MAX_HEAD_DIM
-            and KV_GROUP <= dv <= MAX_HEAD_DIM):
+            and KV_GROUP <= hd <= MAX_V_DIM
+            and KV_GROUP <= dv <= MAX_V_DIM):
         raise ValueError(f"hd={hd}, dv={dv}: each must be a multiple of "
-                         f"{KV_GROUP} up to {MAX_HEAD_DIM}")
+                         f"{KV_GROUP} up to {MAX_V_DIM}")
     if k_s.shape != (b, s, hkv, hd // KV_GROUP) \
             or v_s.shape != (b, s, hkv, dv // KV_GROUP):
         raise ValueError(f"scales {tuple(k_s.shape)} / {tuple(v_s.shape)} "

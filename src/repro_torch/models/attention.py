@@ -1,5 +1,5 @@
-"""Dense GQA attention: the port of ``repro.models.attention`` for the
-full-attention path with an fp, int8 or int4 KV cache.
+"""Attention mixers: the port of ``repro.models.attention`` for full
+attention: GQA over an fp, int8 or int4 KV cache, and MLA (deepseek-v2).
 
 Prefill goes through the flash-prefill kernel (``kernels.ops.flash_prefill``)
 as ``cfg.opt_flash_prefill`` does by default in the JAX package;
@@ -25,16 +25,26 @@ dense int4 decode stays the plain ``q4decode_ref`` on every device, as it
 stays at the jnp level in the JAX package. The decode cache is updated in
 place (one ``[B, 1]`` slot per step) instead of copied, which saves a full
 cache copy per layer per step; callers own the cache they pass in.
+
+MLA caches the compressed streams ``c_kv`` [B,S,kv_lora_rank] and
+``k_rope`` [B,S,qk_rope_dim] (head-free pools when paged), in the
+activation dtype whatever the KV tier. Prefill up-projects them to per-head
+K/V and attends with the flash kernel, one kv head per query head at hd =
+qk_nope + qk_rope and dv = v_head_dim (192 / 128 at deepseek-v2's width:
+``flash_tc``'s 192 / 128 class). Decode is plain PyTorch, as it is plain
+jnp there: naive (re-up-project the cache) or, with ``cfg.opt_mla_absorb``,
+weight-absorbed (scores against ``c_kv`` directly); paged decode and verify
+gather the streams through the block table and run the same cores.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels.quantize import dequantize_kv_int4, quantize_kv_int4
-from repro_torch.kernels.ref import (NEG_INF, paged_gather, q4decode_ref,
-                                     quantize_kv_ref)
+from repro_torch.kernels.ref import (NEG_INF, paged_gather, paged_valid,
+                                     q4decode_ref, quantize_kv_ref)
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import apply_rope, dense_init, linear
+from repro_torch.models.layers import apply_rope, dense_init, linear, rms_norm
 
 
 Q_CHUNK = 512
@@ -483,3 +493,269 @@ def gqa_verify_paged(p, x, cache, pos, tables, cfg: ModelConfig):
     vf = torch.where(live, vf, torch.zeros((), dtype=vf.dtype,
                                            device=vf.device))
     return _attend_verify(p, x, q, kf, vf, valid, cfg), cache
+
+
+# ----------------------------------------------------------------------- #
+# MLA (deepseek-v2): compressed c_kv / k_rope caches, naive and absorbed
+# ----------------------------------------------------------------------- #
+def init_mla_params(gen: torch.Generator, cfg: ModelConfig) -> dict:
+    d, dt = cfg.d_model, cfg.activation_dtype
+    qdim = cfg.qk_nope_dim + cfg.qk_rope_dim
+    p = {
+        "w_dkv": dense_init(gen, (d, cfg.kv_lora_rank), dtype=dt),
+        "w_kr": dense_init(gen, (d, cfg.qk_rope_dim), dtype=dt),
+        "w_ukv": dense_init(
+            gen, (cfg.kv_lora_rank,
+                  cfg.n_heads * (cfg.qk_nope_dim + cfg.v_head_dim)),
+            dtype=dt),
+        "wo": dense_init(gen, (cfg.n_heads * cfg.v_head_dim, d), dtype=dt),
+        "kv_norm": torch.zeros((cfg.kv_lora_rank,), dtype=dt,
+                               device=gen.device),
+    }
+    if cfg.q_lora_rank:
+        p["w_dq"] = dense_init(gen, (d, cfg.q_lora_rank), dtype=dt)
+        p["w_uq"] = dense_init(gen, (cfg.q_lora_rank, cfg.n_heads * qdim),
+                               dtype=dt)
+        p["q_norm"] = torch.zeros((cfg.q_lora_rank,), dtype=dt,
+                                  device=gen.device)
+    else:
+        p["wq"] = dense_init(gen, (d, cfg.n_heads * qdim), dtype=dt)
+    return p
+
+
+def _mla_q(p, x, q_positions, cfg: ModelConfig):
+    """(q_nope [B,S,H,dn], q_rope [B,S,H,dr] rotated)."""
+    b, sq = x.shape[:2]
+    nh, dn, dr = cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim
+    if cfg.q_lora_rank:
+        cq = rms_norm(p["q_norm"], linear(p["w_dq"], x), cfg.norm_eps)
+        q = linear(p["w_uq"], cq).reshape(b, sq, nh, dn + dr)
+    else:
+        q = linear(p["wq"], x).reshape(b, sq, nh, dn + dr)
+    return q[..., :dn], apply_rope(q[..., dn:], q_positions, cfg.rope_theta)
+
+
+def _mla_qkv(p, x, c_kv, k_rope, q_positions, kv_positions,
+             cfg: ModelConfig):
+    """Per-head q, k [B,*,H,dn+dr] and v [B,*,H,dv], all contiguous: k is
+    the up-projected ``k_nope`` beside the rotated ``k_rope`` broadcast over
+    the heads, v a slice of the up-projection (copied, as the flash kernel
+    reads contiguous operands)."""
+    b, skv = c_kv.shape[:2]
+    nh, dn, dr, dv = (cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim,
+                      cfg.v_head_dim)
+    q_nope, q_rope = _mla_q(p, x, q_positions, cfg)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    kv = linear(p["w_ukv"], rms_norm(p["kv_norm"], c_kv, cfg.norm_eps))
+    kv = kv.reshape(b, skv, nh, dn + dv)
+    kr = apply_rope(k_rope[:, :, None, :], kv_positions, cfg.rope_theta)
+    k = torch.cat([kv[..., :dn], kr.expand(b, skv, nh, dr)], dim=-1)
+    return q, k, kv[..., dn:].contiguous()
+
+
+def _mla_attend_naive(p, x, c_kv, k_rope, pos_b, k_pos, valid,
+                      cfg: ModelConfig):
+    """Re-up-projecting MLA attention of x's queries (one in decode, the M
+    of a verify span) over an (updated) compressed cache view: the dense
+    and paged decode and verify paths. ``pos_b`` [B, M] are the queries'
+    positions, ``valid`` [B, T] (the same for every query) or [B, M, T]
+    the keys each may read."""
+    b, m = x.shape[:2]
+    q, k, v = _mla_qkv(p, x, c_kv, k_rope, pos_b, k_pos, cfg)
+    scores = _score_einsum("bqnh,btnh->bnqt", q, k, cfg.opt_attn_accum)
+    scores = _inv_sqrt_scaled(scores, q.shape[-1])
+    mask = valid[:, None] if valid.dim() == 3 else valid[:, None, None]
+    scores = scores.masked_fill(~mask, NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    out = torch.einsum("bnqt,btnh->bqnh", probs, v)
+    return out.reshape(b, m, cfg.n_heads * cfg.v_head_dim)
+
+
+def _w_ukv(p, rank: int, dtype) -> torch.Tensor:
+    """``w_ukv`` [rank, H * (dn + dv)] in ``dtype``; a quantized leaf is
+    dequantized, and one packed K-major for the card's GEMMs
+    (``w_packed [N, Kp]``, ``place_params``) is read back as its first
+    ``rank`` columns transposed."""
+    w = p["w_ukv"]
+    if not isinstance(w, dict):
+        return w.to(dtype)
+    from repro_torch.core.quant.quantize import dequantize_tensor
+
+    if "w_packed" in w:
+        w = {"w_int8": w["w_packed"][:, :rank].t(), "scale": w["scale"]}
+    return dequantize_tensor(w, dtype)
+
+
+def _mla_attend_absorbed(p, x, c_kv, k_rope, pos_b, k_pos, valid,
+                         cfg: ModelConfig):
+    """Weight-absorbed MLA attention of one query over an (updated)
+    compressed cache view: W_uk folds into the query and W_uv into the
+    output, so scores run against ``c_kv`` directly. Every product takes
+    f32 operands (exact for bf16 values) with an f32 result, the JAX
+    package's bf16 operands with ``preferred_element_type=f32``."""
+    b = x.shape[0]
+    nh, dn, dr, dv = (cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim,
+                      cfg.v_head_dim)
+    rank = cfg.kv_lora_rank
+    f32 = torch.float32
+    q_nope, q_rope = _mla_q(p, x, pos_b, cfg)
+    q_rope = q_rope[:, 0]                                          # [B,H,dr]
+    w = _w_ukv(p, rank, x.dtype).reshape(rank, nh, dn + dv)
+    w_uk, w_uv = w[..., :dn], w[..., dn:]
+    q_c = torch.einsum("bhd,rhd->bhr", q_nope[:, 0].to(f32), w_uk.to(f32))
+
+    ckv_n = rms_norm(p["kv_norm"], c_kv, cfg.norm_eps)             # [B,S,r]
+    kr = apply_rope(k_rope[:, :, None, :], k_pos, cfg.rope_theta)[:, :, 0]
+
+    scores = torch.einsum("bhr,bsr->bhs", q_c.to(x.dtype).to(f32),
+                          ckv_n.to(f32))
+    scores = scores + torch.einsum("bhd,bsd->bhs", q_rope.to(f32),
+                                   kr.to(f32))
+    scores = _inv_sqrt_scaled(scores, dn + dr)
+    scores = scores.masked_fill(~valid[:, None], NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    ctx = torch.einsum("bhs,bsr->bhr", probs.to(x.dtype).to(f32),
+                       ckv_n.to(f32))
+    out = torch.einsum("bhr,rhd->bhd", ctx.to(x.dtype).to(f32),
+                       w_uv.to(f32))
+    return out.to(x.dtype).reshape(b, 1, nh * dv)
+
+
+def mla_prefill(p, x, positions, cfg: ModelConfig, window: int = 0,
+                pad_to: int = 0):
+    """Returns (out [B,S,d], (c_kv [B,S_cache,rank], k_rope
+    [B,S_cache,dr])). The flash kernel attends with one kv head per query
+    head, hd = dn + dr and dv = v_head_dim (192 and 128 at deepseek-v2's
+    width); the chunked core (``opt_flash_prefill=False``) otherwise. MLA
+    caches stay in the activation dtype whatever the KV tier, as in the JAX
+    package."""
+    b, s, _ = x.shape
+    c_kv = linear(p["w_dkv"], x)
+    k_rope = linear(p["w_kr"], x)
+    q, k, v = _mla_qkv(p, x, c_kv, k_rope, positions, positions, cfg)
+    if _flash_ok(cfg, window):
+        from repro_torch.kernels import ops
+
+        out = ops.flash_prefill(q, k, v).to(x.dtype)
+    else:
+        out = chunked_attention(q, k, v, positions, window=window,
+                                native_accum=cfg.opt_attn_accum)
+    out = linear(p["wo"], out.reshape(b, s, cfg.n_heads * cfg.v_head_dim))
+    return out, (_ring_or_pad(c_kv, s, window, pad_to),
+                 _ring_or_pad(k_rope, s, window, pad_to))
+
+
+def mla_prefill_paged(p, x, positions, cache, pos, tables, cfg: ModelConfig):
+    """Paged MLA cold prefill: the compressed streams go straight into the
+    head-free pools ``(c_pool [N,bs,rank], r_pool [N,bs,dr])`` (in place);
+    padded positions land in the trash block."""
+    b, s, _ = x.shape
+    c_pool, r_pool = cache
+    n_valid = _count_vec(pos, b, x.device)
+    c_kv = linear(p["w_dkv"], x)
+    k_rope = linear(p["w_kr"], x)
+    q, k, v = _mla_qkv(p, x, c_kv, k_rope, positions, positions, cfg)
+    if cfg.opt_flash_prefill:
+        from repro_torch.kernels import ops
+
+        out = ops.flash_prefill(q, k, v).to(x.dtype)
+    else:
+        out = chunked_attention(q, k, v, positions,
+                                native_accum=cfg.opt_attn_accum)
+    blk, off = _paged_prefill_slots(tables, n_valid, s, c_pool.shape[1])
+    c_pool[blk, off] = c_kv.to(c_pool.dtype)
+    r_pool[blk, off] = k_rope.to(r_pool.dtype)
+    out = linear(p["wo"], out.reshape(b, s, cfg.n_heads * cfg.v_head_dim))
+    return out, cache
+
+
+def mla_decode_absorbed(p, x, cache, pos, cfg: ModelConfig, window: int = 0):
+    """Weight-absorbed MLA decode (``cfg.opt_mla_absorb``): scores against
+    the compressed cache, no per-head K/V of the whole cache."""
+    b = x.shape[0]
+    c_kv, k_rope = cache
+    pos_vec, slot_vec, k_pos, valid = decode_positions(
+        pos, b, c_kv.shape[1], window, device=x.device)
+    c_kv = _batched_update(c_kv, linear(p["w_dkv"], x), slot_vec)
+    k_rope = _batched_update(k_rope, linear(p["w_kr"], x), slot_vec)
+    out = _mla_attend_absorbed(p, x, c_kv, k_rope, pos_vec[:, None], k_pos,
+                               valid, cfg)
+    return linear(p["wo"], out), (c_kv, k_rope)
+
+
+def mla_decode(p, x, cache, pos, cfg: ModelConfig, window: int = 0):
+    """cache = (c_kv [B,S,rank], k_rope [B,S,dr]), updated in place. Naive:
+    re-up-project the cache; ``cfg.opt_mla_absorb`` takes the absorbed
+    path."""
+    if cfg.opt_mla_absorb:
+        return mla_decode_absorbed(p, x, cache, pos, cfg, window=window)
+    b = x.shape[0]
+    c_kv, k_rope = cache
+    pos_vec, slot_vec, k_pos, valid = decode_positions(
+        pos, b, c_kv.shape[1], window, device=x.device)
+    c_kv = _batched_update(c_kv, linear(p["w_dkv"], x), slot_vec)
+    k_rope = _batched_update(k_rope, linear(p["w_kr"], x), slot_vec)
+    out = _mla_attend_naive(p, x, c_kv, k_rope, pos_vec[:, None], k_pos,
+                            valid, cfg)
+    return linear(p["wo"], out), (c_kv, k_rope)
+
+
+def mla_decode_paged(p, x, cache, pos, tables, cfg: ModelConfig):
+    """Paged MLA decode over head-free pools (c_pool [N,bs,rank], r_pool
+    [N,bs,dr]), updated in place: this token's entries go into its block,
+    then the streams are gathered through the table and attended by the
+    dense core (absorbed with ``cfg.opt_mla_absorb``, else naive). Rows of
+    unallocated entries read the trash block under a NEG_INF score, as in
+    the JAX package: an idle slot (no block) attends uniformly over them,
+    and its hidden state, which an MoE router sees, stays the JAX one."""
+    b = x.shape[0]
+    c_pool, r_pool = cache
+    bs = c_pool.shape[1]
+    pos_vec = _count_vec(pos, b, x.device)
+    blk, off = paged_write_slots(tables, pos_vec, bs)
+    c_pool[blk, off] = linear(p["w_dkv"], x)[:, 0].to(c_pool.dtype)
+    r_pool[blk, off] = linear(p["w_kr"], x)[:, 0].to(r_pool.dtype)
+    c_kv, k_rope = (paged_gather(t, tables) for t in cache)
+    valid = paged_valid(tables, pos_vec, bs)
+    s = c_kv.shape[1]
+    k_pos = torch.arange(s, device=x.device)[None].expand(b, s)
+    attend = (_mla_attend_absorbed if cfg.opt_mla_absorb
+              else _mla_attend_naive)
+    out = attend(p, x, c_kv, k_rope, pos_vec[:, None], k_pos, valid, cfg)
+    return linear(p["wo"], out), cache
+
+
+def mla_verify(p, x, cache, pos, cfg: ModelConfig):
+    """Dense MLA verify: write M compressed entries at pos..pos+M-1 (in
+    place) and attend each query over its causal prefix."""
+    b, m, _ = x.shape
+    c_kv, k_rope = cache
+    s_cache = c_kv.shape[1]
+    pos_vec, positions = _verify_positions(pos, b, m, x.device)
+    c_kv = _batched_update(c_kv, linear(p["w_dkv"], x), pos_vec)
+    k_rope = _batched_update(k_rope, linear(p["w_kr"], x), pos_vec)
+    k_pos = torch.arange(s_cache, device=x.device)[None].expand(b, s_cache)
+    valid = k_pos[:, None, :] <= positions[:, :, None]
+    out = _mla_attend_naive(p, x, c_kv, k_rope, positions, k_pos, valid, cfg)
+    return linear(p["wo"], out), (c_kv, k_rope)
+
+
+def mla_verify_paged(p, x, cache, pos, tables, cfg: ModelConfig):
+    """Paged MLA verify: M compressed entries scattered through the block
+    table (in place), the streams gathered, the verify core run with the
+    triangular span mask."""
+    b, m, _ = x.shape
+    c_pool, r_pool = cache
+    bs = c_pool.shape[1]
+    pos_vec, positions = _verify_positions(pos, b, m, x.device)
+    blk, off = paged_write_slots(tables, positions, bs)
+    c_pool[blk, off] = linear(p["w_dkv"], x).to(c_pool.dtype)
+    r_pool[blk, off] = linear(p["w_kr"], x).to(r_pool.dtype)
+    t_len = tables.shape[1] * bs
+    allocated = (tables >= 0).repeat_interleave(bs, dim=1)
+    k_pos = torch.arange(t_len, device=x.device)[None].expand(b, t_len)
+    valid = ((k_pos[:, None, :] <= positions[:, :, None])
+             & allocated[:, None, :])
+    c_kv, k_rope = (paged_gather(t, tables) for t in cache)
+    out = _mla_attend_naive(p, x, c_kv, k_rope, positions, k_pos, valid, cfg)
+    return linear(p["wo"], out), cache

@@ -4,10 +4,11 @@ Every field of the JAX dataclass, with the same names and defaults, so the
 ``configs/*`` modules copy verbatim and a checkpoint manifest written by
 either package (``dataclasses.asdict(cfg)``) loads in the other with
 ``ModelConfig(**mc)``. ``dtype`` stays a string and ``activation_dtype``
-maps it to a ``torch.dtype``. Only the dense-GQA, full-attention stack is
-ported (with an fp, int8 or int4 KV cache, the flash or the chunked
-prefill, and the phi-3-vision frontend stub); ``check_supported`` names
-the ROADMAP item for everything else.
+maps it to a ``torch.dtype``. The ported stacks: dense GQA (with an fp,
+int8 or int4 KV cache, the flash or the chunked prefill, and the
+phi-3-vision frontend stub), Multi-head Latent Attention (deepseek-v2) and
+the capacity-routed MoE FFN (deepseek-v2, kimi-k2); ``check_supported``
+names the ROADMAP item for everything else.
 """
 from __future__ import annotations
 
@@ -114,18 +115,91 @@ class ModelConfig:
     def with_overrides(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
 
+    def layer_types(self) -> Tuple[str, ...]:
+        """Per-layer mixer type, length == n_layers."""
+        if self.arch_type == "ssm":
+            return ("ssm",) * self.n_layers
+        if self.layer_pattern:
+            pat = self.layer_pattern
+            return tuple(pat[i % len(pat)] for i in range(self.n_layers))
+        return ("attn",) * self.n_layers
+
+    def is_moe_layer(self, i: int) -> bool:
+        return self.n_experts > 0 and i >= self.n_dense_layers
+
+    @property
+    def d_inner(self) -> int:
+        """Inner width of SSM / recurrent blocks."""
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_nheads(self) -> int:
+        return self.d_inner // self.ssm_headdim if self.ssm_headdim else 0
+
+    def param_count(self, active_only: bool = False) -> int:
+        """Parameters (``active_only``: the experts a token reaches, top-k
+        of them), the JAX package's integer arithmetic term for term."""
+        d, hd = self.d_model, self.resolved_head_dim
+        n = self.vocab_size * d
+        if not self.tie_embeddings:
+            n += d * self.vocab_size
+        if self.n_codebooks:
+            n += (self.n_codebooks - 1) * self.vocab_size * d
+        for i, lt in enumerate(self.layer_types()):
+            n += 2 * d
+            if lt == "attn":
+                if self.attention == "mla":
+                    qdim = self.qk_nope_dim + self.qk_rope_dim
+                    if self.q_lora_rank:
+                        n += (d * self.q_lora_rank
+                              + self.q_lora_rank * self.n_heads * qdim)
+                    else:
+                        n += d * self.n_heads * qdim
+                    n += d * self.kv_lora_rank + d * self.qk_rope_dim
+                    n += self.kv_lora_rank * self.n_heads * (
+                        self.qk_nope_dim + self.v_head_dim)
+                    n += self.n_heads * self.v_head_dim * d
+                else:
+                    n += d * self.n_heads * hd + 2 * d * self.n_kv_heads * hd
+                    n += self.n_heads * hd * d
+            elif lt == "ssm":
+                din = self.d_inner
+                zxbcdt = (2 * din + 2 * self.ssm_ngroups * self.ssm_state
+                          + self.ssm_nheads)
+                n += d * zxbcdt + din * d
+                n += self.conv_width * (din + 2 * self.ssm_ngroups
+                                        * self.ssm_state)
+                n += 3 * self.ssm_nheads
+            elif lt == "rec":
+                din = self.d_inner
+                n += 2 * d * din + din * d
+                n += self.conv_width * din
+                n += 2 * din * (din // 8) + 2 * din
+                n += din
+            if lt != "ssm" and self.d_ff + self.d_ff_expert > 0:
+                if self.is_moe_layer(i):
+                    ff = self.d_ff_expert or self.d_ff
+                    n_e = self.top_k if active_only else self.n_experts
+                    n += n_e * 3 * d * ff
+                    n += self.n_shared_experts * 3 * d * ff
+                    n += d * self.n_experts
+                else:
+                    ff = self.d_ff_dense or self.d_ff
+                    n += 3 * d * ff
+        return n
+
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for any branch the port does not serve
     yet, naming the ROADMAP item that will."""
-    if cfg.arch_type not in ("dense", "vlm") or cfg.n_experts \
-            or cfg.layer_pattern:
+    if cfg.arch_type not in ("dense", "vlm", "moe") or cfg.layer_pattern \
+            or (cfg.arch_type == "moe") != (cfg.n_experts > 0):
         raise NotImplementedError(
-            f"arch_type {cfg.arch_type!r}: MoE/SSM/hybrid/audio stacks are "
+            f"arch_type {cfg.arch_type!r}: SSM/hybrid/audio stacks are "
             "ROADMAP Queue 1 item 9")
-    if cfg.attention != "full":
+    if cfg.attention not in ("full", "mla"):
         raise NotImplementedError(
-            f"attention {cfg.attention!r}: MLA and sliding windows are "
+            f"attention {cfg.attention!r}: sliding windows are "
             "ROADMAP Queue 1 item 9")
     if cfg.window:
         raise NotImplementedError(
@@ -138,9 +212,8 @@ def check_supported(cfg: ModelConfig) -> None:
         raise ValueError(
             f"{cfg.name}: a vlm needs frontend='vision' and frontend_dim > 0, "
             "and only a vlm has a vision frontend")
-    if cfg.fsdp:
-        raise NotImplementedError(
-            "fsdp weight sharding is ROADMAP Queue 1 item 10")
+    # ``fsdp`` only names a sharding under a device mesh (ROADMAP Queue 1
+    # item 10); on one device it changes nothing, as in the JAX package
     if cfg.tie_embeddings:
         raise NotImplementedError(
             "tied embeddings are ROADMAP Queue 1 item 9")

@@ -1,4 +1,5 @@
-"""Dense decoder: the port of ``repro.models.transformer`` (dense stack).
+"""Decoder stacks: the port of ``repro.models.transformer`` for the dense
+and the MoE stacks, with GQA or MLA attention.
 
 Param tree (per-layer, not stacked; leaf paths match the JAX tree's with a
 layer index, e.g. ``layers/3/attn/wq``, so quantization and calibration
@@ -7,6 +8,15 @@ regexes select the same leaves)::
     embed [V, d], final_norm [d], unembed [d, V]
     frontend_proj [frontend_dim, d]        (vlm: the vision stub projector)
     layers: [ {ln1 [d], attn {wq, wk, wv, wo}, ln2 [d], mlp {wi, wo}} ] * L
+
+An MoE model (``cfg.n_experts > 0``) keeps the JAX package's two stacks:
+``head_layers``, its ``n_dense_layers`` leading blocks with a dense FFN of
+width ``d_ff_dense``, and ``layers``, the rest, whose FFN is ``moe {router,
+wi [E, d, 2ff], wo [E, ff, d], shared_wi, shared_wo}``. MLA blocks
+(``attention == "mla"``) hold ``attn {w_dq, q_norm, w_uq, w_dkv, w_kr,
+kv_norm, w_ukv, wo}`` and cache ``(c_kv [B,S,rank], k_rope [B,S,dr])``.
+Caches and pools follow the stacks: ``{"head_layers": [...], "layers":
+[...]}``, one tuple of leaves per layer.
 
 Entry points:
     forward(params, batch, cfg)                  -> (logits, aux)
@@ -17,14 +27,16 @@ Entry points:
     verify_step(params, cache, tokens, pos, cfg)  -> (logits [B,M,V], cache)
     verify_step_paged(params, pools, tokens, pos, tables, cfg) -> (logits, pools)
 
-A Python loop over the layers stands in for the JAX ``scan``. In train
-mode with ``cfg.remat`` and grad mode on, each layer runs under
+A Python loop over ``head_layers`` and then ``layers`` stands in for the
+JAX ``scan``; ``aux`` (the MoE router's ``lb_loss``, ``z_loss`` and
+``fraction_dropped``) is summed over the layers as the scan carries it. In
+train mode with ``cfg.remat`` and grad mode on, each layer runs under
 ``torch.utils.checkpoint`` (the JAX package's ``jax.checkpoint`` per
 scanned layer): the backward recomputes it, flash kernel launch included.
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, List
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -32,9 +44,14 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels.quantize import kv_group_size
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.config import ModelConfig, check_supported
 from repro_torch.models.layers import (dense_init, embed_init, linear,
                                        rms_norm, swiglu)
+
+
+#: the layer stacks of a param tree, cache or pool set, in layer order
+STACKS = ("head_layers", "layers")
 
 
 def _zero_aux(device) -> Dict[str, torch.Tensor]:
@@ -42,18 +59,37 @@ def _zero_aux(device) -> Dict[str, torch.Tensor]:
     return {"lb_loss": z, "z_loss": z, "fraction_dropped": z}
 
 
+def stack_sizes(cfg: ModelConfig) -> Dict[str, int]:
+    """Layers per stack: an MoE model's ``n_dense_layers`` leading dense
+    blocks under ``head_layers`` (when there are any), the rest under
+    ``layers``."""
+    if cfg.n_experts and cfg.n_dense_layers:
+        return {"head_layers": cfg.n_dense_layers,
+                "layers": cfg.n_layers - cfg.n_dense_layers}
+    return {"layers": cfg.n_layers}
+
+
+def layer_caches(caches) -> List[tuple]:
+    """Every layer's cache (or pool) leaves, ``head_layers`` first."""
+    return [c for key in STACKS for c in caches.get(key, ())]
+
+
 # ===================================================================== #
 # Init
 # ===================================================================== #
-def _init_block(gen: torch.Generator, cfg: ModelConfig) -> dict:
+def _init_block(gen: torch.Generator, cfg: ModelConfig, moe: bool) -> dict:
     d, dt = cfg.d_model, cfg.activation_dtype
-    return {
-        "ln1": torch.zeros((d,), dtype=dt, device=gen.device),
-        "attn": attn.init_gqa_params(gen, cfg),
-        "ln2": torch.zeros((d,), dtype=dt, device=gen.device),
-        "mlp": {"wi": dense_init(gen, (d, 2 * cfg.d_ff), dtype=dt),
-                "wo": dense_init(gen, (cfg.d_ff, d), dtype=dt)},
-    }
+    blk = {"ln1": torch.zeros((d,), dtype=dt, device=gen.device),
+           "attn": (attn.init_mla_params(gen, cfg) if cfg.attention == "mla"
+                    else attn.init_gqa_params(gen, cfg)),
+           "ln2": torch.zeros((d,), dtype=dt, device=gen.device)}
+    if moe:
+        blk["moe"] = moe_mod.init_moe_params(gen, cfg)
+    else:
+        ff = cfg.d_ff_dense or cfg.d_ff
+        blk["mlp"] = {"wi": dense_init(gen, (d, 2 * ff), dtype=dt),
+                      "wo": dense_init(gen, (ff, d), dtype=dt)}
+    return blk
 
 
 def init_params(cfg: ModelConfig, seed: int = 0,
@@ -73,7 +109,9 @@ def init_params(cfg: ModelConfig, seed: int = 0,
     if cfg.frontend != "none":
         p["frontend_proj"] = dense_init(
             gen, (cfg.frontend_dim, cfg.d_model), dtype=dt)
-    p["layers"] = [_init_block(gen, cfg) for _ in range(cfg.n_layers)]
+    for key, n in stack_sizes(cfg).items():
+        moe = key == "layers" and cfg.n_experts > 0
+        p[key] = [_init_block(gen, cfg, moe) for _ in range(n)]
     return p
 
 
@@ -123,66 +161,93 @@ def lm_head(params, x, cfg: ModelConfig):
 # ===================================================================== #
 # Passes
 # ===================================================================== #
+def _attend(lp, h, cfg: ModelConfig, *, mode: str, cache, positions, pos,
+            pad_to: int, tables):
+    """The attention half of a block, GQA or MLA, by mode: verify
+    (speculative decoding's k+1 positions), decode or prefill, each dense
+    or paged (``tables``: pooled leaves read through block tables)."""
+    mla = cfg.attention == "mla"
+    a = lp["attn"]
+    if mode == "verify":
+        if tables is not None:
+            fn = attn.mla_verify_paged if mla else attn.gqa_verify_paged
+            return fn(a, h, cache, pos, tables, cfg)
+        fn = attn.mla_verify if mla else attn.gqa_verify
+        return fn(a, h, cache, pos, cfg)
+    if mode == "decode":
+        if tables is not None:
+            fn = attn.mla_decode_paged if mla else attn.gqa_decode_paged
+            return fn(a, h, cache, pos, tables, cfg)
+        fn = attn.mla_decode if mla else attn.gqa_decode
+        return fn(a, h, cache, pos, cfg)
+    if tables is not None:
+        fn = attn.mla_prefill_paged if mla else attn.gqa_prefill_paged
+        return fn(a, h, positions, cache, pos, tables, cfg)
+    fn = attn.mla_prefill if mla else attn.gqa_prefill
+    return fn(a, h, positions, cfg, pad_to=pad_to)
+
+
 def _block(lp, x, cfg: ModelConfig, *, mode: str, cache=None,
            positions=None, pos=None, pad_to: int = 0, tables=None):
+    """(x, new cache, aux) of one block: an MoE block's FFN routes and
+    gives its aux, a dense block's gives None (zeros, not launched)."""
     h = rms_norm(lp["ln1"], x, cfg.norm_eps)
-    if mode == "verify":
-        # speculative decoding: score k+1 candidate positions in one pass
-        if tables is not None:
-            a_out, new_cache = attn.gqa_verify_paged(lp["attn"], h, cache,
-                                                     pos, tables, cfg)
-        else:
-            a_out, new_cache = attn.gqa_verify(lp["attn"], h, cache, pos, cfg)
-    elif mode == "decode" and tables is not None:
-        # paged decode: pooled cache leaves read through block tables
-        a_out, new_cache = attn.gqa_decode_paged(lp["attn"], h, cache, pos,
-                                                 tables, cfg)
-    elif mode == "decode":
-        a_out, new_cache = attn.gqa_decode(lp["attn"], h, cache, pos, cfg)
-    elif tables is not None:
-        # paged cold prefill: K/V go straight into the block pools
-        a_out, new_cache = attn.gqa_prefill_paged(lp["attn"], h, positions,
-                                                  cache, pos, tables, cfg)
-    else:
-        a_out, new_cache = attn.gqa_prefill(lp["attn"], h, positions, cfg,
-                                            pad_to=pad_to)
+    a_out, new_cache = _attend(lp, h, cfg, mode=mode, cache=cache,
+                               positions=positions, pos=pos, pad_to=pad_to,
+                               tables=tables)
     x = x + a_out
     h2 = rms_norm(lp["ln2"], x, cfg.norm_eps)
-    return x + swiglu(lp["mlp"]["wi"], lp["mlp"]["wo"], h2), new_cache
+    if "moe" in lp:
+        f_out, aux = moe_mod.moe_ffn(lp["moe"], h2, cfg)
+    else:
+        f_out, aux = swiglu(lp["mlp"]["wi"], lp["mlp"]["wo"], h2), None
+    return x + f_out, new_cache, aux
 
 
 def _train_block(lp, x, cfg: ModelConfig, positions):
-    return _block(lp, x, cfg, mode="train", positions=positions)[0]
+    x, _, aux = _block(lp, x, cfg, mode="train", positions=positions)
+    return x if aux is None else (x, aux)
 
 
 def _backbone(params, x, cfg: ModelConfig, *, mode: str, caches=None,
               pos=None, pad_to: int = 0, tables=None):
-    """``tables`` (paged prefill / decode) is shared by every layer: block
-    ids are per sequence, not per layer."""
+    """Runs ``head_layers`` then ``layers``; returns (x, new caches, aux
+    summed over the layers). ``tables`` (paged prefill / decode) is shared
+    by every layer: block ids are per sequence, not per layer."""
     check_supported(cfg)
     positions = torch.arange(x.shape[1], device=x.device)
     remat = cfg.remat and mode == "train" and torch.is_grad_enabled()
-    new = []
-    for i, lp in enumerate(params["layers"]):
-        if remat:
-            # one activation checkpoint per layer, as jax.checkpoint wraps
-            # each scanned layer: the backward recomputes the layer
-            x = checkpoint(_train_block, lp, x, cfg, positions,
-                           use_reentrant=False, preserve_rng_state=False)
-            new.append(None)
+    aux = _zero_aux(x.device)
+    new: Dict[str, list] = {}
+    for key in STACKS:
+        if key not in params:
             continue
-        cache = None if caches is None else caches["layers"][i]
-        x, c = _block(lp, x, cfg, mode=mode, cache=cache, positions=positions,
-                      pos=pos, pad_to=pad_to, tables=tables)
-        new.append(c)
-    return x, {"layers": new}
+        new[key] = []
+        for i, lp in enumerate(params[key]):
+            if remat:
+                # one activation checkpoint per layer, as jax.checkpoint
+                # wraps each scanned layer: the backward recomputes it
+                out = checkpoint(_train_block, lp, x, cfg, positions,
+                                 use_reentrant=False,
+                                 preserve_rng_state=False)
+                x, a = out if isinstance(out, tuple) else (out, None)
+                c = None
+            else:
+                cache = None if caches is None else caches[key][i]
+                x, c, a = _block(lp, x, cfg, mode=mode, cache=cache,
+                                 positions=positions, pos=pos, pad_to=pad_to,
+                                 tables=tables)
+            if a is not None:
+                aux = {n: aux[n] + a[n] for n in aux}
+            new[key].append(c)
+    return x, new, aux
 
 
 def forward(params, batch, cfg: ModelConfig):
     """Teacher-forced pass: (logits [B,S,V] f32, aux)."""
     x = embed_inputs(params, batch, cfg)
-    x, _ = _backbone(params, x, cfg, mode="train")
-    return lm_head(params, x, cfg), _zero_aux(x.device)
+    x, _, aux = _backbone(params, x, cfg, mode="train")
+    return lm_head(params, x, cfg), aux
 
 
 def prefill(params, batch, cfg: ModelConfig, pad_to: int = 0, n_valid=None):
@@ -195,7 +260,7 @@ def prefill(params, batch, cfg: ModelConfig, pad_to: int = 0, n_valid=None):
     x = embed_inputs(params, batch, cfg)
     if not pad_to:
         pad_to = x.shape[1] + 64
-    x, caches = _backbone(params, x, cfg, mode="prefill", pad_to=pad_to)
+    x, caches, _ = _backbone(params, x, cfg, mode="prefill", pad_to=pad_to)
     if n_valid is None:
         last = x[:, -1:]
     else:
@@ -208,7 +273,7 @@ def decode_step(params, caches, tokens, pos, cfg: ModelConfig):
     """tokens [B,1]; pos: int or [B] position of this token. The cache is
     updated in place and returned."""
     x = embed_inputs(params, {"tokens": tokens}, cfg)
-    x, caches = _backbone(params, x, cfg, mode="decode", caches=caches, pos=pos)
+    x, caches, _ = _backbone(params, x, cfg, mode="decode", caches=caches, pos=pos)
     return lm_head(params, x, cfg), caches
 
 
@@ -221,7 +286,7 @@ def prefill_paged(params, caches, batch, pos, tables, cfg: ModelConfig):
     the token axis may be bucket-padded, and pad positions write to the
     trash block. Returns (logits at ``pos - 1`` [B,1,V], pools)."""
     x = embed_inputs(params, batch, cfg)
-    x, caches = _backbone(params, x, cfg, mode="prefill", caches=caches,
+    x, caches, _ = _backbone(params, x, cfg, mode="prefill", caches=caches,
                           pos=pos, tables=tables)
     i = min(max(int(pos) - 1, 0), x.shape[1] - 1)
     return lm_head(params, x[:, i:i + 1], cfg), caches
@@ -233,7 +298,7 @@ def decode_step_paged(params, caches, tokens, pos, tables, cfg: ModelConfig):
     per-sequence positions [B]. Same contract as ``decode_step``
     otherwise."""
     x = embed_inputs(params, {"tokens": tokens}, cfg)
-    x, caches = _backbone(params, x, cfg, mode="decode", caches=caches,
+    x, caches, _ = _backbone(params, x, cfg, mode="decode", caches=caches,
                           pos=pos, tables=tables)
     return lm_head(params, x, cfg), caches
 
@@ -247,7 +312,7 @@ def verify_step(params, caches, tokens, pos, cfg: ModelConfig):
     tokens' K/V are written; callers roll a rejected tail back by position
     alone (stale entries are masked, then overwritten)."""
     x = embed_inputs(params, {"tokens": tokens}, cfg)
-    x, caches = _backbone(params, x, cfg, mode="verify", caches=caches,
+    x, caches, _ = _backbone(params, x, cfg, mode="verify", caches=caches,
                           pos=pos)
     return lm_head(params, x, cfg), caches
 
@@ -257,7 +322,7 @@ def verify_step_paged(params, caches, tokens, pos, tables, cfg: ModelConfig):
     scheduler truncates tail blocks that hold only rejected tokens
     (``PagedKVCache.truncate``)."""
     x = embed_inputs(params, {"tokens": tokens}, cfg)
-    x, caches = _backbone(params, x, cfg, mode="verify", caches=caches,
+    x, caches, _ = _backbone(params, x, cfg, mode="verify", caches=caches,
                           pos=pos, tables=tables)
     return lm_head(params, x, cfg), caches
 
@@ -268,7 +333,15 @@ def kv_leaves(cfg: ModelConfig, lead, device) -> tuple:
     activation dtype, or for the quantized tiers ``(k_q, k_scale, v_q,
     v_scale)``: int8 codes ``[*lead, Hkv, hd]`` and f32 scales
     ``[*lead, Hkv]``; int4: packed codes ``[*lead, Hkv, hd // 2]`` (two per
-    int8 byte) and f16 group scales ``[*lead, Hkv, hd // g]``."""
+    int8 byte) and f16 group scales ``[*lead, Hkv, hd // g]``. MLA: the
+    head-free ``(c_kv [*lead, rank], k_rope [*lead, dr])`` in the
+    activation dtype, whatever the tier (MLA has no quantized tier)."""
+    if cfg.attention == "mla":
+        dt = cfg.activation_dtype
+        return (torch.zeros(tuple(lead) + (cfg.kv_lora_rank,), dtype=dt,
+                            device=device),
+                torch.zeros(tuple(lead) + (cfg.qk_rope_dim,), dtype=dt,
+                            device=device))
     hd = cfg.resolved_head_dim
     shape = tuple(lead) + (cfg.n_kv_heads, hd)
     if cfg.kv_precision == "int4":
@@ -292,5 +365,5 @@ def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
                device: DeviceLike = None) -> Dict[str, Any]:
     check_supported(cfg)
     dev = resolve_device(device)
-    return {"layers": [kv_leaves(cfg, (batch, seq_len), dev)
-                       for _ in range(cfg.n_layers)]}
+    return {key: [kv_leaves(cfg, (batch, seq_len), dev) for _ in range(n)]
+            for key, n in stack_sizes(cfg).items()}

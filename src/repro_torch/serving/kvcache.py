@@ -1,5 +1,5 @@
 """Paged KV cache: the port of ``repro.serving.kvcache`` for the fp, int8
-and int4 tiers.
+and int4 tiers and MLA's compressed streams.
 
 * ``BlockAllocator`` — host-side metadata for a pool of fixed-size token
   blocks: refcounted sharing (copy-on-write via ``ensure_writable``), a
@@ -11,8 +11,10 @@ and int4 tiers.
   each pool ``[N, block_size, Hkv, hd]`` (int8 tier: ``(k_pool, k_scale,
   v_pool, v_scale)`` with f32 scale pools ``[N, block_size, Hkv]``; int4
   tier: packed pools ``[N, block_size, Hkv, hd // 2]`` with f16 group-scale
-  pools ``[N, block_size, Hkv, hd // g]``), and are written in place (the
-  JAX package replaces them functionally). ``tables`` is rebuilt only when
+  pools ``[N, block_size, Hkv, hd // g]``; MLA: the head-free ``(c_pool
+  [N, block_size, rank], r_pool [N, block_size, dr])``; an MoE model keeps
+  its ``head_layers`` pools beside ``layers``), and are written in place
+  (the JAX package replaces them functionally). ``tables`` is rebuilt only when
   a slot's blocks change, with one host-to-device copy.
 
 Attaching a second engine to one store (``shared=``) and the block export/import of
@@ -30,8 +32,9 @@ import torch
 
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels.quantize import kv_group_size
-from repro_torch.models.config import ModelConfig
-from repro_torch.models.transformer import kv_leaves
+from repro_torch.models.config import ModelConfig, check_supported
+from repro_torch.models.transformer import (kv_leaves, layer_caches,
+                                            stack_sizes)
 
 #: table entries below 0 mean "no block allocated"; gathers clamp to the
 #: reserved trash block 0 and mask by position validity.
@@ -244,15 +247,6 @@ class BlockAllocator:
 # ------------------------------------------------------------------ #
 # Device-side pools
 # ------------------------------------------------------------------ #
-def _check_pool_tier(cfg: ModelConfig) -> None:
-    why = paged_supported(cfg)
-    if why is not None:
-        raise ValueError(f"paged KV cache unsupported for {cfg.name}: {why}")
-    if cfg.attention == "mla" or cfg.n_experts:
-        raise NotImplementedError(
-            "MLA and MoE block pools are ROADMAP Queue 1 item 9")
-
-
 def init_paged_pools(cfg: ModelConfig, n_blocks: int, block_size: int,
                      device: DeviceLike = None) -> Dict[str, Any]:
     """Zeroed block pools per layer: ``(k_pool, v_pool)``, each
@@ -260,17 +254,23 @@ def init_paged_pools(cfg: ModelConfig, n_blocks: int, block_size: int,
     quantized tiers ``(k_pool, k_scale, v_pool, v_scale)``: int8 pools with
     f32 ``[n_blocks, block_size, Hkv]`` scale pools, int4 pools
     ``[n_blocks, block_size, Hkv, hd // 2]`` with f16
-    ``[n_blocks, block_size, Hkv, hd // g]`` group-scale pools: the dense
-    cache's leaves with one shared pool in place of per-slot
-    reservations."""
-    _check_pool_tier(cfg)
+    ``[n_blocks, block_size, Hkv, hd // g]`` group-scale pools; MLA:
+    ``(c_pool [n_blocks, block_size, rank], r_pool [..., dr])``: the dense
+    cache's leaves with one shared pool in place of per-slot reservations,
+    stack by stack (``head_layers`` then ``layers`` for an MoE model). A
+    config the port does not serve raises, naming its ROADMAP item."""
+    check_supported(cfg)
+    why = paged_supported(cfg)
+    if why is not None:
+        raise ValueError(f"paged KV cache unsupported for {cfg.name}: {why}")
     dev = resolve_device(device)
-    return {"layers": [kv_leaves(cfg, (n_blocks, block_size), dev)
-                       for _ in range(cfg.n_layers)]}
+    return {key: [kv_leaves(cfg, (n_blocks, block_size), dev)
+                  for _ in range(n)]
+            for key, n in stack_sizes(cfg).items()}
 
 
 def _pool_tensors(pools) -> List[torch.Tensor]:
-    return [t for leaves in pools["layers"] for t in leaves]
+    return [t for leaves in layer_caches(pools) for t in leaves]
 
 
 class SharedKVPool:
@@ -425,8 +425,8 @@ class PagedKVCache:
             ids.append(bid)
         bs = self.block_size
         idx = torch.tensor(ids, dtype=torch.int64, device=self.device)
-        for leaves, dense in zip(self.pools["layers"],
-                                 dense_cache["layers"]):
+        for leaves, dense in zip(layer_caches(self.pools),
+                                 layer_caches(dense_cache)):
             for pool, d in zip(leaves, dense):
                 rows = d[0, :need * bs]
                 if rows.shape[0] < need * bs:
@@ -455,17 +455,20 @@ def kv_bytes_per_token(cfg: ModelConfig) -> int:
     the accounting rule shared by ``kv_bytes_per_block`` and the engine's
     ``kv_hbm_bytes_per_req``.
 
+        mla    (kv_lora_rank + qk_rope_dim) * itemsize   (no quantized tier)
         fp     2 * Hkv * hd * itemsize
         int8   2 * Hkv * (hd + 4)                 payload + per-head f32 scale
         int4   2 * Hkv * (hd/2 + 2 * n_groups)    nibbles + f16 group scales
     """
+    itemsize = torch.empty((), dtype=cfg.activation_dtype).element_size()
+    if cfg.attention == "mla":
+        return int((cfg.kv_lora_rank + cfg.qk_rope_dim) * itemsize)
     hd, hkv = cfg.resolved_head_dim, cfg.n_kv_heads
     prec = cfg.kv_precision
     if prec == "int4":
         return int(2 * hkv * (hd // 2 + 2 * (hd // kv_group_size(hd))))
     if prec == "int8":
         return int(2 * hkv * (hd + 4))
-    itemsize = torch.empty((), dtype=cfg.activation_dtype).element_size()
     return int(2 * hkv * hd * itemsize)
 
 

@@ -57,6 +57,7 @@ from repro_torch.models import (decode_step, decode_step_paged, init_cache,
                                 verify_step_paged)
 from repro_torch.models.config import ModelConfig, check_supported
 from repro_torch.models.layers import place_params
+from repro_torch.models.transformer import layer_caches
 from repro_torch.serving.engine import InferenceSession, interpolated_percentile
 from repro_torch.serving.kvcache import (PagedKVCache, blocks_for_budget,
                                          bucketed_prefill_ok,
@@ -170,7 +171,7 @@ def _hits_eos(token, eos_id) -> bool:
 def _tree_insert(batched, single, slot: int) -> None:
     """Copy a batch-1 cache (per-layer leaves ``[1, S, ...]``) into slot
     ``slot`` of the batched cache, in place."""
-    for leaves, new in zip(batched["layers"], single["layers"]):
+    for leaves, new in zip(layer_caches(batched), layer_caches(single)):
         for c, c1 in zip(leaves, new):
             c[slot:slot + 1].copy_(c1)
 
@@ -946,7 +947,8 @@ class ContinuousBatchingEngine:
             kv_bytes = self.kv.kv_bytes_in_use(self.kv.alloc.stats.peak_in_use)
         else:
             kv_bytes = sum(t.numel() * t.element_size()
-                           for leaves in self.cache["layers"] for t in leaves)
+                           for leaves in layer_caches(self.cache)
+                           for t in leaves)
         m["kv_hbm_bytes_per_req"] = kv_bytes / self.n_slots
         m["kv_hbm_bytes_per_req_per_shard"] = kv_bytes / self.n_slots
         ttft = [r.first_token_at - r.submitted_at for r in done]

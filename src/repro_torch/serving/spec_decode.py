@@ -52,7 +52,8 @@ class SpecConfig:
     draft_backend    the JAX package's kernel backend for the draft; the
                      port dispatches kernels by device, so it must be None
     allow_moe_target opt-in for capacity-routed MoE targets (no greedy
-                     parity guarantee; MoE is ROADMAP Queue 1 item 9)
+                     parity guarantee: expert capacity depends on the
+                     tokens a pass routes)
     """
 
     draft: Any

@@ -79,8 +79,9 @@ def _dq8(q: Dict[str, torch.Tensor]) -> torch.Tensor:
 
 
 def _jax_rank(path: str, p: torch.Tensor) -> int:
-    """The leaf's rank in the JAX layout: one more under ``layers``."""
-    return p.dim() + (1 if path.startswith("layers/") else 0)
+    """The leaf's rank in the JAX layout: one more under a layer stack."""
+    return p.dim() + (1 if path.startswith(("layers/", "head_layers/"))
+                      else 0)
 
 
 def adamw_init(params, oc: OptimizerConfig):

@@ -112,7 +112,14 @@ FLASH_CASES = [(1, 1, 4, 4, 64, 64),
                (1, 90, 4, 4, 40, 40),
                (1, 90, 4, 2, 40, 48),
                (1, 70, 4, 2, 36, 20),
-               (1, 50, 2, 1, 33, 17)]
+               (1, 50, 2, 1, 33, 17),
+               # the MLA class <192, 128>: deepseek-v2's hd 192 / dv 128
+               # at G 1 (f32 rows of 48 16-byte chunks), a ragged hd 150
+               # and GQA at hd 160
+               (1, 128, 4, 4, 192, 128),
+               (2, 200, 8, 8, 192, 128),
+               (1, 77, 4, 4, 150, 64),
+               (1, 65, 8, 2, 160, 96)]
 
 
 @pytest.mark.parametrize("b,s,hq,hkv,hd,dv", FLASH_CASES)
@@ -134,6 +141,24 @@ def test_flash_prefill_kernel_matches_plain(dev, b, s, hq, hkv, hd, dv, dtype):
     # summation order differs
     torch.testing.assert_close(got, ref.flash_prefill_ref(q, k, v),
                                rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_prefill_mla_class_refuses_wider_rows(dev, dtype):
+    """hd 192 / dv 128 launches; dv 129 or hd 193 is refused by the
+    wrapper, and the card entry point refuses what the wrapper would."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    q, k = (torch.randn((1, 64, 2, 192), generator=gen, device=dev)
+            .to(dtype) for _ in range(2))
+    v = torch.randn((1, 64, 2, 128), generator=gen, device=dev).to(dtype)
+    torch.testing.assert_close(flash_prefill.flash_prefill(q, k, v),
+                               ref.flash_prefill_ref(q, k, v), rtol=0,
+                               atol=1e-4)
+    for hd, dv in ((193, 128), (192, 129)):
+        q = torch.zeros((1, 8, 2, hd), device=dev, dtype=dtype)
+        v = torch.zeros((1, 8, 2, dv), device=dev, dtype=dtype)
+        with pytest.raises(ValueError, match="hd="):
+            flash_prefill.flash_prefill(q, q.clone(), v)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])

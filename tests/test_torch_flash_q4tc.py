@@ -164,7 +164,7 @@ def _inputs(b, hq, hkv, hd, dv, s, dtype=torch.bfloat16):
 def test_tile_constants_are_the_kernels():
     src = CU.read_text()
     assert BK == 64 and TC["BR"] == 64 and TC["THREADS"] == 2 * BK
-    assert TC["NGMAX"] == flash_prefill.MAX_HEAD_DIM // KV_GROUP == 4
+    assert TC["NGMAX"] == flash_prefill.MAX_V_DIM // KV_GROUP == 4
     assert "flash_q4tc" in src and "dispatch_q4" in src
     assert "static_assert(THREADS == 2 * BK" in src   # a thread per key, side
 

@@ -10,6 +10,7 @@ which is why the kernel splits it. The card kernel itself is held to
 ``flash_prefill_ref`` in ``test_torch_cuda.py``.
 """
 from fractions import Fraction
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -35,6 +36,10 @@ TC_CASES = [(1, 4, 4, 64, 64, 130),
             (2, 4, 1, 96, 48, 77),
             (1, 2, 2, 32, 96, 256),
             (1, 8, 2, 48, 32, 65)]
+# the MLA width class <192, 128>: one kv head per query head, hd =
+# qk_nope + qk_rope (192 at deepseek-v2's width) beside dv <= 128
+MLA_CASES = [(1, 4, 4, 192, 128, 128),
+             (2, 2, 2, 160, 96, 70)]
 
 
 def _bf16(x):
@@ -124,7 +129,7 @@ def _inputs(b, hq, hkv, hd, dv, s, dtype=torch.bfloat16):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("case", TC_CASES)
+@pytest.mark.parametrize("case", TC_CASES + MLA_CASES)
 def test_tc_numerics_match_pallas_and_ref(case, dtype):
     b, hq, hkv, hd, dv, s = case
     assert s <= INTERPRET_MAX_SEQ
@@ -155,6 +160,35 @@ def test_one_bf16_term_of_p_misses_the_tolerance(case):
     two = float((tc_emulate(q, k, v, p_terms=2) - ref).abs().max())
     assert one > ATOL
     assert two < ATOL / 5
+
+
+def test_width_classes_and_limits():
+    """hd up to 192 with dv up to 128 (the 192 / 128 class, instantiated
+    for both dtypes and routed to above hd 128); any other shape raises,
+    and the quantized prefills stay at 128 (MLA has no quantized tier)."""
+    src = (Path(__file__).parents[1] / "src" / "repro_torch" / "csrc"
+           / "flash_prefill.cu").read_text()
+    assert "constexpr int MAXD_MLA = 192;" in src
+    assert "if (hd > MAXD)\n    return launch<T, MAXD_MLA, MAXD>" in src
+    assert "bad_shape(B, S, Hq, Hkv, hd, dv, MAXD_MLA)" in src
+    assert flash_prefill.MAX_HEAD_DIM == 192
+    assert flash_prefill.MAX_V_DIM == 128
+    assert [flash_prefill.width_class(hd, dv) for hd, dv in (
+        (64, 64), (32, 96), (96, 48), (128, 128), (65, 128), (192, 128),
+        (129, 64))] == ["64", "96", "96", "128", "128", "192x128", "192x128"]
+    assert set(flash_prefill.flash_prefill.launches_by_class) == set(
+        flash_prefill.CLASSES)
+    q, k, v = _inputs(1, 4, 4, 192, 128, 9)
+    assert flash_prefill.flash_prefill(q, k, v).shape == (1, 9, 4, 128)
+    for hd, dv in ((193, 128), (192, 129), (128, 160)):
+        q, k, v = _inputs(1, 2, 2, hd, dv, 5)
+        with pytest.raises(ValueError, match="hd="):
+            flash_prefill.flash_prefill(q, k, v)
+    q = torch.zeros(1, 5, 2, 192)
+    codes = torch.zeros(1, 5, 2, 192, dtype=torch.int8)
+    scale = torch.ones(1, 5, 2)
+    with pytest.raises(ValueError, match="hd="):
+        flash_prefill.flash_qprefill(q, codes, scale, codes, scale)
 
 
 def test_cpu_call_counts_no_body():

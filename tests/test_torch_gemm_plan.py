@@ -182,6 +182,36 @@ def test_place_params_packs_every_int8_linear(variant):
     assert torch.equal(forward(packed, batch, cfg)[0], want)
 
 
+def test_place_params_leaves_expert_leaves_unpacked():
+    """An MoE artifact's 3-D expert codes (``moe/wi [E, d, 2ff]``, ``moe/wo
+    [E, ff, d]``) stay as they are: ``moe_ffn`` dequantizes them, no GEMM
+    reads them. Its 2-D linears (MLA's projections, the shared experts,
+    the dense head layer's FFN) are packed."""
+    from repro_torch import configs as t_configs
+    from repro_torch.api.variants import VariantSpec
+    from repro_torch.models import init_params
+
+    cfg = t_configs.smoke_config("deepseek-v2-236b").with_overrides(
+        dtype="float32")
+    qparams, _ = VariantSpec.dynamic_int8().build(
+        init_params(cfg, seed=0, device="cpu"), cfg)
+    tree = place_params(qparams, "cpu", pack=True)
+    packed, before = _paths(tree), _paths(qparams)
+    experts = [p for p in before if "/moe/w" in p and p.endswith("/w_int8")]
+    assert experts and all(before[p].dim() == 3 for p in experts)
+    for p in experts:
+        assert torch.equal(packed[p], before[p])
+    for leaf in ("layers/0/moe/shared_wi", "layers/0/attn/w_ukv",
+                 "head_layers/0/mlp/wi", "head_layers/0/attn/w_dq"):
+        assert f"{leaf}/w_packed" in packed and f"{leaf}/w_int8" not in packed
+    assert "layers/0/moe/router" in packed           # fp, never quantized
+    assert tree["layers"][0]["moe"]["wi"].keys() == {"w_int8", "scale"}
+    toks = {"tokens": torch.arange(12).reshape(1, 12)}
+    torch.testing.assert_close(forward(tree, toks, cfg)[0],
+                               forward(qparams, toks, cfg)[0], atol=1e-5,
+                               rtol=0)
+
+
 def test_cpu_session_keeps_the_jax_layout():
     cfg, qparams, batch = _vlm("dynamic_int8")
     session = InferenceSession(qparams, cfg, device="cpu")

@@ -211,7 +211,10 @@ def test_unported_branches_name_the_roadmap():
     cfg = t_configs.smoke_config("mistral-nemo-12b")
     for bad in (cfg.with_overrides(window=8),
                 cfg.with_overrides(tie_embeddings=True),
-                cfg.with_overrides(attention="mla")):
+                cfg.with_overrides(attention="sliding"),
+                cfg.with_overrides(arch_type="ssm"),
+                cfg.with_overrides(arch_type="hybrid",
+                                   layer_pattern=("rec", "rec", "attn"))):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             init_params(bad, device="cpu")
     # every KV tier is served: fp, int8 and int4
@@ -219,7 +222,7 @@ def test_unported_branches_name_the_roadmap():
         init_params(cfg.with_overrides(kv_cache_precision=tier), seed=1,
                     device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_configs.get_config("deepseek-v2-236b")
+        t_configs.get_config("recurrentgemma-9b")
 
 
 def _imports(path):
