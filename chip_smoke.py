@@ -39,7 +39,8 @@ prints one JSON line per phase:
    weight shapes; B8 S579 H32 hd96), and flash prefill at MLA's 192 / 128
    width class (MLA_FLASH: one 1024-token deepseek-v2 prefill, with the
    class's ptxas lines);
-3. e2e: stablelm-1.6b at full width in bf16 with random seeded weights, the
+3. e2e: stablelm-1.6b at full width and SERVE_LAYERS of its 24 layers in
+   bf16 with random seeded weights, the
    three default variants (fp32 passthrough, dynamic int8, static int8
    calibrated on 2 batches of 2 x 128 tokens) and dynamic int8 over an
    int8 and over an int4 KV cache, 4 requests served through a
@@ -51,8 +52,8 @@ prints one JSON line per phase:
    trace of 16 greedy requests (4 share a 128-token prefix) through
    ``loadgen.replay``, for the fp32-passthrough and dynamic-int8 variants
    and dynamic int8 over an int8 KV cache (paged, dense, and paged with
-   the bf16 pool's bytes) and over an int4 KV cache (paged, dense), the
-   fp32 replays at 12 of the 24 layers (FP32_ENGINE_LAYERS), with
+   the bf16 pool's bytes) and over an int4 KV cache (paged, dense), every
+   replay at SERVE_LAYERS of the 24 layers, with
    every kernel's launch counter zeroed before each replay and read after
    it, plus a timed and profiled window of batched decode steps; then one
    request of the trace teacher-forced through the paged and the dense
@@ -63,8 +64,8 @@ prints one JSON line per phase:
    plain path against the card's kernel path on one prompt plus 8
    teacher-forced decode steps, dense and then paged (a block table with
    scattered ids and a -1 tail), over an fp, an int8 and an int4 KV cache;
-6. VQI: phi-3-vision-4.2b at its published width and depth (32 layers,
-   576 patch tokens), bf16, random seeded weights, its three variants
+6. VQI: phi-3-vision-4.2b at its published width and VQI_LAYERS of its 32
+   layers (576 patch tokens), bf16, random seeded weights, its three variants
    (static calibrated on 2 VQI batches) published into a registry in a
    temporary directory, each activated by its own ``EdgeAgent`` and served
    through ``fleet.vqi.inspection_pipeline`` behind a RequestQueue, 16
@@ -102,7 +103,8 @@ prints one JSON line per phase:
    and scales bit for bit against the CPU's (the unembedding's 205 M
    elements included), sizes, logit deltas against bf16 and 8-slot decode
    steps beside dynamic int8's;
-12. spec: stablelm-1.6b bf16 as the target, its dynamic-int8 and int4
+12. spec: stablelm-1.6b bf16 (SPEC_LAYERS of its 24 layers) as the
+   target, its dynamic-int8 and int4
    drafts published with ``draft_of`` and resolved through
    ``Deployment.spec_config``, the engine trace served paged and dense with
    and without each draft, every spec stream held to the non-spec one (a
@@ -117,8 +119,22 @@ prints one JSON line per phase:
    int8 variant drafting for the bf16 target, the routing card against
    CPU at 2 layers; ``fraction_dropped``, peak memory and the flash
    launches per width class (every MLA prefill in the 192 / 128 class);
-14. a ``kernels`` line (flash_prefill with its launches per width
-   class), the ``nvidia-smi`` line, and last the device line.
+14. recurrent: mamba2-780m (48 SSD layers, tied embeddings) in bf16 and as
+   dynamic int8, and recurrentgemma-9b (38 layers: 12 (rec, rec, attn)
+   groups and 2 recurrent tail layers, MQA 16 x 256 over a 2048-slot ring)
+   in bf16 and as dynamic int8 over fp, int8 and int4 KV caches, at
+   published width and full depth: the queue, the dense engine over an
+   8-request trace (an 8-slot decode step profiled; every int8-KV decode
+   through ``qdecode``'s wide class), a 300-token mamba2 prompt on the
+   sequential SSD path, a 2100-token recurrentgemma prompt that wraps the
+   ring, paged and speculative engines refused, and card against CPU at
+   4 layers (the hybrid's one group and one tail layer) within 2.5x the
+   CPU's one-rounding nudge;
+15. held_shapes: every flash-prefill, qdecode and int8-GEMM shape the main
+   paths gave a kernel, held against the plain version;
+16. a ``kernels`` line (flash_prefill with its launches per width
+   class, qdecode with its wide class), the ``nvidia-smi`` line, and last
+   the device line.
 
 Every counted run also checks that each flash_prefill, flash_qprefill and
 flash_q4prefill launch took the body of its dtype (``launches_by_body``),
@@ -223,8 +239,12 @@ QDECODE_SHAPES = {
     # one long sequence; phi-3-vision's hd 96 over its 579 positions
     "e": (1, 4096, 32, 1, 64, torch.bfloat16, (4095,)),
     "f": (8, 579, 32, 1, 96, torch.bfloat16, None),
+    # the wide class: recurrentgemma-9b's 16 x 256 over one kv head, its
+    # engine's 2048-slot ring at 8 slots
+    "w": (8, 2048, 1, 16, 256, torch.bfloat16, None),
 }
 HEADLINE_QDECODE = "a"
+WIDE_QDECODE = "w"
 # int8 kernels against plain versions: f32 on both sides; the kernels scale
 # after the dot, the plain versions dequantize first
 INT8KV_ATOL = 1e-4
@@ -232,10 +252,11 @@ INT8KV_ATOL = 1e-4
 # 8 slots whose requests average ~146 + 32 tokens, so preemption happens
 ENGINE = {"n_slots": 8, "max_len": 512}
 PAGED = {"paged": True, "block_size": 16, "n_blocks": 65}
-# the fp32-passthrough replays run the first 12 of the 24 layers: they
-# cover no kernel that the other replays miss, and the run stays inside
-# its time budget; the counting metrics depend on the trace only
-FP32_ENGINE_LAYERS = 12
+# the queue (e2e) and the engine replays run the first 12 of
+# stablelm-1.6b's 24 layers: every kernel and KV tier is still on them,
+# the counting metrics depend on the trace only, and the run stays inside
+# its time limit on a slower host
+SERVE_LAYERS = 12
 # a torch.profiler trace can lose a kernel record (one of 96 seen once on
 # the H100): a trace that shows fewer launches of its watched kernel than
 # the wrapper counted is taken again, at most this many times in all
@@ -283,6 +304,9 @@ HEADLINE_QW = (3072, 16384, torch.bfloat16)
 # the VQI phases: phi-3-vision-4.2b at its published width; 16 captures
 # served in batches of 8; static calibration on 2 VQI batches of 8
 VLM = "phi-3-vision-4.2b"
+# the VQI phase serves 16 of its 32 layers: the per-image work halves, and
+# the registry writes and reads of each variant (~3.4 s a GB, twice) with it
+VQI_LAYERS = 16
 VQI_CAPTURES, VQI_BATCH = 16, 8
 # the lifecycle through the registry runs 2 of the 32 layers in float32:
 # one fp32 artifact of the full model is 15.3 GB on disk, written per
@@ -331,6 +355,22 @@ SPEC_K = 3
 MOE_DEPTH = {"deepseek-v2-236b": 4, "kimi-k2-1t-a32b": 2}
 MOE_TRACE_N, MOE_PROMPT, MOE_NEW = 8, (32, 128), 16
 MOE_ROUTE_DEPTH, MOE_ROUTE_PROMPT, MOE_ROUTE_STEPS = 2, 32, 4
+# the recurrent models at published width and full depth: a trace of 8
+# requests (prompts of 32-128 tokens, 16 new each) on 8 dense-engine slots
+# of REC_ENGINE_LEN tokens, or of the window where that is longer
+# (recurrentgemma's engine must hold its 2048-slot ring); mamba2's 300-token prompt takes the sequential SSD path
+# (256 does not divide it); recurrentgemma's 2100-token prompt wraps the
+# ring in the prefill, its 8 decode steps wrap it again; card against CPU
+# at REC_CPU_DEPTH layers in f32 (the hybrid: one group and one tail layer)
+REC_ARCHS = ("mamba2-780m", "recurrentgemma-9b")
+REC_TRACE_N, REC_PROMPT, REC_NEW = 8, (32, 128), 16
+REC_ENGINE_LEN = 512
+REC_SEQ_PROMPT, REC_RING_PROMPT, REC_RING_NEW = 300, 2100, 8
+REC_CPU_DEPTH, REC_CPU_PROMPT = 4, 48
+# the spec phase's target and drafts at 12 of stablelm-1.6b's 24 layers:
+# the counting and parting checks do not depend on depth, and the run
+# stays inside its time limit with the recurrent phase
+SPEC_LAYERS = 12
 
 
 T0 = time.perf_counter()
@@ -433,16 +473,18 @@ def reset_counters(k):
         bodies = fn.launches_by_body
         for body in bodies:
             bodies[body] = 0
-    classes = k.flash_prefill.flash_prefill.launches_by_class
-    for c in classes:
-        classes[c] = 0
+    for classes in (k.flash_prefill.flash_prefill.launches_by_class,
+                    k.qdecode.qdecode.launches_by_class):
+        for c in classes:
+            classes[c] = 0
 
 
 def read_counters(k):
     """Launches per wrapper, the GEMMs' per body (``qmatmul_dynamic.gemv``,
     ``qmatmul_dynamic.wgmma``, ...), quantize_weights' per route
     (``quantize_weights.cluster``, ``quantize_weights.two_pass``) and
-    flash_prefill's per width class (``flash_prefill.class.192x128``)."""
+    flash_prefill's per width class (``flash_prefill.class.192x128``) and
+    qdecode's per class (``qdecode.class.wide``)."""
     out = {name: fn.launches for name, fn in _wrappers(k).items()}
     out.update({f"quantize_weights.{route}": n for route, n in
                 k.quantize.quantize_weights.routes.items()})
@@ -451,6 +493,8 @@ def read_counters(k):
                     for body, n in fn.launches_by_body.items()})
     out.update({f"flash_prefill.class.{c}": n for c, n in
                 k.flash_prefill.flash_prefill.launches_by_class.items()})
+    out.update({f"qdecode.class.{c}": n for c, n in
+                k.qdecode.qdecode.launches_by_class.items()})
     return out
 
 
@@ -852,7 +896,7 @@ def dequant(codes, scales, dtype):
 def qdecode_phase(k, dev, timer):
     ref, qd = k.ref, k.qdecode
     gen = torch.Generator().manual_seed(SEED + 9)
-    worst, headline = 0.0, None
+    worst, headline, wide = 0.0, None, None
     for label, shape in QDECODE_SHAPES.items():
         b, s, hkv, g, hd, dt, pos = shape
         if pos is None:
@@ -905,9 +949,14 @@ def qdecode_phase(k, dev, timer):
         emit("kernel", **row)
         if label == HEADLINE_QDECODE:
             headline = row
+        if label == WIDE_QDECODE:
+            if qd.qdecode.launches_by_class["wide"] <= 0:
+                raise AssertionError("qdecode (wide): the wide class never "
+                                     "launched")
+            wide = row
         del q, kq, vq, kf, vf
     headline["max_abs_err"] = worst
-    return headline
+    return headline, wide
 
 
 def paged_qdecode_phase(k, dev, timer):
@@ -1360,7 +1409,8 @@ def quantize_weights_phase(k, dev, timer):
 def profile_steps(step_fn, n_steps: int, step_ms: float, watch=None,
                   expect=None):
     """Device time inside ``n_steps`` calls of ``step_fn`` (decode steps, or
-    a prefill) from a torch.profiler trace: busy ms per step, the idle share
+    a prefill; one more call runs first, untraced by the window) from a
+    torch.profiler trace: busy ms per step, the idle share
     against the unprofiled step time, the kernels with the most device time
     and, if ``watch`` names a kernel template, its ms and calls per step.
 
@@ -1387,17 +1437,25 @@ def profile_steps(step_fn, n_steps: int, step_ms: float, watch=None,
 
 
 def _profile_once(step_fn, n_steps, step_ms, watch):
-    from torch.profiler import ProfilerActivity, profile
+    """One trace of ``n_steps`` calls after one warm-up call that the trace
+    drops (the tracer is running before the first recorded kernel), the
+    device drained before the window closes."""
+    from torch.profiler import ProfilerActivity, profile, schedule
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(n_steps):
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=n_steps,
+                                   repeat=1)) as prof:
+        for i in range(n_steps + 1):
             step_fn()
-        torch.cuda.synchronize()
+            if i == n_steps:
+                torch.cuda.synchronize()
+            prof.step()
     rows = []
     for e in prof.key_averages():
-        # kernels only: CPU-side aten ops carry their kernels' time too
-        if not str(getattr(e, "device_type", "")).endswith("CUDA"):
+        # kernels only: CPU-side aten ops carry their kernels' time too, and
+        # the window's step annotations span their steps on the device
+        if not str(getattr(e, "device_type", "")).endswith("CUDA") \
+                or e.key.startswith("ProfilerStep"):
             continue
         dev_us = getattr(e, "self_device_time_total",
                          getattr(e, "self_cuda_time_total", 0.0))
@@ -1415,7 +1473,8 @@ def _profile_once(step_fn, n_steps, step_ms, watch):
                             "calls_per_step": cnt / n_steps}
                            for us, name, cnt in rows[:8]]}
     if watch:
-        hits = [(us, cnt) for us, name, cnt in rows if f"::{watch}<" in name]
+        hits = [(us, cnt) for us, name, cnt in rows
+                if f"::{watch}<" in name or f"::{watch}(" in name]
         out["watched"] = {"kernel": watch,
                           "ms_per_step": sum(h[0] for h in hits) / 1e3
                           / n_steps,
@@ -1432,7 +1491,8 @@ def e2e_phase(k, dev):
     from repro_torch.models import decode_step, init_params, prefill
     from repro_torch.serving import InferenceSession, Pipeline, RequestQueue
 
-    cfg = configs.get_config("stablelm-1.6b")
+    cfg = configs.get_config("stablelm-1.6b").with_overrides(
+        n_layers=SERVE_LAYERS)
     t0 = time.perf_counter()
     params = init_params(cfg, seed=SEED)             # on the card by default
     gen = torch.Generator(device=dev).manual_seed(SEED + 2)
@@ -1455,7 +1515,9 @@ def e2e_phase(k, dev):
               **{f"flash_q4prefill.{body}": 0
                  for body in k.flash_prefill.Q4BODY.values()},
               **{f"{name}.{body}": 0 for name in _gemms(k)
-                 for body in k.qmatmul.BODIES}}
+                 for body in k.qmatmul.BODIES},
+              **{f"qdecode.class.{c}": 0
+                 for c in k.qdecode.qdecode.launches_by_class}}
     runs = [(spec.variant, spec, cfg) for spec in DEFAULT_VARIANTS]
     runs.append(("dynamic_int8_kv8", VariantSpec.dynamic_int8(),
                  cfg.with_overrides(kv_cache_int8=True)))
@@ -1525,7 +1587,7 @@ def e2e_phase(k, dev):
             prefill_ms = (time.perf_counter() - t0) * 1e3
             per_prefill = read_counters(k)
             # one more prefill, profiled: its device time and the share
-            # of it its attention kernel takes, 24 launches of it
+            # of it its attention kernel takes, one launch a layer
             watch = {"fp": "flash_tc", "int8": "flash_qtc",
                      "int4": "flash_q4tc"}[tier]
             ptrace = profile_steps(
@@ -1649,7 +1711,8 @@ def engine_phase(k, dev):
                                      InferenceSession, replay)
     from repro_torch.serving.kvcache import kv_bytes_per_block
 
-    cfg = configs.get_config("stablelm-1.6b")
+    cfg = configs.get_config("stablelm-1.6b").with_overrides(
+        n_layers=SERVE_LAYERS)
     cfg8 = cfg.with_overrides(kv_cache_int8=True)
     cfg4 = cfg.with_overrides(kv_cache_precision="int4")
     params = init_params(cfg, seed=SEED)
@@ -1665,9 +1728,7 @@ def engine_phase(k, dev):
     budget = PAGED["n_blocks"] * kv_bytes_per_block(cfg, PAGED["block_size"])
     budget_kw = {"paged": True, "block_size": PAGED["block_size"],
                  "kv_budget_bytes": budget}
-    cfg_fp32 = cfg.with_overrides(n_layers=min(FP32_ENGINE_LAYERS,
-                                                cfg.n_layers))
-    runs = (("fp32", VariantSpec.fp32(), cfg_fp32, ("paged", "dense")),
+    runs = (("fp32", VariantSpec.fp32(), cfg, ("paged", "dense")),
             ("dynamic_int8", VariantSpec.dynamic_int8(), cfg,
              ("paged", "dense")),
             ("dynamic_int8_kv8", VariantSpec.dynamic_int8(), cfg8,
@@ -1895,7 +1956,7 @@ def paged_vs_dense_phase(dev, streams):
     from repro_torch.models import init_params
 
     cfg = configs.get_config("stablelm-1.6b")
-    vcfg = cfg.with_overrides(n_layers=min(FP32_ENGINE_LAYERS, cfg.n_layers))
+    vcfg = cfg.with_overrides(n_layers=SERVE_LAYERS)
     params = init_params(cfg, seed=SEED)
     depth = {**params, "layers": params["layers"][:vcfg.n_layers]}
     qparams, _ = VariantSpec.fp32().build(depth, vcfg)
@@ -2045,7 +2106,8 @@ def _gemm_counts(params):
 
 
 def vqi_phase(k, dev):
-    """phi-3-vision-4.2b at its published width and depth, bf16, random
+    """phi-3-vision-4.2b at its published width and VQI_LAYERS of its 32
+    layers, bf16, random
     seeded weights: the three VQI variants (static calibrated on 2 VQI
     batches) published into a registry in a temporary directory, each
     activated by its own EdgeAgent (admission, fetch, sha256 check, session
@@ -2062,7 +2124,7 @@ def vqi_phase(k, dev):
     from repro_torch.models import init_params
     from repro_torch.serving import RequestQueue
 
-    cfg = configs.get_config(VLM)
+    cfg = configs.get_config(VLM).with_overrides(n_layers=VQI_LAYERS)
     t0 = time.perf_counter()
     params = init_params(cfg, seed=SEED + 20)
     model = ModelArtifact.create("vqi", "full", params, cfg)
@@ -3133,7 +3195,8 @@ def _partings(params, cfg, trace, base, got, dev, memo):
 
 
 def spec_phase(k, dev):
-    """stablelm-1.6b at full width and depth in bf16 as the target, its
+    """stablelm-1.6b at full width and SPEC_LAYERS layers in bf16 as the
+    target, its
     dynamic-int8 and int4 variants published with ``draft_of="fp32"`` into
     an ArtifactRegistry in a temporary directory (v1 and v2) and resolved
     through ``Deployment.spec_config(k=3)``. The engine trace's 16 greedy
@@ -3157,7 +3220,8 @@ def spec_phase(k, dev):
                                      replay)
     from repro_torch.serving.loadgen import TracedRequest
 
-    cfg = configs.get_config("stablelm-1.6b")
+    cfg = configs.get_config("stablelm-1.6b").with_overrides(
+        n_layers=SPEC_LAYERS)
     params = init_params(cfg, seed=SEED)
     trace = engine_trace(cfg)
     session = InferenceSession(params, cfg)
@@ -3722,7 +3786,331 @@ def moe_mla_phase(k, dev):
 
 
 # ------------------------------------------------------------------ #
-# Phase 14: every shape the main paths gave a kernel, against plain
+# Phase 14: the recurrent models (Mamba2's SSD, the RG-LRU hybrid)
+# ------------------------------------------------------------------ #
+def rec_trace(cfg):
+    """REC_TRACE_N greedy requests, prompts uniform in REC_PROMPT tokens,
+    REC_NEW new tokens each, Poisson arrivals TRACE_GAP ticks apart."""
+    from repro_torch.serving import ArrivalTrace
+
+    return ArrivalTrace.generate(cfg, REC_TRACE_N, seed=SEED + 60,
+                                 mean_interarrival=TRACE_GAP,
+                                 prompt_len=REC_PROMPT,
+                                 max_new=(REC_NEW, REC_NEW))
+
+
+@contextlib.contextmanager
+def ssd_paths(calls):
+    """Counts into ``calls`` the SSD layers that took the chunked and the
+    sequential path (the model code calls ``ssm.ssd_chunked`` /
+    ``ssm.ssd_sequential`` by module attribute)."""
+    from repro_torch.models import ssm
+
+    saved = {name: getattr(ssm, name)
+             for name in ("ssd_chunked", "ssd_sequential")}
+
+    def counting(name):
+        def call(*args, **kw):
+            calls[name] = calls.get(name, 0) + 1
+            return saved[name](*args, **kw)
+        return call
+    try:
+        for name in saved:
+            setattr(ssm, name, counting(name))
+        yield calls
+    finally:
+        for name, fn in saved.items():
+            setattr(ssm, name, fn)
+
+
+def ssd_expect(cfg, lengths):
+    """The SSD path of each prefill of ``lengths`` tokens, per layer: the
+    chunked one where the chunk divides the length, else the sequential
+    one (``ssm_prefill``'s rule)."""
+    want = {}
+    for n in lengths:
+        path = ("ssd_chunked" if n % min(cfg.ssm_chunk, n) == 0
+                else "ssd_sequential")
+        want[path] = want.get(path, 0) + cfg.n_layers
+    return want
+
+
+def _bad_tokens(out, n, cfg) -> bool:
+    return (out.shape[-1] != n or int(out.min()) < 0
+            or int(out.max()) >= cfg.vocab_size)
+
+
+def rec_serve(k, session, cfg, label, dev):
+    """The batch-1 queue (``generate``, REC_NEW tokens after each of
+    DENSE_QUEUE's prompts), then ``rec_trace`` replayed by the dense
+    engine (8 slots of REC_ENGINE_LEN tokens, or of the window) and an
+    8-slot decode window
+    profiled, each counted. No flash prefill runs (mamba2 has no attention,
+    the hybrid's window takes the banded chunked core); int8 weights go
+    through the GEMMs; an int8-KV decode through qdecode's wide class, one
+    launch per attention layer and step. Returns the launch totals."""
+    from repro_torch.serving import (ContinuousBatchingEngine, Pipeline,
+                                     RequestQueue, replay)
+
+    dtype = getattr(torch, cfg.dtype)
+    n_attn = cfg.layer_types().count("attn")
+    kv = cfg.kv_precision
+    int8 = "int8" in label
+    totals = {}
+    gen = torch.Generator(device=dev).manual_seed(SEED + 61)
+    for mode in ("queue", "dense"):
+        torch.cuda.reset_peak_memory_stats(dev)
+        ssd = {}
+        if mode == "queue":
+            prompts = [torch.randint(0, cfg.vocab_size, (1, n), generator=gen,
+                                     device=dev) for n in DENSE_QUEUE]
+            pipe = Pipeline(preprocess=lambda raw: raw,
+                            infer=lambda b: session.generate(b, REC_NEW),
+                            postprocess=lambda out, raw: out)
+            queue = RequestQueue(pipe, max_batch=1)
+            reqs = [queue.submit({"tokens": p}) for p in prompts]
+            with ssd_paths(ssd):
+                _, serve_ms, launches = _counted(
+                    k, dtype, f"{cfg.name}/{label}/queue", queue.drain)
+            for r in reqs:
+                if not r.done or _bad_tokens(r.result, REC_NEW, cfg):
+                    raise AssertionError(f"{cfg.name}/{label}/queue: bad "
+                                         "result")
+            lengths, steps = DENSE_QUEUE, len(reqs) * REC_NEW
+            tokens = len(reqs) * REC_NEW
+            extra = {"queue_tokens_per_s": tokens / serve_ms * 1e3,
+                     "host_ms_per_token": serve_ms / tokens}
+        else:
+            engine = ContinuousBatchingEngine(
+                session, n_slots=ENGINE["n_slots"],
+                max_len=max(REC_ENGINE_LEN, cfg.window))
+            engine.warmup(prompt_len=64, max_new_tokens=4)
+            torch.cuda.synchronize()
+            trace = rec_trace(cfg)
+            with ssd_paths(ssd):
+                report, serve_ms, launches = _counted(
+                    k, dtype, f"{cfg.name}/{label}/dense",
+                    lambda: replay(engine, trace))
+            for r in engine.all_requests:
+                if not r.done or len(r.out_tokens) != REC_NEW or not all(
+                        0 <= t < cfg.vocab_size for t in r.out_tokens):
+                    raise AssertionError(f"{cfg.name}/{label}/dense: request "
+                                         f"{r.rid} ended {r.status}")
+            lengths = [r.tokens.shape[1] for r in trace.requests]
+            steps = report["decode_steps"]
+            tokens = report["generated_tokens"]
+            extra = {key: report[key] for key in (
+                "p50_ttft_s", "p99_ttft_s", "decode_steps")}
+            extra.update(tokens_per_s=tokens / serve_ms * 1e3,
+                         host_ms_per_step=serve_ms / steps)
+            wide = kv == "int8"
+            per_step, step_ms, dtrace = decode_window(
+                k, engine, cfg, torch.Generator().manual_seed(SEED + 62),
+                "qdecode_wide" if wide else None, n_attn if wide else None)
+            extra.update(decode_step_ms_8_slots=step_ms,
+                         launches_per_decode_step=per_step,
+                         decode_trace=dtrace)
+            del engine
+        if launches["flash_prefill"] or launches["flash_qprefill"] \
+                or launches["flash_q4prefill"]:
+            raise AssertionError(f"{cfg.name}/{label}/{mode}: a flash "
+                                 f"prefill launched ({launches})")
+        if int8 and launches["qmatmul_dynamic"] <= 0:
+            raise AssertionError(f"{cfg.name}/{label}/{mode}: no int8 GEMM "
+                                 f"launched ({launches})")
+        if kv == "int8" and (launches["qdecode"] < n_attn
+                             or launches["qdecode.class.wide"]
+                             != launches["qdecode"]):
+            raise AssertionError(f"{cfg.name}/{label}/{mode}: qdecode "
+                                 f"launches {launches['qdecode']}, wide "
+                                 f"{launches['qdecode.class.wide']}")
+        if kv != "int8" and launches["qdecode"]:
+            raise AssertionError(f"{cfg.name}/{label}/{mode}: qdecode "
+                                 "launched without an int8 KV cache")
+        if cfg.arch_type == "ssm" and ssd != ssd_expect(cfg, lengths):
+            raise AssertionError(f"{cfg.name}/{label}/{mode}: SSD paths "
+                                 f"{ssd}, want {ssd_expect(cfg, lengths)}")
+        emit("recurrent", model=cfg.name, variant=label, kv_cache=kv,
+             mode=mode, layers=cfg.n_layers, d_model=cfg.d_model,
+             generated_tokens=tokens, serve_ms=serve_ms, launches=launches,
+             ssd_paths=ssd or None,
+             peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+             **extra)
+        _merge(totals, launches)
+        torch.cuda.empty_cache()
+    return totals
+
+
+def rec_refusals(session, cfg):
+    """paged=True and spec= refused, with the JAX package's reasons."""
+    from repro_torch.serving import ContinuousBatchingEngine, SpecConfig
+
+    why = {}
+    for kw in ({"paged": True},
+               {"spec": SpecConfig(draft=(session.params, cfg), k=SPEC_K)}):
+        try:
+            ContinuousBatchingEngine(session, n_slots=2,
+                                     max_len=max(REC_ENGINE_LEN, cfg.window),
+                                     **kw)
+        except ValueError as e:
+            why[next(iter(kw))] = str(e)
+        else:
+            raise AssertionError(f"{cfg.name}: {kw} was not refused")
+    return why
+
+
+def rec_card_vs_cpu(dev):
+    """Each recurrent model at published width and REC_CPU_DEPTH layers in
+    f32 (mamba2: 4 SSD layers; recurrentgemma: one (rec, rec, attn) group
+    and one tail layer), the same weights on the CPU's plain path and the
+    card's kernel path, a REC_CPU_PROMPT-token prompt and 8 teacher-forced
+    decode steps: mamba2 with fp32 and dynamic-int8 weights, the hybrid
+    over the fp and the int8 KV cache (the card's decode through qdecode's
+    wide class). Each held to 2.5x the CPU's own one-rounding nudge, the
+    f32 runs too: these models' f32 card readings sit within 1.3x of it."""
+    from repro_torch import configs
+    from repro_torch.api.variants import VariantSpec
+    from repro_torch.models import init_params
+    from repro_torch.models.layers import place_params
+    from repro_torch.serving import InferenceSession
+
+    runs = {"mamba2-780m": (("fp32", VariantSpec.fp32(), "fp"),
+                            ("dynamic_int8", VariantSpec.dynamic_int8(),
+                             "fp")),
+            "recurrentgemma-9b": (("fp32", VariantSpec.fp32(), "fp"),
+                                  ("fp32_int8kv", VariantSpec.fp32(),
+                                   "int8"))}
+    for arch in REC_ARCHS:
+        cfg = configs.get_config(arch).with_overrides(
+            n_layers=REC_CPU_DEPTH, dtype="float32")
+        tokens = torch.randint(0, cfg.vocab_size, (1, REC_CPU_PROMPT),
+                               generator=torch.Generator().manual_seed(
+                                   SEED + 63))
+        # drawn on the card (fast), copied to the host
+        params = place_params(init_params(cfg, seed=SEED + 64), "cpu")
+        torch.cuda.empty_cache()
+        for label, spec, kv in runs[arch]:
+            vcfg = cfg.with_overrides(kv_cache_precision=kv)
+            qparams, _ = spec.build(params, vcfg)
+            card = InferenceSession(qparams, vcfg)
+            cpu_steps, fed = teacher_forced(qparams, vcfg, tokens, "cpu",
+                                            False)
+            card_steps, _ = teacher_forced(card.params, vcfg, tokens, dev,
+                                           False, fed)
+            with nudged_norms():
+                nudge_steps, _ = teacher_forced(qparams, vcfg, tokens, "cpu",
+                                                False, fed)
+            worst_max, worst_mean = logit_diff(cpu_steps, card_steps)
+            nudge_max, nudge_mean = logit_diff(cpu_steps, nudge_steps)
+            tol_max, tol_mean = 2.5 * nudge_max, 2.5 * nudge_mean
+            ok = worst_max <= tol_max and worst_mean <= tol_mean
+            emit("recurrent_card_vs_cpu", model=cfg.name, variant=label,
+                 kv_cache=kv, layers=cfg.n_layers, d_model=cfg.d_model,
+                 vocab=cfg.vocab_size, prompt=REC_CPU_PROMPT,
+                 decode_steps=8, max_abs_err=worst_max,
+                 mean_abs_err=worst_mean, tol_max=tol_max,
+                 tol_mean=tol_mean, cpu_nudge_max=nudge_max,
+                 cpu_nudge_mean=nudge_mean,
+                 logit_scale=float(cpu_steps[0].abs().max()), ok=ok)
+            if not ok:
+                raise AssertionError(f"{cfg.name} card vs CPU logits differ "
+                                     f"by max {worst_max} / mean "
+                                     f"{worst_mean} ({label})")
+            del card, qparams
+            torch.cuda.empty_cache()
+        del params
+
+
+def recurrent_phase(k, dev):
+    """mamba2-780m and recurrentgemma-9b at published width and full depth
+    in bf16, random seeded weights. mamba2: bf16 and its dynamic-int8
+    artifact through ``rec_serve``, a REC_SEQ_PROMPT-token ``generate`` on
+    the sequential SSD path (every layer); recurrentgemma: bf16 through
+    ``rec_serve`` and a REC_RING_PROMPT-token ``generate`` that wraps the
+    ring, then (the bf16 weights freed) its dynamic-int8 artifact over the
+    fp, int8 and int4 KV caches through ``rec_serve``; both refuse paged
+    and speculative engines. Then ``rec_card_vs_cpu``. Returns the launch
+    totals."""
+    from repro_torch import configs
+    from repro_torch.api.variants import VariantSpec
+    from repro_torch.core.quant import quantized_size_bytes
+    from repro_torch.models import init_params
+    from repro_torch.serving import InferenceSession
+    from repro_torch.tree import leaves_with_path
+
+    totals = {}
+    for arch in REC_ARCHS:
+        cfg = configs.get_config(arch)
+        dtype = getattr(torch, cfg.dtype)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        params = init_params(cfg, seed=SEED)
+        torch.cuda.synchronize()
+        emit("recurrent_setup", model=cfg.name, layers=cfg.n_layers,
+             layer_types={t: cfg.layer_types().count(t)
+                          for t in sorted(set(cfg.layer_types()))},
+             params=cfg.param_count(),
+             param_gb=sum(t.numel() * t.element_size() for _, t in
+                          leaves_with_path(params)) / 1e9,
+             init_s=time.perf_counter() - t0,
+             init_peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
+        session = InferenceSession(params, cfg)
+        refused = rec_refusals(session, cfg)
+        _merge(totals, rec_serve(k, session, cfg, "bf16", dev))
+        gen = torch.Generator(device=dev).manual_seed(SEED + 65)
+        n_long, n_new = ((REC_SEQ_PROMPT, REC_NEW) if cfg.arch_type == "ssm"
+                         else (REC_RING_PROMPT, REC_RING_NEW))
+        prompt = torch.randint(0, cfg.vocab_size, (1, n_long), generator=gen,
+                               device=dev)
+        ssd = {}
+        torch.cuda.reset_peak_memory_stats(dev)
+        with ssd_paths(ssd):
+            out, long_ms, launches = _counted(
+                k, dtype, f"{cfg.name}/long",
+                lambda: session.generate({"tokens": prompt}, n_new))
+        if _bad_tokens(out, n_new, cfg):
+            raise AssertionError(f"{cfg.name}: bad long-prompt result")
+        if cfg.arch_type == "ssm" and not (
+                ssd == ssd_expect(cfg, [n_long])
+                == {"ssd_sequential": cfg.n_layers}):
+            raise AssertionError(f"{cfg.name}: {n_long}-token prompt took "
+                                 f"the SSD paths {ssd}")
+        _merge(totals, launches)
+        emit("recurrent_long_prompt", model=cfg.name, variant="bf16",
+             prompt=n_long, new_tokens=n_new, ms=long_ms,
+             ssd_paths=ssd or None,
+             ring_wraps=(None if cfg.arch_type == "ssm"
+                         else (n_long + n_new) // cfg.window),
+             tokens=out[0].tolist(), refused=refused,
+             peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        qparams, info = VariantSpec.dynamic_int8().build(params, cfg)
+        torch.cuda.synchronize()
+        emit("recurrent_int8_build", model=cfg.name,
+             build_s=time.perf_counter() - t0,
+             quantized_leaves=len(info["quantized_paths"]),
+             size_gb=quantized_size_bytes(qparams) / 1e9,
+             peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
+        del session, params
+        torch.cuda.empty_cache()
+        tiers = ("fp",) if cfg.arch_type == "ssm" else ("fp", "int8", "int4")
+        for kv in tiers:
+            vcfg = cfg.with_overrides(kv_cache_precision=kv)
+            session = InferenceSession(qparams, vcfg)
+            label = "dynamic_int8" + ("" if kv == "fp" else f"_kv{kv[3:]}")
+            _merge(totals, rec_serve(k, session, vcfg, label, dev))
+            del session
+            torch.cuda.empty_cache()
+        del qparams
+        torch.cuda.empty_cache()
+    rec_card_vs_cpu(dev)
+    return totals
+
+
+# ------------------------------------------------------------------ #
+# Phase 15: every shape the main paths gave a kernel, against plain
 # ------------------------------------------------------------------ #
 def _flash_key(q, k, dv):
     # (B, S, Hq, Hkv, hd, dv, dtype), as FLASH_SHAPES
@@ -3735,12 +4123,18 @@ def _gemm_key(x, n):
     return (*x.shape, n, x.dtype)
 
 
+def _qdecode_key(q, k):
+    # (B, S, Hkv, G, hd, q dtype), as QDECODE_SHAPES
+    b, hkv, g, hd = q.shape
+    return (b, k.shape[1], hkv, g, hd, q.dtype)
+
+
 @contextlib.contextmanager
 def recording_shapes(seen):
     """Records into ``seen`` (kernel name -> set of shape keys) the shape of
     every call that the model code makes through ``kernels.ops`` to the
-    flash prefills and the int8 GEMMs; the wrappers and their counters are
-    left as they are."""
+    flash prefills, the dense int8-KV decode and the int8 GEMMs; the
+    wrappers and their counters are left as they are."""
     from repro_torch.kernels import ops
 
     keys = {"flash_prefill": lambda q, k, v: (
@@ -3757,7 +4151,9 @@ def recording_shapes(seen):
             # a packed weight is [N, Kp]
             "qmatmul_packed": lambda x, w, s, act_scale=None, **kw: (
                 "qmatmul_dynamic" if act_scale is None else "qmatmul_static",
-                _gemm_key(x, w.shape[0]))}
+                _gemm_key(x, w.shape[0])),
+            "qdecode": lambda q, k, ks, v, vs, bias: (
+                "qdecode", _qdecode_key(q, k))}
     saved = {name: getattr(ops, name) for name in keys}
 
     def recorder(name):
@@ -3776,29 +4172,45 @@ def recording_shapes(seen):
 
 
 def held_shapes_phase(k, dev, seen):
-    """Every flash-prefill and int8-GEMM shape that the main paths gave a
-    kernel (``recording_shapes``), held against the plain version on
+    """Every flash-prefill, qdecode and int8-GEMM shape that the main paths
+    gave a kernel (``recording_shapes``), held against the plain version on
     random inputs of that shape and dtype. Shapes the kernel phases already
-    held (FLASH_SHAPES, MLA_FLASH, GEMM_CASES at bf16 activations) are
-    counted; the
-    rest run here, at the kernel phases' tolerances: flash FLASH_ATOL,
-    int8 / int4 K/V INT8KV_ATOL, GEMMs rtol 1e-6."""
+    held (FLASH_SHAPES, MLA_FLASH, QDECODE_SHAPES, GEMM_CASES at bf16
+    activations) are counted; the rest run here, at the kernel phases'
+    tolerances: flash FLASH_ATOL, int8 / int4 K/V INT8KV_ATOL, GEMMs rtol
+    1e-6."""
     ref, fp, qm, dq = k.ref, k.flash_prefill, k.qmatmul, k.dynquant
     gen = torch.Generator(device=dev).manual_seed(SEED + 40)
     cpu_gen = torch.Generator().manual_seed(SEED + 41)
     gemm_held = {(m, kk, n, torch.bfloat16) for kk, n, ms in GEMM_CASES
                  for m in ms}
     codes = {"flash_qprefill": int8_codes, "flash_q4prefill": int4_codes}
+    qdecode_held = {shape[:6] for shape in QDECODE_SHAPES.values()}
     summary = {}
     for name in sorted(seen):
         keys = sorted(seen[name], key=str)
         gemm = name.startswith("qmatmul")
-        new = [key for key in keys
-               if key not in (gemm_held if gemm
-                              else FLASH_SHAPES + (MLA_FLASH,))]
+        held = (gemm_held if gemm else qdecode_held if name == "qdecode"
+                else FLASH_SHAPES + (MLA_FLASH,))
+        new = [key for key in keys if key not in held]
         worst = 0.0
         for key in new:
-            if gemm:
+            if name == "qdecode":
+                b, s, hkv, g, hd, dt = key
+                q = torch.randn((b, hkv, g, hd), generator=cpu_gen).to(dev, dt)
+                kv = [*int8_codes(cpu_gen, (b, s, hkv, hd), dev),
+                      *int8_codes(cpu_gen, (b, s, hkv, hd), dev)]
+                pos = torch.randint(0, s, (b, 1), generator=cpu_gen).to(dev)
+                bias = torch.where(torch.arange(s, device=dev)[None] <= pos,
+                                   torch.zeros((), device=dev),
+                                   torch.full((), -2.0e38, device=dev))
+                got = k.qdecode.qdecode(q, *kv, bias)
+                want = ref.qdecode_ref(q, *kv, bias)
+                err = float((got - want).abs().max())
+                if not torch.isfinite(got).all() or err > INT8KV_ATOL:
+                    raise AssertionError(f"qdecode {key}: max |err| {err} > "
+                                         f"{INT8KV_ATOL}")
+            elif gemm:
                 m, kk, n, dt = key
                 w = torch.randint(-127, 128, (kk, n), generator=gen,
                                   device=dev, dtype=torch.int8)
@@ -3890,6 +4302,7 @@ def main() -> int:
          cuda=torch.version.cuda, build_s=build_s, ptxas=ptxas,
          ptxas_redesigned={name: k.ptxas[name] for name in sorted(k.ptxas)
                            if "flash_q" in name or "_split" in name
+                           or "qdecode_wide" in name
                            or name.startswith(("quantize_cluster",
                                                "quantize_cols"))
                            or ", 192, 128>" in name},
@@ -3903,7 +4316,7 @@ def main() -> int:
     heads["flash_prefill"], heads["flash_prefill_mla"] = flash_phase(
         k, dev, timer)
     heads["paged_decode"] = paged_phase(k, dev, timer)
-    heads["qdecode"] = qdecode_phase(k, dev, timer)
+    heads["qdecode"], heads["qdecode_wide"] = qdecode_phase(k, dev, timer)
     heads["paged_qdecode"] = paged_qdecode_phase(k, dev, timer)
     heads["flash_qprefill"] = flash_qprefill_phase(k, dev, timer)
     heads["paged_q4decode"] = paged_q4decode_phase(k, dev, timer)
@@ -3923,6 +4336,8 @@ def main() -> int:
         totals["paged_decode"] = paged_totals["paged_decode"]
         for name in ("qdecode", "paged_qdecode", "flash_qprefill",
                      "paged_q4decode", "flash_q4prefill",
+                     *(f"qdecode.class.{c}"
+                       for c in k.qdecode.qdecode.launches_by_class),
                      *(f"flash_qprefill.{body}"
                        for body in k.flash_prefill.QBODY.values()),
                      *(f"flash_q4prefill.{body}"
@@ -3955,6 +4370,9 @@ def main() -> int:
         # the MoE and MLA models at published width (the flash prefill's
         # 192 / 128 class)
         _merge(totals, moe_mla_phase(k, dev))
+        # the recurrent models at published width and depth (qdecode's
+        # wide class)
+        _merge(totals, recurrent_phase(k, dev))
     held_shapes_phase(k, dev, seen)
 
     sources = {"flash_prefill": ("src/repro_torch/csrc/flash_prefill.cu",
@@ -4001,6 +4419,13 @@ def main() -> int:
                 c: totals.get(f"flash_prefill.class.{c}", 0)
                 for c in k.flash_prefill.CLASSES}
             kernels[-1]["mla_class"] = heads["flash_prefill_mla"]
+        if name == "qdecode":
+            kernels[-1]["launches_by_class"] = {
+                c: totals.get(f"qdecode.class.{c}", 0)
+                for c in k.qdecode.qdecode.launches_by_class}
+            kernels[-1]["wide_class"] = dict(
+                heads["qdecode_wide"],
+                launches=totals.get("qdecode.class.wide", 0))
         if name in ("paged_decode", "paged_q4decode"):
             kernels[-1]["body"] = h["body"]
         if name == "quantize_weights":

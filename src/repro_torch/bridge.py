@@ -2,9 +2,10 @@
 
 The caller converts the JAX tree to numpy first (``jax.tree.map(np.asarray,
 params)``), so this module never imports JAX. Layer-stacked ``[L, ...]``
-leaves under ``layers`` and, for an MoE model, ``head_layers``
+leaves under ``layers``, for an MoE model ``head_layers``, and for a hybrid
+``groups`` (nested ``{rec1, rec2, attn}`` dicts) and ``tail``
 (``repro.models.transformer.init_params``) are unstacked into the port's
-per-layer lists; quantized leaf dicts unstack field by field (``w_int8
+per-unit lists; quantized leaf dicts unstack field by field (``w_int8
 [L,K,N]``, ``scale [L,1,N]``, ``act_scale [L]``; an expert leaf's
 ``w_int8 [L,E,d,2ff]``).
 
@@ -117,25 +118,42 @@ def grads_to_jax(tree) -> Any:
     return map_with_path(lambda _, t: to_numpy(t), stack_layers(tree))
 
 
+def _unstack_cache(node, dev) -> list:
+    """A stack's ``[L, ...]`` fields (a tuple, or a hybrid group's dict of
+    tuples) -> one tuple (or dict of tuples) per unit."""
+    if isinstance(node, dict):
+        per = {k: _unstack_cache(v, dev) for k, v in node.items()}
+        n = len(next(iter(per.values())))
+        return [{k: per[k][i] for k in per} for i in range(n)]
+    fields = [np.asarray(a) for a in node]
+    return [tuple(to_torch(f[i], dev) for f in fields)
+            for i in range(fields[0].shape[0])]
+
+
+def _stack_cache(units: list):
+    """Inverse of ``_unstack_cache``, to numpy."""
+    if isinstance(units[0], dict):
+        return {k: _stack_cache([u[k] for u in units]) for k in units[0]}
+    return tuple(np.stack([to_numpy(t[j]) for t in units])
+                 for j in range(len(units[0])))
+
+
 def cache_from_jax(tree, device: DeviceLike = None) -> Any:
     """JAX cache or pools as numpy (``{"layers": (k, v)}``, the int8 /
-    int4 4-tuple or MLA's ``(c_kv, k_rope)``, leaves ``[L, ...]``, and an
-    MoE model's ``head_layers`` alike) -> the port's ``{"layers": [(k, v),
-    ...]}`` (or 4-tuples), stack by stack."""
+    int4 4-tuple, MLA's ``(c_kv, k_rope)`` or an SSM layer's ``(state,
+    conv_state)``, leaves ``[L, ...]``; an MoE model's ``head_layers``
+    alike; a hybrid's ``{"groups": {"rec1": (h, conv), "rec2": ..., "attn":
+    kv}, "tail": (h, conv)}``) -> the port's ``{"layers": [(k, v), ...]}``
+    (a hybrid: ``{"groups": [{"rec1", "rec2", "attn"}, ...], "tail":
+    [...]}``), stack by stack."""
     dev = resolve_device(device)
-    out = {}
-    for key in STACKS:
-        if key in tree:
-            fields = [np.asarray(a) for a in tree[key]]
-            out[key] = [tuple(to_torch(f[i], dev) for f in fields)
-                        for i in range(fields[0].shape[0])]
-    return out
+    return {key: _unstack_cache(tree[key], dev)
+            for key in STACKS if key in tree}
 
 
 def cache_to_jax(cache) -> Any:
     """The port's per-layer tuples -> numpy leaves stacked as the JAX
     package holds them: ``{"layers": (k [L, ...], v [L, ...])}`` (or the
-    int8 / int4 4-tuple, or MLA's pair), stack by stack."""
-    return {key: tuple(np.stack([to_numpy(t[j]) for t in cache[key]])
-                       for j in range(len(cache[key][0])))
-            for key in STACKS if key in cache}
+    int8 / int4 4-tuple, MLA's pair, an SSM layer's pair, a hybrid's group
+    dict), stack by stack."""
+    return {key: _stack_cache(cache[key]) for key in STACKS if key in cache}

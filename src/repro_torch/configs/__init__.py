@@ -1,8 +1,9 @@
 """Config registry of the port: ``get_config(arch_id)`` / ``smoke_config``.
 
-The dense-GQA architectures, phi-3-vision (the VQI model family) and the
-MoE architectures (deepseek-v2 with MLA, kimi-k2 with GQA) are registered;
-the SSM, hybrid and audio architectures arrive with ROADMAP Queue 1 item 9.
+The dense-GQA architectures, phi-3-vision (the VQI model family), the MoE
+architectures (deepseek-v2 with MLA, kimi-k2 with GQA), Mamba2 (SSD) and
+the RG-LRU hybrid recurrentgemma are registered; the audio architecture
+(musicgen) arrives with ROADMAP Queue 1 item 9.
 """
 from __future__ import annotations
 
@@ -15,18 +16,18 @@ CLI_ALIASES: Dict[str, str] = {
     "deepseek-7b": "deepseek_7b",
     "deepseek-v2-236b": "deepseek_v2_236b",
     "kimi-k2-1t-a32b": "kimi_k2_1t_a32b",
+    "mamba2-780m": "mamba2_780m",
     "mistral-nemo-12b": "mistral_nemo_12b",
     "phi-3-vision-4.2b": "phi_3_vision_4_2b",
     "phi3-mini-3.8b": "phi3_mini_3_8b",
+    "recurrentgemma-9b": "recurrentgemma_9b",
     "stablelm-1.6b": "stablelm_1_6b",
 }
 ARCH_IDS: List[str] = sorted(CLI_ALIASES.values())
 
 #: the JAX package's architectures with no twin here: ROADMAP Queue 1 item 9
 #: ports them
-UNPORTED: FrozenSet[str] = frozenset({
-    "mamba2_780m", "musicgen_large", "recurrentgemma_9b",
-})
+UNPORTED: FrozenSet[str] = frozenset({"musicgen_large"})
 
 
 def _module(arch_id: str):

@@ -256,7 +256,8 @@ def tree_size_bytes(params) -> int:
         if not isinstance(leaf, torch.Tensor):
             continue
         if path.rsplit("/", 1)[-1] == "w_int4":
-            key = re.sub(r"^(head_layers|layers)/\d+/", r"\1/", path)
+            key = re.sub(r"^(head_layers|layers|groups|tail)/\d+/", r"\1/",
+                         path)
             nibbles[key] = nibbles.get(key, 0) + leaf.numel()
         else:
             total += leaf.numel() * leaf.element_size()

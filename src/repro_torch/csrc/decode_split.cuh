@@ -58,7 +58,11 @@
 // holds no valid slot contributes m = -1e30, l = 0 and acc = 0, never -inf,
 // so the merge never computes exp(-inf - -inf). A paged row with no valid
 // slot gives l = 0 and 0/0 = NaN, as the TPU kernel does. The dense kernel
-// reads every slot of S.
+// reads every slot of S and adds its bias: its running max is seeded at
+// RUN_INIT_BIAS, below NEG_INF, and a lane row past the share scores -inf,
+// so a row whose every slot the bias masks averages them uniformly, as the
+// plain softmax does, and a live row's masked slots weigh exp(-2e38 - m) =
+// 0 as before. The cluster's merge starts from rank 0's max.
 
 #pragma once
 
@@ -79,9 +83,24 @@ constexpr int KT = 32;                  // key slots per tile: a share's unit
 constexpr int MAX_SPLITS = 8;           // CTAs per cluster (portable size)
 constexpr int MAXG = 8;                 // query heads per kv head
 constexpr int MAXD = 128;               // head dim
+// The wide class (qdecode only: Int8 over DenseRows), for G up to WIDE_G
+// and hd up to WIDE_D (recurrentgemma's 16 x 256 over one kv head): a grid
+// axis over groups of WIDE_GB query heads (each group's CTAs read the K/V
+// rows again, from L2 after the first) and a lane row of WIDE_LPR lanes x
+// lane_codes(WIDE_GB) codes, one 16-byte load. One head a CTA keeps the
+// serial chain of a warp step short and puts G times the CTAs on the card:
+// the loop is latency-bound at this shape (B * Hkv is 8 pairs), and groups
+// of 8 heads on 32 lanes ran 2.4x slower (scripts/qdecode_wide_sweep.py).
+// Its own shared-memory bound (WIDE_D) leaves every MAXG / MAXD
+// instantiation as it was.
+constexpr int WIDE_G = 16;
+constexpr int WIDE_GB = 1;
+constexpr int WIDE_D = 256;
+constexpr int WIDE_LPR = 16;
 constexpr int TAB_CAP = 512;            // table entries staged at once
 constexpr float NEG_INF = -2.0e38f;     // a masked slot's score
 constexpr float RUN_INIT = -1.0e30f;    // the running max's seed
+constexpr float RUN_INIT_BIAS = -3.0e38f;  // the dense (bias) rows' seed
 
 // bf16 or f32 elements, no scale
 template <typename T>
@@ -377,7 +396,7 @@ __device__ __forceinline__ void consume(const Slot<Fmt, VL>& s,
 #pragma unroll
     for (int o = 1; o < LPR; o <<= 1)
       dot += __shfl_xor_sync(0xffffffffu, dot, o);
-    float sc = NEG_INF;
+    float sc = BIAS ? __int_as_float(0xff800000u) : NEG_INF;  // -inf
     if (s.on) {
       sc = Fmt::kScaleAfterDot ? dot * ks / scale : dot / scale;
       if (BIAS) sc = sc + s.add;
@@ -406,21 +425,24 @@ __device__ __forceinline__ int cluster_head(int Hkv) {
   return blockIdx.x / (gridDim.x / Hkv);
 }
 
-// q [B,Hkv,G,hd] f32 (q_bf16 = 0) or bf16; k / v codes and k_s / v_s in
-// Fmt's layout, rows as `Rows` says; out [B,Hkv,G,hd] f32. Called by every
+// q [B,Hkv,GS,hd] f32 (q_bf16 = 0) or bf16; k / v codes and k_s / v_s in
+// Fmt's layout, rows as `Rows` says; out [B,Hkv,GS,hd] f32. This CTA
+// serves the G query heads g0 .. g0 + G - 1 of the GS of its kv head (GS
+// = 0: G, all of them); DB bounds hd in its shared memory. Called by every
 // thread of every CTA of the cluster.
-template <class Fmt, int LPR, int GB, class Rows>
+template <class Fmt, int LPR, int GB, class Rows, int DB = MAXD>
 __device__ __forceinline__ void attend(
     const void* __restrict__ q, int q_bf16, const int8_t* __restrict__ kp,
     const typename Fmt::Scale* __restrict__ ksp, const int8_t* __restrict__ vp,
     const typename Fmt::Scale* __restrict__ vsp, const Rows& rows,
-    float* __restrict__ out, int b, int h, int Hkv, int G, int hd) {
+    float* __restrict__ out, int b, int h, int Hkv, int G, int hd,
+    int g0 = 0, int GS = 0) {
   constexpr int VL = Fmt::lane_codes(GB);
   constexpr int R = 32 / LPR;             // slot rows per warp step
   constexpr int QW = LPR * VL;
-  static_assert(QW <= MAXD && GB <= MAXG, "compiled bounds");
+  static_assert(QW <= DB && GB <= MAXG, "compiled bounds");
   __shared__ __align__(16) float qs[GB * QW];   // q; then the CTA partial
-  __shared__ __align__(16) float wacc[NW][GB * MAXD];
+  __shared__ __align__(16) float wacc[NW][GB * DB];
   __shared__ float wm[NW][GB], wl[NW][GB];
   __shared__ float pm[GB], pl[GB];
   __shared__ int tab[Rows::kTab];
@@ -431,6 +453,7 @@ __device__ __forceinline__ void attend(
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int rg = lane / LPR, l = lane % LPR;
   const long head = (long)b * Hkv + h;
+  const long q0 = head * (GS ? GS : G) + g0;    // this CTA's first q head
   const float scale = sqrtf((float)hd);
 
   int k0, k1;
@@ -452,7 +475,7 @@ __device__ __forceinline__ void attend(
     const int d = (f % LPR) * VL + (f / LPR) * 4 + c;
     float v = 0.f;
     if (g < G && d < hd) {
-      const long i = (head * G + g) * hd + d;
+      const long i = (q0 + g) * hd + d;
       v = q_bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(q)[i])
                  : static_cast<const float*>(q)[i];
     }
@@ -462,7 +485,7 @@ __device__ __forceinline__ void attend(
   float m[GB], lsum[GB], acc[GB][VL];
 #pragma unroll
   for (int g = 0; g < GB; ++g) {
-    m[g] = RUN_INIT;
+    m[g] = Rows::kBias ? RUN_INIT_BIAS : RUN_INIT;
     lsum[g] = 0.f;
 #pragma unroll
     for (int c = 0; c < VL; ++c) acc[g][c] = 0.f;
@@ -507,7 +530,7 @@ __device__ __forceinline__ void attend(
     for (int g = 0; g < GB; ++g) {
       if (g < G) {
         float4* dst =
-            reinterpret_cast<float4*>(&wacc[warp][g * MAXD + lane * VL]);
+            reinterpret_cast<float4*>(&wacc[warp][g * DB + lane * VL]);
 #pragma unroll
         for (int i = 0; i < VL / 4; ++i)
           dst[i] = make_float4(acc[g][4 * i], acc[g][4 * i + 1],
@@ -536,7 +559,7 @@ __device__ __forceinline__ void attend(
     for (int w = 0; w < NW; ++w) {
       const float f = expf(wm[w][g] - mx);
       ls = fmaf(wl[w][g], f, ls);
-      a = fmaf(wacc[w][g * MAXD + d], f, a);
+      a = fmaf(wacc[w][g * DB + d], f, a);
     }
     part[o] = a;
     if (d == 0) {
@@ -560,9 +583,9 @@ __device__ __forceinline__ void attend(
           ra[r] = *cluster.map_shared_rank(part + o, r);
         }
       }
-      float mx = RUN_INIT;
+      float mx = rm[0];
 #pragma unroll
-      for (int r = 0; r < MAX_SPLITS; ++r)
+      for (int r = 1; r < MAX_SPLITS; ++r)
         if (r < splits) mx = fmaxf(mx, rm[r]);
       float ls = 0.f, a = 0.f;
 #pragma unroll
@@ -573,20 +596,21 @@ __device__ __forceinline__ void attend(
           a = fmaf(ra[r], f, a);
         }
       }
-      out[head * G * hd + o] = a / ls;
+      out[q0 * hd + o] = a / ls;
     }
   }
   cluster.sync();                         // rank 0 has read every partial
 }
 
-// Launch `kernel` on the grid (splits * Hkv, B) in clusters of `splits`
-// CTAs along x; a cluster that cannot be scheduled is refused here.
+// Launch `kernel` on the grid (splits * Hkv, B, Z) in clusters of
+// `splits` CTAs along x; a cluster that cannot be scheduled is refused
+// here.
 template <typename... KArgs, typename... AArgs>
-int launch(void (*kernel)(KArgs...), int splits, int Hkv, int B,
-           cudaStream_t stream, AArgs&&... args) {
+int launch_z(void (*kernel)(KArgs...), int splits, int Hkv, int B, int Z,
+             cudaStream_t stream, AArgs&&... args) {
   while (splits > 1 && (long)splits * Hkv > 0x7fffffffL) splits /= 2;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(splits * Hkv, B);
+  cfg.gridDim = dim3(splits * Hkv, B, Z);
   cfg.blockDim = dim3(PT);
   cfg.dynamicSmemBytes = 0;
   cfg.stream = stream;
@@ -599,6 +623,13 @@ int launch(void (*kernel)(KArgs...), int splits, int Hkv, int B,
   cfg.numAttrs = 1;
   const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, args...);
   return (int)(e != cudaSuccess ? e : cudaGetLastError());
+}
+
+// the grid (splits * Hkv, B)
+template <typename... KArgs, typename... AArgs>
+int launch(void (*kernel)(KArgs...), int splits, int Hkv, int B,
+           cudaStream_t stream, AArgs&&... args) {
+  return launch_z(kernel, splits, Hkv, B, 1, stream, args...);
 }
 
 // go.template run<LPR, GB>() where a lane row of LPR lanes fits MAXD;

@@ -13,6 +13,15 @@ the partials through distributed shared memory in rank order (no
 workspace, no atomics: repeated calls give the same bits). It is bound by
 the bytes of the codes and scales: at the dense engine's shape (B8 S512
 Hkv32 hd64) ~17.9 MB, ~5.3 us at 3.35 TB/s.
+
+The wide class (``wide_class``: G above ``MAX_GROUP`` or hd above
+``MAX_HEAD_DIM``, up to ``WIDE_GROUP`` x ``WIDE_HEAD_DIM``) serves
+recurrentgemma's 16 query heads x 256 over one kv head: a grid axis over
+the query heads, one a CTA (the K/V rows re-read from L2), 16 lanes x 16
+codes a slot row, the same loop and merge. At its shape (B8 S2048 Hkv1) it
+must read ~8.8 MB, ~2.6 us at 3.35 TB/s; with 8 (sequence, kv head) pairs
+the loop is latency-bound. ``launches_by_class`` counts launches by class
+("split", "wide").
 """
 from __future__ import annotations
 
@@ -23,6 +32,8 @@ from repro_torch.kernels.ref import qdecode_ref
 
 MAX_GROUP = 8            # query heads per kv head
 MAX_HEAD_DIM = 128
+WIDE_GROUP = 16          # the wide class's bounds
+WIDE_HEAD_DIM = 256
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _LIB = "qdecode"
 
@@ -46,9 +57,10 @@ def _check(q, k_i8, k_s, v_i8, v_s, bias):
                         f"codes int8 ({k_i8.dtype} / {v_i8.dtype})")
     if any(t.dtype != torch.float32 for t in (k_s, v_s, bias)):
         raise TypeError("scales and bias must be float32")
-    if not (1 <= g <= MAX_GROUP and 16 <= hd <= MAX_HEAD_DIM and hd % 16 == 0):
-        raise ValueError(f"G={g}, hd={hd}: need G <= {MAX_GROUP} and hd a "
-                         f"multiple of 16 up to {MAX_HEAD_DIM}")
+    if not (1 <= g <= WIDE_GROUP and 16 <= hd <= WIDE_HEAD_DIM
+            and hd % 16 == 0):
+        raise ValueError(f"G={g}, hd={hd}: need G <= {WIDE_GROUP} and hd a "
+                         f"multiple of 16 up to {WIDE_HEAD_DIM}")
     for name, t in (("k_i8", k_i8), ("k_s", k_s), ("v_i8", v_i8),
                     ("v_s", v_s), ("bias", bias)):
         if t.device != q.device:
@@ -57,6 +69,11 @@ def _check(q, k_i8, k_s, v_i8, v_s, bias):
                     ("v_s", v_s), ("bias", bias)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+
+
+def wide_class(g: int, hd: int) -> bool:
+    """Whether (G, hd) takes the wide class (else the split classes)."""
+    return g > MAX_GROUP or hd > MAX_HEAD_DIM
 
 
 def qdecode(q, k_i8, k_s, v_i8, v_s, bias):
@@ -82,7 +99,9 @@ def qdecode(q, k_i8, k_s, v_i8, v_s, bias):
             _build.stream_of(q))
     _build.check(_LIB, rc, "qdecode_fwd")
     qdecode.launches += 1
+    qdecode.launches_by_class["wide" if wide_class(g, hd) else "split"] += 1
     return out
 
 
 qdecode.launches = 0
+qdecode.launches_by_class = {"split": 0, "wide": 0}

@@ -13,6 +13,11 @@ multi-token verify (``gqa_verify``, ``gqa_verify_paged``) writes M tokens'
 K/V and attends each over its causal prefix, plain PyTorch over the
 dequantized cache.
 
+A window (``cfg.window``: recurrentgemma's local attention, or
+``for_long_context``) keeps the banded chunked prefill (never flash) and a
+ring cache of exactly ``window`` slots: decode writes position t at slot
+t % window and masks the ring by position, in every tier.
+
 Decode over the fp cache is a plain masked softmax einsum there, and a
 plain ``torch.einsum`` here. The quantized tiers quantize K and V before they are
 stored, keep the cache as ``(k_q, k_scale, v_q, v_scale)``, and attend over
@@ -130,16 +135,23 @@ def chunked_attention(q, k, v, positions=None, window: int = 0,
 
 
 def _ring_or_pad(t: torch.Tensor, s: int, window: int, pad_to: int):
-    """Prefill K/V [B, S, ...] -> decode cache layout, padded to ``pad_to``
-    slots so decode can append (the ring-buffer branch is not ported)."""
+    """Prefill K/V [B, S, ...] -> the decode cache layout. With a window: a
+    ring of exactly ``window`` slots, the prompt zero-padded to ``window``
+    slots, or its last ``window`` rows rolled by ``-(s % window)`` as the
+    JAX package rolls them (position t then sits at slot t % window, where
+    decode looks for it, only when ``s % window`` is 0 or ``window / 2``:
+    ROADMAP Queue 3); else padded to ``pad_to`` slots so decode can
+    append."""
+    def pad(n):
+        z = torch.zeros((t.shape[0], n - s) + tuple(t.shape[2:]),
+                        dtype=t.dtype, device=t.device)
+        return torch.cat([t, z], dim=1)
+
     if window:
-        raise NotImplementedError(
-            "sliding-window ring caches are ROADMAP Queue 1 item 9")
-    if pad_to > s:
-        pad = torch.zeros((t.shape[0], pad_to - s) + tuple(t.shape[2:]),
-                          dtype=t.dtype, device=t.device)
-        return torch.cat([t, pad], dim=1)
-    return t
+        if window < s:
+            return torch.roll(t[:, s - window:], -(s % window), dims=1)
+        return pad(window) if window > s else t
+    return pad(pad_to) if pad_to > s else t
 
 
 def _quantize_kv(t):
@@ -221,19 +233,27 @@ def _batched_update(cache: torch.Tensor, update: torch.Tensor, slots):
 
 def decode_positions(pos, b: int, s_cache: int, window: int, device=None):
     """pos (int or [B] tensor) -> (pos_vec [B], slots_vec [B], k_pos [B,S],
-    valid [B,S]) for a full-attention cache. An int position is filled on
-    ``device`` (no host-to-device copy, so no stream sync)."""
-    if window:
-        raise NotImplementedError(
-            "sliding-window decode is ROADMAP Queue 1 item 9")
+    valid [B,S]). Full attention: slot k holds position k. A window's ring:
+    this token goes to slot pos % S, slot k holds the latest position
+    congruent to k that is <= pos (negative: never written), valid within
+    the window. An int position is filled on ``device`` (no host-to-device
+    copy, so no stream sync)."""
     if isinstance(pos, torch.Tensor):
         pos_vec = pos.to(torch.int64).expand(b)
     else:
         pos_vec = torch.full((b,), int(pos), dtype=torch.int64, device=device)
     slots = torch.arange(s_cache, device=pos_vec.device)
-    k_pos = slots[None].expand(b, s_cache)
+    if window:
+        slot_vec = pos_vec % s_cache
+        k_pos = pos_vec[:, None] - torch.remainder(
+            pos_vec[:, None] - slots[None], s_cache)
+    else:
+        slot_vec = pos_vec
+        k_pos = slots[None].expand(b, s_cache)
     valid = (k_pos >= 0) & (k_pos <= pos_vec[:, None])
-    return pos_vec, pos_vec, k_pos, valid
+    if window:
+        valid &= (pos_vec[:, None] - k_pos) < window
+    return pos_vec, slot_vec, k_pos, valid
 
 
 def gqa_decode(p, x, cache_kv, pos, cfg: ModelConfig, window: int = 0):

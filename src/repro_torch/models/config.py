@@ -5,10 +5,12 @@ Every field of the JAX dataclass, with the same names and defaults, so the
 either package (``dataclasses.asdict(cfg)``) loads in the other with
 ``ModelConfig(**mc)``. ``dtype`` stays a string and ``activation_dtype``
 maps it to a ``torch.dtype``. The ported stacks: dense GQA (with an fp,
-int8 or int4 KV cache, the flash or the chunked prefill, and the
-phi-3-vision frontend stub), Multi-head Latent Attention (deepseek-v2) and
-the capacity-routed MoE FFN (deepseek-v2, kimi-k2); ``check_supported``
-names the ROADMAP item for everything else.
+int8 or int4 KV cache, the flash or the chunked prefill, a sliding-window
+ring cache, and the phi-3-vision frontend stub), Multi-head Latent
+Attention (deepseek-v2), the capacity-routed MoE FFN (deepseek-v2,
+kimi-k2), Mamba2's SSD stack (mamba2-780m) and the RG-LRU hybrid of
+recurrentgemma with tied embeddings; ``check_supported`` names the ROADMAP
+item for everything else (the audio frontend and its codebooks).
 """
 from __future__ import annotations
 
@@ -115,6 +117,15 @@ class ModelConfig:
     def with_overrides(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
 
+    def for_long_context(self) -> "ModelConfig":
+        """The sub-quadratic variant of the long-context shape: SSM and
+        hybrid stacks (and a model that already has a window) as they are,
+        a full-attention model with a sliding window of
+        ``long_context_window``."""
+        if self.arch_type in ("ssm", "hybrid") or self.window:
+            return self
+        return self.with_overrides(window=self.long_context_window)
+
     def layer_types(self) -> Tuple[str, ...]:
         """Per-layer mixer type, length == n_layers."""
         if self.arch_type == "ssm":
@@ -189,24 +200,35 @@ class ModelConfig:
         return n
 
 
+#: the one layer pattern the hybrid stack assembles: (rec, rec, attn)
+#: groups, then the remainder as recurrent tail layers
+HYBRID_PATTERN = ("rec", "rec", "attn")
+
+
 def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for any branch the port does not serve
     yet, naming the ROADMAP item that will."""
-    if cfg.arch_type not in ("dense", "vlm", "moe") or cfg.layer_pattern \
-            or (cfg.arch_type == "moe") != (cfg.n_experts > 0):
-        raise NotImplementedError(
-            f"arch_type {cfg.arch_type!r}: SSM/hybrid/audio stacks are "
-            "ROADMAP Queue 1 item 9")
-    if cfg.attention not in ("full", "mla"):
-        raise NotImplementedError(
-            f"attention {cfg.attention!r}: sliding windows are "
-            "ROADMAP Queue 1 item 9")
-    if cfg.window:
-        raise NotImplementedError(
-            "sliding-window ring caches are ROADMAP Queue 1 item 9")
-    if cfg.frontend not in ("none", "vision") or cfg.n_codebooks > 1:
+    if cfg.frontend == "audio" or cfg.n_codebooks > 1 \
+            or cfg.arch_type == "audio":
         raise NotImplementedError(
             "audio frontends and codebooks are ROADMAP Queue 1 item 9")
+    if cfg.arch_type not in ("dense", "vlm", "moe", "ssm", "hybrid") \
+            or (cfg.arch_type == "moe") != (cfg.n_experts > 0):
+        raise NotImplementedError(
+            f"arch_type {cfg.arch_type!r} (n_experts={cfg.n_experts}) is "
+            "not a stack the port assembles")
+    if (cfg.arch_type == "hybrid") != bool(cfg.layer_pattern) or (
+            cfg.layer_pattern and tuple(cfg.layer_pattern) != HYBRID_PATTERN):
+        raise NotImplementedError(
+            f"layer_pattern {cfg.layer_pattern!r}: the hybrid stack is "
+            f"{HYBRID_PATTERN} groups, and only a hybrid has a pattern")
+    if cfg.attention not in ("full", "mla", "sliding"):
+        raise NotImplementedError(f"attention {cfg.attention!r}")
+    if cfg.arch_type == "ssm" and (cfg.ssm_state <= 0 or cfg.ssm_nheads <= 0):
+        raise ValueError(f"{cfg.name}: an ssm stack needs ssm_state > 0 and "
+                         "ssm_headdim dividing d_inner")
+    if cfg.attention == "sliding" and cfg.window <= 0:
+        raise ValueError(f"{cfg.name}: attention='sliding' needs window > 0")
     if (cfg.arch_type == "vlm") != (cfg.frontend == "vision") \
             or (cfg.frontend == "vision" and cfg.frontend_dim <= 0):
         raise ValueError(
@@ -214,6 +236,3 @@ def check_supported(cfg: ModelConfig) -> None:
             "and only a vlm has a vision frontend")
     # ``fsdp`` only names a sharding under a device mesh (ROADMAP Queue 1
     # item 10); on one device it changes nothing, as in the JAX package
-    if cfg.tie_embeddings:
-        raise NotImplementedError(
-            "tied embeddings are ROADMAP Queue 1 item 9")

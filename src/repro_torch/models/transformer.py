@@ -1,11 +1,12 @@
 """Decoder stacks: the port of ``repro.models.transformer`` for the dense
-and the MoE stacks, with GQA or MLA attention.
+and MoE stacks (GQA or MLA attention), Mamba2's SSD stack and the RG-LRU
+hybrid.
 
 Param tree (per-layer, not stacked; leaf paths match the JAX tree's with a
-layer index, e.g. ``layers/3/attn/wq``, so quantization and calibration
-regexes select the same leaves)::
+layer index, e.g. ``layers/3/attn/wq`` or ``groups/3/rec1/rec/wa``, so
+quantization and calibration regexes select the same leaves)::
 
-    embed [V, d], final_norm [d], unembed [d, V]
+    embed [V, d], final_norm [d], unembed [d, V] (none when tied)
     frontend_proj [frontend_dim, d]        (vlm: the vision stub projector)
     layers: [ {ln1 [d], attn {wq, wk, wv, wo}, ln2 [d], mlp {wi, wo}} ] * L
 
@@ -15,8 +16,16 @@ width ``d_ff_dense``, and ``layers``, the rest, whose FFN is ``moe {router,
 wi [E, d, 2ff], wo [E, ff, d], shared_wi, shared_wo}``. MLA blocks
 (``attention == "mla"``) hold ``attn {w_dq, q_norm, w_uq, w_dkv, w_kr,
 kv_norm, w_ukv, wo}`` and cache ``(c_kv [B,S,rank], k_rope [B,S,dr])``.
-Caches and pools follow the stacks: ``{"head_layers": [...], "layers":
-[...]}``, one tuple of leaves per layer.
+An SSM model's ``layers`` are ``{ln1, ssm {w_in, w_out, conv_w, A_log, D,
+dt_bias, norm}}`` and cache ``(state [B,H,P,N] f32, conv_state
+[B,W-1,conv_dim])``. A hybrid (``layer_pattern`` (rec, rec, attn)) keeps
+``groups``, each ``{rec1, rec2, attn}``, and ``tail``, the recurrent layers
+left over; a recurrent block is ``{ln1, rec {w_x, w_gate, w_out, conv_w,
+wa, wi, ba, bi, lam}, ln2, mlp}`` and caches ``(h [B,din], conv_state
+[B,W-1,din])``. With ``tie_embeddings`` the head reads ``embed``
+(dequantized first when quantized). Caches and pools follow the stacks:
+``{"head_layers": [...], "layers": [...]}`` or ``{"groups": [{"rec1",
+"rec2", "attn"}, ...], "tail": [...]}``, one tuple of leaves per layer.
 
 Entry points:
     forward(params, batch, cfg)                  -> (logits, aux)
@@ -27,12 +36,13 @@ Entry points:
     verify_step(params, cache, tokens, pos, cfg)  -> (logits [B,M,V], cache)
     verify_step_paged(params, pools, tokens, pos, tables, cfg) -> (logits, pools)
 
-A Python loop over ``head_layers`` and then ``layers`` stands in for the
-JAX ``scan``; ``aux`` (the MoE router's ``lb_loss``, ``z_loss`` and
+A Python loop over the stacks in layer order stands in for the JAX
+``scan``; ``aux`` (the MoE router's ``lb_loss``, ``z_loss`` and
 ``fraction_dropped``) is summed over the layers as the scan carries it. In
-train mode with ``cfg.remat`` and grad mode on, each layer runs under
-``torch.utils.checkpoint`` (the JAX package's ``jax.checkpoint`` per
-scanned layer): the backward recomputes it, flash kernel launch included.
+train mode with ``cfg.remat`` and grad mode on, each scanned unit (a layer,
+or a hybrid's whole group) runs under ``torch.utils.checkpoint`` (the JAX
+package's ``jax.checkpoint`` of its scan body): the backward recomputes
+it, flash kernel launch included.
 """
 from __future__ import annotations
 
@@ -45,13 +55,17 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels.quantize import kv_group_size
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import rglru as rec_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.config import ModelConfig, check_supported
-from repro_torch.models.layers import (dense_init, embed_init, linear,
-                                       rms_norm, swiglu)
+from repro_torch.models.layers import (dense_init, embed_init, is_quantized,
+                                       linear, rms_norm, swiglu)
 
 
 #: the layer stacks of a param tree, cache or pool set, in layer order
-STACKS = ("head_layers", "layers")
+STACKS = ("head_layers", "layers", "groups", "tail")
+#: a hybrid group's blocks, in layer order
+GROUP = ("rec1", "rec2", "attn")
 
 
 def _zero_aux(device) -> Dict[str, torch.Tensor]:
@@ -59,10 +73,20 @@ def _zero_aux(device) -> Dict[str, torch.Tensor]:
     return {"lb_loss": z, "z_loss": z, "fraction_dropped": z}
 
 
+def hybrid_split(cfg: ModelConfig):
+    """(full (rec, rec, attn) groups, recurrent tail layers)."""
+    pat = len(cfg.layer_pattern) or 1
+    return cfg.n_layers // pat, cfg.n_layers % pat
+
+
 def stack_sizes(cfg: ModelConfig) -> Dict[str, int]:
-    """Layers per stack: an MoE model's ``n_dense_layers`` leading dense
-    blocks under ``head_layers`` (when there are any), the rest under
-    ``layers``."""
+    """Units per stack: an MoE model's ``n_dense_layers`` leading dense
+    blocks under ``head_layers`` (when there are any) and the rest under
+    ``layers``; a hybrid's groups and its tail (when there is one); every
+    other model's layers under ``layers``."""
+    if cfg.arch_type == "hybrid":
+        n_groups, n_tail = hybrid_split(cfg)
+        return {"groups": n_groups, **({"tail": n_tail} if n_tail else {})}
     if cfg.n_experts and cfg.n_dense_layers:
         return {"head_layers": cfg.n_dense_layers,
                 "layers": cfg.n_layers - cfg.n_dense_layers}
@@ -70,13 +94,25 @@ def stack_sizes(cfg: ModelConfig) -> Dict[str, int]:
 
 
 def layer_caches(caches) -> List[tuple]:
-    """Every layer's cache (or pool) leaves, ``head_layers`` first."""
-    return [c for key in STACKS for c in caches.get(key, ())]
+    """Every layer's cache (or pool) leaves in layer order: ``head_layers``
+    first, a hybrid group's ``rec1``, ``rec2``, ``attn`` in turn, then the
+    tail."""
+    out = []
+    for key in STACKS:
+        for c in caches.get(key, ()):
+            out.extend([c[k] for k in GROUP] if isinstance(c, dict) else [c])
+    return out
 
 
 # ===================================================================== #
 # Init
 # ===================================================================== #
+def _init_mlp(gen: torch.Generator, cfg: ModelConfig, ff: int) -> dict:
+    d, dt = cfg.d_model, cfg.activation_dtype
+    return {"wi": dense_init(gen, (d, 2 * ff), dtype=dt),
+            "wo": dense_init(gen, (ff, d), dtype=dt)}
+
+
 def _init_block(gen: torch.Generator, cfg: ModelConfig, moe: bool) -> dict:
     d, dt = cfg.d_model, cfg.activation_dtype
     blk = {"ln1": torch.zeros((d,), dtype=dt, device=gen.device),
@@ -86,10 +122,35 @@ def _init_block(gen: torch.Generator, cfg: ModelConfig, moe: bool) -> dict:
     if moe:
         blk["moe"] = moe_mod.init_moe_params(gen, cfg)
     else:
-        ff = cfg.d_ff_dense or cfg.d_ff
-        blk["mlp"] = {"wi": dense_init(gen, (d, 2 * ff), dtype=dt),
-                      "wo": dense_init(gen, (ff, d), dtype=dt)}
+        blk["mlp"] = _init_mlp(gen, cfg, cfg.d_ff_dense or cfg.d_ff)
     return blk
+
+
+def _init_ssm_block(gen: torch.Generator, cfg: ModelConfig) -> dict:
+    return {"ln1": torch.zeros((cfg.d_model,), dtype=cfg.activation_dtype,
+                               device=gen.device),
+            "ssm": ssm_mod.init_ssm_params(gen, cfg)}
+
+
+def _init_rec_block(gen: torch.Generator, cfg: ModelConfig) -> dict:
+    d, dt = cfg.d_model, cfg.activation_dtype
+    return {"ln1": torch.zeros((d,), dtype=dt, device=gen.device),
+            "rec": rec_mod.init_rglru_params(gen, cfg),
+            "ln2": torch.zeros((d,), dtype=dt, device=gen.device),
+            "mlp": _init_mlp(gen, cfg, cfg.d_ff)}
+
+
+def _init_unit(gen: torch.Generator, cfg: ModelConfig, key: str):
+    """One unit of stack ``key``: a layer, or a hybrid's group."""
+    if key == "groups":
+        return {"rec1": _init_rec_block(gen, cfg),
+                "rec2": _init_rec_block(gen, cfg),
+                "attn": _init_block(gen, cfg, moe=False)}
+    if key == "tail":
+        return _init_rec_block(gen, cfg)
+    if cfg.arch_type == "ssm":
+        return _init_ssm_block(gen, cfg)
+    return _init_block(gen, cfg, moe=key == "layers" and cfg.n_experts > 0)
 
 
 def init_params(cfg: ModelConfig, seed: int = 0,
@@ -104,14 +165,15 @@ def init_params(cfg: ModelConfig, seed: int = 0,
     p = {
         "embed": embed_init(gen, (cfg.vocab_size, cfg.d_model), dt),
         "final_norm": torch.zeros((cfg.d_model,), dtype=dt, device=dev),
-        "unembed": dense_init(gen, (cfg.d_model, cfg.vocab_size), dtype=dt),
     }
+    if not cfg.tie_embeddings:
+        p["unembed"] = dense_init(gen, (cfg.d_model, cfg.vocab_size),
+                                  dtype=dt)
     if cfg.frontend != "none":
         p["frontend_proj"] = dense_init(
             gen, (cfg.frontend_dim, cfg.d_model), dtype=dt)
     for key, n in stack_sizes(cfg).items():
-        moe = key == "layers" and cfg.n_experts > 0
-        p[key] = [_init_block(gen, cfg, moe) for _ in range(n)]
+        p[key] = [_init_unit(gen, cfg, key) for _ in range(n)]
     return p
 
 
@@ -154,8 +216,20 @@ def embed_inputs(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig):
 
 
 def lm_head(params, x, cfg: ModelConfig):
+    """Final norm and head -> f32 logits. Tied: ``bsd,vd->bsv`` against the
+    embedding, dequantized first when quantized (an observer leaf's
+    ``w`` as it is)."""
     x = rms_norm(params["final_norm"], x, cfg.norm_eps)
-    return linear(params["unembed"], x).to(torch.float32)
+    if not cfg.tie_embeddings:
+        return linear(params["unembed"], x).to(torch.float32)
+    leaf = params["embed"]
+    if is_quantized(leaf):
+        from repro_torch.core.quant.quantize import dequantize_tensor
+
+        w = dequantize_tensor(leaf, x.dtype)
+    else:
+        w = (leaf["w"] if isinstance(leaf, dict) else leaf).to(x.dtype)
+    return torch.einsum("bsd,vd->bsv", x, w).to(torch.float32)
 
 
 # ===================================================================== #
@@ -165,7 +239,9 @@ def _attend(lp, h, cfg: ModelConfig, *, mode: str, cache, positions, pos,
             pad_to: int, tables):
     """The attention half of a block, GQA or MLA, by mode: verify
     (speculative decoding's k+1 positions), decode or prefill, each dense
-    or paged (``tables``: pooled leaves read through block tables)."""
+    or paged (``tables``: pooled leaves read through block tables). The
+    dense decode and prefill take ``cfg.window`` (a ring cache when set);
+    the paged and verify paths serve full attention only."""
     mla = cfg.attention == "mla"
     a = lp["attn"]
     if mode == "verify":
@@ -179,12 +255,12 @@ def _attend(lp, h, cfg: ModelConfig, *, mode: str, cache, positions, pos,
             fn = attn.mla_decode_paged if mla else attn.gqa_decode_paged
             return fn(a, h, cache, pos, tables, cfg)
         fn = attn.mla_decode if mla else attn.gqa_decode
-        return fn(a, h, cache, pos, cfg)
+        return fn(a, h, cache, pos, cfg, window=cfg.window)
     if tables is not None:
         fn = attn.mla_prefill_paged if mla else attn.gqa_prefill_paged
         return fn(a, h, positions, cache, pos, tables, cfg)
     fn = attn.mla_prefill if mla else attn.gqa_prefill
-    return fn(a, h, positions, cfg, pad_to=pad_to)
+    return fn(a, h, positions, cfg, window=cfg.window, pad_to=pad_to)
 
 
 def _block(lp, x, cfg: ModelConfig, *, mode: str, cache=None,
@@ -204,16 +280,61 @@ def _block(lp, x, cfg: ModelConfig, *, mode: str, cache=None,
     return x + f_out, new_cache, aux
 
 
-def _train_block(lp, x, cfg: ModelConfig, positions):
-    x, _, aux = _block(lp, x, cfg, mode="train", positions=positions)
+def _ssm_block(lp, x, cfg: ModelConfig, *, mode: str, cache=None):
+    h = rms_norm(lp["ln1"], x, cfg.norm_eps)
+    if mode == "decode":
+        out, new_cache = ssm_mod.ssm_decode(lp["ssm"], h, cache, cfg)
+    else:
+        out, new_cache = ssm_mod.ssm_prefill(lp["ssm"], h, cfg)
+    return x + out, new_cache, None
+
+
+def _rec_block(lp, x, cfg: ModelConfig, *, mode: str, cache=None):
+    """norm -> RG-LRU block -> residual -> norm -> swiglu -> residual."""
+    h = rms_norm(lp["ln1"], x, cfg.norm_eps)
+    if mode == "decode":
+        out, new_cache = rec_mod.rglru_block_decode(lp["rec"], h, cache, cfg)
+    else:
+        out, new_cache = rec_mod.rglru_block_prefill(lp["rec"], h, cfg)
+    x = x + out
+    h2 = rms_norm(lp["ln2"], x, cfg.norm_eps)
+    return x + swiglu(lp["mlp"]["wi"], lp["mlp"]["wo"], h2), new_cache, None
+
+
+def _unit(key: str, lp, x, cfg: ModelConfig, *, mode: str, cache=None,
+          positions=None, pos=None, pad_to: int = 0, tables=None):
+    """(x, new cache, aux or None) of one unit of stack ``key``: a hybrid
+    group runs rec1, rec2 and its attention block in turn."""
+    if key == "groups":
+        new = {}
+        for name in GROUP:
+            c = None if cache is None else cache[name]
+            if name == "attn":
+                x, new[name], _ = _block(lp[name], x, cfg, mode=mode,
+                                         cache=c, positions=positions,
+                                         pos=pos, pad_to=pad_to)
+            else:
+                x, new[name], _ = _rec_block(lp[name], x, cfg, mode=mode,
+                                             cache=c)
+        return x, new, None
+    if key == "tail":
+        return _rec_block(lp, x, cfg, mode=mode, cache=cache)
+    if cfg.arch_type == "ssm":
+        return _ssm_block(lp, x, cfg, mode=mode, cache=cache)
+    return _block(lp, x, cfg, mode=mode, cache=cache, positions=positions,
+                  pos=pos, pad_to=pad_to, tables=tables)
+
+
+def _train_unit(key: str, lp, x, cfg: ModelConfig, positions):
+    x, _, aux = _unit(key, lp, x, cfg, mode="train", positions=positions)
     return x if aux is None else (x, aux)
 
 
 def _backbone(params, x, cfg: ModelConfig, *, mode: str, caches=None,
               pos=None, pad_to: int = 0, tables=None):
-    """Runs ``head_layers`` then ``layers``; returns (x, new caches, aux
-    summed over the layers). ``tables`` (paged prefill / decode) is shared
-    by every layer: block ids are per sequence, not per layer."""
+    """Runs the stacks in layer order; returns (x, new caches, aux summed
+    over the layers). ``tables`` (paged prefill / decode) is shared by
+    every layer: block ids are per sequence, not per layer."""
     check_supported(cfg)
     positions = torch.arange(x.shape[1], device=x.device)
     remat = cfg.remat and mode == "train" and torch.is_grad_enabled()
@@ -225,18 +346,19 @@ def _backbone(params, x, cfg: ModelConfig, *, mode: str, caches=None,
         new[key] = []
         for i, lp in enumerate(params[key]):
             if remat:
-                # one activation checkpoint per layer, as jax.checkpoint
-                # wraps each scanned layer: the backward recomputes it
-                out = checkpoint(_train_block, lp, x, cfg, positions,
+                # one activation checkpoint per scanned unit (a layer, or
+                # a hybrid's group), as jax.checkpoint wraps the scan body:
+                # the backward recomputes it
+                out = checkpoint(_train_unit, key, lp, x, cfg, positions,
                                  use_reentrant=False,
                                  preserve_rng_state=False)
                 x, a = out if isinstance(out, tuple) else (out, None)
                 c = None
             else:
                 cache = None if caches is None else caches[key][i]
-                x, c, a = _block(lp, x, cfg, mode=mode, cache=cache,
-                                 positions=positions, pos=pos, pad_to=pad_to,
-                                 tables=tables)
+                x, c, a = _unit(key, lp, x, cfg, mode=mode, cache=cache,
+                                positions=positions, pos=pos, pad_to=pad_to,
+                                tables=tables)
             if a is not None:
                 aux = {n: aux[n] + a[n] for n in aux}
             new[key].append(c)
@@ -361,9 +483,40 @@ def kv_leaves(cfg: ModelConfig, lead, device) -> tuple:
             torch.zeros(shape, dtype=dt, device=device))
 
 
+def _cache_len(cfg: ModelConfig, seq_len: int) -> int:
+    return min(seq_len, cfg.window) if cfg.window else seq_len
+
+
 def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
                device: DeviceLike = None) -> Dict[str, Any]:
+    """Zeroed dense caches for ``batch`` sequences of up to ``seq_len``
+    tokens: KV leaves (a window's ring holds ``min(seq_len, window)``
+    slots), an SSM layer's ``(state f32, conv_state)``, a recurrent
+    layer's ``(h, conv_state)`` in the activation dtype."""
     check_supported(cfg)
     dev = resolve_device(device)
-    return {key: [kv_leaves(cfg, (batch, seq_len), dev) for _ in range(n)]
+    dt = cfg.activation_dtype
+    w1 = cfg.conv_width - 1
+
+    def kv():
+        return kv_leaves(cfg, (batch, _cache_len(cfg, seq_len)), dev)
+
+    def ssm():
+        conv_dim = cfg.d_inner + 2 * cfg.ssm_ngroups * cfg.ssm_state
+        return (torch.zeros((batch, cfg.ssm_nheads, cfg.ssm_headdim,
+                             cfg.ssm_state), dtype=torch.float32, device=dev),
+                torch.zeros((batch, w1, conv_dim), dtype=dt, device=dev))
+
+    def rec():
+        return (torch.zeros((batch, cfg.d_inner), dtype=dt, device=dev),
+                torch.zeros((batch, w1, cfg.d_inner), dtype=dt, device=dev))
+
+    def unit(key):
+        if key == "groups":
+            return {"rec1": rec(), "rec2": rec(), "attn": kv()}
+        if key == "tail":
+            return rec()
+        return ssm() if cfg.arch_type == "ssm" else kv()
+
+    return {key: [unit(key) for _ in range(n)]
             for key, n in stack_sizes(cfg).items()}

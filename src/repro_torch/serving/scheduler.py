@@ -37,6 +37,12 @@ argmax (one stream sync per step, not one per slot).
   (chunked-prefill and prefix-hit tails, preemption resume) ride the
   verify pass, up to ``k+1`` tokens a step.
 
+The dense mode also holds the recurrent models' states (Mamba2's SSM and
+conv states, RG-LRU's ``h`` and conv state, beside a sliding window's ring
+cache): a slot's states are overwritten whole at admission, so an idle
+slot's decode leaks nothing into the next request. ``paged=True`` and
+``spec=`` refuse them with the JAX package's reasons.
+
 Not ported here: tensor parallelism (ROADMAP Queue 1 item 10),
 prefill/decode workers sharing one KV store (``submit_prefill``,
 ``submit_handoff``, ``shared_kv``: item 11), and frontend / multi-codebook
@@ -217,6 +223,13 @@ class ContinuousBatchingEngine:
         else:
             params = model
         check_supported(cfg)
+        if cfg.window and max_len < cfg.window:
+            # the dense ring cache holds exactly `window` slots after a
+            # prefill; a shorter engine cache could not take it in
+            raise ValueError(
+                f"max_len {max_len} is below {cfg.name}'s sliding window "
+                f"{cfg.window}: a windowed model's engine needs max_len >= "
+                "window (its ring cache holds window slots)")
         if cfg.n_frontend_tokens:
             raise _unported("serving a frontend (vision) model in the engine",
                             9)

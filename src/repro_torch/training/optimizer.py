@@ -31,6 +31,7 @@ from typing import Dict
 
 import torch
 
+from repro_torch.models.transformer import STACKS
 from repro_torch.tree import get_path, leaves_with_path, map_with_path
 
 
@@ -80,7 +81,7 @@ def _dq8(q: Dict[str, torch.Tensor]) -> torch.Tensor:
 
 def _jax_rank(path: str, p: torch.Tensor) -> int:
     """The leaf's rank in the JAX layout: one more under a layer stack."""
-    return p.dim() + (1 if path.startswith(("layers/", "head_layers/"))
+    return p.dim() + (1 if path.startswith(tuple(f"{k}/" for k in STACKS))
                       else 0)
 
 

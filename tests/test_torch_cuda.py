@@ -275,7 +275,9 @@ def _scales(gen, shape):
 # (b, s, hkv, g, hd, positions or None: drawn): the stablelm-1.6b
 # dense-engine shape; mistral-nemo width with a ragged S; then the split-K
 # edges: B1 S512 (8 splits), S one before, at and after a share boundary
-# (8, 8 and 9 tiles at 8 splits), G 8 at hd 128 and phi-3-vision's hd 96
+# (8, 8 and 9 tiles at 8 splits), G 8 at hd 128 and phi-3-vision's hd 96;
+# a row whose every slot is masked (averaged uniformly, as the plain
+# softmax does)
 QDECODE_CASES = {
     "stablelm": (8, 512, 32, 1, 64, None),
     "nemo": (3, 77, 8, 4, 128, None),
@@ -285,6 +287,7 @@ QDECODE_CASES = {
     "share_257": (2, 257, 4, 1, 64, [256, 0]),
     "g8": (2, 300, 4, 8, 128, None),
     "hd96": (4, 579, 8, 1, 96, None),
+    "masked_row": (3, 300, 2, 4, 64, [-1, 150, 299]),
 }
 
 
@@ -313,6 +316,61 @@ def test_qdecode_kernel_matches_plain(dev, case, dtype):
     # one launch, no atomics: a second call gives the same bits
     assert torch.equal(qdecode.qdecode(*args), got)
     assert qdecode.qdecode.launches == before + 2
+
+
+# the wide class: recurrentgemma's 16 x 256 over one kv head at its
+# engine's ring (S 2048), G 16 at hd 128 and G 12 at hd 192 (a partial
+# second head group, lanes past hd masked), G 8 at hd 256 (one group)
+WIDE_CASES = {
+    "rgemma": (8, 2048, 1, 16, 256),
+    "g16_hd128": (2, 300, 2, 16, 128),
+    "g12_hd192": (3, 257, 1, 12, 192),
+    "g8_hd256": (2, 64, 2, 8, 256),
+}
+
+
+@pytest.mark.parametrize("case", sorted(WIDE_CASES))
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_qdecode_wide_class_matches_plain(dev, case, dtype):
+    """The wide class against ``qdecode_ref``: a ring's masked slots (the
+    bias), a row whose masked slot holds a NaN v scale (NaN in both, as
+    the plain version reads every slot of a dense cache), and a row whose
+    every slot is masked (a uniform average in both, as the plain softmax
+    gives); the other rows finite and close."""
+    b, s, hkv, g, hd = WIDE_CASES[case]
+    assert qdecode.wide_class(g, hd)
+    gen = torch.Generator().manual_seed(s + hd + g)
+    q = torch.randn((b, hkv, g, hd), generator=gen).to(dtype)
+    pos = torch.randint(0, s, (b,), generator=gen)
+    # a ring: a window of valid slots that wraps past the end
+    start = torch.randint(0, s, (b,), generator=gen)
+    slot = torch.arange(s)[None]
+    valid = ((slot - start[:, None]) % s) <= pos[:, None]
+    valid[-1] = False                             # fully masked row
+    bias = torch.where(valid, torch.tensor(0.0), torch.tensor(-2.0e38))
+    vs = _scales(gen, (b, s, hkv))
+    poison = b > 2
+    if poison:
+        masked = int(torch.nonzero(~valid[1])[0, 0]) if (~valid[1]).any() \
+            else None
+        if masked is not None:
+            vs[1, masked] = float("nan")
+    args = tuple(t.to(dev) for t in (
+        q, _codes(gen, (b, s, hkv, hd)), _scales(gen, (b, s, hkv)),
+        _codes(gen, (b, s, hkv, hd)), vs, bias))
+    before = dict(qdecode.qdecode.launches_by_class)
+    got = qdecode.qdecode(*args)
+    assert qdecode.qdecode.launches_by_class == {
+        **before, "wide": before["wide"] + 1}
+    want = ref.qdecode_ref(*args)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == q.shape
+    assert torch.isfinite(want[-1]).all()
+    assert torch.equal(got.isnan(), want.isnan())
+    live = ~want.isnan().any(dim=(1, 2, 3))
+    assert live.sum() >= 2 and live[-1] and torch.isfinite(got[live]).all()
+    torch.testing.assert_close(got[live], want[live], rtol=0, atol=1e-4)
+    assert torch.equal(qdecode.qdecode(*args).nan_to_num(), got.nan_to_num())
 
 
 def _to_int8_pools(gen, k_pool, v_pool):

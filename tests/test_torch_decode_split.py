@@ -286,17 +286,21 @@ def test_shares_cover_every_key_once_in_whole_tiles(n_keys, splits):
 # ------------------------------------------------------------------ #
 # The kernel's plan, emulated
 # ------------------------------------------------------------------ #
-def _attend_one(q, kf, ks, vf, vs, valid, add, n_keys, splits, lpr, chunk):
+def _attend_one(q, kf, ks, vf, vs, valid, add, n_keys, splits, lpr, chunk,
+                bias_rows=False):
     """One sequence, all kv heads: q [Hkv,G,hd]; kf / vf [n, Hkv, hd] f32
     codes and ks / vs [n, Hkv] of the slots (zero where masked: a masked
-    slot is never read); valid / add [n] -> out [Hkv,G,hd]."""
+    slot is never read); valid / add [n] -> out [Hkv,G,hd]. ``bias_rows``:
+    the dense kernel's rows (running max seeded at RUN_INIT_BIAS, a lane
+    row past the share scoring -inf)."""
     hkv, g, hd = q.shape
     r = 32 // lpr
     scale = torch.sqrt(torch.tensor(float(hd)))
     parts = []
     for rank in range(splits):
         k0, k1 = share(n_keys, splits, rank)
-        m = torch.full((NW, hkv, g), C["RUN_INIT"])
+        m = torch.full((NW, hkv, g),
+                       C["RUN_INIT_BIAS" if bias_rows else "RUN_INIT"])
         lsum = torch.zeros((NW, hkv, g, r))
         acc = torch.zeros((NW, hkv, g, r, hd))
         for c0 in range(k0, k1, chunk):
@@ -310,7 +314,8 @@ def _attend_one(q, kf, ks, vf, vs, valid, add, n_keys, splits, lpr, chunk):
                 sc = torch.where(on[None, None],
                                  dot * ks[kk].T[:, None] / scale
                                  + add[kk][None, None],
-                                 torch.tensor(C["NEG_INF"]))
+                                 torch.tensor(-math.inf if bias_rows
+                                              else C["NEG_INF"]))
                 mx = sc.amax(-1)
                 moved = mx > m[w]
                 alpha = torch.exp(m[w] - torch.where(moved, mx, m[w]))
@@ -326,8 +331,8 @@ def _attend_one(q, kf, ks, vf, vs, valid, add, n_keys, splits, lpr, chunk):
         mc = m.amax(0)                               # the warps' merge
         f = torch.exp(m - mc)
         parts.append((mc, (lw * f).sum(0), (aw * f[..., None]).sum(0)))
-    mx = torch.full((hkv, g), C["RUN_INIT"])
-    for mr, _, _ in parts:                           # the cluster's merge
+    mx = parts[0][0]
+    for mr, _, _ in parts[1:]:                       # the cluster's merge
         mx = torch.maximum(mx, mr)
     ls = torch.zeros((hkv, g))
     a = torch.zeros((hkv, g, hd))
@@ -351,7 +356,8 @@ def model_qdecode(q, k_i8, k_s, v_i8, v_s, bias, splits=None):
     valid = torch.ones(s, dtype=torch.bool)
     return torch.stack([
         _attend_one(q[i].float(), k_i8[i].float(), k_s[i], v_i8[i].float(),
-                    v_s[i], valid, bias[i], s, splits, lpr, s)
+                    v_s[i], valid, bias[i], s, splits, lpr, s,
+                    bias_rows=True)
         for i in range(b)])
 
 
@@ -411,7 +417,8 @@ def _scales(rng, shape):
 
 
 def _dense_case(seed, b, s, hkv, g, hd, pos):
-    """``pos[i]``: the last unmasked slot of row i (slot 0 always valid)."""
+    """``pos[i]``: the last unmasked slot of row i (-1: every slot masked,
+    which the dense kernel averages uniformly, as the plain softmax does)."""
     rng = np.random.default_rng(seed)
     q = rng.normal(size=(b, hkv, g, hd)).astype(np.float32)
     bias = np.where(np.arange(s)[None] <= np.asarray(pos)[:, None], 0.0,
@@ -462,7 +469,7 @@ def _j(*arrays):
 # (B, S, Hkv, G, hd, positions, splits): n_keys 1, 31, 32, 33; positions
 # one before, at and after a share boundary (2 tiles a CTA at S 256 and 8
 # splits, so a boundary every 64 slots) and the last slot; G 1, 4, 8 at hd
-# 64, 96, 128
+# 64, 96, 128; a row whose every slot is masked
 DENSE = {
     "s1": (2, 1, 2, 1, 64, [0, 0], None),
     "s31": (2, 31, 2, 4, 96, [30, 5], None),
@@ -470,6 +477,7 @@ DENSE = {
     "s33": (2, 33, 2, 1, 64, [32, 31], None),
     "share_edges": (3, 256, 2, 4, 64, [63, 64, 65], 4),
     "share_edges_8": (3, 513, 1, 8, 96, [127, 128, 512], 8),
+    "masked_row": (3, 100, 2, 4, 64, [-1, 50, 99], 4),
 }
 
 
@@ -649,9 +657,9 @@ def test_minus_inf_seeds_would_poison_the_merge():
     """The trap the RUN_INIT seed avoids: an empty partial seeded at -inf
     beside another empty one gives exp(-inf - -inf) = NaN, while RUN_INIT
     gives a weight of 1 times l = 0."""
-    def merge(parts):
-        mx = torch.tensor(C["RUN_INIT"])
-        for mr, _ in parts:
+    def merge(parts):                    # rank 0's max, then the others'
+        mx = parts[0][0]
+        for mr, _ in parts[1:]:
             mx = torch.maximum(mx, mr)
         return sum(lr * torch.exp(mr - mx) for mr, lr in parts)
 
@@ -663,3 +671,96 @@ def test_minus_inf_seeds_would_poison_the_merge():
     assert torch.isnan(torch.exp(inf - mx))
     live = (torch.tensor(3.0), torch.tensor(2.0))
     assert merge([(seed, zero), live, (seed, zero)]) == 2.0
+
+
+# ------------------------------------------------------------------ #
+# The wide class (qdecode: G up to 16, hd up to 256)
+# ------------------------------------------------------------------ #
+QDECODE_CU = CUH.parent / "qdecode.cu"
+
+
+def test_wide_class_constants_and_dispatch_mirror_the_source():
+    """The wide class's bounds are its own: MAXG / MAXD (every split
+    instantiation, the paged kernels' included) stay 8 / 128. A lane row
+    of WIDE_LPR lanes holds WIDE_D dims at the codes a lane holds under
+    WIDE_GB (one query head a CTA), and the host sends (G, hd) past MAXG or
+    MAXD to it."""
+    assert (C["MAXG"], C["MAXD"]) == (8, 128)
+    assert (C["WIDE_G"], C["WIDE_GB"], C["WIDE_D"], C["WIDE_LPR"]) == (
+        16, 1, 256, 16)
+    assert qdecode.WIDE_GROUP == C["WIDE_G"]
+    assert qdecode.WIDE_HEAD_DIM == C["WIDE_D"]
+    assert C["WIDE_LPR"] * lane_codes(C["WIDE_GB"]) == C["WIDE_D"]
+    assert 32 // C["WIDE_LPR"] == 2          # two slot rows a warp step
+    assert C["WIDE_GB"] <= C["MAXG"]
+    src = " ".join(QDECODE_CU.read_text().split())
+    for line in ("if (G <= ds::MAXG && hd <= ds::MAXD) return "
+                 "ds::dispatch<ds::Int8>(go, hd, G); return go.run_wide();",
+                 "const int g0 = blockIdx.z * ds::WIDE_GB;",
+                 "min(ds::WIDE_GB, G - g0), hd, g0, G);",
+                 "const int z = (G + ds::WIDE_GB - 1) / ds::WIDE_GB;",
+                 "ds::splits_for(S, (long)B * Hkv * z, resident)",
+                 "ds::attend<ds::Int8, ds::WIDE_LPR, ds::WIDE_GB, "
+                 "ds::DenseRows, ds::WIDE_D>("):
+        assert line in src, line
+    cuh = " ".join(CUH.read_text().split())
+    assert "__shared__ __align__(16) float wacc[NW][GB * DB];" in cuh
+    assert "template <class Fmt, int LPR, int GB, class Rows, int DB = MAXD>" \
+        in cuh
+    for g, hd in ((1, 64), (8, 128), (4, 96)):
+        assert not qdecode.wide_class(g, hd)
+    for g, hd in ((16, 256), (9, 64), (8, 144), (12, 192)):
+        assert qdecode.wide_class(g, hd)
+    # static shared memory: q and the four warps' partials under 48 KB
+    qw = C["WIDE_LPR"] * lane_codes(C["WIDE_GB"])
+    smem = 4 * (C["WIDE_GB"] * qw + NW * C["WIDE_GB"] * C["WIDE_D"])
+    assert smem <= 48 * 1024
+
+
+def model_qdecode_wide(q, k_i8, k_s, v_i8, v_s, bias, splits=None):
+    """The wide class's plan: the query heads in groups of WIDE_GB (grid
+    z), each group a cluster per (sequence, kv head) walking every slot in
+    steps of 32 / WIDE_LPR slot rows a warp."""
+    b, s = k_i8.shape[:2]
+    gb = C["WIDE_GB"]
+    z = -(-q.shape[2] // gb)
+    splits = splits or splits_for(s, b * q.shape[1] * z, 10 ** 9)
+    valid = torch.ones(s, dtype=torch.bool)
+    return torch.stack([
+        torch.cat([_attend_one(q[i, :, g0:g0 + gb].float(), k_i8[i].float(),
+                               k_s[i], v_i8[i].float(), v_s[i], valid,
+                               bias[i], s, splits, C["WIDE_LPR"], s,
+                               bias_rows=True)
+                   for g0 in range(0, q.shape[2], gb)], dim=1)
+        for i in range(b)])
+
+
+# (B, S, Hkv, G, hd, positions, splits): recurrentgemma's 16 x 256 over
+# one kv head (a ring's positions), a partial second head group (G 12) at
+# hd 192 (lanes past hd masked), G 9 at hd 64, G 8 at hd 256 (one group),
+# a row whose every slot is masked
+WIDE = {
+    "g16_hd256": (2, 96, 1, 16, 256, [95, 40], None),
+    "g12_hd192": (2, 65, 2, 12, 192, [64, 0], 4),
+    "g9_hd64": (1, 33, 1, 9, 64, [32], 2),
+    "g8_hd256": (2, 40, 1, 8, 256, [10, 39], 8),
+    "g16_masked_row": (2, 70, 1, 16, 256, [-1, 69], 4),
+}
+
+
+@pytest.mark.parametrize("case", sorted(WIDE))
+def test_wide_model_matches_plain_and_pallas(case):
+    b, s, hkv, g, hd, pos, splits = WIDE[case]
+    arrays = _dense_case(len(case) + s, b, s, hkv, g, hd, pos)
+    got = model_qdecode_wide(*_t(*arrays), splits=splits)
+    want = t_ref.qdecode_ref(*_t(*arrays))
+    pallas = np.asarray(qdecode_attention(*_j(*arrays), interpret=True))
+    assert got.shape == want.shape and torch.isfinite(got).all()
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-4, rtol=0)
+    np.testing.assert_allclose(got.numpy(), pallas, atol=1e-4, rtol=0)
+    # the head groups are independent: each head's plan is the split
+    # plan of that head alone
+    one = model_qdecode(*_t(*(a[:, :, :1] if i == 0 else a
+                              for i, a in enumerate(arrays))), splits=splits)
+    np.testing.assert_allclose(got[:, :, :1].numpy(), one.numpy(), atol=1e-5,
+                               rtol=0)

@@ -209,20 +209,31 @@ def test_entry_points_raise_without_cuda_and_no_device():
 
 def test_unported_branches_name_the_roadmap():
     cfg = t_configs.smoke_config("mistral-nemo-12b")
-    for bad in (cfg.with_overrides(window=8),
-                cfg.with_overrides(tie_embeddings=True),
-                cfg.with_overrides(attention="sliding"),
-                cfg.with_overrides(arch_type="ssm"),
-                cfg.with_overrides(arch_type="hybrid",
-                                   layer_pattern=("rec", "rec", "attn"))):
+    # the audio frontend and its codebooks are all that item 9 has left
+    for bad in (cfg.with_overrides(frontend="audio", frontend_dim=8),
+                cfg.with_overrides(n_codebooks=2),
+                cfg.with_overrides(arch_type="audio")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             init_params(bad, device="cpu")
+    # a window, tied embeddings and a sliding window are served now; a
+    # sliding window of 0 and an SSM stack without a state are refused
+    for ok in (cfg.with_overrides(window=8),
+               cfg.with_overrides(tie_embeddings=True),
+               cfg.with_overrides(attention="sliding", window=8)):
+        init_params(ok, seed=1, device="cpu")
+    for bad in (cfg.with_overrides(attention="sliding"),
+                cfg.with_overrides(arch_type="ssm")):
+        with pytest.raises(ValueError):
+            init_params(bad, device="cpu")
+    with pytest.raises(NotImplementedError, match="layer_pattern"):
+        init_params(cfg.with_overrides(layer_pattern=("rec", "attn")),
+                    device="cpu")
     # every KV tier is served: fp, int8 and int4
     for tier in ("fp", "int8", "int4"):
         init_params(cfg.with_overrides(kv_cache_precision=tier), seed=1,
                     device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_configs.get_config("recurrentgemma-9b")
+        t_configs.get_config("musicgen-large")
 
 
 def _imports(path):

@@ -463,7 +463,7 @@ def test_sizing_helpers_match_jax():
 def test_unported_pools_name_the_roadmap():
     cfg = t_configs.smoke_config("mistral-nemo-12b")
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 9"):
-        t_kv.init_paged_pools(cfg.with_overrides(tie_embeddings=True), 4, 4,
+        t_kv.init_paged_pools(cfg.with_overrides(n_codebooks=2), 4, 4,
                               device="cpu")
     # the int4 pools are served: packed codes and f16 group scales
     int4 = t_kv.init_paged_pools(
