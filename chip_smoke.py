@@ -37,8 +37,8 @@ prints one JSON line per phase:
    cluster and the two-pass one, must run); the GEMMs and flash prefill
    also run at the VQI forward's shapes (M 4632 at phi-3-vision's five
    weight shapes; B8 S579 H32 hd96), and flash prefill at MLA's 192 / 128
-   width class (MLA_FLASH: one 1024-token deepseek-v2 prefill, with the
-   class's ptxas lines);
+   width class (MLA_FLASH: one 1024-token deepseek-v2 prefill on the bf16
+   class's wgmma body, ``MLA_BODY``, with the class's ptxas lines);
 3. e2e: stablelm-1.6b at full width and SERVE_LAYERS of its 24 layers in
    bf16 with random seeded weights, the
    three default variants (fp32 passthrough, dynamic int8, static int8
@@ -118,14 +118,16 @@ prints one JSON line per phase:
    against absorbed decode within 2.5x the nudge, a spec replay with the
    int8 variant drafting for the bf16 target, the routing card against
    CPU at 2 layers; ``fraction_dropped``, peak memory and the flash
-   launches per width class (every MLA prefill in the 192 / 128 class);
+   launches per width class (every MLA prefill in the 192 / 128 class,
+   every bf16 one on its wgmma body);
 14. recurrent: mamba2-780m (48 SSD layers, tied embeddings) in bf16 and as
    dynamic int8, and recurrentgemma-9b (38 layers: 12 (rec, rec, attn)
    groups and 2 recurrent tail layers, MQA 16 x 256 over a 2048-slot ring)
    in bf16 and as dynamic int8 over fp, int8 and int4 KV caches, at
    published width and full depth: the queue, the dense engine over an
    8-request trace (an 8-slot decode step profiled; every int8-KV decode
-   through ``qdecode``'s wide class), a 300-token mamba2 prompt on the
+   through ``qdecode``'s wide class, its tensor-core body
+   ``qdecode_wide_tc``), a 300-token mamba2 prompt on the
    sequential SSD path, a 2100-token recurrentgemma prompt that wraps the
    ring, paged and speculative engines refused, and card against CPU at
    4 layers (the hybrid's one group and one tail layer) within 2.5x the
@@ -137,7 +139,8 @@ prints one JSON line per phase:
    the device line.
 
 Every counted run also checks that each flash_prefill, flash_qprefill and
-flash_q4prefill launch took the body of its dtype (``launches_by_body``),
+flash_q4prefill launch took the body of its dtype (``launches_by_body``;
+a bf16 flash_prefill of the 192 / 128 class the wgmma body),
 each engine
 window's profile names its attention kernel once per layer, and the GEMMs'
 bodies are checked where M is known: the one-launch decode body at every
@@ -524,7 +527,8 @@ def read_bodies(k, name="flash_prefill"):
 
 def check_bodies(k, where, launches, dtype):
     """Every flash_prefill, flash_qprefill and flash_q4prefill launch of a
-    run took the body of its dtype."""
+    run took the body of its dtype, and every bf16 flash_prefill of the MLA
+    class (192x128) the wgmma body (``MLA_BODY``)."""
     fp, out = k.flash_prefill, {}
     for name, table in (("flash_prefill", fp.BODY),
                         ("flash_qprefill", fp.QBODY),
@@ -532,6 +536,10 @@ def check_bodies(k, where, launches, dtype):
         bodies = read_bodies(k, name)
         want = {b: launches[name] if b == table[dtype] else 0
                 for b in bodies}
+        if name == "flash_prefill" and dtype == torch.bfloat16:
+            mla = launches["flash_prefill.class.192x128"]
+            want[fp.MLA_BODY] = mla
+            want[table[dtype]] -= mla
         if bodies != want:
             raise AssertionError(f"{where}: {name} bodies {bodies}, "
                                  f"want {want}")
@@ -732,9 +740,10 @@ def flash_phase(k, dev, timer):
         got, want = fp.flash_prefill(q, kk, v), ref.flash_prefill_ref(q, kk, v)
         torch.cuda.synchronize()
         ran = [b for b, n in read_bodies(k).items() if n != before[b]]
-        if ran != [fp.BODY[dt]]:
+        body = fp.MLA_BODY if shape == MLA_FLASH else fp.BODY[dt]
+        if ran != [body]:
             raise AssertionError(f"flash_prefill {shape}: bodies {ran} ran, "
-                                 f"not {fp.BODY[dt]}")
+                                 f"not {body}")
         cls = [c for c, n in fp.flash_prefill.launches_by_class.items()
                if n != classes[c]]
         if cls != [fp.width_class(hd, dv)]:
@@ -775,7 +784,7 @@ def flash_phase(k, dev, timer):
         if shape == MLA_FLASH:
             t = "float" if dt == torch.float32 else "__nv_bfloat16"
             row["ptxas"] = {n: k.ptxas.get(n) for n in (
-                f"tc::flash_tc<{t}, 192, 128>",
+                "mla::flash_mla", f"tc::flash_tc<{t}, 192, 128>",
                 "tc::flash_tc<float, 192, 128>")}
             mla = row
         emit("kernel", **row)
@@ -946,6 +955,8 @@ def qdecode_phase(k, dev, timer):
                    eager_ms=t_eager, plain_ms=t_p, library_ms=t_lib,
                    library_dequant_ms=t_deq, library_max_abs_err=lib_err,
                    mbytes=nbytes / 1e6, bound_ms=b_ms, bound_by=b_by)
+        if qd.wide_class(g, hd):
+            row.update(body="wide_tc", ptxas=k.ptxas.get("qdecode_wide_tc"))
         emit("kernel", **row)
         if label == HEADLINE_QDECODE:
             headline = row
@@ -3906,7 +3917,7 @@ def rec_serve(k, session, cfg, label, dev):
             wide = kv == "int8"
             per_step, step_ms, dtrace = decode_window(
                 k, engine, cfg, torch.Generator().manual_seed(SEED + 62),
-                "qdecode_wide" if wide else None, n_attn if wide else None)
+                "qdecode_wide_tc" if wide else None, n_attn if wide else None)
             extra.update(decode_step_ms_8_slots=step_ms,
                          launches_per_decode_step=per_step,
                          decode_trace=dtrace)
@@ -4302,7 +4313,7 @@ def main() -> int:
          cuda=torch.version.cuda, build_s=build_s, ptxas=ptxas,
          ptxas_redesigned={name: k.ptxas[name] for name in sorted(k.ptxas)
                            if "flash_q" in name or "_split" in name
-                           or "qdecode_wide" in name
+                           or "qdecode_wide" in name or "flash_mla" in name
                            or name.startswith(("quantize_cluster",
                                                "quantize_cols"))
                            or ", 192, 128>" in name},

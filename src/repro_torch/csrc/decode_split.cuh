@@ -83,20 +83,6 @@ constexpr int KT = 32;                  // key slots per tile: a share's unit
 constexpr int MAX_SPLITS = 8;           // CTAs per cluster (portable size)
 constexpr int MAXG = 8;                 // query heads per kv head
 constexpr int MAXD = 128;               // head dim
-// The wide class (qdecode only: Int8 over DenseRows), for G up to WIDE_G
-// and hd up to WIDE_D (recurrentgemma's 16 x 256 over one kv head): a grid
-// axis over groups of WIDE_GB query heads (each group's CTAs read the K/V
-// rows again, from L2 after the first) and a lane row of WIDE_LPR lanes x
-// lane_codes(WIDE_GB) codes, one 16-byte load. One head a CTA keeps the
-// serial chain of a warp step short and puts G times the CTAs on the card:
-// the loop is latency-bound at this shape (B * Hkv is 8 pairs), and groups
-// of 8 heads on 32 lanes ran 2.4x slower (scripts/qdecode_wide_sweep.py).
-// Its own shared-memory bound (WIDE_D) leaves every MAXG / MAXD
-// instantiation as it was.
-constexpr int WIDE_G = 16;
-constexpr int WIDE_GB = 1;
-constexpr int WIDE_D = 256;
-constexpr int WIDE_LPR = 16;
 constexpr int TAB_CAP = 512;            // table entries staged at once
 constexpr float NEG_INF = -2.0e38f;     // a masked slot's score
 constexpr float RUN_INIT = -1.0e30f;    // the running max's seed
@@ -428,7 +414,9 @@ __device__ __forceinline__ int cluster_head(int Hkv) {
 // q [B,Hkv,GS,hd] f32 (q_bf16 = 0) or bf16; k / v codes and k_s / v_s in
 // Fmt's layout, rows as `Rows` says; out [B,Hkv,GS,hd] f32. This CTA
 // serves the G query heads g0 .. g0 + G - 1 of the GS of its kv head (GS
-// = 0: G, all of them); DB bounds hd in its shared memory. Called by every
+// = 0: G, all of them); DB bounds hd in its shared memory. Every caller
+// passes the defaults; the parameters stay so that each split
+// instantiation compiles to the same code as before. Called by every
 // thread of every CTA of the cluster.
 template <class Fmt, int LPR, int GB, class Rows, int DB = MAXD>
 __device__ __forceinline__ void attend(
@@ -602,17 +590,17 @@ __device__ __forceinline__ void attend(
   cluster.sync();                         // rank 0 has read every partial
 }
 
-// Launch `kernel` on the grid (splits * Hkv, B, Z) in clusters of
-// `splits` CTAs along x; a cluster that cannot be scheduled is refused
-// here.
+// Launch `kernel` on the grid (splits * Hkv, B) in clusters of `splits`
+// CTAs along x, CTAs of `threads` threads with `smem` bytes of dynamic
+// shared memory; a cluster that cannot be scheduled is refused here.
 template <typename... KArgs, typename... AArgs>
-int launch_z(void (*kernel)(KArgs...), int splits, int Hkv, int B, int Z,
-             cudaStream_t stream, AArgs&&... args) {
+int launch_ex(void (*kernel)(KArgs...), int splits, int Hkv, int B,
+              int threads, int smem, cudaStream_t stream, AArgs&&... args) {
   while (splits > 1 && (long)splits * Hkv > 0x7fffffffL) splits /= 2;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(splits * Hkv, B, Z);
-  cfg.blockDim = dim3(PT);
-  cfg.dynamicSmemBytes = 0;
+  cfg.gridDim = dim3(splits * Hkv, B);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -625,11 +613,11 @@ int launch_z(void (*kernel)(KArgs...), int splits, int Hkv, int B, int Z,
   return (int)(e != cudaSuccess ? e : cudaGetLastError());
 }
 
-// the grid (splits * Hkv, B)
+// the grid (splits * Hkv, B), PT threads a CTA, static shared memory only
 template <typename... KArgs, typename... AArgs>
 int launch(void (*kernel)(KArgs...), int splits, int Hkv, int B,
            cudaStream_t stream, AArgs&&... args) {
-  return launch_z(kernel, splits, Hkv, B, 1, stream, args...);
+  return launch_ex(kernel, splits, Hkv, B, PT, 0, stream, args...);
 }
 
 // go.template run<LPR, GB>() where a lane row of LPR lanes fits MAXD;

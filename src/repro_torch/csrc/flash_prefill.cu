@@ -39,6 +39,38 @@
 // and MLA's hd up to 192 with dv up to 128 (deepseek-v2: q and k of
 // qk_nope + qk_rope = 192, v of 128, one kv head per query head).
 //
+// flash_mla (flash_mla_fwd: bf16 q/k/v of MLA's class, hd above 128 up to
+// 192, dv up to 128, widths multiples of 8, 16-byte aligned): the same
+// function on the instructions the H100 runs at its full tensor rate. At
+// deepseek-v2's prefill (B1 S1024 H128 hd192 dv128: 43.0 GFLOP causal,
+// 60.2 with the split value product, 201 MB) flash_tc's mma.sync loop
+// keeps 244 registers a thread, so 8 warps an SM fill its ring and hide
+// its latency; only wgmma reaches the full bf16 rate. This body is
+// warp-specialised:
+// a CTA owns 128 query rows of one (batch, kv head); one producer thread
+// streams 128-key K tiles [BK, 192] and V tiles [BK, 128] by TMA (4-D
+// tensor maps over [B, S, Hkv, width], 64-column boxes in 128-byte
+// swizzle, zeros past S and past the width) into a 2-stage ring of full /
+// empty mbarrier pairs, K and V apart so that S = QK^T starts before V
+// lands; two consumer warpgroups of 64 rows take the registers the
+// producer gives up (setmaxnreg 40 / 232). Q is staged once, by the
+// consumers, in the swizzle the descriptors read. S = QK^T is wgmma
+// m64n128k16 over 12 k-steps from shared memory; the scores are scaled
+// into log2 units (a multiply by log2(e) / sqrt(hd) in place of div_by,
+// then exp2f: within a few f32 roundings of the reference's division and
+// expf, which the CPU emulation holds to 1e-4 of flash_prefill_ref),
+// masked only on a tile that crosses the warpgroup's diagonal or passes
+// S, and the online softmax runs on the accumulator in registers. O += P V
+// is wgmma m64n128k16 with P from registers (the accumulator's C fragments
+// are the A fragments, p split in two bf16 terms as above) and V's tile as
+// the transposed (MN-major) operand. The value product of tile t - 1 is in
+// flight while the softmax of tile t computes, and the two warpgroups take
+// turns issuing their products (ping-pong on named barriers), so one's
+// softmax overlaps the other's products. O times one reciprocal of l
+// a row (within an ulp of the division) leaves through shared memory in
+// coalesced 16-byte row stores. Bound: bytes at 0.060 ms there, the split
+// work 0.061 ms at 989 TFLOP/s.
+//
 // flash_qtc (flash_qprefill_fwd: int8 K [B,S,Hkv,hd] and V [B,S,Hkv,dv]
 // with f32 per-(position, head) scales [B,S,Hkv], bf16 or f32 q): the same
 // tensor-core loop over codes. 64-key tiles of int8 codes and their 64 K
@@ -88,6 +120,7 @@
 #include <type_traits>
 
 #include "kv_int4.cuh"
+#include "tma.cuh"  // mbarrier / TMA helpers and the tensor-map encoder
 
 namespace {
 
@@ -1229,6 +1262,522 @@ int dispatch_q4(const void* q, const void* k, const __half* ks,
 
 }  // namespace tc
 
+// ---------------------------------------------------------------------
+// flash_mla: the bf16 MLA class (hd above MAXD up to MAXD_MLA, dv up to
+// MAXD) as a warp-specialised wgmma + TMA body (see the note at the top).
+// ---------------------------------------------------------------------
+namespace mla {
+
+using namespace tma;
+using tc::split2;
+
+constexpr int BM = 128;              // query rows a CTA: 2 warpgroups of 64
+constexpr int BK = 128;              // keys a K / V tile
+constexpr int STAGES = 2;            // K / V ring depth
+constexpr int COLS = 64;             // bf16 columns of one 128-byte row
+constexpr int ROW_BYTES = 128;       // a TMA box row, 128-byte swizzle
+constexpr int HB = MAXD_MLA / COLS;  // 64-column boxes of a Q / K row: 3
+constexpr int VB = MAXD / COLS;      // of a V row: 2
+constexpr int CONSUMERS = 2;         // warpgroups, 64 query rows each
+constexpr int THREADS = (CONSUMERS + 1) * 128;   // + the producer's
+constexpr int Q_BYTES = HB * BM * ROW_BYTES;     // 48 KB, staged once
+constexpr int K_BYTES = HB * BK * ROW_BYTES;     // 48 KB a stage
+constexpr int V_BYTES = VB * BK * ROW_BYTES;     // 32 KB a stage
+// 1024 bytes of slack to align the boxes for the swizzle; the barriers
+constexpr int SMEM = 1024 + Q_BYTES + STAGES * (K_BYTES + V_BYTES) +
+                     4 * STAGES * 8;
+// the producer warpgroup gives all but 40 of its registers to the
+// consumers (168 a thread at launch: one CTA an SM)
+constexpr int PRODUCER_REGS = 40;
+constexpr int CONSUMER_REGS = 232;
+constexpr float LOG2E = 1.4426950408889634f;
+// the epilogue's O / l rows over the ring, padded so that the quads'
+// float2 writes of 8 rows hit distinct banks
+constexpr int OS = MAXD + 8;
+static_assert(SMEM <= 227 * 1024, "shared memory");
+static_assert(BM * OS * 4 <= STAGES * (K_BYTES + V_BYTES), "epilogue");
+static_assert(BK * ROW_BYTES % 1024 == 0, "boxes stay 1024-byte aligned");
+
+// wgmma operand descriptors of tiles in 128-byte swizzle (bases 1024-byte
+// aligned; the hardware swizzles the addresses it forms, as TMA did when
+// it wrote the tile). K-major (Q, K): rows of 128 bytes, 8-row groups 1024
+// bytes apart (SBO), a k16 step 32 bytes into the row; the leading offset
+// is unused. MN-major (V, the transposed operand): a 128-byte row holds 64
+// dv columns of one key, 8-key groups 1024 bytes apart (SBO), and the
+// second 64-column half (the next atom along N) a box of BK rows further
+// (LBO).
+__device__ __forceinline__ uint64_t kmajor_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+__device__ __forceinline__ uint64_t mnmajor_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) |
+         ((uint64_t)((BK * ROW_BYTES) >> 4) << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Keeps the compiler from moving accumulator reads or writes across the
+// asynchronous wgmma (it cannot see that the tensor cores own them).
+template <int R>
+__device__ __forceinline__ void fence_acc(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+// The same for the A fragments of P: their conversions stay before the
+// fence instead of sinking between the wgmmas that read them.
+template <int R>
+__device__ __forceinline__ void fence_frags(uint32_t (&a)[R][4]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
+}
+template <int R>
+__device__ __forceinline__ void reg_dealloc() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+template <int R>
+__device__ __forceinline__ void reg_alloc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+
+// S[64 x 128] (+)= Q[64 x 16] . K[128 x 16]^T, bf16 -> f32, both operands
+// K-major in shared memory; scale_d 0 overwrites S
+__device__ __forceinline__ void wgmma_qk(float (&d)[64], uint64_t da,
+                                         uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// O[64 x 128] += P[64 x 16] . V[16 x 128], bf16 -> f32: P from registers
+// (the m16n8k16 A fragment of each warp's 16 rows), V MN-major in shared
+// memory (the transposed operand), both 64-column halves in one wgmma;
+// d0 / d1 hold columns 0..63 / 64..127
+__device__ __forceinline__ void wgmma_pv(float (&d0)[32], float (&d1)[32],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d0[0]), "+f"(d0[1]), "+f"(d0[2]), "+f"(d0[3]),
+        "+f"(d0[4]), "+f"(d0[5]), "+f"(d0[6]), "+f"(d0[7]),
+        "+f"(d0[8]), "+f"(d0[9]), "+f"(d0[10]), "+f"(d0[11]),
+        "+f"(d0[12]), "+f"(d0[13]), "+f"(d0[14]), "+f"(d0[15]),
+        "+f"(d0[16]), "+f"(d0[17]), "+f"(d0[18]), "+f"(d0[19]),
+        "+f"(d0[20]), "+f"(d0[21]), "+f"(d0[22]), "+f"(d0[23]),
+        "+f"(d0[24]), "+f"(d0[25]), "+f"(d0[26]), "+f"(d0[27]),
+        "+f"(d0[28]), "+f"(d0[29]), "+f"(d0[30]), "+f"(d0[31]),
+        "+f"(d1[0]), "+f"(d1[1]), "+f"(d1[2]), "+f"(d1[3]),
+        "+f"(d1[4]), "+f"(d1[5]), "+f"(d1[6]), "+f"(d1[7]),
+        "+f"(d1[8]), "+f"(d1[9]), "+f"(d1[10]), "+f"(d1[11]),
+        "+f"(d1[12]), "+f"(d1[13]), "+f"(d1[14]), "+f"(d1[15]),
+        "+f"(d1[16]), "+f"(d1[17]), "+f"(d1[18]), "+f"(d1[19]),
+        "+f"(d1[20]), "+f"(d1[21]), "+f"(d1[22]), "+f"(d1[23]),
+        "+f"(d1[24]), "+f"(d1[25]), "+f"(d1[26]), "+f"(d1[27]),
+        "+f"(d1[28]), "+f"(d1[29]), "+f"(d1[30]), "+f"(d1[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// Grid (row blocks, Hkv, B), latest row block first. Warpgroup 2 is the
+// producer: one thread fills the K / V ring by TMA (4-D maps over [B, S,
+// Hkv, width]: keys past S and columns past hd / dv arrive as zeros, so
+// every tile is a full [BK, 192] / [BK, 128] and the wgmma sequences
+// carry no branch: a conditional wgmma makes the compiler serialize them).
+// Warpgroups 0 and 1 hold 64 query rows each: Q staged once into shared
+// memory in the swizzle the descriptors read, then per tile S = Q K^T
+// (wgmma from shared memory), the scaled, masked online softmax on the
+// accumulator in registers, and O += (p_hi + p_lo) V (wgmma with P from
+// registers). The value product of tile t - 1 runs while the softmax of
+// tile t computes (P, S and O are 192 registers a thread), and the
+// warpgroups take turns issuing their products.
+__global__ void __launch_bounds__(THREADS, 1)
+flash_mla(const __grid_constant__ CUtensorMap tm_k,
+          const __grid_constant__ CUtensorMap tm_v,
+          const __nv_bfloat16* __restrict__ q, float* __restrict__ out,
+          int S, int Hq, int Hkv, int hd, int dv) {
+  extern __shared__ uint8_t mla_smem[];
+  uint8_t* Qs = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(mla_smem) + 1023) & ~(uintptr_t)1023);
+  uint8_t* Ks = Qs + Q_BYTES;                  // [STAGES][HB][BK][128 B]
+  uint8_t* Vs = Ks + STAGES * K_BYTES;         // [STAGES][VB][BK][128 B]
+  uint64_t* full_k = reinterpret_cast<uint64_t*>(Vs + STAGES * V_BYTES);
+  uint64_t* full_v = full_k + STAGES;
+  uint64_t* empty_k = full_v + STAGES;
+  uint64_t* empty_v = empty_k + STAGES;
+
+  const int G = Hq / Hkv;
+  const int rb = gridDim.x - 1 - blockIdx.x;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const long rows_total = (long)S * G;
+  const long r0 = (long)rb * BM;
+  const long last_row = (r0 + BM < rows_total ? r0 + BM : rows_total) - 1;
+  const int n_tiles = (int)(last_row / G / BK) + 1;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full_k[s], 1);
+      mbar_init(&full_v[s], 1);
+      mbar_init(&empty_k[s], CONSUMERS);
+      mbar_init(&empty_v[s], CONSUMERS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == CONSUMERS) {
+    // ---- producer: one thread keeps the K / V ring full ----
+    reg_dealloc<PRODUCER_REGS>();
+    if (threadIdx.x == CONSUMERS * 128) {
+      for (int t = 0; t < n_tiles; ++t) {
+        const int st = t % STAGES, ph = (t / STAGES) & 1;
+        mbar_wait(&empty_k[st], ph ^ 1);
+        mbar_expect_tx(&full_k[st], K_BYTES);
+        for (int j = 0; j < HB; ++j)
+          tma_load_4d(Ks + st * K_BYTES + j * BK * ROW_BYTES, &tm_k,
+                      &full_k[st], j * COLS, h, t * BK, b);
+        mbar_wait(&empty_v[st], ph ^ 1);
+        mbar_expect_tx(&full_v[st], V_BYTES);
+        for (int j = 0; j < VB; ++j)
+          tma_load_4d(Vs + st * V_BYTES + j * BK * ROW_BYTES, &tm_v,
+                      &full_v[st], j * COLS, h, t * BK, b);
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: 64 query rows a warpgroup ----
+  reg_alloc<CONSUMER_REGS>();
+  // Q: the CTA's rows (zero past the rows and past hd) into HB boxes of
+  // [BM][128 B], 16-byte chunk c of row r at chunk c ^ (r % 8): the
+  // 128-byte swizzle that TMA writes and the descriptors read. A thread's
+  // QIT chunks are loaded together, then stored.
+  constexpr int QIT = BM * HB * 8 / (CONSUMERS * 128);
+  uint4 qv[QIT];
+#pragma unroll
+  for (int it = 0; it < QIT; ++it) {
+    const int i = threadIdx.x + it * CONSUMERS * 128;
+    const int r = i / (HB * 8), c = i - r * (HB * 8);
+    const long rg = r0 + r;
+    qv[it] = make_uint4(0, 0, 0, 0);
+    if (rg < rows_total && c * 8 < hd) {
+      const long pos = rg / G;
+      qv[it] = __ldg(reinterpret_cast<const uint4*>(
+          q + (((long)b * S + pos) * Hq + (long)h * G + (rg - pos * G)) * hd +
+          c * 8));
+    }
+  }
+#pragma unroll
+  for (int it = 0; it < QIT; ++it) {
+    const int i = threadIdx.x + it * CONSUMERS * 128;
+    const int r = i / (HB * 8), c = i - r * (HB * 8);
+    *reinterpret_cast<uint4*>(Qs + (c >> 3) * BM * ROW_BYTES +
+                              r * ROW_BYTES + (((c & 7) ^ (r & 7)) << 4)) =
+        qv[it];
+  }
+  // the generic-proxy stores, visible to wgmma's reads; the consumers only
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  asm volatile("bar.sync 1, %0;\n" ::"n"(CONSUMERS * 128) : "memory");
+
+  const int t128 = threadIdx.x & 127;
+  const int warp = t128 >> 5, lane = t128 & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+  const long row_lo = r0 + wg * 64 + warp * 16 + gid;
+  const long qpos_lo = row_lo / G, qpos_hi = (row_lo + 8) / G;
+  const long first_pos = (r0 + wg * 64) / G;   // this warpgroup's
+  // scores in log2 units: qk * (log2(e) / sqrt(hd)), then exp2
+  const float scale = LOG2E / sqrtf((float)hd);
+  const uint32_t qa = smem_u32(Qs) + wg * 64 * ROW_BYTES;
+
+  float s[64], o[VB][32];
+  uint32_t ph[BK / 16][4], pl[BK / 16][4];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) s[i] = 0.f;
+#pragma unroll
+  for (int j = 0; j < VB; ++j)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[j][i] = 0.f;
+  float m_lo = RUN_INIT, m_hi = RUN_INIT, l_lo = 0.f, l_hi = 0.f;
+
+  // S = Q K^T of tile t, committed as one group
+  auto issue_qk = [&](int t) {
+    const int st = t % STAGES;
+    mbar_wait(&full_k[st], (t / STAGES) & 1);
+    const uint32_t kb = smem_u32(Ks + st * K_BYTES);
+    fence_acc(s);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < MAXD_MLA / 16; ++kk)
+      wgmma_qk(s,
+               kmajor_desc(qa + (kk >> 2) * BM * ROW_BYTES + (kk & 3) * 32),
+               kmajor_desc(kb + (kk >> 2) * BK * ROW_BYTES + (kk & 3) * 32),
+               kk > 0);
+    wgmma_commit();
+  };
+  // O += P V of tile t from ph / pl, committed as one group
+  auto issue_pv = [&](int t) {
+    const int st = t % STAGES;
+    mbar_wait(&full_v[st], (t / STAGES) & 1);
+    const uint32_t vb = smem_u32(Vs + st * V_BYTES);
+#pragma unroll
+    for (int j = 0; j < VB; ++j) fence_acc(o[j]);
+    fence_frags(ph);
+    fence_frags(pl);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      const uint64_t d = mnmajor_desc(vb + kk * 16 * ROW_BYTES);
+      wgmma_pv(o[0], o[1], ph[kk], d);
+      wgmma_pv(o[0], o[1], pl[kk], d);
+    }
+    wgmma_commit();
+  };
+  // the scaled, masked scores of tile t in s, the running max moved, p =
+  // exp2(s - m) left in s and its sum added to l; returns the rescale
+  // factors of the rows' earlier sums
+  auto softmax = [&](int t, float& a_lo, float& a_hi) {
+    const int k0 = t * BK;
+    const bool masked = k0 + BK - 1 > first_pos || k0 + BK > S;
+    float mx_lo = NEG_INF, mx_hi = NEG_INF;
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[4 * j + e] * scale;
+        if (masked) {
+          const int kp = k0 + j * 8 + tig * 2 + (e & 1);
+          if (kp > (e < 2 ? qpos_lo : qpos_hi) || kp >= S) x = NEG_INF;
+        }
+        s[4 * j + e] = x;
+        if (e < 2) mx_lo = fmaxf(mx_lo, x);
+        else mx_hi = fmaxf(mx_hi, x);
+      }
+#pragma unroll
+    for (int o_ = 1; o_ < 4; o_ <<= 1) {
+      mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, o_));
+      mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, o_));
+    }
+    const float mn_lo = fmaxf(m_lo, mx_lo), mn_hi = fmaxf(m_hi, mx_hi);
+    a_lo = exp2f(m_lo - mn_lo);
+    a_hi = exp2f(m_hi - mn_hi);
+    m_lo = mn_lo;
+    m_hi = mn_hi;
+    float ps_lo = 0.f, ps_hi = 0.f;
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = exp2f(s[4 * j + e] - (e < 2 ? mn_lo : mn_hi));
+        s[4 * j + e] = p;
+        if (e < 2) ps_lo += p;
+        else ps_hi += p;
+      }
+    l_lo = l_lo * a_lo + ps_lo;      // this thread's part; the quad sums
+    l_hi = l_hi * a_hi + ps_hi;      // them at the end
+  };
+  // p in s as the A fragments of the value product, split in two bf16
+  // terms; the C fragments of keys 16kk..16kk+15 are k-step kk's
+  auto to_frags = [&]() {
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      split2(s[8 * kk], s[8 * kk + 1], ph[kk][0], pl[kk][0]);
+      split2(s[8 * kk + 2], s[8 * kk + 3], ph[kk][1], pl[kk][1]);
+      split2(s[8 * kk + 4], s[8 * kk + 5], ph[kk][2], pl[kk][2]);
+      split2(s[8 * kk + 6], s[8 * kk + 7], ph[kk][3], pl[kk][3]);
+    }
+  };
+  const bool lead = t128 == 0;       // arrives for the warpgroup
+
+  // Ping-pong: the warpgroups take turns issuing their products (named
+  // barriers 2 and 3, each 128 threads waiting and 128 arriving), so one
+  // warpgroup's softmax runs while the other's products do. Warpgroup 1
+  // opens the first turn for warpgroup 0 and skips its last pass, so every
+  // barrier ends with as many arrivals as waits.
+  const int turns = n_tiles + 1;
+  auto turn_wait = [&]() {
+    asm volatile("bar.sync %0, 256;\n" ::"r"(2 + wg) : "memory");
+  };
+  auto turn_pass = [&](int k) {
+    if (!(wg == 1 && k == turns - 1))
+      asm volatile("bar.arrive %0, 256;\n" ::"r"(3 - wg) : "memory");
+  };
+  if (wg == 1) asm volatile("bar.arrive 2, 256;\n" ::: "memory");
+
+  float a_lo, a_hi;
+  turn_wait();
+  issue_qk(0);
+  turn_pass(0);
+  wgmma_wait<0>();
+  fence_acc(s);
+  if (lead) mbar_arrive(&empty_k[0]);
+  softmax(0, a_lo, a_hi);
+  to_frags();
+  for (int t = 1; t < n_tiles; ++t) {
+    turn_wait();
+    issue_qk(t);
+    issue_pv(t - 1);
+    turn_pass(t);
+    wgmma_wait<1>();                 // S of tile t; P V of t - 1 in flight
+    fence_acc(s);
+    if (lead) mbar_arrive(&empty_k[t % STAGES]);
+    softmax(t, a_lo, a_hi);
+    wgmma_wait<0>();
+#pragma unroll
+    for (int j = 0; j < VB; ++j) fence_acc(o[j]);
+    if (lead) mbar_arrive(&empty_v[(t - 1) % STAGES]);
+#pragma unroll
+    for (int j = 0; j < VB; ++j)
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        o[j][4 * i] *= a_lo;
+        o[j][4 * i + 1] *= a_lo;
+        o[j][4 * i + 2] *= a_hi;
+        o[j][4 * i + 3] *= a_hi;
+      }
+    to_frags();
+  }
+  turn_wait();
+  issue_pv(n_tiles - 1);
+  turn_pass(n_tiles);
+  wgmma_wait<0>();
+#pragma unroll
+  for (int j = 0; j < VB; ++j) fence_acc(o[j]);
+
+  // O / l through shared memory (over the ring, once both warpgroups are
+  // done with it: the last tile's loads have all been consumed), then out
+  // in coalesced 16-byte row stores
+#pragma unroll
+  for (int o_ = 1; o_ < 4; o_ <<= 1) {
+    l_lo += __shfl_xor_sync(0xffffffffu, l_lo, o_);
+    l_hi += __shfl_xor_sync(0xffffffffu, l_hi, o_);
+  }
+  // one reciprocal a row (within an ulp of the division, far inside 1e-4)
+  const float r_lo = 1.f / l_lo, r_hi = 1.f / l_hi;
+  asm volatile("bar.sync 1, %0;\n" ::"n"(CONSUMERS * 128) : "memory");
+  float* Os = reinterpret_cast<float*>(Ks);        // [BM][OS]
+  const int rl = wg * 64 + warp * 16 + gid;
+#pragma unroll
+  for (int j = 0; j < VB; ++j)
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int c = j * COLS + i * 8 + tig * 2;
+      *reinterpret_cast<float2*>(Os + rl * OS + c) =
+          make_float2(o[j][4 * i] * r_lo, o[j][4 * i + 1] * r_lo);
+      *reinterpret_cast<float2*>(Os + (rl + 8) * OS + c) =
+          make_float2(o[j][4 * i + 2] * r_hi, o[j][4 * i + 3] * r_hi);
+    }
+  asm volatile("bar.sync 1, %0;\n" ::"n"(CONSUMERS * 128) : "memory");
+  for (int i = threadIdx.x; i < BM * (MAXD / 4); i += CONSUMERS * 128) {
+    const int r = i / (MAXD / 4), c = (i - r * (MAXD / 4)) * 4;
+    const long rg = r0 + r;
+    if (rg < rows_total && c < dv) {
+      const long pos = rg / G;
+      *reinterpret_cast<float4*>(
+          out + (((long)b * S + pos) * Hq + (long)h * G + (rg - pos * G)) * dv +
+          c) = *reinterpret_cast<const float4*>(Os + r * OS + c);
+    }
+  }
+}
+
+// [B, S, Hkv, w] bf16 as a 4-D map of boxes [1][BK][1][64] (64 columns of
+// BK keys of one head) in 128-byte swizzle; keys past S and columns past
+// w fill with zeros
+int make_map(CUtensorMap* map, const void* base, int w, int Hkv, int S,
+             int B) {
+  const EncodeTiled enc = encoder();
+  if (enc == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {(cuuint64_t)w, (cuuint64_t)Hkv, (cuuint64_t)S,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)w * 2, (cuuint64_t)Hkv * w * 2,
+                                 (cuuint64_t)S * Hkv * w * 2};
+  const cuuint32_t box[4] = {COLS, 1, BK, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                         const_cast<void*>(base), dims, strides, box, elem,
+                         CU_TENSOR_MAP_INTERLEAVE_NONE,
+                         CU_TENSOR_MAP_SWIZZLE_128B,
+                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+int launch(const void* q, const void* k, const void* v, float* out, int B,
+           int S, int Hq, int Hkv, int hd, int dv, cudaStream_t stream) {
+  static bool attr_set = false;
+  if (!attr_set) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        flash_mla, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+    if (e != cudaSuccess) return (int)e;
+    attr_set = true;
+  }
+  CUtensorMap tk, tv;
+  int rc = make_map(&tk, k, hd, Hkv, S, B);
+  if (rc) return rc;
+  rc = make_map(&tv, v, dv, Hkv, S, B);
+  if (rc) return rc;
+  const long rows = (long)S * (Hq / Hkv);
+  const dim3 grid((unsigned)((rows + BM - 1) / BM), Hkv, B);
+  flash_mla<<<grid, THREADS, SMEM, stream>>>(
+      tk, tv, static_cast<const __nv_bfloat16*>(q), out, S, Hq, Hkv, hd, dv);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace mla
+
 }  // namespace
 
 extern "C" {
@@ -1252,6 +1801,21 @@ int flash_prefill_fwd(const void* q, const void* k, const void* v, int dtype,
     return tc::dispatch<__nv_bfloat16>(q, k, v, out, B, S, Hq, Hkv, hd, dv,
                                        s);
   return (int)cudaErrorInvalidValue;
+}
+
+// The bf16 MLA class on the wgmma body: q [B,S,Hq,hd], k [B,S,Hkv,hd],
+// v [B,S,Hkv,dv] bfloat16, contiguous and 16-byte aligned, hd above 128 up
+// to 192 and dv up to 128, both multiples of 8 (TMA's 16-byte strides);
+// out [B,S,Hq,dv] float32.
+int flash_mla_fwd(const void* q, const void* k, const void* v, float* out,
+                  int B, int S, int Hq, int Hkv, int hd, int dv,
+                  void* stream) {
+  if (bad_shape(B, S, Hq, Hkv, hd, dv, MAXD_MLA) || hd <= MAXD || hd % 8 ||
+      dv % 8 ||
+      ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v) % 16)
+    return (int)cudaErrorInvalidValue;
+  return mla::launch(q, k, v, out, B, S, Hq, Hkv, hd, dv,
+                     static_cast<cudaStream_t>(stream));
 }
 
 // q [B,S,Hq,hd] of q_dtype (0 float32, 1 bfloat16); k [B,S,Hkv,hd] and

@@ -1,7 +1,8 @@
 // mbarrier and TMA helpers for Hopper (sm_90a), shared by qmatmul.cu (the
-// wgmma GEMM's ring) and quantize_weights.cu (the cluster route's K-slice
-// staging). The tensor-map encoder comes through cudaGetDriverEntryPoint,
-// so nothing links libcuda.
+// wgmma GEMM's ring), quantize_weights.cu (the cluster route's K-slice
+// staging) and flash_prefill.cu (the MLA body's K / V ring). The
+// tensor-map encoder comes through cudaGetDriverEntryPoint, so nothing
+// links libcuda.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums
@@ -60,6 +61,19 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
       "bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
       "r"(smem_u32(bar))
+      : "memory");
+}
+
+// TMA: the box at (c0 = inner coordinate, c1, c2, c3) of a 4-D ``map``
+// into ``dst``, as tma_load_2d.
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3), "r"(smem_u32(bar))
       : "memory");
 }
 

@@ -17,7 +17,12 @@ cp.async ring, both products on ``mma.sync`` bf16 -> f32, and the value
 product over p split in two bf16 terms (hi + lo), which keeps it within
 ~1e-5 of the f32 reference where one bf16 rounding of p errs by ~3e-3.
 f32 q/k/v take the same body with every operand split in two bf16 terms
-and three products per mma (hi.hi + hi.lo + lo.hi: ~2e-5). The int8
+and three products per mma (hi.hi + hi.lo + lo.hi: ~2e-5). bf16 prefills
+of MLA's 192 / 128 width class take a body of their own (``flash_mla``,
+``MLA_BODY``), built for the H100's full tensor rate: a producer thread
+streams 128-key K / V tiles by TMA into an mbarrier ring, and two consumer
+warpgroups of 64 query rows run both products on ``wgmma`` (P from
+registers, split hi + lo) with the softmax in log2 units. The int8
 variant takes the same loop over codes (``flash_qtc``): 64-key tiles of
 int8 codes and their scales in the cp.async ring (1 byte per K/V element
 instead of 2), one pass per tile turning the codes into bf16 (exact), the
@@ -61,6 +66,10 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 #: body over bf16 operands ("tc") or over two-term splits of f32 operands
 #: ("tc_f32")
 BODY = {torch.bfloat16: "tc", torch.float32: "tc_f32"}
+#: the warp-specialised wgmma + TMA body of the bf16 MLA class
+#: (``flash_mla_fwd``), which ``body_for`` picks in place of "tc"
+MLA_BODY = "tc_mla"
+BODIES = (*BODY.values(), MLA_BODY)
 #: the body ``flash_qprefill_fwd`` launches for each q dtype: the int8
 #: tensor-core body over bf16 q ("qtc") or over a two-term split of f32 q
 #: ("qtc_f32")
@@ -82,6 +91,19 @@ def width_class(hd: int, dv: int) -> str:
         return "192x128"
     w = max(hd, dv)
     return "64" if w <= 64 else "96" if w <= 96 else "128"
+
+
+def body_for(q, k, v) -> str:
+    """The body ``flash_prefill`` launches for checked CUDA tensors:
+    ``MLA_BODY`` for bf16 rows of the 192x128 class that TMA can read (hd
+    and dv multiples of 8, the three tensors 16-byte aligned: every MLA
+    prefill of the models), else ``BODY[q.dtype]``."""
+    hd, dv = q.shape[3], v.shape[3]
+    if q.dtype == torch.bfloat16 and width_class(hd, dv) == "192x128" \
+            and hd % 8 == 0 and dv % 8 == 0 \
+            and all(t.data_ptr() % 16 == 0 for t in (q, k, v)):
+        return MLA_BODY
+    return BODY[q.dtype]
 
 
 def _check(q, k, v):
@@ -109,19 +131,29 @@ def _check(q, k, v):
 
 
 def _flash_tc(q, k, v):
-    """Launch ``flash_tc`` (body ``BODY[q.dtype]``) on checked CUDA
-    tensors and count it."""
+    """Launch the body ``body_for`` picks (``flash_mla`` or ``flash_tc``)
+    on checked CUDA tensors and count it."""
     b, s, hq, hd = q.shape
     hkv, dv = k.shape[2], v.shape[3]
     out = torch.empty((b, s, hq, dv), dtype=torch.float32, device=q.device)
-    fn = _build.function(_LIB, "flash_prefill_fwd", [_build.P, _build.P,
-                         _build.P, _build.I, _build.P, _build.I, _build.I,
-                         _build.I, _build.I, _build.I, _build.I, _build.P])
-    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _DTYPE_CODE[q.dtype],
-            out.data_ptr(), b, s, hq, hkv, hd, dv, _build.stream_of(q))
-    _build.check(_LIB, rc, "flash_prefill_fwd")
+    body = body_for(q, k, v)
+    if body == MLA_BODY:
+        fn = _build.function(_LIB, "flash_mla_fwd", [
+            _build.P, _build.P, _build.P, _build.P, _build.I, _build.I,
+            _build.I, _build.I, _build.I, _build.I, _build.P])
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b,
+                s, hq, hkv, hd, dv, _build.stream_of(q))
+        _build.check(_LIB, rc, "flash_mla_fwd")
+    else:
+        fn = _build.function(_LIB, "flash_prefill_fwd", [
+            _build.P, _build.P, _build.P, _build.I, _build.P, _build.I,
+            _build.I, _build.I, _build.I, _build.I, _build.I, _build.P])
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                _DTYPE_CODE[q.dtype], out.data_ptr(), b, s, hq, hkv, hd, dv,
+                _build.stream_of(q))
+        _build.check(_LIB, rc, "flash_prefill_fwd")
     flash_prefill.launches += 1
-    flash_prefill.launches_by_body[BODY[q.dtype]] += 1
+    flash_prefill.launches_by_body[body] += 1
     flash_prefill.launches_by_class[width_class(hd, dv)] += 1
     return out
 
@@ -146,9 +178,9 @@ class _FlashPrefill(torch.autograd.Function):
 def flash_prefill(q, k, v):
     """q [B,S,Hq,hd]; k [B,S,Hkv,hd]; v [B,S,Hkv,dv] -> [B,S,Hq,dv] f32.
     CPU tensors take the plain version (differentiable as it is); CUDA
-    tensors launch the kernel's tensor-core body for their dtype
-    (``BODY``), through ``_FlashPrefill`` when grad mode is on and an input
-    requires grad."""
+    tensors launch the kernel's tensor-core body ``body_for`` picks,
+    through ``_FlashPrefill`` when grad mode is on and an input requires
+    grad."""
     _check(q, k, v)
     if q.device.type == "cpu":
         return flash_prefill_ref(q, k, v)
@@ -161,7 +193,7 @@ def flash_prefill(q, k, v):
 
 
 flash_prefill.launches = 0
-flash_prefill.launches_by_body = {body: 0 for body in BODY.values()}
+flash_prefill.launches_by_body = {body: 0 for body in BODIES}
 flash_prefill.launches_by_class = {c: 0 for c in CLASSES}
 
 

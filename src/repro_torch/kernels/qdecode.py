@@ -16,12 +16,15 @@ Hkv32 hd64) ~17.9 MB, ~5.3 us at 3.35 TB/s.
 
 The wide class (``wide_class``: G above ``MAX_GROUP`` or hd above
 ``MAX_HEAD_DIM``, up to ``WIDE_GROUP`` x ``WIDE_HEAD_DIM``) serves
-recurrentgemma's 16 query heads x 256 over one kv head: a grid axis over
-the query heads, one a CTA (the K/V rows re-read from L2), 16 lanes x 16
-codes a slot row, the same loop and merge. At its shape (B8 S2048 Hkv1) it
-must read ~8.8 MB, ~2.6 us at 3.35 TB/s; with 8 (sequence, kv head) pairs
-the loop is latency-bound. ``launches_by_class`` counts launches by class
-("split", "wide").
+recurrentgemma's 16 query heads x 256 over one kv head with its own body
+on the tensor cores (``qdecode_wide_tc``): one CTA holds all G heads of its
+(sequence, kv head, key share) as one m16 tile, so each code is read once;
+its warps stream 16-slot tiles of codes and scales by cp.async, turn the
+codes into bf16 (exact) and run S = Q K^T and O += P' V on ``mma.sync``
+(f32 q and p' = p * v_s each split in two bf16 terms), with the same
+online softmax and merges as the split loop. At its shape (B8 S2048 Hkv1)
+it must read ~8.8 MB, ~2.6 us at 3.35 TB/s. ``launches_by_class`` counts
+launches by class ("split", "wide").
 """
 from __future__ import annotations
 
@@ -89,6 +92,9 @@ def qdecode(q, k_i8, k_s, v_i8, v_s, bias):
     if k_i8.data_ptr() % 16 or v_i8.data_ptr() % 16:
         raise ValueError("codes must be 16-byte aligned (16-byte loads)")
     b, hkv, g, hd = q.shape
+    if wide_class(g, hd) and q.data_ptr() % 16:
+        raise ValueError("the wide class reads q in 8- or 16-byte pieces: "
+                         "q must be 16-byte aligned")
     out = torch.empty((b, hkv, g, hd), dtype=torch.float32, device=q.device)
     fn = _build.function(_LIB, "qdecode_fwd", [
         _build.P, _build.I, _build.P, _build.P, _build.P, _build.P, _build.P,

@@ -129,7 +129,7 @@ def test_flash_prefill_kernel_matches_plain(dev, b, s, hq, hkv, hd, dv, dtype):
     q = torch.randn((b, s, hq, hd), generator=gen, device=dev).to(dtype)
     k = torch.randn((b, s, hkv, hd), generator=gen, device=dev).to(dtype)
     v = torch.randn((b, s, hkv, dv), generator=gen, device=dev).to(dtype)
-    body = flash_prefill.BODY[dtype]
+    body = flash_prefill.body_for(q, k, v)
     before = dict(flash_prefill.flash_prefill.launches_by_body)
     got = flash_prefill.flash_prefill(q, k, v)
     after = flash_prefill.flash_prefill.launches_by_body
@@ -141,6 +141,35 @@ def test_flash_prefill_kernel_matches_plain(dev, b, s, hq, hkv, hd, dv, dtype):
     # summation order differs
     torch.testing.assert_close(got, ref.flash_prefill_ref(q, k, v),
                                rtol=0, atol=1e-4)
+
+
+# the bf16 MLA class on its wgmma body: one key, a prompt of 1000 (eight
+# tiles, the last ragged), two sequences, GQA at hd 136, deepseek-v2's 128
+# heads at 1024 (chip_smoke.py's MLA_FLASH)
+MLA_CASES = [(1, 1, 4, 4, 192, 128),
+             (1, 1000, 4, 4, 192, 128),
+             (2, 300, 8, 8, 192, 128),
+             (2, 129, 6, 2, 136, 64),
+             (1, 1024, 128, 128, 192, 128)]
+
+
+@pytest.mark.parametrize("b,s,hq,hkv,hd,dv", MLA_CASES)
+def test_flash_prefill_mla_body(dev, b, s, hq, hkv, hd, dv):
+    """Every bf16 prefill of the class that TMA can read takes the wgmma
+    body (``MLA_BODY``), within 1e-4 of the f32 reference, and a second
+    call gives the same bits (no atomics)."""
+    gen = torch.Generator(device=dev).manual_seed(s + hd + dv + b)
+    q = torch.randn((b, s, hq, hd), generator=gen, device=dev).bfloat16()
+    k = torch.randn((b, s, hkv, hd), generator=gen, device=dev).bfloat16()
+    v = torch.randn((b, s, hkv, dv), generator=gen, device=dev).bfloat16()
+    assert flash_prefill.body_for(q, k, v) == flash_prefill.MLA_BODY
+    before = dict(flash_prefill.flash_prefill.launches_by_body)
+    got = flash_prefill.flash_prefill(q, k, v)
+    assert flash_prefill.flash_prefill.launches_by_body == {
+        **before, "tc_mla": before["tc_mla"] + 1}
+    torch.testing.assert_close(got, ref.flash_prefill_ref(q, k, v), rtol=0,
+                               atol=1e-4)
+    assert torch.equal(flash_prefill.flash_prefill(q, k, v), got)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -649,7 +678,8 @@ def test_quantize_weights_two_pass_route(dev, dtype, aligned):
 # ------------------------------------------------------------------ #
 @pytest.mark.parametrize("b,s,hq,hkv,hd,dv", [(8, 128, 32, 32, 64, 64),
                                               (2, 100, 32, 8, 96, 96),
-                                              (2, 77, 4, 2, 64, 32)])
+                                              (2, 77, 4, 2, 64, 32),
+                                              (1, 130, 4, 4, 192, 128)])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_flash_prefill_grads_through_the_kernel(dev, b, s, hq, hkv, hd, dv,
                                                 dtype):
@@ -664,7 +694,7 @@ def test_flash_prefill_grads_through_the_kernel(dev, b, s, hq, hkv, hd, dv,
                for shape in ((b, s, hq, hd), (b, s, hkv, hd),
                              (b, s, hkv, dv)))
     dout = torch.randn((b, s, hq, dv), generator=gen, device=dev)
-    body = flash_prefill.BODY[dtype]
+    body = flash_prefill.body_for(q, k, v)
     before = dict(flash_prefill.flash_prefill.launches_by_body)
     out = flash_prefill.flash_prefill(q, k, v)
     assert out.grad_fn is not None

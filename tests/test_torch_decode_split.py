@@ -679,66 +679,160 @@ def test_minus_inf_seeds_would_poison_the_merge():
 QDECODE_CU = CUH.parent / "qdecode.cu"
 
 
+def _wide_constants():
+    """The wide body's ``constexpr int WIDE_*`` of qdecode.cu, evaluated in
+    order."""
+    env = {}
+    for name, expr in re.findall(r"^constexpr int (WIDE_\w+) = ([^;]+);",
+                                 QDECODE_CU.read_text(), flags=re.M):
+        expr = re.sub(r"\((\w+) > (\w+) \? (\w+)\s*: (\w+)\)",
+                      r"(\3 if \1 > \2 else \4)", expr)
+        env[name] = int(eval(expr, {}, dict(env)))
+    return env
+
+
+W = _wide_constants()
+
+
 def test_wide_class_constants_and_dispatch_mirror_the_source():
-    """The wide class's bounds are its own: MAXG / MAXD (every split
-    instantiation, the paged kernels' included) stay 8 / 128. A lane row
-    of WIDE_LPR lanes holds WIDE_D dims at the codes a lane holds under
-    WIDE_GB (one query head a CTA), and the host sends (G, hd) past MAXG or
-    MAXD to it."""
+    """The wide class is its own body in qdecode.cu (the header keeps the
+    split classes' MAXG / MAXD of 8 / 128 and no wide constant): one CTA
+    holds all WIDE_G query heads as one m16 tile, its WIDE_NW warps walk
+    WIDE_KT-slot tiles with WIDE_ST a warp in its ring, clusters of up to
+    WIDE_SPLITS CTAs, and its shared memory (Q's fragments, the warps'
+    rings, then the partials over the ring) fits the card. The rows' strides put one fragment load's 8 lanes of a phase on
+    8 distinct 16-byte bank groups, and the head-dim permutations of both
+    products cover every dim once."""
     assert (C["MAXG"], C["MAXD"]) == (8, 128)
-    assert (C["WIDE_G"], C["WIDE_GB"], C["WIDE_D"], C["WIDE_LPR"]) == (
-        16, 1, 256, 16)
-    assert qdecode.WIDE_GROUP == C["WIDE_G"]
-    assert qdecode.WIDE_HEAD_DIM == C["WIDE_D"]
-    assert C["WIDE_LPR"] * lane_codes(C["WIDE_GB"]) == C["WIDE_D"]
-    assert 32 // C["WIDE_LPR"] == 2          # two slot rows a warp step
-    assert C["WIDE_GB"] <= C["MAXG"]
+    assert "WIDE" not in CUH.read_text()
+    assert (W["WIDE_G"], W["WIDE_D"], W["WIDE_NW"], W["WIDE_KT"],
+            W["WIDE_ST"], W["WIDE_SPLITS"]) == (16, 256, 8, 16, 2, 16)
+    assert qdecode.WIDE_GROUP == W["WIDE_G"]
+    assert qdecode.WIDE_HEAD_DIM == W["WIDE_D"]
+    assert W["WIDE_SMEM"] <= 227 * 1024
+    assert W["WIDE_MERGE"] <= W["WIDE_RING"]
     src = " ".join(QDECODE_CU.read_text().split())
     for line in ("if (G <= ds::MAXG && hd <= ds::MAXD) return "
-                 "ds::dispatch<ds::Int8>(go, hd, G); return go.run_wide();",
-                 "const int g0 = blockIdx.z * ds::WIDE_GB;",
-                 "min(ds::WIDE_GB, G - g0), hd, g0, G);",
-                 "const int z = (G + ds::WIDE_GB - 1) / ds::WIDE_GB;",
-                 "ds::splits_for(S, (long)B * Hkv * z, resident)",
-                 "ds::attend<ds::Int8, ds::WIDE_LPR, ds::WIDE_GB, "
-                 "ds::DenseRows, ds::WIDE_D>("):
+                 "ds::dispatch<ds::Int8>(go, hd, G); if "
+                 "(reinterpret_cast<uintptr_t>(q) % 16) return "
+                 "(int)cudaErrorInvalidValue; return go.run_wide();",
+                 "wide_splits(S, pairs, resident, pairs <= cluster16 ? "
+                 "WIDE_SPLITS : ds::MAX_SPLITS)",
+                 "while (s < max_splits && s * ds::KT < n_keys_max && "
+                 "pairs * 2 * s <= resident)",
+                 "float m_lo = ds::RUN_INIT_BIAS, m_hi = ds::RUN_INIT_BIAS;"):
         assert line in src, line
-    cuh = " ".join(CUH.read_text().split())
-    assert "__shared__ __align__(16) float wacc[NW][GB * DB];" in cuh
-    assert "template <class Fmt, int LPR, int GB, class Rows, int DB = MAXD>" \
-        in cuh
     for g, hd in ((1, 64), (8, 128), (4, 96)):
         assert not qdecode.wide_class(g, hd)
     for g, hd in ((16, 256), (9, 64), (8, 144), (12, 192)):
         assert qdecode.wide_class(g, hd)
-    # static shared memory: q and the four warps' partials under 48 KB
-    qw = C["WIDE_LPR"] * lane_codes(C["WIDE_GB"])
-    smem = 4 * (C["WIDE_GB"] * qw + NW * C["WIDE_GB"] * C["WIDE_D"])
-    assert smem <= 48 * 1024
+    # one phase of a 16-byte shared load: lanes 0..7, (gid, tig) = (l // 4,
+    # l % 4). K: chunk 4c + tig of rows gid; V: chunk gid of rows 2 tig
+    ks, vs = W["WIDE_KS"] // 16, W["WIDE_VS"] // 16
+    for base in (0, 8, 16, 24):
+        lanes = [(lane >> 2, lane & 3) for lane in range(base, base + 8)]
+        assert len({(gid * ks + tig) % 8 for gid, tig in lanes}) == 8
+        assert len({(2 * tig * vs + gid) % 8 for gid, tig in lanes}) == 8
+    # Q K^T: k-step 4c + w gives lane (gid, tig) dims 64c + 16 tig + 4w + 0..3
+    dims = sorted(64 * c + 16 * t + 4 * w + e for c in range(4)
+                  for w in range(4) for t in range(4) for e in range(4))
+    assert dims == list(range(256))
+    # P'V: n-block 16 hh + j, column n holds dim 16 n + j + 128 hh
+    dims = sorted(16 * n + j + 128 * hh for hh in range(2) for j in range(16)
+                  for n in range(8))
+    assert dims == list(range(256))
+
+
+def wide_splits(n_keys_max, pairs, resident, max_splits=None):
+    """The wide body's splits: the split rule up to WIDE_SPLITS (a
+    non-portable cluster where the card schedules it)."""
+    s = 1
+    while (s < (max_splits or W["WIDE_SPLITS"]) and s * KT < n_keys_max
+           and pairs * 2 * s <= resident):
+        s *= 2
+    return s
+
+
+def wide_share(n_keys, splits, rank):
+    kt = W["WIDE_KT"]
+    per = -(-(-(-n_keys // kt)) // splits)
+    k0 = min(rank * per * kt, n_keys)
+    return k0, min(k0 + per * kt, n_keys)
+
+
+def _bf16(x):
+    return x.to(torch.bfloat16).to(torch.float32)
 
 
 def model_qdecode_wide(q, k_i8, k_s, v_i8, v_s, bias, splits=None):
-    """The wide class's plan: the query heads in groups of WIDE_GB (grid
-    z), each group a cluster per (sequence, kv head) walking every slot in
-    steps of 32 / WIDE_LPR slot rows a warp."""
-    b, s = k_i8.shape[:2]
-    gb = C["WIDE_GB"]
-    z = -(-q.shape[2] // gb)
-    splits = splits or splits_for(s, b * q.shape[1] * z, 10 ** 9)
-    valid = torch.ones(s, dtype=torch.bool)
-    return torch.stack([
-        torch.cat([_attend_one(q[i, :, g0:g0 + gb].float(), k_i8[i].float(),
-                               k_s[i], v_i8[i].float(), v_s[i], valid,
-                               bias[i], s, splits, C["WIDE_LPR"], s,
-                               bias_rows=True)
-                   for g0 in range(0, q.shape[2], gb)], dim=1)
-        for i in range(b)])
+    """The wide body's plan: one cluster per (sequence, kv head) holding all
+    G query heads, each CTA a share of whole WIDE_KT-slot tiles, tile i to
+    warp i % WIDE_NW. A warp's tile: S = Q K^T with Q in bf16 (f32 q as hi
+    + lo, two products; the codes exact), scores (acc * k_s) / sqrt(hd) +
+    bias (-inf past the share), each head's online softmax (max seeded at
+    RUN_INIT_BIAS, rescaled when it moves), O += (hi + lo) V over p' = p *
+    v_s split in two bf16 terms; then the warps' merge and the cluster's in
+    rank order."""
+    b, s, hkv, hd = k_i8.shape
+    g = q.shape[2]
+    nw, kt = W["WIDE_NW"], W["WIDE_KT"]
+    splits = splits or wide_splits(s, b * hkv, 10 ** 9)
+    scale = torch.sqrt(torch.tensor(float(hd)))
+    qf = q.float()
+    q_hi = _bf16(qf)
+    q_lo = _bf16(qf - q_hi)
+    out = torch.empty((b, hkv, g, hd))
+    for i in range(b):
+        for h in range(hkv):
+            kf, vf = k_i8[i, :, h].float(), v_i8[i, :, h].float()
+            parts = []
+            for rank in range(splits):
+                k0, k1 = wide_share(s, splits, rank)
+                m = torch.full((nw, g), C["RUN_INIT_BIAS"])
+                lsum = torch.zeros((nw, g))
+                acc = torch.zeros((nw, g, hd))
+                for t in range(-(-(k1 - k0) // kt)):
+                    w = t % nw
+                    keys = torch.arange(k0 + t * kt, k0 + (t + 1) * kt)
+                    on = keys < k1
+                    kk = keys.clamp(max=s - 1)
+                    kc = torch.where(on[:, None], kf[kk], 0.0)
+                    vc = torch.where(on[:, None], vf[kk], 0.0)
+                    dot = q_hi[i, h] @ kc.T + q_lo[i, h] @ kc.T
+                    sc = torch.where(on[None], dot * k_s[i, kk, h] / scale
+                                     + bias[i, kk], -math.inf)
+                    mx = sc.amax(-1)
+                    moved = mx > m[w]
+                    alpha = torch.where(moved, torch.exp(m[w] - mx),
+                                        torch.ones(()))
+                    m[w] = torch.where(moved, mx, m[w])
+                    lsum[w] = lsum[w] * alpha
+                    acc[w] = acc[w] * alpha[:, None]
+                    p = torch.exp(sc - m[w][:, None])
+                    lsum[w] = lsum[w] + p.sum(-1)
+                    pv = p * torch.where(on, v_s[i, kk, h], 0.0)[None]
+                    hi = _bf16(pv)
+                    acc[w] = acc[w] + hi @ vc + _bf16(pv - hi) @ vc
+                mc = m.amax(0)                       # the warps' merge
+                f = torch.exp(m - mc)
+                parts.append((mc, (lsum * f).sum(0),
+                              (acc * f[..., None]).sum(0)))
+            mx = parts[0][0]
+            for mr, _, _ in parts[1:]:               # the cluster's merge
+                mx = torch.maximum(mx, mr)
+            ls, a = torch.zeros(g), torch.zeros((g, hd))
+            for mr, lr, ar in parts:
+                f = torch.exp(mr - mx)
+                ls = ls + lr * f
+                a = a + ar * f[:, None]
+            out[i, h] = a / ls[:, None]
+    return out
 
 
 # (B, S, Hkv, G, hd, positions, splits): recurrentgemma's 16 x 256 over
-# one kv head (a ring's positions), a partial second head group (G 12) at
-# hd 192 (lanes past hd masked), G 9 at hd 64, G 8 at hd 256 (one group),
-# a row whose every slot is masked
+# one kv head (a ring's positions), G 12 at hd 192 (heads past G and
+# dims past hd zero), G 9 at hd 64, G 8 at hd 256, a row whose every
+# slot is masked (averaged uniformly, as the plain softmax does)
 WIDE = {
     "g16_hd256": (2, 96, 1, 16, 256, [95, 40], None),
     "g12_hd192": (2, 65, 2, 12, 192, [64, 0], 4),
@@ -758,9 +852,9 @@ def test_wide_model_matches_plain_and_pallas(case):
     assert got.shape == want.shape and torch.isfinite(got).all()
     np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-4, rtol=0)
     np.testing.assert_allclose(got.numpy(), pallas, atol=1e-4, rtol=0)
-    # the head groups are independent: each head's plan is the split
-    # plan of that head alone
-    one = model_qdecode(*_t(*(a[:, :, :1] if i == 0 else a
-                              for i, a in enumerate(arrays))), splits=splits)
-    np.testing.assert_allclose(got[:, :, :1].numpy(), one.numpy(), atol=1e-5,
-                               rtol=0)
+    # bf16 q: exact in one bf16 term, one product
+    q16 = _t(*arrays)[0].to(torch.bfloat16)
+    rest = _t(*arrays)[1:]
+    np.testing.assert_allclose(
+        model_qdecode_wide(q16, *rest, splits=splits).numpy(),
+        t_ref.qdecode_ref(q16, *rest).numpy(), atol=1e-4, rtol=0)

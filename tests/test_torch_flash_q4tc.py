@@ -43,7 +43,8 @@ def _tc_constants():
     """Every ``constexpr int NAME = expr;`` of the tensor-core namespace,
     evaluated in order."""
     env = {}
-    tc = CU.read_text().split("namespace tc {", 1)[1]
+    tc = CU.read_text().split("namespace tc {", 1)[1].split(
+        "}  // namespace tc", 1)[0]
     for name, expr in re.findall(r"^constexpr int (\w+) = ([^;]+);", tc,
                                  flags=re.M):
         env[name] = int(eval(expr, {}, dict(env)))
