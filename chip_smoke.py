@@ -132,9 +132,26 @@ prints one JSON line per phase:
    ring, paged and speculative engines refused, and card against CPU at
    4 layers (the hybrid's one group and one tail layer) within 2.5x the
    CPU's one-rounding nudge;
-15. held_shapes: every flash-prefill, qdecode and int8-GEMM shape the main
-   paths gave a kernel, held against the plain version;
-16. a ``kernels`` line (flash_prefill with its launches per width
+15. musicgen: musicgen-large at published width and depth (48 layers, 4
+   codebooks, 64 conditioning frames a request) in bf16 and as dynamic
+   int8 over the fp and the int8 KV cache: the queue (``generate`` of [1,
+   S, 4] prompts), the dense engine over an 8-request trace (an 8-slot
+   decode step profiled), paged and speculative engines refused, and card
+   against CPU at 4 layers ([1, 1, 4, 2048] logits a step);
+16. frontend: phi-3-vision at published width (FRONTEND_LAYERS of 32
+   layers) serving requests of 576 patch embeds through the dense and the
+   paged engine (an 8-slot decode step of each profiled), no prefix hit,
+   paged streams held to the dense ones (a parting only at a tie);
+17. router: stablelm-1.6b at SERVE_LAYERS behind a ``ServingRouter`` of 1
+   prefill and 2 decode workers on one ``SharedKVPool`` against one
+   engine over a 24-request trace: virtual-time metrics of both arms,
+   wall time per tick, 0 prompt tokens recomputed, streams equal or parted
+   at a tie, 4 busy router ticks profiled; then one handoff per KV tier
+   (bf16, int8, int4) held to one engine;
+18. held_shapes: every flash-prefill, qdecode, paged-decode (fp, int8,
+   int4) and int8-GEMM shape the main paths gave a kernel, held against
+   the plain version;
+19. a ``kernels`` line (flash_prefill with its launches per width
    class, qdecode with its wide class), the ``nvidia-smi`` line, and last
    the device line.
 
@@ -374,6 +391,30 @@ REC_CPU_DEPTH, REC_CPU_PROMPT = 4, 48
 # the counting and parting checks do not depend on depth, and the run
 # stays inside its time limit with the recurrent phase
 SPEC_LAYERS = 12
+# musicgen-large at published width and depth (48 layers, 4 codebooks of
+# 2048, 64 conditioning frames of 1024 a request): the queue, the dense
+# engine (8 slots of MUSIC_ENGINE_LEN) over a trace of 8 requests of
+# 32-128 tokens x 16 new; card against CPU at MUSIC_CPU_DEPTH layers in
+# f32 (one prompt of MUSIC_CPU_PROMPT tokens x 4 codebooks)
+MUSIC = "musicgen-large"
+MUSIC_TRACE_N, MUSIC_PROMPT, MUSIC_NEW = 8, (32, 128), 16
+MUSIC_ENGINE_LEN = 512
+MUSIC_CPU_DEPTH, MUSIC_CPU_PROMPT = 4, 32
+# frontend requests: phi-3-vision at published width and FRONTEND_LAYERS
+# of its 32 layers (the VQI phase's cut), a trace of 8 requests of 576
+# patch embeds and 8-128 prompt tokens x 16 new, dense and paged engines
+# of 8 slots of FRONTEND_LEN (576 + 128 + 16 fit)
+FRONTEND_LAYERS = VQI_LAYERS
+FRONTEND_TRACE_N, FRONTEND_PROMPT, FRONTEND_NEW = 8, (8, 128), 16
+FRONTEND_LEN = 768
+# the router: stablelm-1.6b at SERVE_LAYERS, a trace of 24 requests of
+# 32-255 tokens x 16-32 new; 1 prefill and 2 decode workers of
+# ROUTER_SLOTS slots on one pool of twice the single 8-slot engine's
+# capacity (the single arm gets the same pool); one handoff per KV tier on
+# a pool of ROUTER_HANDOFF_BLOCKS
+ROUTER_TRACE_N, ROUTER_PROMPT, ROUTER_NEW = 24, (32, 255), (16, 32)
+ROUTER_SLOTS = 4
+ROUTER_HANDOFF_BLOCKS = 64
 
 
 T0 = time.perf_counter()
@@ -1450,10 +1491,12 @@ def profile_steps(step_fn, n_steps: int, step_ms: float, watch=None,
 def _profile_once(step_fn, n_steps, step_ms, watch):
     """One trace of ``n_steps`` calls after one warm-up call that the trace
     drops (the tracer is running before the first recorded kernel), the
-    device drained before the window closes."""
+    device drained before the window closes. Device activity only: the
+    CPU-side op records (tens of thousands a window) made each window
+    several times slower and added no kernel row."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+    with profile(activities=[ProfilerActivity.CUDA],
                  schedule=schedule(wait=0, warmup=1, active=n_steps,
                                    repeat=1)) as prof:
         for i in range(n_steps + 1):
@@ -1682,13 +1725,18 @@ def engine_trace(cfg):
 
 def decode_window(k, engine, cfg, gen, watch=None, expect=None):
     """Fill every slot with a 60-token request (40 new tokens: 7 blocks
-    each, so the window never preempts), step until all slots decode, then
-    count one step's launches, time 8 steps and profile 4 (``watch``: the
-    attention kernel whose device time the profile reports, ``expect`` of
-    them a step)."""
+    each, so the window never preempts; ``[1, 60, K]`` tokens with K
+    codebooks; with a frontend, its conditioning embeds too), step until
+    all slots decode, then count one step's launches, time 8 steps and
+    profile 4 (``watch``: the attention kernel whose device time the
+    profile reports, ``expect`` of them a step)."""
+    cb = (cfg.n_codebooks,) if cfg.n_codebooks > 1 else ()
     for _ in range(engine.n_slots):
-        engine.submit(torch.randint(0, cfg.vocab_size, (1, 60), generator=gen),
-                      max_new_tokens=40)
+        fe = (torch.randn((1, cfg.n_frontend_tokens, cfg.frontend_dim),
+                          generator=gen) if cfg.n_frontend_tokens else None)
+        engine.submit(torch.randint(0, cfg.vocab_size, (1, 60, *cb),
+                                    generator=gen),
+                      max_new_tokens=40, frontend_embeds=fe)
     for _ in range(16):
         engine.step()
     if not all(r is not None and r.status == "decode" for r in engine.active):
@@ -1906,34 +1954,39 @@ def nudged_norms():
 
 
 def teacher_forced(params, cfg, tokens, device, paged, forced=None,
-                   n_steps=8, table=PAGED_TABLE):
-    """Host logits of the prefill of ``tokens`` [1, n] and ``n_steps``
-    decode steps fed ``forced`` tokens (default: the run's own argmax).
-    Paged: ``prefill_paged`` with the token axis padded to a multiple of 64
-    (pads go to the trash block) through ``table``, then
-    ``decode_step_paged``. Dense: a cache of n + n_steps slots rounded up to
-    a multiple of 64."""
+                   n_steps=8, table=PAGED_TABLE, frontend=None):
+    """Host logits of the prefill of ``tokens`` [1, n] ([1, n, K] with K
+    codebooks; ``frontend``: [1, n_frontend_tokens, dim] embeds put in
+    front) and ``n_steps`` decode steps fed ``forced`` tokens (default: the
+    run's own argmax). Paged: ``prefill_paged`` with the token axis padded
+    to a multiple of 64 (pads go to the trash block) through ``table``,
+    then ``decode_step_paged``. Dense: a cache of the prefill's rows +
+    n_steps slots rounded up to a multiple of 64."""
     from repro_torch.models import (decode_step, decode_step_paged, prefill,
                                     prefill_paged)
     from repro_torch.serving.kvcache import init_paged_pools
 
+    batch = {"tokens": tokens.to(device)}
     n = tokens.shape[1]
+    if frontend is not None:
+        batch["frontend_embeds"] = frontend.to(device)
+        n += frontend.shape[1]
     tables = torch.tensor(table, dtype=torch.int32).to(device)
     out, fed = [], []
     with torch.no_grad():
         if paged:
             n_blocks = max(12, int(tables.max()) + 1)
             cache = init_paged_pools(cfg, n_blocks, 16, device=device)
-            padded = torch.nn.functional.pad(tokens, (0, -n % 64)).to(device)
-            last, _ = prefill_paged(params, cache, {"tokens": padded}, n,
-                                    tables, cfg)
+            batch["tokens"] = torch.nn.functional.pad(
+                batch["tokens"], (0, -n % 64))
+            last, _ = prefill_paged(params, cache, batch, n, tables, cfg)
         else:
-            last, cache = prefill(params, {"tokens": tokens.to(device)}, cfg,
+            last, cache = prefill(params, batch, cfg,
                                   pad_to=-(-(n + n_steps) // 64) * 64)
         out.append(last.cpu())
         for i in range(n_steps):
             nxt = forced[i] if forced is not None else torch.argmax(
-                out[-1][:, -1], dim=-1).reshape(1, 1)
+                out[-1][:, -1:], dim=-1)
             fed.append(nxt)
             if paged:
                 pos = torch.tensor([n + i]).to(device)
@@ -3160,7 +3213,7 @@ def _bf16_ulp(x: float) -> float:
         math.log2(abs(x)))
 
 
-def _partings(params, cfg, trace, base, got, dev, memo):
+def _partings(params, cfg, trace, base, got, dev, memo, frontends=None):
     """For each request whose spec stream parts from the non-spec one: the
     spec stream teacher-forced through the target's own dense decode path
     (the same prefix as the non-spec stream up to the parting), plainly and
@@ -3170,7 +3223,10 @@ def _partings(params, cfg, trace, base, got, dev, memo):
     stream's token, and at every step the spec stream's token, must lie
     within that step's nudge of the top logit: a tie up to one rounding.
     ``memo`` keeps the teacher-forced runs of each (request, spec stream):
-    the drafts' streams are the same target's."""
+    the drafts' streams are the same target's. ``frontends``: each
+    request's conditioning embeds, put in front of its prompt. (The
+    router phase holds the router's streams to the single engine's the
+    same way.)"""
     out = []
     for rid, (b, g) in enumerate(zip(base, got)):
         if b == g:
@@ -3179,11 +3235,12 @@ def _partings(params, cfg, trace, base, got, dev, memo):
         if (rid, tuple(g)) not in memo:
             tokens = trace.requests[rid].tokens
             forced = [torch.tensor([[t]]) for t in g[:-1]]
+            fe = None if frontends is None else frontends[rid]
             plain, _ = teacher_forced(params, cfg, tokens, dev, False, forced,
-                                      len(g) - 1)
+                                      len(g) - 1, frontend=fe)
             with nudged_norms():
                 nudged, _ = teacher_forced(params, cfg, tokens, dev, False,
-                                           forced, len(g) - 1)
+                                           forced, len(g) - 1, frontend=fe)
             memo[rid, tuple(g)] = (
                 [p[0, -1] for p in plain],
                 [float((n - p).abs().max()) for n, p in zip(nudged, plain)])
@@ -3953,7 +4010,8 @@ def rec_serve(k, session, cfg, label, dev):
 
 
 def rec_refusals(session, cfg):
-    """paged=True and spec= refused, with the JAX package's reasons."""
+    """paged=True and spec= refused, with the JAX package's reasons (the
+    recurrent models and musicgen)."""
     from repro_torch.serving import ContinuousBatchingEngine, SpecConfig
 
     why = {}
@@ -4121,7 +4179,554 @@ def recurrent_phase(k, dev):
 
 
 # ------------------------------------------------------------------ #
-# Phase 15: every shape the main paths gave a kernel, against plain
+# Phase 15: musicgen-large (audio conditioning, 4 codebooks)
+# ------------------------------------------------------------------ #
+def frontend_trace(cfg, n, seed, prompt_len, n_new):
+    """``n`` greedy requests with their conditioning: the arrivals and
+    prompt lengths of ``ArrivalTrace.generate`` (Poisson, TRACE_GAP ticks
+    apart on average), prompts ``[1, S, K]`` with K codebooks (drawn
+    anew), ``n_new`` new tokens each, and ``n_frontend_tokens`` x
+    ``frontend_dim`` embeds per request drawn N(0, 1) on the host.
+    Returns (the trace, the embeds in request order)."""
+    import dataclasses
+
+    from repro_torch.serving import ArrivalTrace
+
+    trace = ArrivalTrace.generate(cfg, n, seed=seed,
+                                  mean_interarrival=TRACE_GAP,
+                                  prompt_len=prompt_len,
+                                  max_new=(n_new, n_new))
+    gen = torch.Generator().manual_seed(seed + 1)
+    reqs, embeds = [], []
+    for tr in trace.requests:
+        if cfg.n_codebooks > 1:
+            tr = dataclasses.replace(tr, tokens=torch.randint(
+                0, cfg.vocab_size, (1, tr.tokens.shape[1], cfg.n_codebooks),
+                generator=gen))
+        reqs.append(tr)
+        embeds.append(torch.randn((1, cfg.n_frontend_tokens,
+                                   cfg.frontend_dim), generator=gen))
+    return ArrivalTrace(tuple(reqs), trace.seed,
+                        trace.mean_interarrival), embeds
+
+
+def frontend_replay(engine, trace, embeds):
+    """``loadgen.replay`` for frontend requests: each submitted with its
+    embeds at its arrival tick of a virtual clock, the engine stepped once
+    a tick. Returns (the engine's metrics of these requests, them)."""
+    from repro_torch.clock import VirtualClock
+
+    clock, out, i = VirtualClock(), [], 0
+    while (i < len(trace.requests) or engine.has_work) \
+            and clock.ticks < 100_000:
+        while (i < len(trace.requests)
+               and trace.requests[i].arrival_step <= clock.ticks):
+            tr = trace.requests[i]
+            out.append(engine.submit(tr.tokens, tr.max_new_tokens,
+                                     frontend_embeds=embeds[i]))
+            i += 1
+        engine.step()
+        clock.tick()
+    return engine.metrics(out), out
+
+
+def _check_streams(where, reqs, n_new, cfg):
+    """Every request done with ``n_new`` tokens inside the vocabulary (K
+    of them a token with K codebooks)."""
+    k = cfg.n_codebooks
+    for r in reqs:
+        toks = torch.tensor(r.out_tokens).reshape(-1)
+        if (not r.done or len(r.out_tokens) != n_new
+                or toks.numel() != n_new * max(k, 1)
+                or int(toks.min()) < 0 or int(toks.max()) >= cfg.vocab_size):
+            raise AssertionError(f"{where}: request {r.rid} ended "
+                                 f"{r.status} with {r.out_tokens[:4]}")
+
+
+def music_serve(k, session, cfg, label, dev):
+    """The batch-1 queue (``generate``, MUSIC_NEW tokens of K codebooks
+    after each of DENSE_QUEUE's prompts with its 64 conditioning frames),
+    then the ``frontend_trace`` replayed by the dense engine (8 slots of
+    MUSIC_ENGINE_LEN) and an 8-slot decode window profiled, each counted.
+    Every prefill takes flash_tc (flash_qtc over an int8 KV cache), an
+    int8-KV decode step one ``qdecode_split`` a layer, int8 weights the
+    GEMMs (a decode step only the one-launch body). Returns the launch
+    totals."""
+    from repro_torch.serving import (ContinuousBatchingEngine, Pipeline,
+                                     RequestQueue)
+
+    dtype = getattr(torch, cfg.dtype)
+    kv, nl = cfg.kv_precision, cfg.n_layers
+    int8 = "int8" in label
+    flash = "flash_qprefill" if kv == "int8" else "flash_prefill"
+    totals = {}
+    gen = torch.Generator().manual_seed(SEED + 71)
+    for mode in ("queue", "dense"):
+        torch.cuda.reset_peak_memory_stats(dev)
+        if mode == "queue":
+            batches = [{"tokens": torch.randint(
+                0, cfg.vocab_size, (1, n, cfg.n_codebooks), generator=gen),
+                "frontend_embeds": torch.randn(
+                    (1, cfg.n_frontend_tokens, cfg.frontend_dim),
+                    generator=gen)} for n in DENSE_QUEUE]
+            pipe = Pipeline(preprocess=lambda raw: raw,
+                            infer=lambda b: session.generate(b, MUSIC_NEW),
+                            postprocess=lambda out, raw: out)
+            queue = RequestQueue(pipe, max_batch=1)
+            reqs = [queue.submit(b) for b in batches]
+            _, serve_ms, launches = _counted(
+                k, dtype, f"{cfg.name}/{label}/queue", queue.drain)
+            for r in reqs:
+                out = r.result
+                if not r.done or tuple(out.shape) != (
+                        1, MUSIC_NEW, cfg.n_codebooks) or int(out.min()) < 0 \
+                        or int(out.max()) >= cfg.vocab_size:
+                    raise AssertionError(f"{cfg.name}/{label}/queue: bad "
+                                         "result")
+            prefills = len(reqs)
+            tokens = len(reqs) * MUSIC_NEW
+            extra = {"queue_tokens_per_s": tokens / serve_ms * 1e3,
+                     "host_ms_per_token": serve_ms / tokens}
+        else:
+            engine = ContinuousBatchingEngine(session,
+                                              n_slots=ENGINE["n_slots"],
+                                              max_len=MUSIC_ENGINE_LEN)
+            engine.warmup(prompt_len=64, max_new_tokens=4)
+            torch.cuda.synchronize()
+            trace, embeds = frontend_trace(cfg, MUSIC_TRACE_N, SEED + 72,
+                                           MUSIC_PROMPT, MUSIC_NEW)
+            (report, reqs), serve_ms, launches = _counted(
+                k, dtype, f"{cfg.name}/{label}/dense",
+                lambda: frontend_replay(engine, trace, embeds))
+            _check_streams(f"{cfg.name}/{label}/dense", reqs, MUSIC_NEW, cfg)
+            prefills = len(reqs)
+            tokens = report["generated_tokens"]
+            steps = report["decode_steps"]
+            extra = {key: report[key] for key in (
+                "p50_ttft_s", "p99_ttft_s", "decode_steps")}
+            extra.update(tokens_per_s=tokens / serve_ms * 1e3,
+                         host_ms_per_step=serve_ms / steps)
+            watch = "qdecode_split" if kv == "int8" else None
+            per_step, step_ms, dtrace = decode_window(
+                k, engine, cfg, torch.Generator().manual_seed(SEED + 73),
+                watch, nl if watch else None)
+            if kv == "int8" and per_step["qdecode.class.split"] != nl:
+                raise AssertionError(f"{cfg.name}/{label}: a decode step "
+                                     f"launched {per_step['qdecode']} "
+                                     f"qdecode, want {nl} split")
+            extra.update(decode_step_ms_8_slots=step_ms,
+                         launches_per_decode_step=per_step,
+                         decode_trace=dtrace)
+            del engine
+        other = "flash_prefill" if flash == "flash_qprefill" \
+            else "flash_qprefill"
+        if launches[flash] != nl * prefills or launches[other] \
+                or launches["flash_q4prefill"]:
+            raise AssertionError(f"{cfg.name}/{label}/{mode}: {flash} "
+                                 f"launched {launches[flash]}, want "
+                                 f"{nl} x {prefills} ({launches})")
+        if int8 != (launches["qmatmul_dynamic"] > 0):
+            raise AssertionError(f"{cfg.name}/{label}/{mode}: int8 GEMM "
+                                 f"launches {launches['qmatmul_dynamic']}")
+        if (kv == "int8") != (launches["qdecode"] > 0) \
+                or launches["qdecode.class.wide"]:
+            raise AssertionError(f"{cfg.name}/{label}/{mode}: qdecode "
+                                 f"launches {launches['qdecode']}")
+        emit("musicgen", model=cfg.name, variant=label, kv_cache=kv,
+             mode=mode, layers=nl, d_model=cfg.d_model,
+             codebooks=cfg.n_codebooks,
+             frontend_tokens=cfg.n_frontend_tokens,
+             generated_tokens=tokens, serve_ms=serve_ms, launches=launches,
+             peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+             **extra)
+        _merge(totals, launches)
+        torch.cuda.empty_cache()
+    return totals
+
+
+def music_card_vs_cpu(dev):
+    """musicgen-large at published width and MUSIC_CPU_DEPTH layers in
+    f32, the same weights on the CPU's plain path and the card's kernel
+    path: a MUSIC_CPU_PROMPT-token prompt of 4 codebooks after its 64
+    conditioning frames and 8 teacher-forced decode steps (logits [1, 1,
+    4, 2048] a step), with fp32 weights, dynamic-int8 weights and fp32
+    weights over the int8 KV cache. Each held to the larger of its
+    ``CPU_TOL`` bound (stablelm's) and 2.5x the CPU's own one-rounding
+    nudge."""
+    from repro_torch import configs
+    from repro_torch.api.variants import VariantSpec
+    from repro_torch.models import init_params
+    from repro_torch.models.layers import place_params
+    from repro_torch.serving import InferenceSession
+
+    cfg = configs.get_config(MUSIC).with_overrides(
+        n_layers=MUSIC_CPU_DEPTH, dtype="float32")
+    gen = torch.Generator().manual_seed(SEED + 74)
+    tokens = torch.randint(0, cfg.vocab_size,
+                           (1, MUSIC_CPU_PROMPT, cfg.n_codebooks),
+                           generator=gen)
+    fe = torch.randn((1, cfg.n_frontend_tokens, cfg.frontend_dim),
+                     generator=gen)
+    # drawn on the card (fast), copied to the host
+    params = place_params(init_params(cfg, seed=SEED + 75), "cpu")
+    torch.cuda.empty_cache()
+    for label, spec, kv in (("fp32", VariantSpec.fp32(), "fp"),
+                            ("dynamic_int8", VariantSpec.dynamic_int8(),
+                             "fp"),
+                            ("fp32_int8kv", VariantSpec.fp32(), "int8")):
+        vcfg = cfg.with_overrides(kv_cache_precision=kv)
+        qparams, _ = spec.build(params, vcfg)
+        card = InferenceSession(qparams, vcfg)
+        cpu_steps, fed = teacher_forced(qparams, vcfg, tokens, "cpu", False,
+                                        frontend=fe)
+        card_steps, _ = teacher_forced(card.params, vcfg, tokens, dev, False,
+                                       fed, frontend=fe)
+        with nudged_norms():
+            nudge_steps, _ = teacher_forced(qparams, vcfg, tokens, "cpu",
+                                            False, fed, frontend=fe)
+        worst_max, worst_mean = logit_diff(cpu_steps, card_steps)
+        nudge_max, nudge_mean = logit_diff(cpu_steps, nudge_steps)
+        fixed = CPU_TOL[label]
+        tol_max = max(fixed[0], 2.5 * nudge_max)
+        tol_mean = max(fixed[1], 2.5 * nudge_mean)
+        ok = worst_max <= tol_max and worst_mean <= tol_mean
+        emit("musicgen_card_vs_cpu", model=cfg.name, variant=label,
+             kv_cache=kv, layers=cfg.n_layers, d_model=cfg.d_model,
+             codebooks=cfg.n_codebooks, logits_shape=list(
+                 card_steps[0].shape), prompt=MUSIC_CPU_PROMPT,
+             decode_steps=8, max_abs_err=worst_max, mean_abs_err=worst_mean,
+             tol_max=tol_max, tol_mean=tol_mean, cpu_nudge_max=nudge_max,
+             cpu_nudge_mean=nudge_mean,
+             logit_scale=float(cpu_steps[0].abs().max()), ok=ok)
+        if not ok:
+            raise AssertionError(f"{cfg.name} card vs CPU logits differ by "
+                                 f"max {worst_max} / mean {worst_mean} "
+                                 f"({label})")
+        del card, qparams
+        torch.cuda.empty_cache()
+
+
+def musicgen_phase(k, dev):
+    """musicgen-large at published width and depth (48 layers, 4 codebooks
+    of 2048, 64 conditioning frames of 1024 a request) in bf16, random
+    seeded weights, through ``music_serve``; paged and speculative engines
+    refused; then (the bf16 weights freed) its dynamic-int8 artifact over
+    the fp and the int8 KV cache through ``music_serve``; then
+    ``music_card_vs_cpu``. Returns the launch totals."""
+    from repro_torch import configs
+    from repro_torch.api.variants import VariantSpec
+    from repro_torch.core.quant import quantized_size_bytes
+    from repro_torch.models import init_params
+    from repro_torch.serving import InferenceSession
+    from repro_torch.tree import leaves_with_path
+
+    cfg = configs.get_config(MUSIC)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=SEED)
+    torch.cuda.synchronize()
+    emit("musicgen_setup", model=cfg.name, layers=cfg.n_layers,
+         codebooks=cfg.n_codebooks, params=cfg.param_count(),
+         param_gb=sum(t.numel() * t.element_size() for _, t in
+                      leaves_with_path(params)) / 1e9,
+         init_s=time.perf_counter() - t0,
+         leaves={key: list(params[key].shape)
+                 for key in ("extra_embeds", "out_heads", "frontend_proj")})
+    session = InferenceSession(params, cfg)
+    refused = rec_refusals(session, cfg)
+    totals = music_serve(k, session, cfg, "bf16", dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    qparams, info = VariantSpec.dynamic_int8().build(params, cfg)
+    torch.cuda.synchronize()
+    quantized = info["quantized_paths"]
+    if not {"extra_embeds", "out_heads"} <= set(quantized):
+        raise AssertionError(f"{cfg.name}: codebook leaves not quantized")
+    emit("musicgen_int8_build", model=cfg.name,
+         build_s=time.perf_counter() - t0, quantized_leaves=len(quantized),
+         size_gb=quantized_size_bytes(qparams) / 1e9, refused=refused,
+         peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
+    del session, params
+    torch.cuda.empty_cache()
+    for kv in ("fp", "int8"):
+        vcfg = cfg.with_overrides(kv_cache_precision=kv)
+        session = InferenceSession(qparams, vcfg)
+        label = "dynamic_int8" + ("" if kv == "fp" else "_kv8")
+        _merge(totals, music_serve(k, session, vcfg, label, dev))
+        del session
+        torch.cuda.empty_cache()
+    del qparams
+    torch.cuda.empty_cache()
+    music_card_vs_cpu(dev)
+    return totals
+
+
+# ------------------------------------------------------------------ #
+# Phase 16: frontend requests in the engines (phi-3-vision)
+# ------------------------------------------------------------------ #
+def frontend_phase(k, dev):
+    """phi-3-vision-4.2b at published width and FRONTEND_LAYERS of its 32
+    layers in bf16, random seeded weights: a trace of FRONTEND_TRACE_N
+    requests, each 576 patch embeds and a prompt, replayed by the dense
+    and then the paged engine (8 slots of FRONTEND_LEN; every prefill one
+    flash_tc a layer over 576 + prompt rows at hd 96; a paged decode step
+    one ``paged_decode_split`` a layer), an 8-slot decode window of each
+    profiled. The paged engine hashes no block (no prefix hit). Its
+    streams equal the dense engine's or part at a tie up to one rounding
+    (``_partings``). Returns the launch totals."""
+    from repro_torch import configs
+    from repro_torch.models import init_params
+    from repro_torch.serving import ContinuousBatchingEngine, InferenceSession
+
+    cfg = configs.get_config(VLM).with_overrides(n_layers=FRONTEND_LAYERS)
+    nl, dtype = cfg.n_layers, torch.bfloat16
+    params = init_params(cfg, seed=SEED)
+    session = InferenceSession(params, cfg)
+    trace, embeds = frontend_trace(cfg, FRONTEND_TRACE_N, SEED + 76,
+                                   FRONTEND_PROMPT, FRONTEND_NEW)
+    blocks = -(-FRONTEND_LEN // 16)
+    totals, streams = {}, {}
+    for mode in ("dense", "paged"):
+        kw = ({"paged": True, "block_size": 16,
+               "n_blocks": ENGINE["n_slots"] * blocks + 1}
+              if mode == "paged" else {})
+        engine = ContinuousBatchingEngine(session, n_slots=ENGINE["n_slots"],
+                                          max_len=FRONTEND_LEN, **kw)
+        engine.warmup(prompt_len=16, max_new_tokens=2)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        where = f"{cfg.name}/frontend/{mode}"
+        (report, reqs), serve_ms, launches = _counted(
+            k, dtype, where, lambda: frontend_replay(engine, trace, embeds))
+        _check_streams(where, reqs, FRONTEND_NEW, cfg)
+        streams[mode] = [r.out_tokens for r in reqs]
+        prefills = len(reqs) + report["preempted"]
+        steps = report["decode_steps"]
+        want_paged = nl * steps if mode == "paged" else 0
+        if launches["flash_prefill"] != nl * prefills \
+                or launches["paged_decode"] != want_paged \
+                or report["prefix_hit_tokens"] != 0:
+            raise AssertionError(f"{where}: flash_prefill "
+                                 f"{launches['flash_prefill']} (want {nl} x "
+                                 f"{prefills}), paged_decode "
+                                 f"{launches['paged_decode']} (want "
+                                 f"{want_paged}), prefix hits "
+                                 f"{report['prefix_hit_tokens']}")
+        watch = "paged_decode_split" if mode == "paged" else None
+        per_step, step_ms, dtrace = decode_window(
+            k, engine, cfg, torch.Generator().manual_seed(SEED + 77), watch,
+            nl if watch else None)
+        emit("frontend", model=cfg.name, dtype=cfg.dtype, layers=nl,
+             published_layers=32, mode=mode, requests=len(reqs),
+             frontend_tokens=cfg.n_frontend_tokens,
+             prompt_lens=[r.prompt_len for r in reqs],
+             generated_tokens=report["generated_tokens"], serve_ms=serve_ms,
+             tokens_per_s=report["generated_tokens"] / serve_ms * 1e3,
+             host_ms_per_step=serve_ms / steps, decode_steps=steps,
+             p50_ttft_s=report["p50_ttft_s"], p99_ttft_s=report["p99_ttft_s"],
+             preempted=report["preempted"],
+             prefix_hit_tokens=report["prefix_hit_tokens"],
+             kv_blocks_peak=report["kv_blocks_peak"], launches=launches,
+             decode_step_ms_8_slots=step_ms,
+             launches_per_decode_step=per_step, decode_trace=dtrace,
+             peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
+        _merge(totals, launches)
+        del engine
+        torch.cuda.empty_cache()
+    parted = _partings(session.params, cfg, trace, streams["dense"],
+                       streams["paged"], dev, {}, frontends=embeds)
+    emit("frontend_agreement", model=cfg.name,
+         paged_equals_dense_streams=len(trace.requests) - len(parted),
+         of=len(trace.requests), partings=parted)
+    if not all(p["ok"] for p in parted):
+        raise AssertionError(f"{cfg.name}: paged and dense frontend streams "
+                             f"part beyond a tie: {parted}")
+    del session, params
+    torch.cuda.empty_cache()
+    return totals
+
+
+# ------------------------------------------------------------------ #
+# Phase 17: the SLO router over prefill and decode workers
+# ------------------------------------------------------------------ #
+def router_handoffs(k, params, cfg, trace, dev):
+    """One handoff per KV tier (bf16, int8, int4): a prompt prefilled by a
+    prefill worker, exported, and decoded by a decode worker on the same
+    ``SharedKVPool``, against one paged engine of the same slots serving
+    the same prompt. Each tier's prefill takes its flash body (flash_tc,
+    flash_qtc, flash_q4tc) and each decode step its paged split kernel.
+    Returns the launch totals."""
+    from repro_torch.serving import ContinuousBatchingEngine, SharedKVPool
+
+    kernels = {"fp": ("flash_prefill", "paged_decode"),
+               "int8": ("flash_qprefill", "paged_qdecode"),
+               "int4": ("flash_q4prefill", "paged_q4decode")}
+    prompt = max((r.tokens for r in trace.requests),
+                 key=lambda t: t.shape[1])
+    totals = {}
+    for kv, (prefill_k, decode_k) in kernels.items():
+        vcfg = cfg.with_overrides(kv_cache_precision=kv)
+        store = SharedKVPool(vcfg, ROUTER_HANDOFF_BLOCKS, 16)
+        pre, dec = (ContinuousBatchingEngine(
+            params, vcfg, n_slots=2, max_len=ENGINE["max_len"], paged=True,
+            shared_kv=store) for _ in range(2))
+        single = ContinuousBatchingEngine(
+            params, vcfg, n_slots=2, max_len=ENGINE["max_len"], paged=True,
+            block_size=16, n_blocks=ROUTER_HANDOFF_BLOCKS)
+
+        def disagg():
+            r = pre.submit_prefill(prompt)
+            pre.run()
+            d = dec.submit_handoff(r.kv_handoff, max_new_tokens=ROUTER_NEW[1])
+            dec.run()
+            return d
+
+        def alone():
+            r = single.submit(prompt, max_new_tokens=ROUTER_NEW[1])
+            single.run()
+            return r
+
+        where = f"router/handoff/{kv}"
+        d, ms, launches = _counted(k, torch.bfloat16, where, disagg)
+        s, single_ms, single_launches = _counted(k, torch.bfloat16,
+                                                 f"{where}/single", alone)
+        if (launches[prefill_k] != cfg.n_layers
+                or launches[decode_k] < cfg.n_layers
+                or launches[decode_k] != single_launches[decode_k]
+                or dec.prompt_tokens_computed != 0
+                or store.alloc.in_use != 0):
+            raise AssertionError(f"{where}: {prefill_k} "
+                                 f"{launches[prefill_k]}, {decode_k} "
+                                 f"{launches[decode_k]} (single "
+                                 f"{single_launches[decode_k]}), recomputed "
+                                 f"{dec.prompt_tokens_computed}, blocks in "
+                                 f"use {store.alloc.in_use}")
+        emit("router_handoff", model=cfg.name, layers=cfg.n_layers,
+             kv_cache=kv, prompt=prompt.shape[1], new_tokens=ROUTER_NEW[1],
+             equal_to_single_engine=d.out_tokens == s.out_tokens,
+             tokens=d.out_tokens, single_tokens=s.out_tokens,
+             handoff_ms=ms, single_ms=single_ms,
+             prefix_hit_tokens=d.prefix_hit, launches=launches)
+        if d.out_tokens != s.out_tokens:
+            raise AssertionError(f"{where}: the handoff's stream parts from "
+                                 f"the single engine's")
+        _merge(totals, launches)
+        _merge(totals, single_launches)
+        del pre, dec, single, store
+        torch.cuda.empty_cache()
+    return totals
+
+
+def router_phase(k, dev):
+    """stablelm-1.6b at full width and SERVE_LAYERS of its 24 layers in
+    bf16, random seeded weights: a seeded trace of ROUTER_TRACE_N requests
+    (every other one interactive) through ``single_engine_trace`` on one
+    paged engine of 8 slots and through ``route_trace`` on a
+    ``ServingRouter`` over 1 prefill and 2 decode workers (4 slots each)
+    on one ``SharedKVPool`` of the same blocks: the router's virtual-time
+    metrics beside the single arm's, wall time per tick, zero prompt tokens
+    recomputed by the decode workers, the router's streams equal to the
+    single engine's or parted at a tie up to one rounding (``_partings``),
+    every block back in the pool; then 4 router ticks profiled with every
+    worker busy, and ``router_handoffs``. Returns the launch totals."""
+    from repro_torch import configs
+    from repro_torch.models import init_params
+    from repro_torch.serving import (ArrivalTrace, ContinuousBatchingEngine,
+                                     ServingRouter, SharedKVPool,
+                                     route_trace, single_engine_trace)
+
+    cfg = configs.get_config("stablelm-1.6b")
+    vcfg = cfg.with_overrides(n_layers=SERVE_LAYERS)
+    full = init_params(cfg, seed=SEED)
+    params = {**full, "layers": full["layers"][:vcfg.n_layers]}
+    del full
+    torch.cuda.empty_cache()
+    nl, dtype = vcfg.n_layers, torch.bfloat16
+    trace = ArrivalTrace.generate(vcfg, ROUTER_TRACE_N, seed=SEED + 80,
+                                  mean_interarrival=TRACE_GAP,
+                                  prompt_len=ROUTER_PROMPT,
+                                  max_new=ROUTER_NEW)
+    n_blocks = 2 * ENGINE["n_slots"] * -(-(ROUTER_PROMPT[1]
+                                           + ROUTER_NEW[1]) // 16) + 1
+    single = ContinuousBatchingEngine(params, vcfg, n_slots=ENGINE["n_slots"],
+                                      max_len=ENGINE["max_len"], paged=True,
+                                      block_size=16, n_blocks=n_blocks)
+    single.warmup(prompt_len=64, max_new_tokens=4)
+    torch.cuda.synchronize()
+    s_report, single_ms, single_launches = _counted(
+        k, dtype, "router/single", lambda: single_engine_trace(single,
+                                                                trace))
+    store = SharedKVPool(vcfg, n_blocks, 16)
+    workers = [ContinuousBatchingEngine(
+        params, vcfg, n_slots=ROUTER_SLOTS, max_len=ENGINE["max_len"],
+        paged=True, shared_kv=store, max_queue_depth=q) for q in (0, 4, 4)]
+    router = ServingRouter(workers[:1], workers[1:])
+    router.warmup()
+    r_report, router_ms, launches = _counted(
+        k, dtype, "router/route", lambda: route_trace(router, trace))
+    if r_report["decode_prompt_tokens_recomputed"] != 0 \
+            or r_report["router_completed"] != len(trace.requests) \
+            or s_report["single_completed"] != len(trace.requests) \
+            or store.alloc.in_use != 0:
+        raise AssertionError(f"router: recomputed "
+                             f"{r_report['decode_prompt_tokens_recomputed']}"
+                             f", completed {r_report['router_completed']}, "
+                             f"blocks in use {store.alloc.in_use}")
+    if launches["flash_prefill"] < nl * len(trace.requests) \
+            or launches["paged_decode"] <= 0:
+        raise AssertionError(f"router: launches {launches}")
+    base = [r.out_tokens for r in single.all_requests]
+    got = [rr.out_tokens for rr in router.requests]
+    parted = _partings(params, vcfg, trace, base, got, dev, {})
+    ticks = r_report["router_ticks"]
+    gen_tokens = r_report["router_generated_tokens"]
+    # steady state: every worker busy, 4 ticks profiled
+    wgen = torch.Generator().manual_seed(SEED + 81)
+    for _ in range(2 * ROUTER_SLOTS):
+        # 49 tokens: a 48-token prefill and one tail tick on the worker
+        router.submit(torch.randint(0, vcfg.vocab_size, (1, 49),
+                                    generator=wgen), max_new_tokens=40)
+    for _ in range(12):
+        router.step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(8):
+        router.step()
+    torch.cuda.synchronize()
+    tick_ms = (time.perf_counter() - t0) * 1e3 / 8
+    tick_trace = profile_steps(router.step, 4, tick_ms)
+    router.run()
+    emit("router", model=cfg.name, dtype=vcfg.dtype, layers=nl,
+         requests=len(trace.requests), prompt_len=list(ROUTER_PROMPT),
+         max_new=list(ROUTER_NEW), pool_blocks=n_blocks,
+         workers={"prefill": 1, "decode": 2, "slots_each": ROUTER_SLOTS},
+         single_slots=ENGINE["n_slots"],
+         router_metrics=r_report, single_metrics=s_report,
+         router_wall_ms=router_ms, single_wall_ms=single_ms,
+         router_ms_per_tick=router_ms / ticks,
+         single_ms_per_tick=single_ms / s_report["single_ticks"],
+         router_tokens_per_s_wall=gen_tokens / router_ms * 1e3,
+         single_tokens_per_s_wall=(sum(len(t) for t in base)
+                                   / single_ms * 1e3),
+         streams_equal=len(base) - len(parted), of=len(base),
+         partings=parted, launches=launches,
+         single_launches=single_launches,
+         steady_tick_ms=tick_ms, steady_tick_trace=tick_trace)
+    if not all(p["ok"] for p in parted):
+        raise AssertionError(f"router streams part from the single engine's "
+                             f"beyond a tie: {parted}")
+    totals = {}
+    _merge(totals, single_launches)
+    _merge(totals, launches)
+    del router, workers, store, single
+    torch.cuda.empty_cache()
+    _merge(totals, router_handoffs(k, params, vcfg, trace, dev))
+    return totals
+
+
+# ------------------------------------------------------------------ #
+# Phase 18: every shape the main paths gave a kernel, against plain
 # ------------------------------------------------------------------ #
 def _flash_key(q, k, dv):
     # (B, S, Hq, Hkv, hd, dv, dtype), as FLASH_SHAPES
@@ -4140,11 +4745,18 @@ def _qdecode_key(q, k):
     return (b, k.shape[1], hkv, g, hd, q.dtype)
 
 
+def _paged_key(q, pool, tables):
+    # (B, Hkv, G, hd, block size, table entries, pool blocks, q dtype,
+    # pool dtype), as PAGED_SHAPES
+    return (*q.shape, pool.shape[1], tables.shape[1], pool.shape[0], q.dtype,
+            pool.dtype)
+
+
 @contextlib.contextmanager
 def recording_shapes(seen):
     """Records into ``seen`` (kernel name -> set of shape keys) the shape of
     every call that the model code makes through ``kernels.ops`` to the
-    flash prefills, the dense int8-KV decode and the int8 GEMMs; the
+    flash prefills, the dense and paged decodes and the int8 GEMMs; the
     wrappers and their counters are left as they are."""
     from repro_torch.kernels import ops
 
@@ -4164,7 +4776,13 @@ def recording_shapes(seen):
                 "qmatmul_dynamic" if act_scale is None else "qmatmul_static",
                 _gemm_key(x, w.shape[0])),
             "qdecode": lambda q, k, ks, v, vs, bias: (
-                "qdecode", _qdecode_key(q, k))}
+                "qdecode", _qdecode_key(q, k)),
+            "paged_decode": lambda q, kp, vp, tables, pos: (
+                "paged_decode", _paged_key(q, kp, tables)),
+            "paged_qdecode": lambda q, kp, ks, vp, vs, tables, pos: (
+                "paged_qdecode", _paged_key(q, kp, tables)),
+            "paged_q4decode": lambda q, kp, ks, vp, vs, tables, pos: (
+                "paged_q4decode", _paged_key(q, kp, tables))}
     saved = {name: getattr(ops, name) for name in keys}
 
     def recorder(name):
@@ -4182,14 +4800,44 @@ def recording_shapes(seen):
             setattr(ops, name, fn)
 
 
+def held_paged(k, name, key, gen, dev):
+    """One paged decode of ``key`` (as ``_paged_key``) on random q and pools
+    against its plain version: positions drawn so every table fits the
+    pool, the last row idle when B > 1 (its output NaN on both sides).
+    Returns max |err| over the live rows."""
+    b, hkv, g, hd, bs, m, n, qdt, pdt = key
+    hi = min(m, (n - 1) // b) * bs - 1
+    pos = torch.randint(min(36, hi), hi + 1, (b,), generator=gen).tolist()
+    if b > 1:
+        pos[-1] = -1
+    q, kp, vp, tables, pos_t, live = paged_case(
+        dev, gen, (b, hkv, g, hd, bs, m, n, pdt, tuple(pos)))
+    q = q.to(qdt)
+    if name == "paged_decode":
+        pools, atol = (kp, vp), PAGED_ATOL
+    else:
+        codes = int8_codes if name == "paged_qdecode" else int4_codes
+        pools, atol = (*codes(gen, tuple(kp.shape), dev),
+                       *codes(gen, tuple(vp.shape), dev)), INT8KV_ATOL
+    got = getattr(k.paged_attn, name)(q, *pools, tables, pos_t)
+    want = getattr(k.ref, f"{name}_ref")(q, *pools, tables, pos_t)
+    err = float((got[live] - want[live]).abs().max())
+    idle_nan = bool(got[~live].isnan().all()) and bool(
+        want[~live].isnan().all())
+    if not torch.isfinite(got[live]).all() or err > atol or not idle_nan:
+        raise AssertionError(f"{name} {key}: max |err| {err} > {atol} or "
+                             "idle rows not 0/0")
+    return err
+
+
 def held_shapes_phase(k, dev, seen):
-    """Every flash-prefill, qdecode and int8-GEMM shape that the main paths
-    gave a kernel (``recording_shapes``), held against the plain version on
-    random inputs of that shape and dtype. Shapes the kernel phases already
-    held (FLASH_SHAPES, MLA_FLASH, QDECODE_SHAPES, GEMM_CASES at bf16
-    activations) are counted; the rest run here, at the kernel phases'
-    tolerances: flash FLASH_ATOL, int8 / int4 K/V INT8KV_ATOL, GEMMs rtol
-    1e-6."""
+    """Every flash-prefill, qdecode, paged-decode and int8-GEMM shape that
+    the main paths gave a kernel (``recording_shapes``), held against the
+    plain version on random inputs of that shape and dtype. Shapes the
+    kernel phases already held (FLASH_SHAPES, MLA_FLASH, QDECODE_SHAPES,
+    PAGED_SHAPES, GEMM_CASES at bf16 activations) are counted; the rest run
+    here, at the kernel phases' tolerances: flash FLASH_ATOL, paged fp
+    PAGED_ATOL, int8 / int4 K/V INT8KV_ATOL, GEMMs rtol 1e-6."""
     ref, fp, qm, dq = k.ref, k.flash_prefill, k.qmatmul, k.dynquant
     gen = torch.Generator(device=dev).manual_seed(SEED + 40)
     cpu_gen = torch.Generator().manual_seed(SEED + 41)
@@ -4197,15 +4845,24 @@ def held_shapes_phase(k, dev, seen):
                  for m in ms}
     codes = {"flash_qprefill": int8_codes, "flash_q4prefill": int4_codes}
     qdecode_held = {shape[:6] for shape in QDECODE_SHAPES.values()}
+    paged = ("paged_decode", "paged_qdecode", "paged_q4decode")
+    paged_held = {name: {(*shape[:8], shape[7] if name == "paged_decode"
+                          else torch.int8)
+                         for shape in PAGED_SHAPES.values()}
+                  for name in paged}
     summary = {}
     for name in sorted(seen):
         keys = sorted(seen[name], key=str)
         gemm = name.startswith("qmatmul")
         held = (gemm_held if gemm else qdecode_held if name == "qdecode"
+                else paged_held[name] if name in paged
                 else FLASH_SHAPES + (MLA_FLASH,))
         new = [key for key in keys if key not in held]
         worst = 0.0
         for key in new:
+            if name in paged:
+                worst = max(worst, held_paged(k, name, key, cpu_gen, dev))
+                continue
             if name == "qdecode":
                 b, s, hkv, g, hd, dt = key
                 q = torch.randn((b, hkv, g, hd), generator=cpu_gen).to(dev, dt)
@@ -4384,6 +5041,10 @@ def main() -> int:
         # the recurrent models at published width and depth (qdecode's
         # wide class)
         _merge(totals, recurrent_phase(k, dev))
+        # the last architecture (musicgen's codebooks), frontend requests
+        # in the engines, then the router over prefill and decode workers
+        for phase in (musicgen_phase, frontend_phase, router_phase):
+            _merge(totals, phase(k, dev))
     held_shapes_phase(k, dev, seen)
 
     sources = {"flash_prefill": ("src/repro_torch/csrc/flash_prefill.cu",

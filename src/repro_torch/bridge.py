@@ -11,8 +11,10 @@ per-unit lists; quantized leaf dicts unstack field by field (``w_int8
 
 ``stack_layers`` / ``unstack_layers`` move a port param tree to the JAX
 layout and back with the tensors left as they are (the checkpoint format
-of ``training/checkpoint.py`` is the JAX tree's). The vision projector
-``frontend_proj`` (fp or quantized) is a top-level leaf and crosses as is.
+of ``training/checkpoint.py`` is the JAX tree's). The frontend projector
+``frontend_proj`` and musicgen's codebook stacks ``extra_embeds`` ``[K-1,
+V, d]`` / ``out_heads`` ``[K-1, d, V]`` (fp or quantized, field by field)
+are top-level leaves and cross as they are.
 
 Caches and block pools convert in both directions: the JAX package keeps
 one ``[L, ...]`` leaf per cache field and stack (``{"layers": (k, v)}``

@@ -1,9 +1,9 @@
 """Config registry of the port: ``get_config(arch_id)`` / ``smoke_config``.
 
-The dense-GQA architectures, phi-3-vision (the VQI model family), the MoE
-architectures (deepseek-v2 with MLA, kimi-k2 with GQA), Mamba2 (SSD) and
-the RG-LRU hybrid recurrentgemma are registered; the audio architecture
-(musicgen) arrives with ROADMAP Queue 1 item 9.
+Every architecture of the JAX package is registered: the dense-GQA
+models, phi-3-vision (the VQI model family), the MoE architectures
+(deepseek-v2 with MLA, kimi-k2 with GQA), Mamba2 (SSD), the RG-LRU hybrid
+recurrentgemma and musicgen (audio conditioning and 4 codebooks).
 """
 from __future__ import annotations
 
@@ -18,6 +18,7 @@ CLI_ALIASES: Dict[str, str] = {
     "kimi-k2-1t-a32b": "kimi_k2_1t_a32b",
     "mamba2-780m": "mamba2_780m",
     "mistral-nemo-12b": "mistral_nemo_12b",
+    "musicgen-large": "musicgen_large",
     "phi-3-vision-4.2b": "phi_3_vision_4_2b",
     "phi3-mini-3.8b": "phi3_mini_3_8b",
     "recurrentgemma-9b": "recurrentgemma_9b",
@@ -25,16 +26,13 @@ CLI_ALIASES: Dict[str, str] = {
 }
 ARCH_IDS: List[str] = sorted(CLI_ALIASES.values())
 
-#: the JAX package's architectures with no twin here: ROADMAP Queue 1 item 9
-#: ports them
-UNPORTED: FrozenSet[str] = frozenset({"musicgen_large"})
+#: the JAX package's architectures with no twin here (none since the audio
+#: architecture landed)
+UNPORTED: FrozenSet[str] = frozenset()
 
 
 def _module(arch_id: str):
     key = CLI_ALIASES.get(arch_id, arch_id.replace("-", "_").replace(".", "_"))
-    if key in UNPORTED:
-        raise NotImplementedError(
-            f"{arch_id!r} is not ported yet (ROADMAP Queue 1 item 9)")
     if key not in ARCH_IDS:
         raise KeyError(f"unknown architecture {arch_id!r}")
     return importlib.import_module(f"repro_torch.configs.{key}")

@@ -44,7 +44,9 @@ def lm_batch(gen: torch.Generator, cfg: ModelConfig, batch: int, seq: int,
     """``tokens`` / ``labels`` [B, S] int64: Pareto(1.2) * 8 steps clipped
     to the vocab, tokens ``(cumsum * 31 + base) % V`` with a uniform
     ``base`` per row, labels the tokens rolled left by one with the last
-    position IGNORE. ``gen`` is a host generator."""
+    position IGNORE. With K > 1 codebooks both are [B, S, K]: codebook k
+    holds ``(tokens + 7k) % V``, and every codebook's last label is IGNORE.
+    ``gen`` is a host generator."""
     dev = resolve_device(device)
     v = cfg.vocab_size
     # Pareto(1.2) on [1, inf) is exp(Exponential(1) / 1.2); the clip to
@@ -54,6 +56,9 @@ def lm_batch(gen: torch.Generator, cfg: ModelConfig, batch: int, seq: int,
     zipf = torch.clamp(pareto * 8, 0, v - 1).to(torch.int64)
     base = torch.randint(0, v, (batch, 1), generator=gen)
     toks = (torch.cumsum(zipf, dim=1) * 31 + base) % v
+    if cfg.n_codebooks > 1:
+        toks = torch.stack([(toks + 7 * k) % v
+                            for k in range(cfg.n_codebooks)], dim=-1)
     labels = torch.roll(toks, -1, dims=1)
     labels[:, -1] = IGNORE
     return {"tokens": toks.to(dev), "labels": labels.to(dev)}

@@ -9,8 +9,9 @@ int8 or int4 KV cache, the flash or the chunked prefill, a sliding-window
 ring cache, and the phi-3-vision frontend stub), Multi-head Latent
 Attention (deepseek-v2), the capacity-routed MoE FFN (deepseek-v2,
 kimi-k2), Mamba2's SSD stack (mamba2-780m) and the RG-LRU hybrid of
-recurrentgemma with tied embeddings; ``check_supported`` names the ROADMAP
-item for everything else (the audio frontend and its codebooks).
+recurrentgemma with tied embeddings, and musicgen's audio conditioning
+stub with its ``n_codebooks`` token streams; ``check_supported`` refuses
+what none of them assembles.
 """
 from __future__ import annotations
 
@@ -206,13 +207,10 @@ HYBRID_PATTERN = ("rec", "rec", "attn")
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for any branch the port does not serve
-    yet, naming the ROADMAP item that will."""
-    if cfg.frontend == "audio" or cfg.n_codebooks > 1 \
-            or cfg.arch_type == "audio":
-        raise NotImplementedError(
-            "audio frontends and codebooks are ROADMAP Queue 1 item 9")
-    if cfg.arch_type not in ("dense", "vlm", "moe", "ssm", "hybrid") \
+    """Raise ``NotImplementedError`` for a stack the port does not assemble
+    and ``ValueError`` for an inconsistent config."""
+    if cfg.arch_type not in ("dense", "vlm", "audio", "moe", "ssm",
+                             "hybrid") \
             or (cfg.arch_type == "moe") != (cfg.n_experts > 0):
         raise NotImplementedError(
             f"arch_type {cfg.arch_type!r} (n_experts={cfg.n_experts}) is "
@@ -230,9 +228,9 @@ def check_supported(cfg: ModelConfig) -> None:
     if cfg.attention == "sliding" and cfg.window <= 0:
         raise ValueError(f"{cfg.name}: attention='sliding' needs window > 0")
     if (cfg.arch_type == "vlm") != (cfg.frontend == "vision") \
-            or (cfg.frontend == "vision" and cfg.frontend_dim <= 0):
+            or (cfg.frontend != "none" and cfg.frontend_dim <= 0):
         raise ValueError(
-            f"{cfg.name}: a vlm needs frontend='vision' and frontend_dim > 0, "
-            "and only a vlm has a vision frontend")
+            f"{cfg.name}: a vlm needs frontend='vision', a frontend needs "
+            "frontend_dim > 0, and only a vlm has a vision frontend")
     # ``fsdp`` only names a sharding under a device mesh (ROADMAP Queue 1
     # item 10); on one device it changes nothing, as in the JAX package

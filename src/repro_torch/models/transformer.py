@@ -7,7 +7,8 @@ layer index, e.g. ``layers/3/attn/wq`` or ``groups/3/rec1/rec/wa``, so
 quantization and calibration regexes select the same leaves)::
 
     embed [V, d], final_norm [d], unembed [d, V] (none when tied)
-    frontend_proj [frontend_dim, d]        (vlm: the vision stub projector)
+    extra_embeds [K-1, V, d], out_heads [K-1, d, V]   (K = n_codebooks > 1)
+    frontend_proj [frontend_dim, d]        (the vision / audio stub projector)
     layers: [ {ln1 [d], attn {wq, wk, wv, wo}, ln2 [d], mlp {wi, wo}} ] * L
 
 An MoE model (``cfg.n_experts > 0``) keeps the JAX package's two stacks:
@@ -169,6 +170,14 @@ def init_params(cfg: ModelConfig, seed: int = 0,
     if not cfg.tie_embeddings:
         p["unembed"] = dense_init(gen, (cfg.d_model, cfg.vocab_size),
                                   dtype=dt)
+    if cfg.n_codebooks > 1:
+        # codebook 0 reads embed / unembed; each further codebook its own
+        # slice of these stacks
+        n = cfg.n_codebooks - 1
+        p["extra_embeds"] = embed_init(
+            gen, (n, cfg.vocab_size, cfg.d_model), dt)
+        p["out_heads"] = dense_init(gen, (n, cfg.d_model, cfg.vocab_size),
+                                    in_axis=1, dtype=dt)
     if cfg.frontend != "none":
         p["frontend_proj"] = dense_init(
             gen, (cfg.frontend_dim, cfg.d_model), dtype=dt)
@@ -203,11 +212,30 @@ def _take_embed(leaf, tokens, dtype):
     return leaf[tokens].to(dtype)
 
 
+def _codebook(leaf, k: int):
+    """Codebook ``k``'s slice of a stacked ``[K-1, ...]`` leaf, field by
+    field when quantized."""
+    if isinstance(leaf, dict):
+        return {name: t[k] for name, t in leaf.items()}
+    return leaf[k]
+
+
 def embed_inputs(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig):
-    """Token embeddings; with a frontend and ``batch["frontend_embeds"]``
-    ([B, n_frontend_tokens, frontend_dim]), the projected embeddings are
-    put in front of them, so positions 0.. are the patches."""
-    x = _take_embed(params["embed"], batch["tokens"], cfg.activation_dtype)
+    """Token embeddings; multi-codebook tokens ``[B, S, K]`` sum their K
+    embeddings (codebook 0 from ``embed``, codebook k from
+    ``extra_embeds[k - 1]``). With a frontend and
+    ``batch["frontend_embeds"]`` ([B, n_frontend_tokens, frontend_dim]),
+    the projected embeddings are put in front of them, so positions 0..
+    are the patches (or conditioning frames)."""
+    dt = cfg.activation_dtype
+    tokens = batch["tokens"]
+    if cfg.n_codebooks > 1:
+        x = _take_embed(params["embed"], tokens[..., 0], dt)
+        for k in range(cfg.n_codebooks - 1):
+            x = x + _take_embed(_codebook(params["extra_embeds"], k),
+                                tokens[..., k + 1], dt)
+    else:
+        x = _take_embed(params["embed"], tokens, dt)
     if cfg.frontend != "none" and "frontend_embeds" in batch:
         fe = linear(params["frontend_proj"],
                     batch["frontend_embeds"].to(x.dtype))
@@ -215,21 +243,32 @@ def embed_inputs(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig):
     return x
 
 
-def lm_head(params, x, cfg: ModelConfig):
-    """Final norm and head -> f32 logits. Tied: ``bsd,vd->bsv`` against the
-    embedding, dequantized first when quantized (an observer leaf's
-    ``w`` as it is)."""
-    x = rms_norm(params["final_norm"], x, cfg.norm_eps)
-    if not cfg.tie_embeddings:
-        return linear(params["unembed"], x).to(torch.float32)
-    leaf = params["embed"]
+def _as_weight(leaf, dtype):
+    """A head leaf as a plain tensor in ``dtype``: dequantized when
+    quantized, an observer leaf's ``w`` as it is."""
     if is_quantized(leaf):
         from repro_torch.core.quant.quantize import dequantize_tensor
 
-        w = dequantize_tensor(leaf, x.dtype)
+        return dequantize_tensor(leaf, dtype)
+    return (leaf["w"] if isinstance(leaf, dict) else leaf).to(dtype)
+
+
+def lm_head(params, x, cfg: ModelConfig):
+    """Final norm and head -> f32 logits ``[B, S, V]``. Tied: ``bsd,vd->bsv``
+    against the embedding. With K > 1 codebooks, ``[B, S, K, V]``: codebook
+    0 through ``unembed``, the others by ``bsd,kdv->bskv`` against
+    ``out_heads`` (a plain product, as in the JAX package)."""
+    x = rms_norm(params["final_norm"], x, cfg.norm_eps)
+    if cfg.tie_embeddings:
+        logits = torch.einsum("bsd,vd->bsv", x,
+                              _as_weight(params["embed"], x.dtype))
     else:
-        w = (leaf["w"] if isinstance(leaf, dict) else leaf).to(x.dtype)
-    return torch.einsum("bsd,vd->bsv", x, w).to(torch.float32)
+        logits = linear(params["unembed"], x)
+    if cfg.n_codebooks > 1:
+        extra = torch.einsum("bsd,kdv->bskv", x,
+                             _as_weight(params["out_heads"], x.dtype))
+        logits = torch.cat([logits[:, :, None], extra], dim=2)
+    return logits.to(torch.float32)
 
 
 # ===================================================================== #

@@ -100,11 +100,13 @@ class InferenceSession:
 
     @torch.no_grad()
     def generate(self, batch: Dict[str, torch.Tensor], n_new: int):
-        """Greedy decode ``n_new`` tokens after a prefill -> [B, n_new].
+        """Greedy decode ``n_new`` tokens after a prefill -> [B, n_new]
+        (multi-codebook: [B, n_new, K], every codebook's argmax fed back).
 
         The cache is padded to the next power-of-two bucket >= prompt +
-        n_new; the prompt tokens are padded to their own bucket and the
-        logits read at the true last position (``n_valid``)."""
+        n_new; where ``bucketed_prefill_ok`` allows, the prompt tokens are
+        padded to their own bucket and the logits read at the true last
+        position (``n_valid``)."""
         cfg = self.cfg
         batch = self._batch(batch)
         tok_len = batch["tokens"].shape[1] + cfg.n_frontend_tokens
@@ -118,13 +120,14 @@ class InferenceSession:
                     t, (0, tb - t.shape[1]))
         last, cache = prefill(self.params, batch, cfg, pad_to=pad,
                               n_valid=tok_len)
+        # the next tokens [B, 1], or [B, 1, K] with K codebooks
         outs = []
-        nxt = torch.argmax(last[:, -1, :], dim=-1).reshape(-1, 1)
+        nxt = torch.argmax(last[:, -1:], dim=-1)
         for i in range(n_new):
             outs.append(nxt)
             logits, cache = decode_step(self.params, cache, nxt, tok_len + i,
                                         cfg)
-            nxt = torch.argmax(logits[:, -1, :], dim=-1).reshape(-1, 1)
+            nxt = torch.argmax(logits[:, -1:], dim=-1)
         return torch.cat(outs, dim=1)
 
 

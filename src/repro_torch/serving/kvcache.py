@@ -16,11 +16,16 @@ and int4 tiers and MLA's compressed streams.
   its ``head_layers`` pools beside ``layers``), and are written in place
   (the JAX package replaces them functionally). ``tables`` is rebuilt only when
   a slot's blocks change, with one host-to-device copy.
+* ``SharedKVPool`` — one allocator and one set of pools, which several
+  engines attach to (``PagedKVCache(shared=)``) for disaggregated serving:
+  a prefill worker exports a prompt's blocks as a ``KVHandoff``
+  (``export_blocks``) and a decode worker attaches them to a slot
+  (``import_blocks``) with no recompute. Every engine on a store writes the
+  same pool tensors in place, so a peer sees a write as soon as the stream
+  it was issued on reaches it; the engines of one process share one stream.
 
-Attaching a second engine to one store (``shared=``) and the block export/import of
-the handoff between prefill and decode workers are ROADMAP Queue 1 item
-11. ``truncate`` is the speculative-decoding rollback. Also here: copies
-of ``pow2_bucket`` and ``bucketed_prefill_ok``.
+``truncate`` is the speculative-decoding rollback. Also here: copies of
+``pow2_bucket`` and ``bucketed_prefill_ok``.
 """
 from __future__ import annotations
 
@@ -45,8 +50,11 @@ TRASH_BLOCK = 0
 
 
 def paged_supported(cfg: ModelConfig) -> Optional[str]:
-    """Why ``cfg`` cannot use the paged cache, or None if it can."""
-    if cfg.arch_type not in ("dense", "moe"):
+    """Why ``cfg`` cannot use the paged cache, or None if it can: the JAX
+    package's gate and reasons, except that a vlm is served (an
+    attention-only stack whose frontend rows the blocks hold like tokens;
+    the JAX package refuses it with the recurrent stacks' reason)."""
+    if cfg.arch_type not in ("dense", "moe", "vlm"):
         return f"arch_type {cfg.arch_type!r} has non-attention caches"
     if cfg.window:
         return "sliding-window attention keeps the dense ring-buffer cache"
@@ -273,20 +281,69 @@ def _pool_tensors(pools) -> List[torch.Tensor]:
     return [t for leaves in layer_caches(pools) for t in leaves]
 
 
+def kv_pool_signature(cfg: ModelConfig, n_blocks: int,
+                      block_size: int) -> Tuple:
+    """Geometry + precision fingerprint of a block pool. Two engines may
+    share one ``SharedKVPool`` only when their configs give identical
+    signatures: block ids are raw indices into the pool tensors, so a shape
+    or dtype mismatch would read garbage, not raise."""
+    return (cfg.attention, cfg.n_layers, cfg.n_dense_layers if cfg.n_experts
+            else 0, cfg.n_kv_heads, cfg.resolved_head_dim, cfg.kv_lora_rank,
+            cfg.qk_rope_dim, cfg.kv_precision, str(cfg.activation_dtype),
+            n_blocks, block_size)
+
+
 class SharedKVPool:
-    """One allocator plus one set of device pools: the single store of an
-    engine. Several engines sharing one store is ROADMAP Queue 1 item 11."""
+    """One allocator plus one set of device pools. An engine builds its own
+    store unless it is given one; several engines given the same store
+    (disaggregated prefill / decode workers) see the same blocks: each
+    ``PagedKVCache`` keeps its own slots and tables and delegates ``alloc``
+    and ``pools`` here. (The JAX store's ``shards`` belongs to tensor
+    parallelism, ROADMAP Queue 1 item 10.)"""
 
     def __init__(self, cfg: ModelConfig, n_blocks: int, block_size: int,
                  device: DeviceLike = None):
         self.cfg = cfg
         self.block_size = block_size
+        self.device = resolve_device(device)
+        self.signature = kv_pool_signature(cfg, n_blocks, block_size)
         self.alloc = BlockAllocator(n_blocks, block_size)
-        self.pools = init_paged_pools(cfg, n_blocks, block_size, device)
+        self.pools = init_paged_pools(cfg, n_blocks, block_size, self.device)
 
     def reset(self) -> None:
-        """Drop all allocator state (the engine must be idle)."""
+        """Drop all allocator state. Only safe when every attached engine is
+        idle: the router releases all slots first."""
         self.alloc.reset()
+
+
+@dataclasses.dataclass
+class KVHandoff:
+    """Ownership token for a prompt's KV blocks, made by a prefill worker
+    and consumed by a decode worker on the same store.
+
+    The prefill engine retains every block before releasing its slot, so
+    the blocks stay live (refcount >= 1) with the handoff as their owner.
+    Full prompt blocks are also hash-registered, so a handoff that is
+    dropped still leaves its prefix as cache. Exactly one of consume (a
+    decode slot's table takes the references) and ``release`` (they are
+    dropped) must run."""
+
+    tokens: Any                      # [1, S] prompt on the engine device
+    first_token: int                 # the one token the prefill step sampled
+    block_ids: Tuple[int, ...]       # pool blocks, prompt order
+    cache_pos: int                   # positions in the cache (== prompt len)
+    block_hashes: Tuple[int, ...]    # chained hashes of the full blocks
+    consumed: bool = False
+
+    def release(self, alloc: BlockAllocator) -> None:
+        """Drop the handoff's ownership (request cancelled, or rejected for
+        good). Registered blocks fall back to the cached LRU; the partial
+        tail block returns to the free list."""
+        if self.consumed:
+            return
+        self.consumed = True
+        for bid in self.block_ids:
+            alloc.free(bid)
 
 
 class PagedKVCache:
@@ -301,15 +358,25 @@ class PagedKVCache:
                  block_size: int, max_blocks_per_seq: int, *,
                  shared: Optional[SharedKVPool] = None,
                  device: DeviceLike = None):
-        if shared is not None:
-            raise NotImplementedError(
-                "attaching a second engine to one KV store is ROADMAP "
-                "Queue 1 item 11")
         self.cfg = cfg
         self.n_slots = n_slots
         self.max_blocks = max_blocks_per_seq
         self.device = resolve_device(device)
-        self.store = SharedKVPool(cfg, n_blocks, block_size, self.device)
+        if shared is not None:
+            sig = kv_pool_signature(cfg, shared.alloc.n_blocks,
+                                    shared.block_size)
+            if sig != shared.signature:
+                raise ValueError(
+                    "engine config incompatible with the shared KV pool: "
+                    f"{sig} != {shared.signature}")
+            if shared.device != self.device:
+                raise ValueError(f"the shared KV pool is on {shared.device}, "
+                                 f"the engine on {self.device}")
+            self.store = shared
+            self.owns_store = False
+        else:
+            self.store = SharedKVPool(cfg, n_blocks, block_size, self.device)
+            self.owns_store = True
         self.block_size = self.store.block_size
         self.alloc = self.store.alloc
         self.slot_blocks: List[List[int]] = [[] for _ in range(n_slots)]
@@ -320,11 +387,9 @@ class PagedKVCache:
     # ------------------------------------------------------------- #
     @property
     def pools(self):
+        """The store's pools: every engine on a shared store writes these
+        same tensors in place (nothing rebinds them)."""
         return self.store.pools
-
-    @pools.setter
-    def pools(self, new) -> None:
-        self.store.pools = new
 
     @property
     def bytes_per_block(self) -> int:
@@ -439,10 +504,34 @@ class PagedKVCache:
             self.attach(slot, bid)
         return ids
 
+    # ------------------------------------------------------------- #
+    def export_blocks(self, slot: int) -> Tuple[int, ...]:
+        """Retain and return ``slot``'s blocks for a handoff. One reference
+        per block moves to the caller; the slot keeps its own until
+        ``release_slot`` drops them."""
+        ids = tuple(self.slot_blocks[slot])
+        for bid in ids:
+            self.alloc.retain(bid)
+        return ids
+
+    def import_blocks(self, slot: int, ids: Sequence[int]) -> None:
+        """Attach exported blocks to an (empty) slot's table. The caller's
+        references move to the table: no refcount change."""
+        assert not self.slot_blocks[slot], f"slot {slot} not empty"
+        for bid in ids:
+            assert self.alloc.refcount(bid) >= 1, f"import of freed block {bid}"
+            self.attach(slot, bid)
+
     def reset(self) -> None:
-        """Engine warmup / teardown: drop every slot, hash and cached
-        block."""
-        self.alloc.reset()
+        """Engine warmup / teardown: drop every slot, hash and cached block.
+        An engine on a shared store drops only its own slots: resetting the
+        allocator under its peers would corrupt their tables (the router
+        resets the store once, after every engine is idle)."""
+        if self.owns_store:
+            self.alloc.reset()
+        else:
+            for slot in range(self.n_slots):
+                self.release_slot(slot)
         self.slot_blocks = [[] for _ in range(self.n_slots)]
         self._dirty()
 

@@ -9,8 +9,11 @@ streams match the JAX package token for token.
 Sampled tokens draw from a ``torch.Generator`` on the logits' device seeded
 from ``(seed, token_index)`` alone, so a request's stream never depends on
 which other requests share the batch, when it was admitted or which slot it
-landed in. The draws are the port's own: they cannot match ``jax.random``
-bit for bit, and are held to the same distribution instead.
+landed in. Multi-codebook logits ``[K, V]`` draw one token per codebook,
+codebook k from its own generator, seeded from the token's seed and k (the
+JAX package splits the token's key K ways). The draws are the port's own:
+they cannot match ``jax.random`` bit for bit, and are held to the same
+distribution instead.
 """
 from __future__ import annotations
 
@@ -53,12 +56,14 @@ class SamplingParams:
     def is_greedy(self) -> bool:
         return self.temperature <= 0.0
 
-    def generator_for(self, token_index: int,
-                      device=None) -> torch.Generator:
+    def generator_for(self, token_index: int, device=None,
+                      codebook: int = -1) -> torch.Generator:
         """Generator for the ``token_index``-th generated token of a
-        request. Depends only on (seed, token_index)."""
+        request (for codebook ``codebook`` of a multi-codebook token).
+        Depends only on (seed, token_index, codebook)."""
         gen = torch.Generator(device=device or "cpu")
-        gen.manual_seed(_seed_for(self.seed, token_index))
+        seed = _seed_for(self.seed, token_index)
+        gen.manual_seed(seed if codebook < 0 else _seed_for(seed, codebook))
         return gen
 
 
@@ -91,13 +96,15 @@ def _sample_row(logits: torch.Tensor, params: SamplingParams,
 
 def sample(logits: torch.Tensor, params: SamplingParams,
            token_index: int) -> torch.Tensor:
-    """Sample the next token from one slot's last-position logits [V].
-
-    Returns a 0-d int64 tensor on the logits' device. Multi-codebook
-    ``[K, V]`` logits are ROADMAP Queue 1 item 9."""
-    if logits.dim() != 1:
-        raise NotImplementedError(
-            "multi-codebook sampling is ROADMAP Queue 1 item 9")
-    gen = (None if params.is_greedy
-           else params.generator_for(token_index, logits.device))
-    return _sample_row(logits, params, gen)
+    """Sample the next token from one slot's last-position logits: ``[V]``
+    gives a 0-d int64 tensor, multi-codebook ``[K, V]`` a ``[K]`` one (the
+    argmax per codebook when greedy, else one draw per codebook, each from
+    its own generator), on the logits' device."""
+    if logits.dim() == 1 or params.is_greedy:
+        gen = (None if params.is_greedy
+               else params.generator_for(token_index, logits.device))
+        return _sample_row(logits, params, gen)
+    return torch.stack([
+        _sample_row(logits[k], params,
+                    params.generator_for(token_index, logits.device, k))
+        for k in range(logits.shape[0])])

@@ -43,10 +43,21 @@ cache): a slot's states are overwritten whole at admission, so an idle
 slot's decode leaks nothing into the next request. ``paged=True`` and
 ``spec=`` refuse them with the JAX package's reasons.
 
-Not ported here: tensor parallelism (ROADMAP Queue 1 item 10),
-prefill/decode workers sharing one KV store (``submit_prefill``,
-``submit_handoff``, ``shared_kv``: item 11), and frontend / multi-codebook
-requests (item 9). Each raises and names its item.
+* Frontend requests (``submit(frontend_embeds=)``: phi-3-vision's patches,
+  musicgen's conditioning frames) put the projected embeddings in front of
+  the prompt's first chunk: cache positions count the ``n_frontend_tokens``
+  rows, and the paged engine hashes no prompt block of a frontend model.
+  Multi-codebook models (musicgen) take ``[1, S, K]`` prompts and emit a
+  ``[K]`` token a step (``last_tokens`` is ``[n_slots, 1, K]``), dense
+  engine only, with per-codebook EOS tuples.
+* Disaggregated serving (``shared_kv=SharedKVPool``): paged engines on one
+  store, a prefill worker (``submit_prefill``: the prompt's KV plus one
+  token, exported as a ``KVHandoff``) and decode workers
+  (``submit_handoff``: the blocks attach to a slot, nothing recomputed).
+  ``serving.router`` places requests on such workers.
+
+Not ported here: tensor parallelism (``tp > 1``, ROADMAP Queue 1 item
+10), which raises and names its item.
 """
 from __future__ import annotations
 
@@ -65,7 +76,8 @@ from repro_torch.models.config import ModelConfig, check_supported
 from repro_torch.models.layers import place_params
 from repro_torch.models.transformer import layer_caches
 from repro_torch.serving.engine import InferenceSession, interpolated_percentile
-from repro_torch.serving.kvcache import (PagedKVCache, blocks_for_budget,
+from repro_torch.serving.kvcache import (KVHandoff, PagedKVCache,
+                                         SharedKVPool, blocks_for_budget,
                                          bucketed_prefill_ok,
                                          hash_prompt_blocks, paged_supported,
                                          pow2_bucket)
@@ -114,8 +126,9 @@ class EngineConfig:
 @dataclasses.dataclass
 class GenRequest:
     rid: int
-    tokens: torch.Tensor               # [1, S_prompt] on the engine device
+    tokens: torch.Tensor               # [1, S_prompt] ([1, S, K] codebooks)
     max_new_tokens: int
+    frontend_embeds: Optional[torch.Tensor] = None  # [1, n_frontend, dim]
     eos_id: Union[int, Sequence[int]] = -1   # -1: no EOS; tuple: per-codebook
     out_tokens: Optional[List[int]] = None
     done: bool = False
@@ -127,6 +140,10 @@ class GenRequest:
     on_token: Optional[Callable[["GenRequest", int], None]] = None
     status: str = "queued"   # queued|rejected|cancelled|prefill|decode|done
     n_consumed: int = 0                # feed tokens already in the cache
+    # disaggregated serving (paged engines on one SharedKVPool)
+    capture_kv: bool = False           # prefill worker: export blocks on done
+    kv_handoff: Optional[KVHandoff] = None      # the exported handoff
+    _handoff: Optional[KVHandoff] = None        # incoming handoff to consume
     # paged engines
     prefix_hit: int = 0                # prompt tokens attached from cache
     preemptions: int = 0
@@ -199,7 +216,7 @@ class ContinuousBatchingEngine:
                  n_blocks: Optional[int] = None,
                  kv_budget_bytes: Optional[int] = None,
                  spec: Optional[SpecConfig] = None, tp: int = 1,
-                 shared_kv=None,
+                 shared_kv: Optional[SharedKVPool] = None,
                  config: Optional[EngineConfig] = None,
                  device: DeviceLike = None):
         if config is not None:
@@ -210,9 +227,8 @@ class ContinuousBatchingEngine:
             tp = config.tp if tp == 1 else tp
         if tp != 1:
             raise _unported(f"tensor-parallel serving (tp={tp})", 10)
-        if shared_kv is not None:
-            raise _unported("a KV store shared between engines (shared_kv=)",
-                            11)
+        if shared_kv is not None and not paged:
+            raise ValueError("shared_kv requires paged=True")
         if isinstance(model, InferenceSession):
             params, cfg = model.params, model.cfg
             if device is None:
@@ -230,9 +246,6 @@ class ContinuousBatchingEngine:
                 f"max_len {max_len} is below {cfg.name}'s sliding window "
                 f"{cfg.window}: a windowed model's engine needs max_len >= "
                 "window (its ring cache holds window slots)")
-        if cfg.n_frontend_tokens:
-            raise _unported("serving a frontend (vision) model in the engine",
-                            9)
         self.device = resolve_device(device)
         self.params = place_params(params, self.device)
         self.cfg = cfg
@@ -265,8 +278,10 @@ class ContinuousBatchingEngine:
         self._pad_len = max_len + (self._spec_m if spec is not None else 0)
         dev = self.device
         self.positions = torch.zeros((n_slots,), dtype=torch.int64, device=dev)
-        self.last_tokens = torch.zeros((n_slots, 1), dtype=torch.int64,
-                                       device=dev)
+        k = cfg.n_codebooks
+        self.last_tokens = torch.zeros(
+            (n_slots, 1, k) if k > 1 else (n_slots, 1), dtype=torch.int64,
+            device=dev)
         self.active: List[Optional[GenRequest]] = [None] * n_slots
         self._pending: List[Tuple[int, int, GenRequest]] = []  # heap
         self.all_requests: List[GenRequest] = []
@@ -298,6 +313,11 @@ class ContinuousBatchingEngine:
                 raise ValueError(
                     f"paged=True unsupported for {cfg.name}: {why} "
                     "(use the dense compat path)")
+            if shared_kv is not None:
+                # block ids are shared with the peer engines, so the
+                # geometry comes from the store, not these arguments
+                block_size = shared_kv.block_size
+                n_blocks = shared_kv.alloc.n_blocks
             max_blocks = -(-self._pad_len // block_size)
             if n_blocks is None:
                 if kv_budget_bytes is not None:
@@ -309,7 +329,8 @@ class ContinuousBatchingEngine:
                 else:
                     n_blocks = n_slots * max_blocks + 1
             self.kv: Optional[PagedKVCache] = PagedKVCache(
-                cfg, n_slots, n_blocks, block_size, max_blocks, device=dev)
+                cfg, n_slots, n_blocks, block_size, max_blocks,
+                shared=shared_kv, device=dev)
             self.cache = self.kv.pools          # alias: pools ARE the cache
         else:
             self.kv = None
@@ -331,7 +352,9 @@ class ContinuousBatchingEngine:
         paged, the allocator), so measurements start cold. ``prompt_len``
         defaults to the prefill chunk size."""
         s = prompt_len or self.prefill_chunk or 8
-        self.submit(torch.zeros((1, s), dtype=torch.int64), max_new_tokens)
+        k = self.cfg.n_codebooks
+        self.submit(torch.zeros((1, s, k) if k > 1 else (1, s),
+                                dtype=torch.int64), max_new_tokens)
         self.run()
         self.all_requests.clear()
         self.steps = 0
@@ -354,19 +377,24 @@ class ContinuousBatchingEngine:
                eos_id: Union[int, Sequence[int]] = -1,
                sampling: Optional[SamplingParams] = None, priority: int = 0,
                on_token: Optional[Callable] = None) -> GenRequest:
-        """Queue a request (``tokens`` [1, S], any int tensor or array).
+        """Queue a request (``tokens`` [1, S], or [1, S, K] for a K-codebook
+        model; any int tensor or array). ``frontend_embeds`` ([1,
+        n_frontend_tokens, frontend_dim]) condition a frontend model.
         Higher ``priority`` admits first (FIFO within a level). When the
         queue already holds ``max_queue_depth`` requests the submission is
         REJECTED: ``req.status == "rejected"``, never scheduled, counted in
         ``metrics()["rejected"]``."""
-        if frontend_embeds is not None:
-            raise _unported("frontend (vision/audio) requests", 9)
         tokens = torch.as_tensor(tokens).to(device=self.device,
                                             dtype=torch.int64)
-        if tokens.dim() != 2 or tokens.shape[0] != 1:
-            raise ValueError(f"tokens must be [1, S], got {tuple(tokens.shape)}")
-        req = GenRequest(self._next_rid, tokens, max_new_tokens, eos_id,
-                         out_tokens=[],
+        k = self.cfg.n_codebooks
+        if tokens.dim() != (3 if k > 1 else 2) or tokens.shape[0] != 1 \
+                or (k > 1 and tokens.shape[2] != k):
+            raise ValueError(f"tokens must be {'[1, S, K]' if k > 1 else '[1, S]'}"
+                             f" (K = {k}), got {tuple(tokens.shape)}")
+        if frontend_embeds is not None:
+            frontend_embeds = torch.as_tensor(frontend_embeds).to(self.device)
+        req = GenRequest(self._next_rid, tokens, max_new_tokens,
+                         frontend_embeds, eos_id, out_tokens=[],
                          # repro: allow-wallclock -- TTFT/e2e measure real compute
                          submitted_at=time.perf_counter(),
                          sampling=sampling or SamplingParams(),
@@ -380,7 +408,8 @@ class ContinuousBatchingEngine:
         if self.paged:
             # memory-based admission: a request that could NEVER fit the
             # pool (even alone, every cached block evicted) is rejected now
-            total = req.prompt_len + max_new_tokens
+            total = (self.cfg.n_frontend_tokens + req.prompt_len
+                     + max_new_tokens)
             if (total > self.max_len
                     or self.kv.blocks_for_tokens(total) + 1
                     > self.kv.alloc.usable_blocks):
@@ -391,19 +420,97 @@ class ContinuousBatchingEngine:
         heapq.heappush(self._pending, (-priority, req.rid, req))
         return req
 
-    def submit_prefill(self, *args, **kwargs):
-        raise _unported("prefill workers (submit_prefill)", 11)
+    # ---------------------------------------------------------------- #
+    # Disaggregated serving entry points (paged engines on a SharedKVPool)
+    # ---------------------------------------------------------------- #
+    def submit_prefill(self, tokens, sampling: Optional[SamplingParams] = None,
+                       priority: int = 0,
+                       on_token: Optional[Callable] = None) -> GenRequest:
+        """Queue a prompt on a *prefill worker*: the engine computes the
+        prompt's paged KV plus exactly one generated token, then exports
+        the blocks as ``req.kv_handoff`` for a decode worker on the same
+        pool instead of dropping them. Every full prompt block is also
+        hash-registered, so the prefix stays as cache even if the handoff
+        is never consumed."""
+        if not self.paged:
+            raise ValueError("submit_prefill requires a paged engine")
+        if self.spec is not None:
+            raise ValueError("prefill workers do not run speculative decode")
+        if self.cfg.n_frontend_tokens:
+            raise ValueError("frontend-token archs cannot hash prompt blocks")
+        req = self.submit(tokens, max_new_tokens=1, eos_id=-1,
+                          sampling=sampling, priority=priority,
+                          on_token=on_token)
+        if not req.rejected:
+            req.capture_kv = True
+        return req
 
-    def submit_handoff(self, *args, **kwargs):
-        raise _unported("decode workers fed by a KV handoff (submit_handoff)",
-                        11)
+    def submit_handoff(self, handoff: KVHandoff, max_new_tokens: int = 16,
+                       eos_id: Union[int, Sequence[int]] = -1,
+                       sampling: Optional[SamplingParams] = None,
+                       priority: int = 0,
+                       on_token: Optional[Callable] = None) -> GenRequest:
+        """Queue a prefilled request on a *decode worker*: ``handoff`` came
+        from a peer engine's ``submit_prefill`` on the same
+        ``SharedKVPool``, so the prompt's blocks attach to a slot with no
+        recompute and decoding resumes from the token already sampled.
+
+        Ownership: an ACCEPTED request takes the handoff's block references
+        (released when it finishes or is cancelled). A REJECTED submission
+        leaves them with the caller, who re-dispatches the handoff to
+        another worker or releases it."""
+        if not self.paged:
+            raise ValueError("submit_handoff requires a paged engine")
+        if handoff.consumed:
+            raise ValueError("handoff already consumed or released")
+        req = GenRequest(self._next_rid, handoff.tokens, max_new_tokens,
+                         None, eos_id, out_tokens=[],
+                         # repro: allow-wallclock -- TTFT/e2e measure real compute
+                         submitted_at=time.perf_counter(),
+                         sampling=sampling or SamplingParams(),
+                         priority=priority, on_token=on_token)
+        self._next_rid += 1
+        self.all_requests.append(req)
+        if self.max_queue_depth and self.queue_depth >= self.max_queue_depth:
+            req.status = "rejected"
+            self.rejected_total += 1
+            return req
+        total = req.prompt_len + max_new_tokens
+        if (total > self.max_len
+                or self.kv.blocks_for_tokens(total) + 1
+                > self.kv.alloc.usable_blocks
+                # KV pressure: the shared pool cannot give even one block of
+                # decode headroom now, so reject rather than queue work this
+                # worker cannot start (the router re-dispatches)
+                or self.kv.alloc.available() < 1):
+            req.status = "rejected"
+            self.rejected_total += 1
+            return req
+        self.prompt_tokens_submitted += req.prompt_len
+        req._handoff = handoff
+        # the prefill worker sampled the first token: record it here, so
+        # streaming callbacks and the EOS / budget checks see it once
+        self._record(req, handoff.first_token)
+        if req.done:
+            # max_new_tokens == 1 or the first token IS the EOS: nothing to
+            # decode, so consume the handoff without taking a slot
+            req._handoff = None
+            handoff.release(self.kv.alloc)
+            return req
+        heapq.heappush(self._pending, (-priority, req.rid, req))
+        return req
 
     def cancel(self, req: GenRequest) -> bool:
         """Withdraw an unfinished request. Queued entries are marked and
         lazily dropped from the heap; active ones release their slot (and
-        blocks, in paged mode)."""
+        blocks, in paged mode). A queued handoff request also releases the
+        handoff's blocks, which the engine took at submit: otherwise every
+        router-side cancel would leak pool blocks."""
         if req.done or req.status in ("rejected", "cancelled"):
             return False
+        if req._handoff is not None:
+            req._handoff.release(self.kv.alloc)
+            req._handoff = None
         req.status = "cancelled"
         slot = next((i for i, r in enumerate(self.active) if r is req), None)
         if slot is not None:
@@ -430,7 +537,9 @@ class ContinuousBatchingEngine:
 
     def _pad_tokens(self, batch: dict, cfg: ModelConfig, total: int) -> dict:
         """Bucket-pad the token axis to a power of two (capped at the cache
-        length), as the JAX engine does to share compiled prefills."""
+        length), as the JAX engine does to share compiled prefills.
+        ``total`` counts the frontend rows; the padded tokens plus them
+        never exceed the cache (``_pad_len``)."""
         if not bucketed_prefill_ok(cfg):
             return batch
         tb = min(pow2_bucket(total), self._pad_len) - cfg.n_frontend_tokens
@@ -443,12 +552,16 @@ class ContinuousBatchingEngine:
     def _admit_dense(self, slot: int, req: GenRequest) -> None:
         s = req.prompt_len
         chunk = min(self.prefill_chunk, s) if self.prefill_chunk else s
-        batch = self._pad_tokens({"tokens": req.tokens[:, :chunk]}, self.cfg,
-                                 chunk)
+        batch = {"tokens": req.tokens[:, :chunk]}
+        if req.frontend_embeds is not None:
+            # frontend embeds are put in front, so they ride the first chunk
+            batch["frontend_embeds"] = req.frontend_embeds
+        n_valid = chunk + self.cfg.n_frontend_tokens
+        batch = self._pad_tokens(batch, self.cfg, n_valid)
         last, single = prefill(self.params, batch, self.cfg,
-                               pad_to=self._pad_len, n_valid=chunk)
+                               pad_to=self._pad_len, n_valid=n_valid)
         _tree_insert(self.cache, single, slot)
-        self.positions[slot] = chunk
+        self.positions[slot] = n_valid
         req.n_consumed = chunk
         self.prefill_tokens += chunk
         self.prompt_tokens_computed += chunk
@@ -477,34 +590,43 @@ class ContinuousBatchingEngine:
         register the hashes; the sub-block tail rides decode, so a later
         hit replays the cold run's numerics. A *partial* hit whose uncached
         remainder is longer than 2 blocks is demoted to the cold path (one
-        batched prefill, and the longer chain gets registered). Returns
-        False (head stays queued) when the pool cannot supply the blocks;
-        that probe leaves the allocator unchanged."""
+        batched prefill, and the longer chain gets registered). A frontend
+        model hashes nothing (its blocks hold the frontend rows first), and
+        its cold prefill puts them in front of the prompt's chunk. A
+        queued handoff attaches its blocks instead (``_admit_handoff``).
+        Returns False (head stays queued) when the pool cannot supply the
+        blocks; that probe leaves the allocator unchanged."""
         kv = self.kv
         bs = kv.block_size
+        nf = self.cfg.n_frontend_tokens
         req = self._pending[0][2]
+        if req._handoff is not None:
+            return self._admit_handoff(slot, req)
         tokens = req.feed_tokens
         s = tokens.shape[1]
-        if req._block_hashes is None:          # one host sync per admission
-            req._block_hashes = hash_prompt_blocks(tokens[0].tolist(), bs)
-        hashes = req._block_hashes
+        hashing = req.frontend_embeds is None and nf == 0
         n_hit = cached_hits = 0
-        for h in hashes[:(s - 1) // bs]:       # always recompute >= 1 token
-            bid = kv.alloc.peek(h)
-            if bid is None:
-                break
-            n_hit += 1
-            if kv.alloc.refcount(bid) == 0:
-                cached_hits += 1               # revival consumes a cached slot
-        if n_hit and s - n_hit * bs > 2 * bs:
-            n_hit = cached_hits = 0            # long remainder: go cold
+        hashes: List[int] = []
+        if hashing:
+            if req._block_hashes is None:      # one host sync per admission
+                req._block_hashes = hash_prompt_blocks(tokens[0].tolist(), bs)
+            hashes = req._block_hashes
+            for h in hashes[:(s - 1) // bs]:   # always recompute >= 1 token
+                bid = kv.alloc.peek(h)
+                if bid is None:
+                    break
+                n_hit += 1
+                if kv.alloc.refcount(bid) == 0:
+                    cached_hits += 1           # revival consumes a cached slot
+            if n_hit and s - n_hit * bs > 2 * bs:
+                n_hit = cached_hits = 0        # long remainder: go cold
         hit = n_hit * bs
         if hit:
             chunk = 0                          # tail rides decode from `hit`
             cache_tokens = hit
         else:
             chunk = ((s - 1) // bs) * bs or s  # full-block prefix (or tiny)
-            cache_tokens = chunk
+            cache_tokens = nf + chunk
         needed = kv.blocks_for_tokens(cache_tokens) - n_hit
         if kv.alloc.available() - cached_hits < needed + 1:  # +1: decode block
             return False
@@ -520,13 +642,16 @@ class ContinuousBatchingEngine:
             while (len(kv.slot_blocks[slot])
                    < kv.blocks_for_tokens(cache_tokens)):
                 kv.grow(slot)
-            batch = self._pad_tokens({"tokens": tokens[:, :chunk]}, self.cfg,
-                                     cache_tokens)
+            batch = {"tokens": tokens[:, :chunk]}
+            if req.frontend_embeds is not None:
+                batch["frontend_embeds"] = req.frontend_embeds
+            batch = self._pad_tokens(batch, self.cfg, cache_tokens)
             last, _ = prefill_paged(self.params, kv.pools, batch,
                                     cache_tokens, kv.tables[slot:slot + 1],
                                     self.cfg)
-            for i in range(chunk // bs):
-                kv.alloc.register(kv.slot_blocks[slot][i], hashes[i])
+            if hashing:
+                for i in range(chunk // bs):
+                    kv.alloc.register(kv.slot_blocks[slot][i], hashes[i])
             self.prefill_tokens += chunk
             # a resume feed appends generated tokens: only the true prompt
             # portion counts as prompt recompute
@@ -555,9 +680,61 @@ class ContinuousBatchingEngine:
             self._set_last(slot, self._prompt_token(req, req.n_consumed))
         return True
 
+    def _admit_handoff(self, slot: int, req: GenRequest) -> bool:
+        """Admit a prefilled handoff: attach the peer engine's blocks to
+        this slot's table (the handoff's references move over: no
+        recompute, no refcount change) and decode from the first token the
+        prefill worker sampled. One available block of decode headroom is
+        required, so the next ``_ensure_blocks`` cannot preempt the request
+        just admitted."""
+        kv = self.kv
+        if kv.alloc.available() < 1:
+            return False
+        heapq.heappop(self._pending)
+        h = req._handoff
+        req._handoff = None
+        # ownership was taken at submit; a handoff consumed while queued
+        # means a caller submitted it twice: refcounts would be corrupt
+        assert not h.consumed, "handoff consumed while queued"
+        h.consumed = True
+        kv.import_blocks(slot, h.block_ids)
+        self.positions[slot] = h.cache_pos
+        req.cache_pos = h.cache_pos
+        req.n_consumed = req.prompt_len
+        req.prefix_hit += h.cache_pos          # served from the pool, not
+        self.prefix_hit_tokens += h.cache_pos  # recomputed by this engine
+        self.active[slot] = req
+        if self.spec is not None:
+            self._admit_draft(slot, req)
+        req.status = "decode"
+        self._set_last(slot, h.first_token)
+        return True
+
+    def _capture_handoff(self, slot: int, req: GenRequest) -> KVHandoff:
+        """Export a finished prefill request's blocks for a decode worker.
+        Registers every FULL prompt block under the prompt's hash chain
+        (the cold prefill registered only the chain before the tail; the
+        last full block may have been filled by decode ticks), then retains
+        each block so they all outlive this slot's release."""
+        kv = self.kv
+        hashes = (req._block_hashes if req._block_hashes is not None
+                  else hash_prompt_blocks(req.tokens[0].tolist(),
+                                          kv.block_size))
+        for i, h in enumerate(hashes):
+            kv.alloc.register(kv.slot_blocks[slot][i], h)
+        return KVHandoff(tokens=req.tokens, first_token=req.out_tokens[0],
+                         block_ids=kv.export_blocks(slot),
+                         cache_pos=req.cache_pos,
+                         block_hashes=tuple(hashes))
+
     def _release(self, slot: int) -> None:
         """Free a slot whose request finished or was cancelled (its blocks
-        drop in paged mode)."""
+        drop in paged mode; a finished prefill-worker request exports them
+        first)."""
+        req = self.active[slot]
+        if (req is not None and req.capture_kv and req.done and self.paged
+                and req.kv_handoff is None):
+            req.kv_handoff = self._capture_handoff(slot, req)
         self.active[slot] = None
         self.positions[slot] = 0
         if self.paged:
@@ -646,7 +823,10 @@ class ContinuousBatchingEngine:
         return req.feed_tokens[0, i]
 
     def _set_last(self, slot: int, token) -> None:
-        # an int fills in place; a device scalar copies on the device
+        # an int fills in place; a device tensor (a [K] one for codebooks)
+        # copies on the device; a [K] list crosses from the host
+        if isinstance(token, list):
+            token = torch.tensor(token, dtype=torch.int64)
         self.last_tokens[slot, 0] = token
 
     def _record(self, req: GenRequest, token) -> None:
@@ -867,7 +1047,7 @@ class ContinuousBatchingEngine:
             logits, _ = decode_step(self.params, self.cache, self.last_tokens,
                                     self.positions, self.cfg)
         self.positions += 1
-        last = logits[:, -1]                     # [B, V]
+        last = logits[:, -1]                     # [B, V] or [B, K, V]
         # one batched argmax serves every greedy slot, with one host sync
         # per step; only non-greedy requests sample per slot
         greedy = (torch.argmax(last, dim=-1).tolist()

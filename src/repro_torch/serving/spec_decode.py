@@ -91,6 +91,9 @@ def spec_supported(target_cfg: ModelConfig, draft_cfg: ModelConfig, k: int,
         return f"k must be >= 2, got {k}"
     for role, cfg in (("target", target_cfg), ("draft", draft_cfg)):
         why = paged_supported(cfg)
+        if why is None and cfg.arch_type == "vlm":
+            # the JAX paged cache refuses a vlm, and this gate repeats it
+            why = f"arch_type {cfg.arch_type!r} has non-attention caches"
         if why is not None:
             return f"{role} {cfg.name}: {why}"
         if cfg.frontend != "none":

@@ -318,11 +318,9 @@ def test_new_configs_copy_jax(arch):
 
 
 def test_unregistered_archs_name_their_item():
-    # mamba2 and recurrentgemma are served since item 9's recurrent slice;
-    # the audio architecture still names its item
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        t_configs.get_config("musicgen-large")
-    for arch in ("mamba2-780m", "recurrentgemma-9b"):
+    # mamba2 and recurrentgemma are served since item 9's recurrent slice,
+    # musicgen since its last
+    for arch in ("mamba2-780m", "recurrentgemma-9b", "musicgen-large"):
         check_supported(t_configs.get_config(arch))
     with pytest.raises(KeyError, match="unknown architecture"):
         t_configs.get_config("gpt-17")

@@ -462,7 +462,8 @@ def test_sizing_helpers_match_jax():
 
 def test_unported_pools_name_the_roadmap():
     cfg = t_configs.smoke_config("mistral-nemo-12b")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 9"):
+    # codebooks are served (item 9), in the dense cache only, as in JAX
+    with pytest.raises(ValueError, match="multi-codebook"):
         t_kv.init_paged_pools(cfg.with_overrides(n_codebooks=2), 4, 4,
                               device="cpu")
     # the int4 pools are served: packed codes and f16 group scales
@@ -470,8 +471,13 @@ def test_unported_pools_name_the_roadmap():
         cfg.with_overrides(kv_cache_precision="int4"), 4, 4, device="cpu")
     assert [t.dtype for t in int4["layers"][0]] == [
         torch.int8, torch.float16, torch.int8, torch.float16]
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 11"):
-        t_kv.PagedKVCache(cfg, 1, 4, 4, 2, device="cpu",
-                          shared=t_kv.SharedKVPool(cfg, 4, 4, "cpu"))
+    # a shared store (item 11) is served: both caches hold its pools
+    store = t_kv.SharedKVPool(cfg, 4, 4, "cpu")
+    a = t_kv.PagedKVCache(cfg, 1, 4, 4, 2, device="cpu", shared=store)
+    b = t_kv.PagedKVCache(cfg, 1, 4, 4, 2, device="cpu", shared=store)
+    assert a.pools is b.pools is store.pools and a.alloc is b.alloc
+    with pytest.raises(ValueError, match="incompatible"):
+        t_kv.PagedKVCache(cfg.with_overrides(kv_cache_precision="int8"), 1,
+                          4, 4, 2, device="cpu", shared=store)
     assert t_kv.paged_supported(cfg) is None
     assert t_kv.paged_supported(cfg.with_overrides(window=8)) is not None

@@ -474,11 +474,13 @@ def test_engine_below_the_window_is_refused():
 
 
 def test_audio_stays_unported():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        t_configs.get_config("musicgen-large")
-    cfg = t_configs.smoke_config("mistral-nemo-12b")
-    for bad in (cfg.with_overrides(frontend="audio", frontend_dim=8),
-                cfg.with_overrides(n_codebooks=2),
-                cfg.with_overrides(arch_type="audio")):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-            check_supported(bad)
+    # item 9's last slice ported the audio architecture: musicgen loads and
+    # the audio / codebook branches pass the port's checks
+    cfg = t_configs.get_config("musicgen-large")
+    assert (cfg.arch_type, cfg.n_codebooks) == ("audio", 4)
+    check_supported(cfg)
+    base = t_configs.smoke_config("mistral-nemo-12b")
+    for ok in (base.with_overrides(frontend="audio", frontend_dim=8),
+               base.with_overrides(n_codebooks=2),
+               base.with_overrides(arch_type="audio")):
+        check_supported(ok)

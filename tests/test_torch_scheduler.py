@@ -330,18 +330,18 @@ def test_unported_options_name_the_roadmap(nemo):
     _, tp = nemo.params["fp32"]
     cfg = nemo.tcfg
     for kw, item in (({"tp": 2}, "item 10"),
-                     ({"config": EngineConfig(tp=2)}, "item 10"),
-                     ({"shared_kv": object(), "paged": True}, "item 11")):
+                     ({"config": EngineConfig(tp=2)}, "item 10")):
         with pytest.raises(NotImplementedError, match=f"ROADMAP .*{item}"):
             ContinuousBatchingEngine(tp, cfg, device="cpu", **kw)
+    # item 11 is served: prefill / decode workers on a paged engine's store
+    with pytest.raises(ValueError, match="shared_kv requires paged"):
+        ContinuousBatchingEngine(tp, cfg, device="cpu",
+                                 shared_kv=object())
     engine = ContinuousBatchingEngine(tp, cfg, n_slots=1, max_len=32,
                                       paged=True, block_size=8, device="cpu")
-    for call in (lambda: engine.submit_prefill(torch.zeros((1, 4))),
-                 lambda: engine.submit_handoff(None),
-                 lambda: engine.submit(torch.zeros((1, 4)),
-                                       frontend_embeds=torch.zeros(1))):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call()
+    req = engine.submit_prefill(torch.zeros((1, 4)))
+    engine.run()
+    assert req.done and req.kv_handoff.block_ids
     with pytest.raises(ValueError, match="backend"):
         ContinuousBatchingEngine(tp, cfg, device="cpu",
                                  config=EngineConfig(backend="ref"))

@@ -1,10 +1,10 @@
 """The architecture sweep on the CPU: the port's twin of
 ``tests/test_smoke_archs.py`` / ``scripts/smoke_all.py``. Every smoke
 config of the JAX package, in f32 on bridged weights: the port's forward,
-prefill and decode logits held to JAX's for the nine architectures the port
-serves (dense GQA, phi-3-vision's frontend, MLA + MoE, GQA + MoE, Mamba2's
-SSD and the RG-LRU hybrid); the audio architecture (musicgen) still names
-ROADMAP Queue 1 item 9."""
+prefill and decode logits held to JAX's for all ten architectures (dense
+GQA, phi-3-vision's frontend, MLA + MoE, GQA + MoE, Mamba2's SSD, the
+RG-LRU hybrid and musicgen's conditioning frames with its codebook
+tokens ``[B, S, K]`` and logits ``[B, S, K, V]``)."""
 import numpy as np
 import pytest
 
@@ -26,7 +26,7 @@ from repro_torch.models import forward as t_forward  # noqa: E402
 from repro_torch.models import prefill as t_prefill  # noqa: E402
 
 ARCHS = sorted(j_configs.all_arch_ids())
-UNPORTED = {"musicgen-large"}
+UNPORTED = set()
 SEQ, STEPS = 20, 3
 ATOL = 1e-4
 
@@ -34,21 +34,22 @@ ATOL = 1e-4
 def test_the_sweep_covers_every_arch():
     assert len(ARCHS) == 10
     assert set(ARCHS) - set(t_configs.CLI_ALIASES) == UNPORTED
-    assert t_configs.UNPORTED == frozenset({"musicgen_large"})
+    assert t_configs.UNPORTED == frozenset()
+
+
+def _tokens(rng, cfg, b, s):
+    k = cfg.n_codebooks
+    return rng.integers(0, cfg.vocab_size, (b, s, k) if k > 1 else (b, s))
 
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_forward_prefill_decode_match_jax(arch):
-    if arch in UNPORTED:
-        with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-            t_configs.smoke_config(arch)
-        return
     jcfg = j_configs.smoke_config(arch).with_overrides(dtype="float32")
     tcfg = t_configs.smoke_config(arch).with_overrides(dtype="float32")
     jp = j_init(jax.random.PRNGKey(0), jcfg)
     tp = params_from_jax(jax.tree.map(np.asarray, jp), tcfg, "cpu")
     rng = np.random.default_rng(len(arch))
-    batch = {"tokens": rng.integers(0, jcfg.vocab_size, (2, SEQ))}
+    batch = {"tokens": _tokens(rng, jcfg, 2, SEQ)}
     if jcfg.frontend != "none":
         batch["frontend_embeds"] = rng.standard_normal(
             (2, jcfg.n_frontend_tokens, jcfg.frontend_dim)).astype(np.float32)
@@ -56,7 +57,9 @@ def test_forward_prefill_decode_match_jax(arch):
     tb = {k: torch.as_tensor(v) for k, v in batch.items()}
     jl, ja = j_forward(jp, jb, jcfg)
     tl, ta = t_forward(tp, tb, tcfg)
-    assert tl.shape == (2, SEQ + jcfg.n_frontend_tokens, jcfg.vocab_size)
+    cb = (jcfg.n_codebooks,) if jcfg.n_codebooks > 1 else ()
+    assert tl.shape == (2, SEQ + jcfg.n_frontend_tokens, *cb,
+                        jcfg.vocab_size)
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=ATOL, rtol=0)
     for key in ja:
         np.testing.assert_allclose(float(ta[key]), float(ja[key]), atol=ATOL,
@@ -66,7 +69,7 @@ def test_forward_prefill_decode_match_jax(arch):
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=ATOL, rtol=0)
     pos = SEQ + jcfg.n_frontend_tokens
     for step in range(STEPS):
-        nxt = rng.integers(0, jcfg.vocab_size, (2, 1))
+        nxt = _tokens(rng, jcfg, 2, 1)
         jl, jc = j_decode(jp, jc, jnp.asarray(nxt), pos + step, jcfg)
         tl, tc = t_decode(tp, tc, torch.as_tensor(nxt), pos + step, tcfg)
         assert torch.isfinite(tl).all()

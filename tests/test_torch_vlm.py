@@ -91,14 +91,17 @@ def test_config_and_bridge_carry_the_frontend(vlm):
     assert (full.n_layers, full.d_model, full.n_heads, full.d_ff,
             full.vocab_size, full.frontend_dim, full.n_frontend_tokens) == (
         32, 3072, 32, 8192, 32064, 1024, 576)
-    for bad, err in ((cfg.with_overrides(frontend="audio"),
-                      NotImplementedError),
-                     (cfg.with_overrides(n_codebooks=4), NotImplementedError),
+    for bad, err in ((cfg.with_overrides(frontend="audio"), ValueError),
                      (cfg.with_overrides(frontend_dim=0), ValueError)):
         with pytest.raises(err):
             check_supported(bad)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 9"):
-        ContinuousBatchingEngine(vlm.tp, cfg, device="cpu")
+    # frontend requests are served by the engine (item 9's last slice)
+    engine = ContinuousBatchingEngine(vlm.tp, cfg, n_slots=1, max_len=32,
+                                      device="cpu")
+    req = engine.submit(vlm.tbatches[0]["tokens"][:1, :2], 3,
+                        frontend_embeds=vlm.tbatches[0]["frontend_embeds"][:1])
+    engine.run()
+    assert req.done and len(req.out_tokens) == 3
 
 
 def test_forward_logits_with_frontend_match_jax(vlm):
