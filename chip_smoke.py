@@ -120,11 +120,11 @@ prints one JSON line per phase:
    CPU at 2 layers; ``fraction_dropped``, peak memory and the flash
    launches per width class (every MLA prefill in the 192 / 128 class,
    every bf16 one on its wgmma body);
-14. recurrent: mamba2-780m (48 SSD layers, tied embeddings) in bf16 and as
-   dynamic int8, and recurrentgemma-9b (38 layers: 12 (rec, rec, attn)
-   groups and 2 recurrent tail layers, MQA 16 x 256 over a 2048-slot ring)
-   in bf16 and as dynamic int8 over fp, int8 and int4 KV caches, at
-   published width and full depth: the queue, the dense engine over an
+14. recurrent: mamba2-780m (24 of its 48 SSD layers, tied embeddings) in
+   bf16 and as dynamic int8, and recurrentgemma-9b (20 of its 38 layers: 6
+   (rec, rec, attn) groups and 2 recurrent tail layers, MQA 16 x 256 over a
+   2048-slot ring) in bf16 and as dynamic int8 over fp, int8 and int4 KV
+   caches, at published width (REC_LAYERS): the queue, the dense engine over an
    8-request trace (an 8-slot decode step profiled; every int8-KV decode
    through ``qdecode``'s wide class, its tensor-core body
    ``qdecode_wide_tc``), a 300-token mamba2 prompt on the
@@ -132,8 +132,8 @@ prints one JSON line per phase:
    ring, paged and speculative engines refused, and card against CPU at
    4 layers (the hybrid's one group and one tail layer) within 2.5x the
    CPU's one-rounding nudge;
-15. musicgen: musicgen-large at published width and depth (48 layers, 4
-   codebooks, 64 conditioning frames a request) in bf16 and as dynamic
+15. musicgen: musicgen-large at published width and MUSIC_LAYERS of its 48
+   layers (4 codebooks, 64 conditioning frames a request) in bf16 and as dynamic
    int8 over the fp and the int8 KV cache: the queue (``generate`` of [1,
    S, 4] prompts), the dense engine over an 8-request trace (an 8-slot
    decode step profiled), paged and speculative engines refused, and card
@@ -148,10 +148,20 @@ prints one JSON line per phase:
    wall time per tick, 0 prompt tokens recomputed, streams equal or parted
    at a tie, 4 busy router ticks profiled; then one handoff per KV tier
    (bf16, int8, int4) held to one engine;
-18. held_shapes: every flash-prefill, qdecode, paged-decode (fp, int8,
+18. tp: tensor-parallel serving, mistral-nemo-12b at published width
+   (TP_LAYERS of its 40 layers) in bf16, a tp=1 and a tp=2 engine with
+   both shards on the one card, dense and paged over the fp, int8 and
+   int4 KV caches, an 8-request trace: tp=2 streams equal tp=1's or part
+   at a tie (``_partings``), each per-shard kernel launched tp x the tp=1
+   count (the per-shard shapes Hq 16, Hkv 4, hd 128), the psum combine's
+   logits within 2.5x the one-rounding nudge of the exact combine's, an
+   8-slot paged step profiled at each tp, per-shard KV bytes and the peak
+   memory; then deepseek-v2's MLA attention (no experts) at 2 layers,
+   ``flash_mla`` at 64 heads a shard, tp=2 streams against tp=1;
+19. held_shapes: every flash-prefill, qdecode, paged-decode (fp, int8,
    int4) and int8-GEMM shape the main paths gave a kernel, held against
    the plain version;
-19. a ``kernels`` line (flash_prefill with its launches per width
+20. a ``kernels`` line (flash_prefill with its launches per width
    class, qdecode with its wide class), the ``nvidia-smi`` line, and last
    the device line.
 
@@ -324,9 +334,10 @@ HEADLINE_QW = (3072, 16384, torch.bfloat16)
 # the VQI phases: phi-3-vision-4.2b at its published width; 16 captures
 # served in batches of 8; static calibration on 2 VQI batches of 8
 VLM = "phi-3-vision-4.2b"
-# the VQI phase serves 16 of its 32 layers: the per-image work halves, and
-# the registry writes and reads of each variant (~3.4 s a GB, twice) with it
-VQI_LAYERS = 16
+# the VQI phase serves 8 of its 32 layers: the per-image work and the
+# registry writes and reads of each variant (~3.4 s a GB, twice) shrink
+# with the depth, which the run's time limit needs
+VQI_LAYERS = 8
 VQI_CAPTURES, VQI_BATCH = 16, 8
 # the lifecycle through the registry runs 2 of the 32 layers in float32:
 # one fp32 artifact of the full model is 15.3 GB on disk, written per
@@ -375,7 +386,9 @@ SPEC_K = 3
 MOE_DEPTH = {"deepseek-v2-236b": 4, "kimi-k2-1t-a32b": 2}
 MOE_TRACE_N, MOE_PROMPT, MOE_NEW = 8, (32, 128), 16
 MOE_ROUTE_DEPTH, MOE_ROUTE_PROMPT, MOE_ROUTE_STEPS = 2, 32, 4
-# the recurrent models at published width and full depth: a trace of 8
+# the recurrent models at published width and REC_LAYERS (about half of
+# their 48 / 38 layers: the run's time limit; recurrentgemma keeps 6
+# (rec, rec, attn) groups and its 2 tail layers): a trace of 8
 # requests (prompts of 32-128 tokens, 16 new each) on 8 dense-engine slots
 # of REC_ENGINE_LEN tokens, or of the window where that is longer
 # (recurrentgemma's engine must hold its 2048-slot ring); mamba2's 300-token prompt takes the sequential SSD path
@@ -383,20 +396,23 @@ MOE_ROUTE_DEPTH, MOE_ROUTE_PROMPT, MOE_ROUTE_STEPS = 2, 32, 4
 # ring in the prefill, its 8 decode steps wrap it again; card against CPU
 # at REC_CPU_DEPTH layers in f32 (the hybrid: one group and one tail layer)
 REC_ARCHS = ("mamba2-780m", "recurrentgemma-9b")
+REC_LAYERS = {"mamba2-780m": 24, "recurrentgemma-9b": 20}
 REC_TRACE_N, REC_PROMPT, REC_NEW = 8, (32, 128), 16
 REC_ENGINE_LEN = 512
 REC_SEQ_PROMPT, REC_RING_PROMPT, REC_RING_NEW = 300, 2100, 8
 REC_CPU_DEPTH, REC_CPU_PROMPT = 4, 48
-# the spec phase's target and drafts at 12 of stablelm-1.6b's 24 layers:
+# the spec phase's target and drafts at 8 of stablelm-1.6b's 24 layers:
 # the counting and parting checks do not depend on depth, and the run
-# stays inside its time limit with the recurrent phase
-SPEC_LAYERS = 12
-# musicgen-large at published width and depth (48 layers, 4 codebooks of
-# 2048, 64 conditioning frames of 1024 a request): the queue, the dense
+# stays inside its time limit with the later phases
+SPEC_LAYERS = 8
+# musicgen-large at published width and MUSIC_LAYERS of its 48 layers (the
+# run's time limit; 4 codebooks of 2048, 64 conditioning frames of 1024 a
+# request): the queue, the dense
 # engine (8 slots of MUSIC_ENGINE_LEN) over a trace of 8 requests of
 # 32-128 tokens x 16 new; card against CPU at MUSIC_CPU_DEPTH layers in
 # f32 (one prompt of MUSIC_CPU_PROMPT tokens x 4 codebooks)
 MUSIC = "musicgen-large"
+MUSIC_LAYERS = 24
 MUSIC_TRACE_N, MUSIC_PROMPT, MUSIC_NEW = 8, (32, 128), 16
 MUSIC_ENGINE_LEN = 512
 MUSIC_CPU_DEPTH, MUSIC_CPU_PROMPT = 4, 32
@@ -415,6 +431,18 @@ FRONTEND_LEN = 768
 ROUTER_TRACE_N, ROUTER_PROMPT, ROUTER_NEW = 24, (32, 255), (16, 32)
 ROUTER_SLOTS = 4
 ROUTER_HANDOFF_BLOCKS = 64
+# tensor-parallel serving: mistral-nemo-12b at published width and
+# TP_LAYERS of its 40 layers in bf16 (24.5 GB at full depth, the tp=2
+# shards' column slices 14.3 GB more), engines of 8 slots of TP_LEN over
+# a trace of 8 requests of 32-128 tokens x 16 new; deepseek-v2's MLA
+# attention (n_experts=0, as the JAX package's TP tests take it) at
+# TP_MLA_LAYERS. At 40 layers the phase takes ~300 s, more than this
+# run has left of its time: scripts/tp_probe.py runs it at the published
+# depth, TP_PUBLISHED_LAYERS
+TP_MODEL, TP_MLA_MODEL = "mistral-nemo-12b", "deepseek-v2-236b"
+TP_LAYERS, TP_MLA_LAYERS, TP_PUBLISHED_LAYERS = 8, 2, 40
+TP_TRACE_N, TP_PROMPT, TP_NEW = 8, (32, 128), 16
+TP_LEN = 256
 
 
 T0 = time.perf_counter()
@@ -4091,7 +4119,7 @@ def rec_card_vs_cpu(dev):
 
 
 def recurrent_phase(k, dev):
-    """mamba2-780m and recurrentgemma-9b at published width and full depth
+    """mamba2-780m and recurrentgemma-9b at published width and REC_LAYERS
     in bf16, random seeded weights. mamba2: bf16 and its dynamic-int8
     artifact through ``rec_serve``, a REC_SEQ_PROMPT-token ``generate`` on
     the sequential SSD path (every layer); recurrentgemma: bf16 through
@@ -4109,7 +4137,8 @@ def recurrent_phase(k, dev):
 
     totals = {}
     for arch in REC_ARCHS:
-        cfg = configs.get_config(arch)
+        cfg = configs.get_config(arch).with_overrides(
+            n_layers=REC_LAYERS[arch])
         dtype = getattr(torch, cfg.dtype)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
@@ -4407,8 +4436,9 @@ def music_card_vs_cpu(dev):
 
 
 def musicgen_phase(k, dev):
-    """musicgen-large at published width and depth (48 layers, 4 codebooks
-    of 2048, 64 conditioning frames of 1024 a request) in bf16, random
+    """musicgen-large at published width and MUSIC_LAYERS of its 48 layers
+    (4 codebooks of 2048, 64 conditioning frames of 1024 a request) in
+    bf16, random
     seeded weights, through ``music_serve``; paged and speculative engines
     refused; then (the bf16 weights freed) its dynamic-int8 artifact over
     the fp and the int8 KV cache through ``music_serve``; then
@@ -4420,7 +4450,7 @@ def musicgen_phase(k, dev):
     from repro_torch.serving import InferenceSession
     from repro_torch.tree import leaves_with_path
 
-    cfg = configs.get_config(MUSIC)
+    cfg = configs.get_config(MUSIC).with_overrides(n_layers=MUSIC_LAYERS)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
@@ -4726,7 +4756,255 @@ def router_phase(k, dev):
 
 
 # ------------------------------------------------------------------ #
-# Phase 18: every shape the main paths gave a kernel, against plain
+# Phase 18: tensor-parallel serving
+# ------------------------------------------------------------------ #
+#: the kernels a shard launches on its own head slice: a tp=2 engine
+#: launches each of them twice for every launch of the tp=1 engine
+TP_KERNELS = ("flash_prefill", "flash_qprefill", "flash_q4prefill",
+              "qdecode", "paged_decode", "paged_qdecode", "paged_q4decode")
+#: each tier's prefill kernel and its decode kernel, dense and paged (the
+#: dense fp and int4 decodes are plain, as in the JAX package)
+TP_TIER_KERNELS = {"fp": ("flash_prefill", None, "paged_decode"),
+                   "int8": ("flash_qprefill", "qdecode", "paged_qdecode"),
+                   "int4": ("flash_q4prefill", None, "paged_q4decode")}
+
+
+def tp_serve(k, params, cfg, trace, tp, paged, combine="exact"):
+    """``trace`` replayed by an engine of 8 slots of TP_LEN whose ``tp``
+    shards share the card, counted. Returns (metrics, requests, serve ms,
+    launches, the engine)."""
+    from repro_torch.serving import ContinuousBatchingEngine
+
+    kw = {"paged": True, "block_size": 16} if paged else {}
+    engine = ContinuousBatchingEngine(params, cfg, n_slots=ENGINE["n_slots"],
+                                      max_len=TP_LEN, tp=tp,
+                                      tp_combine=combine, **kw)
+    engine.warmup(prompt_len=16, max_new_tokens=2)
+    torch.cuda.synchronize()
+    where = (f"{cfg.name}/tp{tp}/{combine}/{cfg.kv_precision}/"
+             f"{'paged' if paged else 'dense'}")
+    (report, reqs), serve_ms, launches = _counted(
+        k, cfg.activation_dtype, where,
+        lambda: frontend_replay(engine, trace, [None] * len(trace.requests)))
+    _check_streams(where, reqs, TP_NEW, cfg)
+    return report, reqs, serve_ms, launches, engine
+
+
+def tp_counts(where, nl, tier, paged, runs):
+    """tp=1 launches each kernel of its tier once a layer a prefill (and a
+    step, for its decode kernel), tp=2 twice that, on the same prefills
+    and steps; no other kernel of TP_KERNELS launches."""
+    prefill_k, dense_k, paged_k = TP_TIER_KERNELS[tier]
+    decode_k = paged_k if paged else dense_k
+    r1, r2 = runs[1], runs[2]
+    if (r1["prefills"], r1["steps"]) != (r2["prefills"], r2["steps"]):
+        raise AssertionError(f"{where}: prefills / steps {r1['prefills']} / "
+                             f"{r1['steps']} at tp=1, {r2['prefills']} / "
+                             f"{r2['steps']} at tp=2")
+    for tp, r in runs.items():
+        want = {name: 0 for name in TP_KERNELS}
+        want[prefill_k] = tp * nl * r["prefills"]
+        if decode_k is not None:
+            want[decode_k] = tp * nl * r["steps"]
+        got = {name: r["launches"][name] for name in TP_KERNELS}
+        if got != want:
+            raise AssertionError(f"{where}: tp={tp} launches {got}, want "
+                                 f"{want}")
+
+
+def tp_phase(k, dev, seen, layers=TP_LAYERS):
+    """mistral-nemo-12b at published width (``layers`` of 40) in bf16
+    on random seeded weights: the trace replayed by a tp=1 and a tp=2
+    engine (both shards on the card), dense and paged, over the fp, int8
+    and int4 KV caches. tp=2 streams equal tp=1's or part at a tie
+    (``_partings``: the tp=2 stream teacher-forced through the tp=1 dense
+    path, within one rounding's nudge); each per-shard kernel launches 2x
+    the tp=1 count (``tp_counts``); a psum-combine engine over the fp pool
+    likewise, its prefill logits within 2.5x the nudge of the exact
+    combine's; an 8-slot paged step profiled at each tp. Then deepseek-v2's
+    MLA attention with no experts at TP_MLA_LAYERS: ``flash_mla`` at 64
+    heads a shard, 2x the tp=1 launches, streams held the same way. The
+    per-shard shapes (Hq 16, Hkv 4, hd 128; MLA's 64 heads) must be among
+    those ``recording_shapes`` gathered. Returns (the launch totals, the
+    totals by tp)."""
+    from repro_torch import configs
+    from repro_torch.models import init_params
+    from repro_torch.serving import ArrivalTrace
+
+    base = configs.get_config(TP_MODEL).with_overrides(n_layers=layers)
+    nl = base.n_layers
+    params = init_params(base, seed=SEED)
+    trace = ArrivalTrace.generate(base, TP_TRACE_N, seed=SEED + 90,
+                                  mean_interarrival=TRACE_GAP,
+                                  prompt_len=TP_PROMPT,
+                                  max_new=(TP_NEW, TP_NEW))
+    prompt = {"tokens": trace.requests[0].tokens.to(dev)}
+    totals, by_tp = {}, {1: {}, 2: {}}
+    fp_paged = {}
+
+    def serve(cfg, tp, paged, combine="exact"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        report, reqs, serve_ms, launches, engine = tp_serve(
+            k, params, cfg, trace, tp, paged, combine)
+        steps = report["decode_steps"]
+        run = {"launches": launches, "steps": steps,
+               "prefills": len(reqs) + report["preempted"],
+               "streams": [r.out_tokens for r in reqs]}
+        emit("tp", model=cfg.name, dtype=cfg.dtype, layers=nl,
+             published_layers=TP_PUBLISHED_LAYERS, tp=tp, combine=combine,
+             kv=cfg.kv_precision, mode="paged" if paged else "dense",
+             requests=len(reqs), prompt_lens=[r.prompt_len for r in reqs],
+             generated_tokens=report["generated_tokens"], serve_ms=serve_ms,
+             tokens_per_s=report["generated_tokens"] / serve_ms * 1e3,
+             host_ms_per_step=serve_ms / steps, decode_steps=steps,
+             p50_ttft_s=report["p50_ttft_s"], p99_ttft_s=report["p99_ttft_s"],
+             preempted=report["preempted"],
+             kv_hbm_bytes_per_req=report["kv_hbm_bytes_per_req"],
+             kv_hbm_bytes_per_req_per_shard=report[
+                 "kv_hbm_bytes_per_req_per_shard"],
+             launches=launches,
+             peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
+        _merge(totals, launches)
+        _merge(by_tp[tp], launches)
+        return run, engine
+
+    for tier in ("fp", "int8", "int4"):
+        cfg = base.with_overrides(kv_cache_precision=tier)
+        memo = {}
+        for paged in (False, True):
+            mode = "paged" if paged else "dense"
+            runs = {}
+            for tp in (1, 2):
+                runs[tp], engine = serve(cfg, tp, paged)
+                if tier == "fp" and paged:
+                    # the profiled step, and at tp=2 the exact logits
+                    per_step, step_ms, dtrace = decode_window(
+                        k, engine, cfg, torch.Generator().manual_seed(
+                            SEED + 91), "paged_decode_split", tp * nl)
+                    if per_step["paged_decode"] != tp * nl:
+                        raise AssertionError(f"tp={tp} step: paged_decode "
+                                             f"{per_step['paged_decode']}")
+                    emit("tp_profile", model=cfg.name, layers=nl, tp=tp,
+                         kv=tier, mode=mode, decode_step_ms_8_slots=step_ms,
+                         launches_per_decode_step=per_step,
+                         decode_trace=dtrace)
+                    if tp == 2:
+                        with torch.no_grad():
+                            fp_paged["exact"] = engine._tp_ctx.prefill_logits(
+                                engine.params, prompt).cpu()
+                del engine
+                torch.cuda.empty_cache()
+            where = f"{cfg.name}/tp/{tier}/{mode}"
+            tp_counts(where, nl, tier, paged, runs)
+            parted = _partings(params, cfg, trace, runs[1]["streams"],
+                               runs[2]["streams"], dev, memo)
+            emit("tp_agreement", model=cfg.name, layers=nl, kv=tier,
+                 mode=mode, tp2_equals_tp1_streams=len(trace.requests)
+                 - len(parted), of=len(trace.requests), partings=parted)
+            if not all(p["ok"] for p in parted):
+                raise AssertionError(f"{where}: tp=2 streams part from tp=1 "
+                                     f"beyond a tie: {parted}")
+            if tier == "fp" and paged:
+                fp_paged["tp1"] = runs[1]
+    # the psum combine (row-parallel wo, an all-reduce) over the fp pool
+    cfg = base.with_overrides(kv_cache_precision="fp")
+    run, engine = serve(cfg, 2, True, combine="psum")
+    with torch.no_grad():
+        psum_logits = engine._tp_ctx.prefill_logits(engine.params,
+                                                    prompt).cpu()
+    del engine
+    torch.cuda.empty_cache()
+    tp_counts(f"{cfg.name}/tp/psum", nl, "fp", True,
+              {1: fp_paged["tp1"], 2: run})
+    parted = _partings(params, cfg, trace, fp_paged["tp1"]["streams"],
+                       run["streams"], dev, {})
+    plain, _ = teacher_forced(params, cfg, prompt["tokens"], dev, False,
+                              n_steps=0)
+    with nudged_norms():
+        nudged, _ = teacher_forced(params, cfg, prompt["tokens"], dev, False,
+                                   n_steps=0)
+    nudge = float((nudged[0] - plain[0]).abs().max())
+    psum_err = float((psum_logits - fp_paged["exact"]).abs().max())
+    emit("tp_psum", model=cfg.name, layers=nl, kv="fp", mode="paged",
+         psum_vs_exact_logits_max_abs=psum_err, nudge=nudge,
+         bound=2.5 * nudge, exact_vs_tp1_logits_max_abs=float(
+             (fp_paged["exact"] - plain[0]).abs().max()),
+         tp2_equals_tp1_streams=len(trace.requests) - len(parted),
+         of=len(trace.requests), partings=parted)
+    if psum_err > 2.5 * nudge or not all(p["ok"] for p in parted):
+        raise AssertionError(f"psum: logits {psum_err} from exact (bound "
+                             f"{2.5 * nudge}), partings {parted}")
+    del params
+    torch.cuda.empty_cache()
+    # MLA: deepseek-v2's attention, its experts off
+    mcfg = configs.get_config(TP_MLA_MODEL).with_overrides(
+        n_layers=TP_MLA_LAYERS, n_experts=0)
+    mparams = init_params(mcfg, seed=SEED + 92)
+    mtrace = ArrivalTrace.generate(mcfg, TP_TRACE_N, seed=SEED + 93,
+                                   mean_interarrival=TRACE_GAP,
+                                   prompt_len=TP_PROMPT,
+                                   max_new=(TP_NEW, TP_NEW))
+    memo = {}
+    for paged in (False, True):
+        runs = {}
+        for tp in (1, 2):
+            report, reqs, serve_ms, launches, engine = tp_serve(
+                k, mparams, mcfg, mtrace, tp, paged)
+            del engine
+            torch.cuda.empty_cache()
+            prefills = len(reqs) + report["preempted"]
+            runs[tp] = [r.out_tokens for r in reqs]
+            want = tp * TP_MLA_LAYERS * prefills
+            mla = (launches["flash_prefill"],
+                   launches["flash_prefill.class.192x128"],
+                   launches[f"flash_prefill.{k.flash_prefill.MLA_BODY}"])
+            if mla != (want, want, want):
+                raise AssertionError(f"MLA tp={tp}: flash_prefill / 192x128 "
+                                     f"/ {k.flash_prefill.MLA_BODY} {mla}, "
+                                     f"want {want}")
+            emit("tp_mla", model=mcfg.name, layers=TP_MLA_LAYERS,
+                 published_layers=60, n_experts=0, tp=tp,
+                 mode="paged" if paged else "dense", requests=len(reqs),
+                 serve_ms=serve_ms, decode_steps=report["decode_steps"],
+                 tokens_per_s=report["generated_tokens"] / serve_ms * 1e3,
+                 kv_hbm_bytes_per_req=report["kv_hbm_bytes_per_req"],
+                 kv_hbm_bytes_per_req_per_shard=report[
+                     "kv_hbm_bytes_per_req_per_shard"], launches=launches)
+            _merge(totals, launches)
+            _merge(by_tp[tp], launches)
+        parted = _partings(mparams, mcfg, mtrace, runs[1], runs[2], dev, memo)
+        emit("tp_mla_agreement", model=mcfg.name,
+             mode="paged" if paged else "dense",
+             tp2_equals_tp1_streams=len(mtrace.requests) - len(parted),
+             of=len(mtrace.requests), partings=parted)
+        if not all(p["ok"] for p in parted):
+            raise AssertionError(f"MLA tp=2 streams part from tp=1 beyond a "
+                                 f"tie: {parted}")
+    del mparams
+    torch.cuda.empty_cache()
+    # the per-shard shapes the kernels were given
+    shard = {
+        "flash_prefill": any(key[2:5] == (16, 4, 128)
+                             for key in seen.get("flash_prefill", ())),
+        "flash_prefill_mla": any(key[2:6] == (64, 64, 192, 128)
+                                 for key in seen.get("flash_prefill", ())),
+        "flash_qprefill": any(key[2:5] == (16, 4, 128)
+                              for key in seen.get("flash_qprefill", ())),
+        "flash_q4prefill": any(key[2:5] == (16, 4, 128)
+                               for key in seen.get("flash_q4prefill", ())),
+        "qdecode": any(key[2:5] == (4, 4, 128)
+                       for key in seen.get("qdecode", ())),
+        **{name: any(key[1:4] == (4, 4, 128) for key in seen.get(name, ()))
+           for name in ("paged_decode", "paged_qdecode", "paged_q4decode")}}
+    emit("tp_shapes", per_shard_shapes_recorded=shard)
+    if not all(shard.values()):
+        raise AssertionError(f"per-shard shapes not recorded: {shard}")
+    return totals, by_tp
+
+
+# ------------------------------------------------------------------ #
+# Phase 19: every shape the main paths gave a kernel, against plain
 # ------------------------------------------------------------------ #
 def _flash_key(q, k, dv):
     # (B, S, Hq, Hkv, hd, dv, dtype), as FLASH_SHAPES
@@ -5038,13 +5316,15 @@ def main() -> int:
         # the MoE and MLA models at published width (the flash prefill's
         # 192 / 128 class)
         _merge(totals, moe_mla_phase(k, dev))
-        # the recurrent models at published width and depth (qdecode's
-        # wide class)
+        # the recurrent models at published width (qdecode's wide class)
         _merge(totals, recurrent_phase(k, dev))
         # the last architecture (musicgen's codebooks), frontend requests
         # in the engines, then the router over prefill and decode workers
         for phase in (musicgen_phase, frontend_phase, router_phase):
             _merge(totals, phase(k, dev))
+        # tensor-parallel serving: two shards on the card
+        tp_totals, tp_by = tp_phase(k, dev, seen)
+        _merge(totals, tp_totals)
     held_shapes_phase(k, dev, seen)
 
     sources = {"flash_prefill": ("src/repro_torch/csrc/flash_prefill.cu",
@@ -5080,7 +5360,9 @@ def main() -> int:
                         "eager_ms": h["eager_ms"],
                         "plain_ms": h["plain_ms"], "bound_ms": h["bound_ms"],
                         "bound_by": h["bound_by"],
-                        "library_ms": h["library_ms"], "shape": shape})
+                        "library_ms": h["library_ms"], "shape": shape,
+                        "launches_tp": {f"tp{tp}": tp_by[tp].get(name, 0)
+                                        for tp in (1, 2)}})
         if name in _flash(k):
             kernels[-1]["body"] = h["body"]
             kernels[-1]["launches_by_body"] = {

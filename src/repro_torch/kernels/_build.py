@@ -97,8 +97,9 @@ def function(lib_name: str, fn_name: str, argtypes) -> ctypes._CFuncPtr:
     as ``c_void_p`` so 64-bit addresses are never cut)."""
     fn = getattr(library(lib_name), fn_name)
     if fn.argtypes is None:
-        fn.argtypes = list(argtypes)
+        # restype first: a shard thread that sees argtypes set sees both
         fn.restype = I
+        fn.argtypes = list(argtypes)
     return fn
 
 
@@ -118,6 +119,20 @@ def refuse_grad(what: str, *tensors) -> None:
         raise RuntimeError(f"{what}: the CUDA kernel has no backward; call "
                            "it under torch.no_grad() or on inputs that "
                            "require no grad")
+
+
+_COUNT_LOCK = threading.Lock()
+
+
+def count(fn, **by) -> None:
+    """One launch of ``fn``'s kernel: ``fn.launches += 1`` and, for each
+    ``attr=key``, ``fn.<attr>[key] += 1``, under one lock, so the counts
+    stay exact when threads launch at once. A ``ShardGroup``'s shards take
+    turns and never do; the lock is for callers outside one."""
+    with _COUNT_LOCK:
+        fn.launches += 1
+        for attr, key in by.items():
+            getattr(fn, attr)[key] += 1
 
 
 def stream_of(t: torch.Tensor) -> int:

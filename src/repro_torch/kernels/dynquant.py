@@ -44,8 +44,7 @@ def qmatmul_dynamic_packed(x, w_packed, w_scale, *, out_dtype=torch.float32):
         raise ValueError(f"no qmatmul_dynamic kernel for {x.device}")
     _build.refuse_grad("qmatmul_dynamic", x, w_scale)
     out, body = _qmm_cuda(x, w_packed, w_scale, None, out_dtype)
-    qmatmul_dynamic.launches += 1
-    qmatmul_dynamic.launches_by_body[body] += 1
+    _build.count(qmatmul_dynamic, launches_by_body=body)
     return out
 
 

@@ -152,9 +152,8 @@ def _flash_tc(q, k, v):
                 _DTYPE_CODE[q.dtype], out.data_ptr(), b, s, hq, hkv, hd, dv,
                 _build.stream_of(q))
         _build.check(_LIB, rc, "flash_prefill_fwd")
-    flash_prefill.launches += 1
-    flash_prefill.launches_by_body[body] += 1
-    flash_prefill.launches_by_class[width_class(hd, dv)] += 1
+    _build.count(flash_prefill, launches_by_body=body,
+                 launches_by_class=width_class(hd, dv))
     return out
 
 
@@ -249,8 +248,7 @@ def flash_qprefill(q, k_i8, k_s, v_i8, v_s):
             k_s.data_ptr(), v_i8.data_ptr(), v_s.data_ptr(), out.data_ptr(),
             b, s, hq, hkv, hd, dv, _build.stream_of(q))
     _build.check(_LIB, rc, "flash_qprefill_fwd")
-    flash_qprefill.launches += 1
-    flash_qprefill.launches_by_body[QBODY[q.dtype]] += 1
+    _build.count(flash_qprefill, launches_by_body=QBODY[q.dtype])
     return out
 
 
@@ -318,8 +316,7 @@ def flash_q4prefill(q, k_i4, k_s, v_i4, v_s):
             k_s.data_ptr(), v_i4.data_ptr(), v_s.data_ptr(), out.data_ptr(),
             b, s, hq, hkv, hd, dv, _build.stream_of(q))
     _build.check(_LIB, rc, "flash_q4prefill_fwd")
-    flash_q4prefill.launches += 1
-    flash_q4prefill.launches_by_body[Q4BODY[q.dtype]] += 1
+    _build.count(flash_q4prefill, launches_by_body=Q4BODY[q.dtype])
     return out
 
 

@@ -114,7 +114,7 @@ def paged_decode(q, k_pool, v_pool, tables, pos):
             pos.data_ptr(), out.data_ptr(), b, tables.shape[1],
             k_pool.shape[1], hkv, g, hd, _build.stream_of(q))
     _build.check(_LIB, rc, "paged_decode_fwd")
-    paged_decode.launches += 1
+    _build.count(paged_decode)
     return out
 
 
@@ -165,7 +165,7 @@ def paged_qdecode(q, k_pool, k_scale, v_pool, v_scale, tables, pos):
             tables.shape[1], k_pool.shape[1], hkv, g, hd,
             _build.stream_of(q))
     _build.check(_LIB, rc, "paged_qdecode_fwd")
-    paged_qdecode.launches += 1
+    _build.count(paged_qdecode)
     return out
 
 
@@ -202,7 +202,7 @@ def paged_q4decode(q, k_pool, k_scale, v_pool, v_scale, tables, pos):
             tables.shape[1], k_pool.shape[1], hkv, g, hd,
             _build.stream_of(q))
     _build.check(_LIB, rc, "paged_q4decode_fwd")
-    paged_q4decode.launches += 1
+    _build.count(paged_q4decode)
     return out
 
 

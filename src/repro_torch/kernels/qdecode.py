@@ -104,8 +104,8 @@ def qdecode(q, k_i8, k_s, v_i8, v_s, bias):
             out.data_ptr(), b, k_i8.shape[1], hkv, g, hd,
             _build.stream_of(q))
     _build.check(_LIB, rc, "qdecode_fwd")
-    qdecode.launches += 1
-    qdecode.launches_by_class["wide" if wide_class(g, hd) else "split"] += 1
+    _build.count(qdecode, launches_by_class="wide" if wide_class(g, hd)
+                 else "split")
     return out
 
 

@@ -237,8 +237,7 @@ def qmatmul_static_packed(x, w_packed, w_scale, act_scale, *,
     _build.refuse_grad("qmatmul_static", x, w_scale, act_scale)
     a = _act_scale_tensor(act_scale, x.device)
     out, body = _qmm_cuda(x, w_packed, w_scale, a, out_dtype)
-    qmatmul_static.launches += 1
-    qmatmul_static.launches_by_body[body] += 1
+    _build.count(qmatmul_static, launches_by_body=body)
     return out
 
 

@@ -208,8 +208,7 @@ def quantize_weights(w: torch.Tensor):
                 p.width // TWO_PASS_TC, codes.data_ptr(), scale.data_ptr(),
                 _build.stream_of(w))
     _build.check(_LIB, rc, f"qw_{p.route}")
-    quantize_weights.launches += 1
-    quantize_weights.routes[p.route] += 1
+    _build.count(quantize_weights, routes=p.route)
     return codes, scale
 
 

@@ -18,6 +18,9 @@ A window (``cfg.window``: recurrentgemma's local attention, or
 ring cache of exactly ``window`` slots: decode writes position t at slot
 t % window and masks the ring by position, in every tier.
 
+Every ``wo`` goes through ``layers.row_combine``: plain ``linear`` outside
+a tensor-parallel region, the shard group's gather or reduce inside one.
+
 Decode over the fp cache is a plain masked softmax einsum there, and a
 plain ``torch.einsum`` here. The quantized tiers quantize K and V before they are
 stored, keep the cache as ``(k_q, k_scale, v_q, v_scale)``, and attend over
@@ -49,7 +52,8 @@ from repro_torch.kernels.quantize import dequantize_kv_int4, quantize_kv_int4
 from repro_torch.kernels.ref import (NEG_INF, paged_gather, paged_valid,
                                      q4decode_ref, quantize_kv_ref)
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import apply_rope, dense_init, linear, rms_norm
+from repro_torch.models.layers import (apply_rope, dense_init, linear,
+                                       rms_norm, row_combine)
 
 
 Q_CHUNK = 512
@@ -200,7 +204,7 @@ def gqa_prefill(p, x, positions, cfg: ModelConfig, window: int = 0,
         # padded cache (pad rows get the floor scale, as in JAX)
         out = chunked_attention(q, k, v, positions, window=window,
                                 native_accum=cfg.opt_attn_accum)
-        out = linear(p["wo"], out.reshape(b, s, cfg.n_heads * hd))
+        out = row_combine(p["wo"], out.reshape(b, s, cfg.n_heads * hd))
         kc, vc = (_ring_or_pad(t, s, window, pad_to) for t in (k, v))
         if prec == "fp":
             return out, (kc, vc)
@@ -214,7 +218,7 @@ def gqa_prefill(p, x, positions, cfg: ModelConfig, window: int = 0,
         attend = ops.flash_q4prefill if prec == "int4" else ops.flash_qprefill
         out = attend(q, kq, ks, vq, vs).to(x.dtype)
         cache = (kq, ks, vq, vs)
-    out = linear(p["wo"], out.reshape(b, s, cfg.n_heads * hd))
+    out = row_combine(p["wo"], out.reshape(b, s, cfg.n_heads * hd))
     return out, tuple(_ring_or_pad(t, s, window, pad_to) for t in cache)
 
 
@@ -289,7 +293,7 @@ def gqa_decode(p, x, cache_kv, pos, cfg: ModelConfig, window: int = 0):
         attend = q4decode_ref if prec == "int4" else ops.qdecode
         out = attend(qg, *cache_kv, bias)
         out = out.to(x.dtype).reshape(b, 1, hq * hd)
-        return linear(p["wo"], out), cache_kv
+        return row_combine(p["wo"], out), cache_kv
     k_cache = _batched_update(cache_kv[0], k, slot_vec)
     v_cache = _batched_update(cache_kv[1], v, slot_vec)
     scores = _score_einsum("bkgh,btkh->bkgt", qg, k_cache, cfg.opt_attn_accum)
@@ -297,7 +301,7 @@ def gqa_decode(p, x, cache_kv, pos, cfg: ModelConfig, window: int = 0):
     scores = scores.masked_fill(~valid[:, None, None, :], NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(v_cache.dtype)
     out = torch.einsum("bkgt,btkh->bkgh", probs, v_cache)
-    return linear(p["wo"], out.reshape(b, 1, hq * hd)), (k_cache, v_cache)
+    return row_combine(p["wo"], out.reshape(b, 1, hq * hd)), (k_cache, v_cache)
 
 
 # ----------------------------------------------------------------------- #
@@ -360,7 +364,7 @@ def gqa_prefill_paged(p, x, positions, cache, pos, tables, cfg: ModelConfig):
     # duplicate (block 0, offset) pairs only ever come from padding
     for pool, t in zip(cache, new):
         pool[blk, off] = t.to(pool.dtype)
-    out = linear(p["wo"], out.reshape(b, s, cfg.n_heads * hd))
+    out = row_combine(p["wo"], out.reshape(b, s, cfg.n_heads * hd))
     return out, cache
 
 
@@ -416,7 +420,7 @@ def gqa_decode_paged(p, x, cache, pos, tables, cfg: ModelConfig):
               "int4": ops.paged_q4decode}[prec]
     out = attend(qg, *cache, tables.to(torch.int32), pos_vec.to(torch.int32))
     out = out.to(x.dtype).reshape(b, 1, hq * hd)
-    return linear(p["wo"], out), cache
+    return row_combine(p["wo"], out), cache
 
 
 # ----------------------------------------------------------------------- #
@@ -461,7 +465,7 @@ def _attend_verify(p, x, q, kf, vf, valid, cfg: ModelConfig):
     scores = scores.masked_fill(~valid[:, None, None], NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(vf.dtype)
     out = torch.einsum("bkgmt,btkh->bmkgh", probs, vf)
-    return linear(p["wo"], out.to(x.dtype).reshape(b, m, hq * hd))
+    return row_combine(p["wo"], out.to(x.dtype).reshape(b, m, hq * hd))
 
 
 def gqa_verify(p, x, cache_kv, pos, cfg: ModelConfig):
@@ -660,7 +664,7 @@ def mla_prefill(p, x, positions, cfg: ModelConfig, window: int = 0,
     else:
         out = chunked_attention(q, k, v, positions, window=window,
                                 native_accum=cfg.opt_attn_accum)
-    out = linear(p["wo"], out.reshape(b, s, cfg.n_heads * cfg.v_head_dim))
+    out = row_combine(p["wo"], out.reshape(b, s, cfg.n_heads * cfg.v_head_dim))
     return out, (_ring_or_pad(c_kv, s, window, pad_to),
                  _ring_or_pad(k_rope, s, window, pad_to))
 
@@ -685,7 +689,7 @@ def mla_prefill_paged(p, x, positions, cache, pos, tables, cfg: ModelConfig):
     blk, off = _paged_prefill_slots(tables, n_valid, s, c_pool.shape[1])
     c_pool[blk, off] = c_kv.to(c_pool.dtype)
     r_pool[blk, off] = k_rope.to(r_pool.dtype)
-    out = linear(p["wo"], out.reshape(b, s, cfg.n_heads * cfg.v_head_dim))
+    out = row_combine(p["wo"], out.reshape(b, s, cfg.n_heads * cfg.v_head_dim))
     return out, cache
 
 
@@ -700,7 +704,7 @@ def mla_decode_absorbed(p, x, cache, pos, cfg: ModelConfig, window: int = 0):
     k_rope = _batched_update(k_rope, linear(p["w_kr"], x), slot_vec)
     out = _mla_attend_absorbed(p, x, c_kv, k_rope, pos_vec[:, None], k_pos,
                                valid, cfg)
-    return linear(p["wo"], out), (c_kv, k_rope)
+    return row_combine(p["wo"], out), (c_kv, k_rope)
 
 
 def mla_decode(p, x, cache, pos, cfg: ModelConfig, window: int = 0):
@@ -717,7 +721,7 @@ def mla_decode(p, x, cache, pos, cfg: ModelConfig, window: int = 0):
     k_rope = _batched_update(k_rope, linear(p["w_kr"], x), slot_vec)
     out = _mla_attend_naive(p, x, c_kv, k_rope, pos_vec[:, None], k_pos,
                             valid, cfg)
-    return linear(p["wo"], out), (c_kv, k_rope)
+    return row_combine(p["wo"], out), (c_kv, k_rope)
 
 
 def mla_decode_paged(p, x, cache, pos, tables, cfg: ModelConfig):
@@ -742,7 +746,7 @@ def mla_decode_paged(p, x, cache, pos, tables, cfg: ModelConfig):
     attend = (_mla_attend_absorbed if cfg.opt_mla_absorb
               else _mla_attend_naive)
     out = attend(p, x, c_kv, k_rope, pos_vec[:, None], k_pos, valid, cfg)
-    return linear(p["wo"], out), cache
+    return row_combine(p["wo"], out), cache
 
 
 def mla_verify(p, x, cache, pos, cfg: ModelConfig):
@@ -757,7 +761,7 @@ def mla_verify(p, x, cache, pos, cfg: ModelConfig):
     k_pos = torch.arange(s_cache, device=x.device)[None].expand(b, s_cache)
     valid = k_pos[:, None, :] <= positions[:, :, None]
     out = _mla_attend_naive(p, x, c_kv, k_rope, positions, k_pos, valid, cfg)
-    return linear(p["wo"], out), (c_kv, k_rope)
+    return row_combine(p["wo"], out), (c_kv, k_rope)
 
 
 def mla_verify_paged(p, x, cache, pos, tables, cfg: ModelConfig):
@@ -778,4 +782,4 @@ def mla_verify_paged(p, x, cache, pos, tables, cfg: ModelConfig):
              & allocated[:, None, :])
     c_kv, k_rope = (paged_gather(t, tables) for t in cache)
     out = _mla_attend_naive(p, x, c_kv, k_rope, positions, k_pos, valid, cfg)
-    return linear(p["wo"], out), cache
+    return row_combine(p["wo"], out), cache

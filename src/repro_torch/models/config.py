@@ -209,9 +209,12 @@ HYBRID_PATTERN = ("rec", "rec", "attn")
 def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for a stack the port does not assemble
     and ``ValueError`` for an inconsistent config."""
+    # an "moe" config with n_experts=0 is a dense stack, as the JAX
+    # package builds it (its stacks follow n_experts; tensor-parallel
+    # serving shards deepseek-v2's MLA attention so)
     if cfg.arch_type not in ("dense", "vlm", "audio", "moe", "ssm",
                              "hybrid") \
-            or (cfg.arch_type == "moe") != (cfg.n_experts > 0):
+            or (cfg.n_experts > 0 and cfg.arch_type != "moe"):
         raise NotImplementedError(
             f"arch_type {cfg.arch_type!r} (n_experts={cfg.n_experts}) is "
             "not a stack the port assembles")
@@ -232,5 +235,6 @@ def check_supported(cfg: ModelConfig) -> None:
         raise ValueError(
             f"{cfg.name}: a vlm needs frontend='vision', a frontend needs "
             "frontend_dim > 0, and only a vlm has a vision frontend")
-    # ``fsdp`` only names a sharding under a device mesh (ROADMAP Queue 1
-    # item 10); on one device it changes nothing, as in the JAX package
+    # ``fsdp`` only names a sharding under a training mesh (what is left of
+    # ROADMAP Queue 1 item 10: the GSPMD rules); serving shards with
+    # ``serving.sharded`` and ignores it, as in the JAX package

@@ -18,6 +18,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models.sharding import tp_state
+
 # leaves that no ``linear`` reads: the embedding is gathered row-wise in
 # the JAX layout (``transformer._take_embed``)
 _GATHERED = ("embed",)
@@ -107,12 +109,38 @@ def rms_norm(w: torch.Tensor, x: torch.Tensor, eps: float = 1e-6):
     return (x * (1.0 + w.to(torch.float32))).to(dt)
 
 
+def row_combine(p, x: torch.Tensor) -> torch.Tensor:
+    """Output-side (``wo``) linear, tensor-parallel aware.
+
+    Outside a TP region this IS ``linear``. Inside a shard's body
+    (``sharding.tp_region``) ``x`` holds this shard's head / ff slice and
+    the combine mode picks the exchange over the shard group:
+
+      exact  all-gather the slices along the feature axis (rank order ==
+             natural chunk order) and apply the full replicated weight:
+             the same contraction as tp=1.
+      psum   row-parallel: the local rows of ``wo`` give a partial
+             ``[., d]`` sum, and one all-reduce (summed in rank order)
+             completes it.
+    """
+    st = tp_state()
+    if st is None or st.tp <= 1:
+        return linear(p, x)
+    if st.combine == "exact":
+        return linear(p, st.group.all_gather(x, st.rank, dim=x.dim() - 1))
+    return st.group.all_reduce(linear(p, x), st.rank)
+
+
 def swiglu(wi, wo, x: torch.Tensor) -> torch.Tensor:
-    """Fused gate+up projection: wi [d, 2*ff], wo [ff, d]. ``row_combine``
-    of the JAX package is plain ``linear`` without tensor parallelism."""
+    """Fused gate+up projection: wi [d, 2*ff], wo [ff, d].
+
+    Under serving TP, ``wi`` is column-sharded with its gate|up columns
+    permuted per shard first (``serving.sharded.permute_wi_for_tp``), so
+    the local split below stays a gate / up split; ``wo`` combines across
+    the shards through ``row_combine``."""
     gu = linear(wi, x)
     g, u = torch.chunk(gu, 2, dim=-1)
-    return linear(wo, F.silu(g) * u)
+    return row_combine(wo, F.silu(g) * u)
 
 
 # ----------------------------------------------------------------------- #

@@ -15,8 +15,10 @@ one add at a time in the activation dtype (the order in which the JAX
 scatter-add rounds), never by atomics; the shared experts follow through
 ``linear``.
 
-The JAX package's ``shard_map`` dispatch needs a device mesh (ROADMAP Queue
-1 item 10); without one it falls back to this path, and so does the port.
+The JAX package's ``shard_map`` dispatch (``moe_ffn_sharded``) needs a
+training mesh (what is left of ROADMAP Queue 1 item 10: tensor-parallel
+serving refuses MoE layers); without one it falls back to this path, and
+so does the port.
 """
 from __future__ import annotations
 

@@ -23,6 +23,11 @@ and int4 tiers and MLA's compressed streams.
   (``import_blocks``) with no recompute. Every engine on a store writes the
   same pool tensors in place, so a peer sees a write as soon as the stream
   it was issued on reaches it; the engines of one process share one stream.
+* Tensor-parallel serving (``shards`` > 1): the store holds one pool tree
+  per shard (``shard_pools``; GQA leaves hold the shard's kv-head slice,
+  MLA leaves a whole copy). Block ids, tables and the allocator stay one,
+  host-side: sharding never changes a block's identity, only where its
+  payload lives, and every pool operation acts on every shard.
 
 ``truncate`` is the speculative-decoding rollback. Also here: copies of
 ``pow2_bucket`` and ``bucketed_prefill_ok``.
@@ -31,7 +36,7 @@ from __future__ import annotations
 
 import dataclasses
 from collections import OrderedDict, deque
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -281,6 +286,16 @@ def _pool_tensors(pools) -> List[torch.Tensor]:
     return [t for leaves in layer_caches(pools) for t in leaves]
 
 
+def _shard_pool_tensors(shard_pools) -> List[torch.Tensor]:
+    """Every pool tensor of every shard."""
+    return [t for pools in shard_pools for t in _pool_tensors(pools)]
+
+
+def _unsharded(tree) -> List[Any]:
+    """An unsharded store's ``pool_sharding``: the one tree."""
+    return [tree]
+
+
 def kv_pool_signature(cfg: ModelConfig, n_blocks: int,
                       block_size: int) -> Tuple:
     """Geometry + precision fingerprint of a block pool. Two engines may
@@ -298,17 +313,35 @@ class SharedKVPool:
     store unless it is given one; several engines given the same store
     (disaggregated prefill / decode workers) see the same blocks: each
     ``PagedKVCache`` keeps its own slots and tables and delegates ``alloc``
-    and ``pools`` here. (The JAX store's ``shards`` belongs to tensor
-    parallelism, ROADMAP Queue 1 item 10.)"""
+    and ``pools`` here.
+
+    ``shard_pools`` is the list of per-shard pool trees, the form the
+    engine's entry points take: one tree unless ``shards`` > 1
+    (tensor-parallel engines), where ``pool_sharding`` (a
+    ``TPContext.shard_cache``) splits the pools into one tree per shard.
+    ``pools`` is shard 0's tree (the whole pool when unsharded)."""
 
     def __init__(self, cfg: ModelConfig, n_blocks: int, block_size: int,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None, *, shards: int = 1,
+                 pool_sharding: Optional[Callable] = None):
         self.cfg = cfg
         self.block_size = block_size
         self.device = resolve_device(device)
+        self.shards = max(int(shards), 1)
         self.signature = kv_pool_signature(cfg, n_blocks, block_size)
         self.alloc = BlockAllocator(n_blocks, block_size)
-        self.pools = init_paged_pools(cfg, n_blocks, block_size, self.device)
+        self.pool_sharding = pool_sharding or _unsharded
+        self.shard_pools = list(self.pool_sharding(
+            init_paged_pools(cfg, n_blocks, block_size, self.device)))
+        if len(self.shard_pools) != self.shards:
+            raise ValueError(f"shards={self.shards} needs a pool_sharding "
+                             f"giving as many trees, not "
+                             f"{len(self.shard_pools)}")
+
+    @property
+    def pools(self):
+        """Shard 0's pool tree (the whole pool when unsharded)."""
+        return self.shard_pools[0]
 
     def reset(self) -> None:
         """Drop all allocator state. Only safe when every attached engine is
@@ -356,6 +389,7 @@ class PagedKVCache:
 
     def __init__(self, cfg: ModelConfig, n_slots: int, n_blocks: int,
                  block_size: int, max_blocks_per_seq: int, *,
+                 shards: int = 1, pool_sharding: Optional[Callable] = None,
                  shared: Optional[SharedKVPool] = None,
                  device: DeviceLike = None):
         self.cfg = cfg
@@ -375,9 +409,14 @@ class PagedKVCache:
             self.store = shared
             self.owns_store = False
         else:
-            self.store = SharedKVPool(cfg, n_blocks, block_size, self.device)
+            self.store = SharedKVPool(cfg, n_blocks, block_size, self.device,
+                                      shards=shards,
+                                      pool_sharding=pool_sharding)
             self.owns_store = True
         self.block_size = self.store.block_size
+        # tensor-parallel serving: each shard holds its kv-head slice of
+        # every pool leaf; tables, the allocator and the slots stay one
+        self.shards = self.store.shards
         self.alloc = self.store.alloc
         self.slot_blocks: List[List[int]] = [[] for _ in range(n_slots)]
         self._tables: Optional[torch.Tensor] = None
@@ -386,16 +425,32 @@ class PagedKVCache:
 
     # ------------------------------------------------------------- #
     @property
+    def shard_pools(self) -> List[Any]:
+        """The store's per-shard pool trees (one unless ``shards`` > 1):
+        every engine on a shared store writes these same tensors in place
+        (nothing rebinds them)."""
+        return self.store.shard_pools
+
+    @property
     def pools(self):
-        """The store's pools: every engine on a shared store writes these
-        same tensors in place (nothing rebinds them)."""
+        """Shard 0's pool tree (the whole pool when unsharded)."""
         return self.store.pools
 
     @property
-    def bytes_per_block(self) -> int:
+    def bytes_per_block_per_shard(self) -> int:
+        """Device bytes one shard pays per block (== ``bytes_per_block``
+        for tp=1 and for MLA pools, which every shard holds whole)."""
         n = self.alloc.n_blocks
         return sum(t.numel() * t.element_size() // n
                    for t in _pool_tensors(self.pools))
+
+    @property
+    def bytes_per_block(self) -> int:
+        """Pool bytes per block over the whole model: a shard's bytes times
+        the ways the payload splits (a replicated MLA pool counts once, as
+        ``nbytes`` of a sharded jax.Array counts it)."""
+        return self.bytes_per_block_per_shard * kv_shard_divisor(
+            self.cfg, self.shards)
 
     @property
     def bytes_per_token(self) -> int:
@@ -404,6 +459,10 @@ class PagedKVCache:
     def kv_bytes_in_use(self, blocks: Optional[int] = None) -> int:
         n = self.alloc.in_use if blocks is None else blocks
         return n * self.bytes_per_block
+
+    def kv_bytes_in_use_per_shard(self, blocks: Optional[int] = None) -> int:
+        n = self.alloc.in_use if blocks is None else blocks
+        return n * self.bytes_per_block_per_shard
 
     @property
     def tables(self) -> torch.Tensor:
@@ -468,7 +527,7 @@ class PagedKVCache:
         bid = self.slot_blocks[slot][idx]
         new, copied = self.alloc.ensure_writable(bid)
         if copied:
-            for t in _pool_tensors(self.pools):
+            for t in _shard_pool_tensors(self.shard_pools):
                 t[new].copy_(t[bid])
             self.slot_blocks[slot][idx] = new
             self._dirty()
@@ -478,7 +537,7 @@ class PagedKVCache:
                         n_tokens: int) -> List[int]:
         """Move a dense batch-1 prefill cache (per-layer leaves of
         ``[1, S_pad, ...]``, in the pools' order) into freshly allocated
-        blocks for ``slot``."""
+        blocks for ``slot``; a sharded store splits it as its pools."""
         need = self.blocks_for_tokens(n_tokens)
         ids = []
         for _ in range(need):
@@ -490,16 +549,16 @@ class PagedKVCache:
             ids.append(bid)
         bs = self.block_size
         idx = torch.tensor(ids, dtype=torch.int64, device=self.device)
-        for leaves, dense in zip(layer_caches(self.pools),
-                                 layer_caches(dense_cache)):
-            for pool, d in zip(leaves, dense):
-                rows = d[0, :need * bs]
-                if rows.shape[0] < need * bs:
-                    pad = need * bs - rows.shape[0]
-                    rows = torch.cat([rows, rows.new_zeros(
-                        (pad,) + tuple(rows.shape[1:]))])
-                pool[idx] = rows.reshape((need, bs) + tuple(
-                    rows.shape[1:])).to(pool.dtype)
+        for pool, d in zip(_shard_pool_tensors(self.shard_pools),
+                           _shard_pool_tensors(
+                               self.store.pool_sharding(dense_cache))):
+            rows = d[0, :need * bs]
+            if rows.shape[0] < need * bs:
+                pad = need * bs - rows.shape[0]
+                rows = torch.cat([rows, rows.new_zeros(
+                    (pad,) + tuple(rows.shape[1:]))])
+            pool[idx.to(pool.device)] = rows.reshape(
+                (need, bs) + tuple(rows.shape[1:])).to(pool.dtype)
         for bid in ids:
             self.attach(slot, bid)
         return ids
@@ -539,7 +598,19 @@ class PagedKVCache:
 # ------------------------------------------------------------------ #
 # Sizing helpers (memory accounting)
 # ------------------------------------------------------------------ #
-def kv_bytes_per_token(cfg: ModelConfig) -> int:
+def kv_shard_divisor(cfg: ModelConfig, shards: int = 1) -> int:
+    """How many ways the cache payload splits under ``shards``-way tensor
+    parallelism: GQA caches shard on the kv-head axis, MLA latent caches
+    are head-free and every shard holds them whole (divisor 1), and so
+    does a kv-head count the shards do not divide."""
+    if shards <= 1 or cfg.attention == "mla":
+        return 1
+    if cfg.n_kv_heads % shards:
+        return 1
+    return shards
+
+
+def kv_bytes_per_token(cfg: ModelConfig, shards: int = 1) -> int:
     """Per-token, per-layer KV bytes for ``cfg``'s resolved precision tier:
     the accounting rule shared by ``kv_bytes_per_block`` and the engine's
     ``kv_hbm_bytes_per_req``.
@@ -548,11 +619,17 @@ def kv_bytes_per_token(cfg: ModelConfig) -> int:
         fp     2 * Hkv * hd * itemsize
         int8   2 * Hkv * (hd + 4)                 payload + per-head f32 scale
         int4   2 * Hkv * (hd/2 + 2 * n_groups)    nibbles + f16 group scales
+
+    ``shards`` > 1 gives the *per-shard* bytes under tensor parallelism:
+    GQA tiers carry ``Hkv / shards`` local heads (payload and scale rows
+    both ride the head axis, so every tier divides exactly); MLA caches
+    keep their full size on every shard.
     """
     itemsize = torch.empty((), dtype=cfg.activation_dtype).element_size()
     if cfg.attention == "mla":
         return int((cfg.kv_lora_rank + cfg.qk_rope_dim) * itemsize)
-    hd, hkv = cfg.resolved_head_dim, cfg.n_kv_heads
+    hd = cfg.resolved_head_dim
+    hkv = cfg.n_kv_heads // kv_shard_divisor(cfg, shards)
     prec = cfg.kv_precision
     if prec == "int4":
         return int(2 * hkv * (hd // 2 + 2 * (hd // kv_group_size(hd))))
@@ -561,13 +638,19 @@ def kv_bytes_per_token(cfg: ModelConfig) -> int:
     return int(2 * hkv * hd * itemsize)
 
 
-def kv_bytes_per_block(cfg: ModelConfig, block_size: int) -> int:
-    """Per-block bytes across all layers."""
-    return int(cfg.n_layers * block_size * kv_bytes_per_token(cfg))
+def kv_bytes_per_block(cfg: ModelConfig, block_size: int,
+                       shards: int = 1) -> int:
+    """Per-block bytes across all layers (with ``shards`` > 1: the bytes
+    each shard's device pays per block)."""
+    return int(cfg.n_layers * block_size * kv_bytes_per_token(cfg, shards))
 
 
 def blocks_for_budget(cfg: ModelConfig, block_size: int,
-                      budget_bytes: int, floor: int = 2) -> int:
-    """How many pool blocks fit a byte budget (>= ``floor`` usable)."""
-    per = kv_bytes_per_block(cfg, block_size)
+                      budget_bytes: int, floor: int = 2,
+                      shards: int = 1) -> int:
+    """How many pool blocks fit a byte budget (>= ``floor`` usable). The
+    budget is per *device*: under tensor parallelism each device holds
+    only its head shard of every block, so the same budget admits up to
+    ``shards`` x more blocks (MLA pools: no gain)."""
+    per = kv_bytes_per_block(cfg, block_size, shards)
     return max(floor + 1, budget_bytes // max(per, 1))

@@ -55,9 +55,14 @@ slot's decode leaks nothing into the next request. ``paged=True`` and
   token, exported as a ``KVHandoff``) and decode workers
   (``submit_handoff``: the blocks attach to a slot, nothing recomputed).
   ``serving.router`` places requests on such workers.
-
-Not ported here: tensor parallelism (``tp > 1``, ROADMAP Queue 1 item
-10), which raises and names its item.
+* Tensor-parallel serving (``tp=N``, or ``EngineConfig(tp=N)``): the model
+  entry points are a ``serving.sharded.TPContext``'s, which run every shard
+  on its own thread. ``params`` and the cache (``kv.shard_pools`` when
+  paged) are lists of per-shard trees at every tp (one tree at tp=1), and
+  every host-side structure (slots, tables, the allocator) stays one.
+  ``tp_combine`` is "exact" (all-gather, the tp=1 contraction) or "psum"
+  (row-parallel ``wo``, an all-reduce). A speculative engine's draft
+  stays unsharded, on shard 0's device.
 """
 from __future__ import annotations
 
@@ -79,9 +84,10 @@ from repro_torch.serving.engine import InferenceSession, interpolated_percentile
 from repro_torch.serving.kvcache import (KVHandoff, PagedKVCache,
                                          SharedKVPool, blocks_for_budget,
                                          bucketed_prefill_ok,
-                                         hash_prompt_blocks, paged_supported,
-                                         pow2_bucket)
+                                         hash_prompt_blocks, kv_shard_divisor,
+                                         paged_supported, pow2_bucket)
 from repro_torch.serving.sampling import SamplingParams, sample
+from repro_torch.serving.sharded import TPContext, shard_devices
 from repro_torch.serving.spec_decode import (SpecConfig, draft_propose,
                                              greedy_accept, rejection_sample,
                                              spec_supported)
@@ -101,9 +107,9 @@ METRIC_KEYS = (
     "prompt_tokens_computed",    # prompt tokens actually recomputed
     "kv_blocks_peak",            # allocator high-water mark (paged)
     "kv_hbm_bytes_per_req",      # peak cache bytes / n_slots (dense + paged)
-    # tensor-parallel serving (1 and == kv_hbm_bytes_per_req here)
-    "tp",
-    "kv_hbm_bytes_per_req_per_shard",
+    # tensor-parallel serving (== kv_hbm_bytes_per_req when tp == 1)
+    "tp",                        # shards of this engine
+    "kv_hbm_bytes_per_req_per_shard",  # one shard's share of the KV bytes
     # speculative decoding (zero for non-spec engines)
     "spec_events",               # per-slot draft/verify acceptance rounds
     "spec_draft_tokens",         # draft tokens proposed
@@ -115,11 +121,13 @@ METRIC_KEYS = (
 
 @dataclasses.dataclass(frozen=True)
 class EngineConfig:
-    """Engine-level knobs that travel as one value. Only ``tp=1`` is
-    ported (tensor parallelism is ROADMAP Queue 1 item 10); the port
-    dispatches kernels by device, so ``backend`` must stay None."""
-    tp: int = 1
-    tp_combine: str = "exact"
+    """Engine-level knobs that travel as one value:
+    ``ContinuousBatchingEngine(..., config=EngineConfig(tp=2))`` shards the
+    model with no call-site changes. The port dispatches kernels by device
+    and has no backend registry, so ``backend`` (and with it the JAX
+    package's ``*-tp`` backend twins) must stay None."""
+    tp: int = 1                    # shards (1 = unsharded)
+    tp_combine: str = "exact"      # "exact" (all-gather) | "psum"
     backend: Optional[str] = None
 
 
@@ -199,10 +207,6 @@ def _tree_insert(batched, single, slot: int) -> None:
             c[slot:slot + 1].copy_(c1)
 
 
-def _unported(what: str, item: int) -> NotImplementedError:
-    return NotImplementedError(f"{what} is ROADMAP Queue 1 item {item}")
-
-
 class ContinuousBatchingEngine:
     """``model`` is a port ``InferenceSession`` (its device is inherited
     unless ``device`` is given) or a params tree with ``cfg`` passed
@@ -216,6 +220,7 @@ class ContinuousBatchingEngine:
                  n_blocks: Optional[int] = None,
                  kv_budget_bytes: Optional[int] = None,
                  spec: Optional[SpecConfig] = None, tp: int = 1,
+                 tp_combine: str = "exact",
                  shared_kv: Optional[SharedKVPool] = None,
                  config: Optional[EngineConfig] = None,
                  device: DeviceLike = None):
@@ -225,8 +230,8 @@ class ContinuousBatchingEngine:
                     "the port dispatches kernels by device; it has no "
                     "backend registry (EngineConfig.backend must be None)")
             tp = config.tp if tp == 1 else tp
-        if tp != 1:
-            raise _unported(f"tensor-parallel serving (tp={tp})", 10)
+            if tp_combine == "exact":
+                tp_combine = config.tp_combine
         if shared_kv is not None and not paged:
             raise ValueError("shared_kv requires paged=True")
         if isinstance(model, InferenceSession):
@@ -247,9 +252,18 @@ class ContinuousBatchingEngine:
                 f"{cfg.window}: a windowed model's engine needs max_len >= "
                 "window (its ring cache holds window slots)")
         self.device = resolve_device(device)
-        self.params = place_params(params, self.device)
         self.cfg = cfg
-        self.tp = 1
+        self.tp = tp
+        if tp > 1:
+            # the shards: shard 0 on the engine's device, the draft beside
+            # it; params become one tree per shard
+            self._tp_ctx: Optional[TPContext] = TPContext(
+                cfg, tp, combine=tp_combine, params=params,
+                devices=shard_devices(tp, self.device))
+            self.params = self._tp_ctx.shard_params(params)
+        else:
+            self._tp_ctx = None
+            self.params = [place_params(params, self.device)]
         self.n_slots = n_slots
         self.max_len = max_len
         self.prefill_chunk = prefill_chunk
@@ -316,25 +330,73 @@ class ContinuousBatchingEngine:
             if shared_kv is not None:
                 # block ids are shared with the peer engines, so the
                 # geometry comes from the store, not these arguments
+                if shared_kv.shards != self.tp:
+                    raise ValueError(
+                        f"shared pool built for shards={shared_kv.shards}, "
+                        f"engine has tp={self.tp}")
                 block_size = shared_kv.block_size
                 n_blocks = shared_kv.alloc.n_blocks
             max_blocks = -(-self._pad_len // block_size)
             if n_blocks is None:
                 if kv_budget_bytes is not None:
                     # budget-sized pool, capped at what n_slots max-length
-                    # sequences could ever touch
+                    # sequences could ever touch. The budget is per
+                    # device: under tp each shard holds only its kv-head
+                    # slice of a block, so it admits more blocks (MLA
+                    # pools are whole on every shard)
                     n_blocks = min(blocks_for_budget(cfg, block_size,
-                                                     kv_budget_bytes),
+                                                     kv_budget_bytes,
+                                                     shards=self.tp),
                                    n_slots * max_blocks + 1)
                 else:
                     n_blocks = n_slots * max_blocks + 1
             self.kv: Optional[PagedKVCache] = PagedKVCache(
                 cfg, n_slots, n_blocks, block_size, max_blocks,
+                shards=self.tp,
+                pool_sharding=(self._tp_ctx.shard_cache
+                               if self._tp_ctx is not None else None),
                 shared=shared_kv, device=dev)
-            self.cache = self.kv.pools          # alias: pools ARE the cache
+            self.cache = self.kv.shard_pools    # alias: pools ARE the cache
         else:
             self.kv = None
-            self.cache = init_cache(cfg, n_slots, self._pad_len, device=dev)
+            split = (self._tp_ctx.shard_cache if self._tp_ctx is not None
+                     else lambda tree: [tree])
+            self.cache = split(init_cache(cfg, n_slots, self._pad_len,
+                                          device=dev))
+        self._bind_entry_points()
+
+    def _bind_entry_points(self) -> None:
+        """The target's model entry points, with the scheduler's calling
+        conventions: per-shard lists of params and caches in, the logits
+        and the list of caches out. With tp > 1 they are the
+        ``TPContext``'s; at tp=1 the model functions on the one tree."""
+        # locals only: a closure over self would make a cycle that keeps
+        # a dropped engine's shards alive until the collector runs
+        tpx, cfg, pad_to = self._tp_ctx, self.cfg, self._pad_len
+        if tpx is not None:
+            self._decode = tpx.decode_step
+            self._verify = tpx.verify_step
+            self._decode_paged = tpx.decode_step_paged
+            self._verify_paged = tpx.verify_step_paged
+            self._prefill_paged = tpx.prefill_paged
+            self._prefill = lambda p, b, nv: tpx.prefill(
+                p, b, nv, pad_to=pad_to)
+            return
+        def one(out):
+            return out[0], [out[1]]
+
+        self._decode = lambda p, c, t, pos: one(decode_step(
+            p[0], c[0], t, pos, cfg))
+        self._verify = lambda p, c, t, pos: one(verify_step(
+            p[0], c[0], t, pos, cfg))
+        self._decode_paged = lambda p, c, t, pos, tabs: one(decode_step_paged(
+            p[0], c[0], t, pos, tabs, cfg))
+        self._verify_paged = lambda p, c, t, pos, tabs: one(verify_step_paged(
+            p[0], c[0], t, pos, tabs, cfg))
+        self._prefill_paged = lambda p, c, b, nv, tabs: one(prefill_paged(
+            p[0], c[0], b, nv, tabs, cfg))
+        self._prefill = lambda p, b, nv: one(prefill(
+            p[0], b, cfg, pad_to=pad_to, n_valid=nv))
 
     # ---------------------------------------------------------------- #
     @property
@@ -558,9 +620,9 @@ class ContinuousBatchingEngine:
             batch["frontend_embeds"] = req.frontend_embeds
         n_valid = chunk + self.cfg.n_frontend_tokens
         batch = self._pad_tokens(batch, self.cfg, n_valid)
-        last, single = prefill(self.params, batch, self.cfg,
-                               pad_to=self._pad_len, n_valid=n_valid)
-        _tree_insert(self.cache, single, slot)
+        last, single = self._prefill(self.params, batch, n_valid)
+        for cache, new in zip(self.cache, single):
+            _tree_insert(cache, new, slot)
         self.positions[slot] = n_valid
         req.n_consumed = chunk
         self.prefill_tokens += chunk
@@ -646,9 +708,9 @@ class ContinuousBatchingEngine:
             if req.frontend_embeds is not None:
                 batch["frontend_embeds"] = req.frontend_embeds
             batch = self._pad_tokens(batch, self.cfg, cache_tokens)
-            last, _ = prefill_paged(self.params, kv.pools, batch,
-                                    cache_tokens, kv.tables[slot:slot + 1],
-                                    self.cfg)
+            last, _ = self._prefill_paged(self.params, kv.shard_pools, batch,
+                                          cache_tokens,
+                                          kv.tables[slot:slot + 1])
             if hashing:
                 for i in range(chunk // bs):
                     kv.alloc.register(kv.slot_blocks[slot][i], hashes[i])
@@ -926,12 +988,12 @@ class ContinuousBatchingEngine:
             cand[s][:len(row)] = row
         cand_t = torch.tensor(cand, dtype=torch.int64).to(self.device)
         if self.paged:
-            logits, _ = verify_step_paged(self.params, self.kv.pools, cand_t,
-                                          self.positions, self.kv.tables,
-                                          self.cfg)
+            logits, _ = self._verify_paged(self.params, self.kv.shard_pools,
+                                           cand_t, self.positions,
+                                           self.kv.tables)
         else:
-            logits, _ = verify_step(self.params, self.cache, cand_t,
-                                    self.positions, self.cfg)
+            logits, _ = self._verify(self.params, self.cache, cand_t,
+                                     self.positions)
         self.steps += 1
         tgt_argmax = None
         pos_delta = [0] * self.n_slots
@@ -1040,12 +1102,12 @@ class ContinuousBatchingEngine:
         if not any(r is not None for r in self.active):
             return 0
         if self.paged:
-            logits, _ = decode_step_paged(self.params, self.kv.pools,
-                                          self.last_tokens, self.positions,
-                                          self.kv.tables, self.cfg)
+            logits, _ = self._decode_paged(self.params, self.kv.shard_pools,
+                                           self.last_tokens, self.positions,
+                                           self.kv.tables)
         else:
-            logits, _ = decode_step(self.params, self.cache, self.last_tokens,
-                                    self.positions, self.cfg)
+            logits, _ = self._decode(self.params, self.cache,
+                                     self.last_tokens, self.positions)
         self.positions += 1
         last = logits[:, -1]                     # [B, V] or [B, K, V]
         # one batched argmax serves every greedy slot, with one host sync
@@ -1136,14 +1198,19 @@ class ContinuousBatchingEngine:
         # peak cache bytes per concurrent request: dense reserves the whole
         # (n_slots, max_len) cache up front; paged holds only the blocks
         # actually touched (high-water mark), shared prefixes counted once
+        # tensor parallelism: the per-device share (GQA caches split on the
+        # kv heads; MLA caches are whole on every shard)
         if self.paged:
-            kv_bytes = self.kv.kv_bytes_in_use(self.kv.alloc.stats.peak_in_use)
+            peak = self.kv.alloc.stats.peak_in_use
+            kv_bytes = self.kv.kv_bytes_in_use(peak)
+            shard_bytes = self.kv.kv_bytes_in_use_per_shard(peak)
         else:
-            kv_bytes = sum(t.numel() * t.element_size()
-                           for leaves in layer_caches(self.cache)
-                           for t in leaves)
+            shard_bytes = sum(t.numel() * t.element_size()
+                              for leaves in layer_caches(self.cache[0])
+                              for t in leaves)
+            kv_bytes = shard_bytes * kv_shard_divisor(self.cfg, self.tp)
         m["kv_hbm_bytes_per_req"] = kv_bytes / self.n_slots
-        m["kv_hbm_bytes_per_req_per_shard"] = kv_bytes / self.n_slots
+        m["kv_hbm_bytes_per_req_per_shard"] = shard_bytes / self.n_slots
         ttft = [r.first_token_at - r.submitted_at for r in done]
         total = [r.finished_at - r.submitted_at for r in done]
         toks = sum(len(r.out_tokens) for r in done)

@@ -5,6 +5,7 @@ CPU mode). This file imports no JAX, so it runs on a GPU host as is:
 ``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py``.
 """
 import math
+import threading
 
 import pytest
 
@@ -903,3 +904,116 @@ def test_greedy_spec_engine_on_the_card_equals_generate(dev):
         engine.run()
         assert [r.out_tokens for r in reqs] == want
         assert engine.metrics()["spec_events"] > 0
+
+
+# --------------------------------------------------------------------- #
+# Tensor-parallel serving: two shards on one card
+# --------------------------------------------------------------------- #
+@pytest.mark.parametrize("combine", ["exact", "psum"])
+def test_row_combine_two_shards_on_one_card(dev, combine):
+    """Both shards' threads on the card's default stream: exact gathers
+    and applies the full wo (tp=1's contraction), psum all-reduces the
+    row-parallel partials in rank order (every rank the same bits)."""
+    from repro_torch.models.layers import linear, row_combine
+    from repro_torch.models.sharding import ShardGroup
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn((8, 1, 4096), generator=gen, device=dev)
+    wo = torch.randn((4096, 5120), generator=gen, device=dev) / 64
+    group = ShardGroup([dev, dev], combine)
+    try:
+        def body(r):
+            xs = x[..., r * 2048:(r + 1) * 2048]
+            w = wo if combine == "exact" else wo[r * 2048:(r + 1) * 2048]
+            return row_combine(w, xs)
+
+        with torch.no_grad():
+            outs = group.run(body)
+    finally:
+        group.close()
+    assert torch.equal(outs[0], outs[1])
+    want = linear(wo, x)
+    if combine == "exact":
+        assert torch.equal(outs[0], want)
+    else:
+        torch.testing.assert_close(outs[0], want, rtol=1e-5, atol=1e-4)
+
+
+def _tp_cfg():
+    # the per-shard attention shapes of mistral-nemo-12b at tp=2 (Hq 16,
+    # Hkv 4, G 4, hd 128) in a 2-layer, 512-wide f32 stack
+    from repro_torch import configs
+
+    return configs.smoke_config("mistral-nemo-12b").with_overrides(
+        n_layers=2, d_model=512, n_heads=32, n_kv_heads=8, head_dim=128,
+        d_ff=1024, dtype="float32")
+
+
+@pytest.mark.parametrize("tier", ["fp", "int8", "int4"])
+def test_tp2_paged_decode_step_on_the_card(dev, tier):
+    """One paged prefill and decode step at tp=2 against tp=1 on the same
+    weights and blocks: the per-shard paged decode kernel launches once a
+    layer a shard (2 x layers), the logits agree with tp=1's."""
+    from repro_torch.models import (decode_step_paged, init_params,
+                                    prefill_paged)
+    from repro_torch.serving.kvcache import init_paged_pools
+    from repro_torch.serving.sharded import TPContext
+
+    cfg = _tp_cfg().with_overrides(kv_cache_precision=tier)
+    params = init_params(cfg, seed=0, device=dev)
+    kernel = {"fp": paged_attn.paged_decode,
+              "int8": paged_attn.paged_qdecode,
+              "int4": paged_attn.paged_q4decode}[tier]
+    tables = torch.tensor([[3, 1, 4, -1]], dtype=torch.int32, device=dev)
+    tokens = torch.randint(0, cfg.vocab_size, (1, 40),
+                           generator=torch.Generator().manual_seed(6))
+    batch = {"tokens": torch.nn.functional.pad(tokens, (0, 8)).to(dev)}
+    nxt = tokens[:, :1].to(dev)
+    pos = torch.tensor([40], device=dev)
+    ctx = TPContext(cfg, 2, params=params, devices=[dev, dev])
+    try:
+        with torch.no_grad():
+            pools = init_paged_pools(cfg, 6, 16, device=dev)
+            prefill_paged(params, pools, batch, 40, tables, cfg)
+            want, _ = decode_step_paged(params, pools, nxt, pos, tables, cfg)
+            sp = ctx.shard_params(params)
+            spools = ctx.shard_cache(init_paged_pools(cfg, 6, 16,
+                                                      device=dev))
+            ctx.prefill_paged(sp, spools, batch, 40, tables)
+            before = kernel.launches
+            got, _ = ctx.decode_step_paged(sp, spools, nxt, pos, tables)
+            torch.cuda.synchronize()
+    finally:
+        ctx.group.close()
+    assert kernel.launches - before == 2 * cfg.n_layers
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-3)
+
+
+def test_launch_counters_exact_under_two_threads(dev):
+    """Two threads launch the paged decode kernel at the same time, as
+    callers outside a ``ShardGroup`` may (a group's shards take turns):
+    the wrapper's count is exactly the launches of both."""
+    gen = torch.Generator(device=dev).manual_seed(7)
+    q = torch.randn((8, 4, 4, 128), generator=gen, device=dev)
+    kp = torch.randn((33, 16, 4, 128), generator=gen, device=dev)
+    vp = torch.randn((33, 16, 4, 128), generator=gen, device=dev)
+    tables = torch.arange(1, 33, dtype=torch.int32, device=dev).reshape(8, 4)
+    pos = torch.full((8,), 60, dtype=torch.int32, device=dev)
+    start = threading.Barrier(2)
+    outs = [None, None]
+
+    def launch(i):
+        start.wait()
+        with torch.no_grad():
+            for _ in range(500):
+                outs[i] = paged_attn.paged_decode(q, kp, vp, tables, pos)
+
+    before = paged_attn.paged_decode.launches
+    threads = [threading.Thread(target=launch, args=(i,)) for i in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    torch.cuda.synchronize()
+    assert paged_attn.paged_decode.launches - before == 1000
+    assert torch.equal(outs[0], outs[1])

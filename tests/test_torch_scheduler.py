@@ -329,10 +329,12 @@ def test_engine_from_session_and_no_device(nemo):
 def test_unported_options_name_the_roadmap(nemo):
     _, tp = nemo.params["fp32"]
     cfg = nemo.tcfg
-    for kw, item in (({"tp": 2}, "item 10"),
-                     ({"config": EngineConfig(tp=2)}, "item 10")):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP .*{item}"):
-            ContinuousBatchingEngine(tp, cfg, device="cpu", **kw)
+    # item 10's serving half is served: tp through the argument or the
+    # config; a width tp does not divide is refused with JAX's reason
+    for kw in ({"tp": 2}, {"config": EngineConfig(tp=2)}):
+        assert ContinuousBatchingEngine(tp, cfg, device="cpu", **kw).tp == 2
+    with pytest.raises(ValueError, match="n_heads=4 not divisible by tp=3"):
+        ContinuousBatchingEngine(tp, cfg, device="cpu", tp=3)
     # item 11 is served: prefill / decode workers on a paged engine's store
     with pytest.raises(ValueError, match="shared_kv requires paged"):
         ContinuousBatchingEngine(tp, cfg, device="cpu",
@@ -342,9 +344,11 @@ def test_unported_options_name_the_roadmap(nemo):
     req = engine.submit_prefill(torch.zeros((1, 4)))
     engine.run()
     assert req.done and req.kv_handoff.block_ids
-    with pytest.raises(ValueError, match="backend"):
-        ContinuousBatchingEngine(tp, cfg, device="cpu",
-                                 config=EngineConfig(backend="ref"))
+    # no backend registry: the JAX package's "*-tp" twins stay refused
+    for name in ("ref", "ref-tp"):
+        with pytest.raises(ValueError, match="backend"):
+            ContinuousBatchingEngine(tp, cfg, device="cpu",
+                                     config=EngineConfig(backend=name))
 
 
 def test_hits_eos_rules():
