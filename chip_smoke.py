@@ -158,12 +158,28 @@ prints one JSON line per phase:
    8-slot paged step profiled at each tp, per-shard KV bytes and the peak
    memory; then deepseek-v2's MLA attention (no experts) at 2 layers,
    ``flash_mla`` at 64 heads a shard, tp=2 streams against tp=1;
-19. held_shapes: every flash-prefill, qdecode, paged-decode (fp, int8,
+19. fleet: the fleet simulator (``Deployment.simulator``) and its
+   ``EnginePool``: stablelm-1.6b at published width and LIFECYCLE_LAYERS
+   layers in f32, v1 and v2 published with the fleet example's three
+   variants (each variant's bytes against each device class's memory), a
+   1000-device heterogeneous fleet on the card rolled out with the
+   example's policy and faults, v2 regressed: v1 completes, v2 aborts and
+   rolls back; ~280 real forwards through the pool's shared sessions (every
+   call counted, no agent error), each variant's forward card against CPU;
+   a paged engine per device class at ``fleet_bench``'s KV fraction over 12
+   shared-prefix prompts (lite fewer blocks and at least as many
+   preemptions as std; streams equal ``generate`` or part at a tie), the
+   std class at tp=2 (half the per-shard bytes), the pi4 class's router (0
+   prompt tokens recomputed), the serving launcher
+   (``repro_torch.launch.serve``) on the fp32 artifact's checkpoint; the
+   phase's launches: flash_prefill, both int8 GEMMs and paged_decode, no
+   other kernel;
+20. held_shapes: every flash-prefill, qdecode, paged-decode (fp, int8,
    int4) and int8-GEMM shape the main paths gave a kernel, held against
    the plain version;
-20. a ``kernels`` line (flash_prefill with its launches per width
-   class, qdecode with its wide class), the ``nvidia-smi`` line, and last
-   the device line.
+21. a ``kernels`` line (flash_prefill with its launches per width
+   class, qdecode with its wide class, each kernel's launches on the fleet
+   path), the ``nvidia-smi`` line, and last the device line.
 
 Every counted run also checks that each flash_prefill, flash_qprefill and
 flash_q4prefill launch took the body of its dtype (``launches_by_body``;
@@ -443,6 +459,23 @@ TP_MODEL, TP_MLA_MODEL = "mistral-nemo-12b", "deepseek-v2-236b"
 TP_LAYERS, TP_MLA_LAYERS, TP_PUBLISHED_LAYERS = 8, 2, 40
 TP_TRACE_N, TP_PROMPT, TP_NEW = 8, (32, 128), 16
 TP_LEN = 256
+# the fleet simulator: stablelm-1.6b at published width and
+# LIFECYCLE_LAYERS (2) layers in f32, the JAX example's artifacts at real
+# sizes (fp32 ~2.1 GB, int8 ~1.1 GB). FLEET_DEVICES devices inspect every
+# FLEET_INTERVAL virtual s: transfers of these sizes make the rollouts last
+# ~36k virtual s, over which the example's 20 s gives ~1M inspections (a
+# ~35 s event loop on the host), 120 s ~280k; every FLEET_REAL_EVERY-th
+# inspection runs a real [2, 64] forward (~280 in all). The horizon is
+# FLEET_HORIZON_TRANSFERS times the slowest class transfer (a lite
+# device's int8 artifact over 8 Mbit/s on a slowed link) plus a wave's
+# longest gate: v1's four waves take ~4.3 of it, v2's canary ~1 more.
+# Per-class engines of 2 slots of 32 over 8-token blocks serve 12 prompts
+# of a shared 8-token prefix + 4 tokens, 8 new tokens each
+# (``fleet_bench``'s KV-pressure traffic)
+FLEET_DEVICES, FLEET_INTERVAL, FLEET_REAL_EVERY = 1000, 120.0, 1000
+FLEET_REAL_BATCH = (2, 64)
+FLEET_HORIZON_TRANSFERS = 8
+FLEET_BLOCK, FLEET_PROMPTS, FLEET_NEW = 8, 12, 8
 
 
 T0 = time.perf_counter()
@@ -3241,7 +3274,8 @@ def _bf16_ulp(x: float) -> float:
         math.log2(abs(x)))
 
 
-def _partings(params, cfg, trace, base, got, dev, memo, frontends=None):
+def _partings(params, cfg, trace, base, got, dev, memo, frontends=None,
+              floor=0.0):
     """For each request whose spec stream parts from the non-spec one: the
     spec stream teacher-forced through the target's own dense decode path
     (the same prefix as the non-spec stream up to the parting), plainly and
@@ -3254,7 +3288,10 @@ def _partings(params, cfg, trace, base, got, dev, memo, frontends=None):
     the drafts' streams are the same target's. ``frontends``: each
     request's conditioning embeds, put in front of its prompt. (The
     router phase holds the router's streams to the single engine's the
-    same way.)"""
+    same way.) ``floor``: the least nudge a step is given (the fleet phase's
+    static-int8 class, whose activation codes a norm's nudge rarely moves:
+    the dynamic-int8 forward's nudge, where one rounding moves every code
+    of a row)."""
     out = []
     for rid, (b, g) in enumerate(zip(base, got)):
         if b == g:
@@ -3271,10 +3308,15 @@ def _partings(params, cfg, trace, base, got, dev, memo, frontends=None):
                                            forced, len(g) - 1, frontend=fe)
             memo[rid, tuple(g)] = (
                 [p[0, -1] for p in plain],
-                [float((n - p).abs().max()) for n, p in zip(nudged, plain)])
+                [max(float((n - p).abs().max()), floor)
+                 for n, p in zip(nudged, plain)])
         steps, nudge = memo[rid, tuple(g)]
-        # each step's spec token below the top, over that step's nudge
-        below = [float(x.max() - x[t]) / n for x, t, n in zip(steps, g, nudge)]
+        # each step's spec token below the top, over that step's nudge (a
+        # step whose nudge is 0, as a static-int8 step where no code sits at
+        # a rounding boundary, admits the top token only)
+        below = [float(x.max() - x[t]) / n if n else
+                 (0.0 if x[t] == x.max() else math.inf)
+                 for x, t, n in zip(steps, g, nudge)]
         logits = steps[step]
         top = torch.topk(logits, 2).values
         base_below = float(top[0] - logits[b[step]])
@@ -5004,7 +5046,368 @@ def tp_phase(k, dev, seen, layers=TP_LAYERS):
 
 
 # ------------------------------------------------------------------ #
-# Phase 19: every shape the main paths gave a kernel, against plain
+# Phase 19: the fleet simulator and its EnginePool
+# ------------------------------------------------------------------ #
+#: the kernels of the fleet path (the f32 prefill body, both int8 GEMMs,
+#: the fp paged decode); every other kernel row launches 0 times on it
+FLEET_KERNELS = ("flash_prefill", "qmatmul_dynamic", "qmatmul_static",
+                 "paged_decode")
+
+
+def _fleet_example():
+    """``examples/fleet_sim_torch.py``, for its SPECS, POLICY and FAULTS."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "fleet_sim_torch", os.path.join(ROOT, "examples",
+                                        "fleet_sim_torch.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def _busy(fn):
+    """``fn()`` under a device-only profiler: (its result, device busy ms,
+    kernels), the device drained before the window closes."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA], acc_events=True) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    busy, kernels = 0.0, 0
+    for e in prof.key_averages():
+        if str(getattr(e, "device_type", "")).endswith("CUDA") \
+                and not e.key.startswith("ProfilerStep"):
+            busy += getattr(e, "self_device_time_total",
+                            getattr(e, "self_cuda_time_total", 0.0))
+            kernels += e.count
+    return out, busy / 1e3, kernels
+
+
+def _fleet_serve(engine, prompts):
+    """Every prompt through one engine (or router) with FLEET_NEW new
+    tokens, run to the end: the streams, and an engine's metrics over
+    these requests (None for a router)."""
+    reqs = [engine.submit(p, max_new_tokens=FLEET_NEW) for p in prompts]
+    engine.run()
+    states = [getattr(r, "state", None) or r.status for r in reqs]
+    if any(s != "done" for s in states):
+        raise AssertionError(f"fleet: requests not served: {states}")
+    metrics = engine.metrics(reqs) if hasattr(engine, "kv") else None
+    return [list(r.out_tokens) for r in reqs], metrics
+
+
+def fleet_rollout(k, dev, registry, dep, pool, batch, sizes, variant_of):
+    """The rollout: FLEET_DEVICES heterogeneous devices on the card, the
+    example's POLICY and FAULTS, v2 regressed; v1 completes, v2 aborts and
+    rolls back, the real forwards all land in the pool's shared sessions.
+    Returns (the launches, the simulator)."""
+    from repro_torch.api import WorkloadModel
+    from repro_torch.fleet.simulator import DEVICE_CLASSES
+
+    ex = _fleet_example()
+    # the largest class transfer (its variant over its link, slowed) and
+    # a wave's longest gate (soaks and extensions) set the virtual horizon;
+    # v2 is deferred until v1 is done
+    slowest = max(sizes[variant_of[cls]] * 8.0 / (link * 1e6)
+                  for cls, _, _, link in DEVICE_CLASSES) \
+        * ex.FAULTS.slow_link_factor
+    gate_s = ex.POLICY.soak_s * (1 + ex.POLICY.max_gate_extensions)
+    horizon = FLEET_HORIZON_TRANSFERS * (slowest + gate_s)
+    sim = dep.simulator(seed=SEED, faults=ex.FAULTS, pool=pool,
+                        workload=WorkloadModel(
+                            version_error_rate={"v2": 0.6}),
+                        real_every=FLEET_REAL_EVERY,
+                        real_batch=lambda agent: batch)
+    sim.add_heterogeneous_fleet(FLEET_DEVICES, device=dev,
+                                inspection_interval_s=FLEET_INTERVAL)
+    sim.schedule_rollout("v1", ex.POLICY, at=10.0)
+    sim.schedule_rollout("v2", ex.POLICY, at=10.0 + slowest)
+    reset_counters(k)                        # ---- the rollout: counted
+    t0 = time.perf_counter()
+    m = sim.run(until=horizon)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = read_counters(k)              # ---- read right after
+    launches.update(check_bodies(k, "fleet/rollout", launches,
+                                 torch.float32))
+    v1, v2 = sim.rollouts
+    real = m["inspections"] // FLEET_REAL_EVERY
+    calls = {key: s.calls for key, s in pool.stats().items()}
+    errors = sum(a.error_count for a in sim.dep.devices.values())
+    distinct = sorted({e["artifact"] for e in sim.events
+                       if e["kind"] == "device_activated"})
+    emit("fleet_rollout", devices=m["devices"], seed=SEED,
+         inspection_interval_s=FLEET_INTERVAL, slowest_transfer_s=slowest,
+         horizon_s=horizon, v2_scheduled_at_s=10.0 + slowest,
+         rollouts=m["rollouts"], events=m["events"],
+         inspections=m["inspections"], active_artifacts=m["active_artifacts"],
+         telemetry=m["telemetry"], pool_fetches=pool.fetches,
+         activated_artifacts=distinct, real_every=FLEET_REAL_EVERY,
+         real_inferences_scheduled=real, session_calls=calls,
+         agent_errors=errors, run_wall_s=run_s, launches=launches)
+    if v1.status != "complete" or v2.status != "aborted" \
+            or v2.t_recovered is None or not v2.rolled_back \
+            or any(key and ":v2:" in key for key in m["active_artifacts"]):
+        raise AssertionError(f"fleet: v1 {v1.summary()}, v2 {v2.summary()}"
+                             f", active {m['active_artifacts']}")
+    if pool.fetches != len(distinct) \
+            or sorted(calls) != [f"{key}@{dev}" for key in distinct] \
+            or sum(calls.values()) != real or real == 0 or errors:
+        raise AssertionError(f"fleet: {pool.fetches} fetches of {distinct},"
+                             f" session calls {calls} (want {real} in "
+                             f"all), agent errors {errors}")
+    for name in ("flash_prefill", "qmatmul_dynamic", "qmatmul_static"):
+        if launches[name] <= 0:
+            raise AssertionError(f"fleet rollout: {name} never launched "
+                                 f"({launches})")
+    return launches, sim
+
+
+def fleet_engines(k, dev, registry, pool, cfg, prompts, variant_of, floor):
+    """Per device class a paged engine from the pool at ``fleet_bench``'s
+    KV fraction (5 blocks' bytes of the lite class's RAM) over the
+    shared-prefix prompts; the std class again at tp=2; the pi4 class's
+    router. Streams held to ``generate`` (``_partings``, each int8
+    variant's steps given at least ``floor``: the dynamic-int8 forward's
+    nudge). Returns the launch totals."""
+    from repro_torch.fleet.simulator import DEVICE_CLASSES
+    from repro_torch.serving.kvcache import kv_bytes_per_block
+
+    profiles = {cls: profile for cls, profile, _, _ in DEVICE_CLASSES}
+    refs = {cls: registry.ref("vqi", "v1", variant_of[cls])
+            for cls in profiles}
+    sessions = {cls: pool.session(refs[cls], dev) for cls in profiles}
+    base = {cls: [s.generate({"tokens": p.to(dev)}, FLEET_NEW)[0].tolist()
+                  for p in prompts] for cls, s in sessions.items()}
+    frac = 5.0 * kv_bytes_per_block(cfg, FLEET_BLOCK) / profiles[
+        "lite"].memory_bytes
+    geometry = {"kv_fraction": frac, "n_slots": 2, "max_len": 32,
+                "block_size": FLEET_BLOCK}
+    trace = types.SimpleNamespace(requests=[
+        types.SimpleNamespace(tokens=p) for p in prompts])
+    gemm = {"fp32": None, "static_int8": "qmatmul_static",
+            "dynamic_int8": "qmatmul_dynamic"}
+    totals, rows = {}, {}
+
+    def serve(where, engine, cls):
+        (streams, em), ms, launches = _counted(
+            k, torch.float32, where, lambda: _fleet_serve(engine, prompts))
+        _merge(totals, launches)
+        s = sessions[cls]
+        parted = _partings(s.params, s.cfg, trace, base[cls], streams, dev,
+                           {}, floor=0.0 if variant_of[cls] == "fp32"
+                           else floor)
+        if not all(p["ok"] for p in parted):
+            raise AssertionError(f"{where}: streams part from generate "
+                                 f"beyond a tie: {parted}")
+        return em, ms, launches, parted
+
+    for cls, profile in profiles.items():
+        variant = variant_of[cls]
+        engine = pool.serving_engine(refs[cls], dev, profile, **geometry)
+        (em, ms, launches, parted), busy, kernels = _busy(
+            lambda: serve(f"fleet/{cls}", engine, cls))
+        rows[cls] = {
+            "variant": variant,
+            "budget_bytes": pool.kv_budget_bytes(profile, frac),
+            "usable_blocks": engine.kv.alloc.usable_blocks,
+            "bytes_per_block": engine.kv.bytes_per_block,
+            "completed": em["completed"], "preempted": em["preempted"],
+            "prefix_hit_rate": em["prefix_hit_rate"],
+            "kv_blocks_peak": em["kv_blocks_peak"],
+            "decode_steps": em["decode_steps"], "serve_ms": ms,
+            "host_ms_per_step": ms / max(em["decode_steps"], 1),
+            "device_busy_ms": busy, "kernels": kernels,
+            "streams_equal_generate": len(prompts) - len(parted),
+            "nudge_floor": 0.0 if variant == "fp32" else floor,
+            "partings": parted, "launches": launches}
+        emit("fleet_class_engine", cls=cls, **rows[cls])
+        others = {name for name in gemm.values() if name} - {gemm[variant]}
+        if em["completed"] != len(prompts) or launches["paged_decode"] <= 0 \
+                or any(launches[name] for name in others) \
+                or (gemm[variant] and launches[gemm[variant]] <= 0):
+            raise AssertionError(f"fleet/{cls}: {rows[cls]}")
+    if not (rows["lite"]["usable_blocks"] < rows["std"]["usable_blocks"]
+            and rows["lite"]["preempted"] >= rows["std"]["preempted"]):
+        raise AssertionError(f"fleet: lite against std {rows}")
+
+    # the std class at tp=2: both shards on the card
+    engine = pool.serving_engine(refs["std"], dev, profiles["std"], tp=2,
+                                 **geometry)
+    em, ms, launches, parted = serve("fleet/std/tp2", engine, "std")
+    by_tp = {row["tp"]: row for key, row in pool.memory_report().items()
+             if "/router" not in key and "/edge-standard/" in key}
+    emit("fleet_tp2", cls="std", completed=em["completed"], serve_ms=ms,
+         decode_steps=em["decode_steps"],
+         bytes_per_block_per_shard={tp: r["bytes_per_block_per_shard"]
+                                    for tp, r in by_tp.items()},
+         usable_blocks={tp: r["n_blocks"] for tp, r in by_tp.items()},
+         streams_equal_generate=len(prompts) - len(parted),
+         partings=parted, launches=launches)
+    if sorted(by_tp) != [1, 2] or 2 * by_tp[2]["bytes_per_block_per_shard"] \
+            != by_tp[1]["bytes_per_block_per_shard"] \
+            or em["completed"] != len(prompts) \
+            or launches["paged_decode"] <= 0:
+        raise AssertionError(f"fleet tp=2: {by_tp}, {launches}")
+
+    # the pi4 class's router: 1 prefill + 2 decode workers on one pool
+    router = pool.request_router(refs["pi4"], dev, profiles["pi4"],
+                                 kv_fraction=frac, max_len=32,
+                                 block_size=FLEET_BLOCK)
+    _, ms, launches, parted = serve("fleet/pi4/router", router, "pi4")
+    rm = router.metrics()
+    emit("fleet_router", cls="pi4", serve_ms=ms, router_metrics=rm,
+         streams_equal_generate=len(prompts) - len(parted),
+         partings=parted, launches=launches)
+    if rm["decode_prompt_tokens_recomputed"] != 0 \
+            or rm["router_completed"] != len(prompts):
+        raise AssertionError(f"fleet router: {rm}")
+    emit("fleet_memory", report=pool.memory_report())
+    return totals
+
+
+def fleet_card_vs_cpu(registry, pool, batch, dev):
+    """One forward of each v1 variant through the pool's shared session on
+    the card against the same artifact's forward on the CPU (its params
+    copied to the host), within 2.5x
+    the card's own one-rounding nudge (``nudged_norms``: what flipped int8
+    activation codes do) or CPU_TOL["fp32"] where that is larger (the f32
+    summation order every variant shares, which sets the fp32 bound of
+    every card-vs-CPU check here: a static-int8 forward's nudge can be 0
+    when no code sits at a rounding boundary). Returns each variant's
+    nudge."""
+    from repro_torch.serving import InferenceSession
+
+    host = {key: t.cpu() for key, t in batch.items()}
+    nudges = {}
+    for variant in registry.variants("vqi", "v1"):
+        ref = registry.ref("vqi", "v1", variant)
+        session = pool.session(ref, dev)
+        with torch.no_grad():
+            card = session.logits(batch).cpu()
+            with nudged_norms():
+                nudged = session.logits(batch).cpu()
+        art = pool.artifact(ref, dev)
+        cpu = InferenceSession(art.params, art.config,
+                               device="cpu").logits(host)
+        err = float((card - cpu).abs().max())
+        nudge = float((nudged - card).abs().max())
+        bound = max(2.5 * nudge, CPU_TOL["fp32"][0])
+        emit("fleet_card_vs_cpu", variant=variant, shape=list(card.shape),
+             max_abs_err=err, card_nudge=nudge, bound=bound,
+             logit_scale=float(cpu.abs().max()), ok=err <= bound)
+        if not err <= bound:
+            raise AssertionError(f"fleet card vs CPU ({variant}): {err} > "
+                                 f"{bound}")
+        nudges[variant] = nudge
+    return nudges
+
+
+def fleet_phase(k, dev):
+    """stablelm-1.6b at published width and LIFECYCLE_LAYERS layers in f32
+    (as the JAX example and ``fleet_bench`` publish it) on random seeded
+    weights: v1 and v2 published with the example's three variants into a
+    registry under ``build/``, each variant's bytes printed against each
+    device class's memory; ``fleet_rollout`` (FLEET_DEVICES devices on the
+    card, v1 completes, v2 aborts and rolls back, every FLEET_REAL_EVERY-th
+    inspection a real [2, 64] forward through the shared sessions),
+    ``fleet_card_vs_cpu``, ``fleet_engines`` (the per-class paged engines,
+    tp=2, the router), then the serving launcher on the fp32 artifact's
+    checkpoint (``--quant dynamic_int8 --requests 16``). The pool,
+    its artifacts and engines are dropped before returning. Returns the
+    launch totals."""
+    import gc
+    import tempfile
+
+    from repro_torch import configs
+    from repro_torch.api import ArtifactRegistry, Deployment, ModelArtifact
+    from repro_torch.fleet.simulator import (DEVICE_CLASSES, EnginePool,
+                                             profile_variant_policy)
+    from repro_torch.launch import serve
+    from repro_torch.models import init_params
+
+    ex = _fleet_example()
+    published = configs.get_config("stablelm-1.6b")
+    cfg = published.with_overrides(n_layers=LIFECYCLE_LAYERS,
+                                   dtype="float32")
+    gen = torch.Generator().manual_seed(SEED + 101)
+    calib = [{"tokens": torch.randint(0, cfg.vocab_size, FLEET_REAL_BATCH,
+                                      generator=gen).to(dev)}
+             for _ in range(2)]
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, FLEET_REAL_BATCH,
+                                     generator=gen).to(dev)}
+    prefix = torch.randint(0, cfg.vocab_size, (1, 8), generator=gen)
+    prompts = [torch.cat([prefix, torch.randint(0, cfg.vocab_size, (1, 4),
+                                                generator=gen)], dim=1)
+               for _ in range(FLEET_PROMPTS)]
+    variant_of = {cls: profile_variant_policy(
+        types.SimpleNamespace(profile=profile))
+        for cls, profile, _, _ in DEVICE_CLASSES}
+    build = os.path.join(ROOT, "build")
+    os.makedirs(build, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as root:
+        registry = ArtifactRegistry(root)
+        dep = Deployment(registry, model="vqi")
+        params = init_params(cfg, seed=SEED + 100)
+        t0 = time.perf_counter()
+        for version in ("v1", "v2"):
+            dep.publish(ModelArtifact.create("vqi", version, params, cfg),
+                        ex.SPECS, calib_data=calib)
+        torch.cuda.synchronize()
+        publish_s = time.perf_counter() - t0
+        del params, calib
+        torch.cuda.empty_cache()
+        sizes = {v: registry.ref("vqi", "v1", v).size_bytes
+                 for v in registry.variants("vqi", "v1")}
+        admits = {cls: {v: profile.admits(registry.ref("vqi", "v1", v))
+                        or "admitted" for v in sizes}
+                  for cls, profile, _, _ in DEVICE_CLASSES}
+        emit("fleet_sizes", model=cfg.name, layers=cfg.n_layers,
+             published_layers=published.n_layers,
+             d_model=cfg.d_model, dtype=cfg.dtype, size_bytes=sizes,
+             class_memory_bytes={cls: p.memory_bytes
+                                 for cls, p, _, _ in DEVICE_CLASSES},
+             class_variant=variant_of, admits=admits, publish_s=publish_s)
+        refused = {cls: admits[cls][v] for cls, v in variant_of.items()
+                   if admits[cls][v] != "admitted"}
+        if refused:
+            raise AssertionError(f"fleet: a class refuses its variant: "
+                                 f"{refused}")
+        pool = EnginePool(registry)
+        totals, sim = fleet_rollout(k, dev, registry, dep, pool, batch,
+                                    sizes, variant_of)
+        del sim
+        nudges = fleet_card_vs_cpu(registry, pool, batch, dev)
+        _merge(totals, fleet_engines(k, dev, registry, pool, cfg, prompts,
+                                     variant_of, nudges["dynamic_int8"]))
+        ckpt = registry._index[registry.ref("vqi", "v1", "fp32").key]["dir"]
+        argv = ["--arch", cfg.name, "--checkpoint", ckpt, "--quant",
+                "dynamic_int8", "--requests", "16"]
+        reqs, ms, launches = _counted(k, torch.float32, "fleet/serve",
+                                      lambda: serve.main(argv))
+        _merge(totals, launches)
+        emit("fleet_serve_launcher", argv=argv[2:], requests=len(reqs),
+             served=sum(r.done for r in reqs), ms=ms, launches=launches)
+        if len(reqs) != 16 or not all(r.done for r in reqs) \
+                or launches["qmatmul_dynamic"] <= 0:
+            raise AssertionError(f"fleet serve launcher: {launches}")
+        del reqs, pool, dep, registry
+        gc.collect()
+        torch.cuda.empty_cache()
+    emit("fleet_launches", launches={name: totals.get(name, 0)
+                                     for name in _wrappers(k)},
+         peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
+    wrong = {name: totals.get(name, 0) for name in _wrappers(k)
+             if (totals.get(name, 0) > 0) != (name in FLEET_KERNELS)}
+    if wrong:
+        raise AssertionError(f"fleet launches: {wrong} (want > 0 exactly "
+                             f"for {FLEET_KERNELS})")
+    return totals
+
+
+# ------------------------------------------------------------------ #
+# Phase 20: every shape the main paths gave a kernel, against plain
 # ------------------------------------------------------------------ #
 def _flash_key(q, k, dv):
     # (B, S, Hq, Hkv, hd, dv, dtype), as FLASH_SHAPES
@@ -5325,6 +5728,10 @@ def main() -> int:
         # tensor-parallel serving: two shards on the card
         tp_totals, tp_by = tp_phase(k, dev, seen)
         _merge(totals, tp_totals)
+        # the fleet simulator's EnginePool: the per-class engines, tp=2,
+        # the router and the serving launcher over published artifacts
+        fleet_totals = fleet_phase(k, dev)
+        _merge(totals, fleet_totals)
     held_shapes_phase(k, dev, seen)
 
     sources = {"flash_prefill": ("src/repro_torch/csrc/flash_prefill.cu",
@@ -5362,7 +5769,8 @@ def main() -> int:
                         "bound_by": h["bound_by"],
                         "library_ms": h["library_ms"], "shape": shape,
                         "launches_tp": {f"tp{tp}": tp_by[tp].get(name, 0)
-                                        for tp in (1, 2)}})
+                                        for tp in (1, 2)},
+                        "launches_fleet": fleet_totals.get(name, 0)})
         if name in _flash(k):
             kernels[-1]["body"] = h["body"]
             kernels[-1]["launches_by_body"] = {

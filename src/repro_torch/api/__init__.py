@@ -1,13 +1,13 @@
 """repro_torch.api: the port's EdgeMLOps control-plane surface, the names
 of ``repro.api`` without its kernel Backend registry (the port dispatches
-by device, ``kernels/ops.py``) and without the fleet simulator (ROADMAP
-Queue 1 item 12).
+by device, ``kernels/ops.py``).
 
     ModelArtifact              one object through the whole lifecycle
     VariantSpec / QuantRecipe  declarative quantization variants
     ArtifactRegistry           versioned, sha256-checked artifact store
     Deployment                 fleet rollout facade (``spec_config``: a
-                               draft/target pair for speculative decoding)
+                               draft/target pair for speculative decoding;
+                               ``simulator``: the event-driven fleet)
 """
 from repro_torch.api.variants import DEFAULT_VARIANTS, QuantRecipe, VariantSpec
 from repro_torch.api.artifact import ModelArtifact
@@ -19,6 +19,8 @@ from repro_torch.clock import SystemClock, VirtualClock, use_clock
 from repro_torch.fleet.agent import DeviceProfile, EdgeAgent, InstallError
 from repro_torch.fleet.orchestrator import (HealthGate, RolloutPolicy,
                                             RolloutReport)
+from repro_torch.fleet.simulator import (DeviceSpec, EnginePool, FaultPlan,
+                                         FleetSimulator, WorkloadModel)
 from repro_torch.fleet.telemetry import InferenceRecord, TelemetryHub
 from repro_torch.serving.engine import InferenceSession
 from repro_torch.serving.loadgen import ArrivalTrace, TracedRequest, replay
@@ -38,4 +40,6 @@ __all__ = [
     "Deployment", "ArtifactRegistry", "ArtifactRef", "EdgeAgent",
     "DeviceProfile", "InstallError", "HealthGate", "RolloutPolicy",
     "RolloutReport", "TelemetryHub", "InferenceRecord", "InferenceSession",
+    "FleetSimulator", "DeviceSpec", "FaultPlan", "WorkloadModel",
+    "EnginePool",
 ]

@@ -66,14 +66,18 @@ class Deployment:
         return agent
 
     def register_agent(self, agent: EdgeAgent) -> EdgeAgent:
-        """Register an externally constructed agent."""
+        """Register an externally constructed agent (e.g. the simulator's
+        pool-backed ``SimAgent``)."""
         self.fleet.register_device(agent)
         return agent
 
     def simulator(self, **kwargs):
-        raise NotImplementedError(
-            "the event-driven FleetSimulator and its EnginePool are ROADMAP "
-            "Queue 1 item 12")
+        """An event-driven ``FleetSimulator`` over this deployment: virtual
+        clock, failure injection, 1000+ devices sharing an
+        ``EnginePool``."""
+        from repro_torch.fleet.simulator import FleetSimulator
+
+        return FleetSimulator(self, **kwargs)
 
     # ------------------------------------------------------------------ #
     def publish(self, model: ModelArtifact,

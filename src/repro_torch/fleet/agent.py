@@ -11,7 +11,9 @@ otherwise).
 
 The JAX agent's ``backend=`` (a kernel backend name) is the port's
 ``device=``: where the agent's session, and so its kernels, run. Each
-agent loads and serves its own copy of the active artifact.
+agent loads and serves its own copy of the active artifact, through three
+overridable lifecycle hooks (fetch + verify, fetch, build the session) that
+the fleet simulator's ``SimAgent`` routes through a shared ``EnginePool``.
 """
 from __future__ import annotations
 
@@ -68,6 +70,19 @@ class EdgeAgent:
         self.events.append({"t": self._now(), "kind": kind,
                             "device": self.device_id, **kw})
 
+    # Overridable lifecycle hooks (the simulator's SimAgent routes these
+    # through a shared EnginePool so 1000 devices share a handful of
+    # engines).
+    def _fetch_verify(self, ref) -> None:
+        """Download + sha256-verify the artifact bytes."""
+        self.registry.fetch(ref, self.device)
+
+    def _fetch_artifact(self, ref):
+        return self.registry.fetch_artifact(ref, self.device)
+
+    def _build_session(self, artifact):
+        return artifact.session(device=self.device)
+
     # ---------------------------------------------------------------- #
     def install(self, ref) -> None:
         """Download + verify + stage (does not activate)."""
@@ -75,15 +90,15 @@ class EdgeAgent:
         if reason:
             self._log("install_rejected", artifact=ref.key, reason=reason)
             raise InstallError(reason)
-        self.registry.fetch(ref, self.device)    # download + sha256 verify
+        self._fetch_verify(ref)                  # download + sha256 verify
         self.installed.append(ref)
         self._log("installed", artifact=ref.key)
 
     def activate(self, ref) -> None:
         if ref not in self.installed:
             self.install(ref)
-        artifact = self.registry.fetch_artifact(ref, self.device)
-        self.session = artifact.session(device=self.device)
+        artifact = self._fetch_artifact(ref)
+        self.session = self._build_session(artifact)
         self.artifact = artifact
         self.active = ref
         self._log("activated", artifact=ref.key)

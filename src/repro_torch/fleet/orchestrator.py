@@ -12,10 +12,11 @@ Rollouts are staged (canary -> waves -> fleet-wide) behind a declarative
     4. healthy -> next wave, until fleet-wide.
 
 Every transition lands in the audit log with a timestamp from
-``repro_torch.clock``. This is the synchronous form; the JAX package's
-event-driven simulator is ROADMAP Queue 1 item 12. Each device's profile
-selects the artifact variant (4 GB-class devices get int8) via
-``variant_policy``.
+``repro_torch.clock``. This is the synchronous form; the event-driven
+thousand-device version of the same state machine is
+``repro_torch.fleet.simulator``, and both share ``RolloutPolicy`` /
+``HealthGate``. Each device's profile selects the artifact variant (4
+GB-class devices get int8) via ``variant_policy``.
 """
 from __future__ import annotations
 

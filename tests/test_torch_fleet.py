@@ -32,7 +32,8 @@ from repro_torch.bridge import params_from_jax  # noqa: E402
 from repro_torch.core.quant import QuantConfig, quantize_tree  # noqa: E402
 from repro_torch.data import (CENTROID_SEED, IGNORE, VQITask,  # noqa: E402
                               vqi_batch, vqi_eval_accuracy, vqi_stream)
-from repro_torch.fleet import FleetOrchestrator, HealthGate  # noqa: E402
+from repro_torch.fleet import (FleetOrchestrator, FleetSimulator,  # noqa: E402
+                               HealthGate)
 from repro_torch.fleet import vqi as t_vqi  # noqa: E402
 from repro_torch.models import init_params  # noqa: E402
 from repro_torch.serving import RequestQueue  # noqa: E402
@@ -199,8 +200,9 @@ def test_deployment_facade(setup):
         dep.publish(ModelArtifact.create("other", "v1", params, cfg), SPECS)
     with pytest.raises(KeyError, match="no draft variant"):
         dep.spec_config()                # no variant was published draft_of
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 12"):
-        dep.simulator()
+    sim = dep.simulator()
+    assert isinstance(sim, FleetSimulator) and sim.dep is dep
+    assert sim.registry is registry and sim.hub is dep.telemetry
     with pytest.raises(ValueError, match="telemetry/variant_policy"):
         Deployment(registry, "m", fleet=dep.fleet, telemetry=TelemetryHub())
 
