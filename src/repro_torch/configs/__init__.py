@@ -44,3 +44,18 @@ def get_config(arch_id: str) -> ModelConfig:
 
 def smoke_config(arch_id: str) -> ModelConfig:
     return _module(arch_id).SMOKE
+
+
+def all_arch_ids() -> List[str]:
+    """The CLI ids of every architecture, in ``CLI_ALIASES`` order."""
+    return list(CLI_ALIASES)
+
+
+#: the input shapes the dry-run traces (a copy of the JAX package's table):
+#: global batch and sequence of a training step, a prefill and a decode step
+INPUT_SHAPES: Dict[str, Dict[str, object]] = {
+    "train_4k":    {"seq_len": 4_096,   "global_batch": 256, "kind": "train"},
+    "prefill_32k": {"seq_len": 32_768,  "global_batch": 32,  "kind": "prefill"},
+    "decode_32k":  {"seq_len": 32_768,  "global_batch": 128, "kind": "decode"},
+    "long_500k":   {"seq_len": 524_288, "global_batch": 1,   "kind": "decode"},
+}

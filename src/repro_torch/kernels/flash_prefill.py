@@ -45,6 +45,14 @@ the JAX package differentiates its plain ``flash_prefill_ref`` (a
 ``pallas_call`` has no transpose rule). Every other wrapper here, like
 each in this package, raises when asked for a gradient on the card
 (``_build.refuse_grad``).
+
+On a mesh. DTensor q / k / v (a training step under ``sharding.set_mesh``)
+go through ``local_map``: each rank runs the kernel (the plain version on
+the CPU) on its own rows and heads. q's placements must be its checked spec
+``(batch axes, None, "model", None)``, and k / v's theirs; where "model" does
+not divide the kv heads, k / v are replicated over it and each rank slices
+the kv heads its query heads read (their grads then sum over "model"). Any
+other placement raises: nothing falls back to an unsharded call.
 """
 from __future__ import annotations
 
@@ -179,7 +187,13 @@ def flash_prefill(q, k, v):
     CPU tensors take the plain version (differentiable as it is); CUDA
     tensors launch the kernel's tensor-core body ``body_for`` picks,
     through ``_FlashPrefill`` when grad mode is on and an input requires
-    grad."""
+    grad; DTensors run either on each rank's shard (``local_map``)."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(q, DTensor):
+        from repro_torch.models.sharding import attention_local
+
+        return attention_local(flash_prefill, q, k, v, "flash_prefill")
     _check(q, k, v)
     if q.device.type == "cpu":
         return flash_prefill_ref(q, k, v)

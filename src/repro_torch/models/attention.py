@@ -54,6 +54,8 @@ from repro_torch.kernels.ref import (NEG_INF, paged_gather, paged_valid,
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (apply_rope, dense_init, linear,
                                        rms_norm, row_combine)
+from repro_torch.models.sharding import (attention_local, is_dtensor,
+                                         split_heads)
 
 
 Q_CHUNK = 512
@@ -178,6 +180,18 @@ def _flash_ok(cfg: ModelConfig, window: int) -> bool:
     return cfg.opt_flash_prefill and not window
 
 
+def _chunked(q, k, v, positions, window: int, cfg: ModelConfig):
+    """``chunked_attention``; DTensor q / k / v on each rank's rows and
+    heads (``sharding.attention_local``)."""
+    def attend(qq, kk, vv):
+        return chunked_attention(qq, kk, vv, positions, window=window,
+                                 native_accum=cfg.opt_attn_accum)
+
+    if is_dtensor(q):
+        return attention_local(attend, q, k, v, "chunked_attention")
+    return attend(q, k, v)
+
+
 def gqa_prefill(p, x, positions, cfg: ModelConfig, window: int = 0,
                 pad_to: int = 0):
     """Returns (out [B,S,d], cache), the cache padded to ``max(S, pad_to)``
@@ -194,16 +208,15 @@ def gqa_prefill(p, x, positions, cfg: ModelConfig, window: int = 0,
 
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
-    q = linear(p["wq"], x).reshape(b, s, cfg.n_heads, hd)
-    k = linear(p["wk"], x).reshape(b, s, cfg.n_kv_heads, hd)
-    v = linear(p["wv"], x).reshape(b, s, cfg.n_kv_heads, hd)
+    q = split_heads(linear(p["wq"], x), cfg.n_heads, hd)
+    k = split_heads(linear(p["wk"], x), cfg.n_kv_heads, hd)
+    v = split_heads(linear(p["wv"], x), cfg.n_kv_heads, hd)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     if not _flash_ok(cfg, window):
         # chunked core over the fp K/V; a quantized tier quantizes the
         # padded cache (pad rows get the floor scale, as in JAX)
-        out = chunked_attention(q, k, v, positions, window=window,
-                                native_accum=cfg.opt_attn_accum)
+        out = _chunked(q, k, v, positions, window, cfg)
         out = row_combine(p["wo"], out.reshape(b, s, cfg.n_heads * hd))
         kc, vc = (_ring_or_pad(t, s, window, pad_to) for t in (k, v))
         if prec == "fp":
@@ -553,9 +566,9 @@ def _mla_q(p, x, q_positions, cfg: ModelConfig):
     nh, dn, dr = cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim
     if cfg.q_lora_rank:
         cq = rms_norm(p["q_norm"], linear(p["w_dq"], x), cfg.norm_eps)
-        q = linear(p["w_uq"], cq).reshape(b, sq, nh, dn + dr)
+        q = split_heads(linear(p["w_uq"], cq), nh, dn + dr)
     else:
-        q = linear(p["wq"], x).reshape(b, sq, nh, dn + dr)
+        q = split_heads(linear(p["wq"], x), nh, dn + dr)
     return q[..., :dn], apply_rope(q[..., dn:], q_positions, cfg.rope_theta)
 
 
@@ -571,7 +584,7 @@ def _mla_qkv(p, x, c_kv, k_rope, q_positions, kv_positions,
     q_nope, q_rope = _mla_q(p, x, q_positions, cfg)
     q = torch.cat([q_nope, q_rope], dim=-1)
     kv = linear(p["w_ukv"], rms_norm(p["kv_norm"], c_kv, cfg.norm_eps))
-    kv = kv.reshape(b, skv, nh, dn + dv)
+    kv = split_heads(kv, nh, dn + dv)
     kr = apply_rope(k_rope[:, :, None, :], kv_positions, cfg.rope_theta)
     k = torch.cat([kv[..., :dn], kr.expand(b, skv, nh, dr)], dim=-1)
     return q, k, kv[..., dn:].contiguous()
@@ -662,8 +675,7 @@ def mla_prefill(p, x, positions, cfg: ModelConfig, window: int = 0,
 
         out = ops.flash_prefill(q, k, v).to(x.dtype)
     else:
-        out = chunked_attention(q, k, v, positions, window=window,
-                                native_accum=cfg.opt_attn_accum)
+        out = _chunked(q, k, v, positions, window, cfg)
     out = row_combine(p["wo"], out.reshape(b, s, cfg.n_heads * cfg.v_head_dim))
     return out, (_ring_or_pad(c_kv, s, window, pad_to),
                  _ring_or_pad(k_rope, s, window, pad_to))

@@ -235,6 +235,7 @@ def check_supported(cfg: ModelConfig) -> None:
         raise ValueError(
             f"{cfg.name}: a vlm needs frontend='vision', a frontend needs "
             "frontend_dim > 0, and only a vlm has a vision frontend")
-    # ``fsdp`` only names a sharding under a training mesh (what is left of
-    # ROADMAP Queue 1 item 10: the GSPMD rules); serving shards with
-    # ``serving.sharded`` and ignores it, as in the JAX package
+    # ``fsdp`` only names a sharding under a training mesh: the "data"
+    # entry of ``models/sharding.py``'s ``_param_rule`` (weight input dims
+    # over "data", gathered where a product reads them); serving shards
+    # with ``serving.sharded`` and ignores it, as in the JAX package

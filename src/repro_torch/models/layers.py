@@ -18,7 +18,8 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.sharding import tp_state
+from repro_torch.models.sharding import (gather_dim, is_dtensor,
+                                         reduce_partials, tp_state)
 
 # leaves that no ``linear`` reads: the embedding is gathered row-wise in
 # the JAX layout (``transformer._take_embed``)
@@ -99,7 +100,76 @@ def linear(p, x: torch.Tensor) -> torch.Tensor:
             y = ops.qmatmul_dynamic(x2, p["w_int8"], p["scale"],
                                     out_dtype=x.dtype)
         return y.reshape(*lead, -1)
+    if is_dtensor(p):
+        # a product reads its input reduced (a row-parallel output left
+        # partial over "model" where JAX sets no constraint)
+        return _MeshMatmul.apply(reduce_partials(x), p.to(x.dtype))
     return torch.matmul(x, p.to(x.dtype))
+
+
+def _gathered(x, w):
+    """``w`` gathered over each mesh dim that shards the rows of ``x``
+    (FSDP's gather of a weight whose dims "data" shards, as the batch)."""
+    if not is_dtensor(x):
+        return w
+    from torch.distributed.tensor import Replicate
+
+    lead = x.dim() - 1
+    pl = [Replicate() if xp.is_shard() and xp.dim < lead else wp
+          for xp, wp in zip(x.placements, w.placements)]
+    if pl == list(w.placements):
+        return w
+    return w.redistribute(w.device_mesh, pl)
+
+
+class _MeshMatmul(torch.autograd.Function):
+    """``x @ w`` of a DTensor weight, partitioned as GSPMD partitions it.
+    Where a mesh dim shards both the rows of x (the batch) and a dim of w
+    (FSDP), w is gathered over it first, in the forward and again in the
+    backward. The backward computes each rank's own block of w's grad:
+    DTensor alone would take the product of the replicated activations and
+    grads (its cheapest input layout) and keep w's shard of it, every rank
+    computing the whole weight grad. Per mesh dim: rows sharded there stay
+    sharded and the grad sums over them; else the rows of x (w's input dim
+    sharded) or the columns of the grad (w's output dim sharded) are
+    sliced to w's shard; the grad then takes w's placements (an
+    all-reduce or reduce-scatter where it was a sum)."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return torch.matmul(x, _gathered(x, w))
+
+    @staticmethod
+    def backward(ctx, grad):
+        from torch.distributed.tensor import Replicate, Shard
+
+        x, w = ctx.saved_tensors
+        gx = gw = None
+        if ctx.needs_input_grad[0]:
+            gx = torch.matmul(grad, _gathered(x, w).transpose(0, 1))
+        if ctx.needs_input_grad[1]:
+            k, n = w.shape
+            x2, g2 = x.reshape(-1, k), grad.reshape(-1, n)
+            x_pl, g_pl = [], []
+            for xp, gp, wp in zip(x2.placements, g2.placements, w.placements):
+                if Shard(0) in (xp, gp):            # rows: a sum over them
+                    x_pl.append(Shard(0))
+                    g_pl.append(Shard(0))
+                elif wp == Shard(0):
+                    x_pl.append(Shard(1))
+                    g_pl.append(Replicate())
+                elif wp == Shard(1):
+                    x_pl.append(Replicate())
+                    g_pl.append(Shard(1))
+                else:
+                    x_pl.append(Replicate())
+                    g_pl.append(Replicate())
+            gw = torch.matmul(
+                x2.redistribute(x2.device_mesh, x_pl).transpose(0, 1),
+                g2.redistribute(g2.device_mesh, g_pl))
+            gw = gw.redistribute(w.device_mesh, w.placements)
+        return gx, gw
 
 
 def rms_norm(w: torch.Tensor, x: torch.Tensor, eps: float = 1e-6):
@@ -138,8 +208,10 @@ def swiglu(wi, wo, x: torch.Tensor) -> torch.Tensor:
     permuted per shard first (``serving.sharded.permute_wi_for_tp``), so
     the local split below stays a gate / up split; ``wo`` combines across
     the shards through ``row_combine``."""
-    gu = linear(wi, x)
-    g, u = torch.chunk(gu, 2, dim=-1)
+    # on a mesh the fused gate|up columns are gathered first: a shard of
+    # them holds gate or up columns only (DTensor would otherwise choose
+    # its own reshard for the split, which can move the rows instead)
+    g, u = torch.chunk(gather_dim(linear(wi, x), -1), 2, dim=-1)
     return row_combine(wo, F.silu(g) * u)
 
 

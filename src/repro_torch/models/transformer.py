@@ -44,6 +44,11 @@ train mode with ``cfg.remat`` and grad mode on, each scanned unit (a layer,
 or a hybrid's whole group) runs under ``torch.utils.checkpoint`` (the JAX
 package's ``jax.checkpoint`` of its scan body): the backward recomputes
 it, flash kernel launch included.
+
+Under a mesh (``sharding.set_mesh``) the params and batch are DTensors and
+``constrain`` holds the residual stream at JAX's sites (each block's
+residual adds, the embedding's output and the f32 logits) to batch on every
+non-model axis; elsewhere it returns its input.
 """
 from __future__ import annotations
 
@@ -61,6 +66,9 @@ from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.config import ModelConfig, check_supported
 from repro_torch.models.layers import (dense_init, embed_init, is_quantized,
                                        linear, rms_norm, swiglu)
+from repro_torch.models.sharding import (batch_local, constrain, data_spec,
+                                         is_dtensor, placements,
+                                         to_placements)
 
 
 #: the layer stacks of a param tree, cache or pool set, in layer order
@@ -209,7 +217,48 @@ def _take_embed(leaf, tokens, dtype):
         return (rows * row_scale).to(dtype)
     if isinstance(leaf, dict) and "w" in leaf:
         leaf = leaf["w"]
+    if is_dtensor(leaf):
+        return _take_embed_sharded(leaf, tokens, dtype)
     return leaf[tokens].to(dtype)
+
+
+def _take_embed_sharded(leaf, tokens, dtype):
+    """The vocab-parallel gather of a DTensor table (the GSPMD lowering of
+    JAX's ``take``): the table gathered over every axis but "model" (FSDP's
+    gather), each "model" rank looking up the tokens of its vocab range
+    and zeros elsewhere, the rows summed over "model" (a ``Partial``
+    placement, reduced by the next ``constrain``)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = leaf.device_mesh
+    names = mesh.mesh_dim_names
+    m = names.index("model") if "model" in names else None
+    split = m is not None and leaf.shape[0] % mesh.size(m) == 0
+    w_pl = [Shard(0) if split and i == m else Replicate()
+            for i in range(mesh.ndim)]
+    t_pl = list(placements(data_spec(tuple(tokens.shape), mesh), mesh))
+    out_pl = [Partial() if split and i == m else p
+              for i, p in enumerate(t_pl)]
+    # each batch shard's rows give the table's grad from its own tokens
+    w_grad = [Partial() if isinstance(t, Shard) else p
+              for p, t in zip(w_pl, t_pl)]
+
+    def body(w, tok):
+        if not split:
+            return w[tok].to(dtype)
+        v_l = w.shape[0]
+        local = tok - mesh.get_local_rank(m) * v_l
+        inside = (local >= 0) & (local < v_l)
+        rows = w[torch.where(inside, local, torch.zeros_like(local))]
+        return torch.where(inside[..., None], rows,
+                           torch.zeros((), dtype=w.dtype,
+                                       device=w.device)).to(dtype)
+
+    fn = local_map(body, out_placements=out_pl, in_placements=(w_pl, t_pl),
+                   in_grad_placements=(w_grad, t_pl), device_mesh=mesh)
+    return fn(leaf.redistribute(mesh, w_pl),
+              to_placements(tokens, mesh, t_pl))
 
 
 def _codebook(leaf, k: int):
@@ -240,7 +289,7 @@ def embed_inputs(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig):
         fe = linear(params["frontend_proj"],
                     batch["frontend_embeds"].to(x.dtype))
         x = torch.cat([fe, x], dim=1)
-    return x
+    return constrain(x, "batch", None, None)
 
 
 def _as_weight(leaf, dtype):
@@ -265,10 +314,17 @@ def lm_head(params, x, cfg: ModelConfig):
     else:
         logits = linear(params["unembed"], x)
     if cfg.n_codebooks > 1:
-        extra = torch.einsum("bsd,kdv->bskv", x,
-                             _as_weight(params["out_heads"], x.dtype))
+        heads = _as_weight(params["out_heads"], x.dtype)
+        if is_dtensor(heads):
+            # a product per codebook: DTensor cannot view the einsum's
+            # folded [d, K * V] with V sharded
+            extra = torch.stack([linear(heads[k], x)
+                                 for k in range(heads.shape[0])], dim=2)
+        else:
+            extra = torch.einsum("bsd,kdv->bskv", x, heads)
         logits = torch.cat([logits[:, :, None], extra], dim=2)
-    return logits.to(torch.float32)
+    return constrain(logits.to(torch.float32), "batch",
+                     *([None] * (logits.dim() - 1)))
 
 
 # ===================================================================== #
@@ -310,13 +366,24 @@ def _block(lp, x, cfg: ModelConfig, *, mode: str, cache=None,
     a_out, new_cache = _attend(lp, h, cfg, mode=mode, cache=cache,
                                positions=positions, pos=pos, pad_to=pad_to,
                                tables=tables)
-    x = x + a_out
+    x = constrain(x + a_out, "batch", None, None)
     h2 = rms_norm(lp["ln2"], x, cfg.norm_eps)
     if "moe" in lp:
         f_out, aux = moe_mod.moe_ffn(lp["moe"], h2, cfg)
     else:
         f_out, aux = swiglu(lp["mlp"]["wi"], lp["mlp"]["wo"], h2), None
-    return x + f_out, new_cache, aux
+    return constrain(x + f_out, "batch", None, None), new_cache, aux
+
+
+def _mixer_prefill(prefill_fn, p, h, cfg: ModelConfig):
+    """A recurrent mixer's prefill, ``(out, (state, conv_state))``; on a
+    DTensor ``h`` batch-parallel (``sharding.batch_local``)."""
+    if not is_dtensor(h):
+        return prefill_fn(p, h, cfg)
+    out, state, conv = batch_local(
+        lambda pl, hl: (lambda o, c: (o, *c))(*prefill_fn(pl, hl, cfg)),
+        p, h, n_out=3)
+    return out, (state, conv)
 
 
 def _ssm_block(lp, x, cfg: ModelConfig, *, mode: str, cache=None):
@@ -324,8 +391,9 @@ def _ssm_block(lp, x, cfg: ModelConfig, *, mode: str, cache=None):
     if mode == "decode":
         out, new_cache = ssm_mod.ssm_decode(lp["ssm"], h, cache, cfg)
     else:
-        out, new_cache = ssm_mod.ssm_prefill(lp["ssm"], h, cfg)
-    return x + out, new_cache, None
+        out, new_cache = _mixer_prefill(ssm_mod.ssm_prefill, lp["ssm"], h,
+                                        cfg)
+    return constrain(x + out, "batch", None, None), new_cache, None
 
 
 def _rec_block(lp, x, cfg: ModelConfig, *, mode: str, cache=None):
@@ -334,8 +402,9 @@ def _rec_block(lp, x, cfg: ModelConfig, *, mode: str, cache=None):
     if mode == "decode":
         out, new_cache = rec_mod.rglru_block_decode(lp["rec"], h, cache, cfg)
     else:
-        out, new_cache = rec_mod.rglru_block_prefill(lp["rec"], h, cfg)
-    x = x + out
+        out, new_cache = _mixer_prefill(rec_mod.rglru_block_prefill,
+                                        lp["rec"], h, cfg)
+    x = constrain(x + out, "batch", None, None)
     h2 = rms_norm(lp["ln2"], x, cfg.norm_eps)
     return x + swiglu(lp["mlp"]["wi"], lp["mlp"]["wo"], h2), new_cache, None
 

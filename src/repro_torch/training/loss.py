@@ -9,13 +9,34 @@ from repro_torch.models.config import ModelConfig
 IGNORE = -100
 
 
+def _pick(logp: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``logp[..., ids]`` (one entry per row). For DTensors, each rank
+    picks from its own rows (``local_map``, the vocab dim whole): DTensor's
+    own gather backward builds its zero grad at the *global* shape on every
+    rank (a replicated ``new_zeros``)."""
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(logp, DTensor):
+        return torch.gather(logp, -1, ids[..., None])[..., 0]
+    from torch.distributed.tensor.experimental import local_map
+
+    from repro_torch.models.sharding import gather_dim, to_placements
+
+    logp = gather_dim(logp, -1)
+    mesh, pl = logp.device_mesh, list(logp.placements)
+    fn = local_map(lambda lp, i: torch.gather(lp, -1, i[..., None])[..., 0],
+                   out_placements=pl, in_placements=(pl, pl),
+                   device_mesh=mesh)
+    return fn(logp, to_placements(ids, mesh, pl))
+
+
 def xent(logits: torch.Tensor, labels: torch.Tensor):
     """logits [..., V] f32; labels [...] int with IGNORE at masked
     positions -> (mean loss, token accuracy) over the valid positions."""
     valid = labels != IGNORE
     safe = torch.where(valid, labels, torch.zeros_like(labels)).long()
     logp = torch.log_softmax(logits, dim=-1)
-    nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
+    nll = -_pick(logp, safe)
     n = valid.sum().clamp(min=1)
     loss = torch.where(valid, nll, torch.zeros_like(nll)).sum() / n
     acc = (valid & (logits.argmax(-1) == safe)).sum() / n

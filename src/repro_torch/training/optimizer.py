@@ -88,7 +88,7 @@ def _jax_rank(path: str, p: torch.Tensor) -> int:
 def adamw_init(params, oc: OptimizerConfig):
     """Zero moments (fp32, or int8 codes with their scales) and step 0."""
     def zeros(_, p):
-        z = torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        z = torch.zeros_like(p, dtype=torch.float32)
         if oc.int8_state:
             return {"m": _q8(z), "v": _q8(z)}
         return {"m": z, "v": z}

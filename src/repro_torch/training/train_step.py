@@ -4,7 +4,11 @@
 Grads come from ``torch.autograd.grad`` over detached leaves that require
 grad, so the caller's params never carry a graph. Every attention layer of
 the forward runs the ``flash_prefill`` kernel on the card, under its
-autograd Function (``kernels/flash_prefill.py``).
+autograd Function (``kernels/flash_prefill.py``). Under a mesh
+(``models.sharding.set_mesh``) the same code runs on DTensor params,
+moments and batches: detached DTensor leaves, the activation checkpoints
+and the int8 moments' per-row absmax over a sharded last dim all work as
+they are.
 """
 from __future__ import annotations
 
