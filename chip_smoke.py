@@ -60,6 +60,16 @@ prints one JSON line per phase:
    path on the card (the fp32-passthrough replay's weights and depth), its
    per-step logit difference beside the card's own one-rounding nudge and
    the top-1 / top-2 margin where the replay's streams part;
+4a. backends: the kernel Backend registry on stablelm-1.6b at full width
+   and BACKENDS_LAYERS layers, one dynamic-int8 artifact: sessions
+   unpinned, pinned ``cuda`` and pinned ``ref`` in one process (the
+   kernels launch under ``cuda`` and unpinned, none under ``ref``; logits
+   within 2.5x the ``ref`` session's nudge; greedy streams equal or
+   parted at a tie; each pin's host ms a decode step, launches and device
+   profile; the registry's host us a call against the kernel entry's),
+   then an engine pinned ``cuda-tp`` at tp=2 launching each per-shard
+   kernel twice as often as the ``cuda`` engine, and a spec engine pinned
+   ``cuda`` whose ``ref`` draft launches nothing;
 5. card vs CPU: the same fp32 weights at full width and 2 layers, the CPU's
    plain path against the card's kernel path on one prompt plus 8
    teacher-forced decode steps, dense and then paged (a block table with
@@ -320,6 +330,16 @@ PAGED = {"paged": True, "block_size": 16, "n_blocks": 65}
 # its time limit on the slowest recorded host (1206.6 s in first position
 # at 12 layers and the other depths doubled)
 SERVE_LAYERS = 6
+# the backends phase: stablelm-1.6b at published width, cut to 4 of its
+# 24 layers (the per-shard launch counts of the cuda-tp engine depend on
+# the trace only), two prompts, a 4-request trace, 16 new tokens each
+BACKENDS_LAYERS = 4
+BACKENDS_PROMPTS = (64, 200)
+BACKENDS_NEW = 16
+BACKENDS_TRACE_N = 4
+BACKENDS_STEPS = 16
+BACKENDS_ROUNDS = 3
+REGISTRY_CALLS = 2000
 # a torch.profiler trace can lose a kernel record (one of 96 seen once on
 # the H100): a trace that shows fewer launches of its watched kernel than
 # the wrapper counted is taken again, at most this many times in all
@@ -2004,6 +2024,275 @@ def engine_phase(k, dev):
 
 
 # ------------------------------------------------------------------ #
+# Phase 4a: the kernel Backend registry on the main path's model
+# ------------------------------------------------------------------ #
+def _registry_us(k, dev):
+    """Host us a call of one tiny decode GEMM (M 1, K = N = 256: its device
+    time far below the host's) launched through the registry's dispatch
+    (``current_backend().qmatmul_dynamic_packed`` under ``cuda``) and
+    through the kernel entry directly, REGISTRY_CALLS calls each, in
+    BACKENDS_ROUNDS turns; the least and the median of each."""
+    from repro_torch.api import current_backend, use_backend
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 113)
+    x = torch.randn((1, 256), generator=gen, device=dev).to(torch.bfloat16)
+    w = torch.randint(-127, 128, (256, 256), generator=gen, device=dev,
+                      dtype=torch.int8)
+    wp = k.qmatmul.pack_weight(w)
+    ws = torch.rand((1, 256), generator=gen, device=dev) * 1e-3
+    entry = k.dynquant.qmatmul_dynamic_packed
+    calls = {"direct": lambda: entry(x, wp, ws, out_dtype=torch.bfloat16),
+             "registry": lambda: current_backend().qmatmul_dynamic_packed(
+                 x, wp, ws, out_dtype=torch.bfloat16)}
+    rounds = {name: [] for name in calls}
+    with use_backend("cuda"):
+        for fn in calls.values():
+            fn()
+        for _ in range(BACKENDS_ROUNDS):
+            for name, fn in calls.items():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(REGISTRY_CALLS):
+                    fn()
+                torch.cuda.synchronize()
+                rounds[name].append((time.perf_counter() - t0) * 1e6
+                                    / REGISTRY_CALLS)
+    return {name: {"min": min(r), "median": statistics.median(r)}
+            for name, r in rounds.items()}
+
+
+def _decode_windows(k, sessions, cfg, prompt):
+    """Per pin of ``sessions`` (None: unpinned): batch-1 decode steps of
+    its weights after a prefill of ``prompt``, under its pin; the launches
+    of one step, host ms a step over BACKENDS_STEPS steps in
+    BACKENDS_ROUNDS rounds that take the pins in turn (the least, the
+    median and every round's), then 4 profiled steps."""
+    from repro_torch.api import use_backend
+    from repro_torch.models import decode_step, prefill
+
+    n, states, out = prompt.shape[1], {}, {}
+
+    def step(pin):
+        st = states[pin]
+        nxt = torch.argmax(st["logits"][:, -1], dim=-1).reshape(1, 1)
+        st["logits"], st["cache"] = decode_step(
+            sessions[pin].params, st["cache"], nxt, st["pos"], cfg)
+        st["pos"] += 1
+
+    with torch.no_grad():
+        for pin, session in sessions.items():
+            with use_backend(pin):
+                last, cache = prefill(session.params, {"tokens": prompt}, cfg,
+                                      pad_to=512, n_valid=n)
+                states[pin] = {"logits": last, "cache": cache, "pos": n}
+                step(pin)
+                torch.cuda.synchronize()
+                reset_counters(k)
+                step(pin)
+                torch.cuda.synchronize()
+                got = read_counters(k)
+            out[pin] = {"launches_per_step": sum(got[name]
+                                                 for name in _wrappers(k)),
+                        "rounds_ms": []}
+        for _ in range(BACKENDS_ROUNDS):
+            for pin in sessions:
+                with use_backend(pin):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    for _ in range(BACKENDS_STEPS):
+                        step(pin)
+                    torch.cuda.synchronize()
+                out[pin]["rounds_ms"].append(
+                    (time.perf_counter() - t0) * 1e3 / BACKENDS_STEPS)
+        for pin in sessions:
+            r = out[pin]["rounds_ms"]
+            out[pin].update(host_ms_per_step=min(r),
+                            median_ms_per_step=statistics.median(r))
+            with use_backend(pin):
+                out[pin]["decode_trace"] = profile_steps(
+                    lambda pin=pin: step(pin), 4, out[pin]["host_ms_per_step"])
+    return {str(pin): v for pin, v in out.items()}
+
+
+def backends_phase(k, dev):
+    """The kernel Backend registry (``repro_torch.api.backends``) on the
+    main path's model: stablelm-1.6b at published width and
+    BACKENDS_LAYERS layers in bf16, one dynamic-int8 artifact. Three
+    sessions over it in one process, unpinned, pinned ``cuda`` and pinned
+    ``ref``: a 200-token prompt's logits counted (the GEMMs and flash
+    prefill launch under ``cuda`` and unpinned, nothing under ``ref``;
+    unpinned equals ``cuda`` bit for bit; ``cuda`` within 2.5x the ``ref``
+    session's own one-rounding nudge of ``ref``), greedy streams (equal, or
+    parting where ``_partings`` accepts the tie), each pin's host ms a
+    decode step with its launches and device profile, and the registry's
+    own host us a call (``_registry_us``). Then the bf16 weights behind an
+    engine pinned ``cuda-tp`` with no ``tp=``: tp=2, each per-shard kernel
+    launched exactly twice as often as by the ``cuda`` engine
+    (``tp_counts``); and a spec engine whose target is pinned ``cuda`` and
+    whose draft, the int8 artifact's ``ref`` session, adds no launch.
+    Returns the launch totals of the counted ``cuda`` runs."""
+    from repro_torch import configs
+    from repro_torch.api import ModelArtifact, VariantSpec, available_backends
+    from repro_torch.models import init_params
+    from repro_torch.serving import (ArrivalTrace, ContinuousBatchingEngine,
+                                     SpecConfig)
+
+    cfg = configs.get_config("stablelm-1.6b").with_overrides(
+        n_layers=BACKENDS_LAYERS)
+    nl, dt = cfg.n_layers, getattr(torch, cfg.dtype)
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=SEED + 110)
+    qparams, _ = VariantSpec.dynamic_int8().build(params, cfg)
+    artifact = ModelArtifact.create("stablelm", "v1", params, cfg) \
+        .with_variant("dynamic_int8", qparams)
+    pins = (None, "cuda", "ref")
+    sessions = {pin: artifact.session(backend=pin) for pin in pins}
+    gen = torch.Generator(device=dev).manual_seed(SEED + 111)
+    prompts = [torch.randint(0, cfg.vocab_size, (1, n), generator=gen,
+                             device=dev) for n in BACKENDS_PROMPTS]
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    totals = {}
+
+    # one prompt's logits under each pin, counted
+    batch = {"tokens": prompts[-1]}
+    logits, launches = {}, {}
+    for pin, session in sessions.items():
+        session.logits(batch)                           # warm-up
+        out, _, launches[pin] = _counted(
+            k, dt, f"backends/{pin}", lambda: session.logits(batch))
+        logits[pin] = out.float()
+    with nudged_norms():
+        nudged = sessions["ref"].logits(batch).float()
+    nudge = float((nudged - logits["ref"]).abs().max())
+    err = float((logits["cuda"] - logits["ref"]).abs().max())
+    need = ("flash_prefill", "qmatmul_dynamic")
+    if any(launches["cuda"][name] <= 0 for name in need) \
+            or launches["cuda"]["flash_prefill"] != nl:
+        raise AssertionError(f"backends: the cuda session launched "
+                             f"{launches['cuda']}")
+    if launches[None] != launches["cuda"]:
+        raise AssertionError(f"backends: unpinned {launches[None]} against "
+                             f"cuda {launches['cuda']}")
+    if any(launches["ref"].values()):
+        raise AssertionError(f"backends: the ref session launched "
+                             f"{launches['ref']}")
+    if not torch.equal(logits[None], logits["cuda"]):
+        raise AssertionError("backends: unpinned logits differ from cuda's")
+    if not (torch.isfinite(logits["cuda"]).all() and err <= 2.5 * nudge):
+        raise AssertionError(f"backends: cuda vs ref logits max |err| {err}"
+                             f" > 2.5 x the nudge {nudge}")
+    _merge(totals, launches["cuda"])
+
+    # greedy streams of both pins, partings held to the nudge
+    streams = {pin: [sessions[pin].generate({"tokens": p}, BACKENDS_NEW)
+                     [0].tolist() for p in prompts] for pin in ("cuda", "ref")}
+    trace = types.SimpleNamespace(requests=[types.SimpleNamespace(tokens=p)
+                                            for p in prompts])
+    parted = _partings(sessions["cuda"].params, cfg, trace, streams["ref"],
+                       streams["cuda"], dev, {})
+    if not all(p["ok"] for p in parted):
+        raise AssertionError(f"backends: ref / cuda streams part beyond a "
+                             f"tie: {parted}")
+
+    # each pin's decode step, host and device; the registry's own cost
+    steps = _decode_windows(k, sessions, cfg, prompts[0])
+    per_pin = {pin: v["launches_per_step"] for pin, v in steps.items()}
+    if per_pin["cuda"] <= 0 or per_pin["None"] != per_pin["cuda"] \
+            or per_pin["ref"] != 0:
+        raise AssertionError(f"backends: launches a decode step {per_pin}")
+    reg = _registry_us(k, dev)
+    per_step = steps["cuda"]["launches_per_step"]
+    emit("backends", model=cfg.name, dtype=cfg.dtype, layers=nl,
+         d_model=cfg.d_model, vocab=cfg.vocab_size, variant="dynamic_int8",
+         setup_s=setup_s, prompt=BACKENDS_PROMPTS[-1],
+         launches={str(p): v for p, v in launches.items()},
+         max_abs_err=err, ref_nudge=nudge, bound=2.5 * nudge,
+         logit_scale=float(logits["ref"].abs().max()),
+         streams_equal=sum(a == b for a, b in zip(streams["cuda"],
+                                                  streams["ref"])),
+         of=len(prompts), partings=parted, decode=steps,
+         registry_us_per_call=reg["registry"],
+         direct_us_per_call=reg["direct"],
+         registry_ms_per_step=(reg["registry"]["min"] - reg["direct"]["min"])
+         * per_step / 1e3, available=available_backends())
+    del sessions, logits, nudged
+    torch.cuda.empty_cache()
+
+    # a pinned cuda-tp twin opts into tp=2 at its default width
+    trace = ArrivalTrace.generate(cfg, BACKENDS_TRACE_N, seed=SEED + 112,
+                                  mean_interarrival=TRACE_GAP,
+                                  prompt_len=TP_PROMPT,
+                                  max_new=(BACKENDS_NEW, BACKENDS_NEW))
+    runs = {}
+    for pin in ("cuda", "cuda-tp"):
+        engine = ContinuousBatchingEngine(params, cfg, backend=pin,
+                                          n_slots=4, max_len=TP_LEN,
+                                          paged=True, block_size=16)
+        tp = engine.tp
+        if tp != (2 if pin == "cuda-tp" else 1):
+            raise AssertionError(f"backends: {pin} engine at tp={tp}")
+        engine.warmup(prompt_len=16, max_new_tokens=2)
+        torch.cuda.synchronize()
+        (report, reqs), serve_ms, got = _counted(
+            k, dt, f"backends/{pin}", lambda: frontend_replay(
+                engine, trace, [None] * len(trace.requests)))
+        _check_streams(f"backends/{pin}", reqs, BACKENDS_NEW, cfg)
+        runs[tp] = {"launches": got, "steps": report["decode_steps"],
+                    "prefills": len(reqs) + report["preempted"],
+                    "streams": [r.out_tokens for r in reqs],
+                    "serve_ms": serve_ms}
+        _merge(totals, got)
+        del engine
+        torch.cuda.empty_cache()
+    tp_counts("backends/cuda-tp", nl, "fp", True, runs)
+    tp_parted = _partings(params, cfg, trace, runs[1]["streams"],
+                          runs[2]["streams"], dev, {})
+    if not all(p["ok"] for p in tp_parted):
+        raise AssertionError(f"backends: cuda-tp streams part beyond a tie: "
+                             f"{tp_parted}")
+
+    # a spec engine: target pinned cuda, its int8 draft the ref session's
+    draft = artifact.session(backend="ref")
+    engine = ContinuousBatchingEngine(params, cfg, backend="cuda", n_slots=4,
+                                      max_len=TP_LEN,
+                                      spec=SpecConfig(draft=draft, k=SPEC_K))
+    if engine.draft_backend is None or engine.draft_backend.name != "ref":
+        raise AssertionError(f"backends: draft under {engine.draft_backend}")
+    engine.warmup(prompt_len=16, max_new_tokens=2)
+    torch.cuda.synchronize()
+    (report, reqs), spec_ms, spec_launches = _counted(
+        k, dt, "backends/spec", lambda: frontend_replay(
+            engine, trace, [None] * len(trace.requests)))
+    _check_streams("backends/spec", reqs, BACKENDS_NEW, cfg)
+    want = {name: 0 for name in _wrappers(k)}
+    want["flash_prefill"] = nl * len(reqs)
+    if {name: spec_launches[name] for name in want} != want \
+            or report["spec_draft_tokens"] <= 0:
+        raise AssertionError(f"backends: spec engine launched "
+                             f"{spec_launches}, want {want} (draft tokens "
+                             f"{report['spec_draft_tokens']})")
+    _merge(totals, spec_launches)
+    emit("backends_engines", model=cfg.name, layers=nl,
+         tp_engines={f"tp{tp}": {"backend": pin, "serve_ms": r["serve_ms"],
+                                 "decode_steps": r["steps"],
+                                 "prefills": r["prefills"],
+                                 "launches": {n: r["launches"][n]
+                                              for n in TP_KERNELS}}
+                     for (tp, r), pin in zip(sorted(runs.items()),
+                                             ("cuda", "cuda-tp"))},
+         tp2_equals_tp1_streams=sum(
+             a == b for a, b in zip(runs[1]["streams"], runs[2]["streams"])),
+         tp_partings=tp_parted, spec_target="cuda", spec_draft="ref",
+         spec_serve_ms=spec_ms, spec_launches=spec_launches,
+         spec_draft_tokens=report["spec_draft_tokens"],
+         acceptance_rate=report["acceptance_rate"])
+    del engine, draft, artifact, qparams, params
+    torch.cuda.empty_cache()
+    return totals
+
+
+# ------------------------------------------------------------------ #
 # Phase 5: card against CPU
 # ------------------------------------------------------------------ #
 def cpu_runs(cfg, VariantSpec):
@@ -2047,6 +2336,7 @@ def teacher_forced(params, cfg, tokens, device, paged, forced=None,
     to a multiple of 64 (pads go to the trash block) through ``table``,
     then ``decode_step_paged``. Dense: a cache of the prefill's rows +
     n_steps slots rounded up to a multiple of 64."""
+    from repro_torch.api.backends import bind_for, use_backend
     from repro_torch.models import (decode_step, decode_step_paged, prefill,
                                     prefill_paged)
     from repro_torch.serving.kvcache import init_paged_pools
@@ -2058,7 +2348,8 @@ def teacher_forced(params, cfg, tokens, device, paged, forced=None,
         n += frontend.shape[1]
     tables = torch.tensor(table, dtype=torch.int32).to(device)
     out, fed = [], []
-    with torch.no_grad():
+    # the CPU runs the plain path (``ref``), the card the backend in scope
+    with torch.no_grad(), use_backend(bind_for(None, device)):
         if paged:
             n_blocks = max(12, int(tables.max()) + 1)
             cache = init_paged_pools(cfg, n_blocks, 16, device=device)
@@ -2374,7 +2665,7 @@ def vqi_card_vs_cpu_phase(dev):
     one-rounding nudge does on the CPU alone (``card_vs_cpu_phase``'s
     method)."""
     from repro_torch import configs
-    from repro_torch.api import VariantSpec
+    from repro_torch.api import VariantSpec, use_backend
     from repro_torch.data import vqi_batch
     from repro_torch.fleet.vqi import TASK, vqi_calib_batches
     from repro_torch.models import forward, init_params
@@ -2390,8 +2681,9 @@ def vqi_card_vs_cpu_phase(dev):
     for label, spec in (("vqi_fp32", VariantSpec.fp32()),
                         ("vqi_dynamic_int8", VariantSpec.dynamic_int8()),
                         ("vqi_static_int8", VariantSpec.static_int8(2))):
-        qparams, _ = spec.build(params, cfg, calib_data=calib)
-        with torch.no_grad():
+        # the CPU's plain path: the ref backend, by name
+        with torch.no_grad(), use_backend("ref"):
+            qparams, _ = spec.build(params, cfg, calib_data=calib)
             cpu = forward(qparams, batch, cfg)[0]
             with nudged_norms():
                 nudge = forward(qparams, batch, cfg)[0]
@@ -5928,6 +6220,9 @@ def _main(procs) -> int:
                        for body in k.flash_prefill.Q4BODY.values())):
             totals[name] = totals.get(name, 0) + all_totals[name]
         paged_vs_dense_phase(dev, streams)
+        # the backend registry: cuda and ref sessions over one artifact,
+        # a cuda-tp engine, a spec engine with a ref draft
+        _merge(totals, backends_phase(k, dev))
         card_vs_cpu_phase(dev, paged=False)
         card_vs_cpu_phase(dev, paged=True)
         # the VQI paths through the registry: the inspection queue at full

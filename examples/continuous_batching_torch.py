@@ -1,5 +1,5 @@
 """Continuous-batching serving demo on the PyTorch port (the twin of
-``examples/continuous_batching.py``): two device-pinned engines (fp32 and
+``examples/continuous_batching.py``): two backend-pinned engines (fp32 and
 dynamic-int8 variants of one ModelArtifact) coexist in one process;
 requests stream tokens via callbacks, mix sampling policies and
 priorities, and long prompts are chunk-prefilled so they never stall
@@ -9,7 +9,8 @@ overload.
     PYTHONPATH=src python examples/continuous_batching_torch.py
         [--device cpu]
 
-Runs on the card by default; ``--device cpu`` runs the plain PyTorch path.
+Runs on the card by default, both engines pinned to the ``cuda`` kernel
+backend; ``--device cpu`` pins them to ``ref``, the plain PyTorch path.
 The weights and prompts are the port's own seeded draws.
 """
 import argparse
@@ -35,14 +36,16 @@ def main(argv=None):
     model = ModelArtifact.create("demo", "v1", params, cfg)
     int8_params, info = VariantSpec.dynamic_int8().build(params, cfg)
     int8 = model.with_variant("int8_dynamic", int8_params)
+    backend = "cuda" if dev.type == "cuda" else "ref"
     print(f"artifacts: {model.key} + {int8.key} "
           f"({len(info['quantized_paths'])} quantized tensors), "
-          f"both pinned to {dev} in one process")
+          f"both pinned to the {backend!r} kernel backend in one process")
 
     engines = {
         name: ContinuousBatchingEngine(art.params, art.config, n_slots=4,
-                                       max_len=96, prefill_chunk=6,
-                                       max_queue_depth=8, device=dev)
+                                       max_len=96, backend=backend,
+                                       prefill_chunk=6, max_queue_depth=8,
+                                       device=dev)
         for name, art in (("fp32", model), ("int8_dynamic", int8))
     }
 

@@ -9,15 +9,16 @@ and its distribution, on ``--device`` (default: the card).
         [--device cpu]
 
 The weights and batches are the port's own seeded draws, so the numbers are
-not the JAX example's; on the card the int8 variants run the hand-written
-w8a8 GEMMs, on the CPU their plain versions.
+not the JAX example's; each session is pinned to the device's kernel
+backend: on the card ``cuda`` (the int8 variants run the hand-written w8a8
+GEMMs), on the CPU ``ref`` (their plain versions).
 """
 import argparse
 
 import torch
 
 from repro_torch import configs as C
-from repro_torch.api import DEFAULT_VARIANTS
+from repro_torch.api import DEFAULT_VARIANTS, use_backend
 from repro_torch.core.quant import tree_size_bytes
 from repro_torch.device import resolve_device
 from repro_torch.models import init_params
@@ -54,13 +55,15 @@ def main(argv=None):
                                         (args.batch, args.seq),
                                         generator=gen).to(dev)}
 
-    variants = build_variants(cfg, params,
-                              [mk_batch(100 + i) for i in range(3)])
+    backend = "cuda" if dev.type == "cuda" else "ref"
+    with use_backend(backend):          # static specs calibrate under it
+        variants = build_variants(cfg, params,
+                                  [mk_batch(100 + i) for i in range(3)])
     print(f"{'variant':14s} {'size MB':>8s} {'mean ms':>9s} {'p10':>7s} "
           f"{'p90':>7s}")
     results = {}
     for name, p in variants.items():
-        session = InferenceSession(p, cfg, device=dev)
+        session = InferenceSession(p, cfg, backend=backend, device=dev)
         session.logits(mk_batch(0))                     # warmup
         session.stats.reset()
         for i in range(args.iters):

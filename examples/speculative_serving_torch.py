@@ -12,7 +12,9 @@ draft, published and paired through ``repro_torch.api``.
     PYTHONPATH=src python examples/speculative_serving_torch.py [--fast]
         [--device cpu]
 
-Runs on the card by default; ``--device cpu`` runs the plain PyTorch path.
+Runs on the card by default, pinned to the ``cuda`` kernel backend;
+``--device cpu`` pins ``ref``, the plain PyTorch path. The draft runs
+under the target engine's backend.
 """
 from __future__ import annotations
 
@@ -69,7 +71,8 @@ def main() -> None:
         target = published["fp32"]
 
         # baseline: the target's own sequential generate
-        session = target.session(device=dev)
+        backend = "cuda" if dev.type == "cuda" else "ref"
+        session = target.session(backend=backend, device=dev)
         expected = [session.generate({"tokens": p}, max_new)[0].tolist()
                     for p in prompts]
 
@@ -78,7 +81,8 @@ def main() -> None:
         for label, kw in (("dense", {}),
                           ("paged", {"paged": True, "block_size": 16})):
             engine = ContinuousBatchingEngine(session, n_slots=4, max_len=96,
-                                              spec=spec, **kw)
+                                              backend=backend, spec=spec,
+                                              **kw)
             out, m = serve(engine, prompts, max_new)
             assert out == expected, (
                 f"{label} speculative output parted from the fp32 target's "

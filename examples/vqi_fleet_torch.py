@@ -15,6 +15,9 @@
 6.  Retrain from the telemetry buffer, publish v3 and roll it out.
 
     PYTHONPATH=src python examples/vqi_fleet_torch.py [--device cpu]
+
+Every device pins the kernel backend of ``--device`` (``cuda`` on the card,
+``ref``, the plain path, on the CPU), and the publishes calibrate under it.
 """
 import argparse
 import tempfile
@@ -22,7 +25,7 @@ import tempfile
 import torch
 
 from repro_torch.api import (ArtifactRegistry, Deployment, DeviceProfile,
-                             ModelArtifact, VariantSpec)
+                             ModelArtifact, VariantSpec, use_backend)
 from repro_torch.data import VQITask, vqi_batch
 from repro_torch.device import resolve_device
 from repro_torch.fleet.vqi import (evaluate, inspection_pipeline,
@@ -38,18 +41,23 @@ SPECS = [VariantSpec.fp32(), VariantSpec.dynamic_int8(),
 FIELD = VQITask(noise=8.0)
 
 
+def backend_for(device):
+    """The kernel backend every device of the demo pins."""
+    return "cuda" if device.type == "cuda" else "ref"
+
+
 def make_deployment(registry, device, n_standard=2, n_constrained=2):
     dep = Deployment(registry, model="vqi")
     for i in range(n_standard):
         dep.add_device(f"edge-std-{i}",
                        DeviceProfile("edge-standard", 8 * 1024**3),
-                       device=device)
+                       backend=backend_for(device), device=device)
     for i in range(n_constrained):
         dep.add_device(
             f"edge-pi4-{i}",
             DeviceProfile("edge-pi4-4gb", 4 * 1024**3,
                           allowed_variants=("static_int8", "dynamic_int8")),
-            device=device)
+            backend=backend_for(device), device=device)
     return dep
 
 
@@ -68,11 +76,11 @@ def main():
                                      device=dev)["accuracy"]}
 
     def publish(dep, version, params):
-        return dep.publish(ModelArtifact.create("vqi", version, params, cfg),
-                           SPECS, calib_data=vqi_calib_batches(
-                               cfg, 4, device=dev),
-                           evaluate=lambda p, c: evaluate(p, c, 2,
-                                                          device=dev))
+        with use_backend(backend_for(dev)):
+            return dep.publish(
+                ModelArtifact.create("vqi", version, params, cfg), SPECS,
+                calib_data=vqi_calib_batches(cfg, 4, device=dev),
+                evaluate=lambda p, c: evaluate(p, c, 2, device=dev))
 
     print(f"== 1. training VQI model (synthetic TTPLA task) on {dev} ==")
     params, _ = train_vqi_model(cfg, steps=150, log_fn=lambda s: None,

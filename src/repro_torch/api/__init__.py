@@ -1,14 +1,20 @@
 """repro_torch.api: the port's EdgeMLOps control-plane surface, the names
-of ``repro.api`` without its kernel Backend registry (the port dispatches
-by device, ``kernels/ops.py``).
+of ``repro.api``.
 
     ModelArtifact              one object through the whole lifecycle
     VariantSpec / QuantRecipe  declarative quantization variants
+    Backend registry           kernel backends (``cuda``, ``ref`` and their
+                               ``*-tp`` twins), scoped selection
     ArtifactRegistry           versioned, sha256-checked artifact store
     Deployment                 fleet rollout facade (``spec_config``: a
                                draft/target pair for speculative decoding;
                                ``simulator``: the event-driven fleet)
 """
+from repro_torch.api.backends import (Backend, CudaBackend, RefBackend,
+                                      TPBackend, available_backends,
+                                      current_backend, default_backend,
+                                      get_backend, register_backend,
+                                      set_default_backend, use_backend)
 from repro_torch.api.variants import DEFAULT_VARIANTS, QuantRecipe, VariantSpec
 from repro_torch.api.artifact import ModelArtifact
 from repro_torch.api.registry import ArtifactRef, ArtifactRegistry
@@ -31,9 +37,13 @@ from repro_torch.serving.spec_decode import SpecConfig
 __all__ = [
     # artifacts + variants
     "ModelArtifact", "VariantSpec", "QuantRecipe", "DEFAULT_VARIANTS",
+    # kernel backends
+    "Backend", "RefBackend", "CudaBackend", "TPBackend", "register_backend",
+    "get_backend", "available_backends", "use_backend", "current_backend",
+    "default_backend", "set_default_backend",
     # clocks (shared virtual-time layer)
     "SystemClock", "VirtualClock", "use_clock",
-    # serving (continuous batching + load generation)
+    # serving (backend-pinned continuous batching + load generation)
     "ContinuousBatchingEngine", "GenRequest", "SamplingParams", "SpecConfig",
     "ArrivalTrace", "TracedRequest", "replay",
     # fleet control plane

@@ -8,9 +8,10 @@ once published or fetched).
     model = ModelArtifact.create("vqi", "v1", params, cfg)
     published = registry.publish_variants(model, specs, calib_data=...)
     session = published["static_int8"].session()          # on the card
+    plain = published["static_int8"].session(backend="ref")  # plain path
 
-The JAX package's ``backend=`` (its kernel Backend registry) is the port's
-``device=``: kernels are chosen by the device of the tensors.
+``session(backend=, device=)``: ``backend`` pins a kernel backend of the
+registry (``repro_torch.api.backends``), ``device`` places the weights.
 """
 from __future__ import annotations
 
@@ -68,12 +69,14 @@ class ModelArtifact:
             self, variant=variant, params=params, metrics=metrics or {},
             manifest={}, ref=None)
 
-    def session(self, device: DeviceLike = None):
+    def session(self, backend=None, device: DeviceLike = None):
         """An ``InferenceSession`` serving this artifact on ``device``
-        (default: the card)."""
+        (default: the card), optionally pinned to a kernel backend of the
+        registry."""
         from repro_torch.serving.engine import InferenceSession
 
-        return InferenceSession.from_artifact(self, device=device)
+        return InferenceSession.from_artifact(self, backend=backend,
+                                              device=device)
 
     def __repr__(self) -> str:
         state = "published" if self.published else "local"

@@ -58,10 +58,10 @@ class Deployment:
         return self.fleet.audit
 
     def add_device(self, device_id: str,
-                   profile: DeviceProfile = DeviceProfile(),
+                   profile: DeviceProfile = DeviceProfile(), backend=None,
                    device: DeviceLike = None, clock=None) -> EdgeAgent:
-        agent = EdgeAgent(device_id, self.registry, profile, device=device,
-                          clock=clock)
+        agent = EdgeAgent(device_id, self.registry, profile, backend=backend,
+                          device=device, clock=clock)
         self.fleet.register_device(agent)
         return agent
 
@@ -118,14 +118,10 @@ class Deployment:
         """This model version's draft/target pair (declared with
         ``VariantSpec(draft_of=...)`` at publish time) as a serving
         ``SpecConfig`` for ``ContinuousBatchingEngine(target, spec=...)``;
-        the draft is fetched onto ``device``. The port has no backend
-        registry: ``draft_backend`` must stay None."""
+        the draft is fetched onto ``device`` and runs under
+        ``draft_backend`` (default: the engine's backend)."""
         from repro_torch.serving.spec_decode import SpecConfig
 
-        if draft_backend is not None:
-            raise ValueError(
-                "the port dispatches kernels by device; it has no backend "
-                "registry (draft_backend must be None)")
         version = self._resolve_version(version)
         ref = self.registry.draft_for(self.model, version, target_variant)
         if ref is None:
@@ -134,7 +130,7 @@ class Deployment:
                 f"target {target_variant!r}: publish one with "
                 "VariantSpec(..., draft_of=target)")
         return SpecConfig(draft=self.registry.fetch_artifact(ref, device),
-                          k=k)
+                          k=k, draft_backend=draft_backend)
 
     def _resolve_version(self, version: Optional[str]) -> str:
         if version is not None:

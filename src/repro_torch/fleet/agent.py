@@ -9,11 +9,12 @@ devices admit only int8 variants. Event timestamps come from
 ``repro_torch.clock`` (a ``VirtualClock`` inside ``use_clock``, wall time
 otherwise).
 
-The JAX agent's ``backend=`` (a kernel backend name) is the port's
-``device=``: where the agent's session, and so its kernels, run. Each
-agent loads and serves its own copy of the active artifact, through three
-overridable lifecycle hooks (fetch + verify, fetch, build the session) that
-the fleet simulator's ``SimAgent`` routes through a shared ``EnginePool``.
+``backend=`` names the kernel backend the agent's sessions are pinned to
+(``repro_torch.api.backends``; None: the default) and ``device=`` where
+they run (None: the card). Each agent loads and serves its own copy of the
+active artifact, through three overridable lifecycle hooks (fetch +
+verify, fetch, build the session) that the fleet simulator's ``SimAgent``
+routes through a shared ``EnginePool``.
 """
 from __future__ import annotations
 
@@ -48,11 +49,12 @@ class InstallError(RuntimeError):
 
 class EdgeAgent:
     def __init__(self, device_id: str, registry,
-                 profile: DeviceProfile = DeviceProfile(),
+                 profile: DeviceProfile = DeviceProfile(), backend=None,
                  device: DeviceLike = None, clock=None):
         self.device_id = device_id
         self.registry = registry                 # repro_torch.api.registry
         self.profile = profile
+        self.backend = backend          # kernel backend name for this device
         self.device = device            # torch device of this agent's session
         self.clock = clock              # None -> repro_torch.clock active clock
         self.installed: List[Any] = []           # ArtifactRefs, newest last
@@ -81,7 +83,7 @@ class EdgeAgent:
         return self.registry.fetch_artifact(ref, self.device)
 
     def _build_session(self, artifact):
-        return artifact.session(device=self.device)
+        return artifact.session(backend=self.backend, device=self.device)
 
     # ---------------------------------------------------------------- #
     def install(self, ref) -> None:

@@ -8,8 +8,8 @@ Scales the fleet layer from a handful of synchronous in-process devices to
 * **Devices** are real ``EdgeAgent``s (``SimAgent``) whose lifecycle ops
   flow through the ``repro_torch.api`` registry, but whose fetch/serve
   steps are routed through a shared ``EnginePool``: a thousand devices
-  share a handful of device-pinned ``InferenceSession``s instead of loading
-  weights per device.
+  share a handful of backend- and device-pinned ``InferenceSession``s
+  instead of loading weights per device.
 * **Rollouts** run the ``RolloutPolicy`` state machine (canary -> waves ->
   fleet-wide) over virtual time: installs take transfer time proportional
   to artifact size and link speed, waves soak before health probes, gates
@@ -32,9 +32,10 @@ log is pure Python (no tensor reduction enters it) and equals the JAX
 package's byte for byte on the same scenario: artifact sizes, the only
 model-dependent input, are the same in both packages' registries.
 
-The JAX package's ``backend=`` (a kernel backend name) is the port's
-``device=``: sessions and engines are cached per device, artifacts per
-``(key, device)``; ``None`` is the card.
+``backend=`` (a kernel backend name, ``repro_torch.api.backends``) pins
+sessions and engines as in the JAX package; ``device=`` places them
+(``None``: the card). Sessions and engines are cached per ``(artifact,
+backend, device)``, artifacts per ``(key, device)``.
 """
 from __future__ import annotations
 
@@ -57,20 +58,24 @@ GiB = 1024**3
 # ------------------------------------------------------------------ #
 class EnginePool:
     """Fetch-once, serve-many: artifacts are sha-verified on first fetch
-    and ``InferenceSession``s are cached per ``(artifact, device)``: the
-    whole fleet shares one engine per variant/device pair.
+    and ``InferenceSession``s are cached per ``(artifact, backend,
+    device)``: the whole fleet shares one engine per variant / backend /
+    device.
 
     KV-cache v2: the pool also hands out *paged serving engines* with
     per-device-class memory accounting: ``kv_budget_bytes`` carves a
     fraction of the device profile's RAM into KV blocks, so a Pi-4-class
     profile gets a small block budget (and visibly preempts under load)
     while a standard edge box gets a full pool. Engines are cached per
-    (artifact, device, profile-budget) so a thousand devices of one class
-    share one engine.
+    (artifact, backend, device, profile-budget) so a thousand devices of
+    one class share one engine.
 
     ``device`` (``None``: the card) is where an artifact is loaded and its
-    sessions and engines run. The pool keeps every artifact and engine it
-    built for its own lifetime: drop the pool to free them."""
+    sessions and engines run; ``backend`` (``None``: the default) the
+    kernel backend they are pinned to. Stats and memory-report keys read
+    ``<artifact>@<backend or device or 'default'>``. The pool keeps every
+    artifact and engine it built for its own lifetime: drop the pool to
+    free them."""
 
     #: default fraction of device RAM granted to the KV block pool
     KV_FRACTION = 0.25
@@ -78,7 +83,7 @@ class EnginePool:
     def __init__(self, registry):
         self.registry = registry
         self._artifacts: Dict[Tuple[str, DeviceLike], Any] = {}
-        self._sessions: Dict[Tuple[str, DeviceLike], Any] = {}
+        self._sessions: Dict[Tuple[str, Any, DeviceLike], Any] = {}
         self._engines: Dict[Tuple, Any] = {}
         self.fetches = 0
 
@@ -91,12 +96,12 @@ class EnginePool:
             self.fetches += 1
         return art
 
-    def session(self, ref, device: DeviceLike = None):
-        k = (ref.key, device)
+    def session(self, ref, device: DeviceLike = None, *, backend=None):
+        k = (ref.key, backend, device)
         s = self._sessions.get(k)
         if s is None:
             s = self._sessions[k] = self.artifact(ref, device).session(
-                device=device)
+                backend=backend, device=device)
         return s
 
     # ---------------------------------------------------------------- #
@@ -110,7 +115,7 @@ class EnginePool:
                        profile: Optional[DeviceProfile] = None, *,
                        kv_fraction: Optional[float] = None,
                        n_slots: int = 2, max_len: int = 128,
-                       block_size: int = 16, tp: int = 1):
+                       block_size: int = 16, tp: int = 1, backend=None):
         """Paged ``ContinuousBatchingEngine`` sized for ``profile``'s KV
         budget (full pool when no profile), cached per class so the whole
         device class shares one engine. ``tp > 1`` profiles serve one model
@@ -121,15 +126,16 @@ class EnginePool:
 
         budget = (self.kv_budget_bytes(profile, kv_fraction)
                   if profile is not None else None)
-        key = (ref.key, device, profile.name if profile else None,
-               budget, n_slots, max_len, block_size, tp)
+        key = (ref.key, backend, device,
+               profile.name if profile else None, budget, n_slots, max_len,
+               block_size, tp)
         eng = self._engines.get(key)
         if eng is None:
             art = self.artifact(ref, device)
             eng = ContinuousBatchingEngine(
-                art.params, art.config, n_slots=n_slots, max_len=max_len,
-                paged=True, block_size=block_size, kv_budget_bytes=budget,
-                tp=tp, device=device)
+                art.params, art.config, backend=backend, n_slots=n_slots,
+                max_len=max_len, paged=True, block_size=block_size,
+                kv_budget_bytes=budget, tp=tp, device=device)
             self._engines[key] = eng
         return eng
 
@@ -139,7 +145,7 @@ class EnginePool:
                        n_prefill: int = 1, n_decode: int = 2,
                        slots_per_worker: int = 2, max_len: int = 128,
                        block_size: int = 16, prefill_chunk: int = 8,
-                       router_config=None):
+                       router_config=None, backend=None):
         """Disaggregated serving for one device class: ``n_prefill``
         prefill workers + ``n_decode`` decode workers on ONE
         ``SharedKVPool`` sized from the profile's KV budget, fronted by an
@@ -155,9 +161,10 @@ class EnginePool:
 
         budget = (self.kv_budget_bytes(profile, kv_fraction)
                   if profile is not None else None)
-        key = ("router", ref.key, device, profile.name if profile else None,
-               budget, n_prefill, n_decode, slots_per_worker, max_len,
-               block_size, prefill_chunk)
+        key = ("router", ref.key, backend, device,
+               profile.name if profile else None, budget, n_prefill,
+               n_decode, slots_per_worker, max_len, block_size,
+               prefill_chunk)
         router = self._engines.get(key)
         if router is None:
             art = self.artifact(ref, device)
@@ -168,9 +175,10 @@ class EnginePool:
                         else total_slots * (-(-max_len // block_size)) + 1)
             store = SharedKVPool(cfg, n_blocks, block_size, device)
             workers = [ContinuousBatchingEngine(
-                art.params, cfg, n_slots=slots_per_worker, max_len=max_len,
-                paged=True, shared_kv=store, prefill_chunk=chunk,
-                max_queue_depth=2 * slots_per_worker, device=device)
+                art.params, cfg, backend=backend, n_slots=slots_per_worker,
+                max_len=max_len, paged=True, shared_kv=store,
+                prefill_chunk=chunk, max_queue_depth=2 * slots_per_worker,
+                device=device)
                 for chunk in [prefill_chunk] * n_prefill + [0] * n_decode]
             router = ServingRouter(workers[:n_prefill], workers[n_prefill:],
                                    config=router_config)
@@ -183,11 +191,11 @@ class EnginePool:
         out: Dict[str, Dict[str, Any]] = {}
         for key, eng in self._engines.items():
             if key[0] == "router":
-                (_, akey, device, pname, budget, n_prefill, n_decode,
-                 spw, max_len, block_size, _) = key
+                (_, akey, backend, device, pname, budget, n_prefill,
+                 n_decode, spw, max_len, block_size, _) = key
                 alloc = eng.store.alloc
                 bpb = eng.decode[0].kv.bytes_per_block
-                out[f"{akey}@{device or 'default'}"
+                out[f"{akey}@{backend or device or 'default'}"
                     f"/{pname or 'unbounded'}/{budget or 'full'}b"
                     f"/router{n_prefill}p{n_decode}d"
                     f"x{spw}/{max_len}/bs{block_size}"] = {
@@ -205,12 +213,13 @@ class EnginePool:
                         for e in eng.prefill + eng.decode),
                 }
                 continue
-            (akey, device, pname, budget, n_slots, max_len,
+            (akey, backend, device, pname, budget, n_slots, max_len,
              block_size, tp) = key
             kv = eng.kv
             # key mirrors the full cache key: engines differing only in
             # budget/geometry must not overwrite each other in the report
-            out[f"{akey}@{device or 'default'}/{pname or 'unbounded'}"
+            out[f"{akey}@{backend or device or 'default'}"
+                f"/{pname or 'unbounded'}"
                 f"/{budget or 'full'}b/{n_slots}x{max_len}/bs{block_size}"
                 f"/tp{tp}"] = {
                 "budget_bytes": budget,
@@ -232,8 +241,8 @@ class EnginePool:
         return out
 
     def stats(self) -> Dict[str, Any]:
-        return {f"{key}@{device or 'default'}": sess.stats
-                for (key, device), sess in self._sessions.items()}
+        return {f"{key}@{backend or device or 'default'}": sess.stats
+                for (key, backend, device), sess in self._sessions.items()}
 
 
 class SimAgent(EdgeAgent):
@@ -241,10 +250,10 @@ class SimAgent(EdgeAgent):
     shared ``EnginePool``; carries simulator-side state (online flag)."""
 
     def __init__(self, device_id: str, registry, profile: DeviceProfile,
-                 device: DeviceLike = None, clock=None,
+                 backend=None, device: DeviceLike = None, clock=None,
                  pool: Optional[EnginePool] = None):
-        super().__init__(device_id, registry, profile, device=device,
-                         clock=clock)
+        super().__init__(device_id, registry, profile, backend=backend,
+                         device=device, clock=clock)
         self.pool = pool
         self.online = True
 
@@ -261,7 +270,8 @@ class SimAgent(EdgeAgent):
 
     def _build_session(self, artifact):
         if self.pool is not None and artifact.ref is not None:
-            return self.pool.session(artifact.ref, device=self.device)
+            return self.pool.session(artifact.ref, device=self.device,
+                                     backend=self.backend)
         return super()._build_session(artifact)
 
     def health(self):
@@ -279,6 +289,7 @@ class SimAgent(EdgeAgent):
 class DeviceSpec:
     device_id: str
     profile: DeviceProfile = DeviceProfile()
+    backend: Optional[str] = None        # kernel backend (None: the default)
     device: DeviceLike = None            # where its session runs (None: card)
     link_mbps: float = 40.0              # OTA download bandwidth
     inspection_interval_s: float = 10.0  # mean time between inspections
@@ -436,14 +447,15 @@ class FleetSimulator:
     # ------------------------------------------------------------- #
     def add_device(self, spec: DeviceSpec) -> SimAgent:
         agent = SimAgent(spec.device_id, self.registry, spec.profile,
-                         device=spec.device, clock=self.clock,
-                         pool=self.pool)
+                         backend=spec.backend, device=spec.device,
+                         clock=self.clock, pool=self.pool)
         self.specs[spec.device_id] = spec
         self.dep.register_agent(agent)
         return agent
 
     def add_heterogeneous_fleet(self, n: int, mix: Tuple[float, ...] =
-                                (0.5, 0.3, 0.2), device: DeviceLike = None,
+                                (0.5, 0.3, 0.2), backend: Optional[str] = None,
+                                device: DeviceLike = None,
                                 inspection_interval_s: float = 10.0
                                 ) -> List[str]:
         """``n`` devices split across the canonical classes (std/pi4/lite),
@@ -466,7 +478,7 @@ class FleetSimulator:
         for i, (cls, profile, factor, link) in enumerate(order):
             did = f"edge-{cls}-{i:04d}"
             self.add_device(DeviceSpec(
-                did, profile, device=device, link_mbps=link,
+                did, profile, backend=backend, device=device, link_mbps=link,
                 inspection_interval_s=inspection_interval_s,
                 compute_factor=factor))
             ids.append(did)

@@ -51,7 +51,11 @@ def train_vqi_model(cfg: ModelConfig, steps: int = 150, batch: int = 32,
 def evaluate(params, cfg: ModelConfig, n_batches: int = 4, batch: int = 64,
              seed: int = 999, device: DeviceLike = None) -> Dict[str, float]:
     """Teacher-forced accuracy on fresh VQI batches and the mean wall time
-    of one forward (the device synchronised before the clock stops)."""
+    of one forward (the device synchronised before the clock stops). On
+    the CPU the forwards run under the ``ref`` backend, as an unpinned
+    session's do."""
+    from repro_torch.api.backends import bind_for, use_backend
+
     dev = resolve_device(device)
     gen = torch.Generator().manual_seed(seed)
     batches = [vqi_batch(gen, cfg, TASK, batch, dev)
@@ -59,7 +63,7 @@ def evaluate(params, cfg: ModelConfig, n_batches: int = 4, batch: int = 64,
     accs, cond_accs = [], []
     # repro: allow-wallclock -- mean_latency_ms reports real eval wall time
     t0 = time.perf_counter()
-    with torch.no_grad():
+    with torch.no_grad(), use_backend(bind_for(None, dev)):
         for b in batches:
             logits = forward(params, b, cfg)[0]
             a, c = vqi_eval_accuracy(logits, b, cfg, TASK)    # host copy

@@ -64,20 +64,25 @@ def quantize_static_ref(x, act_scale):
     return torch.clamp(torch.round(xf * inv), -127, 127).to(torch.int8)
 
 
-def qmatmul_static_ref(x, w_int8, w_scale, act_scale):
+def qmatmul_static_ref(x, w_int8, w_scale, act_scale, *,
+                       out_dtype=torch.float32):
     """Static w8a8: x [M,K] float; w_int8 [K,N]; w_scale [1,N]; act_scale
-    scalar. Epilogue ``acc * (act_scale * w_scale)``."""
+    scalar. Epilogue ``acc * (act_scale * w_scale)``, in f32, then cast to
+    ``out_dtype``."""
     codes = quantize_static_ref(x, act_scale)
     a = torch.as_tensor(act_scale, dtype=torch.float32, device=x.device)
-    return _int8_dot(codes, w_int8) * (a * w_scale.to(torch.float32))
+    return (_int8_dot(codes, w_int8)
+            * (a * w_scale.to(torch.float32))).to(out_dtype)
 
 
-def qmatmul_dynamic_ref(x, w_int8, w_scale):
+def qmatmul_dynamic_ref(x, w_int8, w_scale, *, out_dtype=torch.float32):
     """Dynamic w8a8: per-row activation scale computed at run time.
     Epilogue ``(acc * a_scale) * w_scale``, the order of the TPU kernel
-    (``repro.kernels.dynquant._kernel``)."""
+    (``repro.kernels.dynquant._kernel``), in f32, then cast to
+    ``out_dtype``."""
     codes, a_scale = quantize_rows_ref(x)
-    return _int8_dot(codes, w_int8) * a_scale * w_scale.to(torch.float32)
+    return (_int8_dot(codes, w_int8) * a_scale
+            * w_scale.to(torch.float32)).to(out_dtype)
 
 
 def _packed_dot(codes, w_packed):
@@ -87,17 +92,21 @@ def _packed_dot(codes, w_packed):
     return _int8_dot(torch.nn.functional.pad(codes, (0, pad)), w_packed.t())
 
 
-def qmatmul_static_packed_ref(x, w_packed, w_scale, act_scale):
+def qmatmul_static_packed_ref(x, w_packed, w_scale, act_scale, *,
+                              out_dtype=torch.float32):
     """``qmatmul_static_ref`` on the packed weight [N, Kp]."""
     codes = quantize_static_ref(x, act_scale)
     a = torch.as_tensor(act_scale, dtype=torch.float32, device=x.device)
-    return _packed_dot(codes, w_packed) * (a * w_scale.to(torch.float32))
+    return (_packed_dot(codes, w_packed)
+            * (a * w_scale.to(torch.float32))).to(out_dtype)
 
 
-def qmatmul_dynamic_packed_ref(x, w_packed, w_scale):
+def qmatmul_dynamic_packed_ref(x, w_packed, w_scale, *,
+                               out_dtype=torch.float32):
     """``qmatmul_dynamic_ref`` on the packed weight [N, Kp]."""
     codes, a_scale = quantize_rows_ref(x)
-    return _packed_dot(codes, w_packed) * a_scale * w_scale.to(torch.float32)
+    return (_packed_dot(codes, w_packed) * a_scale
+            * w_scale.to(torch.float32)).to(out_dtype)
 
 
 def flash_prefill_ref(q, k, v):

@@ -134,13 +134,17 @@ def model_flops(cfg: ModelConfig, shape_name: str) -> float:
 
 def trace_on_mesh(cfg: ModelConfig, shape_name: str, mesh, *,
                   quantized: bool = False, batch=None, seq=None):
-    """(analysis of the step traced on ``mesh``, build s, trace s)."""
+    """(analysis of the step traced on ``mesh``, build s, trace s). A CPU
+    mesh (the fake world's) traces under the ``ref`` backend, as an
+    unpinned session on the CPU runs."""
     from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.api.backends import bind_for, use_backend
 
     fake = FakeTensorMode()
     # repro: allow-wallclock -- build / trace timing is a measured interval
     t0 = time.perf_counter()
-    with set_mesh(mesh), fake:
+    with set_mesh(mesh), fake, use_backend(bind_for(None, mesh.device_type)):
         fn, args = build_lowerable(cfg, shape_name, mesh, quantized, fake,
                                    batch, seq)
         t1 = time.perf_counter()  # repro: allow-wallclock -- interval vs t0

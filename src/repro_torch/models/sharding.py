@@ -580,8 +580,10 @@ class ShardGroup:
     """``tp`` shards, each with a device and a persistent worker thread.
 
     ``run(body)`` calls ``body(rank)`` on every shard's thread, under
-    ``tp_region`` and the caller's grad / inference mode, on the shard's
-    device (its default stream), and returns the results in rank order.
+    ``tp_region``, the caller's grad / inference mode and a copy of the
+    caller's ``contextvars`` (its kernel backend and clock: executor
+    threads inherit none), on the shard's device (its default stream), and
+    returns the results in rank order.
     Inside, ``all_gather`` and ``all_reduce`` exchange tensors: each shard
     posts its tensor and reads its peers', moved to its own device with
     ``.to(device)`` (a peer copy across cards).
@@ -693,7 +695,9 @@ class ShardGroup:
         """``[body(0), ..., body(tp - 1)]``, each on its shard's thread."""
         grad = torch.is_grad_enabled()
         inference = torch.is_inference_mode_enabled()
-        futures = [w.submit(self._shard, r, body, grad, inference)
+        # one copy a shard: a context runs on one thread at a time
+        futures = [w.submit(contextvars.copy_context().run, self._shard, r,
+                            body, grad, inference)
                    for r, w in enumerate(self._workers)]
         results, errors = [], []
         for f in futures:

@@ -1,8 +1,9 @@
 """Inference runtime: the port of ``repro.serving.engine``.
 
 An ``InferenceSession`` wraps one artifact (params + config, any quant
-variant) on one device; a ``RequestQueue`` batches incoming requests up to
-``max_batch`` per pump, deterministically (no threads).
+variant) on one device, pinned to a kernel backend or not; a
+``RequestQueue`` batches incoming requests up to ``max_batch`` per pump,
+deterministically (no threads).
 """
 from __future__ import annotations
 
@@ -64,21 +65,41 @@ class InferenceStats:
 class InferenceSession:
     """One loaded artifact on one device. Entry points: ``logits()`` and
     ``generate()``. ``device=None`` means the card; with no card the
-    session raises unless ``device='cpu'`` is passed."""
+    session raises unless ``device='cpu'`` is passed.
 
-    def __init__(self, params, cfg: ModelConfig, device: DeviceLike = None):
+    ``backend`` pins the session to a kernel backend of the registry
+    (``repro_torch.api.backends``): every entry point runs under it, so one
+    process can serve the same artifact through the ``cuda`` kernels on one
+    session and the plain ``ref`` path on another. ``None`` binds ``ref``
+    on the CPU and inherits the backend in scope (by default ``cuda``) on
+    the card; a ``cuda`` pin on the CPU raises here."""
+
+    def __init__(self, params, cfg: ModelConfig, backend=None,
+                 device: DeviceLike = None):
+        # local import: repro_torch.api imports the fleet stack, which
+        # imports this module
+        from repro_torch.api.backends import bind_for, get_backend
+
         check_supported(cfg)
         self.device = resolve_device(device)
+        self.backend = get_backend(backend) if backend is not None else None
+        self._bound = bind_for(self.backend, self.device)
         self.params = place_params(params, self.device)
         self.cfg = cfg
         self.stats = InferenceStats()
 
     @classmethod
-    def from_artifact(cls, artifact, device: DeviceLike = None
+    def from_artifact(cls, artifact, backend=None, device: DeviceLike = None
                       ) -> "InferenceSession":
-        """Serve an ``api.ModelArtifact`` (any quant variant) on ``device``
-        (the JAX package's ``backend=``: kernels follow the device)."""
-        return cls(artifact.params, artifact.config, device=device)
+        """Serve an ``api.ModelArtifact`` (any quant variant) on ``device``,
+        pinned to ``backend`` if given."""
+        return cls(artifact.params, artifact.config, backend=backend,
+                   device=device)
+
+    def _scope(self):
+        from repro_torch.api.backends import use_backend
+
+        return use_backend(self._bound)
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -92,7 +113,8 @@ class InferenceSession:
         batch = self._batch(batch)
         # repro: allow-wallclock -- stats measure real kernel wall time
         t0 = time.perf_counter()
-        out = forward(self.params, batch, self.cfg)[0]
+        with self._scope():
+            out = forward(self.params, batch, self.cfg)[0]
         self._sync()
         # repro: allow-wallclock -- interval vs t0 above (latency stats)
         self.stats.record((time.perf_counter() - t0) * 1e3)
@@ -118,16 +140,17 @@ class InferenceSession:
                 batch = dict(batch)
                 batch["tokens"] = torch.nn.functional.pad(
                     t, (0, tb - t.shape[1]))
-        last, cache = prefill(self.params, batch, cfg, pad_to=pad,
-                              n_valid=tok_len)
-        # the next tokens [B, 1], or [B, 1, K] with K codebooks
-        outs = []
-        nxt = torch.argmax(last[:, -1:], dim=-1)
-        for i in range(n_new):
-            outs.append(nxt)
-            logits, cache = decode_step(self.params, cache, nxt, tok_len + i,
-                                        cfg)
-            nxt = torch.argmax(logits[:, -1:], dim=-1)
+        with self._scope():
+            last, cache = prefill(self.params, batch, cfg, pad_to=pad,
+                                  n_valid=tok_len)
+            # the next tokens [B, 1], or [B, 1, K] with K codebooks
+            outs = []
+            nxt = torch.argmax(last[:, -1:], dim=-1)
+            for i in range(n_new):
+                outs.append(nxt)
+                logits, cache = decode_step(self.params, cache, nxt,
+                                            tok_len + i, cfg)
+                nxt = torch.argmax(logits[:, -1:], dim=-1)
         return torch.cat(outs, dim=1)
 
 

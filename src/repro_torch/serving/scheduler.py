@@ -121,14 +121,15 @@ METRIC_KEYS = (
 
 @dataclasses.dataclass(frozen=True)
 class EngineConfig:
-    """Engine-level knobs that travel as one value:
-    ``ContinuousBatchingEngine(..., config=EngineConfig(tp=2))`` shards the
-    model with no call-site changes. The port dispatches kernels by device
-    and has no backend registry, so ``backend`` (and with it the JAX
-    package's ``*-tp`` backend twins) must stay None."""
+    """Engine-level knobs that travel as one value (fleet profiles, bench
+    configs): ``ContinuousBatchingEngine(..., config=EngineConfig(tp=2))``
+    shards the model with no call-site changes, and
+    ``EngineConfig(backend="cuda-tp")`` pins a backend twin that shards at
+    its ``default_tp``; explicit keyword arguments win over the config's
+    fields."""
     tp: int = 1                    # shards (1 = unsharded)
     tp_combine: str = "exact"      # "exact" (all-gather) | "psum"
-    backend: Optional[str] = None
+    backend: Optional[str] = None  # kernel backend name to pin
 
 
 @dataclasses.dataclass
@@ -199,6 +200,20 @@ def _hits_eos(token, eos_id) -> bool:
     return first == eos_id
 
 
+def _under(backend, fn):
+    """``fn`` run under ``backend`` (``use_backend``) at every call; ``fn``
+    itself where there is nothing to bind (None: the backend in scope)."""
+    if backend is None:
+        return fn
+    from repro_torch.api.backends import use_backend
+
+    def call(*args):
+        with use_backend(backend):
+            return fn(*args)
+
+    return call
+
+
 def _tree_insert(batched, single, slot: int) -> None:
     """Copy a batch-1 cache (per-layer leaves ``[1, S, ...]``) into slot
     ``slot`` of the batched cache, in place."""
@@ -208,14 +223,24 @@ def _tree_insert(batched, single, slot: int) -> None:
 
 
 class ContinuousBatchingEngine:
-    """``model`` is a port ``InferenceSession`` (its device is inherited
-    unless ``device`` is given) or a params tree with ``cfg`` passed
-    separately. ``device=None`` means the card: with no card the engine
-    raises unless ``device='cpu'`` is passed."""
+    """``model`` is a port ``InferenceSession`` (its device and pinned
+    backend are inherited unless ``device`` / ``backend`` are given) or a
+    params tree with ``cfg`` passed separately. ``device=None`` means the
+    card: with no card the engine raises unless ``device='cpu'`` is passed.
+
+    ``backend`` pins a kernel backend of the registry
+    (``repro_torch.api.backends``) for every prefill, decode and verify
+    call; the draft of a speculative engine runs under
+    ``SpecConfig.draft_backend`` (default: the draft session's, else the
+    engine's). A pinned ``*-tp`` backend shards the engine at its
+    ``default_tp`` when ``tp`` is 1, and an explicit ``tp > 1`` swaps a
+    pinned backend for its ``*-tp`` twin. Unpinned, the engine binds
+    ``ref`` on the CPU and inherits the backend in scope on the card."""
 
     def __init__(self, model, cfg: Optional[ModelConfig] = None,
                  n_slots: int = 4, max_len: int = 512, *,
-                 prefill_chunk: int = 0, max_queue_depth: int = 0,
+                 backend=None, prefill_chunk: int = 0,
+                 max_queue_depth: int = 0,
                  paged: bool = False, block_size: int = 16,
                  n_blocks: Optional[int] = None,
                  kv_budget_bytes: Optional[int] = None,
@@ -224,20 +249,25 @@ class ContinuousBatchingEngine:
                  shared_kv: Optional[SharedKVPool] = None,
                  config: Optional[EngineConfig] = None,
                  device: DeviceLike = None):
+        # local import: repro_torch.api imports the fleet stack, which
+        # imports serving
+        from repro_torch.api.backends import (TPBackend, available_backends,
+                                              bind_for, get_backend)
+
         if config is not None:
-            if config.backend is not None:
-                raise ValueError(
-                    "the port dispatches kernels by device; it has no "
-                    "backend registry (EngineConfig.backend must be None)")
             tp = config.tp if tp == 1 else tp
             if tp_combine == "exact":
                 tp_combine = config.tp_combine
+            if backend is None:
+                backend = config.backend
         if shared_kv is not None and not paged:
             raise ValueError("shared_kv requires paged=True")
         if isinstance(model, InferenceSession):
             params, cfg = model.params, model.cfg
             if device is None:
                 device = model.device
+            if backend is None:
+                backend = model.backend
         elif cfg is None:
             raise TypeError("ContinuousBatchingEngine(params, cfg) requires a "
                             "ModelConfig when given a raw params tree")
@@ -253,6 +283,15 @@ class ContinuousBatchingEngine:
                 "window (its ring cache holds window slots)")
         self.device = resolve_device(device)
         self.cfg = cfg
+        self.backend = get_backend(backend) if backend is not None else None
+        if isinstance(self.backend, TPBackend) and tp == 1:
+            tp = self.backend.default_tp
+        if tp > 1 and self.backend is not None \
+                and not isinstance(self.backend, TPBackend):
+            twin = f"{self.backend.name}-tp"
+            if twin in available_backends():
+                self.backend = get_backend(twin)
+        self._bound = bind_for(self.backend, self.device)
         self.tp = tp
         if tp > 1:
             # the shards: shard 0 on the engine's device, the draft beside
@@ -273,7 +312,8 @@ class ContinuousBatchingEngine:
         self.spec_k = 0
         self._spec_m = 1               # verify span (k + 1) for spec engines
         if spec is not None:
-            draft_params, draft_cfg, draft_dev = spec.resolve_draft()
+            draft_params, draft_cfg, draft_dev, draft_backend = \
+                spec.resolve_draft()
             why = spec_supported(cfg, draft_cfg, spec.k,
                                  allow_moe_target=spec.allow_moe_target)
             if why is not None:
@@ -286,6 +326,10 @@ class ContinuousBatchingEngine:
             self._spec_m = spec.k + 1
             self.draft_params = place_params(draft_params, self.device)
             self.draft_cfg = draft_cfg
+            self.draft_backend = (get_backend(draft_backend)
+                                  if draft_backend is not None
+                                  else self.backend)
+            draft_bound = bind_for(self.draft_backend, self.device)
         # cache length: max_len plus the verify span's headroom, so
         # speculative writes near the sequence cap never clamp into valid
         # rows
@@ -321,6 +365,11 @@ class ContinuousBatchingEngine:
             self.draft_positions = torch.zeros((n_slots,), dtype=torch.int64,
                                                device=dev)
             self._draft_trash = self._pad_len - 1
+            dcfg, pad_to = self.draft_cfg, self._pad_len
+            self._draft_prefill = _under(draft_bound, lambda p, b, nv: prefill(
+                p, b, dcfg, pad_to=pad_to, n_valid=nv))
+            self._draft_decode = _under(draft_bound, lambda p, c, t, pos:
+                                        decode_step(p, c, t, pos, dcfg))
         if paged:
             why = paged_supported(cfg)
             if why is not None:
@@ -369,34 +418,36 @@ class ContinuousBatchingEngine:
         """The target's model entry points, with the scheduler's calling
         conventions: per-shard lists of params and caches in, the logits
         and the list of caches out. With tp > 1 they are the
-        ``TPContext``'s; at tp=1 the model functions on the one tree."""
+        ``TPContext``'s; at tp=1 the model functions on the one tree. Each
+        runs under the engine's backend (``_under``)."""
         # locals only: a closure over self would make a cycle that keeps
         # a dropped engine's shards alive until the collector runs
         tpx, cfg, pad_to = self._tp_ctx, self.cfg, self._pad_len
         if tpx is not None:
-            self._decode = tpx.decode_step
-            self._verify = tpx.verify_step
-            self._decode_paged = tpx.decode_step_paged
-            self._verify_paged = tpx.verify_step_paged
-            self._prefill_paged = tpx.prefill_paged
-            self._prefill = lambda p, b, nv: tpx.prefill(
-                p, b, nv, pad_to=pad_to)
-            return
-        def one(out):
-            return out[0], [out[1]]
+            fns = {"decode": tpx.decode_step, "verify": tpx.verify_step,
+                   "decode_paged": tpx.decode_step_paged,
+                   "verify_paged": tpx.verify_step_paged,
+                   "prefill_paged": tpx.prefill_paged,
+                   "prefill": lambda p, b, nv: tpx.prefill(
+                       p, b, nv, pad_to=pad_to)}
+        else:
+            def one(out):
+                return out[0], [out[1]]
 
-        self._decode = lambda p, c, t, pos: one(decode_step(
-            p[0], c[0], t, pos, cfg))
-        self._verify = lambda p, c, t, pos: one(verify_step(
-            p[0], c[0], t, pos, cfg))
-        self._decode_paged = lambda p, c, t, pos, tabs: one(decode_step_paged(
-            p[0], c[0], t, pos, tabs, cfg))
-        self._verify_paged = lambda p, c, t, pos, tabs: one(verify_step_paged(
-            p[0], c[0], t, pos, tabs, cfg))
-        self._prefill_paged = lambda p, c, b, nv, tabs: one(prefill_paged(
-            p[0], c[0], b, nv, tabs, cfg))
-        self._prefill = lambda p, b, nv: one(prefill(
-            p[0], b, cfg, pad_to=pad_to, n_valid=nv))
+            fns = {"decode": lambda p, c, t, pos: one(decode_step(
+                       p[0], c[0], t, pos, cfg)),
+                   "verify": lambda p, c, t, pos: one(verify_step(
+                       p[0], c[0], t, pos, cfg)),
+                   "decode_paged": lambda p, c, t, pos, tabs: one(
+                       decode_step_paged(p[0], c[0], t, pos, tabs, cfg)),
+                   "verify_paged": lambda p, c, t, pos, tabs: one(
+                       verify_step_paged(p[0], c[0], t, pos, tabs, cfg)),
+                   "prefill_paged": lambda p, c, b, nv, tabs: one(
+                       prefill_paged(p[0], c[0], b, nv, tabs, cfg)),
+                   "prefill": lambda p, b, nv: one(prefill(
+                       p[0], b, cfg, pad_to=pad_to, n_valid=nv))}
+        for name, fn in fns.items():
+            setattr(self, f"_{name}", _under(self._bound, fn))
 
     # ---------------------------------------------------------------- #
     @property
@@ -811,8 +862,7 @@ class ContinuousBatchingEngine:
         dcfg = self.draft_cfg
         n_valid = req.feed_len
         batch = self._pad_tokens({"tokens": req.feed_tokens}, dcfg, n_valid)
-        _, single = prefill(self.draft_params, batch, dcfg,
-                            pad_to=self._pad_len, n_valid=n_valid)
+        _, single = self._draft_prefill(self.draft_params, batch, n_valid)
         _tree_insert(self.draft_cache, single, slot)
         self.draft_positions[slot] = req.feed_len
 
@@ -935,8 +985,9 @@ class ContinuousBatchingEngine:
                 feed[s] = int(pend[s][i] if j < 0 else proposals[s][j])
             toks = torch.tensor(feed, dtype=torch.int64).reshape(
                 self.n_slots, 1).to(self.device)
-            logits, _ = decode_step(self.draft_params, self.draft_cache, toks,
-                                    base_pos + i, self.draft_cfg)
+            logits, _ = self._draft_decode(self.draft_params,
+                                           self.draft_cache, toks,
+                                           base_pos + i)
             last = logits[:, -1]
             batch_argmax = None
             for s in decode_slots:

@@ -47,10 +47,12 @@ class SpecConfig:
 
     draft            the draft model: a ``ModelArtifact``, an
                      ``InferenceSession`` (its device must be the
-                     engine's), or a ``(params, cfg)`` tuple
+                     engine's; its pinned backend is inherited), or a
+                     ``(params, cfg)`` tuple
     k                draft tokens proposed per verify step (>= 2)
-    draft_backend    the JAX package's kernel backend for the draft; the
-                     port dispatches kernels by device, so it must be None
+    draft_backend    kernel backend for the draft's prefill and decode
+                     calls (default: the draft session's, else the target
+                     engine's)
     allow_moe_target opt-in for capacity-routed MoE targets (no greedy
                      parity guarantee: expert capacity depends on the
                      tokens a pass routes)
@@ -61,22 +63,21 @@ class SpecConfig:
     draft_backend: Any = None
     allow_moe_target: bool = False
 
-    def resolve_draft(self) -> Tuple[Any, ModelConfig, Optional[torch.device]]:
-        """-> (draft_params, draft_cfg, the draft session's device or
-        None)."""
+    def resolve_draft(self) -> Tuple[Any, ModelConfig,
+                                     Optional[torch.device], Any]:
+        """-> (draft_params, draft_cfg, the draft session's device or None,
+        backend or None)."""
         from repro_torch.serving.engine import InferenceSession
 
-        if self.draft_backend is not None:
-            raise ValueError(
-                "the port dispatches kernels by device; it has no backend "
-                "registry (SpecConfig.draft_backend must be None)")
         d = self.draft
         if isinstance(d, InferenceSession):
-            return d.params, d.cfg, d.device
+            return d.params, d.cfg, d.device, (
+                self.draft_backend if self.draft_backend is not None
+                else d.backend)
         if hasattr(d, "params") and hasattr(d, "config"):   # ModelArtifact
-            return d.params, d.config, None
+            return d.params, d.config, None, self.draft_backend
         params, cfg = d
-        return params, cfg, None
+        return params, cfg, None, self.draft_backend
 
 
 def spec_supported(target_cfg: ModelConfig, draft_cfg: ModelConfig, k: int,

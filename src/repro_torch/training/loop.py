@@ -23,7 +23,10 @@ def fit(cfg: ModelConfig, oc: OptimizerConfig,
     ``params`` the weights are drawn by ``init_params(cfg, seed, device)``
     (not the JAX package's numbers: its ``PRNGKey`` stream cannot be drawn
     in torch). A logged step copies its metrics to the host, which waits
-    for the device."""
+    for the device. On the CPU the steps run under the ``ref`` backend
+    (``api.backends.bind_for``), as an unpinned session does."""
+    from repro_torch.api.backends import bind_for, use_backend
+
     dev = resolve_device(device)
     if params is None:
         params = init_params(cfg, seed, dev)
@@ -31,17 +34,18 @@ def fit(cfg: ModelConfig, oc: OptimizerConfig,
     history = []
     # repro: allow-wallclock -- wall_s logs real train-step throughput
     t0 = time.perf_counter()
-    for i in range(steps):
-        batch = {k: v.to(dev) for k, v in next(stream).items()}
-        params, opt_state, metrics = train_step(params, opt_state, batch,
-                                                cfg, oc)
-        if i % log_every == 0 or i == steps - 1:
-            m = {k: float(v) for k, v in metrics.items()}
-            m["step"] = i
-            # repro: allow-wallclock -- interval vs t0 above, logging only
-            m["wall_s"] = round(time.perf_counter() - t0, 1)
-            history.append(m)
-            log_fn(f"step {i:5d} loss={m['loss']:.4f} "
-                   f"acc={m['token_acc']:.3f} gnorm={m['grad_norm']:.2f} "
-                   f"({m['wall_s']}s)")
+    with use_backend(bind_for(None, dev)):
+        for i in range(steps):
+            batch = {k: v.to(dev) for k, v in next(stream).items()}
+            params, opt_state, metrics = train_step(params, opt_state, batch,
+                                                    cfg, oc)
+            if i % log_every == 0 or i == steps - 1:
+                m = {k: float(v) for k, v in metrics.items()}
+                m["step"] = i
+                # repro: allow-wallclock -- interval vs t0 above, logging only
+                m["wall_s"] = round(time.perf_counter() - t0, 1)
+                history.append(m)
+                log_fn(f"step {i:5d} loss={m['loss']:.4f} "
+                       f"acc={m['token_acc']:.3f} "
+                       f"gnorm={m['grad_norm']:.2f} ({m['wall_s']}s)")
     return params, history

@@ -127,14 +127,23 @@ def test_quantize_weights_edge_columns(dtype):
 
 
 def test_quantize_weights_checks_operands():
+    """The kernel entry checks its operands (``ops.quantize_weights`` now
+    reaches it only under the ``cuda`` backend, which refuses CPU tensors
+    first); ``ops`` under the CPU's default backend takes the plain
+    version and counts no launch."""
+    from repro_torch.api.backends import use_backend
+
     before = t_quantize.quantize_weights.launches
     with pytest.raises(ValueError, match=r"\[K, N\]"):
-        ops.quantize_weights(torch.zeros(2, 3, 4))
+        t_quantize.quantize_weights(torch.zeros(2, 3, 4))
     with pytest.raises(TypeError, match="float32 or bfloat16"):
-        ops.quantize_weights(torch.zeros(4, 4, dtype=torch.float16))
+        t_quantize.quantize_weights(torch.zeros(4, 4, dtype=torch.float16))
     with pytest.raises(ValueError, match="no quantize_weights kernel"):
-        ops.quantize_weights(torch.zeros(4, 4, device="meta"))
+        t_quantize.quantize_weights(torch.zeros(4, 4, device="meta"))
+    with use_backend("cuda"), pytest.raises(ValueError, match="cpu"):
+        ops.quantize_weights(torch.ones(4, 4))
     # the plain version counts no launch
+    t_quantize.quantize_weights(torch.ones(4, 4))
     ops.quantize_weights(torch.ones(4, 4))
     assert t_quantize.quantize_weights.launches == before
 

@@ -344,8 +344,13 @@ def test_unported_options_name_the_roadmap(nemo):
     req = engine.submit_prefill(torch.zeros((1, 4)))
     engine.run()
     assert req.done and req.kv_handoff.block_ids
-    # no backend registry: the JAX package's "*-tp" twins stay refused
-    for name in ("ref", "ref-tp"):
+    # the backend registry: a pinned "*-tp" twin shards at its default
+    # width, and a CUDA pin on the CPU is refused at construction
+    for name, want in (("ref", 1), ("ref-tp", 2)):
+        engine = ContinuousBatchingEngine(tp, cfg, device="cpu",
+                                          config=EngineConfig(backend=name))
+        assert (engine.tp, engine.backend.name) == (want, name)
+    for name in ("cuda", "cuda-tp"):
         with pytest.raises(ValueError, match="backend"):
             ContinuousBatchingEngine(tp, cfg, device="cpu",
                                      config=EngineConfig(backend=name))

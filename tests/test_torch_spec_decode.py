@@ -434,7 +434,7 @@ def test_engine_refuses_unsupported_spec(pair):
                         (SpecConfig(draft=(td, pair.tcfg.with_overrides(
                             vocab_size=256)), k=3), "vocab mismatch"),
                         (SpecConfig(draft=(td, pair.tcfg), k=3,
-                                    draft_backend="ref"), "backend")):
+                                    draft_backend="cuda"), "backend")):
         with pytest.raises(ValueError, match=match):
             ContinuousBatchingEngine(pair.tp, pair.tcfg, device="cpu",
                                      spec=spec)
@@ -463,8 +463,12 @@ def test_deployment_spec_config_over_a_jax_published_registry(tmp_path, pair):
             for p in prompts]
     engine.run()
     assert [r.out_tokens for r in reqs] == _generate(pair, prompts, 8)
+    assert dep.spec_config(draft_backend="ref",
+                           device="cpu").draft_backend == "ref"
     with pytest.raises(ValueError, match="backend"):
-        dep.spec_config(draft_backend="ref")
+        ContinuousBatchingEngine(target.params, target.config, device="cpu",
+                                 spec=dep.spec_config(draft_backend="cuda",
+                                                      device="cpu"))
     with pytest.raises(KeyError, match="no draft variant"):
         dep.spec_config(target_variant="int4")
     # the port publishes the relation the same way
