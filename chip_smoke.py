@@ -7,8 +7,9 @@ Builds the CUDA kernels from ``src/repro_torch/csrc`` (into ``build/``) and
 prints one JSON line per phase:
 
 1. card: ``nvidia-smi`` name and power limit, kernel build time, ptxas
-   registers and spills per source and per instantiation of the quantized
-   tensor-core prefills (``flash_qtc``, ``flash_q4tc``), the split-K
+   registers and spills per source and per instantiation of the three
+   tensor-core prefills at each tile (``flash_tc``, ``flash_qtc``,
+   ``flash_q4tc``), the split-K
    decode loops (``*_split``) and the weight quantizer's two routes
    (``quantize_cluster``, ``quantize_cols``), and any kernel that spills;
 2. kernels: each CUDA kernel against its plain PyTorch version on the card
@@ -39,6 +40,15 @@ prints one JSON line per phase:
    weight shapes; B8 S579 H32 hd96), and flash prefill at MLA's 192 / 128
    width class (MLA_FLASH: one 1024-token deepseek-v2 prefill on the bf16
    class's wgmma body, ``MLA_BODY``, with the class's ptxas lines);
+2a. tiles: every (block_q, block_k) each flash body instantiates
+   (``autotune.TILES``) at every TILE_SHAPES shape (FLASH_SHAPES and the
+   main paths' other keys) and MLA_FLASH, for flash_prefill, flash_qprefill
+   and flash_q4prefill: held against the plain version and timed twice
+   (graph replay, L2 flushed), beside the analytic winner of the ``cuda``
+   key, the 64 x 64 tile, the fastest, the bound and SDPA; then one prefill
+   under REPRO_TILE_BQ / REPRO_TILE_BK pinned to PIN_TILE (that tile must
+   launch), and pairs no body instantiates refused by the wrapper and by
+   the C entries, which launch nothing;
 3. e2e: stablelm-1.6b at full width and SERVE_LAYERS of its 24 layers in
    bf16 with random seeded weights, the
    three default variants (fp32 passthrough, dynamic int8, static int8
@@ -201,14 +211,19 @@ prints one JSON line per phase:
    other kernel;
 20. held_shapes: every flash-prefill, qdecode, paged-decode (fp, int8,
    int4) and int8-GEMM shape the main paths gave a kernel, held against
-   the plain version;
+   the plain version (a flash prefill at the tile the ``cuda`` leg
+   resolved for it);
 21. a ``kernels`` line (flash_prefill with its launches per width
-   class, qdecode with its wide class, each kernel's launches on the fleet
-   path), the ``nvidia-smi`` line, and last the device line.
+   class, each flash prefill's launches per tile and its tile sweep's
+   winner / 64 x 64 / fastest ms per shape, qdecode with its wide class,
+   each kernel's launches on the fleet path), the ``nvidia-smi`` line, and
+   last the device line.
 
 Every counted run also checks that each flash_prefill, flash_qprefill and
 flash_q4prefill launch took the body of its dtype (``launches_by_body``;
-a bf16 flash_prefill of the 192 / 128 class the wgmma body),
+a bf16 flash_prefill of the 192 / 128 class the wgmma body) and the tile
+the ``cuda`` leg resolved for it (``launches_by_tile`` against
+``RESOLVED_TILES``),
 each engine
 window's profile names its attention kernel once per layer, and the GEMMs'
 bodies are checked where M is known: the one-launch decode body at every
@@ -227,6 +242,7 @@ import re
 import statistics
 import subprocess
 import sys
+import threading
 import time
 import types
 
@@ -623,7 +639,9 @@ def reset_counters(k):
         for body in bodies:
             bodies[body] = 0
     for classes in (k.flash_prefill.flash_prefill.launches_by_class,
-                    k.qdecode.qdecode.launches_by_class):
+                    k.qdecode.qdecode.launches_by_class,
+                    *(fn.launches_by_tile for fn in _flash(k).values()),
+                    *RESOLVED_TILES.values()):
         for c in classes:
             classes[c] = 0
 
@@ -631,9 +649,13 @@ def reset_counters(k):
 def read_counters(k):
     """Launches per wrapper, the GEMMs' per body (``qmatmul_dynamic.gemv``,
     ``qmatmul_dynamic.wgmma``, ...), quantize_weights' per route
-    (``quantize_weights.cluster``, ``quantize_weights.two_pass``) and
-    flash_prefill's per width class (``flash_prefill.class.192x128``) and
-    qdecode's per class (``qdecode.class.wide``)."""
+    (``quantize_weights.cluster``, ``quantize_weights.two_pass``),
+    flash_prefill's per width class (``flash_prefill.class.192x128``),
+    qdecode's per class (``qdecode.class.wide``) and each flash prefill's
+    per tile (``flash_prefill.tile.tc:64x64``). Each flash prefill's
+    launches per tile must equal the tiles the ``cuda`` legs resolved for
+    the calls since ``reset_counters`` (``RESOLVED_TILES``, kept by
+    ``recording_shapes``), else it raises."""
     out = {name: fn.launches for name, fn in _wrappers(k).items()}
     out.update({f"quantize_weights.{route}": n for route, n in
                 k.quantize.quantize_weights.routes.items()})
@@ -644,6 +666,14 @@ def read_counters(k):
                 k.flash_prefill.flash_prefill.launches_by_class.items()})
     out.update({f"qdecode.class.{c}": n for c, n in
                 k.qdecode.qdecode.launches_by_class.items()})
+    for name, fn in _flash(k).items():
+        got = {t: n for t, n in fn.launches_by_tile.items() if n}
+        want = {t: n for t, n in RESOLVED_TILES.get(name, {}).items() if n}
+        if got != want:
+            raise AssertionError(f"{name}: launches by tile {got}, the cuda "
+                                 f"legs resolved {want}")
+        out.update({f"{name}.tile.{t}": n
+                    for t, n in fn.launches_by_tile.items()})
     return out
 
 
@@ -744,13 +774,14 @@ def fp_split_instance(hd: int, g: int, pool_dtype) -> str:
     return f"paged_decode_split<{t}, {lpr}, {gb}>"
 
 
-def qtc_instance(hd: int, dv: int, dtype, body="flash_qtc") -> str:
-    """The ``tc::flash_qtc<TQ, W, W>`` (or ``flash_q4tc``) that serves (hd,
-    dv, q dtype)."""
+def qtc_instance(hd: int, dv: int, dtype, body="flash_qtc",
+                 tile=(64, 64)) -> str:
+    """The ``tc::flash_qtc<TQ, W, W, BR, BK>`` (or ``flash_q4tc``) that
+    serves (hd, dv, q dtype) at ``tile`` (the wrappers' default)."""
     w = max(hd, dv)
     w = 64 if w <= 64 else (96 if w <= 96 else 128)
     tq = "float" if dtype == torch.float32 else "__nv_bfloat16"
-    return f"tc::{body}<{tq}, {w}, {w}>"
+    return f"tc::{body}<{tq}, {w}, {w}, {tile[0]}, {tile[1]}>"
 
 
 # ------------------------------------------------------------------ #
@@ -930,8 +961,8 @@ def flash_phase(k, dev, timer):
         if shape == MLA_FLASH:
             t = "float" if dt == torch.float32 else "__nv_bfloat16"
             row["ptxas"] = {n: k.ptxas.get(n) for n in (
-                "mla::flash_mla", f"tc::flash_tc<{t}, 192, 128>",
-                "tc::flash_tc<float, 192, 128>")}
+                "mla::flash_mla", f"tc::flash_tc<{t}, 192, 128, 64, 64>",
+                "tc::flash_tc<float, 192, 128, 64, 64>")}
             mla = row
         emit("kernel", **row)
         if shape == HEADLINE_FLASH:
@@ -1462,6 +1493,216 @@ def flash_q4prefill_phase(k, dev, timer):
     return headline
 
 
+# ------------------------------------------------------------------ #
+# Phase 2a: every instantiated tile of the flash bodies
+# ------------------------------------------------------------------ #
+#: graph replays a timing of the tile sweep (each tile timed twice: the
+#: candidates in order, then in reverse)
+TILE_ITERS = 20
+#: the tile sweep's shapes: FLASH_SHAPES and the main paths' keys they
+#: leave out: a 16-token prompt (the engines' warm-up) and a 37-token one
+#: (stablelm-1.6b), training's f32 8 x 128 step and the fleet's f32 [2, 64]
+#: forward, mistral-nemo-12b's G 4 at tp=1 and per shard at tp=2
+TILE_SHAPES = FLASH_SHAPES + (
+    (1, 16, 32, 32, 64, 64, torch.bfloat16),
+    (1, 37, 32, 32, 64, 64, torch.bfloat16),
+    (8, 128, 32, 32, 64, 64, torch.float32),
+    (2, 64, 32, 32, 64, 64, torch.float32),
+    (1, 200, 32, 8, 128, 128, torch.bfloat16),
+    (1, 200, 16, 4, 128, 128, torch.bfloat16))
+#: the environment pin's tile, a candidate other than the default
+PIN_TILE = (128, 32)
+
+
+def _tile_case(k, kernel, shape, gen, cpu_gen, dev):
+    """Random inputs of ``kernel`` at ``shape`` (FLASH_SHAPES' form; q from
+    ``gen`` on the card, codes from ``cpu_gen``): (run at a tile, the plain
+    version, the body, the precision label, bytes the call must move, the
+    SDPA call on the same values, dequantized)."""
+    ref, fp, quant = k.ref, k.flash_prefill, k.quantize
+    b, s, hq, hkv, hd, dv, dt = shape
+    g = hq // hkv
+    q = torch.randn((b, s, hq, hd), generator=gen, device=dev).to(dt)
+    out_bytes = 4 * b * s * hq * dv
+    if kernel == "flash_prefill":
+        kk = torch.randn((b, s, hkv, hd), generator=gen, device=dev).to(dt)
+        v = torch.randn((b, s, hkv, dv), generator=gen, device=dev).to(dt)
+        args, plain = (q, kk, v), ref.flash_prefill_ref
+        body = fp.body_for(q, kk, v)
+        nbytes = (q.numel() + kk.numel() + v.numel()) * q.element_size() \
+            + out_bytes
+        kd, vd = kk, v
+    else:
+        codes = int8_codes if kernel == "flash_qprefill" else int4_codes
+        kc, ks = codes(cpu_gen, (b, s, hkv, hd), dev)
+        vc, vs = codes(cpu_gen, (b, s, hkv, dv), dev)
+        args = (q, kc, ks, vc, vs)
+        plain = getattr(ref, f"{kernel}_ref")
+        body = (fp.QBODY if kernel == "flash_qprefill" else fp.Q4BODY)[dt]
+        if kernel == "flash_qprefill":
+            kd, vd = dequant(kc, ks, dt), dequant(vc, vs, dt)
+            kv_bytes = kc.numel() + vc.numel() + 4 * (ks.numel() + vs.numel())
+        else:
+            kd, vd = (quant.dequantize_kv_int4(c, sc).to(dt)
+                      for c, sc in ((kc, ks), (vc, vs)))
+            kv_bytes = b * s * hkv * (int4_bytes(1, hd) + int4_bytes(1, dv))
+        nbytes = q.numel() * q.element_size() + kv_bytes + out_bytes
+    entry = getattr(fp, kernel)
+
+    def run(tile):
+        return entry(*args, block_q=tile[0], block_k=tile[1])
+
+    qt = q.transpose(1, 2).contiguous()
+    kt, vt = (t.repeat_interleave(g, dim=2).transpose(1, 2).contiguous()
+              for t in (kd, vd))
+
+    def sdpa():
+        return torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True)
+    precision = k.autotune.precision_label(kernel, dt == torch.bfloat16)
+    return run, (lambda: plain(*args)), body, precision, nbytes, sdpa
+
+
+def tiles_phase(k, dev, timer):
+    """Every tile each flash body instantiates (``autotune.tiles``) held
+    against the plain version and timed (a CUDA-graph replay, L2 flushed,
+    TILE_ITERS calls; each tile twice, the candidates in order and then in
+    reverse) at every TILE_SHAPES shape of flash_prefill (and MLA_FLASH),
+    flash_qprefill and flash_q4prefill (their phases' shapes and more): a ``tiles``
+    line per shape with each tile's two times and max |err|, the analytic
+    winner (the ``cuda`` key's sweep), the default (64, 64) and the fastest
+    candidate, the bound and SDPA's time. Returns {kernel: [rows]}."""
+    at = k.autotune
+    gen = torch.Generator(device=dev).manual_seed(SEED + 60)
+    cpu_gen = torch.Generator().manual_seed(SEED + 62)
+    out = {}
+    for kernel in ("flash_prefill", "flash_qprefill", "flash_q4prefill"):
+        shapes = TILE_SHAPES + ((MLA_FLASH,) if kernel == "flash_prefill"
+                                else ())
+        atol = FLASH_ATOL if kernel == "flash_prefill" else INT8KV_ATOL
+        for shape in shapes:
+            b, s, hq, hkv, hd, dv, dt = shape
+            run, plain, body, precision, nbytes, sdpa = _tile_case(
+                k, kernel, shape, gen, cpu_gen, dev)
+            want = plain()
+            cands = at.tiles(body, at.width(hd, dv))
+            winner = at.sweep("cuda", kernel, hd, precision, s)
+            default = k.flash_prefill.tile_for(body, hd, dv)
+            if winner not in cands or default not in cands:
+                raise AssertionError(f"{kernel} {shape}: winner {winner} or "
+                                     f"default {default} not among {cands}")
+            errs, times = {}, {c: [] for c in cands}
+            for tile in cands:
+                got = run(tile)
+                torch.cuda.synchronize()
+                errs[tile] = float((got - want).abs().max())
+                if not torch.isfinite(got).all() or errs[tile] > atol:
+                    raise AssertionError(f"{kernel} {shape} tile {tile}: max "
+                                         f"|err| {errs[tile]} > {atol}")
+                del got
+            for tile in (*cands, *reversed(cands)):
+                times[tile].append(timer.graph_ms(lambda: run(tile),
+                                                  iters=TILE_ITERS))
+            mean = {t: sum(v) / len(v) for t, v in times.items()}
+            fastest = min(cands, key=lambda t: mean[t])
+            visible = s * (s + 1) // 2             # causal (query, key) pairs
+            flops = 2.0 * (hd + dv) * visible * b * hq
+            b_ms, b_by = bound(nbytes, flops, str(dt).split(".")[-1])
+            row = dict(kernel=kernel, B=b, S=s, Hq=hq, Hkv=hkv, hd=hd, dv=dv,
+                       dtype=str(dt).split(".")[-1], body=body,
+                       width_class=at.width(hd, dv),
+                       key=at.cache_key("cuda", kernel, hd, precision, s),
+                       ms={f"{t[0]}x{t[1]}": times[t] for t in cands},
+                       max_abs_err={f"{t[0]}x{t[1]}": errs[t]
+                                    for t in cands}, atol=atol,
+                       winner=list(winner), winner_ms=mean[winner],
+                       default=list(default), default_ms=mean[default],
+                       fastest=list(fastest), fastest_ms=mean[fastest],
+                       bound_ms=b_ms, bound_by=b_by,
+                       library_ms=timer.graph_ms(sdpa))
+            emit("tiles", **row)
+            out.setdefault(kernel, []).append(row)
+            del want, run, plain, sdpa
+            torch.cuda.empty_cache()
+    return out
+
+
+def tile_pins_check(k, dev):
+    """One flash prefill (HEADLINE_FLASH) through the ``cuda`` leg with
+    REPRO_TILE_BQ / REPRO_TILE_BK set to PIN_TILE launches that tile and
+    agrees with the plain version; a pair no body instantiates raises in
+    the wrapper before any launch, and ``flash_prefill_fwd`` /
+    ``flash_mla_fwd`` refuse a pair their body lacks with
+    cudaErrorInvalidValue and launch nothing."""
+    from repro_torch.api import use_backend
+    from repro_torch.kernels import _build, ops
+
+    fp = k.flash_prefill
+    b, s, hq, hkv, hd, dv, dt = HEADLINE_FLASH
+    gen = torch.Generator(device=dev).manual_seed(SEED + 61)
+    q, kk, v = (torch.randn((b, s, h, d), generator=gen, device=dev).to(dt)
+                for h, d in ((hq, hd), (hkv, hd), (hkv, dv)))
+    body = fp.body_for(q, kk, v)
+    before = dict(fp.flash_prefill.launches_by_tile)
+    os.environ["REPRO_TILE_BQ"], os.environ["REPRO_TILE_BK"] = map(
+        str, PIN_TILE)
+    try:
+        with use_backend("cuda"):
+            got = ops.flash_prefill(q, kk, v)
+    finally:
+        del os.environ["REPRO_TILE_BQ"], os.environ["REPRO_TILE_BK"]
+    torch.cuda.synchronize()
+    ran = {t: n - before[t] for t, n in fp.flash_prefill.launches_by_tile
+           .items() if n != before[t]}
+    pinned = f"{body}:{PIN_TILE[0]}x{PIN_TILE[1]}"
+    if PIN_TILE == k.autotune.DEFAULT_TILE or ran != {pinned: 1}:
+        raise AssertionError(f"pinned {PIN_TILE}: launched {ran}")
+    err = float((got - k.ref.flash_prefill_ref(q, kk, v)).abs().max())
+    if err > FLASH_ATOL:
+        raise AssertionError(f"pinned {PIN_TILE}: max |err| {err}")
+    refused = {}
+    launches = fp.flash_prefill.launches
+    for bad in ((48, 48), (256, 64), (64, 256)):
+        try:
+            fp.flash_prefill(q, kk, v, block_q=bad[0], block_k=bad[1])
+        except ValueError as e:
+            refused[f"{bad[0]}x{bad[1]}"] = str(e)[:120]
+        else:
+            raise AssertionError(f"tile {bad} did not raise")
+    # the C entries refuse a pair their body lacks (the wrapper's check
+    # bypassed): hd 128 f32 has no 128-key tile, the MLA body one tile
+    fn = _build.function("flash_prefill", "flash_prefill_fwd", [
+        _build.P, _build.P, _build.P, _build.I, _build.P, _build.I, _build.I,
+        _build.I, _build.I, _build.I, _build.I, _build.I, _build.I,
+        _build.P])
+    qf, kf, vf = (torch.zeros((1, 64, 2, 128), device=dev) for _ in "qkv")
+    outf = torch.full((1, 64, 2, 128), 7.0, device=dev)
+    rc = {"flash_prefill_fwd 48x48": fn(
+        qf.data_ptr(), kf.data_ptr(), vf.data_ptr(), 0, outf.data_ptr(), 1,
+        64, 2, 2, 128, 128, 48, 48, _build.stream_of(qf)),
+        "flash_prefill_fwd f32 128x128": fn(
+        qf.data_ptr(), kf.data_ptr(), vf.data_ptr(), 0, outf.data_ptr(), 1,
+        64, 2, 2, 128, 128, 128, 128, _build.stream_of(qf))}
+    mla = _build.function("flash_prefill", "flash_mla_fwd", [
+        _build.P, _build.P, _build.P, _build.P, _build.I, _build.I, _build.I,
+        _build.I, _build.I, _build.I, _build.I, _build.I, _build.P])
+    qm, km = (torch.zeros((1, 64, 2, 192), device=dev, dtype=torch.bfloat16)
+              for _ in "qk")
+    vm = torch.zeros((1, 64, 2, 128), device=dev, dtype=torch.bfloat16)
+    rc["flash_mla_fwd 64x64"] = mla(
+        qm.data_ptr(), km.data_ptr(), vm.data_ptr(), outf.data_ptr(), 1, 64,
+        2, 2, 192, 128, 64, 64, _build.stream_of(qm))
+    torch.cuda.synchronize()
+    untouched = bool((outf == 7.0).all())
+    if any(c != 1 for c in rc.values()) or not untouched \
+            or fp.flash_prefill.launches != launches:
+        raise AssertionError(f"uninstantiated pairs: rc {rc}, output "
+                             f"untouched {untouched}")
+    emit("tile_pins", pinned=list(PIN_TILE), launched=ran, max_abs_err=err,
+         refused_by_wrapper=refused, refused_by_entry=rc,
+         entry_output_untouched=untouched)
+
+
 def quantize_int4_phase(k, dev):
     """The int4 KV quantizer (plain PyTorch on every device) on the card
     against the CPU on its edge groups: exact .5 quotients, an all-zero
@@ -1676,7 +1917,9 @@ def e2e_phase(k, dev):
               **{f"{name}.{body}": 0 for name in _gemms(k)
                  for body in k.qmatmul.BODIES},
               **{f"qdecode.class.{c}": 0
-                 for c in k.qdecode.qdecode.launches_by_class}}
+                 for c in k.qdecode.qdecode.launches_by_class},
+              **{f"{name}.tile.{t}": 0 for name, fn in _flash(k).items()
+                 for t in fn.launches_by_tile}}
     runs = [(spec.variant, spec, cfg) for spec in DEFAULT_VARIANTS]
     runs.append(("dynamic_int8_kv8", VariantSpec.dynamic_int8(),
                  cfg.with_overrides(kv_cache_int8=True)))
@@ -5926,10 +6169,14 @@ def fleet_phase(k, dev):
 # ------------------------------------------------------------------ #
 # Phase 20: every shape the main paths gave a kernel, against plain
 # ------------------------------------------------------------------ #
-def _flash_key(q, k, dv):
-    # (B, S, Hq, Hkv, hd, dv, dtype), as FLASH_SHAPES
+def _flash_key(kernel, q, k, dv):
+    # (B, S, Hq, Hkv, hd, dv, dtype), as FLASH_SHAPES, then the tile the
+    # cuda leg resolves for the call
+    from repro_torch.api import get_backend
+
     b, s, hq, hd = q.shape
-    return (b, s, hq, k.shape[2], hd, dv, q.dtype)
+    return (b, s, hq, k.shape[2], hd, dv, q.dtype,
+            get_backend("cuda").flash_tile(kernel, q))
 
 
 def _gemm_key(x, n):
@@ -5950,21 +6197,58 @@ def _paged_key(q, pool, tables):
             pool.dtype)
 
 
+#: flash kernel -> {"<body>:<block_q>x<block_k>": calls} that the cuda legs
+#: resolved since the last ``reset_counters`` (``recording_shapes`` counts
+#: them; ``read_counters`` holds each prefill's launches per tile to them)
+RESOLVED_TILES = {}
+_RESOLVED_LOCK = threading.Lock()
+
+
+def _resolve_count(kernel, key, q, k, v):
+    """One call of ``kernel`` at ``key`` (``_flash_key``'s; q, k, v its
+    first three arguments) counted in RESOLVED_TILES with the body it
+    takes, where the backend in scope launches the CUDA kernels (``cuda``
+    or a twin of it)."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.api import current_backend
+    from repro_torch.kernels import flash_prefill as fp
+
+    backend = current_backend()
+    if getattr(backend, "inner", backend).name != "cuda":
+        return
+    if kernel == "flash_prefill":
+        local = [t.to_local() if isinstance(t, DTensor) else t
+                 for t in (q, k, v)]
+        body = fp.body_for(*local)
+    else:
+        body = (fp.QBODY if kernel == "flash_qprefill" else fp.Q4BODY)[
+            q.dtype]
+    tile = f"{body}:{key[7][0]}x{key[7][1]}"
+    with _RESOLVED_LOCK:
+        tiles = RESOLVED_TILES.setdefault(kernel, {})
+        tiles[tile] = tiles.get(tile, 0) + 1
+
+
 @contextlib.contextmanager
 def recording_shapes(seen):
     """Records into ``seen`` (kernel name -> set of shape keys) the shape of
     every call that the model code makes through ``kernels.ops`` to the
-    flash prefills, the dense and paged decodes and the int8 GEMMs; the
+    flash prefills (with the tile the cuda leg resolves, also counted in
+    RESOLVED_TILES), the dense and paged decodes and the int8 GEMMs; the
     wrappers and their counters are left as they are."""
     from repro_torch.kernels import ops
 
     keys = {"flash_prefill": lambda q, k, v: (
-                "flash_prefill", _flash_key(q, k, v.shape[-1])),
+                "flash_prefill", _flash_key("flash_prefill", q, k,
+                                            v.shape[-1])),
             "flash_qprefill": lambda q, k, ks, v, vs: (
-                "flash_qprefill", _flash_key(q, k, v.shape[-1])),
+                "flash_qprefill", _flash_key("flash_qprefill", q, k,
+                                             v.shape[-1])),
             # int4 V: two codes a byte
             "flash_q4prefill": lambda q, k, ks, v, vs: (
-                "flash_q4prefill", _flash_key(q, k, 2 * v.shape[-1])),
+                "flash_q4prefill", _flash_key("flash_q4prefill", q, k,
+                                              2 * v.shape[-1])),
             "qmatmul_dynamic": lambda x, w, *a, **kw: (
                 "qmatmul_dynamic", _gemm_key(x, w.shape[1])),
             "qmatmul_static": lambda x, w, *a, **kw: (
@@ -5987,6 +6271,8 @@ def recording_shapes(seen):
         def call(*args, **kw):
             kernel, key = keys[name](*args, **kw)
             seen.setdefault(kernel, set()).add(key)
+            if kernel.startswith("flash_"):
+                _resolve_count(kernel, key, *args[:3])
             return saved[name](*args, **kw)
         return call
     try:
@@ -6031,8 +6317,9 @@ def held_paged(k, name, key, gen, dev):
 def held_shapes_phase(k, dev, seen):
     """Every flash-prefill, qdecode, paged-decode and int8-GEMM shape that
     the main paths gave a kernel (``recording_shapes``), held against the
-    plain version on random inputs of that shape and dtype. Shapes the
-    kernel phases already held (FLASH_SHAPES, MLA_FLASH, QDECODE_SHAPES,
+    plain version on random inputs of that shape and dtype, a flash prefill
+    at the tile the ``cuda`` leg resolved for it. Shapes the kernel phases
+    already held (TILE_SHAPES and MLA_FLASH at every tile, QDECODE_SHAPES,
     PAGED_SHAPES, GEMM_CASES at bf16 activations) are counted; the rest run
     here, at the kernel phases' tolerances: flash FLASH_ATOL, paged fp
     PAGED_ATOL, int8 / int4 K/V INT8KV_ATOL, GEMMs rtol 1e-6."""
@@ -6054,8 +6341,9 @@ def held_shapes_phase(k, dev, seen):
         gemm = name.startswith("qmatmul")
         held = (gemm_held if gemm else qdecode_held if name == "qdecode"
                 else paged_held[name] if name in paged
-                else FLASH_SHAPES + (MLA_FLASH,))
-        new = [key for key in keys if key not in held]
+                else TILE_SHAPES + (MLA_FLASH,))
+        flash = name.startswith("flash_")     # its key ends in the tile
+        new = [key for key in keys if (key[:7] if flash else key) not in held]
         worst = 0.0
         for key in new:
             if name in paged:
@@ -6097,18 +6385,18 @@ def held_shapes_phase(k, dev, seen):
                                            f"{key}: {m}")
                 del w, wp
             else:
-                b, s, hq, hkv, hd, dv, dt = key
+                b, s, hq, hkv, hd, dv, dt, (bq, bk) = key
                 q = torch.randn((b, s, hq, hd), generator=gen,
                                 device=dev).to(dt)
                 if name == "flash_prefill":
                     kv = [torch.randn((b, s, hkv, d), generator=gen,
                                       device=dev).to(dt) for d in (hd, dv)]
-                    got = fp.flash_prefill(q, *kv)
+                    got = fp.flash_prefill(q, *kv, block_q=bq, block_k=bk)
                     want, atol = ref.flash_prefill_ref(q, *kv), FLASH_ATOL
                 else:
                     kv = [*codes[name](cpu_gen, (b, s, hkv, hd), dev),
                           *codes[name](cpu_gen, (b, s, hkv, dv), dev)]
-                    got = getattr(fp, name)(q, *kv)
+                    got = getattr(fp, name)(q, *kv, block_q=bq, block_k=bk)
                     want = getattr(ref, f"{name}_ref")(q, *kv)
                     atol = INT8KV_ATOL
                 err = float((got - want).abs().max())
@@ -6117,6 +6405,10 @@ def held_shapes_phase(k, dev, seen):
                                          f"{atol}")
             worst = max(worst, float((got - want).abs().max()))
             del got, want
+        if flash:
+            summary[f"{name}_tiles"] = {
+                f"{t[0]}x{t[1]}": sum(key[7] == t for key in keys)
+                for t in sorted({key[7] for key in keys})}
         summary[name] = {"shapes": len(keys),
                          "held_by_kernel_phases": len(keys) - len(new),
                          "held_here": len(new), "max_abs_err_here": worst,
@@ -6144,12 +6436,12 @@ def main() -> int:
 
 
 def _main(procs) -> int:
-    from repro_torch.kernels import (_build, dynquant, flash_prefill,
-                                     paged_attn, qdecode, qmatmul, quantize,
-                                     ref)
+    from repro_torch.kernels import (_build, autotune, dynquant,
+                                     flash_prefill, paged_attn, qdecode,
+                                     qmatmul, quantize, ref)
 
     k = types.SimpleNamespace(ref=ref, qmatmul=qmatmul, dynquant=dynquant,
-                              flash_prefill=flash_prefill,
+                              flash_prefill=flash_prefill, autotune=autotune,
                               paged_attn=paged_attn, qdecode=qdecode,
                               quantize=quantize, ptxas={})
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -6181,7 +6473,7 @@ def _main(procs) -> int:
                            or "qdecode_wide" in name or "flash_mla" in name
                            or name.startswith(("quantize_cluster",
                                                "quantize_cols"))
-                           or ", 192, 128>" in name},
+                           or "flash_tc<" in name},
          ptxas_spilled=spilled)
 
     timer = Timer(dev)
@@ -6197,6 +6489,10 @@ def _main(procs) -> int:
     heads["flash_qprefill"] = flash_qprefill_phase(k, dev, timer)
     heads["paged_q4decode"] = paged_q4decode_phase(k, dev, timer)
     heads["flash_q4prefill"] = flash_q4prefill_phase(k, dev, timer)
+    # every tile of the three flash bodies, then the environment pin and
+    # the refusal of a pair no body instantiates
+    tile_rows = tiles_phase(k, dev, timer)
+    tile_pins_check(k, dev)
     quantize_int4_phase(k, dev)
     heads["quantize_weights"] = quantize_weights_phase(k, dev, timer)
     del timer
@@ -6217,7 +6513,10 @@ def _main(procs) -> int:
                      *(f"flash_qprefill.{body}"
                        for body in k.flash_prefill.QBODY.values()),
                      *(f"flash_q4prefill.{body}"
-                       for body in k.flash_prefill.Q4BODY.values())):
+                       for body in k.flash_prefill.Q4BODY.values()),
+                     *(f"{name}.tile.{t}"
+                       for name in ("flash_qprefill", "flash_q4prefill")
+                       for t in _flash(k)[name].launches_by_tile)):
             totals[name] = totals.get(name, 0) + all_totals[name]
         paged_vs_dense_phase(dev, streams)
         # the backend registry: cuda and ref sessions over one artifact,
@@ -6307,6 +6606,20 @@ def _main(procs) -> int:
             kernels[-1]["launches_by_body"] = {
                 body: totals[f"{name}.{body}"]
                 for body in read_bodies(k, name)}
+            by_tile = {t: totals.get(f"{name}.tile.{t}", 0)
+                       for t in _flash(k)[name].launches_by_tile}
+            if sum(by_tile.values()) != totals[name]:
+                raise AssertionError(f"{name}: launches by tile {by_tile} "
+                                     f"do not sum to {totals[name]}")
+            kernels[-1]["launches_by_tile"] = by_tile
+            # the tile sweep: per shape the analytic winner, (64, 64) and
+            # the fastest candidate, ms each
+            kernels[-1]["tiles"] = [
+                {key: row[key] for key in ("B", "S", "Hq", "Hkv", "hd", "dv",
+                                           "dtype", "winner", "winner_ms",
+                                           "default", "default_ms",
+                                           "fastest", "fastest_ms")}
+                for row in tile_rows[name]]
         if name == "flash_prefill":
             kernels[-1]["launches_by_class"] = {
                 c: totals.get(f"flash_prefill.class.{c}", 0)

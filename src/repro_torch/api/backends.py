@@ -12,7 +12,9 @@ built-in:
               device the tensors are on: on the card, the plain path by
               request
     cuda      the hand-written Hopper kernels (``csrc/*.cu``); a tensor
-              that is not on a CUDA device is refused, never computed
+              that is not on a CUDA device is refused, never computed;
+              the flash prefills launch the tile ``kernels/autotune.py``
+              resolves for each call
     ref-tp    tensor-parallel twin of ref
     cuda-tp   tensor-parallel twin of cuda
 
@@ -40,6 +42,7 @@ from typing import Dict, Iterator, List, Optional, Tuple, Union
 import torch
 
 from repro_torch.device import DeviceLike
+from repro_torch.kernels import autotune as _at
 from repro_torch.kernels import dynquant as _dyn
 from repro_torch.kernels import flash_prefill as _fp
 from repro_torch.kernels import paged_attn as _pa
@@ -238,20 +241,48 @@ class CudaBackend(Backend):
         return _pa.paged_q4decode(q, k_pool, k_scale, v_pool, v_scale,
                                   tables, pos)
 
+    def flash_tile(self, kernel: str, q) -> Tuple[int, int]:
+        """The (block_q, block_k) this backend's ``kernel`` leg launches
+        for q [B, S, Hq, hd], as JAX's Pallas legs pick theirs: the
+        deterministic autotuner keyed by this backend's name, the kernel,
+        hd, the precision label and S's bucket (``REPRO_TILE_*`` and pins
+        first). flash_prefill's label is q's dtype, "bf16" or "fp32" (the
+        two bodies' tiles differ); the quantized prefills' "int8" /
+        "int4"."""
+        precision = _at.precision_label(kernel, q.dtype == torch.bfloat16)
+        return _at.tile_config(self.name, kernel, q.shape[-1], precision,
+                               q.shape[1])
+
+    # The flash legs launch the tile flash_tile resolves, or raise where
+    # the body does not instantiate it; a DTensor step resolves it on each
+    # rank's local shapes.
+
     # repro: allow-kernel-contract -- no interpret mode; CPU leg is RefBackend
     def flash_prefill(self, q, k, v):
         _on_card("flash_prefill", q)
-        return _fp.flash_prefill(q, k, v)
+        from torch.distributed.tensor import DTensor
+
+        if isinstance(q, DTensor):
+            from repro_torch.models.sharding import attention_local
+
+            return attention_local(self.flash_prefill, q, k, v,
+                                   "flash_prefill")
+        bq, bk = self.flash_tile("flash_prefill", q)
+        return _fp.flash_prefill(q, k, v, block_q=bq, block_k=bk)
 
     # repro: allow-kernel-contract -- no interpret mode; CPU leg is RefBackend
     def flash_qprefill(self, q, k_i8, k_s, v_i8, v_s):
         _on_card("flash_qprefill", q)
-        return _fp.flash_qprefill(q, k_i8, k_s, v_i8, v_s)
+        bq, bk = self.flash_tile("flash_qprefill", q)
+        return _fp.flash_qprefill(q, k_i8, k_s, v_i8, v_s, block_q=bq,
+                                  block_k=bk)
 
     # repro: allow-kernel-contract -- no interpret mode; CPU leg is RefBackend
     def flash_q4prefill(self, q, k_i4, k_s, v_i4, v_s):
         _on_card("flash_q4prefill", q)
-        return _fp.flash_q4prefill(q, k_i4, k_s, v_i4, v_s)
+        bq, bk = self.flash_tile("flash_q4prefill", q)
+        return _fp.flash_q4prefill(q, k_i4, k_s, v_i4, v_s, block_q=bq,
+                                   block_k=bk)
 
 
 class TPBackend(Backend):

@@ -9,19 +9,23 @@
 // skipped, scores qk / sqrt(hd) (a division, as the TPU kernel) masked with
 // -2e38, running max seeded at -1e30, out = acc / l in f32. The TPU kernel
 // carries its running max / normalizer / accumulator across a sequential
-// grid axis; here one block owns 64 group-flattened query rows of one
+// grid axis; here one block owns BR group-flattened query rows of one
 // (batch, kv head) and loops over the KV tiles itself, up to the last query
 // position it holds, so the state never leaves registers. Row blocks are
-// issued latest-first so the longest causal rows start first. Three bodies:
+// issued latest-first so the longest causal rows start first. The tile
+// (BR rows, BK keys) is the caller's, from the pairs each body
+// instantiates (tc::TileSet: BR 64 or 128, BK 32, 64 or 128; 64 x 64 is
+// the tile of old), as the TPU kernels take block_q / block_k. Three
+// bodies:
 //
-// flash_tc (flash_prefill_fwd, bf16 or f32 q/k/v): the tensor-core body. 4
-// warps of 16 query rows; the block's Q is held as bf16 A fragments for the
-// whole loop (bf16: staged once in shared memory and read with ldmatrix).
-// 64-key K and V tiles stream through a 2-stage shared-memory ring filled
-// by 16-byte cp.async copies (rows past S zero-filled), so the next tile is
-// in flight while the tensor cores work on this one; rows are padded so
-// the fragment reads (ldmatrix, ldmatrix.trans for V) have no bank
-// conflicts, and a width that is not a multiple of 16 is zero-padded to
+// flash_tc (flash_prefill_fwd, bf16 or f32 q/k/v): the tensor-core body.
+// BR / 16 warps of 16 query rows; the block's Q is held as bf16 A fragments
+// for the whole loop (bf16: staged once in shared memory and read with
+// ldmatrix). BK-key K and V tiles stream through a 2-stage shared-memory
+// ring filled by 16-byte cp.async copies (rows past S zero-filled), so the
+// next tile is in flight while the tensor cores work on this one; rows are
+// padded so the fragment reads (ldmatrix, ldmatrix.trans for V) have no
+// bank conflicts, and a width that is not a multiple of 16 is zero-padded to
 // the next one (exact). S = QK^T runs on mma.sync m16n8k16 bf16 -> f32
 // (bf16 x bf16 products are exact in f32), then each score is divided by
 // sqrt(hd) (a correctly rounded quotient in three operations, div_by) and
@@ -73,8 +77,8 @@
 //
 // flash_qtc (flash_qprefill_fwd: int8 K [B,S,Hkv,hd] and V [B,S,Hkv,dv]
 // with f32 per-(position, head) scales [B,S,Hkv], bf16 or f32 q): the same
-// tensor-core loop over codes. 64-key tiles of int8 codes and their 64 K
-// and 64 V scales stream through a 2-stage cp.async ring (half the bytes of
+// tensor-core loop over codes. BK-key tiles of int8 codes and their BK K
+// and BK V scales stream through a 2-stage cp.async ring (half the bytes of
 // the bf16 ring; codes and scales past S zero-filled, so a masked score is
 // 0 * 0 before the mask, never NaN); the tile after next is issued as soon
 // as a stage is free. Every int8 code is exact in bf16, so one pass per
@@ -89,14 +93,15 @@
 // flash_q4tc (flash_q4prefill_fwd: nibble-packed int4 K [B,S,Hkv,hd/2] and
 // V [B,S,Hkv,dv/2] with f16 per-(position, head, group of 32) scales
 // [B,S,Hkv,hd/32] / [..,dv/32], bf16 or f32 q; kv_int4.cuh's layout): the
-// same loop over nibble codes. 64-key tiles of packed bytes (a quarter of
+// same loop over nibble codes. BK-key tiles of packed bytes (a quarter of
 // the bf16 ring's bytes; zero-filled past S, and nibble 0 is code 0) stream
 // through the 2-stage cp.async ring; a tile's f16 group scales (2-8 bytes
 // a key, Hkv * groups halves from the next key's: below cp.async's 4-byte
 // copy at hd 32, 6 bytes at hd 96) are read by plain 2-byte loads into
-// registers one tile ahead, a thread per key and side, and stored to
-// shared memory as f32 when the tile lands. One pass per tile turns the
-// nibbles into the padded bf16 tile that the ldmatrix code reads: every
+// registers one tile ahead, a slot per key and side spread over the
+// block's threads, and stored to shared memory as f32 when the tile
+// lands. One pass per tile turns the nibbles into the padded bf16 tile
+// that the ldmatrix code reads: every
 // code in [-8, 7] is exact in bf16 (nibble c + 8 under the bf16 exponent of
 // 128, then 136 taken off). The dequantized value code * s_g needs up to
 // 15 significand bits, more than bf16 holds, so the scales stay in f32:
@@ -122,6 +127,16 @@
 #include "kv_int4.cuh"
 #include "tma.cuh"  // mbarrier / TMA helpers and the tensor-map encoder
 
+// The file builds as three parts, one nvcc each in parallel, linked into
+// one library (kernels/_build.py PARTS): REPRO_PART 0 instantiates
+// flash_tc and flash_mla, 1 flash_qtc, 2 flash_q4tc. Without REPRO_PART
+// one nvcc builds all three.
+#ifdef REPRO_PART
+#define PART(n) (REPRO_PART == (n))
+#else
+#define PART(n) 1
+#endif
+
 namespace {
 
 constexpr int MAXD = 128;          // largest hd and dv of every body
@@ -144,13 +159,55 @@ bool bad_shape(int B, int S, int Hq, int Hkv, int hd, int dv,
 // ---------------------------------------------------------------------
 namespace tc {
 
-constexpr int WARPS = 4;
-constexpr int THREADS = 32 * WARPS;
-constexpr int BR = 16 * WARPS;     // query rows per block, 16 per warp
-constexpr int BK = 64;             // keys per K/V tile
+// Each body takes its tile as template parameters: BR group-flattened query
+// rows a block (16 a warp, so BR / 16 warps and 2 * BR threads) and BK keys
+// a K / V tile. The pairs instantiated are listed per body and width class
+// in TileSet below.
 constexpr int STAGES = 2;          // K/V ring depth
 
 using bf16 = __nv_bfloat16;
+
+template <int BR_, int BK_>
+struct Tile {
+  static constexpr int BR = BR_;
+  static constexpr int BK = BK_;
+};
+template <class... Ts>
+struct Tiles {};
+
+// The tiles each body instantiates, per width class (the wider of hd and dv
+// padded to 64, 96 or 128; MLA's 192 / 128). kernels/autotune.py's H100
+// profile lists exactly these pairs, and tests/test_torch_autotune.py reads
+// them from here. (64, 64) is every class's tile of old. Left out (ptxas
+// -v and the tile sweep on an H100, PERF.md, PR 32): 64 x 128 spills
+// 840-1268 bytes in every body and class (255 registers); 128 x 128
+// spills in flash_tc<bf16> at 128, flash_qtc<float> and flash_q4tc<float>
+// at 128, and where it does not, it was never more than ~1% faster than
+// the best of these four, not worth its build time; and any tile over the
+// 232,448 bytes of shared memory a block may use (flash_tc<float> at 128
+// with 128 keys).
+enum class Body { TC_BF16, TC_F32, QTC, Q4TC, MLA };
+// every body at the width classes 64, 96 and 128
+template <Body B, int W>
+struct TileSet {
+  using type = Tiles<Tile<64, 32>, Tile<64, 64>, Tile<128, 32>, Tile<128, 64>>;
+};
+// flash_tc's MLA class keeps the tile of old: its f32 instantiation spills
+// already, and bf16 MLA prefills take flash_mla
+template <>
+struct TileSet<Body::TC_BF16, 192> {
+  using type = Tiles<Tile<64, 64>>;
+};
+template <>
+struct TileSet<Body::TC_F32, 192> {
+  using type = Tiles<Tile<64, 64>>;
+};
+// flash_mla's one tile: 128 rows (two m64 wgmma warpgroups) by 128 keys
+// (its TMA boxes); mla::BM and mla::BK are held to it
+template <>
+struct TileSet<Body::MLA, 192> {
+  using type = Tiles<Tile<128, 128>>;
+};
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -244,7 +301,7 @@ __device__ __forceinline__ bf16 zero<bf16>() {
 // is null is zero-filled), else element by element. row(i) gives row i's
 // first element or nullptr; any is a valid global address for the
 // zero-fill copies.
-template <typename T, typename RowPtr>
+template <int THREADS, typename T, typename RowPtr>
 __device__ __forceinline__ void stage_rows(T* dst, int stride, int w,
                                            int n_rows, bool vec, const T* any,
                                            RowPtr row) {
@@ -272,16 +329,19 @@ __device__ __forceinline__ void stage_rows(T* dst, int stride, int w,
 // zero-filled. Rows 16-byte aligned (vec): thread -> chunk column
 // tid % cpr (cpr = 8, 16, 32 or 64 chunks, those past the row idle) of
 // every (THREADS / cpr)-th row, cp.async; else element by element.
-template <typename T>
+template <int BK, int THREADS, typename T>
 __device__ __forceinline__ void stage_tile(T* dst, int stride, const T* src,
                                            long row_elems, int w, int k0,
                                            int S, bool vec) {
+  // every row step THREADS / cpr divides the tile
+  static_assert(BK % (THREADS / 8) == 0, "tile rows per step");
   constexpr int E = 16 / sizeof(T);
   const int chunks = (w + E - 1) / E;
   if (!vec) {
-    stage_rows(dst, stride, w, BK, false, src, [&](int r) -> const T* {
-      return k0 + r < S ? src + r * row_elems : nullptr;
-    });
+    stage_rows<THREADS>(dst, stride, w, BK, false, src,
+                        [&](int r) -> const T* {
+                          return k0 + r < S ? src + r * row_elems : nullptr;
+                        });
     return;
   }
   // 64 chunks a row: an f32 row of the MLA class (hd up to 192)
@@ -303,7 +363,7 @@ __device__ __forceinline__ void stage_tile(T* dst, int stride, const T* src,
 
 // Zeroes columns [E * ceil(w / E), ceil16(w)) of n_rows rows: the pad
 // that no staging writes.
-template <typename T>
+template <int THREADS, typename T>
 __device__ __forceinline__ void zero_pad(T* dst, int stride, int w,
                                          int n_rows) {
   constexpr int E = 16 / sizeof(T);
@@ -368,7 +428,7 @@ __device__ __forceinline__ void q_frags_split(uint32_t (&qf)[2][HMAX / 16][4],
 
 // sc += Q K^T over the bf16 K tile Kt [BK][ks], for each of the NQ terms
 // of Q (one K fragment read serves them all)
-template <int HMAX, int NQ>
+template <int HMAX, int NQ, int BK>
 __device__ __forceinline__ void qk_bf16(float (&sc)[BK / 8][4],
                                         const uint32_t (&qf)[NQ][HMAX / 16][4],
                                         const bf16* Kt, int ks, int hdp,
@@ -394,7 +454,7 @@ __device__ __forceinline__ void qk_bf16(float (&sc)[BK / 8][4],
 // passes S), moves the running max m of the thread's two rows, rescales
 // its part of the normalizer l and the accumulator o, adds this tile's p
 // to l and leaves p = exp(s - m) in sc.
-template <int DMAX>
+template <int DMAX, int BK>
 __device__ __forceinline__ void online_softmax(
     float (&sc)[BK / 8][4], int k0, int S, long first_pos, long qpos_lo,
     long qpos_hi, int tig, float& m_lo, float& m_hi, float& l_lo,
@@ -446,7 +506,7 @@ __device__ __forceinline__ void online_softmax(
 
 // o += P V over the bf16 V tile Vt [BK][vs], P split in two bf16 terms;
 // the C fragments of keys 16kk..16kk+15 are the A fragment of k-step kk
-template <int DMAX>
+template <int DMAX, int BK>
 __device__ __forceinline__ void pv_bf16(float (&o)[DMAX / 8][4],
                                         const float (&p)[BK / 8][4],
                                         const bf16* Vt, int vs, int dvp,
@@ -476,13 +536,14 @@ __device__ __forceinline__ void pv_bf16(float (&o)[DMAX / 8][4],
 // O / l of the block's BR rows out through shared memory Os [BR][dvp + 8]
 // (the caller has synchronized: Os overlays the tiles), in coalesced
 // 16-byte row stores
-template <int DMAX>
+template <int DMAX, int BR>
 __device__ __forceinline__ void store_out(const float (&o)[DMAX / 8][4],
                                           float l_lo, float l_hi, float* Os,
                                           float* __restrict__ out, long r0,
                                           long rows_total, int b, int S,
                                           int Hq, int h, int G, int dv,
                                           int dvp, int warp, int lane) {
+  constexpr int THREADS = 2 * BR;
   const int gid = lane >> 2, tig = lane & 3;
 #pragma unroll
   for (int o_ = 1; o_ < 4; o_ <<= 1) {
@@ -524,12 +585,14 @@ __device__ __forceinline__ void store_out(const float (&o)[DMAX / 8][4],
 
 // HMAX / DMAX: the largest padded hd / dv this instantiation takes (64, 96
 // or 128 each, or MLA's 192 / 128); register arrays are sized by them and
-// loops stop at the padded widths, a block-uniform bound.
-template <typename T, int HMAX, int DMAX>
-__global__ void __launch_bounds__(THREADS)
+// loops stop at the padded widths, a block-uniform bound. BR / BK: the
+// tile (see Tile).
+template <typename T, int HMAX, int DMAX, int BR, int BK>
+__global__ void __launch_bounds__(2 * BR)
 flash_tc(const T* __restrict__ q, const T* __restrict__ k,
          const T* __restrict__ v, float* __restrict__ out, int S, int Hq,
          int Hkv, int hd, int dv, bool vec_k, bool vec_v) {
+  constexpr int THREADS = 2 * BR;
   constexpr bool F32 = sizeof(T) == 4;
   extern __shared__ __align__(16) unsigned char tc_smem[];
   const int hdp = (hd + 15) & ~15, dvp = (dv + 15) & ~15;
@@ -555,21 +618,21 @@ flash_tc(const T* __restrict__ q, const T* __restrict__ k,
     return q + (((long)b * S + pos) * Hq + (long)h * G + (rg - pos * G)) * hd;
   };
 
-  if constexpr (!F32) zero_pad(Qs, qs, hd, BR);
-  zero_pad(Ks, ks, hd, STAGES * BK);
-  zero_pad(Vs, vs, dv, STAGES * BK);
+  if constexpr (!F32) zero_pad<THREADS>(Qs, qs, hd, BR);
+  zero_pad<THREADS>(Ks, ks, hd, STAGES * BK);
+  zero_pad<THREADS>(Vs, vs, dv, STAGES * BK);
 
   if constexpr (!F32)
-    stage_rows(Qs, qs, hd, BR, vec_k, q,
-               [&](int r) -> const T* { return q_row(r0 + r); });
+    stage_rows<THREADS>(Qs, qs, hd, BR, vec_k, q,
+                        [&](int r) -> const T* { return q_row(r0 + r); });
   const T* kh = k + ((long)b * S * Hkv + h) * hd;   // key 0, this head
   const T* vh = v + ((long)b * S * Hkv + h) * dv;
   auto stage_kv = [&](int t) {
     const int k0 = t * BK, st = t % STAGES;
-    stage_tile(Ks + st * BK * ks, ks, kh + (long)k0 * Hkv * hd,
-               (long)Hkv * hd, hd, k0, S, vec_k);
-    stage_tile(Vs + st * BK * vs, vs, vh + (long)k0 * Hkv * dv,
-               (long)Hkv * dv, dv, k0, S, vec_v);
+    stage_tile<BK, THREADS>(Ks + st * BK * ks, ks, kh + (long)k0 * Hkv * hd,
+                            (long)Hkv * hd, hd, k0, S, vec_k);
+    stage_tile<BK, THREADS>(Vs + st * BK * vs, vs, vh + (long)k0 * Hkv * dv,
+                            (long)Hkv * dv, dv, k0, S, vec_v);
   };
   stage_kv(0);
   cp_async_commit();
@@ -605,7 +668,7 @@ flash_tc(const T* __restrict__ q, const T* __restrict__ k,
     const T* Kt = Ks + (t % STAGES) * BK * ks;
     const T* Vt = Vs + (t % STAGES) * BK * vs;
 
-    // S = Q K^T: 8 n-tiles of 8 keys
+    // S = Q K^T: BK / 8 n-tiles of 8 keys
     float sc[BK / 8][4];
 #pragma unroll
     for (int j = 0; j < BK / 8; ++j)
@@ -629,15 +692,15 @@ flash_tc(const T* __restrict__ q, const T* __restrict__ k,
         }
       }
     } else {
-      qk_bf16<HMAX, 1>(sc, qf, Kt, ks, hdp, lane);
+      qk_bf16<HMAX, 1, BK>(sc, qf, Kt, ks, hdp, lane);
     }
 #pragma unroll
     for (int j = 0; j < BK / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e)
         sc[j][e] = div_by(sc[j][e], scale, rcp);   // sc / sqrt(hd)
-    online_softmax<DMAX>(sc, t * BK, S, first_pos, qpos_lo, qpos_hi, tig,
-                         m_lo, m_hi, l_lo, l_hi, o);
+    online_softmax<DMAX, BK>(sc, t * BK, S, first_pos, qpos_lo, qpos_hi,
+                             tig, m_lo, m_hi, l_lo, l_hi, o);
 
     // O += P V with P split in two bf16 terms
     if constexpr (F32) {
@@ -661,17 +724,19 @@ flash_tc(const T* __restrict__ q, const T* __restrict__ k,
         }
       }
     } else {
-      pv_bf16<DMAX>(o, sc, Vt, vs, dvp, lane);
+      pv_bf16<DMAX, BK>(o, sc, Vt, vs, dvp, lane);
     }
     __syncthreads();                 // this stage is refilled next+1 tile
   }
 
-  store_out<DMAX>(o, l_lo, l_hi, reinterpret_cast<float*>(tc_smem), out, r0,
-                  rows_total, b, S, Hq, h, G, dv, dvp, warp, lane);
+  store_out<DMAX, BR>(o, l_lo, l_hi, reinterpret_cast<float*>(tc_smem), out,
+                      r0, rows_total, b, S, Hq, h, G, dv, dvp, warp, lane);
 }
 
+// Dynamic shared memory of flash_tc at (hd, dv) and tile (BR, BK);
+// kernels/autotune.py mirrors it (smem_bytes)
 template <typename T>
-size_t smem_bytes(int hd, int dv) {
+size_t smem_bytes(int hd, int dv, int BR, int BK) {
   const int hdp = (hd + 15) & ~15, dvp = (dv + 15) & ~15;
   const size_t q = sizeof(T) == 4 ? 0 : sizeof(bf16) * BR * (hdp + 8);
   const size_t tiles = q + sizeof(T) * STAGES * BK *
@@ -680,14 +745,15 @@ size_t smem_bytes(int hd, int dv) {
   return tiles > epilogue ? tiles : epilogue;
 }
 
-template <typename T, int HMAX, int DMAX>
+template <typename T, int HMAX, int DMAX, int BR, int BK>
 int launch(const void* q, const void* k, const void* v, float* out, int B,
            int S, int Hq, int Hkv, int hd, int dv, cudaStream_t stream) {
-  static bool attr_set = false;
+  static bool attr_set = false;   // one per instantiation
   if (!attr_set) {
     const cudaError_t e = cudaFuncSetAttribute(
-        flash_tc<T, HMAX, DMAX>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem_bytes<T>(HMAX, DMAX));
+        flash_tc<T, HMAX, DMAX, BR, BK>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem_bytes<T>(HMAX, DMAX, BR, BK));
     if (e != cudaSuccess) return (int)e;
     attr_set = true;
   }
@@ -696,9 +762,10 @@ int launch(const void* q, const void* k, const void* v, float* out, int B,
   const bool vec_v = dv % E == 0 && (uintptr_t)v % 16 == 0;
   const long rows = (long)S * (Hq / Hkv);
   const dim3 grid((unsigned)((rows + BR - 1) / BR), Hkv, B);
-  flash_tc<T, HMAX, DMAX><<<grid, THREADS, smem_bytes<T>(hd, dv), stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), out, S, Hq, Hkv, hd, dv, vec_k, vec_v);
+  flash_tc<T, HMAX, DMAX, BR, BK>
+      <<<grid, 2 * BR, smem_bytes<T>(hd, dv, BR, BK), stream>>>(
+          static_cast<const T*>(q), static_cast<const T*>(k),
+          static_cast<const T*>(v), out, S, Hq, Hkv, hd, dv, vec_k, vec_v);
   return (int)cudaGetLastError();
 }
 
@@ -707,7 +774,6 @@ int launch(const void* q, const void* k, const void* v, float* out, int B,
 // bf16: Q as it is; TQ = float: Q split in two bf16 terms, two products
 // per mma (the codes are exact in bf16).
 // ---------------------------------------------------------------------
-static_assert(THREADS == 2 * BK, "one thread per K or V scale of a tile");
 
 // two int8 codes of x ^ 0x80808080 (bytes j and j + 1) as a bf16 pair,
 // exact: each through f32 by a byte permute and a subtraction
@@ -721,6 +787,7 @@ __device__ __forceinline__ uint32_t codes_bf16x2(unsigned x, int j) {
 
 // The int8 tile src [BK][w] (w a multiple of 16, rows unpadded) into the
 // bf16 tile dst [BK][stride], 16 codes a step
+template <int BK, int THREADS>
 __device__ __forceinline__ void codes_to_bf16(bf16* dst, int stride,
                                               const int8_t* src, int w) {
   const int cpr = w >> 4;                    // 16-code chunks per row
@@ -738,14 +805,15 @@ __device__ __forceinline__ void codes_to_bf16(bf16* dst, int stride,
 }
 
 // q [B,S,Hq,hd] TQ; k [B,S,Hkv,hd] / v [B,S,Hkv,dv] int8 codes; ksp / vsp
-// [B,S,Hkv] f32 scales. HMAX / DMAX as flash_tc.
-template <typename TQ, int HMAX, int DMAX>
-__global__ void __launch_bounds__(THREADS)
+// [B,S,Hkv] f32 scales. HMAX / DMAX / BR / BK as flash_tc.
+template <typename TQ, int HMAX, int DMAX, int BR, int BK>
+__global__ void __launch_bounds__(2 * BR)
 flash_qtc(const TQ* __restrict__ q, const int8_t* __restrict__ k,
           const float* __restrict__ ksp, const int8_t* __restrict__ v,
           const float* __restrict__ vsp, float* __restrict__ out, int S,
           int Hq, int Hkv, int hd, int dv, bool vec_q, bool vec_k,
           bool vec_v) {
+  constexpr int THREADS = 2 * BR;
   constexpr bool F32 = sizeof(TQ) == 4;
   extern __shared__ __align__(16) unsigned char tc_smem[];
   const int hdp = (hd + 15) & ~15, dvp = (dv + 15) & ~15;
@@ -780,28 +848,31 @@ flash_qtc(const TQ* __restrict__ q, const int8_t* __restrict__ k,
   };
 
   if constexpr (!F32) {
-    zero_pad(Qs, qs, hd, BR);
-    stage_rows(Qs, qs, hd, BR, vec_q, q,
-               [&](int r) -> const TQ* { return q_row(r0 + r); });
+    zero_pad<THREADS>(Qs, qs, hd, BR);
+    stage_rows<THREADS>(Qs, qs, hd, BR, vec_q, q,
+                        [&](int r) -> const TQ* { return q_row(r0 + r); });
   }
   const long kv0 = (long)b * S * Hkv + h;         // (b, key 0, h)
   const int8_t* kh = k + kv0 * hd;
   const int8_t* vh = v + kv0 * dv;
-  // this thread's scale of each tile: key k0 + i's K (threads 0..63) or V
-  // (64..127) scale, from sh + k0 * Hkv
-  const int i_sc = threadIdx.x % BK;
-  const float* sh = (threadIdx.x < BK ? ksp : vsp) + kv0;
   // codes of keys past S and the rows' pad are zero, and so are their
   // scales: a masked score is 0 * 0 before the mask, never NaN
   auto stage_kv = [&](int t) {
     const int k0 = t * BK, st = t % STAGES;
-    stage_tile(Rk + st * BK * hdp, hdp, kh + (long)k0 * Hkv * hd,
-               (long)Hkv * hd, hd, k0, S, vec_k);
-    stage_tile(Rv + st * BK * dvp, dvp, vh + (long)k0 * Hkv * dv,
-               (long)Hkv * dv, dv, k0, S, vec_v);
-    const bool in = k0 + i_sc < S;
-    cp_async4(smem_addr(Rs + st * 2 * BK + threadIdx.x),
-              sh + (in ? (long)(k0 + i_sc) * Hkv : 0), in ? 4 : 0);
+    stage_tile<BK, THREADS>(Rk + st * BK * hdp, hdp,
+                            kh + (long)k0 * Hkv * hd, (long)Hkv * hd, hd, k0,
+                            S, vec_k);
+    stage_tile<BK, THREADS>(Rv + st * BK * dvp, dvp,
+                            vh + (long)k0 * Hkv * dv, (long)Hkv * dv, dv, k0,
+                            S, vec_v);
+    // scale slot i of the tile: key k0 + i % BK's K (i < BK) or V scale
+    for (int i = threadIdx.x; i < 2 * BK; i += THREADS) {
+      const int key = k0 + i % BK;
+      const bool in = key < S;
+      cp_async4(smem_addr(Rs + st * 2 * BK + i),
+                (i < BK ? ksp : vsp) + kv0 + (in ? (long)key * Hkv : 0),
+                in ? 4 : 0);
+    }
   };
   stage_kv(0);
   cp_async_commit();
@@ -831,9 +902,10 @@ flash_qtc(const TQ* __restrict__ q, const int8_t* __restrict__ k,
       if (t == 0) q_frags<HMAX>(qf[0], Qs, qs, hdp, warp, lane);
     }
     const int st = t % STAGES;
-    codes_to_bf16(Kb, ks, Rk + st * BK * hdp, hdp);
-    codes_to_bf16(Vb, vs, Rv + st * BK * dvp, dvp);
-    Sc[threadIdx.x] = Rs[st * 2 * BK + threadIdx.x];
+    codes_to_bf16<BK, THREADS>(Kb, ks, Rk + st * BK * hdp, hdp);
+    codes_to_bf16<BK, THREADS>(Vb, vs, Rv + st * BK * dvp, dvp);
+    for (int i = threadIdx.x; i < 2 * BK; i += THREADS)
+      Sc[i] = Rs[st * 2 * BK + i];
     __syncthreads();                 // the bf16 tile is written
     if (t + 2 < n_tiles) {           // into the stage just converted
       stage_kv(t + 2);
@@ -845,7 +917,7 @@ flash_qtc(const TQ* __restrict__ q, const int8_t* __restrict__ k,
     for (int j = 0; j < BK / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
-    qk_bf16<HMAX, F32 ? 2 : 1>(sc, qf, Kb, ks, hdp, lane);
+    qk_bf16<HMAX, F32 ? 2 : 1, BK>(sc, qf, Kb, ks, hdp, lane);
     // (q . codes) * k_s / sqrt(hd), the TPU kernel's order
 #pragma unroll
     for (int j = 0; j < BK / 8; ++j) {
@@ -855,8 +927,8 @@ flash_qtc(const TQ* __restrict__ q, const int8_t* __restrict__ k,
       sc[j][2] = div_by(sc[j][2] * f.x, scale, rcp);
       sc[j][3] = div_by(sc[j][3] * f.y, scale, rcp);
     }
-    online_softmax<DMAX>(sc, t * BK, S, first_pos, qpos_lo, qpos_hi, tig,
-                         m_lo, m_hi, l_lo, l_hi, o);
+    online_softmax<DMAX, BK>(sc, t * BK, S, first_pos, qpos_lo, qpos_hi,
+                             tig, m_lo, m_hi, l_lo, l_hi, o);
     // p' = p * v_s of its key (l has taken p), then O += p' V_codes
 #pragma unroll
     for (int j = 0; j < BK / 8; ++j) {
@@ -867,16 +939,17 @@ flash_qtc(const TQ* __restrict__ q, const int8_t* __restrict__ k,
       sc[j][2] *= f.x;
       sc[j][3] *= f.y;
     }
-    pv_bf16<DMAX>(o, sc, Vb, vs, dvp, lane);
+    pv_bf16<DMAX, BK>(o, sc, Vb, vs, dvp, lane);
   }
 
   __syncthreads();                   // the output overlays the tiles
-  store_out<DMAX>(o, l_lo, l_hi, reinterpret_cast<float*>(tc_smem), out, r0,
-                  rows_total, b, S, Hq, h, G, dv, dvp, warp, lane);
+  store_out<DMAX, BR>(o, l_lo, l_hi, reinterpret_cast<float*>(tc_smem), out,
+                      r0, rows_total, b, S, Hq, h, G, dv, dvp, warp, lane);
 }
 
+// kernels/autotune.py mirrors it (qtc_smem_bytes)
 template <typename TQ>
-size_t qtc_smem_bytes(int hd, int dv) {
+size_t qtc_smem_bytes(int hd, int dv, int BR, int BK) {
   const int hdp = (hd + 15) & ~15, dvp = (dv + 15) & ~15;
   const size_t q = sizeof(TQ) == 4 ? 0 : sizeof(bf16) * BR * (hdp + 8);
   const size_t tiles = q + sizeof(bf16) * BK * (size_t)(hdp + 8 + dvp + 8) +
@@ -886,15 +959,16 @@ size_t qtc_smem_bytes(int hd, int dv) {
   return tiles > epilogue ? tiles : epilogue;
 }
 
-template <typename TQ, int HMAX, int DMAX>
+template <typename TQ, int HMAX, int DMAX, int BR, int BK>
 int launch_qtc(const void* q, const int8_t* k, const float* ks,
                const int8_t* v, const float* vs, float* out, int B, int S,
                int Hq, int Hkv, int hd, int dv, cudaStream_t stream) {
-  static bool attr_set = false;
+  static bool attr_set = false;   // one per instantiation
   if (!attr_set) {
     const cudaError_t e = cudaFuncSetAttribute(
-        flash_qtc<TQ, HMAX, DMAX>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)qtc_smem_bytes<TQ>(HMAX, DMAX));
+        flash_qtc<TQ, HMAX, DMAX, BR, BK>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)qtc_smem_bytes<TQ>(HMAX, DMAX, BR, BK));
     if (e != cudaSuccess) return (int)e;
     attr_set = true;
   }
@@ -904,8 +978,8 @@ int launch_qtc(const void* q, const int8_t* k, const float* ks,
   const bool vec_v = dv % 16 == 0 && (uintptr_t)v % 16 == 0;
   const long rows = (long)S * (Hq / Hkv);
   const dim3 grid((unsigned)((rows + BR - 1) / BR), Hkv, B);
-  flash_qtc<TQ, HMAX, DMAX>
-      <<<grid, THREADS, qtc_smem_bytes<TQ>(hd, dv), stream>>>(
+  flash_qtc<TQ, HMAX, DMAX, BR, BK>
+      <<<grid, 2 * BR, qtc_smem_bytes<TQ>(hd, dv, BR, BK), stream>>>(
           static_cast<const TQ*>(q), k, ks, v, vs, out, S, Hq, Hkv, hd, dv,
           vec_q, vec_k, vec_v);
   return (int)cudaGetLastError();
@@ -938,6 +1012,7 @@ __device__ __forceinline__ void nibbles_bf16x8(unsigned w, uint32_t* d) {
 
 // The packed tile src [BK][w / 2] (w a multiple of 32, rows unpadded) into
 // the bf16 tile dst [BK][stride], 32 codes (16 bytes) a step
+template <int BK, int THREADS>
 __device__ __forceinline__ void nibbles_to_bf16(bf16* dst, int stride,
                                                 const int8_t* src, int w) {
   const int cpr = w >> 5;                    // 16-byte chunks per row
@@ -959,7 +1034,7 @@ __device__ __forceinline__ void nibbles_to_bf16(bf16* dst, int stride,
 // sc += sum over groups g of (Q K_codes^T over g's 32 columns) * s_k[key,
 // g]: one accumulator pair per group and 16 keys, scaled in f32 before it
 // joins the score; Sk [groups][BK] f32. Each K fragment is read once.
-template <int HMAX, int NQ>
+template <int HMAX, int NQ, int BK>
 __device__ __forceinline__ void qk_q4(float (&sc)[BK / 8][4],
                                       const uint32_t (&qf)[NQ][HMAX / 16][4],
                                       const bf16* Kt, int ks, const float* Sk,
@@ -1001,7 +1076,7 @@ __device__ __forceinline__ void qk_q4(float (&sc)[BK / 8][4],
 // o[:, g] += p'_g V_codes[:, g] for each group g of 32 value columns, p'_g
 // = p * s_v[key, g] split in two bf16 terms; Sv [groups][BK] f32. The C
 // fragments of keys 16kk..16kk+15 are the A fragment of k-step kk.
-template <int DMAX>
+template <int DMAX, int BK>
 __device__ __forceinline__ void pv_q4(float (&o)[DMAX / 8][4],
                                       const float (&p)[BK / 8][4],
                                       const bf16* Vt, int vs, const float* Sv,
@@ -1038,14 +1113,17 @@ __device__ __forceinline__ void pv_q4(float (&o)[DMAX / 8][4],
 
 // q [B,S,Hq,hd] TQ; k [B,S,Hkv,hd/2] / v [B,S,Hkv,dv/2] packed int4 codes;
 // ksp / vsp [B,S,Hkv,hd/32] / [B,S,Hkv,dv/32] f16 group scales; hd and dv
-// multiples of 32. HMAX / DMAX as flash_tc.
-template <typename TQ, int HMAX, int DMAX>
-__global__ void __launch_bounds__(THREADS)
+// multiples of 32. HMAX / DMAX / BR / BK as flash_tc.
+template <typename TQ, int HMAX, int DMAX, int BR, int BK>
+__global__ void __launch_bounds__(2 * BR)
 flash_q4tc(const TQ* __restrict__ q, const int8_t* __restrict__ k,
            const __half* __restrict__ ksp, const int8_t* __restrict__ v,
            const __half* __restrict__ vsp, float* __restrict__ out, int S,
            int Hq, int Hkv, int hd, int dv, bool vec_q, bool vec_k,
            bool vec_v) {
+  constexpr int THREADS = 2 * BR;
+  // scale slots of a tile a thread: 2 BK (a K and a V slot a key)
+  constexpr int SLOTS = (2 * BK + THREADS - 1) / THREADS;
   constexpr bool F32 = sizeof(TQ) == 4;
   extern __shared__ __align__(16) unsigned char tc_smem[];
   const int qs = hd + 8, ks = hd + 8, vs = dv + 8;
@@ -1081,8 +1159,8 @@ flash_q4tc(const TQ* __restrict__ q, const int8_t* __restrict__ k,
   };
 
   if constexpr (!F32)
-    stage_rows(Qs, qs, hd, BR, vec_q, q,
-               [&](int r) -> const TQ* { return q_row(r0 + r); });
+    stage_rows<THREADS>(Qs, qs, hd, BR, vec_q, q,
+                        [&](int r) -> const TQ* { return q_row(r0 + r); });
   const long kv0 = (long)b * S * Hkv + h;         // (b, key 0, h)
   const int8_t* kh = k + kv0 * hb;
   const int8_t* vh = v + kv0 * vb;
@@ -1090,26 +1168,30 @@ flash_q4tc(const TQ* __restrict__ q, const int8_t* __restrict__ k,
   // scales: a masked score is 0 * 0 before the mask, never NaN
   auto stage_kv = [&](int t) {
     const int k0 = t * BK, st = t % STAGES;
-    stage_tile(Rk + st * BK * hb, hb, kh + (long)k0 * Hkv * hb,
-               (long)Hkv * hb, hb, k0, S, vec_k);
-    stage_tile(Rv + st * BK * vb, vb, vh + (long)k0 * Hkv * vb,
-               (long)Hkv * vb, vb, k0, S, vec_v);
+    stage_tile<BK, THREADS>(Rk + st * BK * hb, hb, kh + (long)k0 * Hkv * hb,
+                            (long)Hkv * hb, hb, k0, S, vec_k);
+    stage_tile<BK, THREADS>(Rv + st * BK * vb, vb, vh + (long)k0 * Hkv * vb,
+                            (long)Hkv * vb, vb, k0, S, vec_v);
   };
-  // this thread's scales of a tile: key k0 + i_sc's K (threads 0..63) or V
-  // (64..127) group scales, raw f16 bits in registers, 0 past S
-  const int i_sc = threadIdx.x % BK;
-  const bool k_side = threadIdx.x < BK;
-  const int ng = k_side ? ngk : ngv;
-  const unsigned short* sh =
-      reinterpret_cast<const unsigned short*>(k_side ? ksp : vsp) + kv0 * ng;
-  float* s_dst = (k_side ? Sk : Sv) + i_sc;
-  unsigned short sr[NGMAX];
+  // this thread's scale slots of a tile: slot i = tid + j THREADS (below 2
+  // BK) holds key k0 + i % BK's K (i < BK) or V group scales, raw f16 bits
+  // in registers, 0 past S
+  unsigned short sr[SLOTS][NGMAX];
   auto load_scales = [&](int t) {
-    const int key = t * BK + i_sc;
 #pragma unroll
-    for (int g = 0; g < NGMAX; ++g)
-      sr[g] = key < S && g < ng ? __ldg(sh + (long)key * Hkv * ng + g)
-                                : (unsigned short)0;
+    for (int j = 0; j < SLOTS; ++j) {
+      const int i = threadIdx.x + j * THREADS;
+      const bool k_side = i < BK;
+      const int ng = k_side ? ngk : ngv, key = t * BK + i % BK;
+      const unsigned short* sh =
+          reinterpret_cast<const unsigned short*>(k_side ? ksp : vsp) +
+          kv0 * ng;
+#pragma unroll
+      for (int g = 0; g < NGMAX; ++g)
+        sr[j][g] = i < 2 * BK && key < S && g < ng
+                       ? __ldg(sh + (long)key * Hkv * ng + g)
+                       : (unsigned short)0;
+    }
   };
   stage_kv(0);
   cp_async_commit();
@@ -1140,11 +1222,18 @@ flash_q4tc(const TQ* __restrict__ q, const int8_t* __restrict__ k,
       if (t == 0) q_frags<HMAX>(qf[0], Qs, qs, hd, warp, lane);
     }
 #pragma unroll
-    for (int g = 0; g < NGMAX; ++g)
-      if (g < ng) s_dst[g * BK] = __half2float(__ushort_as_half(sr[g]));
+    for (int j = 0; j < SLOTS; ++j) {
+      const int i = threadIdx.x + j * THREADS;
+      const int ng = i < BK ? ngk : ngv;
+      float* s_dst = (i < BK ? Sk : Sv) + i % BK;
+#pragma unroll
+      for (int g = 0; g < NGMAX; ++g)
+        if (i < 2 * BK && g < ng)
+          s_dst[g * BK] = __half2float(__ushort_as_half(sr[j][g]));
+    }
     const int st = t % STAGES;
-    nibbles_to_bf16(Kb, ks, Rk + st * BK * hb, hd);
-    nibbles_to_bf16(Vb, vs, Rv + st * BK * vb, dv);
+    nibbles_to_bf16<BK, THREADS>(Kb, ks, Rk + st * BK * hb, hd);
+    nibbles_to_bf16<BK, THREADS>(Vb, vs, Rv + st * BK * vb, dv);
     __syncthreads();                 // the bf16 tile and its scales
     if (t + 2 < n_tiles) {           // into the stage just converted
       stage_kv(t + 2);
@@ -1157,24 +1246,25 @@ flash_q4tc(const TQ* __restrict__ q, const int8_t* __restrict__ k,
     for (int j = 0; j < BK / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
-    qk_q4<HMAX, F32 ? 2 : 1>(sc, qf, Kb, ks, Sk, hd, lane);
+    qk_q4<HMAX, F32 ? 2 : 1, BK>(sc, qf, Kb, ks, Sk, hd, lane);
 #pragma unroll
     for (int j = 0; j < BK / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e)
         sc[j][e] = div_by(sc[j][e], scale, rcp);   // sc / sqrt(hd)
-    online_softmax<DMAX>(sc, t * BK, S, first_pos, qpos_lo, qpos_hi, tig,
-                         m_lo, m_hi, l_lo, l_hi, o);
-    pv_q4<DMAX>(o, sc, Vb, vs, Sv, dv, lane);
+    online_softmax<DMAX, BK>(sc, t * BK, S, first_pos, qpos_lo, qpos_hi,
+                             tig, m_lo, m_hi, l_lo, l_hi, o);
+    pv_q4<DMAX, BK>(o, sc, Vb, vs, Sv, dv, lane);
   }
 
   __syncthreads();                   // the output overlays the tiles
-  store_out<DMAX>(o, l_lo, l_hi, reinterpret_cast<float*>(tc_smem), out, r0,
-                  rows_total, b, S, Hq, h, G, dv, dv, warp, lane);
+  store_out<DMAX, BR>(o, l_lo, l_hi, reinterpret_cast<float*>(tc_smem), out,
+                      r0, rows_total, b, S, Hq, h, G, dv, dv, warp, lane);
 }
 
+// kernels/autotune.py mirrors it (q4tc_smem_bytes)
 template <typename TQ>
-size_t q4tc_smem_bytes(int hd, int dv) {
+size_t q4tc_smem_bytes(int hd, int dv, int BR, int BK) {
   const size_t q = sizeof(TQ) == 4 ? 0 : sizeof(bf16) * BR * (hd + 8);
   const size_t tiles = q + sizeof(bf16) * BK * (size_t)(hd + 8 + dv + 8) +
                        sizeof(float) * BK * (size_t)(hd + dv) /
@@ -1184,16 +1274,16 @@ size_t q4tc_smem_bytes(int hd, int dv) {
   return tiles > epilogue ? tiles : epilogue;
 }
 
-template <typename TQ, int HMAX, int DMAX>
+template <typename TQ, int HMAX, int DMAX, int BR, int BK>
 int launch_q4tc(const void* q, const void* k, const __half* ks,
                 const void* v, const __half* vs, float* out, int B, int S,
                 int Hq, int Hkv, int hd, int dv, cudaStream_t stream) {
-  static bool attr_set = false;
+  static bool attr_set = false;   // one per instantiation
   if (!attr_set) {
     const cudaError_t e = cudaFuncSetAttribute(
-        flash_q4tc<TQ, HMAX, DMAX>,
+        flash_q4tc<TQ, HMAX, DMAX, BR, BK>,
         cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)q4tc_smem_bytes<TQ>(HMAX, DMAX));
+        (int)q4tc_smem_bytes<TQ>(HMAX, DMAX, BR, BK));
     if (e != cudaSuccess) return (int)e;
     attr_set = true;
   }
@@ -1204,8 +1294,8 @@ int launch_q4tc(const void* q, const void* k, const __half* ks,
   const bool vec_v = (uintptr_t)v % 16 == 0;
   const long rows = (long)S * (Hq / Hkv);
   const dim3 grid((unsigned)((rows + BR - 1) / BR), Hkv, B);
-  flash_q4tc<TQ, HMAX, DMAX>
-      <<<grid, THREADS, q4tc_smem_bytes<TQ>(hd, dv), stream>>>(
+  flash_q4tc<TQ, HMAX, DMAX, BR, BK>
+      <<<grid, 2 * BR, q4tc_smem_bytes<TQ>(hd, dv, BR, BK), stream>>>(
           static_cast<const TQ*>(q), static_cast<const int8_t*>(k), ks,
           static_cast<const int8_t*>(v), vs, out, S, Hq, Hkv, hd, dv, vec_q,
           vec_k, vec_v);
@@ -1224,44 +1314,101 @@ int by_width(int hd, int dv, F f) {
   return f(std::integral_constant<int, 128>{});
 }
 
+// launch<.., BR, BK> (or launch_qtc, launch_q4tc) for the pair (bq, bk) of
+// the list: a pair the list does not hold was not instantiated and is
+// refused (cudaErrorInvalidValue), never rounded to a neighbour
+template <typename T, int HMAX, int DMAX, class... Ts>
+int launch_tile(Tiles<Ts...>, int bq, int bk, const void* q, const void* k,
+                const void* v, float* out, int B, int S, int Hq, int Hkv,
+                int hd, int dv, cudaStream_t stream) {
+  int rc = (int)cudaErrorInvalidValue;
+  (void)(((Ts::BR == bq && Ts::BK == bk) &&
+          (rc = launch<T, HMAX, DMAX, Ts::BR, Ts::BK>(q, k, v, out, B, S, Hq,
+                                                      Hkv, hd, dv, stream),
+           true)) ||
+         ...);
+  return rc;
+}
+
+template <typename TQ, int HMAX, int DMAX, class... Ts>
+int launch_qtc_tile(Tiles<Ts...>, int bq, int bk, const void* q,
+                    const int8_t* k, const float* ks, const int8_t* v,
+                    const float* vs, float* out, int B, int S, int Hq,
+                    int Hkv, int hd, int dv, cudaStream_t stream) {
+  int rc = (int)cudaErrorInvalidValue;
+  (void)(((Ts::BR == bq && Ts::BK == bk) &&
+          (rc = launch_qtc<TQ, HMAX, DMAX, Ts::BR, Ts::BK>(
+               q, k, ks, v, vs, out, B, S, Hq, Hkv, hd, dv, stream),
+           true)) ||
+         ...);
+  return rc;
+}
+
+template <typename TQ, int HMAX, int DMAX, class... Ts>
+int launch_q4tc_tile(Tiles<Ts...>, int bq, int bk, const void* q,
+                     const void* k, const __half* ks, const void* v,
+                     const __half* vs, float* out, int B, int S, int Hq,
+                     int Hkv, int hd, int dv, cudaStream_t stream) {
+  int rc = (int)cudaErrorInvalidValue;
+  (void)(((Ts::BR == bq && Ts::BK == bk) &&
+          (rc = launch_q4tc<TQ, HMAX, DMAX, Ts::BR, Ts::BK>(
+               q, k, ks, v, vs, out, B, S, Hq, Hkv, hd, dv, stream),
+           true)) ||
+         ...);
+  return rc;
+}
+
+template <typename T>
+constexpr Body tc_body = sizeof(T) == 4 ? Body::TC_F32 : Body::TC_BF16;
+
 // flash_tc adds the MLA class <192, 128> for hd above MAXD (bad_shape has
-// held dv to MAXD); the quantized bodies stay at MAXD
+// held dv to MAXD); the quantized bodies stay at MAXD. Each launches the
+// tile (bq, bk) of its class's TileSet, or refuses it.
 template <typename T>
 int dispatch(const void* q, const void* k, const void* v, float* out, int B,
-             int S, int Hq, int Hkv, int hd, int dv, cudaStream_t stream) {
+             int S, int Hq, int Hkv, int hd, int dv, int bq, int bk,
+             cudaStream_t stream) {
   if (hd > MAXD)
-    return launch<T, MAXD_MLA, MAXD>(q, k, v, out, B, S, Hq, Hkv, hd, dv,
-                                     stream);
+    return launch_tile<T, MAXD_MLA, MAXD>(
+        typename TileSet<tc_body<T>, MAXD_MLA>::type{}, bq, bk, q, k, v, out,
+        B, S, Hq, Hkv, hd, dv, stream);
   return by_width(hd, dv, [&](auto W) {
     constexpr int w = decltype(W)::value;
-    return launch<T, w, w>(q, k, v, out, B, S, Hq, Hkv, hd, dv, stream);
+    return launch_tile<T, w, w>(typename TileSet<tc_body<T>, w>::type{}, bq,
+                                bk, q, k, v, out, B, S, Hq, Hkv, hd, dv,
+                                stream);
   });
 }
 
 template <typename TQ>
 int dispatch_q(const void* q, const int8_t* k, const float* ks,
                const int8_t* v, const float* vs, float* out, int B, int S,
-               int Hq, int Hkv, int hd, int dv, cudaStream_t stream) {
+               int Hq, int Hkv, int hd, int dv, int bq, int bk,
+               cudaStream_t stream) {
   return by_width(hd, dv, [&](auto W) {
     constexpr int w = decltype(W)::value;
-    return launch_qtc<TQ, w, w>(q, k, ks, v, vs, out, B, S, Hq, Hkv, hd, dv,
-                                stream);
+    return launch_qtc_tile<TQ, w, w>(typename TileSet<Body::QTC, w>::type{},
+                                     bq, bk, q, k, ks, v, vs, out, B, S, Hq,
+                                     Hkv, hd, dv, stream);
   });
 }
 
 template <typename TQ>
 int dispatch_q4(const void* q, const void* k, const __half* ks,
                 const void* v, const __half* vs, float* out, int B, int S,
-                int Hq, int Hkv, int hd, int dv, cudaStream_t stream) {
+                int Hq, int Hkv, int hd, int dv, int bq, int bk,
+                cudaStream_t stream) {
   return by_width(hd, dv, [&](auto W) {
     constexpr int w = decltype(W)::value;
-    return launch_q4tc<TQ, w, w>(q, k, ks, v, vs, out, B, S, Hq, Hkv, hd, dv,
-                                 stream);
+    return launch_q4tc_tile<TQ, w, w>(
+        typename TileSet<Body::Q4TC, w>::type{}, bq, bk, q, k, ks, v, vs, out,
+        B, S, Hq, Hkv, hd, dv, stream);
   });
 }
 
 }  // namespace tc
 
+#if PART(0)
 // ---------------------------------------------------------------------
 // flash_mla: the bf16 MLA class (hd above MAXD up to MAXD_MLA, dv up to
 // MAXD) as a warp-specialised wgmma + TMA body (see the note at the top).
@@ -1777,85 +1924,100 @@ int launch(const void* q, const void* k, const void* v, float* out, int B,
 }
 
 }  // namespace mla
+#endif  // PART(0)
 
 }  // namespace
 
 extern "C" {
 
+#if PART(0)
 const char* repro_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
 // q [B,S,Hq,hd], k [B,S,Hkv,hd], v [B,S,Hkv,dv], all contiguous and of one
 // dtype: float32 (0) or bfloat16 (1), both through flash_tc on the tensor
-// cores; hd up to 192, dv up to 128. out [B,S,Hq,dv] float32.
+// cores; hd up to 192, dv up to 128. out [B,S,Hq,dv] float32. (block_q,
+// block_k): the tile, in group-flattened query rows and keys, one of the
+// pairs tc::TileSet instantiates for the dtype and width class; any other
+// pair returns cudaErrorInvalidValue and launches nothing.
 int flash_prefill_fwd(const void* q, const void* k, const void* v, int dtype,
                       float* out, int B, int S, int Hq, int Hkv, int hd,
-                      int dv, void* stream) {
+                      int dv, int block_q, int block_k, void* stream) {
   if (bad_shape(B, S, Hq, Hkv, hd, dv, MAXD_MLA))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return tc::dispatch<float>(q, k, v, out, B, S, Hq, Hkv, hd, dv, s);
+    return tc::dispatch<float>(q, k, v, out, B, S, Hq, Hkv, hd, dv, block_q,
+                               block_k, s);
   if (dtype == 1)
     return tc::dispatch<__nv_bfloat16>(q, k, v, out, B, S, Hq, Hkv, hd, dv,
-                                       s);
+                                       block_q, block_k, s);
   return (int)cudaErrorInvalidValue;
 }
 
 // The bf16 MLA class on the wgmma body: q [B,S,Hq,hd], k [B,S,Hkv,hd],
 // v [B,S,Hkv,dv] bfloat16, contiguous and 16-byte aligned, hd above 128 up
 // to 192 and dv up to 128, both multiples of 8 (TMA's 16-byte strides);
-// out [B,S,Hq,dv] float32.
+// out [B,S,Hq,dv] float32. (block_q, block_k) must be its one tile, (BM,
+// BK) = (128, 128).
 int flash_mla_fwd(const void* q, const void* k, const void* v, float* out,
-                  int B, int S, int Hq, int Hkv, int hd, int dv,
-                  void* stream) {
+                  int B, int S, int Hq, int Hkv, int hd, int dv, int block_q,
+                  int block_k, void* stream) {
+  static_assert(mla::BM == 128 && mla::BK == 128, "TileSet<Body::MLA, 192>");
   if (bad_shape(B, S, Hq, Hkv, hd, dv, MAXD_MLA) || hd <= MAXD || hd % 8 ||
-      dv % 8 ||
+      dv % 8 || block_q != mla::BM || block_k != mla::BK ||
       ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v) % 16)
     return (int)cudaErrorInvalidValue;
   return mla::launch(q, k, v, out, B, S, Hq, Hkv, hd, dv,
                      static_cast<cudaStream_t>(stream));
 }
 
+#endif  // PART(0)
+
+#if PART(1)
 // q [B,S,Hq,hd] of q_dtype (0 float32, 1 bfloat16); k [B,S,Hkv,hd] and
 // v [B,S,Hkv,dv] int8; k_s / v_s [B,S,Hkv] f32; out [B,S,Hq,dv] float32;
-// all contiguous.
+// all contiguous; (block_q, block_k) as flash_prefill_fwd's.
 int flash_qprefill_fwd(const void* q, int q_dtype, const int8_t* k,
                        const float* k_s, const int8_t* v, const float* v_s,
                        float* out, int B, int S, int Hq, int Hkv, int hd,
-                       int dv, void* stream) {
+                       int dv, int block_q, int block_k, void* stream) {
   if (bad_shape(B, S, Hq, Hkv, hd, dv)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (q_dtype == 0)
     return tc::dispatch_q<float>(q, k, k_s, v, v_s, out, B, S, Hq, Hkv, hd,
-                                 dv, s);
+                                 dv, block_q, block_k, s);
   if (q_dtype == 1)
     return tc::dispatch_q<__nv_bfloat16>(q, k, k_s, v, v_s, out, B, S, Hq,
-                                         Hkv, hd, dv, s);
+                                         Hkv, hd, dv, block_q, block_k, s);
   return (int)cudaErrorInvalidValue;
 }
 
+#endif  // PART(1)
+
+#if PART(2)
 // q [B,S,Hq,hd] of q_dtype (0 float32, 1 bfloat16); k [B,S,Hkv,hd/2] and
 // v [B,S,Hkv,dv/2] int4 packed two codes per byte; k_s [B,S,Hkv,hd/32]
 // and v_s [B,S,Hkv,dv/32] f16 group scales; out [B,S,Hq,dv] float32; all
 // contiguous; hd and dv multiples of 32. Both q dtypes through flash_q4tc
-// on the tensor cores.
+// on the tensor cores; (block_q, block_k) as flash_prefill_fwd's.
 int flash_q4prefill_fwd(const void* q, int q_dtype, const void* k,
                         const __half* k_s, const void* v, const __half* v_s,
                         float* out, int B, int S, int Hq, int Hkv, int hd,
-                        int dv, void* stream) {
+                        int dv, int block_q, int block_k, void* stream) {
   if (bad_shape(B, S, Hq, Hkv, hd, dv) || hd % kv_int4::GROUP ||
       dv % kv_int4::GROUP)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (q_dtype == 0)
     return tc::dispatch_q4<float>(q, k, k_s, v, v_s, out, B, S, Hq, Hkv, hd,
-                                  dv, s);
+                                  dv, block_q, block_k, s);
   if (q_dtype == 1)
     return tc::dispatch_q4<__nv_bfloat16>(q, k, k_s, v, v_s, out, B, S, Hq,
-                                          Hkv, hd, dv, s);
+                                          Hkv, hd, dv, block_q, block_k, s);
   return (int)cudaErrorInvalidValue;
 }
+#endif  // PART(2)
 
 }  // extern "C"

@@ -5,8 +5,10 @@ Each ``csrc/<name>.cu`` exposes a plain C interface and compiles on its own
 ``<repo>/build/repro_torch/lib<name>-<hash>.so`` at first use; the hash
 covers the source, the shared ``csrc/*.cuh`` headers and the flags, so an
 edited source or header rebuilds. All sources
-compile at once, one ``nvcc`` each. No ``--use_fast_math``: the quantizers
-need IEEE division. Nothing here runs at import time.
+compile at once, one ``nvcc`` each; a source listed in ``PARTS`` compiles
+as that many parts at once (``-DREPRO_PART=i``, each instantiating a share
+of its kernels), linked into its one library. No ``--use_fast_math``: the
+quantizers need IEEE division. Nothing here runs at import time.
 """
 from __future__ import annotations
 
@@ -27,6 +29,10 @@ SOURCES = ("qmatmul", "flash_prefill", "paged_attn", "qdecode",
            "quantize_weights")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+#: sources built as parts, one ``nvcc -c`` each, in parallel: flash_prefill.cu
+#: holds ~70 tile instantiations of three bodies (``REPRO_PART`` 0:
+#: flash_tc and flash_mla, 1: flash_qtc, 2: flash_q4tc)
+PARTS = {"flash_prefill": 3}
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -48,7 +54,8 @@ def _nvcc() -> str:
 def _target(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes() + b"".join(
         h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    flags = " ".join(NVCC_FLAGS) + f" parts={PARTS.get(name, 1)}"
+    digest = hashlib.sha256(src + flags.encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
 
 
@@ -60,19 +67,43 @@ def build_all() -> None:
             return
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         nvcc = _nvcc()
-        procs = []
+        part_flags = [f for f in NVCC_FLAGS if f != "-shared"]
+        procs = []                          # (source, output, process)
         for name in todo:
+            src = str(CSRC / f"{name}.cu")
             tmp = _target(name).with_suffix(f".{os.getpid()}.tmp")
-            procs.append((name, tmp, subprocess.Popen(
-                [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
-        failed = []
-        for name, tmp, proc in procs:       # wait for all before raising
-            BUILD_LOG[name] = proc.communicate()[0]
-            if proc.returncode:
-                failed.append(name)
+            if name in PARTS:
+                cmds = [(tmp.with_suffix(f".{i}.o"),
+                         [nvcc, *part_flags, f"-DREPRO_PART={i}", "-c"])
+                        for i in range(PARTS[name])]
             else:
+                cmds = [(tmp, [nvcc, *NVCC_FLAGS])]
+            for out, cmd in cmds:
+                procs.append((name, out, subprocess.Popen(
+                    [*cmd, "-o", str(out), src], stdout=subprocess.PIPE,
+                    stderr=subprocess.STDOUT, text=True)))
+        logs, outs, failed = {}, {}, set()
+        for name, out, proc in procs:       # wait for all before raising
+            logs[name] = logs.get(name, "") + proc.communicate()[0]
+            outs.setdefault(name, []).append(out)
+            if proc.returncode:
+                failed.add(name)
+        for name, files in outs.items():
+            tmp = _target(name).with_suffix(f".{os.getpid()}.tmp")
+            if name in PARTS:
+                if name not in failed:      # one library of the parts
+                    link = subprocess.run(
+                        [nvcc, *NVCC_FLAGS[:2], "-shared", "-Xcompiler",
+                         "-fPIC", "-o", str(tmp), *map(str, files)],
+                        capture_output=True, text=True)
+                    logs[name] += link.stdout + link.stderr
+                    if link.returncode:
+                        failed.add(name)
+                for f in files:
+                    f.unlink(missing_ok=True)
+            if name not in failed:
                 os.replace(tmp, _target(name))
+        BUILD_LOG.update(logs)
         if failed:
             raise RuntimeError("nvcc failed:\n" + "\n".join(
                 f"--- {n}.cu ---\n{BUILD_LOG[n]}" for n in failed))

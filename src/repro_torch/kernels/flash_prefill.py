@@ -7,14 +7,14 @@ nibble-packed int4 K/V with f16 per-(position, head, group) scales
 Source note. The TPU kernel walks (batch, kv head, q tile, k tile) in grid
 order, carrying the online-softmax state in VMEM scratch across the
 sequential k axis and skipping tiles above the diagonal. On the H100
-(``csrc/flash_prefill.cu``) blocks run in no order, so each block owns 64
-group-flattened query rows (``r = s * G + g``) of one (batch, kv head) and
-loops over the KV tiles itself up to its last query position, keeping the
-running max, normalizer and accumulator in registers. Bytes bound it (the
-f32 output is the largest stream). bf16 q/k/v take the tensor-core body
-(``flash_tc``): Q held as bf16 mma fragments, 64-key K/V tiles in a
-cp.async ring, both products on ``mma.sync`` bf16 -> f32, and the value
-product over p split in two bf16 terms (hi + lo), which keeps it within
+(``csrc/flash_prefill.cu``) blocks run in no order, so each block owns a
+tile of group-flattened query rows (``r = s * G + g``) of one (batch, kv
+head) and loops over the KV tiles itself up to its last query position,
+keeping the running max, normalizer and accumulator in registers. Bytes
+bound it (the f32 output is the largest stream). bf16 q/k/v take the
+tensor-core body (``flash_tc``): Q held as bf16 mma fragments, K/V tiles
+in a cp.async ring, both products on ``mma.sync`` bf16 -> f32, and the
+value product over p split in two bf16 terms (hi + lo), which keeps it within
 ~1e-5 of the f32 reference where one bf16 rounding of p errs by ~3e-3.
 f32 q/k/v take the same body with every operand split in two bf16 terms
 and three products per mma (hi.hi + hi.lo + lo.hi: ~2e-5). bf16 prefills
@@ -23,13 +23,13 @@ of MLA's 192 / 128 width class take a body of their own (``flash_mla``,
 streams 128-key K / V tiles by TMA into an mbarrier ring, and two consumer
 warpgroups of 64 query rows run both products on ``wgmma`` (P from
 registers, split hi + lo) with the softmax in log2 units. The int8
-variant takes the same loop over codes (``flash_qtc``): 64-key tiles of
+variant takes the same loop over codes (``flash_qtc``): tiles of
 int8 codes and their scales in the cp.async ring (1 byte per K/V element
 instead of 2), one pass per tile turning the codes into bf16 (exact), the
 score ``(q . codes) * k_s / sqrt(hd)`` as the TPU kernel computes it, and
 the V scale folded into p per key before the hi + lo split; f32 q is split
 once into two bf16 terms. The int4 variant takes the same loop over nibble
-codes (``flash_q4tc``): 64-key tiles of packed bytes in the cp.async ring
+codes (``flash_q4tc``): tiles of packed bytes in the cp.async ring
 (half a byte per element) with their f16 group scales loaded a tile ahead,
 one pass per tile turning the nibbles into bf16 (exact). A code times its
 f16 scale needs up to 15 significand bits, more than bf16 holds, so the
@@ -37,6 +37,20 @@ scales stay in f32: each group of 32 K columns has its own accumulator,
 multiplied by its key's group scale before it joins the score, and for
 each group of 32 V columns the scale folds into p per key before the hi +
 lo split; f32 q is split once into two bf16 terms.
+
+Tiles. Each entry takes keyword-only ``block_q`` / ``block_k``: the tile
+its body launches, ``block_q`` group-flattened query rows (``r = s * G +
+g``: one block holds ``block_q`` rows whatever G is, where JAX's
+``block_q`` counts positions, ``block_q * G`` rows) by ``block_k`` keys.
+The bodies instantiate a few pairs per width class (``autotune.TILES``,
+read from ``tc::TileSet`` of the source); ``None`` takes the tile of old,
+64 x 64 (``autotune.DEFAULT_TILE``; ``flash_mla``'s one tile, 128 x 128,
+for its body). A pair the body does not instantiate raises before any
+launch, on any device: nothing is rounded to a neighbour and nothing falls
+back. Rows and keys past S are masked, so no tile is clipped to S. The
+``cuda`` backend resolves each call's pair through ``autotune.tile_config``
+(``api/backends.py``); ``launches_by_tile`` counts launches per
+``"<body>:<block_q>x<block_k>"``.
 
 Training. ``flash_prefill`` is the one kernel with a gradient: under grad
 mode its CUDA branch runs ``flash_tc`` inside an autograd Function whose
@@ -56,9 +70,11 @@ other placement raises: nothing falls back to an unsharded call.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, autotune
 from repro_torch.kernels.quantize import KV_GROUP
 from repro_torch.kernels.ref import (flash_prefill_ref, flash_prefill_vjp,
                                      flash_q4prefill_ref, flash_qprefill_ref)
@@ -114,6 +130,31 @@ def body_for(q, k, v) -> str:
     return BODY[q.dtype]
 
 
+def _tile_keys(bodies):
+    """Every ``"<body>:<block_q>x<block_k>"`` key of the bodies' tiles."""
+    return [f"{b}:{bq}x{bk}" for b in bodies
+            for bq, bk in sorted({t for w in (64, 96, 128, 192)
+                                  for t in autotune.tiles(b, w)})]
+
+
+def tile_for(body: str, hd: int, dv: int, block_q=None, block_k=None):
+    """The (block_q, block_k) ``body`` launches at (hd, dv): each ``None``
+    the default's (``autotune.DEFAULT_TILE``, ``MLA_TILE`` for the MLA
+    body); a pair the body does not instantiate at its width class raises
+    ValueError."""
+    default = autotune.MLA_TILE if body == MLA_BODY \
+        else autotune.DEFAULT_TILE
+    tile = (default[0] if block_q is None else int(block_q),
+            default[1] if block_k is None else int(block_k))
+    w = autotune.width(hd, dv)
+    have = autotune.tiles(body, w)
+    if tile not in have:
+        raise ValueError(f"tile {tile} (block_q, block_k) is not "
+                         f"instantiated for body {body!r} at width class "
+                         f"{w}; its tiles: {list(have)}")
+    return tile
+
+
 def _check(q, k, v):
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("q, k, v must be [B,S,H,D]")
@@ -138,76 +179,86 @@ def _check(q, k, v):
             raise ValueError(f"{name} must be contiguous")
 
 
-def _flash_tc(q, k, v):
-    """Launch the body ``body_for`` picks (``flash_mla`` or ``flash_tc``)
-    on checked CUDA tensors and count it."""
+def _flash_tc(q, k, v, body, tile):
+    """Launch ``body`` (``flash_mla`` or ``flash_tc``) at ``tile`` on
+    checked CUDA tensors and count it."""
     b, s, hq, hd = q.shape
     hkv, dv = k.shape[2], v.shape[3]
     out = torch.empty((b, s, hq, dv), dtype=torch.float32, device=q.device)
-    body = body_for(q, k, v)
     if body == MLA_BODY:
         fn = _build.function(_LIB, "flash_mla_fwd", [
             _build.P, _build.P, _build.P, _build.P, _build.I, _build.I,
-            _build.I, _build.I, _build.I, _build.I, _build.P])
+            _build.I, _build.I, _build.I, _build.I, _build.I, _build.I,
+            _build.P])
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b,
-                s, hq, hkv, hd, dv, _build.stream_of(q))
+                s, hq, hkv, hd, dv, *tile, _build.stream_of(q))
         _build.check(_LIB, rc, "flash_mla_fwd")
     else:
         fn = _build.function(_LIB, "flash_prefill_fwd", [
             _build.P, _build.P, _build.P, _build.I, _build.P, _build.I,
-            _build.I, _build.I, _build.I, _build.I, _build.I, _build.P])
+            _build.I, _build.I, _build.I, _build.I, _build.I, _build.I,
+            _build.I, _build.P])
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                 _DTYPE_CODE[q.dtype], out.data_ptr(), b, s, hq, hkv, hd, dv,
-                _build.stream_of(q))
+                *tile, _build.stream_of(q))
         _build.check(_LIB, rc, "flash_prefill_fwd")
     _build.count(flash_prefill, launches_by_body=body,
-                 launches_by_class=width_class(hd, dv))
+                 launches_by_class=width_class(hd, dv),
+                 launches_by_tile=f"{body}:{tile[0]}x{tile[1]}")
     return out
 
 
 class _FlashPrefill(torch.autograd.Function):
-    """The kernel's forward under autograd. The backward is the plain
-    ``flash_prefill_vjp``, as the JAX package differentiates the plain
-    ``flash_prefill_ref`` (``pallas_call`` has no transpose rule); under
-    activation checkpointing the recompute launches the kernel again."""
+    """The kernel's forward under autograd, at the caller's tile. The
+    backward is the plain ``flash_prefill_vjp``, as the JAX package
+    differentiates the plain ``flash_prefill_ref`` (``pallas_call`` has no
+    transpose rule); under activation checkpointing the recompute launches
+    the kernel again."""
 
     @staticmethod
-    def forward(ctx, q, k, v):
-        out = _flash_tc(q, k, v)
+    def forward(ctx, q, k, v, body, tile):
+        out = _flash_tc(q, k, v, body, tile)
         ctx.save_for_backward(q, k, v, out)
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        return flash_prefill_vjp(*ctx.saved_tensors, dout)
+        return (*flash_prefill_vjp(*ctx.saved_tensors, dout), None, None)
 
 
-def flash_prefill(q, k, v):
+def flash_prefill(q, k, v, *, block_q=None, block_k=None):
     """q [B,S,Hq,hd]; k [B,S,Hkv,hd]; v [B,S,Hkv,dv] -> [B,S,Hq,dv] f32.
     CPU tensors take the plain version (differentiable as it is); CUDA
-    tensors launch the kernel's tensor-core body ``body_for`` picks,
-    through ``_FlashPrefill`` when grad mode is on and an input requires
-    grad; DTensors run either on each rank's shard (``local_map``)."""
+    tensors launch the kernel's tensor-core body ``body_for`` picks at the
+    tile ``tile_for`` gives (``block_q`` rows by ``block_k`` keys, see the
+    module docstring), through ``_FlashPrefill`` when grad mode is on and
+    an input requires grad; DTensors run either on each rank's shard
+    (``local_map``). A tile the body does not instantiate raises first."""
     from torch.distributed.tensor import DTensor
 
     if isinstance(q, DTensor):
         from repro_torch.models.sharding import attention_local
 
-        return attention_local(flash_prefill, q, k, v, "flash_prefill")
+        return attention_local(
+            functools.partial(flash_prefill, block_q=block_q,
+                              block_k=block_k), q, k, v, "flash_prefill")
     _check(q, k, v)
+    body = body_for(q, k, v)
+    tile = tile_for(body, q.shape[3], v.shape[3], block_q, block_k)
     if q.device.type == "cpu":
         return flash_prefill_ref(q, k, v)
     if q.device.type != "cuda":
         raise ValueError(f"no flash_prefill kernel for {q.device}")
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
-        return _FlashPrefill.apply(q, k, v)
-    return _flash_tc(q, k, v)
+        return _FlashPrefill.apply(q, k, v, body, tile)
+    return _flash_tc(q, k, v, body, tile)
 
 
 flash_prefill.launches = 0
 flash_prefill.launches_by_body = {body: 0 for body in BODIES}
 flash_prefill.launches_by_class = {c: 0 for c in CLASSES}
+flash_prefill.launches_by_tile = {key: 0 for key in _tile_keys(BODIES)}
 
 
 def _check_q(q, k_i8, k_s, v_i8, v_s):
@@ -241,12 +292,15 @@ def _check_q(q, k_i8, k_s, v_i8, v_s):
             raise ValueError(f"{name} must be contiguous")
 
 
-def flash_qprefill(q, k_i8, k_s, v_i8, v_s):
+def flash_qprefill(q, k_i8, k_s, v_i8, v_s, *, block_q=None, block_k=None):
     """q [B,S,Hq,hd] f32 or bf16; k_i8 [B,S,Hkv,hd], v_i8 [B,S,Hkv,dv]
     int8; k_s/v_s [B,S,Hkv] f32 -> [B,S,Hq,dv] f32. CPU tensors take the
     plain version; CUDA tensors launch the kernel's int8 tensor-core body
-    for q's dtype (``QBODY``)."""
+    for q's dtype (``QBODY``) at the tile ``tile_for`` gives (raising first
+    on a pair it does not instantiate)."""
     _check_q(q, k_i8, k_s, v_i8, v_s)
+    body = QBODY[q.dtype]
+    tile = tile_for(body, q.shape[3], v_i8.shape[3], block_q, block_k)
     if q.device.type == "cpu":
         return flash_qprefill_ref(q, k_i8, k_s, v_i8, v_s)
     if q.device.type != "cuda":
@@ -257,17 +311,21 @@ def flash_qprefill(q, k_i8, k_s, v_i8, v_s):
     out = torch.empty((b, s, hq, dv), dtype=torch.float32, device=q.device)
     fn = _build.function(_LIB, "flash_qprefill_fwd", [
         _build.P, _build.I, _build.P, _build.P, _build.P, _build.P, _build.P,
-        _build.I, _build.I, _build.I, _build.I, _build.I, _build.I, _build.P])
+        _build.I, _build.I, _build.I, _build.I, _build.I, _build.I, _build.I,
+        _build.I, _build.P])
     rc = fn(q.data_ptr(), _DTYPE_CODE[q.dtype], k_i8.data_ptr(),
             k_s.data_ptr(), v_i8.data_ptr(), v_s.data_ptr(), out.data_ptr(),
-            b, s, hq, hkv, hd, dv, _build.stream_of(q))
+            b, s, hq, hkv, hd, dv, *tile, _build.stream_of(q))
     _build.check(_LIB, rc, "flash_qprefill_fwd")
-    _build.count(flash_qprefill, launches_by_body=QBODY[q.dtype])
+    _build.count(flash_qprefill, launches_by_body=body,
+                 launches_by_tile=f"{body}:{tile[0]}x{tile[1]}")
     return out
 
 
 flash_qprefill.launches = 0
 flash_qprefill.launches_by_body = {body: 0 for body in QBODY.values()}
+flash_qprefill.launches_by_tile = {
+    key: 0 for key in _tile_keys(QBODY.values())}
 
 
 def _check_q4(q, k_i4, k_s, v_i4, v_s):
@@ -307,14 +365,18 @@ def _check_q4(q, k_i4, k_s, v_i4, v_s):
             raise ValueError(f"{name} must be contiguous")
 
 
-def flash_q4prefill(q, k_i4, k_s, v_i4, v_s):
+def flash_q4prefill(q, k_i4, k_s, v_i4, v_s, *, block_q=None,
+                    block_k=None):
     """q [B,S,Hq,hd] f32 or bf16; k_i4 [B,S,Hkv,hd//2], v_i4
     [B,S,Hkv,dv//2] int4 packed two codes per byte; k_s [B,S,Hkv,hd//32],
     v_s [B,S,Hkv,dv//32] f16 -> [B,S,Hq,dv] f32. hd and dv must be
     multiples of 32 up to 128. CPU tensors take the plain version; CUDA
     tensors launch the kernel's int4 tensor-core body for q's dtype
-    (``Q4BODY``)."""
+    (``Q4BODY``) at the tile ``tile_for`` gives (raising first on a pair
+    it does not instantiate)."""
     _check_q4(q, k_i4, k_s, v_i4, v_s)
+    body = Q4BODY[q.dtype]
+    tile = tile_for(body, q.shape[3], 2 * v_i4.shape[3], block_q, block_k)
     if q.device.type == "cpu":
         return flash_q4prefill_ref(q, k_i4, k_s, v_i4, v_s)
     if q.device.type != "cuda":
@@ -325,14 +387,18 @@ def flash_q4prefill(q, k_i4, k_s, v_i4, v_s):
     out = torch.empty((b, s, hq, dv), dtype=torch.float32, device=q.device)
     fn = _build.function(_LIB, "flash_q4prefill_fwd", [
         _build.P, _build.I, _build.P, _build.P, _build.P, _build.P, _build.P,
-        _build.I, _build.I, _build.I, _build.I, _build.I, _build.I, _build.P])
+        _build.I, _build.I, _build.I, _build.I, _build.I, _build.I, _build.I,
+        _build.I, _build.P])
     rc = fn(q.data_ptr(), _DTYPE_CODE[q.dtype], k_i4.data_ptr(),
             k_s.data_ptr(), v_i4.data_ptr(), v_s.data_ptr(), out.data_ptr(),
-            b, s, hq, hkv, hd, dv, _build.stream_of(q))
+            b, s, hq, hkv, hd, dv, *tile, _build.stream_of(q))
     _build.check(_LIB, rc, "flash_q4prefill_fwd")
-    _build.count(flash_q4prefill, launches_by_body=Q4BODY[q.dtype])
+    _build.count(flash_q4prefill, launches_by_body=body,
+                 launches_by_tile=f"{body}:{tile[0]}x{tile[1]}")
     return out
 
 
 flash_q4prefill.launches = 0
 flash_q4prefill.launches_by_body = {body: 0 for body in Q4BODY.values()}
+flash_q4prefill.launches_by_tile = {
+    key: 0 for key in _tile_keys(Q4BODY.values())}

@@ -14,7 +14,7 @@ torch.set_num_threads(1)
 
 from repro_torch.kernels import (dynquant, flash_prefill,  # noqa: E402
                                  paged_attn, qdecode, qmatmul)
-from repro_torch.kernels import quantize, ref  # noqa: E402
+from repro_torch.kernels import autotune, quantize, ref  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -570,6 +570,59 @@ def test_flash_q4prefill_kernel_matches_plain(dev, b, s, hq, hkv, hd, dv,
                                atol=1e-4)
     # one launch, no atomics: a second call gives the same bits
     assert torch.equal(flash_prefill.flash_q4prefill(*args), got)
+
+
+# ------------------------------------------------------------------ #
+# Every instantiated tile of the three flash bodies
+# ------------------------------------------------------------------ #
+# (kernel, hd): each width class of each body (the MLA class for
+# flash_prefill: flash_mla's one tile in bf16, flash_tc's in f32); S short
+# (one partial tile at any BK), a multiple of 64 and ragged; G 1 and 4
+TILE_CASES = [(kernel, hd, s, g)
+              for kernel, hds in (("flash_prefill", (64, 96, 128, 192)),
+                                  ("flash_qprefill", (64, 96, 128)),
+                                  ("flash_q4prefill", (64, 96, 128)))
+              for hd in hds for s in (17, 128, 200) for g in (1, 4)]
+
+
+@pytest.mark.parametrize("kernel,hd,s,g", TILE_CASES)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_every_instantiated_tile_matches_plain(dev, kernel, hd, s, g, dtype):
+    """Each (block_q, block_k) the body instantiates at this width class
+    (``autotune.tiles``) launches once, is counted under its tile and
+    holds to the plain version at 1e-4 (the kernels' tolerance at the
+    default tile)."""
+    gen = torch.Generator().manual_seed(hd * 1000 + s * 10 + g)
+    b, hkv = 1, 2
+    dv = 128 if hd > 128 else hd
+    q = torch.randn((b, s, hkv * g, hd), generator=gen).to(dtype).to(dev)
+    if kernel == "flash_prefill":
+        kv = [torch.randn((b, s, hkv, d), generator=gen).to(dtype).to(dev)
+              for d in (hd, dv)]
+        body = flash_prefill.body_for(q, *kv)
+    elif kernel == "flash_qprefill":
+        kv = [t.to(dev) for t in (
+            _codes(gen, (b, s, hkv, hd)), _scales(gen, (b, s, hkv)),
+            _codes(gen, (b, s, hkv, dv)), _scales(gen, (b, s, hkv)))]
+        body = flash_prefill.QBODY[dtype]
+    else:
+        kv = [t.to(dev) for t in (
+            _packed(gen, (b, s, hkv, hd // 2)),
+            _gscales(gen, (b, s, hkv, hd // 32)),
+            _packed(gen, (b, s, hkv, dv // 2)),
+            _gscales(gen, (b, s, hkv, dv // 32)))]
+        body = flash_prefill.Q4BODY[dtype]
+    entry = getattr(flash_prefill, kernel)
+    want = getattr(ref, f"{kernel}_ref")(q, *kv)
+    tiles = autotune.tiles(body, autotune.width(hd, dv))
+    assert autotune.DEFAULT_TILE in tiles or tiles == (autotune.MLA_TILE,)
+    for bq, bk in tiles:
+        before = dict(entry.launches_by_tile)
+        got = entry(q, *kv, block_q=bq, block_k=bk)
+        key = f"{body}:{bq}x{bk}"
+        assert entry.launches_by_tile == {**before, key: before[key] + 1}
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-4,
+                                   msg=lambda m, t=(bq, bk): f"{t}: {m}")
 
 
 def test_quantize_kv_int4_edge_rows_card_equals_cpu(dev):

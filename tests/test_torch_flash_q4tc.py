@@ -2,7 +2,8 @@
 
 ``csrc/flash_prefill.cu``'s ``flash_q4tc`` runs only on a card. Its numerics
 are emulated here in plain PyTorch: nibble codes fed to the bf16 tensor
-cores unchanged (every code in [-8, 7] is exact in bf16), 64-key tiles, one
+cores unchanged (every code in [-8, 7] is exact in bf16), BK-key tiles (64
+in the default tile; every instantiated BK is emulated too), one
 score accumulator per group of 32 K columns multiplied by the key's f16
 group scale in f32 before it joins the score, then / sqrt(hd); an online
 softmax; for each group of 32 V columns the scale folded into p per key,
@@ -12,8 +13,9 @@ The emulation is held to the JAX Pallas kernel in interpret mode and to the
 port's ``flash_q4prefill_ref`` on the same numpy inputs. A code times its
 f16 scale needs up to 15 significand bits, so one bf16 tile of dequantized
 K misses the same tolerance, as does one bf16 term of p' or of f32 q: that
-is why the kernel keeps the scales in f32 and splits both. The tile size and
-the nibble conversion's constants are read from the CUDA source. The card
+is why the kernel keeps the scales in f32 and splits both. The nibble
+conversion's constants are read from the CUDA source; the tiles are
+``autotune.TILES``, which ``test_torch_autotune.py`` holds to it. The card
 kernel itself is held to ``flash_q4prefill_ref`` in ``test_torch_cuda.py``.
 """
 import re
@@ -29,7 +31,7 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels.flash_prefill import (INTERPRET_MAX_SEQ,  # noqa: E402
                                          flash_q4prefill_attention)
-from repro_torch.kernels import flash_prefill  # noqa: E402
+from repro_torch.kernels import autotune, flash_prefill  # noqa: E402
 from repro_torch.kernels.quantize import (KV_GROUP,  # noqa: E402
                                           unpack_int4)
 from repro_torch.kernels.ref import (NEG_INF, RUN_INIT,  # noqa: E402
@@ -52,7 +54,11 @@ def _tc_constants():
 
 
 TC = _tc_constants()
-BK = TC["BK"]                # keys per K/V tile of the kernel
+# the default tile's query rows and keys; every BK the int4 body
+# instantiates in some width class
+BR, BK = autotune.DEFAULT_TILE
+BKS = sorted({bk for w in (64, 96, 128)
+              for _, bk in autotune.tiles("q4tc", w)})
 ATOL = 1e-4                  # the card kernel's tolerance (INT8KV_ATOL)
 
 # (b, hq, hkv, hd, dv, s): G 1 and 4, hd / dv among 32..128, S not a
@@ -84,11 +90,11 @@ def _heads(x, g):
 
 
 def q4tc_emulate(q, k_i4, k_s, v_i4, v_s, p_terms=2, q_terms=2,
-                 k_dequant_bf16=False):
+                 k_dequant_bf16=False, bk=BK):
     """q [B,S,Hq,hd] bf16 or f32; packed codes k [B,S,Hkv,hd/2] / v
     [B,S,Hkv,dv/2]; f16 group scales k_s [B,S,Hkv,hd/32] / v_s
     [B,S,Hkv,dv/32] -> [B,S,Hq,dv] f32, as ``flash_q4tc`` computes it: rows
-    r = s * G + g per kv head, BK-key tiles, per group of 32 K columns
+    r = s * G + g per kv head, bk-key tiles, per group of 32 K columns
     (q . codes) * s_k summed over groups, / sqrt(hd), masked with NEG_INF,
     running max from RUN_INIT; for each group of 32 V columns O += hi.V +
     lo.V over p' = p * s_v = hi + lo (``p_terms=1``: hi alone) while l sums
@@ -111,8 +117,8 @@ def q4tc_emulate(q, k_i4, k_s, v_i4, v_s, p_terms=2, q_terms=2,
     den = torch.zeros((b, hkv, s * g, 1))
     acc = torch.zeros((b, hkv, s * g, dv))
     scale = torch.sqrt(torch.tensor(float(hd)))
-    for k0 in range(0, s, BK):
-        keys = slice(k0, k0 + BK)
+    for k0 in range(0, s, bk):
+        keys = slice(k0, k0 + bk)
         if k_dequant_bf16:
             sc = sum(part @ kd[:, :, keys].transpose(-1, -2)
                      for part in q_parts)
@@ -164,10 +170,28 @@ def _inputs(b, hq, hkv, hd, dv, s, dtype=torch.bfloat16):
 
 def test_tile_constants_are_the_kernels():
     src = CU.read_text()
-    assert BK == 64 and TC["BR"] == 64 and TC["THREADS"] == 2 * BK
+    assert (BR, BK) == (64, 64) and BKS == [32, 64]
+    assert all(autotune.DEFAULT_TILE in autotune.tiles("q4tc", w)
+               for w in (64, 96, 128))
     assert TC["NGMAX"] == flash_prefill.MAX_V_DIM // KV_GROUP == 4
     assert "flash_q4tc" in src and "dispatch_q4" in src
-    assert "static_assert(THREADS == 2 * BK" in src   # a thread per key, side
+    # 2 * BR threads; the 2 BK scale slots of a tile (a key's K and V
+    # side) spread over them at any tile
+    assert "constexpr int THREADS = 2 * BR;" in src
+    assert "constexpr int SLOTS = (2 * BK + THREADS - 1) / THREADS;" in src
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("bk", BKS)
+def test_q4tc_numerics_at_every_instantiated_bk(bk, dtype):
+    """The loop at each BK the body instantiates: where the online softmax
+    rescales moves with the tile, and the output stays within ATOL of the
+    reference (S 200, G 4: a ragged last tile at every BK)."""
+    args = _inputs(1, 8, 2, 128, 128, 200, dtype=dtype)
+    got = q4tc_emulate(*args, bk=bk).numpy()
+    ref = flash_q4prefill_ref(*args).numpy()
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, ref, atol=ATOL, rtol=0)
 
 
 def test_nibble_to_bf16_conversion_is_exact():

@@ -2,7 +2,8 @@
 
 ``csrc/flash_prefill.cu``'s ``flash_qtc`` runs only on a card. Its numerics
 are emulated here in plain PyTorch: int8 codes fed to the bf16 tensor cores
-unchanged (every code is exact in bf16), 64-key tiles, the score
+unchanged (every code is exact in bf16), BK-key tiles (64 in the
+default tile; every instantiated BK is emulated too), the score
 ``(q . codes) * k_s / sqrt(hd)`` in the TPU kernel's order, an online
 softmax, the V scale folded into p per key (p' = p * v_s) and p' split into
 two bf16 terms for the value product over the codes, the normalizer
@@ -10,8 +11,9 @@ summing p; f32 q split once into two bf16 terms. The emulation is held to
 the JAX Pallas kernel in interpret mode and to the port's
 ``flash_qprefill_ref`` on the same numpy inputs; one bf16 term of p', or
 of f32 q, misses the same tolerance, which is why the kernel splits both.
-The tile size is read from the CUDA source. The card kernel itself is held
-to ``flash_qprefill_ref`` in ``test_torch_cuda.py``.
+The tiles are ``autotune.TILES``, which ``test_torch_autotune.py`` holds
+to the CUDA source. The card kernel itself is held to
+``flash_qprefill_ref`` in ``test_torch_cuda.py``.
 """
 import re
 from pathlib import Path
@@ -26,7 +28,7 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels.flash_prefill import (INTERPRET_MAX_SEQ,  # noqa: E402
                                          flash_qprefill_attention)
-from repro_torch.kernels import flash_prefill  # noqa: E402
+from repro_torch.kernels import autotune, flash_prefill  # noqa: E402
 from repro_torch.kernels.ref import (NEG_INF, RUN_INIT,  # noqa: E402
                                      flash_qprefill_ref)
 
@@ -47,7 +49,10 @@ def _tc_constants():
 
 
 TC = _tc_constants()
-BK = TC["BK"]                # keys per K/V tile of the kernel
+# the default tile's query rows and keys; every BK the int8 body
+# instantiates in some width class
+BR, BK = autotune.DEFAULT_TILE
+BKS = sorted({bk for w in (64, 96, 128) for _, bk in autotune.tiles("qtc", w)})
 ATOL = 1e-4                  # the card kernel's tolerance (INT8KV_ATOL)
 
 # (b, hq, hkv, hd, dv, s): G 1 and 4, hd / dv among 32..128 (40 and 24:
@@ -69,10 +74,10 @@ def _split(x):
     return hi, _bf16(x - hi)
 
 
-def qtc_emulate(q, k_i8, k_s, v_i8, v_s, p_terms=2, q_terms=2):
+def qtc_emulate(q, k_i8, k_s, v_i8, v_s, p_terms=2, q_terms=2, bk=BK):
     """q [B,S,Hq,hd] bf16 or f32; codes k [B,S,Hkv,hd] / v [B,S,Hkv,dv]
     int8; scales [B,S,Hkv] f32 -> [B,S,Hq,dv] f32, as ``flash_qtc``
-    computes it: rows r = s * G + g per kv head, BK-key tiles, scores
+    computes it: rows r = s * G + g per kv head, bk-key tiles, scores
     (q . codes) * k_s / sqrt(hd) masked with NEG_INF, running max from
     RUN_INIT, O += hi.V + lo.V over p' = p * v_s = hi + lo (``p_terms=1``:
     hi alone) while l sums p. f32 q: hi.codes + lo.codes (``q_terms=1``:
@@ -92,10 +97,10 @@ def qtc_emulate(q, k_i8, k_s, v_i8, v_s, p_terms=2, q_terms=2):
     den = torch.zeros((b, hkv, s * g, 1))
     acc = torch.zeros((b, hkv, s * g, dv))
     scale = torch.sqrt(torch.tensor(float(hd)))
-    for k0 in range(0, s, BK):
-        kt, vt = kc[:, :, k0:k0 + BK], vc[:, :, k0:k0 + BK]
+    for k0 in range(0, s, bk):
+        kt, vt = kc[:, :, k0:k0 + bk], vc[:, :, k0:k0 + bk]
         dot = sum(part @ kt.transpose(-1, -2) for part in q_parts)
-        sc = dot * ks[:, :, None, k0:k0 + BK] / scale
+        sc = dot * ks[:, :, None, k0:k0 + bk] / scale
         kp = torch.arange(k0, k0 + kt.shape[2])
         sc = torch.where(kp[None, :] <= qpos[:, None], sc,
                          torch.tensor(NEG_INF))
@@ -103,7 +108,7 @@ def qtc_emulate(q, k_i8, k_s, v_i8, v_s, p_terms=2, q_terms=2):
         alpha = torch.exp(m - m_new)
         p = torch.exp(sc - m_new)
         den = den * alpha + p.sum(-1, keepdim=True)
-        pv = p * vs[:, :, None, k0:k0 + BK]
+        pv = p * vs[:, :, None, k0:k0 + bk]
         hi = _bf16(pv)
         acc = acc * alpha + hi @ vt
         if p_terms == 2:
@@ -138,7 +143,16 @@ def test_every_int8_code_is_exact_in_bf16():
 
 def test_tile_constant_is_the_kernels():
     src = CU.read_text()
-    assert BK == 64 and TC["BR"] == 64 and TC["THREADS"] == 2 * BK
+    flat = " ".join(src.split())
+    # the emulation's default tile is the kernel's, in every width class
+    assert (BR, BK) == (64, 64) and BKS == [32, 64]
+    assert all(autotune.DEFAULT_TILE in autotune.tiles("qtc", w)
+               for w in (64, 96, 128))
+    # 16 query rows a warp: 2 * BR threads; the scale ring's 2 BK slots
+    # (a K and a V scale a key) loop over the block's threads at any tile
+    assert "constexpr int THREADS = 2 * BR;" in src
+    assert "for (int i = threadIdx.x; i < 2 * BK; i += THREADS)" in flat
+    assert TC["STAGES"] == 2
     assert "flash_qtc" in src and "flash_q4tc" in src
     # no K/V reaches a CUDA-core body: the int4 one is gone too
     assert "flash_attend" not in src
@@ -165,6 +179,19 @@ def test_qtc_numerics_match_pallas_and_ref(case, dtype):
     # p' is carried to ~2^-17 by two terms, f32 q likewise; the rest is f32
     # summation order and where the scales multiply
     np.testing.assert_allclose(got, pallas, atol=ATOL, rtol=0)
+    np.testing.assert_allclose(got, ref, atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("bk", BKS)
+def test_qtc_numerics_at_every_instantiated_bk(bk, dtype):
+    """The loop at each BK the body instantiates: where the online softmax
+    rescales moves with the tile, and the output stays within ATOL of the
+    reference (S 200: four tiles at 64, the last ragged; seven at 32)."""
+    args = _inputs(1, 8, 2, 128, 128, 200, dtype=dtype)
+    got = qtc_emulate(*args, bk=bk).numpy()
+    ref = flash_qprefill_ref(*args).numpy()
+    assert np.isfinite(got).all()
     np.testing.assert_allclose(got, ref, atol=ATOL, rtol=0)
 
 

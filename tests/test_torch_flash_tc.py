@@ -1,7 +1,8 @@
 """The arithmetic of the tensor-core flash prefill body, on the CPU.
 
 ``csrc/flash_prefill.cu``'s ``flash_tc`` runs only on a card. Its numerics
-are emulated here in plain PyTorch: bf16 operands, 64-key tiles, an online
+are emulated here in plain PyTorch: bf16 operands, BK-key tiles (64 in the
+default tile; every instantiated BK is emulated too), an online
 softmax, the value product over p split into two bf16 terms (hi = bf16(p),
 lo = bf16(p - hi)) and f32 accumulation. The emulation is held to the JAX
 Pallas kernel in interpret mode and to the port's ``flash_prefill_ref`` on
@@ -22,11 +23,14 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels.flash_prefill import (INTERPRET_MAX_SEQ,  # noqa: E402
                                          flash_prefill_attention)
-from repro_torch.kernels import flash_prefill  # noqa: E402
+from repro_torch.kernels import autotune, flash_prefill  # noqa: E402
 from repro_torch.kernels.ref import (NEG_INF, RUN_INIT,  # noqa: E402
                                      flash_prefill_ref)
 
-BK = 64          # keys per K/V tile of the kernel
+BK = autotune.DEFAULT_TILE[1]    # keys per K/V tile of the default tile
+# every BK the tensor-core body instantiates (either dtype, any class)
+BKS = sorted({bk for b in ("tc", "tc_f32") for w in (64, 96, 128)
+              for _, bk in autotune.tiles(b, w)})
 ATOL = 1e-4      # the card kernel's tolerance against flash_prefill_ref
 
 # (b, hq, hkv, hd, dv, s): G 1 and 4, hd / dv among 32..128, S not a
@@ -57,9 +61,9 @@ def _mm3(a, b):
     return ah @ bh + ah @ bl + al @ bh
 
 
-def tc_emulate(q, k, v, p_terms=2):
+def tc_emulate(q, k, v, p_terms=2, bk=BK):
     """q [B,S,Hq,hd], k [B,S,Hkv,hd], v [B,S,Hkv,dv] -> [B,S,Hq,dv] f32, as
-    ``flash_tc`` computes it: rows r = s * G + g per kv head, 64-key tiles,
+    ``flash_tc`` computes it: rows r = s * G + g per kv head, bk-key tiles,
     scores q.k / sqrt(hd) masked with NEG_INF, running max from RUN_INIT.
     bf16 inputs: O += hi.V + lo.V over p = hi + lo (``p_terms=1``: hi.V
     alone). f32 inputs: q, k, v and p each split into two bf16 terms, three
@@ -76,8 +80,8 @@ def tc_emulate(q, k, v, p_terms=2):
     den = torch.zeros((b, hkv, s * g, 1))
     acc = torch.zeros((b, hkv, s * g, dv))
     scale = torch.sqrt(torch.tensor(float(hd)))
-    for k0 in range(0, s, BK):
-        kt, vt = kf[:, :, k0:k0 + BK], vf[:, :, k0:k0 + BK]
+    for k0 in range(0, s, bk):
+        kt, vt = kf[:, :, k0:k0 + bk], vf[:, :, k0:k0 + bk]
         qk = _mm3 if f32 else torch.matmul
         sc = qk(qf, kt.transpose(-1, -2)) / scale
         kp = torch.arange(k0, k0 + kt.shape[2])
@@ -149,6 +153,20 @@ def test_tc_numerics_match_pallas_and_ref(case, dtype):
     np.testing.assert_allclose(pallas, ref, atol=ATOL, rtol=0)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("bk", BKS)
+def test_tc_numerics_at_every_instantiated_bk(bk, dtype):
+    """The loop at each BK the body instantiates: where the online softmax
+    rescales moves with the tile, and the output stays within ATOL of the
+    reference (S 200, G 4: a ragged last tile at every BK)."""
+    args = _inputs(1, 8, 2, 128, 128, 200, dtype=dtype)
+    got = tc_emulate(*args, bk=bk).numpy()
+    ref = flash_prefill_ref(*args).numpy()
+    assert BKS == [32, 64]
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, ref, atol=ATOL, rtol=0)
+
+
 @pytest.mark.parametrize("case", TC_CASES)
 def test_one_bf16_term_of_p_misses_the_tolerance(case):
     """Why the value product splits p: one bf16 rounding of p (relative
@@ -169,7 +187,7 @@ def test_width_classes_and_limits():
     src = (Path(__file__).parents[1] / "src" / "repro_torch" / "csrc"
            / "flash_prefill.cu").read_text()
     assert "constexpr int MAXD_MLA = 192;" in src
-    assert "if (hd > MAXD)\n    return launch<T, MAXD_MLA, MAXD>" in src
+    assert "if (hd > MAXD)\n    return launch_tile<T, MAXD_MLA, MAXD>(" in src
     assert "bad_shape(B, S, Hq, Hkv, hd, dv, MAXD_MLA)" in src
     assert flash_prefill.MAX_HEAD_DIM == 192
     assert flash_prefill.MAX_V_DIM == 128

@@ -332,7 +332,7 @@ def _counting_flash(monkeypatch):
     launches: the wiring of the card's training path, on the CPU."""
     calls = []
 
-    def fake_kernel(q, k, v):
+    def fake_kernel(q, k, v, body=None, tile=None):
         calls.append(q.shape)
         return flash_prefill_ref(q, k, v)
 
@@ -340,7 +340,10 @@ def _counting_flash(monkeypatch):
 
     def through_function(q, k, v):
         if torch.is_grad_enabled() and q.requires_grad:
-            return t_flash._FlashPrefill.apply(q, k, v)
+            # the body and the tile the wrapper would launch
+            body = t_flash.body_for(q, k, v)
+            tile = t_flash.tile_for(body, q.shape[3], v.shape[3])
+            return t_flash._FlashPrefill.apply(q, k, v, body, tile)
         return fake_kernel(q, k, v)
 
     monkeypatch.setattr(t_ops, "flash_prefill", through_function)
